@@ -1,0 +1,476 @@
+"""Continuous-batching scheduler — iteration-level request admission
+over a refcounted KV page pool (Orca-style); a copy of
+``paddle_tpu/serving/scheduler.py`` (numpy and stdlib only) without the
+parts of later slices: fused-window budgets and plan pre-staging,
+quarantine bisection, deadlines, perf-model admission and tracing.
+
+This scheduler re-plans every token iteration:
+
+* a new request joins the running batch the moment a slot and enough
+  pages exist — its prompt prefills in the same ragged step other
+  requests decode in;
+* a finished request (EOS or budget) frees its pages IMMEDIATELY, so
+  the next iteration can admit;
+* page exhaustion evicts the youngest running request (fewest sunk
+  tokens) and requeues it at the FRONT of the wait queue — its
+  generated-so-far tokens are kept, so re-admission re-prefills
+  prompt+generated and continues where it stopped;
+* prompt prefixes already resident (``prefix_cache``) are shared by
+  refcount instead of recomputed.
+
+Everything here is HOST bookkeeping over python ints (free lists, page
+tables, token lists).  The step arrays ride in the :class:`StepPlan`;
+the engine owns the device step and its one per-iteration device read.
+"""
+from __future__ import annotations
+
+import itertools
+import queue
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+__all__ = ["PagePool", "Request", "Scheduler", "StepPlan"]
+
+
+class PagePool:
+    """Refcounted fixed-size-page allocator (host bookkeeping only —
+    the device-resident pools live in the engine).
+
+    The LAST page id is the **sink**: padding slots of a ragged step
+    scatter their garbage there; it is never allocated and never
+    appears in a page table."""
+
+    def __init__(self, num_pages: int, page_size: int):
+        if num_pages < 2:
+            raise ValueError("PagePool needs >= 2 pages (1 is the sink)")
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        self.sink = self.num_pages - 1
+        self._free: List[int] = list(range(self.num_pages - 1))[::-1]
+        self._refs: Dict[int, int] = {}
+
+    def available(self) -> int:
+        return len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return self._refs.get(page, 0)
+
+    def alloc(self) -> int:
+        """Allocate one page at refcount 1; raises on exhaustion (the
+        scheduler checks ``available()`` and evicts first)."""
+        if not self._free:
+            raise RuntimeError("KV page pool exhausted")
+        page = self._free.pop()
+        self._refs[page] = 1
+        return page
+
+    def ref(self, page: int) -> None:
+        if page not in self._refs:
+            raise ValueError(f"page {page} is not live")
+        self._refs[page] += 1
+
+    def unref(self, page: int) -> None:
+        n = self._refs.get(page)
+        if not n:
+            raise ValueError(f"page {page} is not live")
+        if n == 1:
+            del self._refs[page]
+            self._free.append(page)
+        else:
+            self._refs[page] = n - 1
+
+
+class Request:
+    """One generation request: prompt in, token stream out.
+
+    The engine pushes generated token ids into a per-request queue as
+    each batch iteration completes; ``stream()`` yields them live and
+    ``wait()`` blocks for the full result.  ``tokens`` accumulates the
+    generated ids (prompt excluded)."""
+
+    _IDS = itertools.count(1)
+
+    def __init__(self, input_ids: Sequence[int], max_new_tokens: int = 32,
+                 eos_token_id: Optional[int] = None,
+                 temperature: float = 0.0,
+                 request_id: Optional[str] = None):
+        self.id = request_id if request_id is not None \
+            else str(next(Request._IDS))
+        self.prompt: List[int] = [int(t) for t in np.asarray(
+            input_ids).reshape(-1)]
+        if not self.prompt:
+            raise ValueError("empty prompt")
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_token_id = None if eos_token_id is None \
+            else int(eos_token_id)
+        self.temperature = float(temperature)
+        self.tokens: List[int] = []        # generated ids, in order
+        self.error: Optional[str] = None
+        self._queue: "queue.Queue" = queue.Queue()
+        self._done = threading.Event()
+        self.submitted_at = time.monotonic()
+        # engine-installed cancel hook: routes cancel() through the
+        # engine lock so pages and the batch slot free immediately
+        self._cancel_cb = None
+        self.first_token_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
+        self.evictions = 0
+
+    # -- consumer side ---------------------------------------------------
+    def stream(self, timeout: Optional[float] = 60.0):
+        """Yield generated token ids as they land; returns on EOS /
+        budget / failure (raises RuntimeError on failure).  A
+        ``timeout`` expiry CANCELS the request before raising: the
+        consumer is gone, so the engine frees its pages now."""
+        while True:
+            try:
+                tok = self._queue.get(timeout=timeout)
+            except queue.Empty:
+                self.cancel(f"stream consumer timed out after "
+                            f"{timeout}s without a token")
+                raise RuntimeError(
+                    self.error or f"request {self.id}: stream timed "
+                                  f"out after {timeout}s") from None
+            if tok is None:
+                if self.error:
+                    raise RuntimeError(self.error)
+                return
+            yield tok
+
+    def wait(self, timeout: Optional[float] = 60.0) -> List[int]:
+        """Block until the request finishes; returns the generated ids.
+        A timeout cancels the request (see :meth:`stream`) before
+        raising TimeoutError."""
+        if not self._done.wait(timeout):
+            self.cancel(f"wait consumer timed out after {timeout}s")
+            raise TimeoutError(f"request {self.id} still running after "
+                               f"{timeout}s (request cancelled)")
+        if self.error:
+            raise RuntimeError(self.error)
+        return list(self.tokens)
+
+    def cancel(self, reason: str = "cancelled") -> None:
+        """Cancel a queued/running request: pages and the batch slot
+        free immediately (via the engine's cancel hook when admitted),
+        consumers see the error.  Idempotent after finish."""
+        if self._done.is_set():
+            return
+        cb = self._cancel_cb
+        if cb is not None:
+            cb(self, reason)
+        else:
+            self._finish(error=reason)
+
+    @property
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    # -- engine side -----------------------------------------------------
+    def _emit(self, tok: int) -> None:
+        if self.first_token_at is None:
+            self.first_token_at = time.monotonic()
+        self.tokens.append(int(tok))
+        self._queue.put(int(tok))
+
+    def _finish(self, error: Optional[str] = None) -> None:
+        # idempotent: stop() and an in-flight step can both try to
+        # finish the same request; only the first one wins (a second
+        # call would push a spurious None past the stream sentinel)
+        if self._done.is_set():
+            return
+        self.error = error
+        self.finished_at = time.monotonic()
+        self._done.set()
+        self._queue.put(None)
+
+
+class _Sequence:
+    """Host decode state of one ADMITTED request: the full known token
+    list (prompt + generated so far), how many of them have KV
+    committed to pages, and the owned/shared page list."""
+
+    __slots__ = ("req", "tokens", "kv_len", "pages", "shared",
+                 "cached_tokens", "cache_inserted")
+
+    def __init__(self, req: Request):
+        self.req = req
+        self.tokens: List[int] = list(req.prompt) + list(req.tokens)
+        self.kv_len = 0
+        self.pages: List[int] = []
+        self.shared: set = set()       # page ids held via prefix cache
+        self.cached_tokens = 0
+        self.cache_inserted = False
+
+
+class StepPlan:
+    """One ragged iteration, planned: the active sequences and the
+    padded host arrays the engine feeds the device step."""
+
+    __slots__ = ("seqs", "tok", "pos", "page_ids", "slots",
+                 "kv_lens", "q_lens", "tables", "temps",
+                 "n_prefill", "n_decode", "fed_prefill", "fed_decode")
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+class Scheduler:
+    """Plans one ragged step per call; owns admission, page
+    accounting, eviction and completion.  Thread-compatible: the
+    engine serializes calls under its own lock."""
+
+    def __init__(self, pool: PagePool, max_batch: int,
+                 max_pages_per_seq: int, prefix_cache=None,
+                 max_queue: int = 1024, max_prefill_chunk: int = 0,
+                 max_seq_len: int = 0):
+        self.pool = pool
+        self.max_batch = int(max_batch)
+        self.ppseq = int(max_pages_per_seq)
+        self.prefix_cache = prefix_cache
+        self.max_queue = int(max_queue)
+        # page capacity rounds UP to whole pages; the model's position
+        # tables do not — admission must respect the tighter of the two
+        self.max_seq_len = int(max_seq_len)
+        # 0: prefill a whole remaining prompt in one step; >0 caps the
+        # per-iteration chunk (bounds Q and the step's latency impact
+        # on co-scheduled decodes)
+        self.max_prefill_chunk = int(max_prefill_chunk)
+        self.waiting: deque = deque()
+        self.running: List[_Sequence] = []
+        self.evictions = 0
+
+    # -- queue side ------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        cap = self.ppseq * self.pool.page_size
+        if self.max_seq_len:
+            cap = min(cap, self.max_seq_len)
+        if len(req.prompt) + req.max_new_tokens > cap:
+            req._finish(error=f"request needs {len(req.prompt)} + "
+                              f"{req.max_new_tokens} tokens; a sequence "
+                              f"holds at most {cap}")
+            return
+        if len(self.waiting) >= self.max_queue:
+            req._finish(error="queue full")
+            return
+        self.waiting.append(_Sequence(req))
+
+    def queue_depth(self) -> int:
+        return len(self.waiting)
+
+    def has_work(self) -> bool:
+        return bool(self.running or self.waiting)
+
+    # -- page accounting -------------------------------------------------
+    def _pages_needed(self, seq: _Sequence, new_len: int) -> int:
+        ps = self.pool.page_size
+        return max(0, -(-new_len // ps) - len(seq.pages))
+
+    def _grow(self, seq: _Sequence, new_len: int) -> bool:
+        """Allocate the pages ``seq`` needs to hold ``new_len`` tokens;
+        False when the pool cannot satisfy it right now."""
+        need = self._pages_needed(seq, new_len)
+        if need == 0:
+            return True
+        if self.pool.available() < need and self.prefix_cache is not None:
+            # reclaim cache-only pages (refcount 1, held by the cache
+            # alone) before declaring exhaustion
+            self.prefix_cache.reclaim(need - self.pool.available())
+        if self.pool.available() < need:
+            return False
+        for _ in range(need):
+            seq.pages.append(self.pool.alloc())
+        return True
+
+    def _release(self, seq: _Sequence) -> None:
+        for page in seq.pages:
+            self.pool.unref(page)
+        seq.pages = []
+        seq.shared = set()
+        seq.kv_len = 0
+
+    # -- admission / eviction --------------------------------------------
+    def _admit_one(self) -> Optional[_Sequence]:
+        if not self.waiting or len(self.running) >= self.max_batch:
+            return None
+        seq = self.waiting[0]
+        # refresh: an evicted requeued sequence re-enters with its
+        # generated-so-far tokens included
+        seq.tokens = list(seq.req.prompt) + list(seq.req.tokens)
+        cached_pages: List[int] = []
+        if self.prefix_cache is not None:
+            cached_pages = self.prefix_cache.match(seq.req.prompt)
+        ps = self.pool.page_size
+        # always feed >= 1 token so the step produces logits; the
+        # boundary token's rewrite into a shared page is value-
+        # identical (same weights, same tokens, same positions)
+        cached_len = min(len(cached_pages) * ps, len(seq.tokens) - 1)
+        use_pages = cached_pages[:-(-cached_len // ps) if cached_len
+                                 else 0]
+        # NO free-list pre-check here: the pool may be held entirely by
+        # cache-only prompt pages, and only ``_grow`` reclaims those.
+        # Ref the matched pages FIRST so reclaim cannot free them out
+        # from under us, then let _grow reclaim/allocate the rest; on
+        # failure the shared refs roll back and the request stays at
+        # the head of the queue.
+        for page in use_pages:
+            self.pool.ref(page)
+            seq.pages.append(page)
+            seq.shared.add(page)
+        seq.kv_len = cached_len
+        seq.cached_tokens = cached_len
+        if not self._grow(seq, len(seq.tokens)):
+            # pool short even after reclaiming cache-only pages
+            self._release(seq)
+            return None
+        self.waiting.popleft()
+        self.running.append(seq)
+        return seq
+
+    def _evict_victim(self, protect) -> Optional[_Sequence]:
+        """Preempt the youngest running sequence (most recently
+        admitted, none of ``protect``): free its pages, requeue it at
+        the FRONT so it resumes as soon as pressure clears.  Sequences
+        already laid into the current plan are protected — their pages
+        are about to be written and must not be reallocated."""
+        for seq in reversed(self.running):
+            if seq in protect:
+                continue
+            self.running.remove(seq)
+            self._release(seq)
+            seq.req.evictions += 1
+            self.evictions += 1
+            self.waiting.appendleft(seq)
+            return seq
+        return None
+
+    # -- completion (engine calls after each step) -----------------------
+    def finish(self, seq: _Sequence, error: Optional[str] = None) -> None:
+        """EOS / budget / failure: free the pages NOW — the next
+        iteration's admission sees them."""
+        if seq in self.running:
+            self.running.remove(seq)
+        self._release(seq)
+        seq.req._finish(error=error)
+
+    def drop(self, req: Request, error: str) -> bool:
+        """Cancellation path: remove ``req`` wherever it sits (wait
+        queue or running batch), free its pages NOW, and finish it with
+        ``error``.  Returns True when it was still scheduled."""
+        for seq in list(self.waiting):
+            if seq.req is req:
+                self.waiting.remove(seq)
+                seq.req._finish(error=error)
+                return True
+        for seq in list(self.running):
+            if seq.req is req:
+                self.running.remove(seq)
+                self._release(seq)
+                seq.req._finish(error=error)
+                return True
+        req._finish(error=error)
+        return False
+
+    # -- the per-iteration plan ------------------------------------------
+    def plan_step(self):
+        """Admit what fits, grow pages for this iteration's tokens
+        (evicting under pressure), and lay out the padded step arrays.
+        Returns (plan, admitted, evicted) — plan is None when nothing
+        is runnable."""
+        admitted: List[_Sequence] = []
+        evicted: List[_Sequence] = []
+        while True:
+            seq = self._admit_one()
+            if seq is None:
+                break
+            admitted.append(seq)
+
+        # per-sequence chunk of NEW tokens this iteration
+        active: List[Tuple[_Sequence, List[int]]] = []
+        for seq in list(self.running):
+            if seq not in self.running:
+                continue       # evicted by an earlier seq's growth
+            chunk = seq.tokens[seq.kv_len:]
+            if self.max_prefill_chunk and \
+                    len(chunk) > self.max_prefill_chunk:
+                chunk = chunk[:self.max_prefill_chunk]
+            if not chunk:
+                continue
+            while not self._grow(seq, seq.kv_len + len(chunk)):
+                victim = self._evict_victim(
+                    {seq} | {s for s, _ in active})
+                if victim is None:
+                    break
+                evicted.append(victim)
+                if victim in admitted:
+                    admitted.remove(victim)
+            if self._pages_needed(seq, seq.kv_len + len(chunk)) > 0:
+                # could not grow even after evicting everything else;
+                # park this sequence too and try again next iteration
+                if seq in self.running:
+                    self.running.remove(seq)
+                    self._release(seq)
+                    seq.req.evictions += 1
+                    self.evictions += 1
+                    self.waiting.appendleft(seq)
+                    evicted.append(seq)
+                continue
+            active.append((seq, chunk))
+
+        if not active:
+            return None, admitted, evicted
+
+        b = self.max_batch
+        qw = max(len(chunk) for _, chunk in active)
+        ps = self.pool.page_size
+        sink = self.pool.sink
+        tok = np.zeros((b, qw), "int64")
+        pos = np.zeros((b, qw), "int32")
+        page_ids = np.full((b, qw), sink, "int32")
+        slots = np.zeros((b, qw), "int32")
+        kv_lens = np.zeros((b,), "int32")
+        q_lens = np.zeros((b,), "int32")
+        tables = np.zeros((b, self.ppseq), "int32")
+        temps = np.zeros((b,), "float32")
+        n_prefill = n_decode = 0
+        fed_prefill = fed_decode = 0
+        for i, (seq, chunk) in enumerate(active):
+            n = len(chunk)
+            start = seq.kv_len
+            tok[i, :n] = chunk
+            pos[i, :n] = np.arange(start, start + n, dtype="int32")
+            for j in range(n):
+                p = start + j
+                page_ids[i, j] = seq.pages[p // ps]
+                slots[i, j] = p % ps
+            kv_lens[i] = start + n
+            q_lens[i] = n
+            tables[i, :len(seq.pages)] = seq.pages
+            temps[i] = seq.req.temperature
+            if start < len(seq.req.prompt):     # still eating prompt
+                n_prefill += 1
+                fed_prefill += n
+            else:
+                n_decode += 1
+                fed_decode += n
+        plan = StepPlan(seqs=[s for s, _ in active], tok=tok, pos=pos, page_ids=page_ids,
+                        slots=slots, kv_lens=kv_lens, q_lens=q_lens,
+                        tables=tables, temps=temps,
+                        n_prefill=n_prefill, n_decode=n_decode,
+                        fed_prefill=fed_prefill, fed_decode=fed_decode)
+        return plan, admitted, evicted
+
+    def commit(self, plan: StepPlan) -> None:
+        """Mark the plan's tokens as committed to the pages (called
+        after the step ran).  Sequences whose request finished while
+        the step was in flight (``stop()``, a failed step) have been
+        released — their pages may already be reallocated, so nothing
+        is committed for them."""
+        for i, seq in enumerate(plan.seqs):
+            if seq.req.done:
+                continue
+            seq.kv_len = int(plan.kv_lens[i])
