@@ -18,15 +18,30 @@ loudly with a non-zero exit:
    tolerance, exact zeros on the empty slot, kernel / plain / library
    (``scaled_dot_product_attention``, a yardstick only) times and the
    card's bound for the same work;
-4. main path — GPT-3 1.3B (random weights from a seed, fp32) served by
-   ``ServingEngine`` (max_batch 8, page 16): 8 requests, two sharing a
-   64-token prefix, one sampled; every greedy request returns its 32
-   tokens, the kernel ran exactly once per layer per step, the prefix
+4. serving main path — GPT-3 1.3B (random weights from a seed, fp32)
+   served by ``ServingEngine`` (max_batch 8, page 16): 8 requests, two
+   sharing a 64-token prefix, one sampled; every greedy request returns
+   its 32 tokens, K7 ran exactly once per layer per step, the prefix
    cache hit, and the engine's step logits for a prompt match the dense
-   forward.
+   forward (which runs K1a and K2a);
+5. K1a/b/c (flash attention fwd, dq, dk/dv), K2a/b (LayerNorm fwd, dx)
+   and K3 (fused AdamW) against their plain PyTorch versions on the card
+   at training shapes, with kernel / plain / library (a yardstick only)
+   times and the card's bound for the same work;
+6. training main path — the calls of ``bench.py``'s ``_measure``
+   through the port: GPT-3 1.3B at full width (24 layers, seq 2048,
+   batch 4), amp O2 bf16 with fp32 master weights, AdamW(1e-4, weight
+   decay 0.01), the same random batch every step; 1 cold, 2 warm-up and
+   5 timed steps; every loss finite and the last below the first, and per
+   step exactly 24 launches of each K1 kernel, 49 of each K2 kernel and
+   292 of K3;
+6b. cross-check at full width and depth 2: one O2 step through the
+   kernels against the same step composed here from the plain versions
+   (loss and every parameter's update).
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.
+Each main path's launch counts are set to 0 just before it runs and read
+just after.  The line before the last is ``{"kernels": [...]}``; the last
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -39,8 +54,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch import amp, optimizer
+from paddle_tpu_torch.jit import train_step
 from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_adamw as adamw
+from paddle_tpu_torch.ops import layer_norm as ln
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.serving import PagePool, Request, Scheduler
 from paddle_tpu_torch.serving import ServingEngine
@@ -55,6 +75,23 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # shapes (cuBLAS splits) and softmax orders, logits of order 1
 LOGITS_TOL = 2e-3
 N_LAYERS = 24
+# K1/K2 vs their plain versions.  fp32: online (kernel) vs two-pass
+# (plain) softmax and row sums in other orders, a few ulps of values of
+# order 1-100.  bf16, compared in the working dtype: both round once from
+# fp32 sums that differ in order, so they may land one bf16 step (2^-8 =
+# 0.4 % of the value) apart, on values up to ~30 for summed gradients.
+KTOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-2)}  # atol, rtol
+# K3 vs the plain sequence: both round every step of the same fp32
+# arithmetic in the same order
+ADAMW_TOL = 1e-6
+# the 6b cross-check, kernels vs plain step at depth 2: the O2 loss is a
+# bf16 value near 10.8, one bf16 step there is 0.0625; an Adam update is
+# +-lr per element where the gradient's sign agrees, and where it is bf16
+# rounding noise (the key bias has a true gradient of 0) the sign may
+# differ, so each update must be within 2.1 lr everywhere and the median
+# difference of each tensor below lr / 100
+XCHECK_LOSS_TOL = 0.0625
+PEAK_BF16 = 989e12
 
 
 def fail(msg: str) -> None:
@@ -294,6 +331,8 @@ def serve_main_path():
     del engine
     torch.cuda.empty_cache()
     check_step_logits(model, prompts[3])
+    del model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -333,6 +372,485 @@ def check_step_logits(model, prompt):
         fail(f"step logits differ from the dense forward by {err}")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: K1, K2, K3 against their plain versions
+# ---------------------------------------------------------------------------
+
+def max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def check_close(what, got, want, dtype):
+    """Fail unless |got - want| <= atol + rtol |want| everywhere (KTOL)."""
+    atol, rtol = KTOL[dtype]
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        fail(f"{what}: non-finite kernel output")
+    excess = ((g - w).abs() - (atol + rtol * w.abs())).max().item()
+    if excess > 0:
+        fail(f"{what}: max abs err {max_err(g, w):.3e} exceeds "
+             f"atol {atol} + rtol {rtol} |plain|")
+
+
+def bound_ms(nbytes: float, flops: float, peak: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def visible_pairs(sq, sk, causal, q_offset):
+    """(query, key) pairs the mask lets through, per head."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, q_offset + i + 1)) for i in range(sq))
+
+
+def rand(shape, dtype, g, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+# name: (B*Hq, Sq, Sk, n_rep, causal, dtype); "main" is the training
+# path's shape (batch 4 x 16 heads, seq 2048, head_dim 128, bf16, causal)
+K1_CASES = {
+    "causal-bf16": (16, 2048, 2048, 1, True, torch.bfloat16),
+    "causal-fp32": (16, 2048, 2048, 1, True, torch.float32),
+    "full-bf16": (16, 2048, 2048, 1, False, torch.bfloat16),
+    "full-fp32": (16, 2048, 2048, 1, False, torch.float32),
+    "q_offset-fp32": (16, 512, 2048, 1, True, torch.float32),
+    "gqa4-bf16": (16, 2048, 2048, 4, True, torch.bfloat16),
+    "main": (64, 2048, 2048, 1, True, torch.bfloat16),
+}
+
+
+def check_k1():
+    rows = {}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    d = 128
+    scale = 1.0 / d ** 0.5
+    for case, (bh, sq, sk, n_rep, causal, dtype) in K1_CASES.items():
+        q = rand((bh, sq, d), dtype, g).requires_grad_()
+        k = rand((bh // n_rep, sk, d), dtype, g).requires_grad_()
+        v = rand((bh // n_rep, sk, d), dtype, g).requires_grad_()
+        do = rand((bh, sq, d), dtype, g)
+        off = sk - sq if causal else 0
+        before = dict(fa.launches)
+        out, lse = fa.flash_attention_fwd(q, k, v, scale, causal, off, n_rep)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, scale,
+                                            causal, off, n_rep)
+        torch.cuda.synchronize()
+        if any(fa.launches[n] != before[n] + 1 for n in before):
+            fail(f"K1 {case}: launch counters did not move: {fa.launches}")
+        ref, ref_lse = fa.reference_attention_bhsd(q, k, v, scale, causal,
+                                                   off, n_rep,
+                                                   return_lse=True)
+        rdq, rdk, rdv = torch.autograd.grad(ref, (q, k, v), do,
+                                            retain_graph=True)
+        for name, a, b in (("O", out, ref), ("dq", dq, rdq), ("dk", dk, rdk),
+                           ("dv", dv, rdv)):
+            if a.dtype != dtype or a.shape != b.shape:
+                fail(f"K1 {case} {name}: {a.dtype} {tuple(a.shape)}")
+            check_close(f"K1 {case} {name}", a, b, dtype)
+        check_close(f"K1 {case} LSE", lse, ref_lse, torch.float32)
+        errs = dict(o=max_err(out, ref), lse=max_err(lse, ref_lse),
+                    dq=max_err(dq, rdq), dkv=max(max_err(dk, rdk),
+                                                 max_err(dv, rdv)))
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        fwd = lambda: fa.flash_attention_fwd(qd, kd, vd, scale, causal, off,
+                                             n_rep)
+        o2, lse2 = fwd()
+        delta = (o2.float() * do.float()).sum(-1)
+        lib = _build.library("flash_attention")
+        args = (sq, sk, d, n_rep, int(causal), off, scale,
+                fa._DTYPE_CODE[dtype])
+        dq2, dk2, dv2 = (torch.empty_like(t) for t in (qd, kd, vd))
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def dq_kernel():
+            lib.flash_bwd_dq(qd.data_ptr(), kd.data_ptr(), vd.data_ptr(),
+                             do.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+                             dq2.data_ptr(), bh, *args, stream)
+
+        def dkv_kernel():
+            lib.flash_bwd_dkv(qd.data_ptr(), kd.data_ptr(), vd.data_ptr(),
+                              do.data_ptr(), lse2.data_ptr(),
+                              delta.data_ptr(), dk2.data_ptr(),
+                              dv2.data_ptr(), bh // n_rep, *args, stream)
+
+        def plain_bwd():
+            torch.autograd.grad(ref, (q, k, v), do, retain_graph=True)
+
+        # the library yardstick: [B, H, S, D] views, GQA as repeated heads
+        lq = qd.reshape(1, bh, sq, d).clone().requires_grad_()
+        lk = kd.repeat_interleave(n_rep, 0).reshape(1, bh, sk, d).clone() \
+            .requires_grad_()
+        lv = vd.repeat_interleave(n_rep, 0).reshape(1, bh, sk, d).clone() \
+            .requires_grad_()
+        lib_causal = causal and sq == sk
+        lout = F.scaled_dot_product_attention(lq, lk, lv,
+                                              is_causal=lib_causal)
+        ldo = do.reshape(1, bh, sq, d)
+        row = dict(case=case, bh=bh, sq=sq, sk=sk, d=d, n_rep=n_rep,
+                   causal=causal, dtype=str(dtype).replace("torch.", ""),
+                   max_abs_err=errs,
+                   fwd_ms=time_ms(fwd, 10), dq_ms=time_ms(dq_kernel, 5),
+                   dkv_ms=time_ms(dkv_kernel, 5),
+                   plain_fwd_ms=time_ms(
+                       lambda: fa.reference_attention_bhsd(
+                           qd, kd, vd, scale, causal, off, n_rep), 3),
+                   plain_bwd_ms=time_ms(plain_bwd, 3))
+        if lib_causal or not causal:
+            row["library_fwd_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    lq.detach(), lk.detach(), lv.detach(),
+                    is_causal=lib_causal), 10)
+            row["library_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                            retain_graph=True), 5)
+        else:     # sdpa's causal mask is top-left: no bottom-right yardstick
+            row["library_fwd_ms"] = row["library_bwd_ms"] = None
+        peak = PEAK_FLOPS[dtype]
+        item = q.element_size()
+        pairs = bh * visible_pairs(sq, sk, causal, off)
+        io_q, io_kv = bh * sq * d * item, (bh // n_rep) * sk * d * item
+        row["fwd_bound"] = bound_ms(2 * io_q + 2 * io_kv + bh * sq * 4,
+                                    4 * pairs * d, peak)
+        row["dq_bound"] = bound_ms(3 * io_q + 2 * io_kv + 2 * bh * sq * 4,
+                                   6 * pairs * d, peak)
+        row["dkv_bound"] = bound_ms(2 * io_q + 4 * io_kv + 2 * bh * sq * 4,
+                                    8 * pairs * d, peak)
+        say("K1 " + json.dumps(row))
+        rows[case] = row
+        del q, k, v, do, out, lse, dq, dk, dv, ref, ref_lse, rdq, rdk, rdv
+        del lq, lk, lv, lout, o2, lse2, delta, dq2, dk2, dv2
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_k2():
+    rows = {}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(2)
+    n, h = 8192, 2048
+    for dtype in (torch.float32, torch.bfloat16):
+        x = rand((n, h), dtype, g, 2.0).requires_grad_()
+        w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")) \
+            .requires_grad_()
+        b = (0.1 * torch.randn(h, generator=g, device="cuda")) \
+            .requires_grad_()
+        gy = rand((n, h), dtype, g)
+        before = dict(ln.launches)
+        y = ln.layer_norm(x, w, b, 1e-5)
+        dx, dw, db = torch.autograd.grad(y, (x, w, b), gy)
+        torch.cuda.synchronize()
+        if any(ln.launches[k] != before[k] + 1 for k in before):
+            fail(f"K2 {dtype}: launch counters did not move: {ln.launches}")
+        yr = ln.layer_norm_ref(x, w, b, 1e-5)
+        dxr, dwr, dbr = torch.autograd.grad(yr, (x, w, b), gy,
+                                            retain_graph=True)
+        for name, a, r, dt in (("y", y, yr, dtype), ("dx", dx, dxr, dtype),
+                               ("dw", dw, dwr, torch.float32),
+                               ("db", db, dbr, torch.float32)):
+            check_close(f"K2 {dtype} {name}", a, r, dt)
+        xd, wd_, bd = x.detach(), w.detach(), b.detach()
+        _, mean, rstd = ln.layer_norm_fwd(xd, wd_, bd, 1e-5)
+        # the library yardstick takes weights in x's dtype
+        lw, lb = wd_.to(dtype), bd.to(dtype)
+        lib_y = F.layer_norm(x, (h,), lw, lb, 1e-5)
+        item = x.element_size()
+        row = dict(dtype=str(dtype).replace("torch.", ""), n=n, h=h,
+                   max_abs_err=dict(y=max_err(y, yr), dx=max_err(dx, dxr),
+                                    dw=max_err(dw, dwr), db=max_err(db, dbr)),
+                   fwd_ms=time_ms(lambda: ln.layer_norm_fwd(xd, wd_, bd,
+                                                            1e-5), 20),
+                   dx_ms=time_ms(lambda: ln.layer_norm_bwd(xd, wd_, mean,
+                                                           rstd, gy), 20),
+                   plain_fwd_ms=time_ms(lambda: ln.layer_norm_ref(
+                       xd, wd_, bd, 1e-5), 5),
+                   plain_dx_ms=time_ms(lambda: torch.autograd.grad(
+                       yr, x, gy, retain_graph=True), 5),
+                   library_fwd_ms=time_ms(lambda: F.layer_norm(
+                       xd, (h,), lw, lb, 1e-5), 20),
+                   library_dx_ms=time_ms(lambda: torch.autograd.grad(
+                       lib_y, x, gy, retain_graph=True), 20),
+                   fwd_bound=bound_ms(2 * n * h * item + 8 * n + 8 * h,
+                                      8 * n * h, PEAK_FLOPS[torch.float32]),
+                   dx_bound=bound_ms(3 * n * h * item + 8 * n + 4 * h,
+                                     10 * n * h, PEAK_FLOPS[torch.float32]))
+        say("K2 " + json.dumps(row))
+        rows[row["dtype"]] = row
+        del x, w, b, gy, y, dx, dw, db, yr, dxr, dwr, dbr, lib_y
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_k3():
+    """A bf16 [2048, 8192] parameter on an fp32 master and an fp32 [2048]
+    parameter, 3 steps with weight decay, kernel vs the plain sequence on
+    identical copies."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    b1, b2, eps, wd = 0.9, 0.999, 1e-8, 0.01
+    lr = torch.tensor([1e-4], device="cuda")
+    betas = torch.tensor([b1, b2], device="cuda")
+    err = 0.0
+    for shape, low in (((2048, 8192), True), ((2048,), False)):
+        master = rand(shape, torch.float32, g, 0.02)
+        states = []
+        for _ in range(2):         # [kernel, plain]
+            states.append(dict(
+                p=master.clone(), m=torch.zeros_like(master),
+                v=torch.zeros_like(master),
+                low=master.to(torch.bfloat16) if low else None,
+                pows=torch.ones(2, device="cuda")))
+        for _ in range(3):
+            grad = rand(shape, torch.bfloat16 if low else torch.float32, g,
+                        1e-3)
+            for fn, st in ((adamw.fused_adamw_update_, states[0]),
+                           (adamw.fused_adamw_update_ref_, states[1])):
+                st["pows"].mul_(betas)
+                before = adamw.launches
+                fn(st["p"], grad, st["m"], st["v"], lr, st["pows"][0:1],
+                   st["pows"][1:2], b1, b2, eps, wd, p_low=st["low"])
+                if fn is adamw.fused_adamw_update_ \
+                        and adamw.launches != before + 1:
+                    fail("K3: launch counter did not move")
+        torch.cuda.synchronize()
+        k, r = states
+        for name in ("p", "m", "v") + (("low",) if low else ()):
+            e = max_err(k[name], r[name])
+            scale = r[name].float().abs().max().item()
+            if not torch.isfinite(k[name].float()).all() \
+                    or e > ADAMW_TOL * max(scale, 1e-30):
+                fail(f"K3 {shape} {name}: max abs err {e:.3e} (|max| "
+                     f"{scale:.3e}, rtol {ADAMW_TOL})")
+            err = max(err, e)
+        if low:
+            st = k
+            numel = master.numel()
+            row = dict(shape=list(shape), max_abs_err=err, ms=time_ms(
+                lambda: adamw.fused_adamw_update_(
+                    st["p"], grad, st["m"], st["v"], lr, st["pows"][0:1],
+                    st["pows"][1:2], b1, b2, eps, wd, p_low=st["low"]), 20),
+                plain_ms=time_ms(lambda: adamw.fused_adamw_update_ref_(
+                    r["p"], grad, r["m"], r["v"], lr, r["pows"][0:1],
+                    r["pows"][1:2], b1, b2, eps, wd, p_low=r["low"]), 5),
+                bound=bound_ms(28 * numel, 15 * numel,
+                               PEAK_FLOPS[torch.float32]))
+            # yardstick: torch's fused AdamW on the fp32 master with an
+            # fp32 gradient (it takes no bf16 gradient and writes no bf16
+            # copy)
+            lp = torch.nn.Parameter(master.clone())
+            lp.grad = grad.float()
+            lopt = torch.optim.AdamW([lp], lr=1e-4, weight_decay=wd,
+                                     fused=True)
+            row["library_ms"] = time_ms(lopt.step, 20)
+            del lp, lopt
+    say("K3 " + json.dumps(row))
+    torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training main path
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+N_STEPS = dict(cold=1, warmup=2, timed=5)
+PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
+            "ln_fwd": 49, "ln_bwd_dx": 49, "adamw": 292}
+
+
+def counts():
+    return dict(fa.launches, **ln.launches, adamw=adamw.launches)
+
+
+def reset_counts():
+    for d in (fa.launches, ln.launches):
+        for k in d:
+            d[k] = 0
+    adamw.launches = 0
+
+
+def param_count(c) -> int:
+    """``bench.py``'s ``_param_count``: V·H + S·H + L·(12H² + 13H) + 2H."""
+    h = c.hidden_size
+    return (c.vocab_size * h + c.max_position_embeddings * h
+            + c.num_layers * (12 * h * h + 13 * h) + 2 * h)
+
+
+def o2_step_fn(m, ids, labels):
+    with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+        return m.loss_fn(m(ids), labels)
+
+
+def build_trainer(num_layers, seed):
+    cfg = gpt_config("gpt3-1.3B", num_layers=num_layers,
+                     max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    model = GPTForPretraining(cfg, seed=seed)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    model, opt = amp.decorate(models=model, optimizers=opt, level="O2",
+                              dtype="bfloat16")
+    return cfg, model, opt, train_step(model, None, opt, step_fn=o2_step_fn)
+
+
+def batch(cfg):
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    labels = rs.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    return (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+
+
+def train_main_path():
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, opt, step = build_trainer(N_LAYERS, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != param_count(cfg) or len(list(model.parameters())) != 292:
+        fail(f"gpt3-1.3B has {n_params} parameters in "
+             f"{len(list(model.parameters()))} tensors")
+    say(f"train: gpt3-1.3B, {n_params} parameters, O2 bf16 + fp32 masters,"
+        f" batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    ids, labels = batch(cfg)
+    reset_counts()                   # count the main path's launches only
+    losses, step_s = [], []
+    n_total = sum(N_STEPS.values())
+    for i in range(n_total):
+        before = counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step(ids, labels))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        after = counts()
+        moved = {k: after[k] - before[k] for k in PER_STEP}
+        if moved != PER_STEP:
+            fail(f"step {i}: launches {moved} != {PER_STEP}")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [float(l) for l in losses]
+    say(f"train: losses {vals}")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"losses not finite and falling: {vals}")
+    timed = step_s[N_STEPS["cold"] + N_STEPS["warmup"]:]
+    mean_s = sum(timed) / len(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * param_count(cfg) * tokens / mean_s / PEAK_BF16
+    say(f"train: step ms cold {1e3 * step_s[0]:.2f}, warm-up "
+        f"{[round(1e3 * t, 2) for t in step_s[1:3]]}, timed "
+        f"{[round(1e3 * t, 2) for t in timed]}; mean {1e3 * mean_s:.2f} ms"
+        f" = {tokens / mean_s:.1f} tokens/s, MFU {100 * mfu:.2f} % of "
+        f"989 TFLOP/s bf16; peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB); batch {TRAIN_BATCH}")
+    say(f"train: launches over {n_total} steps {launches}")
+    del model, opt, step, losses
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: kernels vs plain versions, one O2 step at full width, depth 2
+# ---------------------------------------------------------------------------
+
+def plain_loss(P, cfg, ids, labels):
+    """The O2 forward and criterion of ``models/gpt.py`` composed from the
+    plain versions (``layer_norm_ref``, ``reference_attention_bhsd``),
+    with the amp O2 casts written out."""
+    bf = torch.bfloat16
+    b, s = ids.shape
+    hidden, nh = cfg.hidden_size, cfg.num_heads
+    hd = hidden // nh
+
+    def lnorm(x, name):
+        return ln.layer_norm_ref(x.float(), P[name + ".weight"],
+                                 P[name + ".bias"], 1e-5)
+
+    def linear(x, name):
+        return torch.matmul(x.to(bf), P[name + ".weight"]) \
+            + P[name + ".bias"]
+
+    x = P["gpt.embeddings.word_embeddings.weight"][ids] \
+        + P["gpt.embeddings.position_embeddings.weight"][
+            torch.arange(s, device=ids.device)]
+    for i in range(cfg.num_layers):
+        pre = f"gpt.layers.{i}."
+        qkv = linear(lnorm(x, pre + "ln1"), pre + "attn.qkv_proj") \
+            .reshape(b, s, 3, nh, hd)
+        q, k, v = (qkv[:, :, j].transpose(1, 2).reshape(b * nh, s, hd)
+                   for j in range(3))
+        a = fa.reference_attention_bhsd(q, k, v, 1.0 / hd ** 0.5, True)
+        a = a.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, hidden)
+        x = x + linear(a, pre + "attn.out_proj")
+        f = F.gelu(linear(lnorm(x, pre + "ln2"), pre + "mlp.fc1"),
+                   approximate="tanh")
+        x = x + linear(f, pre + "mlp.fc2")
+    h = lnorm(x, "gpt.final_ln")
+    logits = torch.matmul(h.to(bf),
+                          P["gpt.embeddings.word_embeddings.weight"].t())
+    flat = labels.reshape(-1)
+    logp = torch.log_softmax(logits.reshape(b * s, -1).float(), -1)
+    valid = flat != -100
+    loss = -torch.gather(logp, -1, flat.clamp(min=0)[:, None])[:, 0]
+    loss = torch.where(valid, loss, torch.zeros((), device=loss.device))
+    mask = valid.float()
+    num = (loss.to(bf) * mask.to(bf)).float().sum()
+    den = mask.sum().to(bf).clamp(min=1.0)
+    return num.to(bf) / den
+
+
+def cross_check():
+    cfg, model, opt, step = build_trainer(2, seed=1)
+    ids, labels = batch(cfg)
+    names = [n for n, _ in model.named_parameters()]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    # the plain step's own copy of the same weights, masters and moments
+    P = {n: t.clone().requires_grad_() for n, t in before.items()}
+    loss_k = step(ids, labels)
+    loss_p = plain_loss(P, cfg, ids, labels)
+    loss_p.backward()
+    lr = torch.tensor([1e-4], device="cuda")
+    betas = torch.tensor([0.9, 0.999], device="cuda")
+    plain_new = {}                 # fp32 master (or fp32 parameter) after
+    with torch.no_grad():
+        for n in names:
+            p = P[n]
+            master = p.float().clone() if p.dtype == torch.bfloat16 else p
+            m, v = torch.zeros_like(master), torch.zeros_like(master)
+            pows = torch.ones(2, device="cuda") * betas
+            adamw.fused_adamw_update_ref_(
+                master, p.grad, m, v, lr, pows[0:1], pows[1:2], 0.9, 0.999,
+                1e-8, 0.01, p_low=p if master is not p else None)
+            plain_new[n] = master
+    torch.cuda.synchronize()
+    lk, lp = float(loss_k), float(loss_p.detach())
+    say(f"cross-check (2 layers, full width, batch {TRAIN_BATCH}): loss "
+        f"kernels {lk} plain {lp} (tol {XCHECK_LOSS_TOL})")
+    if not abs(lk - lp) <= XCHECK_LOSS_TOL:
+        fail(f"cross-check loss {lk} vs plain {lp}")
+    worst_max, worst_med = 0.0, 0.0
+    for n, p in model.named_parameters():
+        # the update of the fp32 master (of the parameter itself for the
+        # fp32 LayerNorm parameters)
+        new = opt.state[p].get("master", p).detach()
+        old = before[n].float()
+        diff = ((new - old) - (plain_new[n] - old)).abs()
+        mx, med = diff.max().item(), diff.median().item()
+        worst_max, worst_med = max(worst_max, mx), max(worst_med, med)
+        if mx > 2.1e-4 or med > 1e-6:
+            fail(f"cross-check update of {n}: max diff {mx:.3e}, median "
+                 f"{med:.3e}")
+    say(f"cross-check: {len(names)} parameters' updates agree: worst max "
+        f"diff {worst_max:.3e} (tol 2.1 lr = 2.1e-4), worst median "
+        f"{worst_med:.3e} (tol lr/100 = 1e-6)")
+    del model, opt, step, P, before
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
@@ -358,23 +876,65 @@ def main() -> int:
                 say(f"ptxas {name}: {line.strip()}")
 
     k7 = check_k7()
-    launches = serve_main_path()
+    rpa_launches = serve_main_path()
+    k1 = check_k1()["main"]
+    k2 = check_k2()["float32"]       # the main path's LayerNorm dtype (O2)
+    k3 = check_k3()
+    train = train_main_path()
+    cross_check()
 
-    # the kernel's line: the main path's shape (decode, MHA 16/16, fp32)
+    # each kernel's line: the main path's shape
     row = next(r for r in k7 if (r["case"], r["heads"], r["dtype"])
                == ("decode", "mha", "float32"))
-    say(json.dumps({"kernels": [{
-        "name": "ragged_paged_attention",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
-        "replaces": "paddle_tpu/ops/pallas/ragged_paged_attention.py:207",
-        "launches": launches,
-        "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-        "shape": "decode, B=8, Q=1, nh=nkv=16, hd=128, ps=16, fp32",
-    }]}))
+    k1_shape = "[64, 2048, 128] bf16 causal (batch 4 x 16 heads)"
+    k2_shape = "[8192, 2048] fp32 (batch 4 x seq 2048 tokens, H 2048)"
+    kernels = [dict(
+        name="ragged_paged_attention",
+        source="paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+        replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:207",
+        launches=rpa_launches, max_abs_err=row["max_abs_err"],
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by=row["bound_by"], library_ms=row["library_ms"],
+        shape="decode, B=8, Q=1, nh=nkv=16, hd=128, ps=16, fp32")]
+    flash_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    for name, key, replaces, err in (
+            ("flash_attention_fwd", "fwd", ":113", k1["max_abs_err"]["o"]),
+            ("flash_attention_bwd_dq", "dq", ":269",
+             k1["max_abs_err"]["dq"]),
+            ("flash_attention_bwd_dkv", "dkv", ":297",
+             k1["max_abs_err"]["dkv"])):
+        plain = k1["plain_fwd_ms"] if key == "fwd" else k1["plain_bwd_ms"]
+        lib = k1["library_fwd_ms"] if key == "fwd" else \
+            k1["library_bwd_ms"]
+        kernels.append(dict(
+            name=name, source=flash_src,
+            replaces="paddle_tpu/ops/flash_attention.py" + replaces,
+            launches=train["flash_" + ("fwd" if key == "fwd"
+                                       else "bwd_" + key)],
+            max_abs_err=err, ms=k1[key + "_ms"], plain_ms=plain,
+            bound_ms=k1[key + "_bound"][0], bound_by=k1[key + "_bound"][1],
+            library_ms=lib, shape=k1_shape))
+    for name, key, replaces, count in (
+            ("layer_norm_fwd", "fwd", ":58", "ln_fwd"),
+            ("layer_norm_bwd_dx", "dx", ":80", "ln_bwd_dx")):
+        kernels.append(dict(
+            name=name, source="paddle_tpu_torch/ops/csrc/layer_norm.cu",
+            replaces="paddle_tpu/ops/pallas/layer_norm.py" + replaces,
+            launches=train[count],
+            max_abs_err=k2["max_abs_err"]["y" if key == "fwd" else "dx"],
+            ms=k2[key + "_ms"], plain_ms=k2["plain_" + key + "_ms"],
+            bound_ms=k2[key + "_bound"][0], bound_by=k2[key + "_bound"][1],
+            library_ms=k2["library_" + key + "_ms"], shape=k2_shape))
+    kernels.append(dict(
+        name="fused_adamw", source="paddle_tpu_torch/ops/csrc/fused_adamw.cu",
+        replaces="paddle_tpu/ops/pallas/fused_adamw.py:55",
+        launches=train["adamw"], max_abs_err=k3["max_abs_err"],
+        ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound"][0],
+        bound_by=k3["bound"][1], library_ms=k3["library_ms"],
+        shape="[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"))
+    for k in kernels:
+        k["route"] = "cuda"
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@
 The caller turns the JAX model's ``state_dict()`` into plain numpy
 arrays (``{name: np.asarray(t._data)}``) on its side; this module never
 imports the JAX package.  Names and ``[in, out]`` shapes are the same in
-both packages, so the copy needs no transposes.
+both packages, so the copy needs no transposes.  The JAX package carries
+weights before ``amp.decorate`` casts them; a model already decorated
+takes them too, each value rounded to its parameter's dtype.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ __all__ = ["load_paddle_tpu_state"]
 
 def load_paddle_tpu_state(model: torch.nn.Module,
                           arrays: Mapping[str, np.ndarray]) -> None:
-    """Fill ``model``'s parameters from ``arrays``.  Raises unless the
-    names match both ways and every shape is equal."""
+    """Fill ``model``'s parameters from ``arrays``, each cast to its
+    parameter's dtype.  Raises unless the names match both ways and every
+    shape is equal."""
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))

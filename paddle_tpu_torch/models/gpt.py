@@ -3,11 +3,21 @@
 Parameters keep the JAX package's ``state_dict`` names and ``[in, out]``
 weight layout (``gpt.layers.{i}.attn.qkv_proj.weight [H, 3H]``,
 ``gpt.embeddings.word_embeddings.weight [V, H]``, ...), so weights carry
-over without transposes (``models.carry``).  The port's GPT is an
-inference model: a dense, cache-free :meth:`GPTForPretraining.forward`
-(the cross-check) and the paged serving step
-(:meth:`GPTForPretraining.build_ragged_decode_step`).  Training waits
-for a later slice.
+over without transposes (``models.carry``).
+
+:meth:`GPTForPretraining.forward` is the dense forward.  In eval mode
+(the mode a new model starts in) it runs under ``torch.no_grad``; in
+training mode (``model.train()``, which ``jit.train_step`` sets) it
+records autograd and applies dropout from the model's
+``torch.Generator``.  Attention goes through
+``nn.functional.scaled_dot_product_attention`` (the flash kernels K1 on
+CUDA) and LayerNorm through ``nn.functional.layer_norm`` (K2), as the
+JAX model's ``F.scaled_dot_product_attention`` and ``nn.LayerNorm`` do;
+every op reads the amp state.  ``model.loss_fn`` is the pretraining
+criterion.  ``use_recompute`` recomputes each block in the backward
+(``torch.utils.checkpoint``).  The paged serving step
+(:meth:`GPTForPretraining.build_ragged_decode_step`) keeps the
+``fused_decode`` LayerNorm numerics, as the JAX serving step does.
 """
 from __future__ import annotations
 
@@ -16,13 +26,15 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from .. import amp
 from ..device import default_device, generator
-from ..ops.fused_decode import reference_layer_norm
+from ..nn import functional as F
 
-__all__ = ["GPTConfig", "PRESETS", "gpt_config", "GPTForPretraining"]
+__all__ = ["GPTConfig", "PRESETS", "gpt_config", "GPTForPretraining",
+           "GPTPretrainingCriterion"]
 
 
 @dataclass
@@ -78,11 +90,12 @@ class Linear(nn.Module):
             self.weight.normal_(0.0, std, generator=gen)
 
     def forward(self, x):
-        return torch.matmul(x, self.weight) + self.bias
+        return F.linear(x, self.weight, self.bias)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with the JAX package's reference numerics."""
+    """``nn.LayerNorm`` of the JAX package: fp32 statistics and affine
+    (K2 on CUDA), black-listed under amp (kept fp32 by ``decorate``)."""
 
     def __init__(self, n: int, *, device, eps: float = 1e-5):
         super().__init__()
@@ -93,7 +106,8 @@ class LayerNorm(nn.Module):
                                              dtype=torch.float32))
 
     def forward(self, x):
-        return reference_layer_norm(x, self.weight, self.bias, self.eps)
+        return F.layer_norm(x, self.weight.shape[0], self.weight, self.bias,
+                            self.eps)
 
 
 class Embedding(nn.Module):
@@ -105,35 +119,34 @@ class Embedding(nn.Module):
             self.weight.normal_(0.0, std, generator=gen)
 
     def forward(self, ids):
-        return self.weight[ids]
+        return F.embedding(ids, self.weight)
 
 
 class MultiHeadAttention(nn.Module):
     """Causal self-attention with the packed ``[H, 3H]`` qkv projection
     (columns: contiguous q, k, v thirds)."""
 
-    def __init__(self, c: GPTConfig, **kw):
+    def __init__(self, c: GPTConfig, *, gen, device):
         super().__init__()
         self.num_heads = c.num_heads
         self.head_dim = c.hidden_size // c.num_heads
+        self.attn_drop = c.attention_dropout_prob
+        self.gen = gen
         std = c.initializer_range
         self.qkv_proj = Linear(c.hidden_size, 3 * c.hidden_size, std=std,
-                               **kw)
-        self.out_proj = Linear(c.hidden_size, c.hidden_size, std=std, **kw)
+                               gen=gen, device=device)
+        self.out_proj = Linear(c.hidden_size, c.hidden_size, std=std,
+                               gen=gen, device=device)
 
     def forward(self, x):
         b, s, hidden = x.shape
-        q, k, v = self.qkv_proj(x).split(hidden, dim=-1)
-        q, k, v = (t.reshape(b, s, self.num_heads, self.head_dim)
-                   .transpose(1, 2).float() for t in (q, k, v))
-        logits = torch.matmul(q, k.transpose(-1, -2)) \
-            / math.sqrt(self.head_dim)
-        causal = torch.ones(s, s, dtype=torch.bool,
-                            device=x.device).tril()
-        logits = logits.masked_fill(~causal, -1e30)
-        ctx = torch.matmul(torch.softmax(logits, dim=-1), v)
-        ctx = ctx.transpose(1, 2).reshape(b, s, hidden).to(x.dtype)
-        return self.out_proj(ctx)
+        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
+                                       self.head_dim)
+        out = F.scaled_dot_product_attention(
+            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+            dropout_p=self.attn_drop if self.training else 0.0,
+            is_causal=True, training=self.training, generator=self.gen)
+        return self.out_proj(out.reshape(b, s, hidden))
 
 
 class GPTMLP(nn.Module):
@@ -145,7 +158,7 @@ class GPTMLP(nn.Module):
                           std=std / math.sqrt(2.0 * c.num_layers), **kw)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return self.fc2(F.gelu(self.fc1(x), approximate=True))
 
 
 class GPTBlock(nn.Module):
@@ -155,10 +168,16 @@ class GPTBlock(nn.Module):
         self.attn = MultiHeadAttention(c, gen=gen, device=device)
         self.ln2 = LayerNorm(c.hidden_size, device=device)
         self.mlp = GPTMLP(c, gen=gen, device=device)
+        self.drop_p = c.hidden_dropout_prob
+        self.gen = gen
 
     def forward(self, x):
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        h = F.dropout(self.attn(self.ln1(x)), self.drop_p, self.training,
+                      self.gen)
+        x = x + h
+        h = F.dropout(self.mlp(self.ln2(x)), self.drop_p, self.training,
+                      self.gen)
+        return x + h
 
 
 class GPTEmbeddings(nn.Module):
@@ -168,6 +187,8 @@ class GPTEmbeddings(nn.Module):
         self.word_embeddings = Embedding(c.vocab_size, c.hidden_size, **kw)
         self.position_embeddings = Embedding(c.max_position_embeddings,
                                              c.hidden_size, **kw)
+        self.drop_p = c.hidden_dropout_prob
+        self.gen = gen
 
     def forward(self, input_ids):
         s = input_ids.shape[-1]
@@ -176,8 +197,8 @@ class GPTEmbeddings(nn.Module):
                              "max_position_embeddings "
                              f"{self.position_embeddings.weight.shape[0]}")
         pos = torch.arange(s, device=input_ids.device)
-        return self.word_embeddings(input_ids) \
-            + self.position_embeddings(pos)
+        x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
+        return F.dropout(x, self.drop_p, self.training, self.gen)
 
 
 class GPTModel(nn.Module):
@@ -189,12 +210,39 @@ class GPTModel(nn.Module):
         self.layers = nn.ModuleList([GPTBlock(c, device=device, gen=gen)
                                      for _ in range(c.num_layers)])
         self.final_ln = LayerNorm(c.hidden_size, device=device)
+        self.use_recompute = c.use_recompute
+        self.gen = gen
 
     def forward(self, input_ids):
         x = self.embeddings(input_ids)
         for block in self.layers:
-            x = block(x)
+            if self.use_recompute and self.training:
+                x = _recompute(block, x, self.gen)
+            else:
+                x = block(x)
         return self.final_ln(x)
+
+
+def _recompute(block, x, gen):
+    """``fleet.recompute`` of one block: its activations are dropped and
+    recomputed in the backward.  The recomputation replays the dropout
+    bits of the forward: it runs from the generator state the forward
+    started from, then hands the generator back where it was."""
+    state = gen.get_state()
+    first = [True]
+
+    def run(inp):
+        if first[0]:
+            first[0] = False
+            return block(inp)
+        now = gen.get_state()
+        gen.set_state(state)
+        try:
+            return block(inp)
+        finally:
+            gen.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class GPTForPretraining(nn.Module):
@@ -207,10 +255,15 @@ class GPTForPretraining(nn.Module):
     0.02) for embeddings and projections, 0.02/sqrt(2L) for ``fc2``,
     zero biases, unit LayerNorm scales — the JAX package's initializers
     (its random bits differ; carry weights over with
-    ``models.carry.load_paddle_tpu_state`` to compare)."""
+    ``models.carry.load_paddle_tpu_state`` to compare).  The same
+    generator, past the initializers, draws the dropout bits.
+    ``sequence_parallel=True`` raises until the distributed slice."""
 
     def __init__(self, config: GPTConfig, *, device=None, seed: int = 0):
         super().__init__()
+        if config.sequence_parallel:
+            raise NotImplementedError("sequence_parallel waits for the "
+                                      "distributed slice")
         dev = default_device(device)
         gen = generator(seed, dev)
         self.config = config
@@ -222,6 +275,7 @@ class GPTForPretraining(nn.Module):
             with torch.no_grad():
                 self.lm_head_weight.normal_(0.0, config.initializer_range,
                                             generator=gen)
+        self.loss_fn = GPTPretrainingCriterion()
         self.eval()
 
     @property
@@ -232,15 +286,40 @@ class GPTForPretraining(nn.Module):
         return self.gpt.embeddings.word_embeddings.weight \
             if self.config.tie_word_embeddings else self.lm_head_weight
 
-    @torch.no_grad()
     def forward(self, input_ids):
-        """Dense, cache-free forward (eval only): ``input_ids [B, S]`` ->
-        ``logits [B, S, V]``."""
-        h = self.gpt(input_ids)
-        return torch.matmul(h, self.lm_weight().transpose(0, 1))
+        """Dense, cache-free forward: ``input_ids [B, S]`` -> ``logits
+        [B, S, V]``; under ``torch.no_grad`` in eval mode."""
+        with torch.set_grad_enabled(self.training
+                                    and torch.is_grad_enabled()):
+            h = self.gpt(input_ids)
+            return F.matmul(h, self.lm_weight(), transpose_y=True)
 
     def build_ragged_decode_step(self):
         """Batched serving-engine step over paged KV pools; see
         ``models.generation.build_ragged_decode_step``."""
         from .generation import build_ragged_decode_step
         return build_ragged_decode_step(self)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Next-token cross entropy, the mean over valid tokens only
+    (``labels != -100``): the JAX criterion's masked sum over the mask
+    count.  Each op casts its inputs by the amp rule, as the JAX ops do
+    under O2 (the product and the clip run in the low dtype, the sums in
+    fp32, so the O2 loss comes out in the low dtype)."""
+
+    ignore_index = -100
+
+    def forward(self, logits, labels):
+        b, s, v = logits.shape
+        flat = labels.reshape(b * s)
+        loss = F.cross_entropy(logits.reshape(b * s, v), flat,
+                               ignore_index=self.ignore_index,
+                               reduction="none")
+        mask = (flat != self.ignore_index).to(loss.dtype)
+        loss, mask = amp.cast("multiply", loss, mask)
+        (num,) = amp.cast("sum", loss * mask)
+        (den,) = amp.cast("sum", mask)
+        (den,) = amp.cast("clip", den.sum())
+        num, den = amp.cast("divide", num.sum(), den.clamp(min=1.0))
+        return num / den

@@ -1,0 +1,87 @@
+"""Optimizer base; counterpart of ``paddle_tpu/optimizer/optimizer.py``.
+
+A ``torch.optim.Optimizer`` with Paddle's constructor.  What it keeps
+from the JAX base:
+
+* fp32 master weights for fp16/bf16 parameters under
+  ``multi_precision`` (created from the low-precision value at the first
+  step, as ``_get_master`` does), the parameter then rewritten from the
+  updated master;
+* fp32 accumulators;
+* the learning rate as a device scalar, so a step reads nothing back to
+  the host.
+
+Gradient clipping, L1/L2 regularizers, LR schedulers and parameter
+groups wait for a later slice and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+__all__ = ["Optimizer"]
+
+_LOW = (torch.float16, torch.bfloat16)
+
+
+class Optimizer(torch.optim.Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 grad_clip=None, multi_precision=False):
+        if parameters is None:
+            raise ValueError("parameters must be given (the port trains "
+                             "eagerly, as Paddle's dygraph mode does)")
+        if grad_clip is not None:
+            raise NotImplementedError("grad_clip waits for a later slice")
+        if not isinstance(learning_rate, (int, float)):
+            raise NotImplementedError("LR schedulers wait for a later "
+                                      "slice; pass a float learning_rate")
+        params = list(parameters)
+        if any(isinstance(p, dict) for p in params):
+            raise NotImplementedError("parameter groups wait for a later "
+                                      "slice; pass a list of parameters")
+        super().__init__(params, {})
+        self._learning_rate = float(learning_rate)
+        self._multi_precision = bool(multi_precision)
+        # the learning rate as a one-element fp32 tensor per device
+        self._lr: Dict[torch.device, torch.Tensor] = {}
+
+    def get_lr(self) -> float:
+        return self._learning_rate
+
+    def _lr_on(self, device) -> torch.Tensor:
+        t = self._lr.get(device)
+        if t is None:
+            t = torch.tensor([self._learning_rate], dtype=torch.float32,
+                             device=device)
+            self._lr[device] = t
+        return t
+
+    # -- master weights ------------------------------------------------------
+    def set_multi_precision(self, value: bool) -> None:
+        self._multi_precision = bool(value)
+
+    def _use_master(self, p: torch.Tensor) -> bool:
+        return self._multi_precision and p.dtype in _LOW
+
+    # -- step ------------------------------------------------------------------
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                self._update_param(p, p.grad)
+        return loss
+
+    def _update_param(self, p, g):
+        raise NotImplementedError
+
+    def clear_grad(self) -> None:
+        """Drop every gradient (``None``), as the JAX package's
+        ``clear_grad`` does."""
+        self.zero_grad(set_to_none=True)

@@ -1,0 +1,286 @@
+"""The training kernels of the PyTorch port (flash attention K1, LayerNorm
+K2, fused AdamW K3) held against the JAX package on the CPU: each
+module's plain version — what the wrapper runs on a CPU tensor — against
+the JAX kernels run as the JAX tests run them (Pallas interpret mode), on
+the same numpy inputs.  Gradients: torch autograd through the port's
+plain version against ``jax.vjp`` through the JAX ``custom_vjp`` (the
+hand-written flash and LayerNorm backward kernels).
+
+Tolerances, all stated per test:
+* fp32: 2e-5 for attention and LayerNorm outputs and gradients (the same
+  math summed in other orders: the Pallas kernels' blockwise online
+  softmax and row-block reductions vs torch's two-pass einsum/softmax);
+* bf16: 2e-2, one bf16 rounding step of values below 4, compared in
+  fp32 (both sides round their bf16 outputs once, from fp32 sums that
+  differ by a few ulps);
+* AdamW: rtol 1e-6, atol 1e-7 (one fp32 ulp of values of order 1: the
+  port rounds ``(1 - b2) * (g * g)`` as the unfused JAX sequence does,
+  the TPU kernel ``((1 - b2) * g) * g``, and XLA may order the rest of
+  the arithmetic otherwise; where an update nearly cancels p, that ulp
+  of the inputs is a larger share of the small result).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.flags import get_flags, set_flags
+from paddle_tpu.ops import flash_attention as jfa
+from paddle_tpu.ops.pallas import fused_adamw as jadamw
+from paddle_tpu.ops.pallas import layer_norm as jln
+from paddle_tpu_torch.nn import functional as tF
+from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.ops import fused_adamw as tadamw
+from paddle_tpu_torch.ops import layer_norm as tln
+
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+
+
+def _t(a, dtype=torch.float32, grad=False):
+    return torch.tensor(np.asarray(a, np.float32)).to(dtype) \
+        .requires_grad_(grad)
+
+
+def _j(a, dtype=jnp.float32):
+    return jnp.asarray(np.asarray(a, np.float32)).astype(dtype)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.fixture
+def interpret():
+    keep = get_flags(["FLAGS_pallas_interpret"])
+    set_flags({"FLAGS_pallas_interpret": True})
+    yield
+    set_flags(keep)
+
+
+# ---------------------------------------------------------------------------
+# K1: flash attention
+# ---------------------------------------------------------------------------
+
+# (causal, bh, sq, sk, d, n_rep): self-attention causal and not, a decode
+# chunk (sq < sk, q_offset = sk - sq) and GQA with two q heads per kv head
+FLASH_CASES = {
+    "causal": (True, 4, 32, 32, 16, 1),
+    "full": (False, 4, 32, 32, 16, 1),
+    "q_offset": (True, 4, 16, 48, 16, 1),
+    "gqa": (True, 4, 32, 32, 16, 2),
+}
+
+
+def _flash_inputs(case, seed=0):
+    causal, bh, sq, sk, d, n_rep = FLASH_CASES[case]
+    rs = np.random.RandomState(seed)
+    q = rs.randn(bh, sq, d).astype(np.float32)
+    k = rs.randn(bh // n_rep, sk, d).astype(np.float32)
+    v = rs.randn(bh // n_rep, sk, d).astype(np.float32)
+    do = rs.randn(bh, sq, d).astype(np.float32)
+    return (q, k, v, do), dict(scale=1.0 / np.sqrt(d), causal=causal,
+                               q_offset=sk - sq if causal else 0,
+                               n_rep=n_rep)
+
+
+def _jax_flash(arrs, kw, dtype):
+    q, k, v, do = (_j(a, dtype) for a in arrs)
+
+    def f(q, k, v):
+        return jfa.flash_attention_bhsd(q, k, v, kw["scale"], kw["causal"],
+                                        16, 16, True, kw["q_offset"],
+                                        kw["n_rep"])
+    out, vjp = jax.vjp(f, q, k, v)
+    return (out,) + tuple(vjp(do))
+
+
+def _port_flash(arrs, kw, dtype):
+    q, k, v = (_t(a, dtype, grad=True) for a in arrs[:3])
+    out = tfa.flash_attention_bhsd(q, k, v, kw["scale"], kw["causal"],
+                                   kw["q_offset"], kw["n_rep"])
+    grads = torch.autograd.grad(out, (q, k, v), _t(arrs[3], dtype))
+    return (out,) + grads
+
+
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+def test_flash_plain_matches_jax_kernel_fp32(case):
+    """fp32, tolerance F32_TOL: out, dq, dk, dv."""
+    arrs, kw = _flash_inputs(case)
+    want = _jax_flash(arrs, kw, jnp.float32)
+    got = _port_flash(arrs, kw, torch.float32)
+    for name, w, g in zip(("out", "dq", "dk", "dv"), want, got):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=F32_TOL,
+                                   atol=F32_TOL, err_msg=name)
+
+
+def test_flash_plain_matches_jax_kernel_bf16():
+    """bf16 causal GQA, tolerance BF16_TOL in fp32: out and gradients."""
+    arrs, kw = _flash_inputs("gqa", seed=1)
+    want = _jax_flash(arrs, kw, jnp.bfloat16)
+    got = _port_flash(arrs, kw, torch.bfloat16)
+    for name, w, g in zip(("out", "dq", "dk", "dv"), want, got):
+        assert g.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(_np(g), _np(w), rtol=BF16_TOL,
+                                   atol=BF16_TOL, err_msg=name)
+
+
+def test_flash_plain_lse_matches_jax_kernel():
+    """The fp32 row log-sum-exp (the kernel's second output), F32_TOL."""
+    arrs, kw = _flash_inputs("q_offset")
+    with jax.enable_x64(False):
+        _, want = jfa._flash_fwd(*(_j(a) for a in arrs[:3]), kw["scale"],
+                                 kw["causal"], 16, 16, True, kw["q_offset"],
+                                 kw["n_rep"])
+    _, got = tfa.reference_attention_bhsd(
+        *(_t(a) for a in arrs[:3]), kw["scale"], kw["causal"],
+        kw["q_offset"], kw["n_rep"], return_lse=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
+def test_sdpa_route_matches_jax_functional():
+    """``nn.functional.scaled_dot_product_attention`` ([B, S, H, D],
+    causal, GQA) against the JAX functional with the Pallas route in
+    interpret mode, fp32, F32_TOL."""
+    from paddle_tpu.core.tensor import Tensor
+    from paddle_tpu.nn import functional as jF
+    rs = np.random.RandomState(3)
+    q = rs.randn(2, 32, 4, 16).astype(np.float32)
+    k = rs.randn(2, 32, 2, 16).astype(np.float32)
+    v = rs.randn(2, 32, 2, 16).astype(np.float32)
+    keep = get_flags(["FLAGS_pallas_interpret", "FLAGS_pallas_gqa"])
+    set_flags({"FLAGS_pallas_interpret": True, "FLAGS_pallas_gqa": True})
+    try:
+        want = jF.scaled_dot_product_attention(
+            Tensor(jnp.asarray(q)), Tensor(jnp.asarray(k)),
+            Tensor(jnp.asarray(v)), is_causal=True, training=False)
+    finally:
+        set_flags(keep)
+    got = tF.scaled_dot_product_attention(_t(q), _t(k), _t(v),
+                                          is_causal=True, training=False)
+    np.testing.assert_allclose(_np(got), np.asarray(want._data),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# K2: LayerNorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_plain_matches_jax_kernel(dtype):
+    """y, dx, dw, db on x [40, 96] (40 rows: a ragged last row block of
+    the JAX kernel's 16).  fp32: F32_TOL; bf16 x with fp32 w/b (the O2
+    layout): BF16_TOL."""
+    tdt = getattr(torch, dtype)
+    jdt = getattr(jnp, dtype)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    rs = np.random.RandomState(7)
+    x = rs.randn(40, 96).astype(np.float32) * 2 + 0.5
+    w = 1 + 0.1 * rs.randn(96).astype(np.float32)
+    b = 0.1 * rs.randn(96).astype(np.float32)
+    g = rs.randn(40, 96).astype(np.float32)
+
+    def f(x, w, b):
+        return jln.layer_norm_pallas(x, w, b, 1e-5, 16, True)
+    jy, vjp = jax.vjp(f, _j(x, jdt), _j(w), _j(b))
+    want = (jy,) + tuple(vjp(_j(g, jdt)))
+
+    tx, tw, tb = _t(x, tdt, True), _t(w, grad=True), _t(b, grad=True)
+    ty = tln.layer_norm(tx, tw, tb, 1e-5)
+    got = (ty,) + torch.autograd.grad(ty, (tx, tw, tb), _t(g, tdt))
+    assert ty.dtype == tdt
+    for name, wv, gv in zip(("y", "dx", "dw", "db"), want, got):
+        np.testing.assert_allclose(_np(gv), _np(wv), rtol=tol, atol=tol,
+                                   err_msg=name)
+
+
+def test_layer_norm_is_not_the_serving_numerics():
+    """K2 keeps fp32 through ``* w + b``; ``fused_decode``'s reference
+    casts the normalised value to bf16 first.  On bf16 input they must
+    differ somewhere, and K2's plain version must equal the fp32 formula
+    rounded once."""
+    from paddle_tpu_torch.ops.fused_decode import reference_layer_norm
+    rs = np.random.RandomState(2)
+    x = _t(rs.randn(16, 64) * 3, torch.bfloat16)
+    w = _t(1 + 0.3 * rs.randn(64))
+    b = _t(0.3 * rs.randn(64))
+    k2 = tln.layer_norm(x, w, b, 1e-5)
+    once = tln.layer_norm_ref(x.float(), w, b, 1e-5).to(torch.bfloat16)
+    assert torch.equal(k2, once)
+    serving = reference_layer_norm(x, w.to(torch.bfloat16),
+                                   b.to(torch.bfloat16), 1e-5)
+    assert not torch.equal(k2, serving)
+
+
+# ---------------------------------------------------------------------------
+# K3: fused AdamW
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("low", [False, True], ids=["fp32", "bf16-master"])
+def test_adamw_plain_matches_jax_kernel(interpret, low):
+    """Three steps with weight decay on, the bias-correction powers
+    advanced per step as the JAX optimizer does.  ``low``: an fp32 master
+    with a bf16 gradient and a bf16 copy written in the same pass.
+    Tolerance rtol 1e-6, atol 1e-7 (see the module docstring)."""
+    rs = np.random.RandomState(11)
+    n = 300                                     # not a multiple of 128
+    p0 = rs.randn(n).astype(np.float32)
+    grads = [rs.randn(n).astype(np.float32) for _ in range(3)]
+    b1, b2, eps, wd, lr = 0.9, 0.999, 1e-8, 0.01, 1e-3
+    gdt_j = jnp.bfloat16 if low else jnp.float32
+    gdt_t = torch.bfloat16 if low else torch.float32
+
+    jp, jm, jv = _j(p0), jnp.zeros(n, jnp.float32), jnp.zeros(n, jnp.float32)
+    jb1p = jb2p = jnp.ones((), jnp.float32)
+    tp, tm, tv = _t(p0), torch.zeros(n), torch.zeros(n)
+    tlow = tp.to(torch.bfloat16) if low else None
+    tpows = torch.ones(2)
+    tlr = torch.tensor([lr])
+    betas = torch.tensor([b1, b2])
+    for g in grads:
+        jb1p, jb2p = jb1p * b1, jb2p * b2
+        jp = jp * (1.0 - jnp.float32(lr) * wd)   # AdamW decays before
+        jp, jm, jv = jadamw.fused_adamw_update(
+            jp, _j(g, gdt_j), jm, jv, jnp.float32(lr), jb1p, jb2p, b1, b2,
+            eps, wd=0.0)
+        tpows.mul_(betas)
+        tadamw.fused_adamw_update_(tp, _t(g, gdt_t), tm, tv, tlr,
+                                   tpows[0:1], tpows[1:2], b1, b2, eps, wd,
+                                   p_low=tlow)
+    for name, w, g in (("p", jp, tp), ("m", jm, tm), ("v", jv, tv)):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-6, atol=1e-7,
+                                   err_msg=name)
+    if low:
+        assert torch.equal(tlow, tp.to(torch.bfloat16))
+
+
+def test_cpu_wrappers_launch_no_kernel():
+    """On CPU tensors every wrapper takes its plain version: no launch
+    counter moves."""
+    before = (dict(tfa.launches), dict(tln.launches), tadamw.launches)
+    arrs, kw = _flash_inputs("causal")
+    _port_flash(arrs, kw, torch.float32)
+    x = torch.randn(4, 8, requires_grad=True)
+    tln.layer_norm(x, torch.ones(8), torch.zeros(8)).sum().backward()
+    p = torch.randn(8)
+    tadamw.fused_adamw_update_(p, torch.randn(8), torch.zeros(8),
+                               torch.zeros(8), torch.tensor([1e-3]),
+                               torch.tensor([0.9]), torch.tensor([0.999]),
+                               0.9, 0.999, 1e-8)
+    assert (dict(tfa.launches), dict(tln.launches), tadamw.launches) \
+        == before
+
+
+def test_cuda_only_entry_points_refuse_cpu_tensors():
+    """The kernel-only entry points (used by ``chip_smoke.py`` and the
+    autograd functions) raise on CPU tensors instead of computing."""
+    q = torch.randn(2, 8, 16)
+    with pytest.raises(ValueError, match="device"):
+        tfa.flash_attention_fwd(q, q, q, 0.25, True)
+    with pytest.raises(ValueError, match="device"):
+        tln.layer_norm_fwd(torch.randn(4, 8), torch.ones(8), torch.zeros(8),
+                           1e-5)
