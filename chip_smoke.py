@@ -26,8 +26,9 @@ loudly with a non-zero exit:
    forward (which runs K1a and K2a);
 5. K1a/b/c (flash attention fwd, dq, dk/dv), K2a/b (LayerNorm fwd, dx)
    and K3 (fused AdamW) against their plain PyTorch versions on the card
-   at training shapes, with kernel / plain / library (a yardstick only)
-   times and the card's bound for the same work;
+   at training shapes (K1 at both training paths' shapes, GPT's and
+   LLaMA's), with kernel / plain / library (a yardstick only) times and
+   the card's bound for the same work;
 6. training main path — the calls of ``bench.py``'s ``_measure``
    through the port: GPT-3 1.3B at full width (24 layers, seq 2048,
    batch 4), amp O2 bf16 with fp32 master weights, AdamW(1e-4, weight
@@ -37,7 +38,27 @@ loudly with a non-zero exit:
    292 of K3;
 6b. cross-check at full width and depth 2: one O2 step through the
    kernels against the same step composed here from the plain versions
-   (loss and every parameter's update).
+   (the loss, every parameter's gradient and update, and the second
+   step's loss), and a control with a LayerNorm dx fault that the
+   gradient check must catch;
+7. K4a/b (RMSNorm fwd, dx) and K5 (rotary embedding, forward and the
+   backward's -sin launch) against their plain PyTorch versions on the
+   card at the LLaMA path's shapes, plus a bf16 RMSNorm and a neox rope
+   case, with kernel / plain / library (a yardstick only, where one
+   PyTorch call computes the same) times and the card's bound;
+8. LLaMA training main path — ``llama2-7b`` at full width cut to 8 of
+   its 32 layers (the O2 AdamW state of all 32 does not fit 80 GB), batch
+   2 x seq 4096, amp O2 bf16 with fp32 master weights, AdamW(1e-4, weight
+   decay 0.01), the same random batch every step; 1 cold, 2 warm-up and 5
+   timed steps, each printing its time, tokens/s, MFU and peak memory;
+   every loss finite and the last below the first, and per step exactly
+   17 launches of each K4 kernel, 32 of K5, 8 of each K1 kernel and 75 of
+   K3 (none of K2 or K7);
+8b. cross-check at full width and depth 2: one LLaMA O2 step through the
+   kernels against the same step composed here from the plain versions,
+   held as in 6b, with controls (an RMSNorm dx fault, rope rotated the
+   other way, unrounded rope tables) that the gradient check must
+   catch.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after.  The line before the last is ``{"kernels": [...]}``; the last
@@ -57,11 +78,14 @@ import torch.nn.functional as F
 from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.jit import train_step
 from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
+from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_config
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_adamw as adamw
 from paddle_tpu_torch.ops import layer_norm as ln
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+from paddle_tpu_torch.ops import rms_norm as rms
+from paddle_tpu_torch.ops import rope
 from paddle_tpu_torch.serving import PagePool, Request, Scheduler
 from paddle_tpu_torch.serving import ServingEngine
 
@@ -84,13 +108,24 @@ KTOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-2)}  # atol, rtol
 # K3 vs the plain sequence: both round every step of the same fp32
 # arithmetic in the same order
 ADAMW_TOL = 1e-6
-# the 6b cross-check, kernels vs plain step at depth 2: the O2 loss is a
-# bf16 value near 10.8, one bf16 step there is 0.0625; an Adam update is
-# +-lr per element where the gradient's sign agrees, and where it is bf16
-# rounding noise (the key bias has a true gradient of 0) the sign may
-# differ, so each update must be within 2.1 lr everywhere and the median
-# difference of each tensor below lr / 100
+# the 6b/8b cross-checks, kernels vs plain step at depth 2.  Both steps'
+# losses are bf16 values in [4, 16): one bf16 step is 0.0625 in [8, 16),
+# two in [4, 8).  An Adam update is +-lr per element where the gradient's
+# sign agrees, and where it is bf16 rounding noise (the key bias has a
+# true gradient of 0) the sign may differ, so each update must be within
+# 2.1 lr everywhere and the median difference of each tensor below
+# lr / 100.  On a first step those limits and the loss can pass a wrong
+# backward, so each parameter's gradient is held by its relative norm
+# |g_k - g_p| / |g_p| too: the gradients are bf16 and the two steps round
+# at different points (online vs two-pass softmax, whose bf16 outputs
+# feed every gradient upstream), which this script's sound runs on the
+# H100 read as 7.4e-3 (GPT) and 1.2e-2 (LLaMA, a q projection) at worst.
+# The limit is above them and below every control's reading: a
+# plain step with one fault a kernel could have (a norm's dx without its
+# mean terms, rope rotated the other way) reads 1.4 - 7.5, and the LLaMA
+# step with its rope tables left unrounded (the O2 bf16 cast missed) 3.2e-2.
 XCHECK_LOSS_TOL = 0.0625
+GRAD_REL_TOL = 2e-2
 PEAK_BF16 = 989e12
 
 
@@ -410,8 +445,9 @@ def rand(shape, dtype, g, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
-# name: (B*Hq, Sq, Sk, n_rep, causal, dtype); "main" is the training
-# path's shape (batch 4 x 16 heads, seq 2048, head_dim 128, bf16, causal)
+# name: (B*Hq, Sq, Sk, n_rep, causal, dtype); "main" is the GPT training
+# path's shape (batch 4 x 16 heads, seq 2048, head_dim 128, bf16, causal),
+# "llama" the LLaMA training path's (batch 2 x 32 heads, seq 4096)
 K1_CASES = {
     "causal-bf16": (16, 2048, 2048, 1, True, torch.bfloat16),
     "causal-fp32": (16, 2048, 2048, 1, True, torch.float32),
@@ -420,6 +456,7 @@ K1_CASES = {
     "q_offset-fp32": (16, 512, 2048, 1, True, torch.float32),
     "gqa4-bf16": (16, 2048, 2048, 4, True, torch.bfloat16),
     "main": (64, 2048, 2048, 1, True, torch.bfloat16),
+    "llama": (64, 4096, 4096, 1, True, torch.bfloat16),
 }
 
 
@@ -659,18 +696,20 @@ def check_k3():
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 N_STEPS = dict(cold=1, warmup=2, timed=5)
 PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
-            "ln_fwd": 49, "ln_bwd_dx": 49, "adamw": 292}
+            "ln_fwd": 49, "ln_bwd_dx": 49, "adamw": 292, "rms_fwd": 0,
+            "rms_bwd_dx": 0, "rope": 0, "rpa": 0}
 
 
 def counts():
-    return dict(fa.launches, **ln.launches, adamw=adamw.launches)
+    return dict(fa.launches, **ln.launches, **rms.launches,
+                adamw=adamw.launches, rope=rope.launches, rpa=rpa.launches)
 
 
 def reset_counts():
-    for d in (fa.launches, ln.launches):
+    for d in (fa.launches, ln.launches, rms.launches):
         for k in d:
             d[k] = 0
-    adamw.launches = 0
+    adamw.launches = rope.launches = rpa.launches = 0
 
 
 def param_count(c) -> int:
@@ -754,21 +793,150 @@ def train_main_path():
 
 
 # ---------------------------------------------------------------------------
-# phase 6b: kernels vs plain versions, one O2 step at full width, depth 2
+# phases 6b and 8b: kernels vs plain versions, one O2 step, depth 2
 # ---------------------------------------------------------------------------
 
-def plain_loss(P, cfg, ids, labels):
+def snapshot_grads(model):
+    """Copy each parameter's gradient as backward finishes accumulating
+    it, before the optimizer step reads and clears it; returns the copies
+    and the hooks' handles."""
+    grads = {}
+
+    def keep(name):
+        return lambda p: grads.__setitem__(name, p.grad.detach().clone())
+    return grads, [p.register_post_accumulate_grad_hook(keep(n))
+                   for n, p in model.named_parameters()]
+
+
+def rel_norm(a, b) -> float:
+    """|a - b| / |b| in fp32, Frobenius norms."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def plain_adamw_(P):
+    """The first AdamW step (lr 1e-4, weight decay 0.01) of the plain
+    step on its own copies ``P``, from their gradients: fp32 masters made
+    from the bf16 parameters, which get the rounded masters back, as the
+    O2 optimizer does; fp32 parameters are updated in place.  Returns the
+    fp32 values after the step."""
+    dev = next(iter(P.values())).device
+    lr = torch.tensor([1e-4], device=dev)
+    betas = torch.tensor([0.9, 0.999], device=dev)
+    new = {}
+    with torch.no_grad():
+        for n, p in P.items():
+            master = p.float().clone() if p.dtype == torch.bfloat16 else p
+            m, v = torch.zeros_like(master), torch.zeros_like(master)
+            pows = torch.ones(2, device=dev) * betas
+            adamw.fused_adamw_update_ref_(
+                master, p.grad, m, v, lr, pows[0:1], pows[1:2], 0.9, 0.999,
+                1e-8, 0.01, p_low=p if master is not p else None)
+            new[n] = master
+    return new
+
+
+def step_cross_check(tag, model, opt, step, plain_loss, ids, labels,
+                     controls):
+    """One O2 step through the kernels (``step``, the trainer of ``model``
+    and ``opt``) against the same step composed from the plain versions,
+    from the same weights: ``plain_loss(P, fault)`` is the plain forward
+    and criterion on the copies ``P``, sound when ``fault`` is None.
+
+    Holds the first loss (XCHECK_LOSS_TOL), each parameter's gradient
+    before the optimizer step by relative norm (GRAD_REL_TOL), each
+    parameter's update (max 2.1 lr, median lr/100) and the second step's
+    loss after each side's own update (XCHECK_LOSS_TOL too).  Then the
+    gradient check's power: the plain step with each fault of
+    ``controls`` (one a kernel could have) must differ from the sound
+    plain step by more than GRAD_REL_TOL on some parameter."""
+    names = [n for n, _ in model.named_parameters()]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grads_k, hooks = snapshot_grads(model)
+    loss_k = step(ids, labels)
+    for h in hooks:
+        h.remove()
+    # the plain step's own copy of the same weights, masters and moments
+    P = {n: t.clone().requires_grad_() for n, t in before.items()}
+    loss_p = plain_loss(P, None)
+    loss_p.backward()
+    grads_p = {n: P[n].grad.detach().clone() for n in names}
+    plain_new = plain_adamw_(P)
+    torch.cuda.synchronize()
+    lk, lp = float(loss_k), float(loss_p.detach())
+    say(f"{tag}: loss kernels {lk} plain {lp} (tol {XCHECK_LOSS_TOL})")
+    if not abs(lk - lp) <= XCHECK_LOSS_TOL:
+        fail(f"{tag} loss {lk} vs plain {lp}")
+    rels = {n: rel_norm(grads_k[n], grads_p[n]) for n in names}
+    worst = max(rels, key=rels.get)
+    say(f"{tag}: gradients' relative error |g_k - g_p| / |g_p|: worst "
+        f"{rels[worst]:.3e} ({worst}), median "
+        f"{float(np.median(list(rels.values()))):.3e} (tol {GRAD_REL_TOL})")
+    if not rels[worst] <= GRAD_REL_TOL:
+        fail(f"{tag} gradient of {worst}: relative error {rels[worst]:.3e}")
+    worst_max, worst_med = 0.0, 0.0
+    for n, p in model.named_parameters():
+        # the update of the fp32 master (of the parameter itself for the
+        # fp32 norm parameters)
+        new = opt.state[p].get("master", p).detach()
+        old = before[n].float()
+        diff = ((new - old) - (plain_new[n] - old)).abs()
+        mx, med = diff.max().item(), diff.median().item()
+        worst_max, worst_med = max(worst_max, mx), max(worst_med, med)
+        if mx > 2.1e-4 or med > 1e-6:
+            fail(f"{tag} update of {n}: max diff {mx:.3e}, median "
+                 f"{med:.3e}")
+    say(f"{tag}: {len(names)} parameters' updates agree: worst max diff "
+        f"{worst_max:.3e} (tol 2.1 lr = 2.1e-4), worst median "
+        f"{worst_med:.3e} (tol lr/100 = 1e-6)")
+    del grads_k, plain_new
+    loss_k2 = step(ids, labels)
+    with torch.no_grad():
+        loss_p2 = plain_loss(P, None)
+    lk2, lp2 = float(loss_k2), float(loss_p2)
+    say(f"{tag}: second step's loss kernels {lk2} plain {lp2} (tol "
+        f"{XCHECK_LOSS_TOL})")
+    if not abs(lk2 - lp2) <= XCHECK_LOSS_TOL:
+        fail(f"{tag} second loss {lk2} vs plain {lp2}")
+    del P
+    torch.cuda.empty_cache()
+    for fault in controls:
+        C = {n: t.clone().requires_grad_() for n, t in before.items()}
+        loss_c = plain_loss(C, fault)
+        loss_c.backward()
+        crel = {n: rel_norm(C[n].grad, grads_p[n]) for n in names}
+        w = max(crel, key=crel.get)
+        say(f"{tag}: control {fault}: loss {float(loss_c.detach())}, "
+            f"gradients' relative error to the sound plain step: worst "
+            f"{crel[w]:.3e} ({w}), median "
+            f"{float(np.median(list(crel.values()))):.3e}")
+        if not crel[w] > GRAD_REL_TOL:
+            fail(f"{tag}: the gradient check cannot see the {fault} "
+                 f"control ({crel[w]:.3e} <= {GRAD_REL_TOL})")
+        del C, loss_c
+        torch.cuda.empty_cache()
+
+
+def plain_loss(P, cfg, ids, labels, fault=None):
     """The O2 forward and criterion of ``models/gpt.py`` composed from the
     plain versions (``layer_norm_ref``, ``reference_attention_bhsd``),
-    with the amp O2 casts written out."""
+    with the amp O2 casts written out.  ``fault="ln_dx"`` stops the
+    gradient through the LayerNorm statistics: the forward is the same,
+    dx lacks its mean terms (a K2b fault)."""
     bf = torch.bfloat16
     b, s = ids.shape
     hidden, nh = cfg.hidden_size, cfg.num_heads
     hd = hidden // nh
 
     def lnorm(x, name):
-        return ln.layer_norm_ref(x.float(), P[name + ".weight"],
-                                 P[name + ".bias"], 1e-5)
+        w, bias = P[name + ".weight"], P[name + ".bias"]
+        if fault == "ln_dx":
+            xf = x.float()
+            m = xf.mean(dim=-1, keepdim=True).detach()
+            r = torch.rsqrt((xf - m).square().mean(dim=-1, keepdim=True)
+                            + 1e-5).detach()
+            return (xf - m) * r * w + bias
+        return ln.layer_norm_ref(x.float(), w, bias, 1e-5)
 
     def linear(x, name):
         return torch.matmul(x.to(bf), P[name + ".weight"]) \
@@ -792,8 +960,15 @@ def plain_loss(P, cfg, ids, labels):
     h = lnorm(x, "gpt.final_ln")
     logits = torch.matmul(h.to(bf),
                           P["gpt.embeddings.word_embeddings.weight"].t())
+    return plain_criterion(logits, labels)
+
+
+def plain_criterion(logits, labels):
+    """The pretraining criterion under O2: fp32 log-softmax, the per-token
+    loss and the mean over valid labels in bf16."""
+    bf = torch.bfloat16
     flat = labels.reshape(-1)
-    logp = torch.log_softmax(logits.reshape(b * s, -1).float(), -1)
+    logp = torch.log_softmax(logits.reshape(flat.numel(), -1).float(), -1)
     valid = flat != -100
     loss = -torch.gather(logp, -1, flat.clamp(min=0)[:, None])[:, 0]
     loss = torch.where(valid, loss, torch.zeros((), device=loss.device))
@@ -806,49 +981,320 @@ def plain_loss(P, cfg, ids, labels):
 def cross_check():
     cfg, model, opt, step = build_trainer(2, seed=1)
     ids, labels = batch(cfg)
-    names = [n for n, _ in model.named_parameters()]
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    # the plain step's own copy of the same weights, masters and moments
-    P = {n: t.clone().requires_grad_() for n, t in before.items()}
-    loss_k = step(ids, labels)
-    loss_p = plain_loss(P, cfg, ids, labels)
-    loss_p.backward()
-    lr = torch.tensor([1e-4], device="cuda")
-    betas = torch.tensor([0.9, 0.999], device="cuda")
-    plain_new = {}                 # fp32 master (or fp32 parameter) after
-    with torch.no_grad():
-        for n in names:
-            p = P[n]
-            master = p.float().clone() if p.dtype == torch.bfloat16 else p
-            m, v = torch.zeros_like(master), torch.zeros_like(master)
-            pows = torch.ones(2, device="cuda") * betas
-            adamw.fused_adamw_update_ref_(
-                master, p.grad, m, v, lr, pows[0:1], pows[1:2], 0.9, 0.999,
-                1e-8, 0.01, p_low=p if master is not p else None)
-            plain_new[n] = master
+    step_cross_check(
+        f"cross-check (2 layers, full width, batch {TRAIN_BATCH})",
+        model, opt, step,
+        lambda P, fault: plain_loss(P, cfg, ids, labels, fault), ids,
+        labels, controls=("ln_dx",))
+
+
+# ---------------------------------------------------------------------------
+# phase 7: K4a/b and K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+# the LLaMA path's shapes: RMSNorm rows = batch 2 x seq 4096 tokens of
+# hidden 4096 (fp32 under O2: "rms_norm" is black-listed); rope on q/k
+# [batch 2, seq 4096, 32 heads, head_dim 128] bf16 with bf16 tables
+K4_SHAPE = (8192, 4096)
+K5_SHAPE = (2, 4096, 32, 128)
+
+
+def check_k4():
+    rows = {}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    n, h = K4_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        x = rand((n, h), dtype, g, 2.0).requires_grad_()
+        w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")) \
+            .requires_grad_()
+        gy = rand((n, h), dtype, g)
+        before = dict(rms.launches)
+        y = rms.rms_norm(x, w, 1e-5)
+        dx, dw = torch.autograd.grad(y, (x, w), gy)
+        torch.cuda.synchronize()
+        if any(rms.launches[k] != before[k] + 1 for k in before):
+            fail(f"K4 {dtype}: launch counters did not move: "
+                 f"{rms.launches}")
+        yr = rms.rms_norm_ref(x, w, 1e-5)
+        dxr, dwr = torch.autograd.grad(yr, (x, w), gy, retain_graph=True)
+        for name, a, r, dt in (("y", y, yr, dtype), ("dx", dx, dxr, dtype),
+                               ("dw", dw, dwr, torch.float32)):
+            if a.dtype != r.dtype or a.shape != r.shape:
+                fail(f"K4 {dtype} {name}: {a.dtype} {tuple(a.shape)}")
+            check_close(f"K4 {dtype} {name}", a, r, dt)
+        xd, wd_ = x.detach(), w.detach()
+        _, r = rms.rms_norm_fwd(xd, wd_, 1e-5)
+        # the library yardstick takes the weight in x's dtype
+        lw = wd_.to(dtype)
+        lib_y = F.rms_norm(x, (h,), lw, 1e-5)
+        item = x.element_size()
+        row = dict(dtype=str(dtype).replace("torch.", ""), n=n, h=h,
+                   max_abs_err=dict(y=max_err(y, yr), dx=max_err(dx, dxr),
+                                    dw=max_err(dw, dwr)),
+                   tol=dict(zip(("atol", "rtol"), KTOL[dtype])),
+                   fwd_ms=time_ms(lambda: rms.rms_norm_fwd(xd, wd_, 1e-5),
+                                  20),
+                   dx_ms=time_ms(lambda: rms.rms_norm_bwd(xd, wd_, r, gy),
+                                 20),
+                   plain_fwd_ms=time_ms(lambda: rms.rms_norm_ref(
+                       xd, wd_, 1e-5), 5),
+                   plain_dx_ms=time_ms(lambda: torch.autograd.grad(
+                       yr, x, gy, retain_graph=True), 5),
+                   library_fwd_ms=time_ms(lambda: F.rms_norm(
+                       xd, (h,), lw, 1e-5), 20),
+                   library_dx_ms=time_ms(lambda: torch.autograd.grad(
+                       lib_y, x, gy, retain_graph=True), 20),
+                   # x read, y written; w and the fp32 r
+                   fwd_bound=bound_ms(2 * n * h * item + 4 * h + 4 * n,
+                                      4 * n * h, PEAK_FLOPS[torch.float32]),
+                   # x and g read, dx written; w and r
+                   dx_bound=bound_ms(3 * n * h * item + 4 * h + 4 * n,
+                                     7 * n * h, PEAK_FLOPS[torch.float32]))
+        say("K4 " + json.dumps(row))
+        rows[row["dtype"]] = row
+        del x, w, gy, y, dx, dw, yr, dxr, dwr, lib_y, r
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rope_tables(s, d, neox, dtype):
+    """The model's position tables (``_rope_cache``'s layout, theta 1e4),
+    rounded to ``dtype`` as the O2 cast rounds them."""
+    inv = 1.0 / (1e4 ** (np.arange(0, d, 2, dtype="float32") / d))
+    freqs = np.outer(np.arange(s, dtype="float32"), inv)
+    full = np.concatenate([freqs, freqs], -1) if neox \
+        else np.repeat(freqs, 2, -1)
+    return tuple(torch.from_numpy(f(full)).cuda().to(dtype)
+                 for f in (np.cos, np.sin))
+
+
+# name: (neox, x dtype, table dtype); "main" is the LLaMA path's
+K5_CASES = {
+    "main": (False, torch.bfloat16, torch.bfloat16),
+    "neox-bf16": (True, torch.bfloat16, torch.bfloat16),
+    "interleaved-fp32": (False, torch.float32, torch.float32),
+}
+
+
+def check_k5():
+    """Forward on a contiguous x and the backward (the kernel again, with
+    -sin) on a gradient that arrives as a transposed view, as the
+    attention's dq does on the main path."""
+    rows = {}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    b, s, h, d = K5_SHAPE
+    for case, (neox, dtype, tdtype) in K5_CASES.items():
+        cos, sin = rope_tables(s, d, neox, tdtype)
+        x = rand((b, s, h, d), dtype, g).requires_grad_()
+        gy = rand((b, h, s, d), dtype, g).transpose(1, 2)
+        before = rope.launches
+        y = rope.rope(x, cos, sin, neox)
+        (dx,) = torch.autograd.grad(y, x, gy)
+        torch.cuda.synchronize()
+        if rope.launches != before + 2:
+            fail(f"K5 {case}: {rope.launches - before} launches, not 2")
+        yr = rope.rope_ref(x, cos, sin, neox)
+        (dxr,) = torch.autograd.grad(yr, x, gy, retain_graph=True)
+        for name, a, r in (("y", y, yr), ("dx", dx, dxr)):
+            if a.dtype != dtype or a.shape != r.shape:
+                fail(f"K5 {case} {name}: {a.dtype} {tuple(a.shape)}")
+            check_close(f"K5 {case} {name}", a, r, dtype)
+        xd = x.detach()
+        numel = xd.numel()
+        row = dict(case=case, shape=list(K5_SHAPE), neox=neox,
+                   dtype=str(dtype).replace("torch.", ""),
+                   table_dtype=str(tdtype).replace("torch.", ""),
+                   max_abs_err=dict(y=max_err(y, yr), dx=max_err(dx, dxr)),
+                   tol=dict(zip(("atol", "rtol"), KTOL[dtype])),
+                   ms=time_ms(lambda: rope.rope_fwd(xd, cos, sin, neox), 20),
+                   bwd_ms=time_ms(lambda: rope.rope_fwd(
+                       gy, cos, sin, neox, sin_sign=-1.0), 20),
+                   plain_ms=time_ms(lambda: rope.rope_ref(xd, cos, sin,
+                                                          neox), 5),
+                   # no single PyTorch call computes rope
+                   library_ms=None,
+                   # x read, out written, both tables read once
+                   bound=bound_ms(2 * numel * xd.element_size()
+                                  + 2 * s * d * cos.element_size(),
+                                  3 * numel, PEAK_FLOPS[torch.float32]))
+        say("K5 " + json.dumps(row))
+        rows[case] = row
+        del x, gy, y, dx, yr, dxr, cos, sin
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the LLaMA training main path
+# ---------------------------------------------------------------------------
+
+LLAMA_PRESET, LLAMA_LAYERS = "llama2-7b", 8
+LLAMA_BATCH, LLAMA_SEQ = 2, 4096
+
+
+def llama_per_step(layers):
+    """Exact launches per step: RMSNorm twice per layer and the final
+    norm (forward and dx each); rope on q and k per layer, forward and
+    backward; one flash fwd/dq/dkv per layer; AdamW per parameter (9 per
+    layer + embedding, head and final norm)."""
+    return {"flash_fwd": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "ln_fwd": 0, "ln_bwd_dx": 0,
+            "adamw": 9 * layers + 3, "rms_fwd": 2 * layers + 1,
+            "rms_bwd_dx": 2 * layers + 1, "rope": 4 * layers, "rpa": 0}
+
+
+def llama_param_count(c) -> int:
+    """2·V·H (embedding and untied head) + L·(4H² + 3H·I + 2H) + H for
+    MHA llama2 widths."""
+    h, i = c.hidden_size, c.intermediate_size
+    return (2 * c.vocab_size * h
+            + c.num_layers * (4 * h * h + 3 * h * i + 2 * h) + h)
+
+
+def build_llama_trainer(num_layers, seed):
+    cfg = llama_config(LLAMA_PRESET, num_layers=num_layers)
+    model = LlamaForCausalLM(cfg, seed=seed)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    model, opt = amp.decorate(models=model, optimizers=opt, level="O2",
+                              dtype="bfloat16")
+    return cfg, model, opt, train_step(model, None, opt, step_fn=o2_step_fn)
+
+
+def llama_batch(cfg):
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ))
+    labels = rs.randint(0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ))
+    return (torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda())
+
+
+def llama_train_main_path():
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, opt, step = build_llama_trainer(LLAMA_LAYERS, seed=0)
     torch.cuda.synchronize()
-    lk, lp = float(loss_k), float(loss_p.detach())
-    say(f"cross-check (2 layers, full width, batch {TRAIN_BATCH}): loss "
-        f"kernels {lk} plain {lp} (tol {XCHECK_LOSS_TOL})")
-    if not abs(lk - lp) <= XCHECK_LOSS_TOL:
-        fail(f"cross-check loss {lk} vs plain {lp}")
-    worst_max, worst_med = 0.0, 0.0
-    for n, p in model.named_parameters():
-        # the update of the fp32 master (of the parameter itself for the
-        # fp32 LayerNorm parameters)
-        new = opt.state[p].get("master", p).detach()
-        old = before[n].float()
-        diff = ((new - old) - (plain_new[n] - old)).abs()
-        mx, med = diff.max().item(), diff.median().item()
-        worst_max, worst_med = max(worst_max, mx), max(worst_med, med)
-        if mx > 2.1e-4 or med > 1e-6:
-            fail(f"cross-check update of {n}: max diff {mx:.3e}, median "
-                 f"{med:.3e}")
-    say(f"cross-check: {len(names)} parameters' updates agree: worst max "
-        f"diff {worst_max:.3e} (tol 2.1 lr = 2.1e-4), worst median "
-        f"{worst_med:.3e} (tol lr/100 = 1e-6)")
-    del model, opt, step, P, before
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    if n_params != llama_param_count(cfg) \
+            or n_tensors != 9 * LLAMA_LAYERS + 3:
+        fail(f"{LLAMA_PRESET} at {LLAMA_LAYERS} layers has {n_params} "
+             f"parameters in {n_tensors} tensors")
+    say(f"llama: {LLAMA_PRESET} width (hidden {cfg.hidden_size}, "
+        f"{cfg.num_heads} heads, intermediate {cfg.intermediate_size}, "
+        f"vocab {cfg.vocab_size}), {LLAMA_LAYERS} of "
+        f"{llama_config(LLAMA_PRESET).num_layers} layers, N = "
+        f"{n_params} parameters, O2 bf16 + fp32 masters, batch "
+        f"{LLAMA_BATCH} x seq {LLAMA_SEQ}, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    ids, labels = llama_batch(cfg)
+    per_step = llama_per_step(LLAMA_LAYERS)
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    reset_counts()                   # count the main path's launches only
+    losses, step_s = [], []
+    for i in range(sum(N_STEPS.values())):
+        before = counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step(ids, labels))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        after = counts()
+        moved = {k: after[k] - before[k] for k in per_step}
+        if moved != per_step:
+            fail(f"llama step {i}: launches {moved} != {per_step}")
+        mfu = 6 * n_params * tokens / step_s[-1] / PEAK_BF16
+        say(f"llama step {i}: {1e3 * step_s[-1]:.2f} ms, "
+            f"{tokens / step_s[-1]:.1f} tokens/s, MFU {100 * mfu:.2f} % "
+            f"(6 N tokens / step / 989 TFLOP/s), peak memory "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [float(l) for l in losses]
+    say(f"llama: losses {vals}")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"llama losses not finite and falling: {vals}")
+    timed = step_s[N_STEPS["cold"] + N_STEPS["warmup"]:]
+    mean_s = sum(timed) / len(timed)
+    mfu = 6 * n_params * tokens / mean_s / PEAK_BF16
+    say(f"llama: timed steps {[round(1e3 * t, 2) for t in timed]}; mean "
+        f"{1e3 * mean_s:.2f} ms = {tokens / mean_s:.1f} tokens/s, MFU "
+        f"{100 * mfu:.2f} % of 989 TFLOP/s bf16; peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    say(f"llama: launches over {len(vals)} steps {launches}")
+    del model, opt, step, losses
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: kernels vs plain versions, one LLaMA O2 step, depth 2
+# ---------------------------------------------------------------------------
+
+def plain_llama_loss(P, cfg, ids, labels, cos, sin, fault=None):
+    """The O2 forward and criterion of ``models/llama.py`` composed from
+    the plain versions (``rms_norm_ref``, ``rope_ref`` on the model's
+    tables cast to bf16, ``reference_attention_bhsd``), with the amp O2
+    casts written out.  The controls' faults: ``"rms_dx"`` stops the
+    gradient through the RMSNorm statistic (the same forward, dx without
+    its mean term: a K4b fault); ``"rope_sign"`` rotates q and k the other
+    way (the backward's -sin in the forward: a K5 fault);
+    ``"tables_fp32"`` leaves the tables in fp32 (the O2 rounding of
+    "fused_rope"'s inputs missed)."""
+    bf = torch.bfloat16
+    b, s = ids.shape
+    hidden, nh = cfg.hidden_size, cfg.num_heads
+    hd = hidden // nh
+    cos, sin = cos[:s], sin[:s]
+    if fault != "tables_fp32":
+        cos, sin = cos.to(bf), sin.to(bf)
+    if fault == "rope_sign":
+        sin = -sin
+
+    def norm(x, name):
+        if fault == "rms_dx":
+            xf = x.float()
+            r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True)
+                            + cfg.rms_eps).detach()
+            return xf * r * P[name]
+        return rms.rms_norm_ref(x.float(), P[name], cfg.rms_eps)
+
+    def linear(x, name):
+        return torch.matmul(x.to(bf), P[name + ".weight"])
+
+    x = P["llama.embed_tokens.weight"][ids]
+    for i in range(cfg.num_layers):
+        pre = f"llama.layers.{i}."
+        h = norm(x, pre + "input_layernorm.weight")
+        q, k, v = (linear(h, pre + f"self_attn.{n}_proj")
+                   .reshape(b, s, nh, hd) for n in "qkv")
+        q, k = (rope.rope_ref(t, cos, sin, False) for t in (q, k))
+        q, k, v = (t.transpose(1, 2).reshape(b * nh, s, hd)
+                   for t in (q, k, v))
+        a = fa.reference_attention_bhsd(q, k, v, 1.0 / hd ** 0.5, True)
+        a = a.reshape(b, nh, s, hd).transpose(1, 2).reshape(b, s, hidden)
+        x = x + linear(a, pre + "self_attn.o_proj")
+        h = norm(x, pre + "post_attention_layernorm.weight")
+        f = F.silu(linear(h, pre + "mlp.gate_proj")) \
+            * linear(h, pre + "mlp.up_proj")
+        x = x + linear(f, pre + "mlp.down_proj")
+    h = norm(x, "llama.norm.weight")
+    logits = torch.matmul(h.to(bf), P["lm_head_weight"].t())
+    return plain_criterion(logits, labels)
+
+
+def llama_cross_check():
+    cfg, model, opt, step = build_llama_trainer(2, seed=1)
+    ids, labels = llama_batch(cfg)
+    att = model.llama.layers[0].self_attn
+    cos, sin = att._cos, att._sin
+    step_cross_check(
+        f"llama cross-check (2 layers, full width, batch {LLAMA_BATCH} x "
+        f"seq {LLAMA_SEQ})", model, opt, step,
+        lambda P, fault: plain_llama_loss(P, cfg, ids, labels, cos, sin,
+                                          fault), ids, labels,
+        controls=("rms_dx", "rope_sign", "tables_fp32"))
 
 
 def main() -> int:
@@ -877,11 +1323,15 @@ def main() -> int:
 
     k7 = check_k7()
     rpa_launches = serve_main_path()
-    k1 = check_k1()["main"]
+    k1 = check_k1()                  # "main" (GPT) and "llama" shapes
     k2 = check_k2()["float32"]       # the main path's LayerNorm dtype (O2)
     k3 = check_k3()
     train = train_main_path()
     cross_check()
+    k4 = check_k4()["float32"]       # the main path's RMSNorm dtype (O2)
+    k5 = check_k5()["main"]
+    llama = llama_train_main_path()
+    llama_cross_check()
 
     # each kernel's line: the main path's shape
     row = next(r for r in k7 if (r["case"], r["heads"], r["dtype"])
@@ -897,23 +1347,31 @@ def main() -> int:
         bound_by=row["bound_by"], library_ms=row["library_ms"],
         shape="decode, B=8, Q=1, nh=nkv=16, hd=128, ps=16, fp32")]
     flash_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
+    # K1 runs on both training paths, each at its own shape: the entry's
+    # numbers are the GPT path's (its first), and by_path holds each
+    # path's launches with the numbers of its own shape's case
+    k1_paths = (("gpt_train", "main", train, k1_shape),
+                ("llama_train", "llama", llama,
+                 "[64, 4096, 128] bf16 causal (batch 2 x 32 heads)"))
     for name, key, replaces, err in (
-            ("flash_attention_fwd", "fwd", ":113", k1["max_abs_err"]["o"]),
-            ("flash_attention_bwd_dq", "dq", ":269",
-             k1["max_abs_err"]["dq"]),
-            ("flash_attention_bwd_dkv", "dkv", ":297",
-             k1["max_abs_err"]["dkv"])):
-        plain = k1["plain_fwd_ms"] if key == "fwd" else k1["plain_bwd_ms"]
-        lib = k1["library_fwd_ms"] if key == "fwd" else \
-            k1["library_bwd_ms"]
+            ("flash_attention_fwd", "fwd", ":113", "o"),
+            ("flash_attention_bwd_dq", "dq", ":269", "dq"),
+            ("flash_attention_bwd_dkv", "dkv", ":297", "dkv")):
+        count = "flash_" + ("fwd" if key == "fwd" else "bwd_" + key)
+        phase = "fwd" if key == "fwd" else "bwd"
+        by_path = {}
+        for path, case, launched, shape in k1_paths:
+            r = k1[case]
+            by_path[path] = dict(
+                launches=launched[count], max_abs_err=r["max_abs_err"][err],
+                ms=r[key + "_ms"], plain_ms=r[f"plain_{phase}_ms"],
+                bound_ms=r[key + "_bound"][0],
+                bound_by=r[key + "_bound"][1],
+                library_ms=r[f"library_{phase}_ms"], shape=shape)
         kernels.append(dict(
             name=name, source=flash_src,
             replaces="paddle_tpu/ops/flash_attention.py" + replaces,
-            launches=train["flash_" + ("fwd" if key == "fwd"
-                                       else "bwd_" + key)],
-            max_abs_err=err, ms=k1[key + "_ms"], plain_ms=plain,
-            bound_ms=k1[key + "_bound"][0], bound_by=k1[key + "_bound"][1],
-            library_ms=lib, shape=k1_shape))
+            **by_path["gpt_train"], by_path=by_path))
     for name, key, replaces, count in (
             ("layer_norm_fwd", "fwd", ":58", "ln_fwd"),
             ("layer_norm_bwd_dx", "dx", ":80", "ln_bwd_dx")):
@@ -928,10 +1386,33 @@ def main() -> int:
     kernels.append(dict(
         name="fused_adamw", source="paddle_tpu_torch/ops/csrc/fused_adamw.cu",
         replaces="paddle_tpu/ops/pallas/fused_adamw.py:55",
-        launches=train["adamw"], max_abs_err=k3["max_abs_err"],
+        launches=train["adamw"],
+        launches_by_path=dict(gpt_train=train["adamw"],
+                              llama_train=llama["adamw"]),
+        max_abs_err=k3["max_abs_err"],
         ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound"][0],
         bound_by=k3["bound"][1], library_ms=k3["library_ms"],
         shape="[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"))
+    k4_shape = "[8192, 4096] fp32 (batch 2 x seq 4096 tokens, H 4096)"
+    for name, key, replaces, count in (
+            ("rms_norm_fwd", "fwd", ":57", "rms_fwd"),
+            ("rms_norm_bwd_dx", "dx", ":76", "rms_bwd_dx")):
+        kernels.append(dict(
+            name=name, source="paddle_tpu_torch/ops/csrc/rms_norm.cu",
+            replaces="paddle_tpu/ops/pallas/rms_norm.py" + replaces,
+            launches=llama[count],
+            max_abs_err=k4["max_abs_err"]["y" if key == "fwd" else "dx"],
+            ms=k4[key + "_ms"], plain_ms=k4["plain_" + key + "_ms"],
+            bound_ms=k4[key + "_bound"][0], bound_by=k4[key + "_bound"][1],
+            library_ms=k4["library_" + key + "_ms"], shape=k4_shape))
+    kernels.append(dict(
+        name="rope", source="paddle_tpu_torch/ops/csrc/rope.cu",
+        replaces="paddle_tpu/ops/pallas/rope.py:57",
+        launches=llama["rope"], max_abs_err=k5["max_abs_err"]["y"],
+        ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound"][0],
+        bound_by=k5["bound"][1], library_ms=k5["library_ms"],
+        shape="[2, 4096, 32, 128] bf16 q/k, [4096, 128] bf16 tables, "
+              "interleaved"))
     for k in kernels:
         k["route"] = "cuda"
     say(json.dumps({"kernels": kernels}))

@@ -2,11 +2,13 @@
 NVIDIA H100.
 
 The JAX package ``paddle_tpu`` stays the reference; this package
-imports neither JAX nor anything of ``paddle_tpu``.  Its first slice is
-the serving path: ``models.gpt.GPTForPretraining`` served by
-``serving.ServingEngine`` (continuous batching over paged KV pools),
-whose attention is the hand-written CUDA kernel in
-``ops/csrc/ragged_paged_attention.cu``.
+imports neither JAX nor anything of ``paddle_tpu``.  Ported so far:
+``models.gpt.GPTForPretraining`` served by ``serving.ServingEngine``
+(continuous batching over paged KV pools, attention in
+``ops/csrc/ragged_paged_attention.cu``), and the pretraining step
+(``jit.train_step`` with ``amp`` O2 and ``optimizer.AdamW``) of GPT and
+of ``models.llama.LlamaForCausalLM``, on the hand-written CUDA kernels
+of ``ops/csrc/``.
 """
 from .device import default_device, generator, seed
 

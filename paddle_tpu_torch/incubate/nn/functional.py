@@ -1,0 +1,116 @@
+"""Fused functional ops; counterpart of
+``paddle_tpu/incubate/nn/functional/__init__.py``.
+
+* :func:`fused_rms_norm` — RMSNorm over the last axis through K4a/K4b
+  (``ops.rms_norm``), black-listed under amp as ``"rms_norm"``: under O2
+  a bf16 x goes up to fp32 and the output stays fp32;
+* :func:`fused_rotary_position_embedding` — rotates q/k (and v) by the
+  sin/cos tables.  It takes K5 (``ops.rope``) when the tables are plain
+  ``[S, D]``, no ``position_ids`` are given, the head dim is even and the
+  tables repeat each frequency across its rotated pair (the JAX route's
+  gate); otherwise the plain composition, as in the JAX package.  That is
+  routing by shape, not a fallback: on CUDA tensors the kernel route
+  launches or raises.  ``"fused_rope"`` is not black-listed, so under O2
+  x and the fp32 tables are all cast to bf16 before the kernel computes
+  in fp32, as the JAX dispatch casts them.
+"""
+from __future__ import annotations
+
+import weakref
+
+import torch
+
+from ... import amp
+from ...ops import rms_norm as _rms
+from ...ops import rope as _rope
+
+__all__ = ["fused_rms_norm", "fused_rotary_position_embedding"]
+
+
+def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon: float = 1e-6,
+                   begin_norm_axis: int = -1):
+    """``x * rsqrt(mean(x², -1) + eps) * w (+ bias)``; returns ``(out,
+    None)`` as Paddle does.  Only the last axis is normalised."""
+    if begin_norm_axis % x.dim() != x.dim() - 1:
+        raise NotImplementedError(f"begin_norm_axis={begin_norm_axis}: "
+                                  "only the last axis is normalised")
+    x, w, b = amp.cast("rms_norm", x, norm_weight, norm_bias)
+    out = _rms.rms_norm(x, w, float(epsilon))
+    if b is not None:
+        out = out + b
+    return out, None
+
+
+# memo of table checks: (base tensor, view geometry, version, style) ->
+# (weak reference to the base, verdict).  A model slices its tables from
+# one tensor made at build time, so the check reads the device once per
+# table, not once per call.
+_pair_repeat_memo = {}
+
+
+def _pair_repeating(table, neox: bool) -> bool:
+    """True iff each frequency repeats across its rotated pair
+    (``t[2i] == t[2i+1]`` interleaved, ``t[j] == t[j+D/2]`` neox): the
+    invariant under which the kernel's backward (the same rotation with
+    −sin) is the true transpose.  Unlike the JAX check, nothing here is
+    traced, so every table can be checked."""
+    base = table._base if table._base is not None else table
+    key = (id(base), table.storage_offset(), tuple(table.shape),
+           tuple(table.stride()), base._version, bool(neox))
+    hit = _pair_repeat_memo.get(key)
+    if hit is not None and hit[0]() is base:
+        return hit[1]
+    d = table.shape[-1]
+    if neox:
+        ok = bool(torch.equal(table[..., :d // 2], table[..., d // 2:]))
+    else:
+        ok = bool(torch.equal(table[..., 0::2], table[..., 1::2]))
+    if len(_pair_repeat_memo) > 256:
+        _pair_repeat_memo.clear()
+    _pair_repeat_memo[key] = (weakref.ref(base), ok)
+    return ok
+
+
+def _composition(x, s, c, neox: bool, position_ids=None):
+    """The JAX package's plain route on ``x [B, S, H, D]`` with ``[S, D]``
+    or ``[B, S, D]`` tables, in x's dtype.  Like it, this rotates by the
+    tables' first rows whatever ``position_ids`` say, so only the
+    positions ``0..S-1`` of every row are taken; others raise."""
+    if position_ids is not None:
+        want = torch.arange(x.shape[1], device=position_ids.device)
+        if not torch.equal(position_ids, want.expand_as(position_ids)):
+            raise NotImplementedError(
+                "position_ids other than 0..S-1 wait for the slice that "
+                "needs them (the JAX composition does not read them)")
+    if neox:
+        x1, x2 = x.chunk(2, dim=-1)
+        rot = torch.cat([-x2, x1], dim=-1)
+    else:
+        rot = torch.stack([-x[..., 1::2], x[..., 0::2]],
+                          dim=-1).reshape(x.shape)
+    if s.dim() == 2:
+        s, c = s[None], c[None]
+    if s.dim() == 3:                   # [B, S, D]: insert the head axis
+        s, c = s[:, :, None, :], c[:, :, None, :]
+    return x * c + rot * s
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style: bool = True):
+    """Rotate each of ``q``, ``k``, ``v`` (``[B, S, H, D]``, any may be
+    None) by ``sin``/``cos``; returns the three (None stays None)."""
+    neox = bool(use_neox_rotary_style)
+
+    def one(t):
+        # the port's head-dim rule is an even D; the JAX gate's d % 8 is
+        # the TPU's lane tiling
+        use_kernel = (sin.dim() == 2 and position_ids is None
+                      and t.shape[-1] % 2 == 0
+                      and _pair_repeating(sin, neox))
+        x, s, c = amp.cast("fused_rope", t, sin, cos)
+        if use_kernel:
+            return _rope.rope(x, c, s, neox)
+        return _composition(x, s, c, neox, position_ids)
+
+    return tuple(None if t is None else one(t) for t in (q, k, v))

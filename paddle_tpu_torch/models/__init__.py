@@ -1,6 +1,9 @@
-"""Models of the port (GPT so far)."""
+"""Models of the port: GPT and LLaMA."""
 from .carry import load_paddle_tpu_state
 from .gpt import PRESETS, GPTConfig, GPTForPretraining, gpt_config
+from .llama import (LLAMA_PRESETS, LlamaConfig, LlamaForCausalLM,
+                    llama_config)
 
 __all__ = ["GPTConfig", "GPTForPretraining", "PRESETS", "gpt_config",
-           "load_paddle_tpu_state"]
+           "LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM",
+           "llama_config", "load_paddle_tpu_state"]

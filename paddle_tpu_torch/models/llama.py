@@ -1,0 +1,290 @@
+"""LLaMA model family; counterpart of ``paddle_tpu/models/llama.py``.
+
+Parameters keep the JAX package's ``state_dict`` names and ``[in, out]``
+weight layout (``llama.layers.{i}.self_attn.q_proj.weight [H, nh·hd]``,
+``llama.embed_tokens.weight [V, H]``, ``lm_head_weight [V, H]``, ...), so
+weights carry over without transposes (``models.carry``).
+
+The forward is the dense, cache-free one of training: RMSNorm through
+``incubate.nn.functional.fused_rms_norm`` (K4a/K4b on CUDA), q and k
+rotated through ``fused_rotary_position_embedding`` (K5, interleaved),
+causal attention with un-broadcast GQA kv heads through
+``nn.functional.scaled_dot_product_attention`` (K1), and the SwiGLU MLP
+(``silu``, or ``gelu_tanh`` for Gemma-style configs).  Every op reads the
+amp state.  ``use_recompute`` recomputes each decoder layer in the
+backward with the GPT model's helper.
+
+Not ported yet, and raising ``NotImplementedError``: a KV cache
+(``past``, ``use_cache``) and the paged serving step (LLaMA serving and
+``generate`` are a later slice), and ``sequence_parallel`` (the
+distributed slice).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import default_device, generator
+from ..incubate.nn.functional import (fused_rms_norm,
+                                      fused_rotary_position_embedding)
+from ..nn import functional as F
+from .gpt import Embedding, GPTPretrainingCriterion, Linear, _recompute
+
+__all__ = ["LlamaConfig", "LLAMA_PRESETS", "llama_config", "LlamaModel",
+           "LlamaForCausalLM", "LlamaPretrainingCriterion"]
+
+_SERVING = "waits for the LLaMA serving slice"
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: Optional[int] = None       # None -> MHA
+    intermediate_size: Optional[int] = None  # None -> SwiGLU 8/3 rule
+    max_position_embeddings: int = 4096
+    rms_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    attention_bias: bool = False     # qkv biases (Qwen2-style)
+    initializer_range: float = 0.02
+    use_recompute: bool = False
+    sequence_parallel: bool = False
+    hidden_act: str = "silu"          # "silu" | "gelu_tanh" (Gemma)
+    embed_scale: float = 1.0          # Gemma multiplies by sqrt(hidden)
+    tie_word_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.hidden_act not in ("silu", "gelu_tanh"):
+            raise ValueError(
+                f"hidden_act={self.hidden_act!r} is not supported "
+                "('silu' or 'gelu_tanh'); HF 'gelu_pytorch_tanh' maps "
+                "to 'gelu_tanh'")
+        if self.num_kv_heads is None:
+            self.num_kv_heads = self.num_heads
+        if self.intermediate_size is None:
+            # llama rule: 2/3 * 4h rounded up to a multiple of 256
+            inter = int(8 * self.hidden_size / 3)
+            self.intermediate_size = 256 * ((inter + 255) // 256)
+
+
+LLAMA_PRESETS = {
+    "llama2-7b": dict(num_layers=32, hidden_size=4096, num_heads=32,
+                      intermediate_size=11008),
+    "llama2-13b": dict(num_layers=40, hidden_size=5120, num_heads=40,
+                       intermediate_size=13824),
+    "llama2-70b": dict(num_layers=80, hidden_size=8192, num_heads=64,
+                       num_kv_heads=8, intermediate_size=28672),
+    "tiny": dict(num_layers=2, hidden_size=64, num_heads=4,
+                 num_kv_heads=2, vocab_size=256,
+                 max_position_embeddings=128),
+}
+
+
+def llama_config(name: str, **overrides) -> LlamaConfig:
+    cfg = dict(LLAMA_PRESETS[name])
+    cfg.update(overrides)
+    return LlamaConfig(**cfg)
+
+
+def _rope_cache(head_dim: int, max_pos: int, theta: float):
+    """Full-width [S, head_dim] cos/sin (each pair's angle duplicated),
+    the layout ``fused_rotary_position_embedding`` consumes."""
+    inv = 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype="float32")
+                           / head_dim))
+    t = np.arange(max_pos, dtype="float32")
+    freqs = np.outer(t, inv)                       # [S, hd/2]
+    full = np.repeat(freqs, 2, axis=-1)            # [S, hd]
+    return np.cos(full), np.sin(full)
+
+
+class LlamaRMSNorm(nn.Module):
+    """RMSNorm with a unit-initialised fp32 weight, kept fp32 under O2
+    (``amp.decorate`` skips layers named ``*RMSNorm``)."""
+
+    def __init__(self, hidden_size: int, epsilon: float = 1e-5, *, device):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
+                                              dtype=torch.float32))
+        self.epsilon = epsilon
+
+    def forward(self, x):
+        out, _ = fused_rms_norm(x, self.weight, epsilon=self.epsilon)
+        return out
+
+
+class LlamaAttention(nn.Module):
+    """Rotary GQA attention (training forward, no KV cache)."""
+
+    def __init__(self, c: LlamaConfig, *, gen, device):
+        super().__init__()
+        self.num_heads = c.num_heads
+        self.num_kv = c.num_kv_heads
+        self.head_dim = c.hidden_size // c.num_heads
+        kw = dict(std=c.initializer_range, gen=gen, device=device)
+        qkv_bias = bool(c.attention_bias)
+        self.q_proj = Linear(c.hidden_size, c.num_heads * self.head_dim,
+                             bias=qkv_bias, **kw)
+        self.k_proj = Linear(c.hidden_size, self.num_kv * self.head_dim,
+                             bias=qkv_bias, **kw)
+        self.v_proj = Linear(c.hidden_size, self.num_kv * self.head_dim,
+                             bias=qkv_bias, **kw)
+        self.o_proj = Linear(c.num_heads * self.head_dim, c.hidden_size,
+                             bias=False, **kw)
+        cos, sin = _rope_cache(self.head_dim, c.max_position_embeddings,
+                               c.rope_theta)
+        # position constants: not parameters, not in the state_dict
+        self.register_buffer("_cos", torch.from_numpy(cos).to(device),
+                             persistent=False)
+        self.register_buffer("_sin", torch.from_numpy(sin).to(device),
+                             persistent=False)
+
+    def forward(self, x, past=None, use_cache: bool = False):
+        if past is not None or use_cache:
+            raise NotImplementedError(f"a KV cache (past / use_cache) "
+                                      f"{_SERVING}")
+        b, s, _ = x.shape
+        if s > self._cos.shape[0]:
+            raise ValueError(
+                f"sequence position {s} exceeds max_position_embeddings "
+                f"{self._cos.shape[0]}: the rope table has no entries past "
+                "that point")
+        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, self.num_kv, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, self.num_kv, self.head_dim)
+        q, k, _ = fused_rotary_position_embedding(
+            q, k, sin=self._sin[:s], cos=self._cos[:s],
+            use_neox_rotary_style=False)
+        # GQA kv heads stay un-broadcast: K1 reads kv head i // n_rep
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             training=self.training)
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU: ``down(act(gate(x)) * up(x))``."""
+
+    def __init__(self, c: LlamaConfig, *, gen, device):
+        super().__init__()
+        kw = dict(std=c.initializer_range, gen=gen, device=device,
+                  bias=False)
+        self.gate_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+        self.up_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
+        self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
+        self.act = c.hidden_act
+
+    def forward(self, x):
+        g = self.gate_proj(x)
+        a = F.gelu(g, approximate=True) if self.act == "gelu_tanh" \
+            else F.silu(g)
+        return self.down_proj(a * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, c: LlamaConfig, *, gen, device):
+        super().__init__()
+        self.input_layernorm = LlamaRMSNorm(c.hidden_size, c.rms_eps,
+                                            device=device)
+        self.self_attn = LlamaAttention(c, gen=gen, device=device)
+        self.post_attention_layernorm = LlamaRMSNorm(
+            c.hidden_size, c.rms_eps, device=device)
+        self.mlp = LlamaMLP(c, gen=gen, device=device)
+
+    def forward(self, x):
+        x = x + self.self_attn(self.input_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, c: LlamaConfig, *, gen, device):
+        super().__init__()
+        self.config = c
+        self.embed_tokens = Embedding(c.vocab_size, c.hidden_size,
+                                      std=c.initializer_range, gen=gen,
+                                      device=device)
+        self.layers = nn.ModuleList([
+            LlamaDecoderLayer(c, gen=gen, device=device)
+            for _ in range(c.num_layers)])
+        self.norm = LlamaRMSNorm(c.hidden_size, c.rms_eps, device=device)
+        self.gen = gen
+
+    def forward(self, input_ids):
+        c = self.config
+        x = self.embed_tokens(input_ids)
+        if c.embed_scale != 1.0:
+            x = x * c.embed_scale
+        for layer in self.layers:
+            if c.use_recompute and self.training:
+                x = _recompute(layer, x, self.gen)
+            else:
+                x = layer(x)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """LLaMA with its own ``lm_head_weight [V, H]`` (or the embedding,
+    tied).
+
+    ``device=None`` means the CUDA card and raises without one; pass
+    ``device="cpu"`` for the CPU.  Weights are fp32, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on that device: Normal(0,
+    0.02) for the embedding, every projection and the head, unit RMSNorm
+    weights — the JAX package's initializers (its random bits differ;
+    carry weights over with ``models.carry.load_paddle_tpu_state`` to
+    compare).  A new model is in eval mode; ``jit.train_step`` sets
+    training mode."""
+
+    def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0):
+        super().__init__()
+        if config.sequence_parallel:
+            raise NotImplementedError("sequence_parallel waits for the "
+                                      "distributed slice")
+        dev = default_device(device)
+        gen = generator(seed, dev)
+        self.config = config
+        self.llama = LlamaModel(config, gen=gen, device=dev)
+        if not config.tie_word_embeddings:
+            self.lm_head_weight = nn.Parameter(torch.empty(
+                config.vocab_size, config.hidden_size, device=dev,
+                dtype=torch.float32))
+            with torch.no_grad():
+                self.lm_head_weight.normal_(0.0, config.initializer_range,
+                                            generator=gen)
+        self.loss_fn = LlamaPretrainingCriterion()
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.llama.norm.weight.device
+
+    def lm_weight(self):
+        return self.llama.embed_tokens.weight \
+            if self.config.tie_word_embeddings else self.lm_head_weight
+
+    def forward(self, input_ids, past=None, use_cache: bool = False,
+                last_logits_only: bool = False):
+        """Dense, cache-free forward: ``input_ids [B, S]`` -> ``logits
+        [B, S, V]`` (``[B, 1, V]`` with ``last_logits_only``); under
+        ``torch.no_grad`` in eval mode."""
+        if past is not None or use_cache:
+            raise NotImplementedError(f"a KV cache (past / use_cache) "
+                                      f"{_SERVING}")
+        with torch.set_grad_enabled(self.training
+                                    and torch.is_grad_enabled()):
+            h = self.llama(input_ids)
+            if last_logits_only:
+                h = h[:, -1:]
+            return F.matmul(h, self.lm_weight(), transpose_y=True)
+
+    def build_ragged_decode_step(self):
+        raise NotImplementedError(f"the paged decode step {_SERVING}")
+
+
+class LlamaPretrainingCriterion(GPTPretrainingCriterion):
+    """Next-token cross entropy, the mean over valid tokens: the JAX
+    LLaMA criterion is the GPT one, formula and amp casts alike."""

@@ -28,7 +28,7 @@ from ..ops.flash_attention import flash_attention_bhsd
 from ..ops.layer_norm import layer_norm as _layer_norm_op
 
 __all__ = ["scaled_dot_product_attention", "layer_norm", "cross_entropy",
-           "dropout", "linear", "embedding", "gelu", "matmul"]
+           "dropout", "linear", "embedding", "gelu", "silu", "matmul"]
 
 
 def dropout(x, p: float = 0.5, training: bool = True, generator=None):
@@ -67,6 +67,13 @@ def embedding(ids, weight):
 def gelu(x, approximate: bool = False):
     (x,) = amp.cast("gelu", x)
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def silu(x):
+    """``x * sigmoid(x)``; not black-listed, so under O2 it runs in the
+    low dtype, as the JAX ``F.silu`` does."""
+    (x,) = amp.cast("silu", x)
+    return F.silu(x)
 
 
 def _attention_composition(q, k, v, dropout_p, is_causal, training,

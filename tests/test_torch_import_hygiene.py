@@ -45,6 +45,7 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.models, paddle_tpu_torch.serving\n"
             "import paddle_tpu_torch.amp, paddle_tpu_torch.nn\n"
             "import paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"
+            "import paddle_tpu_torch.incubate\n"
             "import paddle_tpu_torch.jit.__main__\n"
             "import paddle_tpu_torch.serving.__main__\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
