@@ -5,10 +5,12 @@ The JAX package ``paddle_tpu`` stays the reference; this package
 imports neither JAX nor anything of ``paddle_tpu``.  Ported so far:
 ``models.gpt.GPTForPretraining`` served by ``serving.ServingEngine``
 (continuous batching over paged KV pools, attention in
-``ops/csrc/ragged_paged_attention.cu``), and the pretraining step
+``ops/csrc/ragged_paged_attention.cu``), the pretraining step
 (``jit.train_step`` with ``amp`` O2 and ``optimizer.AdamW``) of GPT and
-of ``models.llama.LlamaForCausalLM``, on the hand-written CUDA kernels
-of ``ops/csrc/``.
+of ``models.llama.LlamaForCausalLM``, and their decode loops
+(``models.generation.generate`` and ``decode_loop``, the latter on the
+fused decode kernels of ``ops/csrc/fused_decode.cu``), on the
+hand-written CUDA kernels of ``ops/csrc/``.
 """
 from .device import default_device, generator, seed
 

@@ -8,9 +8,10 @@
   sin/cos tables.  It takes K5 (``ops.rope``) when the tables are plain
   ``[S, D]``, no ``position_ids`` are given, the head dim is even and the
   tables repeat each frequency across its rotated pair (the JAX route's
-  gate); otherwise the plain composition, as in the JAX package.  That is
-  routing by shape, not a fallback: on CUDA tensors the kernel route
-  launches or raises.  ``"fused_rope"`` is not black-listed, so under O2
+  gate; the table check reads the device once per table, see
+  ``_pair_repeating``); otherwise the plain composition, as in the JAX
+  package.  That is routing by shape, not a fallback: on CUDA tensors the
+  kernel route launches or raises.  ``"fused_rope"`` is not black-listed, so under O2
   x and the fp32 tables are all cast to bf16 before the kernel computes
   in fp32, as the JAX dispatch casts them.
 """
@@ -41,11 +42,25 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon: float = 1e-6,
     return out, None
 
 
-# memo of table checks: (base tensor, view geometry, version, style) ->
+# memo of table checks: (base tensor, version, style) for a table whose
+# rows are rows of its base, else (base, view geometry, version, style) ->
 # (weak reference to the base, verdict).  A model slices its tables from
-# one tensor made at build time, so the check reads the device once per
-# table, not once per call.
+# one tensor made at build time: the whole base is checked once, and every
+# row slice of it (the eager decode loop slices one position per token)
+# inherits the verdict without reading the device again.
 _pair_repeat_memo = {}
+# device reads the checks made (a test counts them)
+table_checks = 0
+
+
+def _rows_of(table, base) -> bool:
+    """True iff ``table`` is a run of whole rows of the 2-D contiguous
+    ``base`` (``base[i:j]``)."""
+    return (table.dim() == 2 and base.dim() == 2 and base.is_contiguous()
+            and table.shape[1] == base.shape[1]
+            and table.stride() == base.stride()
+            and (table.storage_offset() - base.storage_offset())
+            % base.stride(0) == 0)
 
 
 def _pair_repeating(table, neox: bool) -> bool:
@@ -54,17 +69,25 @@ def _pair_repeating(table, neox: bool) -> bool:
     invariant under which the kernel's backward (the same rotation with
     −sin) is the true transpose.  Unlike the JAX check, nothing here is
     traced, so every table can be checked."""
+    global table_checks
     base = table._base if table._base is not None else table
-    key = (id(base), table.storage_offset(), tuple(table.shape),
-           tuple(table.stride()), base._version, bool(neox))
+    whole_rows = table is base or _rows_of(table, base)
+    if whole_rows:
+        checked = base
+        key = (id(base), base._version, bool(neox))
+    else:
+        checked = table
+        key = (id(base), table.storage_offset(), tuple(table.shape),
+               tuple(table.stride()), base._version, bool(neox))
     hit = _pair_repeat_memo.get(key)
     if hit is not None and hit[0]() is base:
         return hit[1]
-    d = table.shape[-1]
+    d = checked.shape[-1]
     if neox:
-        ok = bool(torch.equal(table[..., :d // 2], table[..., d // 2:]))
+        ok = bool(torch.equal(checked[..., :d // 2], checked[..., d // 2:]))
     else:
-        ok = bool(torch.equal(table[..., 0::2], table[..., 1::2]))
+        ok = bool(torch.equal(checked[..., 0::2], checked[..., 1::2]))
+    table_checks += 1
     if len(_pair_repeat_memo) > 256:
         _pair_repeat_memo.clear()
     _pair_repeat_memo[key] = (weakref.ref(base), ok)

@@ -1,15 +1,315 @@
-"""The ragged batched decode step of the continuous-batching serving
-engine; counterpart of ``build_ragged_decode_step`` in
-``paddle_tpu/models/generation.py`` (GPT layout; LLaMA waits for a later
-slice)."""
+"""Autoregressive generation; counterpart of
+``paddle_tpu/models/generation.py``.
+
+Two decode loops share this module, as in the JAX package:
+
+* the **eager loop** (:func:`generate`) — a prefill over the prompt,
+  then one cache-aware dense forward per token (attention at ``sq = 1``
+  through K1 with ``q_offset``), writing into a preallocated token
+  buffer, with the ``finished.all()`` host read hoisted to every
+  ``EAGER_FINISHED_SYNC_EVERY`` tokens and the exact stop column rebuilt
+  afterwards;
+* the **compiled loop** (:func:`decode_loop`, ``generate(...,
+  _megakernel=True)``) — the same prefill, then the model's
+  ``build_decode_step`` body over preallocated fixed-shape caches,
+  updated in place: per layer the decode kernels K6a (rope + QKV), K6b
+  (attend + cache append) and K6c (norm + MLP) of ``ops.fused_decode``.
+  Sampling and EOS stay on the device; the position is a host int the
+  loop knows, so the only host reads are the hoisted ``finished`` poll
+  and, with an EOS, one read of the generated count.  The JAX package
+  runs this loop as one jitted ``lax.while_loop``; PyTorch runs eagerly,
+  so here it is a host loop that launches the same kernels (a CUDA graph
+  over it is later work).  Its output equals the JAX program's
+  ``tokens[:, :s_prompt + n]``, ``n`` included; it skips the last step,
+  whose logits the JAX program computes and discards.
+
+Both loops draw from one sampler, :func:`_sample_logits` (greedy argmax,
+or temperature, top-k, top-p in the JAX order, then a Gumbel-max draw
+from a ``torch.Generator``: ``jax.random.categorical`` is ``argmax(logits
++ gumbel)``), so with the same generator state they give the same tokens
+and advance the generator alike.  ``generator=`` defaults to the
+model's own.
+
+Not ported yet, each raising ``NotImplementedError``: beam search
+(``num_beams > 1``), the paged cache (``use_paged_cache=True``, K9's
+counterpart) — both wait for the eager paged ``generate`` slice — and
+``seq2seq_generate``.  The ``decode_loop`` / ``decode_compile``
+observability events and spans wait for the observability slice; the
+counts of the last call are in :data:`decode_stats`.
+
+:func:`build_ragged_decode_step` is the serving engine's batched step
+over paged KV pools (GPT layout; LLaMA waits for its serving slice).
+"""
 from __future__ import annotations
+
+import inspect
+from typing import Optional
 
 import torch
 
 from ..ops import fused_decode as _fd
 from ..ops.ragged_paged_attention import ragged_paged_attention
 
-__all__ = ["build_ragged_decode_step"]
+__all__ = ["generate", "decode_loop", "seq2seq_generate",
+           "build_ragged_decode_step", "decode_stats",
+           "EAGER_FINISHED_SYNC_EVERY"]
+
+_GREEDY = ("greedy_search", "greedy")
+# the default of the JAX package's FLAGS_eager_finished_sync_every
+# (paddle_tpu/flags.py); FLAGS_megakernel_decode's default, off, is
+# generate's default loop
+EAGER_FINISHED_SYNC_EVERY = 8
+_NEXT_SLICE = "waits for the eager paged generate slice"
+
+# the last generate call: which loop ran ("eager" / "compiled"), the model
+# steps it took after the prefill, the host reads of device values it made
+# (the hoisted finished polls and the stop-column read), and the tokens it
+# generated per row
+decode_stats = {}
+
+
+def _gumbel(shape, generator, device):
+    """``jax.random.gumbel``'s draw: ``-log(-log(u))`` with ``u`` uniform
+    in ``[tiny, 1)`` (a ``-inf`` logit plus this noise stays ``-inf``)."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def _sample_logits(logits_row, decode_strategy, temperature, top_k, top_p,
+                   generator=None, noise=None):
+    """One next-token choice from ``[B, V]`` logits, on their device.
+    Greedy: argmax.  Otherwise fp32 logits / temperature, top-k, then
+    top-p (the smallest set whose mass reaches ``top_p``) as the JAX
+    sampler filters, and ``argmax(logits + g)`` with Gumbel noise ``g``
+    drawn from ``generator`` (or given as ``noise``)."""
+    if decode_strategy in _GREEDY:
+        return torch.argmax(logits_row, dim=-1)
+    logits = logits_row.float()
+    if temperature and temperature != 1.0:
+        logits = logits / temperature
+    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    if top_k and top_k > 0:
+        k = min(int(top_k), logits.shape[-1])
+        kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, neg_inf, logits)
+    if top_p and top_p < 1.0:
+        sorted_l = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_l, dim=-1), dim=-1)
+        idx = (cum < top_p).sum(dim=-1, keepdim=True) \
+            .clamp(max=logits.shape[-1] - 1)
+        cutoff = torch.gather(sorted_l, -1, idx)
+        logits = torch.where(logits < cutoff, neg_inf, logits)
+    if noise is None:
+        noise = _gumbel(logits.shape, generator, logits.device)
+    return torch.argmax(logits + noise, dim=-1)
+
+
+def _megakernel_fallback_reason(model, decode_strategy, num_beams,
+                                use_paged_cache, supports_cache,
+                                max_new_tokens) -> Optional[str]:
+    """None when the compiled loop can run this request; else the reason
+    the eager loop runs instead (the JAX package's reasons)."""
+    if num_beams > 1:
+        return "beam_search"
+    if decode_strategy not in _GREEDY + ("sampling",):
+        return f"strategy:{decode_strategy}"
+    if use_paged_cache:
+        return "paged_cache"
+    if not supports_cache:
+        return "no_kv_cache"
+    if not hasattr(model, "build_decode_step"):
+        return "no_decode_step_builder"
+    if int(max_new_tokens) <= 0:
+        return "nothing_to_generate"
+    return None
+
+
+def _generated_count(tokens, s_prompt, n_run, eos_token_id):
+    """The JAX loop's ``n``: it stops right after the token that finished
+    the last row (each row's first EOS), else after ``n_run`` tokens."""
+    hit = tokens[:, s_prompt:s_prompt + n_run] == eos_token_id
+    first = hit.to(torch.int32).argmax(dim=1)
+    return int(torch.where(hit.any(dim=1).all(), first.max() + 1,
+                           torch.tensor(n_run, device=tokens.device)))
+
+
+def _compiled_decode(model, ids, max_new, strategy, temperature, top_k,
+                     top_p, eos_token_id, last_only, generator):
+    """Prefill once, then the model's decode step over preallocated
+    caches and token buffer, all updated in place; sampling and EOS on
+    the device."""
+    kw = {"last_logits_only": True} if last_only else {}
+    logits, past = model(ids, use_cache=True, **kw)
+    params, step = model.build_decode_step()
+    logits = logits[:, -1, :]
+    b, s_prompt = ids.shape
+    s_total = s_prompt + max_new
+    tokens = ids.new_zeros((b, s_total))
+    tokens[:, :s_prompt] = ids
+    caches = []
+    for k, v in past:
+        kc = k.new_zeros((b, s_total) + tuple(k.shape[2:]))
+        vc = v.new_zeros((b, s_total) + tuple(v.shape[2:]))
+        kc[:, :s_prompt] = k
+        vc[:, :s_prompt] = v
+        caches.append((kc, vc))
+    del past
+    finished = torch.zeros(b, dtype=torch.bool, device=ids.device)
+    sync = EAGER_FINISHED_SYNC_EVERY
+    reads = steps = 0
+    n_run = max_new
+    for i in range(max_new):
+        nxt = _sample_logits(logits, strategy, temperature, top_k, top_p,
+                             generator)
+        if eos_token_id is not None:
+            nxt = torch.where(finished, eos_token_id, nxt)
+            finished |= nxt == eos_token_id
+        tokens[:, s_prompt + i] = nxt
+        if i == max_new - 1:
+            break
+        if eos_token_id is not None and i % sync == sync - 1:
+            reads += 1
+            if bool(finished.all()):        # the hoisted poll
+                n_run = i + 1
+                break
+        logits, _ = step(params, nxt, caches, s_prompt + i)
+        steps += 1
+    n = n_run
+    if eos_token_id is not None:
+        n = _generated_count(tokens, s_prompt, n_run, eos_token_id)
+        reads += 1
+    decode_stats.update(loop="compiled", steps=steps, host_reads=reads,
+                        generated=n)
+    return tokens[:, :s_prompt + n]
+
+
+def _eager_decode(model, ids, max_new, strategy, temperature, top_k, top_p,
+                  eos_token_id, supports_cache, last_only, generator):
+    """One model call per token over a preallocated token buffer; the
+    ``finished.all()`` read hoisted to every ``EAGER_FINISHED_SYNC_EVERY``
+    tokens, the exact stop column rebuilt from the buffer."""
+    past = None
+    if supports_cache:
+        kw = {"last_logits_only": True} if last_only else {}
+        logits, past = model(ids, use_cache=True, **kw)
+    else:
+        logits = model(ids)
+    b, s_prompt = ids.shape
+    buf = ids.new_zeros((b, s_prompt + max_new))
+    buf[:, :s_prompt] = ids
+    finished = torch.zeros(b, dtype=torch.bool, device=ids.device)
+    cur = s_prompt
+    sync = EAGER_FINISHED_SYNC_EVERY
+    reads = steps = 0
+    stopped = False
+    for it in range(max_new):
+        nxt = _sample_logits(logits[:, -1, :], strategy, temperature, top_k,
+                             top_p, generator)
+        if eos_token_id is not None:
+            nxt = torch.where(finished, eos_token_id, nxt)
+            finished |= nxt == eos_token_id
+        buf[:, cur] = nxt
+        cur += 1
+        if eos_token_id is not None and (it == max_new - 1
+                                         or it % sync == sync - 1):
+            reads += 1
+            if bool(finished.all()):
+                stopped = True
+                break
+        if it < max_new - 1:
+            if supports_cache:
+                logits, past = model(buf[:, cur - 1:cur], past=past,
+                                     use_cache=True)
+            else:
+                logits = model(buf[:, :cur])
+            steps += 1
+    if stopped:
+        # every row finished at its first EOS; the loop would have broken
+        # right after the last row did — the columns past that are the
+        # EOS padding the hoisted read let through
+        cur = s_prompt + _generated_count(buf, s_prompt, cur - s_prompt,
+                                          eos_token_id)
+        reads += 1
+    decode_stats.update(loop="eager", steps=steps, host_reads=reads,
+                        generated=cur - s_prompt)
+    return buf[:, :cur]
+
+
+def decode_loop(model, input_ids, **kwargs):
+    """The compiled decode entry: :func:`generate` with the token loop on
+    the model's decode step (K6a/K6b/K6c per layer), sampling and EOS on
+    the device.  Requests it cannot run (another strategy, no cache) take
+    the eager loop, as in the JAX package."""
+    return generate(model, input_ids, _megakernel=True, **kwargs)
+
+
+def generate(model, input_ids, max_new_tokens: int = 20,
+             max_length: Optional[int] = None,
+             decode_strategy: str = "greedy_search",
+             temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+             eos_token_id: Optional[int] = None, num_beams: int = 1,
+             use_cache: bool = True, use_paged_cache: bool = False,
+             generator: Optional[torch.Generator] = None,
+             _megakernel: bool = False):
+    """``input_ids [B, S]`` (a tensor or an array) -> ``[B, S + n]``
+    token ids on the model's device, ``n <= max_new_tokens`` (fewer when
+    every row has met ``eos_token_id``).  ``decode_strategy``
+    ``"greedy_search"`` or ``"sampling"`` (``temperature``, ``top_k``,
+    ``top_p``), drawing from ``generator`` (default: the model's own).
+    ``_megakernel`` picks the compiled loop (:func:`decode_loop`)."""
+    if num_beams > 1:
+        raise NotImplementedError(f"beam search (num_beams={num_beams}) "
+                                  f"{_NEXT_SLICE}")
+    if use_paged_cache:
+        raise NotImplementedError(f"the paged cache (use_paged_cache=True,"
+                                  f" K9's counterpart) {_NEXT_SLICE}")
+    dev = model.device
+    ids = torch.as_tensor(input_ids, device=dev)
+    if ids.dim() != 2:
+        raise ValueError(f"input_ids must be [B, S], got {tuple(ids.shape)}")
+    s_prompt = ids.shape[1]
+    if max_length is not None:
+        max_new_tokens = max(int(max_length) - s_prompt, 0)
+    # rope / position embeddings have nothing past max_position_embeddings
+    max_pos = getattr(getattr(model, "config", None),
+                      "max_position_embeddings", None)
+    if max_pos is not None:
+        room = int(max_pos) - s_prompt
+        if room <= 0:
+            raise ValueError(f"prompt length {s_prompt} already reaches "
+                             f"max_position_embeddings {max_pos}")
+        max_new_tokens = min(int(max_new_tokens), room)
+    max_new = int(max_new_tokens)
+    # cache support is a signature property, as in the JAX package
+    params = inspect.signature(model.forward).parameters
+    supports_cache = use_cache and "use_cache" in params
+    last_only = supports_cache and "last_logits_only" in params
+    compiled = _megakernel
+    if compiled and _megakernel_fallback_reason(
+            model, decode_strategy, num_beams, use_paged_cache,
+            supports_cache, max_new) is not None:
+        compiled = False
+    gen = generator if generator is not None else model.generator
+    args = (model, ids, max_new, decode_strategy, temperature, top_k, top_p,
+            eos_token_id)
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            if compiled:
+                return _compiled_decode(*args, last_only, gen)
+            return _eager_decode(*args, supports_cache, last_only, gen)
+    finally:
+        if was_training:
+            model.train()
+
+
+def seq2seq_generate(*args, **kwargs):
+    """The encoder-decoder decode of the JAX package (T5/BART) is not
+    ported: no encoder-decoder model is."""
+    raise NotImplementedError(f"seq2seq_generate {_NEXT_SLICE}")
 
 
 def _scatter_pages(pages, vals, page_ids, slots):

@@ -15,9 +15,15 @@ CUDA) and LayerNorm through ``nn.functional.layer_norm`` (K2), as the
 JAX model's ``F.scaled_dot_product_attention`` and ``nn.LayerNorm`` do;
 every op reads the amp state.  ``model.loss_fn`` is the pretraining
 criterion.  ``use_recompute`` recomputes each block in the backward
-(``torch.utils.checkpoint``).  The paged serving step
-(:meth:`GPTForPretraining.build_ragged_decode_step`) keeps the
-``fused_decode`` LayerNorm numerics, as the JAX serving step does.
+(``torch.utils.checkpoint``).  With a KV cache (``past``, ``use_cache``)
+the positions start at the cache's length and K1 aligns the causal mask
+bottom-right; ``last_logits_only`` runs the head on the last position
+only.  The paged serving step
+(:meth:`GPTForPretraining.build_ragged_decode_step`) and the compiled
+decode loop's step (:meth:`GPTForPretraining.build_decode_step`, on the
+fused decode kernels K6a/K6b/K6c) keep the ``fused_decode`` LayerNorm
+numerics, as the JAX steps do; ``generate`` is
+``models.generation.generate``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import amp
 from ..device import default_device, generator
 from ..nn import functional as F
+from ..ops import fused_decode as _fd
 
 __all__ = ["GPTConfig", "PRESETS", "gpt_config", "GPTForPretraining",
            "GPTPretrainingCriterion"]
@@ -140,15 +147,25 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Linear(c.hidden_size, c.hidden_size, std=std,
                                gen=gen, device=device)
 
-    def forward(self, x):
+    def forward(self, x, past=None, use_cache: bool = False):
+        """``past``: optional (k, v) cache ``[B, S_past, nh, hd]``,
+        concatenated before the new keys along seq; with ``use_cache``
+        returns ``(out, (k_full, v_full))``."""
+        if past is not None:
+            _check_kv_pair(past)
         b, s, hidden = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if past is not None:
+            k = torch.cat([past[0], k], dim=1)
+            v = torch.cat([past[1], v], dim=1)
+        # bottom-right causal alignment: K1's q_offset = sk - sq
         out = F.scaled_dot_product_attention(
-            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
-            dropout_p=self.attn_drop if self.training else 0.0,
+            q, k, v, dropout_p=self.attn_drop if self.training else 0.0,
             is_causal=True, training=self.training, generator=self.gen)
-        return self.out_proj(out.reshape(b, s, hidden))
+        out = self.out_proj(out.reshape(b, s, hidden))
+        return (out, (k, v)) if use_cache else out
 
 
 class GPTMLP(nn.Module):
@@ -173,13 +190,14 @@ class GPTBlock(nn.Module):
         self.drop_p = c.hidden_dropout_prob
         self.gen = gen
 
-    def forward(self, x):
-        h = F.dropout(self.attn(self.ln1(x)), self.drop_p, self.training,
-                      self.gen)
-        x = x + h
+    def forward(self, x, past=None, use_cache: bool = False):
+        h = self.attn(self.ln1(x), past=past, use_cache=use_cache)
+        if use_cache:
+            h, new_past = h
+        x = x + F.dropout(h, self.drop_p, self.training, self.gen)
         h = F.dropout(self.mlp(self.ln2(x)), self.drop_p, self.training,
                       self.gen)
-        return x + h
+        return (x + h, new_past) if use_cache else x + h
 
 
 class GPTEmbeddings(nn.Module):
@@ -192,13 +210,14 @@ class GPTEmbeddings(nn.Module):
         self.drop_p = c.hidden_dropout_prob
         self.gen = gen
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, pos_offset: int = 0):
         s = input_ids.shape[-1]
-        if s > self.position_embeddings.weight.shape[0]:
-            raise ValueError(f"sequence length {s} exceeds "
+        if pos_offset + s > self.position_embeddings.weight.shape[0]:
+            raise ValueError(f"sequence position {pos_offset + s} exceeds "
                              "max_position_embeddings "
                              f"{self.position_embeddings.weight.shape[0]}")
-        pos = torch.arange(s, device=input_ids.device)
+        pos = torch.arange(pos_offset, pos_offset + s,
+                           device=input_ids.device)
         x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
         return F.dropout(x, self.drop_p, self.training, self.gen)
 
@@ -215,14 +234,52 @@ class GPTModel(nn.Module):
         self.use_recompute = c.use_recompute
         self.gen = gen
 
-    def forward(self, input_ids):
-        x = self.embeddings(input_ids)
+    def forward(self, input_ids, past=None, use_cache: bool = False):
+        """With ``past`` (one ``(k, v)`` per layer) positions start at
+        ``past[0][0].shape[1]``; with ``use_cache`` returns ``(h,
+        new_pasts)``."""
+        _check_dense_past(past, len(self.layers))
+        pos0 = past[0][0].shape[1] if past is not None else 0
+        x = self.embeddings(input_ids, pos_offset=pos0)
+        if use_cache or past is not None:
+            new_pasts = []
+            for i, block in enumerate(self.layers):
+                x = block(x, past=None if past is None else past[i],
+                          use_cache=use_cache)
+                if use_cache:
+                    x, p = x
+                    new_pasts.append(p)
+            h = self.final_ln(x)
+            return (h, new_pasts) if use_cache else h
         for block in self.layers:
             if self.use_recompute and self.training:
                 x = _recompute(block, x, self.gen)
             else:
                 x = block(x)
         return self.final_ln(x)
+
+
+_PAGED = ("a paged cache (PagedLayerView) waits for the eager paged "
+          "generate slice (K9's counterpart)")
+
+
+def _check_kv_pair(past) -> None:
+    """A layer's dense cache is a ``(k, v)`` pair of tensors; the paged
+    cache of the JAX package is not ported yet."""
+    if not (isinstance(past, (tuple, list)) and len(past) == 2
+            and all(isinstance(t, torch.Tensor) for t in past)):
+        raise NotImplementedError(f"past must be a (k, v) pair of tensors; "
+                                  f"{_PAGED}")
+
+
+def _check_dense_past(past, n_layers: int) -> None:
+    if past is None:
+        return
+    for p in past:
+        _check_kv_pair(p)
+    if len(past) != n_layers:
+        raise ValueError(f"past has {len(past)} layers, the model "
+                         f"{n_layers}")
 
 
 def _recompute(block, x, gen):
@@ -288,19 +345,96 @@ class GPTForPretraining(nn.Module):
         return self.gpt.embeddings.word_embeddings.weight \
             if self.config.tie_word_embeddings else self.lm_head_weight
 
-    def forward(self, input_ids):
-        """Dense, cache-free forward: ``input_ids [B, S]`` -> ``logits
-        [B, S, V]``; under ``torch.no_grad`` in eval mode."""
+    @property
+    def generator(self) -> torch.Generator:
+        """The model's ``torch.Generator`` (initializers, then dropout, then
+        sampling in ``generate``)."""
+        return self.gpt.gen
+
+    def forward(self, input_ids, past=None, use_cache: bool = False,
+                last_logits_only: bool = False):
+        """Dense forward: ``input_ids [B, S]`` -> ``logits [B, S, V]``
+        (``[B, 1, V]`` with ``last_logits_only``); under ``torch.no_grad``
+        in eval mode.  ``past`` (one ``(k, v)`` ``[B, S_past, nh, hd]``
+        per layer) is concatenated before the new keys and positions start
+        at ``S_past``; ``use_cache`` returns ``(logits, new_past)``."""
         with torch.set_grad_enabled(self.training
                                     and torch.is_grad_enabled()):
-            h = self.gpt(input_ids)
-            return F.matmul(h, self.lm_weight(), transpose_y=True)
+            h = self.gpt(input_ids, past=past, use_cache=use_cache)
+            if use_cache:
+                h, new_past = h
+            if last_logits_only:
+                h = h[:, -1:]
+            logits = F.matmul(h, self.lm_weight(), transpose_y=True)
+            return (logits, new_past) if use_cache else logits
+
+    def generate(self, input_ids, **kwargs):
+        """KV-cache decode; see ``models.generation.generate``."""
+        from .generation import generate
+        return generate(self, input_ids, **kwargs)
+
+    def build_decode_step(self):
+        """The compiled decode loop's per-token body over fixed-shape
+        caches; see :func:`_build_gpt_decode_step`."""
+        return _build_gpt_decode_step(self)
 
     def build_ragged_decode_step(self):
         """Batched serving-engine step over paged KV pools; see
         ``models.generation.build_ragged_decode_step``."""
         from .generation import build_ragged_decode_step
         return build_ragged_decode_step(self)
+
+
+def _build_gpt_decode_step(model: GPTForPretraining):
+    """``(params, step)`` with ``step(params, tok [B], caches, pos) ->
+    (logits [B, V], caches)`` over preallocated ``[B, S_total, nh, hd]``
+    caches (one ``(k, v)`` per layer, updated in place at the host int
+    ``pos``): LayerNorm, K6a (no rope: positions live in the embedding),
+    K6b, the output projection and K6c per layer.  ``params`` are views
+    of the model's parameters in the JAX step's layout: q/k/v weights and
+    biases are column slices of the packed ``qkv_proj``."""
+    c = model.config
+    gpt = model.gpt
+    hidden, nh = c.hidden_size, c.num_heads
+    hd = hidden // nh
+    blocks = []
+    for blk in gpt.layers:
+        w, b = blk.attn.qkv_proj.weight, blk.attn.qkv_proj.bias
+        blocks.append({
+            "ln1_w": blk.ln1.weight, "ln1_b": blk.ln1.bias,
+            "wq": w[:, :hidden], "wk": w[:, hidden:2 * hidden],
+            "wv": w[:, 2 * hidden:], "bq": b[:hidden],
+            "bk": b[hidden:2 * hidden], "bv": b[2 * hidden:],
+            "wo": blk.attn.out_proj.weight, "bo": blk.attn.out_proj.bias,
+            "ln2_w": blk.ln2.weight, "ln2_b": blk.ln2.bias,
+            "w1": blk.mlp.fc1.weight, "b1": blk.mlp.fc1.bias,
+            "w2": blk.mlp.fc2.weight, "b2": blk.mlp.fc2.bias,
+        })
+    params = {"wte": gpt.embeddings.word_embeddings.weight,
+              "wpe": gpt.embeddings.position_embeddings.weight,
+              "blocks": blocks, "lnf_w": gpt.final_ln.weight,
+              "lnf_b": gpt.final_ln.bias, "lm_w": model.lm_weight()}
+
+    @torch.no_grad()
+    def step(p, tok, caches, pos: int):
+        x = p["wte"][tok] + p["wpe"][pos]
+        for i, bp in enumerate(p["blocks"]):
+            h = _fd.reference_layer_norm(x, bp["ln1_w"], bp["ln1_b"], 1e-5)
+            q, k, v = _fd.rope_qkv(h, bp["wq"], bp["wk"], bp["wv"], bp["bq"],
+                                   bp["bk"], bp["bv"], n_heads=nh, n_kv=nh,
+                                   head_dim=hd)
+            ctx, _, _ = _fd.attend_cache_append(q, k, v, caches[i][0],
+                                                caches[i][1], pos)
+            x = x + (torch.matmul(ctx.reshape(-1, hidden), bp["wo"])
+                     + bp["bo"])
+            x = x + _fd.norm_mlp(x, kind="layer_norm", norm_w=bp["ln2_w"],
+                                 norm_b=bp["ln2_b"], w1=bp["w1"],
+                                 b1=bp["b1"], w2=bp["w2"], b2=bp["b2"],
+                                 eps=1e-5, act="gelu_tanh")
+        h = _fd.reference_layer_norm(x, p["lnf_w"], p["lnf_b"], 1e-5)
+        return torch.matmul(h, p["lm_w"].transpose(0, 1)), caches
+
+    return params, step
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -5,19 +5,25 @@ weight layout (``llama.layers.{i}.self_attn.q_proj.weight [H, nh·hd]``,
 ``llama.embed_tokens.weight [V, H]``, ``lm_head_weight [V, H]``, ...), so
 weights carry over without transposes (``models.carry``).
 
-The forward is the dense, cache-free one of training: RMSNorm through
+The dense forward: RMSNorm through
 ``incubate.nn.functional.fused_rms_norm`` (K4a/K4b on CUDA), q and k
 rotated through ``fused_rotary_position_embedding`` (K5, interleaved),
 causal attention with un-broadcast GQA kv heads through
 ``nn.functional.scaled_dot_product_attention`` (K1), and the SwiGLU MLP
 (``silu``, or ``gelu_tanh`` for Gemma-style configs).  Every op reads the
 amp state.  ``use_recompute`` recomputes each decoder layer in the
-backward with the GPT model's helper.
+backward with the GPT model's helper.  With a KV cache (``past``,
+``use_cache``) the rope tables are sliced at the cache's length and K1
+aligns the causal mask bottom-right; ``last_logits_only`` runs the head
+on the last position only.  :meth:`LlamaForCausalLM.build_decode_step`
+is the compiled decode loop's per-token body over fixed-shape caches, on
+the fused decode kernels K6a/K6b/K6c (``ops.fused_decode``), with the
+JAX step's RMSNorm numerics; ``generate`` is
+``models.generation.generate``.
 
-Not ported yet, and raising ``NotImplementedError``: a KV cache
-(``past``, ``use_cache``) and the paged serving step (LLaMA serving and
-``generate`` are a later slice), and ``sequence_parallel`` (the
-distributed slice).
+Not ported yet, and raising ``NotImplementedError``: the paged cache and
+the paged serving step (LLaMA serving and eager paged ``generate`` are
+later slices), and ``sequence_parallel`` (the distributed slice).
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ from ..device import default_device, generator
 from ..incubate.nn.functional import (fused_rms_norm,
                                       fused_rotary_position_embedding)
 from ..nn import functional as F
-from .gpt import Embedding, GPTPretrainingCriterion, Linear, _recompute
+from ..ops import fused_decode as _fd
+from .gpt import (Embedding, GPTPretrainingCriterion, Linear,
+                  _check_dense_past, _check_kv_pair, _recompute)
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "llama_config", "LlamaModel",
            "LlamaForCausalLM", "LlamaPretrainingCriterion"]
@@ -145,25 +153,34 @@ class LlamaAttention(nn.Module):
                              persistent=False)
 
     def forward(self, x, past=None, use_cache: bool = False):
-        if past is not None or use_cache:
-            raise NotImplementedError(f"a KV cache (past / use_cache) "
-                                      f"{_SERVING}")
+        """``past``: optional (k, v) cache ``[B, S_past, nkv, hd]`` (kv
+        heads un-broadcast), concatenated before the new keys along seq;
+        positions start at ``S_past``.  With ``use_cache`` returns ``(out,
+        (k_full, v_full))``."""
+        if past is not None:
+            _check_kv_pair(past)
         b, s, _ = x.shape
-        if s > self._cos.shape[0]:
+        pos0 = past[0].shape[1] if past is not None else 0
+        if pos0 + s > self._cos.shape[0]:
             raise ValueError(
-                f"sequence position {s} exceeds max_position_embeddings "
-                f"{self._cos.shape[0]}: the rope table has no entries past "
-                "that point")
+                f"sequence position {pos0 + s} exceeds "
+                f"max_position_embeddings {self._cos.shape[0]}: the rope "
+                "table has no entries past that point")
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv, self.head_dim)
         q, k, _ = fused_rotary_position_embedding(
-            q, k, sin=self._sin[:s], cos=self._cos[:s],
+            q, k, sin=self._sin[pos0:pos0 + s], cos=self._cos[pos0:pos0 + s],
             use_neox_rotary_style=False)
-        # GQA kv heads stay un-broadcast: K1 reads kv head i // n_rep
+        if past is not None:
+            k = torch.cat([past[0], k], dim=1)
+            v = torch.cat([past[1], v], dim=1)
+        # GQA kv heads stay un-broadcast: K1 reads kv head i // n_rep, with
+        # bottom-right causal alignment (q_offset = sk - sq)
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                              training=self.training)
-        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+        return (out, (k, v)) if use_cache else out
 
 
 class LlamaMLP(nn.Module):
@@ -195,9 +212,14 @@ class LlamaDecoderLayer(nn.Module):
             c.hidden_size, c.rms_eps, device=device)
         self.mlp = LlamaMLP(c, gen=gen, device=device)
 
-    def forward(self, x):
-        x = x + self.self_attn(self.input_layernorm(x))
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def forward(self, x, past=None, use_cache: bool = False):
+        h = self.self_attn(self.input_layernorm(x), past=past,
+                           use_cache=use_cache)
+        if use_cache:
+            h, new_past = h
+        x = x + h
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return (x, new_past) if use_cache else x
 
 
 class LlamaModel(nn.Module):
@@ -213,11 +235,24 @@ class LlamaModel(nn.Module):
         self.norm = LlamaRMSNorm(c.hidden_size, c.rms_eps, device=device)
         self.gen = gen
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, past=None, use_cache: bool = False):
         c = self.config
+        _check_dense_past(past, len(self.layers))
         x = self.embed_tokens(input_ids)
         if c.embed_scale != 1.0:
             x = x * c.embed_scale
+        if use_cache or past is not None:
+            # a given cache is consumed even without use_cache: dropping
+            # it would score the tokens with no history
+            new_pasts = []
+            for i, layer in enumerate(self.layers):
+                x = layer(x, past=None if past is None else past[i],
+                          use_cache=use_cache)
+                if use_cache:
+                    x, p = x
+                    new_pasts.append(p)
+            h = self.norm(x)
+            return (h, new_pasts) if use_cache else h
         for layer in self.layers:
             if c.use_recompute and self.training:
                 x = _recompute(layer, x, self.gen)
@@ -266,23 +301,100 @@ class LlamaForCausalLM(nn.Module):
         return self.llama.embed_tokens.weight \
             if self.config.tie_word_embeddings else self.lm_head_weight
 
+    @property
+    def generator(self) -> torch.Generator:
+        """The model's ``torch.Generator`` (initializers, then sampling in
+        ``generate``)."""
+        return self.llama.gen
+
     def forward(self, input_ids, past=None, use_cache: bool = False,
                 last_logits_only: bool = False):
-        """Dense, cache-free forward: ``input_ids [B, S]`` -> ``logits
-        [B, S, V]`` (``[B, 1, V]`` with ``last_logits_only``); under
-        ``torch.no_grad`` in eval mode."""
-        if past is not None or use_cache:
-            raise NotImplementedError(f"a KV cache (past / use_cache) "
-                                      f"{_SERVING}")
+        """Dense forward: ``input_ids [B, S]`` -> ``logits [B, S, V]``
+        (``[B, 1, V]`` with ``last_logits_only``); under ``torch.no_grad``
+        in eval mode.  ``past`` (one ``(k, v)`` ``[B, S_past, nkv, hd]``
+        per layer) is concatenated before the new keys and the rope tables
+        are sliced at ``S_past``; ``use_cache`` returns ``(logits,
+        new_past)``."""
         with torch.set_grad_enabled(self.training
                                     and torch.is_grad_enabled()):
-            h = self.llama(input_ids)
+            h = self.llama(input_ids, past=past, use_cache=use_cache)
+            if use_cache:
+                h, new_past = h
             if last_logits_only:
+                # decode samples only the last position: skip the [S, V]
+                # head for the rest of the prompt
                 h = h[:, -1:]
-            return F.matmul(h, self.lm_weight(), transpose_y=True)
+            logits = F.matmul(h, self.lm_weight(), transpose_y=True)
+            return (logits, new_past) if use_cache else logits
+
+    def generate(self, input_ids, **kwargs):
+        """KV-cache decode; see ``models.generation.generate``."""
+        from .generation import generate
+        return generate(self, input_ids, **kwargs)
+
+    def build_decode_step(self):
+        """The compiled decode loop's per-token body over fixed-shape
+        caches; see :func:`_build_llama_decode_step`."""
+        return _build_llama_decode_step(self)
 
     def build_ragged_decode_step(self):
         raise NotImplementedError(f"the paged decode step {_SERVING}")
+
+
+def _build_llama_decode_step(model: LlamaForCausalLM):
+    """``(params, step)`` with ``step(params, tok [B], caches, pos) ->
+    (logits [B, V], caches)`` over preallocated ``[B, S_total, nkv, hd]``
+    caches (one ``(k, v)`` per layer, updated in place at the host int
+    ``pos``): RMSNorm, K6a with the rope row at ``pos`` (interleaved),
+    K6b (GQA inside the kernel), the output projection and K6c (RMSNorm +
+    SwiGLU) per layer.  ``params`` are views of the model's parameters in
+    the JAX step's layout; a tied head reads the embedding."""
+    c = model.config
+    llama = model.llama
+    nh, nkv = c.num_heads, c.num_kv_heads
+    hd = c.hidden_size // nh
+    eps, scale, act = float(c.rms_eps), float(c.embed_scale), c.hidden_act
+    layers = []
+    for lyr in llama.layers:
+        att, mlp = lyr.self_attn, lyr.mlp
+        layers.append({
+            "ln1_w": lyr.input_layernorm.weight,
+            "wq": att.q_proj.weight, "wk": att.k_proj.weight,
+            "wv": att.v_proj.weight, "bq": att.q_proj.bias,
+            "bk": att.k_proj.bias, "bv": att.v_proj.bias,
+            "wo": att.o_proj.weight,
+            "ln2_w": lyr.post_attention_layernorm.weight,
+            "wg": mlp.gate_proj.weight, "wu": mlp.up_proj.weight,
+            "wd": mlp.down_proj.weight,
+        })
+    # the rope tables are the same in every layer (one config)
+    att0 = llama.layers[0].self_attn
+    params = {"embed": llama.embed_tokens.weight, "cos": att0._cos,
+              "sin": att0._sin, "layers": layers,
+              "norm_w": llama.norm.weight, "lm_w": model.lm_weight()}
+
+    @torch.no_grad()
+    def step(p, tok, caches, pos: int):
+        x = p["embed"][tok]
+        if scale != 1.0:
+            x = x * scale
+        cos_row, sin_row = p["cos"][pos], p["sin"][pos]
+        for i, lp in enumerate(p["layers"]):
+            h = _fd.reference_rms_norm(x, lp["ln1_w"], eps)
+            q, k, v = _fd.rope_qkv(h, lp["wq"], lp["wk"], lp["wv"], lp["bq"],
+                                   lp["bk"], lp["bv"], cos_row, sin_row,
+                                   n_heads=nh, n_kv=nkv, head_dim=hd,
+                                   neox=False)
+            ctx, _, _ = _fd.attend_cache_append(q, k, v, caches[i][0],
+                                                caches[i][1], pos)
+            x = x + torch.matmul(ctx.reshape(-1, nh * hd), lp["wo"])
+            x = x + _fd.norm_mlp(x, kind="rms_norm", norm_w=lp["ln2_w"],
+                                 w_gate=lp["wg"], w1=lp["wu"], w2=lp["wd"],
+                                 eps=eps, act=act)
+        h = _fd.reference_rms_norm(x, p["norm_w"], eps)
+        return torch.matmul(h, p["lm_w"].transpose(0, 1)), caches
+
+    return params, step
 
 
 class LlamaPretrainingCriterion(GPTPretrainingCriterion):

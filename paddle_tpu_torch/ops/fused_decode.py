@@ -1,28 +1,104 @@
-"""The decode-block pieces the GPT ragged serving step calls; plain
-torch copies of ``paddle_tpu/ops/pallas/fused_decode.py``'s reference
-compositions.
+"""The decode-step kernels of the compiled decode loop; counterpart of
+``paddle_tpu/ops/pallas/fused_decode.py``.
 
-``norm_mlp`` has no kernel here, on purpose.  The JAX package routes it
-to its Pallas kernel ``_norm_mlp_kernel`` only while ``w1`` and ``w2``
-fit its 10 MiB VMEM budget (``_VMEM_BUDGET_BYTES``, gated in
-``norm_mlp``); at served widths they do not (gpt3-1.3B: 2048 x 8192 x
-4 B x 2 = 128 MiB), so even on a TPU it runs the composition below —
-LayerNorm, two plain matmuls and a tanh gelu — and the matmuls belong
-to the BLAS library, as the JAX package left them to XLA.  The fused
-kernel (and its rope/qkv and attend siblings of the ``decode_loop``
-path) is queued in ROADMAP.md for the decode-loop slice.
+* :func:`rope_qkv` (K6a) — the q/k/v projections of one token per row
+  of ``x [B, H]``, fp32 sums, optional biases, q and k rotated by one
+  position's ``cos_row/sin_row [hd]`` (interleaved or neox);
+* :func:`attend_cache_append` (K6b) — append ``k_new/v_new`` at ``pos``
+  of the ``[B, S_total, nkv, hd]`` caches and attend ``q`` to positions
+  ``0..pos`` (GQA: ``nh / nkv`` query heads share a kv head).  The
+  caches are updated **in place** (the JAX kernel aliases them to its
+  outputs); the returned caches are the same tensors;
+* :func:`norm_mlp` (K6c) — LayerNorm -> ``w1 + b1`` -> gelu -> ``w2 +
+  b2`` (``kind="layer_norm"``, GPT) or RMSNorm -> ``act(h @ w_gate) *
+  (h @ w1)`` -> ``w2`` (``kind="rms_norm"``, LLaMA; ``act`` silu or
+  gelu_tanh), with fp32 statistics.  The residual add stays with the
+  caller.  On the card it is two launches (the down product needs every
+  column of the ``[B, I]`` up and gate products, kept in an fp32
+  scratch); ``launches["norm_mlp"]`` counts one per call.
+
+Each has a plain version (``*_ref``) that mirrors the JAX package's jnp
+reference exactly (same op order and casts: ``reference_rms_norm``
+casts the rsqrt back to the input dtype before the weight multiply, the
+attention casts its fp32 probabilities to q's dtype before ``PV``).
+CPU tensors take it.  CUDA tensors that the gate admits launch the
+hand-written kernels of ``csrc/fused_decode.cu`` (design notes there)
+or raise; CUDA tensors it does not admit take the same composition with
+``torch.matmul``.  That is routing by shape, as the JAX package routes
+to its Pallas kernels: there is no ``try`` and no flag that turns the
+kernels off.
+
+**The card's gate.**  The JAX package admits a kernel only while its
+weights (K6a, K6c) or one row's cache (K6b) fit a 10 MiB VMEM budget,
+because its TPU kernels hold them whole in VMEM; at served widths that
+shuts K6a and K6c off (llama2-7b's q/k/v weights are 192 MiB in fp32).
+The CUDA kernels stream weights and cache from device memory and have
+no such limit, so the byte rules are dropped.  Kept are the JAX gate's
+semantic rules: an even head dim (rope pairs), ``nh % nkv == 0``.
+Added are what the kernels need: fp32 or bf16 with one dtype across x,
+weights and caches, weights whose columns are contiguous (any row
+stride: GPT's q/k/v are column slices of its packed projection), at
+most 8 query heads per kv head and a head dim of at most 256 (K6b's
+registers), and one row rule: at most ``NORM_MLP_MAX_ROWS`` = 64 rows go
+to K6c.  Above that the GEMV design (each block re-streams the weights
+per 8 rows) loses to the library's GEMM, so larger products take the
+composition, as the JAX package leaves large products to XLA.
 """
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["reference_layer_norm", "norm_mlp"]
+from . import _build
+
+__all__ = ["reference_rope_rows", "reference_rms_norm",
+           "reference_layer_norm", "rope_qkv", "rope_qkv_ref",
+           "rope_qkv_admits", "attend_cache_append",
+           "attend_cache_append_ref", "attend_admits", "norm_mlp",
+           "norm_mlp_ref", "norm_mlp_admits", "NORM_MLP_MAX_ROWS",
+           "launches"]
+
+# kernel launches (CUDA route only); norm_mlp counts one per call (two
+# kernels)
+launches = {"rope_qkv": 0, "attend_cache_append": 0, "norm_mlp": 0}
+
+NORM_MLP_MAX_ROWS = 64
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_NORM_CODE = {"layer_norm": 1, "rms_norm": 2}
+_SILU, _GELU_TANH, _GELU = 1, 2, 3
+# csrc/fused_decode.cu's GEMV geometry: 32 column pairs x 8 rows a block,
+# 256 threads; a split of K keeps at least this many rows
+_TILE_PAIRS, _ROWS, _THREADS, _MIN_SPLIT_K = 32, 8, 256, 512
+
+
+# ---------------------------------------------------------------------------
+# plain versions — mirrors of the JAX package's jnp references
+# ---------------------------------------------------------------------------
+
+def reference_rope_rows(x, cos_row, sin_row, neox: bool = False):
+    """Rotate ``x [..., D]`` by one position row (``cos/sin [D]``)."""
+    if neox:
+        x1, x2 = x.chunk(2, dim=-1)
+        rot = torch.cat([-x2, x1], dim=-1)
+    else:
+        rot = torch.stack([-x[..., 1::2], x[..., 0::2]],
+                          dim=-1).reshape(x.shape)
+    return x * cos_row + rot * sin_row
+
+
+def reference_rms_norm(v, w, eps: float):
+    """fp32 variance, the rsqrt cast back to the input dtype BEFORE the
+    weight multiply (the JAX ``reference_rms_norm``; not
+    ``ops.rms_norm.rms_norm_ref``'s fp32 numerics)."""
+    var = v.float().square().mean(dim=-1, keepdim=True)
+    return v * torch.rsqrt(var + eps).to(v.dtype) * w
 
 
 def reference_layer_norm(v, w, b, eps: float):
-    """Mirror of the JAX package's ``reference_layer_norm``: fp32
-    statistics, the normalized value cast back to the input dtype
+    """fp32 statistics, the normalized value cast back to the input dtype
     before ``* w + b``."""
     v32 = v.float()
     m = v32.mean(dim=-1, keepdim=True)
@@ -31,19 +107,374 @@ def reference_layer_norm(v, w, b, eps: float):
     return out * w + b
 
 
+def rope_qkv_ref(x, wq, wk, wv, bq=None, bk=None, bv=None, cos_row=None,
+                 sin_row=None, *, n_heads, n_kv, head_dim, neox=False):
+    b = x.shape[0]
+    q, k, v = torch.matmul(x, wq), torch.matmul(x, wk), torch.matmul(x, wv)
+    if bq is not None:
+        q = q + bq
+    if bk is not None:
+        k = k + bk
+    if bv is not None:
+        v = v + bv
+    q = q.reshape(b, n_heads, head_dim)
+    k = k.reshape(b, n_kv, head_dim)
+    v = v.reshape(b, n_kv, head_dim)
+    if cos_row is not None:
+        # the rotation in the tables' promoted dtype, as in the JAX
+        # reference, then back to x's dtype, the kernel's output dtype
+        q = reference_rope_rows(q, cos_row, sin_row, neox).to(x.dtype)
+        k = reference_rope_rows(k, cos_row, sin_row, neox).to(x.dtype)
+    return q, k, v
+
+
+def attend_cache_append_ref(q, k_new, v_new, k_cache, v_cache, pos,
+                            scale=None):
+    """The cache append (in place) and the eager decode step's masked
+    attention over the whole cache: fp32 logits, ``-1e30`` mask, fp32
+    softmax cast back to q's dtype before ``PV``."""
+    b, nh, hd = q.shape
+    st, nkv = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    k_cache[:, pos] = k_new.to(k_cache.dtype)
+    v_cache[:, pos] = v_new.to(v_cache.dtype)
+    rep = nh // nkv
+    k = k_cache.repeat_interleave(rep, dim=2) if rep > 1 else k_cache
+    v = v_cache.repeat_interleave(rep, dim=2) if rep > 1 else v_cache
+    logits = torch.einsum("bhsd,bhtd->bhst", q[:, :, None],
+                          k.transpose(1, 2)).float() * scale
+    valid = torch.arange(st, device=q.device) <= pos
+    logits = torch.where(valid, logits, torch.tensor(
+        -1e30, dtype=torch.float32, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bhst,bhtd->bhsd", probs, v.transpose(1, 2))
+    return ctx[:, :, 0], k_cache, v_cache
+
+
+def _gelu(a, act):
+    return F.gelu(a, approximate="tanh" if act == "gelu_tanh" else "none")
+
+
+def norm_mlp_ref(x, *, kind, norm_w, norm_b=None, w1, b1=None, w2, b2=None,
+                 w_gate=None, eps=1e-5, act="silu"):
+    if kind == "layer_norm":
+        h = reference_layer_norm(x, norm_w, norm_b, eps)
+        a = torch.matmul(h, w1)
+        if b1 is not None:
+            a = a + b1
+        y = torch.matmul(_gelu(a, act), w2)
+        return y + b2 if b2 is not None else y
+    h = reference_rms_norm(x, norm_w, eps)
+    g = torch.matmul(h, w_gate)
+    g = _gelu(g, "gelu_tanh") if act == "gelu_tanh" else F.silu(g)
+    return torch.matmul(g * torch.matmul(h, w1), w2)
+
+
+# ---------------------------------------------------------------------------
+# the card's gate
+# ---------------------------------------------------------------------------
+
+def _same_float(x, *ts) -> bool:
+    return x.dtype in _DTYPE_CODE and all(
+        t.dtype == x.dtype and t.dim() == 2 and t.stride(-1) == 1
+        for t in ts)
+
+
+def rope_qkv_admits(x, wq, wk, wv, n_heads, n_kv, head_dim) -> bool:
+    """K6a takes it: an even head dim, ``nh % nkv == 0``, and x and the
+    weights in one dtype (fp32 or bf16) with contiguous columns."""
+    return (head_dim % 2 == 0 and n_heads % n_kv == 0 and x.dim() == 2
+            and _same_float(x, wq, wk, wv))
+
+
+def attend_admits(q, k_cache, v_cache) -> bool:
+    """K6b takes it: ``nh % nkv == 0`` with at most 8 query heads per kv
+    head, a head dim of at most 256, one dtype (fp32 or bf16), contiguous
+    caches (they are updated in place)."""
+    nh, hd = q.shape[1], q.shape[2]
+    nkv = k_cache.shape[2]
+    return (nh % nkv == 0 and nh // nkv <= 8 and hd <= 256
+            and q.dtype in _DTYPE_CODE
+            and k_cache.dtype == v_cache.dtype == q.dtype
+            and k_cache.is_contiguous() and v_cache.is_contiguous())
+
+
+def norm_mlp_admits(x, w1, w2, w_gate=None) -> bool:
+    """K6c takes it: at most ``NORM_MLP_MAX_ROWS`` rows, x and the weights
+    in one dtype (fp32 or bf16) with contiguous columns."""
+    ws = (w1, w2) if w_gate is None else (w1, w2, w_gate)
+    return (x.dim() == 2 and x.shape[0] <= NORM_MLP_MAX_ROWS
+            and _same_float(x, *ws))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA route
+# ---------------------------------------------------------------------------
+
+_sm_count = {}
+_counters = {}
+
+
+def _splits(blocks: int, k: int, dev) -> int:
+    """grid.z of a GEMV: split K while the columns alone fill fewer than
+    two blocks per SM, each split keeping at least 512 rows."""
+    sms = _sm_count.get(dev)
+    if sms is None:
+        sms = _sm_count[dev] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    target = 2 * sms
+    if blocks >= target:
+        return 1
+    return max(1, min(-(-target // blocks), k // _MIN_SPLIT_K))
+
+
+def _tiles(n: int) -> int:
+    return -(-(-(-n // 2)) // _TILE_PAIRS)
+
+
+def _scratch(dev, tiles: int, rows: int, splits: int):
+    """(partial sums, zeroed tile counters) for a split-K GEMV.  The
+    kernel leaves every counter it used at 0, so one buffer per device
+    serves every launch on its stream."""
+    y_tiles = -(-rows // _ROWS)
+    n_tiles = tiles * y_tiles
+    cnt = _counters.get(dev)
+    if cnt is None or cnt.numel() < n_tiles:
+        cnt = _counters[dev] = torch.zeros(max(n_tiles, 4096),
+                                           dtype=torch.int32, device=dev)
+    partial = torch.empty(n_tiles * splits * 2 * _THREADS
+                          if splits > 1 else 1, dtype=torch.float32,
+                          device=dev)
+    return partial, cnt
+
+
+def _f32(t):
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _same_device(dev, named):
+    for name, t in named.items():
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+
+
+def _rc(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def _rope_qkv_cuda(x, wq, wk, wv, bq, bk, bv, cos_row, sin_row, n_heads,
+                   n_kv, head_dim, neox):
+    dev = x.device
+    _same_device(dev, dict(wq=wq, wk=wk, wv=wv, bq=bq, bk=bk, bv=bv,
+                           cos_row=cos_row, sin_row=sin_row))
+    b, h = x.shape
+    nq, nk = n_heads * head_dim, n_kv * head_dim
+    if tuple(wq.shape) != (h, nq) or tuple(wk.shape) != (h, nk) \
+            or tuple(wv.shape) != (h, nk):
+        raise ValueError(f"weights {tuple(wq.shape)}, {tuple(wk.shape)}, "
+                         f"{tuple(wv.shape)} do not match x [{b}, {h}] and "
+                         f"{n_heads}/{n_kv} heads of {head_dim}")
+    for name, t, n in (("bq", bq, nq), ("bk", bk, nk), ("bv", bv, nk)):
+        if t is not None and tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must be [{n}], got {tuple(t.shape)}")
+    if (cos_row is None) != (sin_row is None):
+        raise ValueError("cos_row and sin_row come together")
+    if cos_row is not None and (tuple(cos_row.shape) != (head_dim,)
+                                or tuple(sin_row.shape) != (head_dim,)):
+        raise ValueError(f"cos_row/sin_row must be [{head_dim}]")
+    x = x.contiguous()
+    q = torch.empty((b, nq), dtype=x.dtype, device=dev)
+    k = torch.empty((b, nk), dtype=x.dtype, device=dev)
+    v = torch.empty((b, nk), dtype=x.dtype, device=dev)
+    if b:
+        tiles = _tiles(nq) + 2 * _tiles(nk)
+        splits = _splits(tiles * -(-b // _ROWS), h, dev)
+        partial, cnt = _scratch(dev, tiles, b, splits)
+        bq, bk, bv, cos_row, sin_row = (_f32(t) for t in
+                                        (bq, bk, bv, cos_row, sin_row))
+        lib = _build.library("fused_decode")
+        with torch.cuda.device(dev):
+            rc = lib.fd_rope_qkv(
+                x.data_ptr(), b, h, wq.data_ptr(), wk.data_ptr(),
+                wv.data_ptr(), wq.stride(0), wk.stride(0), wv.stride(0),
+                _ptr(bq), _ptr(bk), _ptr(bv), _ptr(cos_row), _ptr(sin_row),
+                int(bool(neox)), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                nq, nk, head_dim, partial.data_ptr(), cnt.data_ptr(), splits,
+                _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+        _rc(rc, "rope_qkv")
+        launches["rope_qkv"] += 1
+    return (q.view(b, n_heads, head_dim), k.view(b, n_kv, head_dim),
+            v.view(b, n_kv, head_dim))
+
+
+def rope_qkv(x, wq, wk, wv, bq=None, bk=None, bv=None, cos_row=None,
+             sin_row=None, *, n_heads, n_kv, head_dim, neox=False):
+    """The q/k/v projections (+ optional rotary embedding) of one decode
+    token per row.  ``x [B, H]``; ``w* [H, n*hd]`` (``[in, out]``, any
+    row stride); ``cos/sin [hd]`` (None: no rope — GPT's learned
+    positions live in the embedding).  Returns ``(q [B, nh, hd],
+    k [B, nkv, hd], v [B, nkv, hd])``, in x's dtype on the kernel route.
+    """
+    kw = dict(n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, neox=neox)
+    if x.device.type == "cpu":
+        return rope_qkv_ref(x, wq, wk, wv, bq, bk, bv, cos_row, sin_row,
+                            **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not rope_qkv_admits(x, wq, wk, wv, n_heads, n_kv, head_dim):
+        return rope_qkv_ref(x, wq, wk, wv, bq, bk, bv, cos_row, sin_row,
+                            **kw)
+    return _rope_qkv_cuda(x, wq, wk, wv, bq, bk, bv, cos_row, sin_row,
+                          n_heads, n_kv, head_dim, neox)
+
+
+def _attend_cuda(q, k_new, v_new, k_cache, v_cache, pos, scale):
+    dev = q.device
+    _same_device(dev, dict(k_new=k_new, v_new=v_new, k_cache=k_cache,
+                           v_cache=v_cache))
+    b, nh, hd = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[0] != b or k_cache.shape[3] != hd:
+        raise ValueError(f"caches {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)} must be [{b}, S_total, "
+                         f"nkv, {hd}]")
+    st, nkv = k_cache.shape[1], k_cache.shape[2]
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if tuple(t.shape) != (b, nkv, hd):
+            raise ValueError(f"{name} must be [{b}, {nkv}, {hd}], got "
+                             f"{tuple(t.shape)}")
+    if not 0 <= pos < st:
+        raise ValueError(f"pos {pos} outside the cache's {st} rows")
+    q = q.contiguous()
+    k_new = k_new.to(k_cache.dtype).contiguous()
+    v_new = v_new.to(v_cache.dtype).contiguous()
+    ctx = torch.empty_like(q)
+    if b:
+        lib = _build.library("fused_decode")
+        with torch.cuda.device(dev):
+            rc = lib.fd_attend(
+                q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                k_cache.data_ptr(), v_cache.data_ptr(), ctx.data_ptr(), b,
+                nh, nkv, hd, st, pos, float(scale), _DTYPE_CODE[q.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        _rc(rc, "attend_cache_append")
+        launches["attend_cache_append"] += 1
+    return ctx, k_cache, v_cache
+
+
+def attend_cache_append(q, k_new, v_new, k_cache, v_cache, pos,
+                        scale=None):
+    """Append one token's k/v to the preallocated caches at ``pos`` and
+    attend ``q`` to positions ``0..pos``.
+
+    ``q [B, nh, hd]``; ``k_new/v_new [B, nkv, hd]``; caches ``[B,
+    S_total, nkv, hd]``, **updated in place**; ``pos`` a host int shared
+    by the batch.  Returns ``(ctx [B, nh, hd], k_cache, v_cache)`` — the
+    caches are the tensors passed in."""
+    pos = int(pos)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return attend_cache_append_ref(q, k_new, v_new, k_cache, v_cache,
+                                       pos, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if not attend_admits(q, k_cache, v_cache):
+        return attend_cache_append_ref(q, k_new, v_new, k_cache, v_cache,
+                                       pos, scale)
+    return _attend_cuda(q, k_new, v_new, k_cache, v_cache, pos, scale)
+
+
+def _norm_mlp_cuda(x, kind, norm_w, norm_b, w1, b1, w2, b2, w_gate, eps,
+                   act):
+    dev = x.device
+    _same_device(dev, dict(norm_w=norm_w, norm_b=norm_b, w1=w1, b1=b1, w2=w2,
+                           b2=b2, w_gate=w_gate))
+    b, h = x.shape
+    inter, out_dim = w1.shape[1], w2.shape[1]
+    if w1.shape[0] != h or w2.shape[0] != inter or (
+            w_gate is not None and tuple(w_gate.shape) != tuple(w1.shape)):
+        raise ValueError(f"weights w1 {tuple(w1.shape)}, w2 "
+                         f"{tuple(w2.shape)}, w_gate "
+                         f"{None if w_gate is None else tuple(w_gate.shape)}"
+                         f" do not chain from x [{b}, {h}]")
+    for name, t, n in (("norm_w", norm_w, h), ("norm_b", norm_b, h),
+                       ("b1", b1, inter), ("b2", b2, out_dim)):
+        if t is not None and tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must be [{n}], got {tuple(t.shape)}")
+    if kind == "layer_norm":
+        act_code = _GELU_TANH if act == "gelu_tanh" else _GELU
+    else:
+        if w_gate is None:
+            raise ValueError("kind='rms_norm' needs w_gate")
+        act_code = _GELU_TANH if act == "gelu_tanh" else _SILU
+    x = x.contiguous()
+    y = torch.empty((b, out_dim), dtype=x.dtype, device=dev)
+    if b:
+        y_tiles = -(-b // _ROWS)
+        n_up = 1 if w_gate is None else 2      # up (and gate) products
+        t_up, t_down = n_up * _tiles(inter), _tiles(out_dim)
+        s_up = _splits(t_up * y_tiles, h, dev)
+        s_down = _splits(t_down * y_tiles, inter, dev)
+        partial, cnt = _scratch(dev, max(t_up, t_down), b,
+                                max(s_up, s_down))
+        scratch = torch.empty((n_up, b, inter), dtype=torch.float32,
+                              device=dev)
+        norm_w, norm_b, b1, b2 = (_f32(t) for t in (norm_w, norm_b, b1, b2))
+        lib = _build.library("fused_decode")
+        with torch.cuda.device(dev):
+            rc = lib.fd_norm_mlp(
+                x.data_ptr(), b, h, norm_w.data_ptr(), _ptr(norm_b),
+                _NORM_CODE[kind], float(eps), w1.data_ptr(), w1.stride(0),
+                _ptr(w_gate), 0 if w_gate is None else w_gate.stride(0),
+                _ptr(b1), act_code, w2.data_ptr(), w2.stride(0), _ptr(b2),
+                scratch.data_ptr(), y.data_ptr(), inter, out_dim,
+                partial.data_ptr(), cnt.data_ptr(), s_up, s_down,
+                _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+        _rc(rc, "norm_mlp")
+        launches["norm_mlp"] += 1
+    return y
+
+
 def norm_mlp(x, *, kind, norm_w, norm_b=None, w1, b1=None, w2, b2=None,
-             eps=1e-5, act="gelu_tanh"):
-    """Norm + MLP tail of one decoder block on ``x [N, H]``:
-    LayerNorm -> ``w1``/``b1`` -> gelu -> ``w2``/``b2`` (``[in, out]``
-    weights).  Only ``kind='layer_norm'`` (GPT) is ported so far; the
-    residual add stays with the caller."""
-    if kind != "layer_norm":
-        raise NotImplementedError(
-            f"norm_mlp kind={kind!r}: only 'layer_norm' (GPT) is ported")
-    h = reference_layer_norm(x, norm_w, norm_b, eps)
-    a = torch.matmul(h, w1)
-    if b1 is not None:
-        a = a + b1
-    a = F.gelu(a, approximate="tanh" if act == "gelu_tanh" else "none")
-    y = torch.matmul(a, w2)
-    return y + b2 if b2 is not None else y
+             w_gate=None, eps=1e-5, act="silu"):
+    """Norm + MLP tail of one decoder block on ``x [N, H]`` (``[in, out]``
+    weights): ``kind="layer_norm"`` LayerNorm -> ``w1``/``b1`` -> gelu
+    (tanh for ``act="gelu_tanh"``, else exact) -> ``w2``/``b2`` (GPT);
+    ``kind="rms_norm"`` RMSNorm -> ``act(h @ w_gate) * (h @ w1)`` ->
+    ``w2`` (LLaMA; silu, or gelu_tanh).  The residual add stays with the
+    caller."""
+    if kind not in _NORM_CODE:
+        raise ValueError(f"unknown norm kind {kind!r}")
+    kw = dict(kind=kind, norm_w=norm_w, norm_b=norm_b, w1=w1, b1=b1, w2=w2,
+              b2=b2, w_gate=w_gate, eps=eps, act=act)
+    if x.device.type == "cpu":
+        return norm_mlp_ref(x, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not norm_mlp_admits(x, w1, w2, w_gate):
+        return norm_mlp_ref(x, **kw)
+    return _norm_mlp_cuda(x, kind, norm_w, norm_b, w1, b1, w2, b2, w_gate,
+                          eps, act)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    lib.fd_rope_qkv.argtypes = [p, i, i, p, p, p, ll, ll, ll, p, p, p, p, p,
+                                i, p, p, p, i, i, i, p, p, i, i, p]
+    lib.fd_rope_qkv.restype = ctypes.c_int
+    lib.fd_attend.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, i, p]
+    lib.fd_attend.restype = ctypes.c_int
+    lib.fd_norm_mlp.argtypes = [p, i, i, p, p, i, f, p, ll, p, ll, p, i, p,
+                                ll, p, p, p, i, i, p, p, i, i, i, p]
+    lib.fd_norm_mlp.restype = ctypes.c_int
+
+
+_build.register("fused_decode", _declare)

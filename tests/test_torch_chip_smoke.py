@@ -1,7 +1,10 @@
 """The cross-checks of ``chip_smoke.py`` (phases 6b and 8b) run on the CPU
 at tiny size: one O2 step of the port's trainer against the step that
 ``chip_smoke.py`` composes from the plain versions, and the fault controls
-its gradient check must catch.
+its gradient check must catch.  Phase 10's checks run the same way: the
+first decode step's logits against the dense forward, with the fault
+control (the step's attention one position short) that must fail it, and
+the eager-vs-compiled and EOS checks on a tiny LLaMA.
 
 On the CPU every wrapper takes its plain version, so the sound readings
 are those of two compositions of the same plain ops: exact here (0) up to
@@ -15,6 +18,7 @@ is asserted.
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -89,3 +93,33 @@ def test_gpt_cross_check_holds_and_sees_its_fault_control(failures,
     (worst,) = _readings(out, "control ln_dx:")
     assert worst > cs.GRAD_REL_TOL
     assert failures == [], failures
+
+
+@pytest.fixture
+def tiny_llama():
+    model = tllama.LlamaForCausalLM(tllama.llama_config("tiny"),
+                                    device="cpu", seed=0)
+    ids = torch.from_numpy(np.random.RandomState(2).randint(0, 256, (2, 16)))
+    return model, ids
+
+
+def test_step_logit_check_holds_and_sees_its_fault_control(failures,
+                                                           tiny_llama,
+                                                           capsys):
+    """The decode step (plain versions here) equals the dense forward over
+    prompt + token to fp32 rounding; leaving the appended row out of the
+    step's attention fails the same check."""
+    err, ctrl = cs.step_logit_check(*tiny_llama)
+    print(capsys.readouterr().out)
+    assert err < 1e-5 < cs.STEP_LOGITS_TOL < ctrl
+    assert failures == []
+
+
+def test_decode_phase_checks_hold_on_the_cpu(failures, tiny_llama, capsys):
+    model, ids = tiny_llama
+    new = 10
+    greedy = cs.generation.decode_loop(model, ids, max_new_tokens=new)
+    assert cs.eager_agreement(model, ids, greedy, 6) > 0
+    cs.eos_check(model, ids, greedy, new)
+    print(capsys.readouterr().out)
+    assert failures == []

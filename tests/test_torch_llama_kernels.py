@@ -328,6 +328,20 @@ def test_pair_check_is_memoised_per_table():
     assert tIF._pair_repeating(cos[:8], False)
 
 
+def test_pair_check_reads_each_table_once_over_row_slices():
+    """The eager decode loop slices one position of each table per token:
+    the whole table is checked once and every row slice inherits the
+    verdict, so the device is read once, not once per token and layer."""
+    cos, sin = (torch.from_numpy(t) for t in _tables(32, 16, False))
+    before = tIF.table_checks
+    for pos in range(16):
+        assert tIF._pair_repeating(sin[pos:pos + 1], False)
+    assert tIF.table_checks - before == 1
+    # a view that is not whole rows is checked on its own
+    assert tIF._pair_repeating(sin[:4, :8], False)
+    assert tIF.table_checks - before == 2
+
+
 # ---------------------------------------------------------------------------
 # the wrappers' routes
 # ---------------------------------------------------------------------------

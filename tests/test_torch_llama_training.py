@@ -200,12 +200,14 @@ def test_unported_options_raise():
                          device="cpu")
     m = LlamaForCausalLM(llama_config("tiny"), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        m(ids, use_cache=True)
-    with pytest.raises(NotImplementedError, match="serving slice"):
+    # the dense KV cache is ported (tests/test_torch_decode_loop.py); the
+    # paged one, beam search and the paged serving step are not
+    with pytest.raises(NotImplementedError, match="paged"):
         m(ids, past=[None, None])
-    with pytest.raises(NotImplementedError, match="serving slice"):
+    with pytest.raises(NotImplementedError, match="paged"):
         m.llama.layers[0].self_attn(torch.zeros(1, 4, 64), past=object())
+    with pytest.raises(NotImplementedError, match="beam search"):
+        m.generate(ids, num_beams=2)
     with pytest.raises(NotImplementedError, match="serving slice"):
         m.build_ragged_decode_step()
 
