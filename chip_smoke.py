@@ -74,7 +74,29 @@ loudly with a non-zero exit:
    first position whose top-2 margin is under that tolerance; a sampled
    call is reproducible from its seed; an EOS call stops rows where the
    greedy run says; ms per token, tokens/s, host reads, peak memory and
-   the device's busy share from a ``torch.profiler`` trace.
+   the device's busy share from a ``torch.profiler`` trace;
+11. K9 (paged decode attention) against its plain PyTorch version on the
+   card at the paged paths' shapes (llama2-7b MHA 32/32 at length 576 and
+   GPT-3 1.3B 16/16 at 288, batch 8, page 16, head_dim 128), plus ragged
+   lengths 0..640 (the empty row exactly 0), GQA 32/8 and bf16; every byte
+   no row needs is NaN in the kernel's pools, so reading one shows; kernel
+   / plain / library (SDPA on the gathered live rows, a yardstick only)
+   times and the card's bound;
+12. paged main path — eager ``generate(use_paged_cache=True)`` on phase
+   10's llama2-7b (all 32 layers, fp32, batch 8 x prompt 512 + 128) and on
+   GPT-3 1.3B rebuilt from phase 4's seed (batch 8 x 256 + 64): exact
+   launches per call (K9 once per layer per decode step, the norms of
+   every forward, the prefill's K1a and rope, no K6 or K7); the first
+   paged step's logits match the dense forward, and a fault control (the
+   tables' lengths one short) must fail that check; the tokens equal
+   eager dense ``generate``'s up to each row's first top-2 margin under
+   that tolerance; ms per token, tokens/s, host reads, table copies and
+   peak memory beside a dense eager call.  Then beam search on both
+   models (batch 2 x 4 beams, prompt 256 + 32): one beam is greedy, each
+   returned hypothesis's carried score equals its score recomputed from a
+   dense forward, and on llama2-7b (whose winning beams change rows; on
+   random GPT-3 1.3B weights they never do, so its control is only read)
+   a search that skips the cache reorder must fail that check.
 
 Phase 4 also counts K6c on the engine's decode-only steps (at most 64
 rows take it), and phase 4b runs ``decode_loop`` greedy on its GPT-3
@@ -107,6 +129,7 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_adamw as adamw
 from paddle_tpu_torch.ops import fused_decode as fd
 from paddle_tpu_torch.ops import layer_norm as ln
+from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.ops import rms_norm as rms
 from paddle_tpu_torch.ops import rope
@@ -810,19 +833,20 @@ N_STEPS = dict(cold=1, warmup=2, timed=5)
 PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
             "ln_fwd": 49, "ln_bwd_dx": 49, "adamw": 292, "rms_fwd": 0,
             "rms_bwd_dx": 0, "rope": 0, "rpa": 0, "rope_qkv": 0,
-            "attend_cache_append": 0, "norm_mlp": 0}
+            "attend_cache_append": 0, "norm_mlp": 0, "paged_attention": 0}
 
 
 def counts():
     return dict(fa.launches, **ln.launches, **rms.launches, **fd.launches,
-                adamw=adamw.launches, rope=rope.launches, rpa=rpa.launches)
+                adamw=adamw.launches, rope=rope.launches, rpa=rpa.launches,
+                paged_attention=pa.launches)
 
 
 def reset_counts():
     for d in (fa.launches, ln.launches, rms.launches, fd.launches):
         for k in d:
             d[k] = 0
-    adamw.launches = rope.launches = rpa.launches = 0
+    adamw.launches = rope.launches = rpa.launches = pa.launches = 0
 
 
 def param_count(c) -> int:
@@ -1256,7 +1280,8 @@ def llama_per_step(layers):
             "flash_bwd_dkv": layers, "ln_fwd": 0, "ln_bwd_dx": 0,
             "adamw": 9 * layers + 3, "rms_fwd": 2 * layers + 1,
             "rms_bwd_dx": 2 * layers + 1, "rope": 4 * layers, "rpa": 0,
-            "rope_qkv": 0, "attend_cache_append": 0, "norm_mlp": 0}
+            "rope_qkv": 0, "attend_cache_append": 0, "norm_mlp": 0,
+            "paged_attention": 0}
 
 
 def llama_param_count(c) -> int:
@@ -1715,11 +1740,10 @@ def step_logit_check(model, ids):
     return err, ctrl
 
 
-def eager_agreement(model, ids, comp, new):
-    """Eager ``generate`` (the dense forward per token) against the compiled
-    tokens ``comp``: equal in each row up to the first position where the
-    eager logits' top-2 margin is under STEP_LOGITS_TOL.  Returns the
-    positions compared."""
+def eager_tokens(model, ids, new):
+    """Eager ``generate`` (the dense forward per token): (its new tokens
+    [B, new] and the top-2 margin of the logits each came from [new, B]),
+    on the host."""
     seen = []
     hook = model.register_forward_hook(
         lambda mod, inp, out: seen.append(out[0][:, -1].float()))
@@ -1727,23 +1751,38 @@ def eager_agreement(model, ids, comp, new):
         eager = generation.generate(model, ids, max_new_tokens=new)
     finally:
         hook.remove()
-    s = ids.shape[1]
     top2 = torch.stack([t.topk(2, dim=-1).values for t in seen[:new]])
-    margin = (top2[..., 0] - top2[..., 1]).cpu()           # [new, B]
-    e, c = eager[:, s:].cpu(), comp[:, s:s + new].cpu()
+    return (eager[:, ids.shape[1]:].cpu(),
+            (top2[..., 0] - top2[..., 1]).cpu())
+
+
+def agreement(what, eager, margin, other):
+    """``other``'s new tokens equal the eager ones in each row up to the
+    first position where the eager logits' top-2 margin is under
+    STEP_LOGITS_TOL.  Returns the positions compared."""
+    new = eager.shape[1]
+    o = other[:, :new].cpu()
     compared = 0
-    for row in range(ids.shape[0]):
+    for row in range(eager.shape[0]):
         small = torch.nonzero(margin[:, row] < STEP_LOGITS_TOL)
         upto = int(small[0]) if len(small) else new
-        if not torch.equal(e[row, :upto], c[row, :upto]):
-            fail(f"row {row}: eager and compiled tokens differ before "
-                 f"position {upto}: {e[row].tolist()} vs {c[row].tolist()}")
+        if not torch.equal(eager[row, :upto], o[row, :upto]):
+            fail(f"row {row}: eager and {what} tokens differ before "
+                 f"position {upto}: {eager[row].tolist()} vs "
+                 f"{o[row].tolist()}")
         compared += upto
-    say(f"eager vs compiled: {compared} of {ids.shape[0] * new} positions "
+    say(f"eager vs {what}: {compared} of {eager.numel()} positions "
         f"compared (each row up to its first top-2 margin under "
         f"{STEP_LOGITS_TOL}; smallest margin {margin.min().item():.3e}), "
         f"all equal")
     return compared
+
+
+def eager_agreement(model, ids, comp, new):
+    """Eager ``generate`` against the compiled tokens ``comp`` (see
+    ``agreement``).  Returns the positions compared."""
+    eager, margin = eager_tokens(model, ids, new)
+    return agreement("compiled", eager, margin, comp[:, ids.shape[1]:])
 
 
 def eos_check(model, ids, greedy, new):
@@ -1817,7 +1856,8 @@ def llama_decode_main_path():
         f"step; host reads per call {stats2['host_reads']}; peak memory "
         f"{peak} bytes ({peak / 2**30:.2f} GiB)")
     err, ctrl = step_logit_check(model, ids)
-    compared = eager_agreement(model, ids, out, DECODE["eager_new"])
+    eager, margin = eager_tokens(model, ids, DECODE["eager_new"])
+    compared = agreement("compiled", eager, margin, out[:, s:])
     g1, g2 = (torch.Generator(device="cuda").manual_seed(11)
               for _ in range(2))
     s1 = generation.decode_loop(model, ids, max_new_tokens=new,
@@ -1835,15 +1875,379 @@ def llama_decode_main_path():
                              ProfilerActivity.CUDA]) as prof:
         _, dt_prof, _, _ = decode_call(model, ids, new)
     _print_device_profile(prof, dt_prof, top=12)
-    del model, out, out2, s1, s2, prof
+    del out, out2, s1, s2, prof
     gc.collect()
     torch.cuda.empty_cache()
     say(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    # the model, the prompt and the eager tokens go on to phase 12
     return dict(launches={k: moved[k] for k in K6_KEYS},
                 steps=stats["steps"], ms_per_token=1e3 * dt / new,
                 ms_per_step=1e3 * (dt - prefill_s) / stats2["steps"],
                 tokens_per_s=b * new / dt, peak=peak, step_err=err,
-                control_err=ctrl, compared=compared)
+                control_err=ctrl, compared=compared), \
+        dict(model=model, ids=ids, eager=eager, margin=margin)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: K9 (paged decode attention) against its plain version
+# ---------------------------------------------------------------------------
+
+# name: (nh, nkv, lengths, pages per row, dtype); page 16, head_dim 128.
+# "llama" and "gpt" are phase 12's decode steps midway (the pools of
+# build_paged_caches: B x pages-per-row pages of 16)
+K9_CASES = {
+    "llama": (32, 32, [576] * 8, 40, torch.float32),
+    "gpt": (16, 16, [288] * 8, 20, torch.float32),
+    "ragged": (32, 32, [0, 1, 17, 100, 255, 384, 577, 640], 40,
+               torch.float32),
+    "gqa": (32, 8, [576] * 8, 40, torch.float32),
+    "bf16": (32, 32, [576] * 8, 40, torch.bfloat16),
+}
+K9_PAGE = 16
+
+
+def k9_case(nh, nkv, lengths, ppseq, dtype, g):
+    """Pools of B x ppseq pages plus a page 0 that no row owns, each row's
+    pages in a random order, unused table slots at page 0.  Every byte no
+    row needs (page 0, slots past a row's length) is NaN in the pools the
+    kernel gets and 0 in the copies the plain version gets, so a kernel
+    that read one would return NaN.  Returns (q, (k, v) with NaN, (k, v)
+    with 0, lengths, tables)."""
+    b, ps = len(lengths), K9_PAGE
+    n_pages = b * ppseq + 1
+    perm = torch.randperm(n_pages - 1, generator=g, device="cuda") + 1
+    tables = torch.zeros(b, ppseq, dtype=torch.int32, device="cuda")
+    live = torch.zeros(n_pages, ps, dtype=torch.bool, device="cuda")
+    for i, n in enumerate(lengths):
+        rows = perm[i * ppseq:(i + 1) * ppseq][:-(-n // ps)]
+        tables[i, :len(rows)] = rows.to(torch.int32)
+        t = torch.arange(n, device="cuda")
+        live[rows[t // ps], t % ps] = True
+    dead = ~live[None, :, :, None]
+    shape = (nkv, n_pages, ps, HD)
+    pools = [rand(shape, dtype, g) for _ in range(2)]
+    poisoned = tuple(p.masked_fill(dead, float("nan")) for p in pools)
+    clean = tuple(p.masked_fill(dead, 0.0) for p in pools)
+    q = rand((b, nh, HD), dtype, g)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, poisoned, clean, lens, tables
+
+
+def k9_library(q, k, v, lens, tables, lengths):
+    """``scaled_dot_product_attention`` on each row's live K/V rows,
+    gathered from the pages beforehand (the gather is not timed; a
+    yardstick only, the port never calls it)."""
+    b, nh, _ = q.shape
+    nkv = k.shape[0]
+    lmax = max(lengths)
+    t = torch.arange(lmax, device="cuda")
+    pages = tables.long()[:, t // K9_PAGE]                   # [B, lmax]
+    kl, vl = (p[:, pages, t % K9_PAGE].transpose(0, 1).contiguous()
+              for p in (k, v))                               # [B, nkv, l, hd]
+    mask = None
+    if min(lengths) != lmax:
+        mask = (t[None, :] < lens[:, None])[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kl, vl, attn_mask=mask, enable_gqa=nh != nkv)
+
+
+def check_k9():
+    t0 = time.perf_counter()
+    for line in _build.build_log.get("paged_attention", "").splitlines():
+        if "registers" in line or "spill" in line:
+            say(f"ptxas paged_attention: {line.strip()}")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    rows = {}
+    for case, (nh, nkv, lengths, ppseq, dtype) in K9_CASES.items():
+        q, poisoned, clean, lens, tables = k9_case(nh, nkv, lengths, ppseq,
+                                                   dtype, g)
+        before = pa.launches
+        got = pa.paged_attention(q, *poisoned, lens, tables)
+        torch.cuda.synchronize()
+        if pa.launches != before + 1:
+            fail(f"K9 {case}: launches did not move by 1")
+        ref = pa.paged_attention_ref(q, *clean, lens, tables)
+        if got.dtype != dtype or got.shape != q.shape:
+            fail(f"K9 {case}: {got.dtype} {tuple(got.shape)}")
+        check_close(f"K9 {case}", got, ref, dtype)
+        for i, n in enumerate(lengths):
+            if n == 0 and not (got[i] == 0).all():
+                fail(f"K9 {case}: the zero-length row {i} is not exactly 0")
+        item = q.element_size()
+        live_pages = sum(-(-n // K9_PAGE) for n in lengths)
+        # the live K/V rows, q and the output; the lengths and the live
+        # table entries
+        nbytes = item * (2 * nkv * HD * sum(lengths) + 2 * q.numel()) \
+            + 4 * (len(lengths) + live_pages)
+        row = dict(
+            kernel="K9", case=case, dtype=str(dtype).replace("torch.", ""),
+            max_abs_err=max_err(got, ref),
+            tol=dict(zip(("atol", "rtol"), KTOL[dtype])),
+            ms=time_ms(lambda: pa.paged_attention(q, *poisoned, lens,
+                                                  tables), 50),
+            plain_ms=time_ms(lambda: pa.paged_attention_ref(
+                q, *clean, lens, tables), 5),
+            library_ms=time_ms(k9_library(q, *clean, lens, tables, lengths),
+                               50))
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes, 4 * HD * nh * sum(lengths), PEAK_FLOPS[dtype])
+        lens_txt = lengths[0] if min(lengths) == max(lengths) else lengths
+        row["shape"] = (f"q [{len(lengths)}, {nh}, {HD}], pools [{nkv}, "
+                        f"{q.shape[0] * ppseq + 1}, {K9_PAGE}, {HD}], "
+                        f"{ppseq} pages per row, lengths {lens_txt}")
+        say("K9 " + json.dumps(row))
+        rows[case] = row
+        del q, poisoned, clean, got, ref
+    torch.cuda.empty_cache()
+    say(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: eager paged generate (K9) and beam search
+# ---------------------------------------------------------------------------
+
+PAGED_GPT = dict(batch=8, prompt=256, new=64)     # phase 4b's shapes
+PAGED_EAGER_NEW = 16
+# beam search on llama2-7b and GPT-3 1.3B.  The check recomputes each
+# returned hypothesis's score from a dense forward over it; the penalty 0.5
+# divides the summed log-probs by sqrt(288) = 17: enough that the carried
+# sum's fp32 rounding (32 additions) stays far under the limit, little
+# enough that a search that skips the cache reorder, whose log-probs come
+# from the wrong beams' histories, lands well outside it
+BEAM = dict(batch=2, num_beams=4, prompt=256, new=32, length_penalty=0.5)
+
+
+def paged_call(model, ids, new, **kw):
+    """One eager ``generate`` call, synchronised: (tokens, seconds, the
+    launches it made, ``generation.decode_stats``)."""
+    torch.cuda.synchronize()
+    before = counts()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = counts()
+    return (out, dt, {k: after[k] - before[k] for k in after},
+            dict(generation.decode_stats))
+
+
+def check_paged_launches(tag, moved, stats, layers, per_forward, prefill):
+    """Exact launches of one paged greedy call: K9 once per layer per
+    decode step, the norms of every forward (prefill and steps), the
+    prefill's attention and rope, nothing else (no K6, no K7)."""
+    steps = stats["steps"]
+    want = {k: 0 for k in moved}
+    want["paged_attention"] = layers * steps
+    want.update({k: n * (steps + 1) for k, n in per_forward.items()},
+                **prefill)
+    if moved != want:
+        fail(f"{tag}: launches {moved} != {want}")
+    say(f"{tag}: launches per call: K9 {layers} x {steps} decode steps = "
+        f"{moved['paged_attention']}; "
+        f"{ {k: moved[k] for k in list(per_forward) + list(prefill)} }")
+
+
+def paged_first_step(model, ids):
+    """Prefill, the greedy token, one paged decode step over pools of
+    S + 1 positions: (step logits [B, V], token [B])."""
+    logits, past = model(ids, use_cache=True, last_logits_only=True)
+    tok = logits[:, -1].argmax(dim=-1)
+    views = generation._to_paged(past, ids.shape[0], ids.shape[1] + 1)
+    del past
+    out, _ = model(tok[:, None], past=views, use_cache=True)
+    return out[:, -1], tok
+
+
+def paged_step_check(tag, model, ids):
+    """The first paged step's logits against the dense forward over
+    prompt + token, and the fault control (the tables' lengths one short,
+    so attention misses the appended position) that must fail the same
+    check.  Returns (error, control's error)."""
+    sound = pa.PagedKVCache.batch_tables
+
+    def short(self, seq_ids):
+        lengths, tables = sound(self, seq_ids)
+        return lengths - 1, tables
+
+    with torch.no_grad():
+        got, tok = paged_first_step(model, ids)
+        dense = model(torch.cat([ids, tok[:, None]], dim=1),
+                      last_logits_only=True)[:, -1]
+        err = max_err(got, dense)
+        pa.PagedKVCache.batch_tables = short
+        try:
+            bad, _ = paged_first_step(model, ids)
+        finally:
+            pa.PagedKVCache.batch_tables = sound
+        ctrl = max_err(bad, dense)
+    if not torch.isfinite(got).all() or got.shape != dense.shape:
+        fail(f"{tag} step logits: shape {tuple(got.shape)} or non-finite")
+    say(f"{tag}: paged step vs dense forward over prompt {ids.shape[1]} + "
+        f"1: max abs err {err:.3e} (tol {STEP_LOGITS_TOL}); control "
+        f"lengths one short: {ctrl:.3e}")
+    if err > STEP_LOGITS_TOL:
+        fail(f"{tag}: paged step logits differ from the dense forward by "
+             f"{err}")
+    if ctrl <= STEP_LOGITS_TOL:
+        fail(f"{tag}: the fault control passes the step-logit check "
+             f"({ctrl})")
+    return err, ctrl
+
+
+def paged_main_path(tag, model, ids, new, layers, per_forward, prefill,
+                    eager, margin):
+    """Paged greedy ``generate`` at the path's shape: exact launches, the
+    same tokens twice, the first step against the dense forward with its
+    control, the tokens against eager dense ``generate`` up to each row's
+    first small top-2 margin, and the times beside a dense eager call."""
+    b, s = ids.shape
+    vocab = model.config.vocab_size
+    reset_counts()                   # count the main path's launches only
+    out, dt_cold, moved, stats = paged_call(model, ids, new,
+                                            use_paged_cache=True)
+    check_greedy_rows(tag, out, ids, new, vocab)
+    if stats["loop"] != "paged":
+        fail(f"{tag}: the {stats['loop']} loop ran")
+    check_paged_launches(tag, moved, stats, layers, per_forward, prefill)
+    torch.cuda.reset_peak_memory_stats()
+    out2, dt, _, stats2 = paged_call(model, ids, new, use_paged_cache=True)
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(out, out2):
+        fail(f"{tag}: a second greedy call gave other tokens")
+    dense, dt_dense, _, _ = paged_call(model, ids, new)
+    err, ctrl = paged_step_check(tag, model, ids)
+    compared = agreement(tag, eager, margin, out[:, s:])
+    equal = int((dense[:, s:] == out[:, s:]).sum())
+    say(f"{tag}: {dt:.3f} s per call (first {dt_cold:.3f} s), "
+        f"{1e3 * dt / new:.2f} ms per token, {b * new / dt:.1f} tokens/s; "
+        f"host reads {stats2['host_reads']} and table copies to the card "
+        f"{stats2['table_copies']} (non-blocking) per call; peak memory "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB); the dense eager call "
+        f"{dt_dense:.3f} s, {1e3 * dt_dense / new:.2f} ms per token "
+        f"({equal} of {b * new} tokens equal to the paged call's)")
+    return dict(launches=moved["paged_attention"], steps=stats["steps"],
+                s_per_call=dt, ms_per_token=1e3 * dt / new,
+                tokens_per_s=b * new / dt, dense_s_per_call=dt_dense,
+                host_reads=stats2["host_reads"],
+                table_copies=stats2["table_copies"], peak=peak,
+                step_err=err, control_err=ctrl, compared=compared)
+
+
+def beam_score_errors(model, out, scores, s, lp):
+    """|carried score - the hypothesis's summed log-probs from one dense
+    forward over it / len ** lp| for each row."""
+    with torch.no_grad():
+        logp = torch.log_softmax(model(out).float(), dim=-1)
+    errs = []
+    for r in range(out.shape[0]):
+        toks = out[r, s:]
+        total = logp[r, s - 1:-1].gather(-1, toks[:, None]).double().sum()
+        errs.append(abs(total.item() / out.shape[1] ** lp - scores[r]))
+    return errs
+
+
+def beam_main_path(tag, model, require_reorder):
+    """Beam search: one beam is greedy; each returned hypothesis's carried
+    score equals the score recomputed from a dense forward over it; and
+    (``require_reorder``) the reorders moved cache rows and a search that
+    skips them fails that check.  On random GPT-3 1.3B weights the tied
+    head makes each prompt's best beam its greedy continuation (log-prob
+    ~0 against ~-30 for any other token), which stays in its own row: the
+    reorders move only the losing beams, so skipping them leaves the
+    returned hypotheses as they were, and that path reads the control
+    without holding it to the limit.  LLaMA's untied head gives flat
+    log-probs, the winning beams change rows, and the control must fail."""
+    b, nb, s, new, lp = (BEAM[k] for k in ("batch", "num_beams", "prompt",
+                                           "new", "length_penalty"))
+    rs = np.random.RandomState(3)
+    ids = torch.from_numpy(rs.randint(0, model.config.vocab_size,
+                                      (b, s))).cuda()
+    greedy = model.generate(ids, max_new_tokens=new)
+    one = model.generate(ids, max_new_tokens=new, num_beams=1,
+                         length_penalty=lp)
+    if not torch.equal(one, greedy):
+        fail(f"{tag}: num_beams=1 does not give greedy's tokens")
+    sound = generation._reorder_past
+    moves = []
+
+    def counting(past, beam_idx):
+        moves.append(int((beam_idx != torch.arange(
+            len(beam_idx), device=beam_idx.device)).sum()))
+        return sound(past, beam_idx)
+
+    reset_counts()
+    generation._reorder_past = counting
+    try:
+        out, dt, moved, stats = paged_call(model, ids, new, num_beams=nb,
+                                           length_penalty=lp)
+    finally:
+        generation._reorder_past = sound
+    if stats["loop"] != "beam" or moved["paged_attention"]:
+        fail(f"{tag}: the {stats['loop']} loop ran, K9 launches "
+             f"{moved['paged_attention']}")
+    check_greedy_rows(tag, out, ids, new, model.config.vocab_size)
+    errs = beam_score_errors(model, out, stats["scores"], s, lp)
+    generation._reorder_past = lambda past, beam_idx: past
+    try:
+        bad = model.generate(ids, max_new_tokens=new, num_beams=nb,
+                             length_penalty=lp)
+        bad_scores = list(generation.decode_stats["scores"])
+    finally:
+        generation._reorder_past = sound
+    ctrl = beam_score_errors(model, bad, bad_scores, s, lp)
+    say(f"{tag}: batch {b} x {nb} beams, prompt {s} + {new}, "
+        f"length_penalty {lp}: {dt:.3f} s per call, {stats['steps']} "
+        f"steps, host reads {stats['host_reads']}; rows moved by the "
+        f"reorders {moves}; scores {stats['scores']}; |carried - "
+        f"recomputed| {errs} (tol {STEP_LOGITS_TOL}); control without the "
+        f"cache reorder: {ctrl}; {int((out[:, s:] != greedy[:, s:]).sum())}"
+        f" of {b * new} tokens differ from greedy")
+    if max(errs) > STEP_LOGITS_TOL:
+        fail(f"{tag}: a carried score is {max(errs)} from its "
+             "recomputation")
+    if require_reorder and not sum(moves):
+        fail(f"{tag}: no reorder moved a cache row")
+    if require_reorder and max(ctrl) <= STEP_LOGITS_TOL:
+        fail(f"{tag}: the skipped-reorder control passes the score check "
+             f"({ctrl})")
+    return dict(s_per_call=dt, score_err=max(errs), control_err=max(ctrl),
+                rows_moved=sum(moves))
+
+
+def paged_main_paths(llama):
+    """Phase 12: the LLaMA path on phase 10's model and prompt, then GPT-3
+    1.3B rebuilt from phase 4's seed: paged greedy and beam search."""
+    t0 = time.perf_counter()
+    model, ids = llama["model"], llama["ids"]
+    layers = model.config.num_layers
+    lp = paged_main_path(
+        "llama paged", model, ids, DECODE["new"], layers,
+        {"rms_fwd": 2 * layers + 1}, {"flash_fwd": layers,
+                                      "rope": 2 * layers},
+        llama["eager"], llama["margin"])
+    llama_beam = beam_main_path("llama beam", model, require_reorder=True)
+    del model, llama["model"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gpt_config("gpt3-1.3B", hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    model = GPTForPretraining(cfg, seed=0)
+    b, s, new = (PAGED_GPT[k] for k in ("batch", "prompt", "new"))
+    rs = np.random.RandomState(1)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (b, s))).cuda()
+    eager, margin = eager_tokens(model, ids, PAGED_EAGER_NEW)
+    gp = paged_main_path("gpt paged", model, ids, new, N_LAYERS,
+                         {"ln_fwd": 2 * N_LAYERS + 1},
+                         {"flash_fwd": N_LAYERS}, eager, margin)
+    beam = beam_main_path("gpt beam", model, require_reorder=False)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return dict(llama=lp, gpt=gp, beam=beam, llama_beam=llama_beam)
+
 
 
 def main() -> int:
@@ -1882,7 +2286,9 @@ def main() -> int:
     llama = llama_train_main_path()
     llama_cross_check()
     k6 = check_k6()
-    llama_decode = llama_decode_main_path()
+    llama_decode, llama_model = llama_decode_main_path()
+    k9 = check_k9()
+    paged = paged_main_paths(llama_model)
 
     # each kernel's line: the main path's shape
     row = next(r for r in k7 if (r["case"], r["heads"], r["dtype"])
@@ -1990,6 +2396,21 @@ def main() -> int:
             name=name, source="paddle_tpu_torch/ops/csrc/fused_decode.cu",
             replaces="paddle_tpu/ops/pallas/fused_decode.py" + replaces,
             **by_path["llama_decode"], by_path=by_path))
+    # K9 runs on the paged paths, each at its own shape: the entry's
+    # numbers are the llama2-7b path's, by_path holds each path's
+    by_path = {}
+    for path, case in (("llama_paged", "llama"), ("gpt_paged", "gpt")):
+        r = k9[case]
+        by_path[path] = dict(
+            launches=paged[case]["launches"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            shape=r["shape"] + " " + r["dtype"])
+    kernels.append(dict(
+        name="paged_attention",
+        source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
+        replaces="paddle_tpu/ops/paged_attention.py:71",
+        **by_path["llama_paged"], by_path=by_path))
     for k in kernels:
         k["route"] = "cuda"
     say(json.dumps({"kernels": kernels}))

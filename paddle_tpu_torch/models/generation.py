@@ -30,12 +30,18 @@ from a ``torch.Generator``: ``jax.random.categorical`` is ``argmax(logits
 and advance the generator alike.  ``generator=`` defaults to the
 model's own.
 
-Not ported yet, each raising ``NotImplementedError``: beam search
-(``num_beams > 1``), the paged cache (``use_paged_cache=True``, K9's
-counterpart) — both wait for the eager paged ``generate`` slice — and
-``seq2seq_generate``.  The ``decode_loop`` / ``decode_compile``
-observability events and spans wait for the observability slice; the
-counts of the last call are in :data:`decode_stats`.
+The eager loop also runs over a **paged cache** (``use_paged_cache=
+True``): the prefill's dense cache is copied into one
+``ops.paged_attention.PagedKVCache`` per layer and each step appends to
+the pages and attends through ``paged_attention`` (K9's counterpart on
+CUDA); the page tables stay on the host, and a step copies its write
+indices and tables to the card once for all layers
+(``decode_stats["table_copies"]``).  ``num_beams > 1`` runs
+:func:`_beam_search`, HF-semantics beam search over the dense cache, and
+:func:`seq2seq_generate` the encoder-decoder loop over a caller's
+``decode_step``.  The ``decode_loop`` / ``decode_compile`` observability
+events and spans wait for the observability slice; the counts of the
+last call are in :data:`decode_stats`.
 
 :func:`build_ragged_decode_step` is the serving engine's batched step
 over paged KV pools (GPT layout; LLaMA waits for its serving slice).
@@ -45,9 +51,12 @@ from __future__ import annotations
 import inspect
 from typing import Optional
 
+import numpy as np
 import torch
 
+from ..device import default_device
 from ..ops import fused_decode as _fd
+from ..ops import paged_attention as _pa
 from ..ops.ragged_paged_attention import ragged_paged_attention
 
 __all__ = ["generate", "decode_loop", "seq2seq_generate",
@@ -59,13 +68,19 @@ _GREEDY = ("greedy_search", "greedy")
 # (paddle_tpu/flags.py); FLAGS_megakernel_decode's default, off, is
 # generate's default loop
 EAGER_FINISHED_SYNC_EVERY = 8
-_NEXT_SLICE = "waits for the eager paged generate slice"
 
-# the last generate call: which loop ran ("eager" / "compiled"), the model
-# steps it took after the prefill, the host reads of device values it made
-# (the hoisted finished polls and the stop-column read), and the tokens it
-# generated per row
+# the last generate call: which loop ran ("eager", "paged", "compiled" or
+# "beam"), the model steps it took after the prefill, the host reads of
+# device values it made (the hoisted finished polls and the stop-column
+# read; the beam loop's one read per step), and the tokens it generated
+# per row; "paged" adds the page-table copies to the card, "beam" the
+# score of each row's returned hypothesis
 decode_stats = {}
+
+
+def _record(**stats) -> None:
+    decode_stats.clear()
+    decode_stats.update(stats)
 
 
 def _gumbel(shape, generator, device):
@@ -180,23 +195,46 @@ def _compiled_decode(model, ids, max_new, strategy, temperature, top_k,
     if eos_token_id is not None:
         n = _generated_count(tokens, s_prompt, n_run, eos_token_id)
         reads += 1
-    decode_stats.update(loop="compiled", steps=steps, host_reads=reads,
-                        generated=n)
+    _record(loop="compiled", steps=steps, host_reads=reads, generated=n)
     return tokens[:, :s_prompt + n]
 
 
+def _to_paged(past, batch, max_total):
+    """Copy a dense prefill cache (per-layer (k, v) of ``[B, S, nkv, hd]``)
+    into per-layer page pools + views, on the cache's device."""
+    k0 = past[0][0]
+    views = _pa.build_paged_caches(len(past), batch, max_total,
+                                   k0.shape[2], k0.shape[3], dtype=k0.dtype,
+                                   device=k0.device)
+    for view, (k, v) in zip(views, past):
+        for b in range(batch):
+            view.cache.prefill(b, k[b], v[b])
+    return views
+
+
 def _eager_decode(model, ids, max_new, strategy, temperature, top_k, top_p,
-                  eos_token_id, supports_cache, last_only, generator):
+                  eos_token_id, supports_cache, last_only, generator, paged):
     """One model call per token over a preallocated token buffer; the
     ``finished.all()`` read hoisted to every ``EAGER_FINISHED_SYNC_EVERY``
-    tokens, the exact stop column rebuilt from the buffer."""
+    tokens, the exact stop column rebuilt from the buffer.  With ``paged``
+    (and a cache) the steps run over page pools instead of the dense
+    cache."""
     past = None
+    b, s_prompt = ids.shape
+    paged = paged and supports_cache
+    copies = _pa.table_copies
     if supports_cache:
         kw = {"last_logits_only": True} if last_only else {}
         logits, past = model(ids, use_cache=True, **kw)
+        if paged:
+            if not getattr(model, "supports_paged_cache", False):
+                raise ValueError(
+                    f"{type(model).__name__} does not support "
+                    "use_paged_cache=True (its attention has no "
+                    "PagedLayerView dispatch)")
+            past = _to_paged(past, b, s_prompt + max_new)
     else:
         logits = model(ids)
-    b, s_prompt = ids.shape
     buf = ids.new_zeros((b, s_prompt + max_new))
     buf[:, :s_prompt] = ids
     finished = torch.zeros(b, dtype=torch.bool, device=ids.device)
@@ -232,9 +270,152 @@ def _eager_decode(model, ids, max_new, strategy, temperature, top_k, top_p,
         cur = s_prompt + _generated_count(buf, s_prompt, cur - s_prompt,
                                           eos_token_id)
         reads += 1
-    decode_stats.update(loop="eager", steps=steps, host_reads=reads,
-                        generated=cur - s_prompt)
+    _record(loop="paged" if paged else "eager", steps=steps,
+            host_reads=reads, generated=cur - s_prompt)
+    if paged:
+        decode_stats["table_copies"] = _pa.table_copies - copies
     return buf[:, :cur]
+
+
+def _reorder_past(past, beam_idx):
+    """Reorder a dense per-layer (k, v) cache along the batch axis: the
+    beam permutation after each step."""
+    return [(k.index_select(0, beam_idx), v.index_select(0, beam_idx))
+            for k, v in past]
+
+
+def _beam_search(model, arr, max_new_tokens, num_beams, length_penalty,
+                 eos_token_id, supports_cache, last_only,
+                 pad_token_id=None, forced_eos_token_id=None):
+    """HF-semantics beam search (transformers' BeamSearchScorer, as the
+    JAX package has it): per-batch hypotheses scored sum_logprobs /
+    len**length_penalty, 2*num_beams candidates a step so eos candidates
+    never starve the live set, dense cache rows permuted by the chosen
+    beams.  ``model`` is a model or a callable ``ids -> logits`` (the
+    decode step of :func:`seq2seq_generate`); ``arr [B, S]`` lies where it
+    runs.  The beams' tokens stay on the host; each step makes one host
+    read (the candidates' scores and indices)."""
+    dev = arr.device
+    B, s_prompt = arr.shape
+    nb = int(num_beams)
+    max_new = int(max_new_tokens)
+    # each row becomes nb beams; the first is live, the rest at -1e9, so the
+    # first step picks nb distinct continuations of the prompt
+    arr_np = np.repeat(arr.cpu().numpy(), nb, axis=0)
+    beam_scores = torch.full((B, nb), -1e9, dtype=torch.float32, device=dev)
+    beam_scores[:, 0] = 0.0
+    hyps = [[] for _ in range(B)]      # (score, token array)
+    done = [False] * B                 # pool frozen (HF is_done)
+    reads = steps = 0
+
+    past = None
+    ids = arr.repeat_interleave(nb, dim=0)
+    if supports_cache:
+        kw = {"last_logits_only": True} if last_only else {}
+        logits, past = model(ids, use_cache=True, **kw)
+    else:
+        logits = model(ids)
+
+    for it in range(max_new):
+        logp = torch.log_softmax(logits[:, -1, :].float(), dim=-1)
+        V = logp.shape[-1]
+        if forced_eos_token_id is not None and it == max_new - 1:
+            # HF ForcedEOSTokenLogitsProcessor: the last slot can only be
+            # eos, at logp 0
+            logp = torch.full_like(logp, -1e9)
+            logp[:, int(forced_eos_token_id)] = 0.0
+        scores = (beam_scores.reshape(B * nb, 1) + logp).reshape(B, nb * V)
+        # jax.lax.top_k puts the lower index first among equal scores; a
+        # stable descending sort does too (torch.topk promises no order)
+        top_s, top_i = torch.sort(scores, dim=-1, descending=True,
+                                  stable=True)
+        top = torch.cat([top_s[:, :2 * nb].double(),
+                         top_i[:, :2 * nb].double()], dim=1).cpu().numpy()
+        reads += 1
+        top_s, top_i = top[:, :2 * nb], top[:, 2 * nb:].astype(np.int64)
+        beam_idx = np.zeros((B, nb), np.int64)
+        beam_tok = np.zeros((B, nb), np.int64)
+        new_scores = np.zeros((B, nb), np.float32)
+        for b in range(B):
+            if done[b]:
+                beam_idx[b, :] = b * nb
+                new_scores[b, :] = -1e9
+                continue
+            live = 0
+            for rank, (sc, i) in enumerate(zip(top_s[b], top_i[b])):
+                src, tok = divmod(int(i), V)
+                if eos_token_id is not None and tok == eos_token_id:
+                    if rank >= nb:
+                        # an eos candidate outside the top num_beams never
+                        # forms a hypothesis
+                        continue
+                    seq = arr_np[b * nb + src]
+                    # normalised by the stored length: prompt included,
+                    # the appended eos not
+                    hyps[b].append(
+                        (float(sc) / (seq.shape[0] ** length_penalty),
+                         np.concatenate([seq, [eos_token_id]])))
+                    if len(hyps[b]) > nb:
+                        # keep only the best nb
+                        hyps[b].remove(min(hyps[b], key=lambda t: t[0]))
+                    continue
+                if live < nb:
+                    beam_idx[b, live] = b * nb + src
+                    beam_tok[b, live] = tok
+                    new_scores[b, live] = sc
+                    live += 1
+            if live < nb:          # pathological: pad with beam 0
+                beam_idx[b, live:] = b * nb
+                new_scores[b, live:] = -1e9
+            # is_done (early_stopping=False): once nb hypotheses exist and
+            # the best of all 2*nb candidates cannot beat the worst kept
+            # one, the pool freezes
+            if len(hyps[b]) >= nb:
+                best_possible = float(top_s[b][0]) / (
+                    (arr_np.shape[1] + 1) ** length_penalty)
+                if min(h[0] for h in hyps[b]) >= best_possible:
+                    done[b] = True
+        if all(done):
+            break
+        flat_idx = beam_idx.reshape(-1)
+        arr_np = np.concatenate([arr_np[flat_idx], beam_tok.reshape(-1, 1)],
+                                axis=1)
+        beam_scores = torch.from_numpy(new_scores).to(dev)
+        if it == max_new - 1:
+            # the loop is over: this step's forward (and the reorder that
+            # feeds it) would be discarded
+            continue
+        if supports_cache:
+            # the permutation and the new tokens in one copy to the device
+            moved = torch.from_numpy(np.concatenate(
+                [flat_idx, beam_tok.reshape(-1)])).to(dev)
+            past = _reorder_past(past, moved[:B * nb])
+            logits, past = model(moved[B * nb:, None], past=past,
+                                 use_cache=True)
+        else:
+            logits = model(torch.from_numpy(arr_np).to(dev))
+        steps += 1
+
+    # finalize: the live beams of rows not done join their pools
+    bs = beam_scores.cpu().numpy()
+    full_len = arr_np.shape[1]
+    for b in range(B):
+        if done[b]:
+            continue
+        for j in range(nb):
+            hyps[b].append(
+                (float(bs[b, j]) / (max(full_len, 1) ** length_penalty),
+                 arr_np[b * nb + j]))
+    best = [max(h, key=lambda t: t[0]) for h in hyps]
+    width = max(len(s) for _, s in best)
+    pad = pad_token_id if pad_token_id is not None else (
+        eos_token_id if eos_token_id is not None else 0)
+    out = np.full((B, width), pad, arr_np.dtype)
+    for b, (_, seq) in enumerate(best):
+        out[b, :len(seq)] = seq
+    _record(loop="beam", steps=steps, host_reads=reads,
+            generated=width - s_prompt, scores=[sc for sc, _ in best])
+    return torch.from_numpy(out).to(dev)
 
 
 def decode_loop(model, input_ids, **kwargs):
@@ -250,6 +431,8 @@ def generate(model, input_ids, max_new_tokens: int = 20,
              decode_strategy: str = "greedy_search",
              temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
              eos_token_id: Optional[int] = None, num_beams: int = 1,
+             length_penalty: float = 1.0,
+             pad_token_id: Optional[int] = None,
              use_cache: bool = True, use_paged_cache: bool = False,
              generator: Optional[torch.Generator] = None,
              _megakernel: bool = False):
@@ -258,13 +441,11 @@ def generate(model, input_ids, max_new_tokens: int = 20,
     every row has met ``eos_token_id``).  ``decode_strategy``
     ``"greedy_search"`` or ``"sampling"`` (``temperature``, ``top_k``,
     ``top_p``), drawing from ``generator`` (default: the model's own).
-    ``_megakernel`` picks the compiled loop (:func:`decode_loop`)."""
-    if num_beams > 1:
-        raise NotImplementedError(f"beam search (num_beams={num_beams}) "
-                                  f"{_NEXT_SLICE}")
-    if use_paged_cache:
-        raise NotImplementedError(f"the paged cache (use_paged_cache=True,"
-                                  f" K9's counterpart) {_NEXT_SLICE}")
+    ``num_beams > 1`` runs beam search (``length_penalty``; rows padded
+    with ``pad_token_id``, else the eos, else 0) over the dense cache;
+    ``use_paged_cache`` runs the eager loop over page pools.
+    ``_megakernel`` picks the compiled loop (:func:`decode_loop`), which
+    neither of those takes."""
     dev = model.device
     ids = torch.as_tensor(input_ids, device=dev)
     if ids.dim() != 2:
@@ -300,16 +481,69 @@ def generate(model, input_ids, max_new_tokens: int = 20,
         with torch.no_grad():
             if compiled:
                 return _compiled_decode(*args, last_only, gen)
-            return _eager_decode(*args, supports_cache, last_only, gen)
+            if num_beams > 1:
+                if decode_strategy not in ("beam_search",) + _GREEDY:
+                    raise NotImplementedError(
+                        f"num_beams={num_beams} with decode_strategy="
+                        f"{decode_strategy!r}: beam-sampling is not "
+                        "implemented — temperature/top_k/top_p would be "
+                        "silently ignored")
+                if use_paged_cache:
+                    raise ValueError(
+                        "beam search reorders cache rows every step; the "
+                        "page pool does not support row permutation — use "
+                        "the dense cache (use_paged_cache=False)")
+                return _beam_search(model, ids, max_new, num_beams,
+                                    length_penalty, eos_token_id,
+                                    supports_cache, last_only,
+                                    pad_token_id=pad_token_id)
+            return _eager_decode(*args, supports_cache, last_only, gen,
+                                 use_paged_cache)
     finally:
         if was_training:
             model.train()
 
 
-def seq2seq_generate(*args, **kwargs):
-    """The encoder-decoder decode of the JAX package (T5/BART) is not
-    ported: no encoder-decoder model is."""
-    raise NotImplementedError(f"seq2seq_generate {_NEXT_SLICE}")
+def seq2seq_generate(decode_step, start_token_id, batch, max_new_tokens,
+                     eos_token_id, pad_token_id, num_beams=1,
+                     length_penalty=1.0, forced_eos_token_id=None,
+                     max_positions=None, device=None):
+    """The encoder-decoder decode: ``decode_step(dec_ids [batch, t]) ->
+    logits [batch, t, V]`` closes over the (beam-expanded, if needed)
+    encoder memory.  Greedy rows hold at ``pad_token_id`` after eos;
+    ``num_beams > 1`` runs the HF-semantics beam search;
+    ``forced_eos_token_id`` forces the final slot.  The decoder ids live
+    on ``device`` (``None``: the CUDA card, raising without one)."""
+    dev = default_device(device)
+    if max_positions is not None and \
+            1 + int(max_new_tokens) > int(max_positions):
+        raise ValueError(
+            f"decoder length 1+{max_new_tokens} exceeds "
+            f"max_position_embeddings {max_positions}")
+    if num_beams > 1:
+        start = torch.full((batch, 1), start_token_id, dtype=torch.int64,
+                           device=dev)
+        return _beam_search(decode_step, start, max_new_tokens,
+                            int(num_beams), length_penalty, eos_token_id,
+                            supports_cache=False, last_only=False,
+                            pad_token_id=pad_token_id,
+                            forced_eos_token_id=forced_eos_token_id)
+    dec = np.full((batch, 1), start_token_id, np.int64)
+    finished = np.zeros((batch,), bool)
+    for it in range(int(max_new_tokens)):
+        logits = decode_step(torch.from_numpy(dec).to(dev))
+        if forced_eos_token_id is not None and \
+                it == int(max_new_tokens) - 1:
+            nxt = np.full((batch,), forced_eos_token_id, np.int64)
+        else:
+            nxt = logits[:, -1, :].argmax(-1).cpu().numpy()
+        nxt = np.where(finished, pad_token_id, nxt)
+        dec = np.concatenate([dec, nxt[:, None].astype(np.int64)], 1)
+        if eos_token_id is not None:
+            finished |= nxt == eos_token_id
+            if finished.all():
+                break
+    return torch.from_numpy(dec).to(dev)
 
 
 def _scatter_pages(pages, vals, page_ids, slots):

@@ -18,7 +18,10 @@ criterion.  ``use_recompute`` recomputes each block in the backward
 (``torch.utils.checkpoint``).  With a KV cache (``past``, ``use_cache``)
 the positions start at the cache's length and K1 aligns the causal mask
 bottom-right; ``last_logits_only`` runs the head on the last position
-only.  The paged serving step
+only.  With one ``PagedLayerView`` per layer (eager paged ``generate``)
+the positions start at the rows' common length and attention appends to
+the page pools and runs ``ops.paged_attention`` (K9's counterpart on
+CUDA).  The paged serving step
 (:meth:`GPTForPretraining.build_ragged_decode_step`) and the compiled
 decode loop's step (:meth:`GPTForPretraining.build_decode_step`, on the
 fused decode kernels K6a/K6b/K6c) keep the ``fused_decode`` LayerNorm
@@ -39,6 +42,7 @@ from .. import amp
 from ..device import default_device, generator
 from ..nn import functional as F
 from ..ops import fused_decode as _fd
+from ..ops.paged_attention import PagedLayerView
 
 __all__ = ["GPTConfig", "PRESETS", "gpt_config", "GPTForPretraining",
            "GPTPretrainingCriterion"]
@@ -149,14 +153,24 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, past=None, use_cache: bool = False):
         """``past``: optional (k, v) cache ``[B, S_past, nh, hd]``,
-        concatenated before the new keys along seq; with ``use_cache``
-        returns ``(out, (k_full, v_full))``."""
+        concatenated before the new keys along seq, or a
+        ``PagedLayerView`` (one token per row: append and attend through
+        ``paged_attention``); with ``use_cache`` returns ``(out,
+        new_past)``."""
         if past is not None:
             _check_kv_pair(past)
         b, s, hidden = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if isinstance(past, PagedLayerView):
+            # decode against the page pools (no rope in GPT: positions
+            # live in the embeddings)
+            if s != 1:
+                raise ValueError("paged decode feeds one token per step")
+            out = past.append_and_attend(q, k, v).reshape(b, 1, hidden)
+            out = self.out_proj(out)
+            return (out, past) if use_cache else out
         if past is not None:
             k = torch.cat([past[0], k], dim=1)
             v = torch.cat([past[1], v], dim=1)
@@ -236,10 +250,19 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, past=None, use_cache: bool = False):
         """With ``past`` (one ``(k, v)`` per layer) positions start at
-        ``past[0][0].shape[1]``; with ``use_cache`` returns ``(h,
+        ``past[0][0].shape[1]``; with paged views at their rows' length,
+        which must be one for the batch; with ``use_cache`` returns ``(h,
         new_pasts)``."""
         _check_dense_past(past, len(self.layers))
-        pos0 = past[0][0].shape[1] if past is not None else 0
+        if past is not None and isinstance(past[0], PagedLayerView):
+            lens = past[0].lengths_np()
+            if len(set(lens.tolist())) != 1:
+                raise ValueError(
+                    "GPT's learned position embedding uses one batch-"
+                    "wide offset; paged decode needs uniform lengths")
+            pos0 = int(lens[0])
+        else:
+            pos0 = past[0][0].shape[1] if past is not None else 0
         x = self.embeddings(input_ids, pos_offset=pos0)
         if use_cache or past is not None:
             new_pasts = []
@@ -259,17 +282,15 @@ class GPTModel(nn.Module):
         return self.final_ln(x)
 
 
-_PAGED = ("a paged cache (PagedLayerView) waits for the eager paged "
-          "generate slice (K9's counterpart)")
-
-
 def _check_kv_pair(past) -> None:
-    """A layer's dense cache is a ``(k, v)`` pair of tensors; the paged
-    cache of the JAX package is not ported yet."""
+    """A layer's cache is a dense ``(k, v)`` pair of tensors or a
+    ``PagedLayerView``."""
+    if isinstance(past, PagedLayerView):
+        return
     if not (isinstance(past, (tuple, list)) and len(past) == 2
             and all(isinstance(t, torch.Tensor) for t in past)):
-        raise NotImplementedError(f"past must be a (k, v) pair of tensors; "
-                                  f"{_PAGED}")
+        raise TypeError("past must be a (k, v) pair of tensors or a "
+                        "PagedLayerView")
 
 
 def _check_dense_past(past, n_layers: int) -> None:
@@ -317,6 +338,8 @@ class GPTForPretraining(nn.Module):
     ``models.carry.load_paddle_tpu_state`` to compare).  The same
     generator, past the initializers, draws the dropout bits.
     ``sequence_parallel=True`` raises until the distributed slice."""
+
+    supports_paged_cache = True   # attention dispatches on PagedLayerView
 
     def __init__(self, config: GPTConfig, *, device=None, seed: int = 0):
         super().__init__()

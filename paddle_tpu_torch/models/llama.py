@@ -21,9 +21,14 @@ the fused decode kernels K6a/K6b/K6c (``ops.fused_decode``), with the
 JAX step's RMSNorm numerics; ``generate`` is
 ``models.generation.generate``.
 
-Not ported yet, and raising ``NotImplementedError``: the paged cache and
-the paged serving step (LLaMA serving and eager paged ``generate`` are
-later slices), and ``sequence_parallel`` (the distributed slice).
+With a paged cache (one ``PagedLayerView`` per layer, from eager paged
+``generate``) each row is rotated at its own length through ``[B, 1,
+D]`` tables and attends through ``ops.paged_attention`` (K9's
+counterpart on CUDA).
+
+Not ported yet, and raising ``NotImplementedError``: the paged serving
+step (the LLaMA serving slice) and ``sequence_parallel`` (the
+distributed slice).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from ..incubate.nn.functional import (fused_rms_norm,
                                       fused_rotary_position_embedding)
 from ..nn import functional as F
 from ..ops import fused_decode as _fd
+from ..ops.paged_attention import PagedLayerView
 from .gpt import (Embedding, GPTPretrainingCriterion, Linear,
                   _check_dense_past, _check_kv_pair, _recompute)
 
@@ -155,11 +161,14 @@ class LlamaAttention(nn.Module):
     def forward(self, x, past=None, use_cache: bool = False):
         """``past``: optional (k, v) cache ``[B, S_past, nkv, hd]`` (kv
         heads un-broadcast), concatenated before the new keys along seq;
-        positions start at ``S_past``.  With ``use_cache`` returns ``(out,
-        (k_full, v_full))``."""
+        positions start at ``S_past``.  Or a ``PagedLayerView``: one token
+        per row, at each row's own position.  With ``use_cache`` returns
+        ``(out, new_past)``."""
         if past is not None:
             _check_kv_pair(past)
         b, s, _ = x.shape
+        if isinstance(past, PagedLayerView):
+            return self._paged(x, past, use_cache)
         pos0 = past[0].shape[1] if past is not None else 0
         if pos0 + s > self._cos.shape[0]:
             raise ValueError(
@@ -181,6 +190,31 @@ class LlamaAttention(nn.Module):
                                              training=self.training)
         out = self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         return (out, (k, v)) if use_cache else out
+
+    def _paged(self, x, past, use_cache: bool):
+        """One token per row against the page pools: each row rotated at
+        its own position (its length), appended to the pages, attended
+        through ``paged_attention``."""
+        b, s, _ = x.shape
+        if s != 1:
+            raise ValueError("paged decode feeds one token per step")
+        top = int(past.lengths_np().max()) + 1
+        if top > self._cos.shape[0]:
+            raise ValueError(f"sequence position {top} exceeds "
+                             f"max_position_embeddings {self._cos.shape[0]}")
+        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, self.num_kv, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, self.num_kv, self.head_dim)
+        # [B, 1, D] tables, one row per sequence at its length: the cache's
+        # lengths on the device, which the last step's attention copied
+        pos, _ = past.cache.batch_tables(past.seq_ids)
+        cos = self._cos.index_select(0, pos)[:, None]
+        sin = self._sin.index_select(0, pos)[:, None]
+        q, k, _ = fused_rotary_position_embedding(
+            q, k, sin=sin, cos=cos, use_neox_rotary_style=False)
+        out = past.append_and_attend(q, k, v)             # [B, nh, hd]
+        out = self.o_proj(out.reshape(b, 1, self.num_heads * self.head_dim))
+        return (out, past) if use_cache else out
 
 
 class LlamaMLP(nn.Module):
@@ -273,6 +307,8 @@ class LlamaForCausalLM(nn.Module):
     carry weights over with ``models.carry.load_paddle_tpu_state`` to
     compare).  A new model is in eval mode; ``jit.train_step`` sets
     training mode."""
+
+    supports_paged_cache = True   # attention dispatches on PagedLayerView
 
     def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0):
         super().__init__()

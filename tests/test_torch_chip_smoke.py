@@ -123,3 +123,91 @@ def test_decode_phase_checks_hold_on_the_cpu(failures, tiny_llama, capsys):
     cs.eos_check(model, ids, greedy, new)
     print(capsys.readouterr().out)
     assert failures == []
+
+
+# ---------------------------------------------------------------------------
+# phases 11 and 12: K9's cases, the paged main path and beam search
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tiny_gpt():
+    model = tgpt.GPTForPretraining(
+        tgpt.gpt_config("tiny", hidden_dropout_prob=0.0,
+                        attention_dropout_prob=0.0), device="cpu", seed=0)
+    ids = torch.from_numpy(np.random.RandomState(1).randint(0, 512, (2, 16)))
+    return model, ids
+
+
+@pytest.fixture
+def no_card_memory(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+
+
+def test_k9_cases_are_the_paged_paths_shapes():
+    """Phase 11's "llama" and "gpt" cases are phase 12's decode steps
+    midway (page 16, head_dim 128, the pools of build_paged_caches), and
+    the kernels line names the JAX function K9 replaces."""
+    llama = tllama.llama_config(cs.DECODE_PRESET)
+    gpt = tgpt.gpt_config("gpt3-1.3B")
+    for case, cfg, shape in (("llama", llama, cs.DECODE),
+                             ("gpt", gpt, cs.PAGED_GPT)):
+        nh, nkv, lengths, ppseq, dtype = cs.K9_CASES[case]
+        assert (nh, nkv) == (cfg.num_heads,
+                             getattr(cfg, "num_kv_heads", cfg.num_heads))
+        assert cfg.hidden_size // cfg.num_heads == cs.HD
+        assert lengths == [shape["prompt"] + shape["new"] // 2] \
+            * shape["batch"]
+        assert ppseq * cs.K9_PAGE == shape["prompt"] + shape["new"]
+        assert dtype == torch.float32
+    assert 0 in cs.K9_CASES["ragged"][2]
+    with open(os.path.join(os.path.dirname(cs.__file__), "paddle_tpu", "ops",
+                           "paged_attention.py")) as f:
+        line = f.read().splitlines()[70]
+    assert line.startswith("def paged_attention(")
+    assert 'replaces="paddle_tpu/ops/paged_attention.py:71"' in \
+        open(cs.__file__).read()
+
+
+@pytest.mark.parametrize("name", ["llama", "gpt"])
+def test_paged_step_check_holds_and_sees_its_fault_control(
+        failures, tiny_llama, tiny_gpt, name, capsys):
+    """The first paged step (plain versions here) equals the dense forward
+    over prompt + token to fp32 rounding; the tables' lengths one short
+    fail the same check."""
+    model, ids = tiny_llama if name == "llama" else tiny_gpt
+    err, ctrl = cs.paged_step_check(name, model, ids)
+    print(capsys.readouterr().out)
+    assert err < 1e-5 < cs.STEP_LOGITS_TOL < ctrl
+    assert failures == []
+
+
+def test_paged_main_path_checks_hold_on_the_cpu(failures, tiny_llama,
+                                                no_card_memory, capsys):
+    """Phase 12's LLaMA path at tiny size: every check holds but the
+    launch count, which no plain version moves."""
+    model, ids = tiny_llama
+    layers = model.config.num_layers
+    eager, margin = cs.eager_tokens(model, ids, 6)
+    got = cs.paged_main_path("llama paged", model, ids, 10, layers,
+                             {"rms_fwd": 2 * layers + 1},
+                             {"flash_fwd": layers, "rope": 2 * layers},
+                             eager, margin)
+    print(capsys.readouterr().out)
+    assert len(failures) == 1 and "launches" in failures[0], failures
+    assert got["compared"] > 0 and got["steps"] == 9
+    assert got["host_reads"] == 0 and got["table_copies"] == 0
+
+
+def test_beam_phase_checks_hold_on_the_cpu(failures, tiny_gpt, monkeypatch,
+                                           capsys):
+    """Phase 12's beam search at tiny size: one beam is greedy, the carried
+    scores equal their recomputation, and skipping the cache reorder is
+    caught."""
+    model, _ = tiny_gpt
+    monkeypatch.setattr(cs, "BEAM", dict(cs.BEAM, prompt=16, new=12))
+    got = cs.beam_main_path("gpt beam", model, require_reorder=True)
+    print(capsys.readouterr().out)
+    assert failures == []
+    assert got["score_err"] < 1e-5 and got["rows_moved"] > 0
+    assert got["control_err"] > cs.STEP_LOGITS_TOL

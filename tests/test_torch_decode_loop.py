@@ -282,20 +282,8 @@ def test_compiled_equals_eager_sampling_and_advances_the_generator_alike(
 
 
 # ---------------------------------------------------------------------------
-# what is not ported, and the device rule
+# the fallback reasons, and the device rule
 # ---------------------------------------------------------------------------
-
-def test_beam_paged_and_seq2seq_raise(models):
-    _, pm = models["gpt"]
-    with pytest.raises(NotImplementedError, match="beam search"):
-        pm.generate(IDS, num_beams=2)
-    with pytest.raises(NotImplementedError, match="paged"):
-        tgen.decode_loop(pm, IDS, use_paged_cache=True)
-    with pytest.raises(NotImplementedError, match="seq2seq"):
-        tgen.seq2seq_generate(None, 0, 1, 4, None, 0)
-    with pytest.raises(NotImplementedError, match="PagedLayerView"):
-        pm(torch.from_numpy(IDS), past=[object()] * pm.config.num_layers)
-
 
 def test_other_requests_take_the_eager_loop(models):
     """The JAX package's fallback reasons: an unknown strategy, no cache, or

@@ -42,6 +42,7 @@ def test_source_imports_no_jax_and_no_paddle_tpu(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import paddle_tpu_torch, paddle_tpu_torch.ops\n"
+            "import paddle_tpu_torch.ops.paged_attention\n"
             "import paddle_tpu_torch.models, paddle_tpu_torch.serving\n"
             "import paddle_tpu_torch.amp, paddle_tpu_torch.nn\n"
             "import paddle_tpu_torch.optimizer, paddle_tpu_torch.jit\n"

@@ -200,14 +200,14 @@ def test_unported_options_raise():
                          device="cpu")
     m = LlamaForCausalLM(llama_config("tiny"), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.long)
-    # the dense KV cache is ported (tests/test_torch_decode_loop.py); the
-    # paged one, beam search and the paged serving step are not
-    with pytest.raises(NotImplementedError, match="paged"):
+    # the dense and the paged KV cache and beam search are ported
+    # (tests/test_torch_decode_loop.py, tests/test_torch_paged_generate.py);
+    # a past of neither kind is refused, and the paged serving step is not
+    # ported
+    with pytest.raises(TypeError, match="PagedLayerView"):
         m(ids, past=[None, None])
-    with pytest.raises(NotImplementedError, match="paged"):
+    with pytest.raises(TypeError, match="PagedLayerView"):
         m.llama.layers[0].self_attn(torch.zeros(1, 4, 64), past=object())
-    with pytest.raises(NotImplementedError, match="beam search"):
-        m.generate(ids, num_beams=2)
     with pytest.raises(NotImplementedError, match="serving slice"):
         m.build_ragged_decode_step()
 
