@@ -96,9 +96,39 @@ loudly with a non-zero exit:
    returned hypothesis's carried score equals its score recomputed from a
    dense forward, and on llama2-7b (whose winning beams change rows; on
    random GPT-3 1.3B weights they never do, so its control is only read)
-   a search that skips the cache reorder must fail that check.
+   a search that skips the cache reorder must fail that check;
+13. K8a/K8b (softmax cross-entropy forward and backward) against their
+   plain PyTorch version on the card: BART's loss shape (8192 x 50265
+   fp32, ~10 % of rows ignored), GPT's and LLaMA's vocabularies, bf16, a
+   ragged 33 x 37 case, every row ignored and labels outside [0, V) that
+   are not ignored (no column picked); ignored rows exactly 0 in both
+   passes; kernel / plain / library (``cross_entropy(reduction="none")``
+   and its backward, a yardstick only) times and the card's bytes bound
+   for what the data needs (an ignored row is not read);
+14. BART main path — bart-base at the reference's default ``BartConfig``
+   (d_model 768, 6 + 6 layers, vocab 50265, fp32, random weights from a
+   seed, nothing cut), batch 8 x encoder 1024 + decoder 1024 with padded
+   tails, ``jit.train_step`` with AdamW(1e-4, weight decay 0.01); 1 cold,
+   2 warm-up and 5 timed steps; every loss finite and the last below the
+   first, the frozen ``final_logits_bias`` unmoved, and per step exactly
+   1 launch of each K8 kernel, 32 of each K2 kernel and 259 of K3 (none
+   of K1, K4-K7 or K9);
+14b. cross-check at full width and depth 2 + 2: one fp32 step through
+   the kernels against the same step composed from the plain versions of
+   K8, K2 and K3 (loss, every gradient, every update, the second loss),
+   and a control (K8b giving ignored rows a gradient) that the gradient
+   check must catch;
+14c. ``generate`` on phase 14's model, batch 4 x encoder 1024 with padded
+   masks, 32 new tokens: greedy (the stop switched off: a random BART's
+   first token is its start token, which is its eos) equals the argmax of
+   a teacher-forced dense forward up to each row's first top-2 margin
+   under 1e-3; beam search with 4 beams returns scores equal to their
+   recomputation and the forced eos in the last slot; neither launches
+   K8.
 
-Phase 4 also counts K6c on the engine's decode-only steps (at most 64
+Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
+criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
+them in the JAX package).  Phase 4 also counts K6c on the engine's decode-only steps (at most 64
 rows take it), and phase 4b runs ``decode_loop`` greedy on its GPT-3
 1.3B model (batch 8 x prompt 256 + 64 new) with exact K6 launches.
 
@@ -122,6 +152,8 @@ from torch.profiler import ProfilerActivity, profile
 from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.jit import train_step
 from paddle_tpu_torch.models import generation
+from paddle_tpu_torch.models.bart import (BartConfig,
+                                          BartForConditionalGeneration)
 from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_config
 from paddle_tpu_torch.ops import _build
@@ -133,6 +165,7 @@ from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 from paddle_tpu_torch.ops import rms_norm as rms
 from paddle_tpu_torch.ops import rope
+from paddle_tpu_torch.ops import softmax_ce as sce
 from paddle_tpu_torch.serving import PagePool, Request, Scheduler
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.serving.__main__ import _print_device_profile
@@ -704,8 +737,10 @@ def check_k2():
     rows = {}
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
-    n, h = 8192, 2048
-    for dtype in (torch.float32, torch.bfloat16):
+    # GPT's [8192, 2048] in both dtypes, and BART's [8192, 768] fp32
+    for key, n, h, dtype in (("float32", 8192, 2048, torch.float32),
+                             ("bfloat16", 8192, 2048, torch.bfloat16),
+                             ("bart", 8192, 768, torch.float32)):
         x = rand((n, h), dtype, g, 2.0).requires_grad_()
         w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")) \
             .requires_grad_()
@@ -751,23 +786,28 @@ def check_k2():
                    dx_bound=bound_ms(3 * n * h * item + 8 * n + 4 * h,
                                      10 * n * h, PEAK_FLOPS[torch.float32]))
         say("K2 " + json.dumps(row))
-        rows[row["dtype"]] = row
+        rows[key] = row
         del x, w, b, gy, y, dx, dw, db, yr, dxr, dwr, dbr, lib_y
         torch.cuda.empty_cache()
     return rows
 
 
 def check_k3():
-    """A bf16 [2048, 8192] parameter on an fp32 master and an fp32 [2048]
-    parameter, 3 steps with weight decay, kernel vs the plain sequence on
-    identical copies."""
+    """A bf16 [2048, 8192] parameter on an fp32 master, an fp32 [2048]
+    parameter and an fp32 [50265, 768] parameter (BART's shared
+    embedding, its largest tensor; no master), 3 steps with weight decay,
+    kernel vs the plain sequence on identical copies.  Returns the timed
+    rows: "main" (the bf16 one, GPT's and LLaMA's O2 case) and "bart"."""
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
     b1, b2, eps, wd = 0.9, 0.999, 1e-8, 0.01
     lr = torch.tensor([1e-4], device="cuda")
     betas = torch.tensor([b1, b2], device="cuda")
-    err = 0.0
-    for shape, low in (((2048, 8192), True), ((2048,), False)):
+    rows = {}
+    for shape, low, key in (((2048, 8192), True, "main"),
+                            ((2048,), False, None),
+                            ((50265, 768), False, "bart")):
+        err = 0.0
         master = rand(shape, torch.float32, g, 0.02)
         states = []
         for _ in range(2):         # [kernel, plain]
@@ -798,7 +838,7 @@ def check_k3():
                 fail(f"K3 {shape} {name}: max abs err {e:.3e} (|max| "
                      f"{scale:.3e}, rtol {ADAMW_TOL})")
             err = max(err, e)
-        if low:
+        if key is not None:
             st = k
             numel = master.numel()
             row = dict(shape=list(shape), max_abs_err=err, ms=time_ms(
@@ -819,9 +859,11 @@ def check_k3():
                                      fused=True)
             row["library_ms"] = time_ms(lopt.step, 20)
             del lp, lopt
-    say("K3 " + json.dumps(row))
+            say(f"K3 {key} " + json.dumps(row))
+            rows[key] = row
+        del states, master, grad
     torch.cuda.empty_cache()
-    return row
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -833,17 +875,19 @@ N_STEPS = dict(cold=1, warmup=2, timed=5)
 PER_STEP = {"flash_fwd": 24, "flash_bwd_dq": 24, "flash_bwd_dkv": 24,
             "ln_fwd": 49, "ln_bwd_dx": 49, "adamw": 292, "rms_fwd": 0,
             "rms_bwd_dx": 0, "rope": 0, "rpa": 0, "rope_qkv": 0,
-            "attend_cache_append": 0, "norm_mlp": 0, "paged_attention": 0}
+            "attend_cache_append": 0, "norm_mlp": 0, "paged_attention": 0,
+            "ce_fwd": 0, "ce_bwd": 0}
 
 
 def counts():
     return dict(fa.launches, **ln.launches, **rms.launches, **fd.launches,
-                adamw=adamw.launches, rope=rope.launches, rpa=rpa.launches,
-                paged_attention=pa.launches)
+                **sce.launches, adamw=adamw.launches, rope=rope.launches,
+                rpa=rpa.launches, paged_attention=pa.launches)
 
 
 def reset_counts():
-    for d in (fa.launches, ln.launches, rms.launches, fd.launches):
+    for d in (fa.launches, ln.launches, rms.launches, fd.launches,
+              sce.launches):
         for k in d:
             d[k] = 0
     adamw.launches = rope.launches = rpa.launches = pa.launches = 0
@@ -942,20 +986,15 @@ def snapshot_grads(model):
     def keep(name):
         return lambda p: grads.__setitem__(name, p.grad.detach().clone())
     return grads, [p.register_post_accumulate_grad_hook(keep(n))
-                   for n, p in model.named_parameters()]
-
-
-def rel_norm(a, b) -> float:
-    """|a - b| / |b| in fp32, Frobenius norms."""
-    a, b = a.float(), b.float()
-    return ((a - b).norm() / b.norm()).item()
+                   for n, p in model.named_parameters() if p.requires_grad]
 
 
 def plain_adamw_(P):
     """The first AdamW step (lr 1e-4, weight decay 0.01) of the plain
     step on its own copies ``P``, from their gradients: fp32 masters made
     from the bf16 parameters, which get the rounded masters back, as the
-    O2 optimizer does; fp32 parameters are updated in place.  Returns the
+    O2 optimizer does; fp32 parameters are updated in place; a parameter
+    without a gradient is skipped, as the optimizer skips it.  Returns the
     fp32 values after the step."""
     dev = next(iter(P.values())).device
     lr = torch.tensor([1e-4], device=dev)
@@ -963,6 +1002,8 @@ def plain_adamw_(P):
     new = {}
     with torch.no_grad():
         for n, p in P.items():
+            if p.grad is None:          # frozen: no gradient, no update
+                continue
             master = p.float().clone() if p.dtype == torch.bfloat16 else p
             m, v = torch.zeros_like(master), torch.zeros_like(master)
             pows = torch.ones(2, device=dev) * betas
@@ -973,46 +1014,61 @@ def plain_adamw_(P):
     return new
 
 
-def step_cross_check(tag, model, opt, step, plain_loss, ids, labels,
-                     controls):
-    """One O2 step through the kernels (``step``, the trainer of ``model``
+def step_cross_check(tag, model, opt, step, plain_loss, batch, controls,
+                     loss_tol=XCHECK_LOSS_TOL, grad_tol=GRAD_REL_TOL,
+                     scale_of=None):
+    """One step through the kernels (``step``, the trainer of ``model``
     and ``opt``) against the same step composed from the plain versions,
     from the same weights: ``plain_loss(P, fault)`` is the plain forward
     and criterion on the copies ``P``, sound when ``fault`` is None.
 
-    Holds the first loss (XCHECK_LOSS_TOL), each parameter's gradient
-    before the optimizer step by relative norm (GRAD_REL_TOL), each
-    parameter's update (max 2.1 lr, median lr/100) and the second step's
-    loss after each side's own update (XCHECK_LOSS_TOL too).  Then the
-    gradient check's power: the plain step with each fault of
-    ``controls`` (one a kernel could have) must differ from the sound
-    plain step by more than GRAD_REL_TOL on some parameter."""
-    names = [n for n, _ in model.named_parameters()]
+    Holds the first loss (``loss_tol``), each trainable parameter's
+    gradient before the optimizer step by relative norm (``grad_tol``),
+    each parameter's update (max 2.1 lr, median lr/100; a frozen one must
+    not move) and the second step's loss after each side's own update
+    (``loss_tol`` too).  Then the gradient check's power: the plain step
+    with each fault of ``controls`` (one a kernel could have) must differ
+    from the sound plain step by more than ``grad_tol`` on some
+    parameter.  ``batch`` is what ``step`` takes.  ``scale_of`` maps a parameter whose exact gradient is 0 (both
+    sides then hold rounding noise) to one of the same shape whose
+    gradient norm scales its error instead of its own."""
+    train = {n: p.requires_grad for n, p in model.named_parameters()}
+    names = [n for n, t in train.items() if t]
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     grads_k, hooks = snapshot_grads(model)
-    loss_k = step(ids, labels)
+    loss_k = step(*batch)
     for h in hooks:
         h.remove()
     # the plain step's own copy of the same weights, masters and moments
-    P = {n: t.clone().requires_grad_() for n, t in before.items()}
+    P = {n: t.clone().requires_grad_(train[n]) for n, t in before.items()}
     loss_p = plain_loss(P, None)
     loss_p.backward()
     grads_p = {n: P[n].grad.detach().clone() for n in names}
     plain_new = plain_adamw_(P)
     torch.cuda.synchronize()
     lk, lp = float(loss_k), float(loss_p.detach())
-    say(f"{tag}: loss kernels {lk} plain {lp} (tol {XCHECK_LOSS_TOL})")
-    if not abs(lk - lp) <= XCHECK_LOSS_TOL:
+    say(f"{tag}: loss kernels {lk} plain {lp} (tol {loss_tol})")
+    if not abs(lk - lp) <= loss_tol:
         fail(f"{tag} loss {lk} vs plain {lp}")
-    rels = {n: rel_norm(grads_k[n], grads_p[n]) for n in names}
+    scale_of = scale_of or {}
+
+    def rel(g, n, ref):
+        d = (g.float() - ref[n].float()).norm()
+        return (d / ref[scale_of.get(n, n)].float().norm()).item()
+
+    rels = {n: rel(grads_k[n], n, grads_p) for n in names}
     worst = max(rels, key=rels.get)
     say(f"{tag}: gradients' relative error |g_k - g_p| / |g_p|: worst "
         f"{rels[worst]:.3e} ({worst}), median "
-        f"{float(np.median(list(rels.values()))):.3e} (tol {GRAD_REL_TOL})")
-    if not rels[worst] <= GRAD_REL_TOL:
+        f"{float(np.median(list(rels.values()))):.3e} (tol {grad_tol})")
+    if not rels[worst] <= grad_tol:
         fail(f"{tag} gradient of {worst}: relative error {rels[worst]:.3e}")
     worst_max, worst_med = 0.0, 0.0
     for n, p in model.named_parameters():
+        if not train[n]:
+            if not torch.equal(p.detach(), before[n]):
+                fail(f"{tag}: the frozen {n} moved")
+            continue
         # the update of the fp32 master (of the parameter itself for the
         # fp32 norm parameters)
         new = opt.state[p].get("master", p).detach()
@@ -1027,29 +1083,30 @@ def step_cross_check(tag, model, opt, step, plain_loss, ids, labels,
         f"{worst_max:.3e} (tol 2.1 lr = 2.1e-4), worst median "
         f"{worst_med:.3e} (tol lr/100 = 1e-6)")
     del grads_k, plain_new
-    loss_k2 = step(ids, labels)
+    loss_k2 = step(*batch)
     with torch.no_grad():
         loss_p2 = plain_loss(P, None)
     lk2, lp2 = float(loss_k2), float(loss_p2)
     say(f"{tag}: second step's loss kernels {lk2} plain {lp2} (tol "
-        f"{XCHECK_LOSS_TOL})")
-    if not abs(lk2 - lp2) <= XCHECK_LOSS_TOL:
+        f"{loss_tol})")
+    if not abs(lk2 - lp2) <= loss_tol:
         fail(f"{tag} second loss {lk2} vs plain {lp2}")
     del P
     torch.cuda.empty_cache()
     for fault in controls:
-        C = {n: t.clone().requires_grad_() for n, t in before.items()}
+        C = {n: t.clone().requires_grad_(train[n])
+             for n, t in before.items()}
         loss_c = plain_loss(C, fault)
         loss_c.backward()
-        crel = {n: rel_norm(C[n].grad, grads_p[n]) for n in names}
+        crel = {n: rel(C[n].grad, n, grads_p) for n in names}
         w = max(crel, key=crel.get)
         say(f"{tag}: control {fault}: loss {float(loss_c.detach())}, "
             f"gradients' relative error to the sound plain step: worst "
             f"{crel[w]:.3e} ({w}), median "
             f"{float(np.median(list(crel.values()))):.3e}")
-        if not crel[w] > GRAD_REL_TOL:
+        if not crel[w] > grad_tol:
             fail(f"{tag}: the gradient check cannot see the {fault} "
-                 f"control ({crel[w]:.3e} <= {GRAD_REL_TOL})")
+                 f"control ({crel[w]:.3e} <= {grad_tol})")
         del C, loss_c
         torch.cuda.empty_cache()
 
@@ -1121,8 +1178,8 @@ def cross_check():
     step_cross_check(
         f"cross-check (2 layers, full width, batch {TRAIN_BATCH})",
         model, opt, step,
-        lambda P, fault: plain_loss(P, cfg, ids, labels, fault), ids,
-        labels, controls=("ln_dx",))
+        lambda P, fault: plain_loss(P, cfg, ids, labels, fault),
+        (ids, labels), controls=("ln_dx",))
 
 
 # ---------------------------------------------------------------------------
@@ -1281,7 +1338,7 @@ def llama_per_step(layers):
             "adamw": 9 * layers + 3, "rms_fwd": 2 * layers + 1,
             "rms_bwd_dx": 2 * layers + 1, "rope": 4 * layers, "rpa": 0,
             "rope_qkv": 0, "attend_cache_append": 0, "norm_mlp": 0,
-            "paged_attention": 0}
+            "paged_attention": 0, "ce_fwd": 0, "ce_bwd": 0}
 
 
 def llama_param_count(c) -> int:
@@ -1432,7 +1489,7 @@ def llama_cross_check():
         f"llama cross-check (2 layers, full width, batch {LLAMA_BATCH} x "
         f"seq {LLAMA_SEQ})", model, opt, step,
         lambda P, fault: plain_llama_loss(P, cfg, ids, labels, cos, sin,
-                                          fault), ids, labels,
+                                          fault), (ids, labels),
         controls=("rms_dx", "rope_sign", "tables_fp32"))
 
 
@@ -2250,6 +2307,456 @@ def paged_main_paths(llama):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13: K8a/K8b against their plain versions
+# ---------------------------------------------------------------------------
+
+# name: (N, V, dtype, labels): "main" is the BART path's loss (batch 8 x
+# decoder 1024 tokens, bart-base's vocabulary 50265, fp32); GPT's and
+# LLaMA's vocabularies; bf16; a ragged odd case; every row ignored; labels
+# outside [0, V) that are not ignore_index ("oob": no column picked, loss
+# = lse, dx = softmax · g).  "mixed" labels have ~10 % of rows -100.
+K8_CASES = {
+    "main": (8192, 50265, torch.float32, "mixed"),
+    "gpt-vocab": (8192, 50304, torch.float32, "mixed"),
+    "llama-vocab": (8192, 32000, torch.float32, "mixed"),
+    "bf16": (8192, 50265, torch.bfloat16, "mixed"),
+    "ragged": (33, 37, torch.float32, "mixed"),
+    "all-ignored": (64, 50265, torch.float32, "ignored"),
+    "oob": (64, 50265, torch.float32, "oob"),
+}
+# K8 vs its plain version.  The loss: the kernel's one-pass online lse
+# against torch's two-pass logsumexp, both fp32 sums of up to 50304 terms
+# in other orders: a relative error of ~1e-6 on a sum, so ~1e-6 on an lse
+# of ~13; the limit 1e-4 leaves a margin and still sees any wrong term
+# (one missing exp of a typical logit moves the lse by ~1/V·e^x ~ 1e-5 at
+# most, a wrong max or row by far more).  dx fp32: exp(x - lse) from lses
+# that differ by ~1e-6, times g: atol 1e-6 + rtol 1e-4.  dx bf16: both
+# round once to bf16 from fp32 values a few ulps apart, so at most one
+# bf16 step (2^-7 relative) apart: rtol 1e-2.  Ignored rows: exactly 0.
+K8_LOSS_TOL = 1e-4
+K8_DX_TOL = {torch.float32: (1e-6, 1e-4), torch.bfloat16: (1e-6, 1e-2)}
+
+
+def k8_case(n, v, dtype, kind, g):
+    """Logits (N(0, 2²) in fp32, cast to ``dtype``), int64 labels and a
+    per-row upstream gradient that is non-zero on ignored rows too (the
+    kernel must zero them itself)."""
+    x = rand((n, v), dtype, g, 2.0)
+    lab = torch.randint(0, v, (n,), generator=g, device="cuda")
+    if kind == "mixed":
+        lab[torch.rand(n, generator=g, device="cuda") < 0.1] = -100
+        lab[0] = -100
+    elif kind == "ignored":
+        lab[:] = -100
+    elif kind == "oob":
+        lab[0::4] = v + 5
+        lab[1::4] = -1
+        lab[2::4] = -7
+        lab[3] = -100
+    up = torch.randn(n, generator=g, device="cuda")
+    return x, lab, up
+
+
+def check_k8():
+    rows = {}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    for case, (n, v, dtype, kind) in K8_CASES.items():
+        x, lab, up = k8_case(n, v, dtype, kind, g)
+        lab32 = lab.to(torch.int32)
+        before = dict(sce.launches)
+        loss, lse = sce.softmax_ce_fwd(x, lab32)
+        dx = sce.softmax_ce_bwd(x, lab32, lse, up)
+        torch.cuda.synchronize()
+        if any(sce.launches[k] != before[k] + 1 for k in before):
+            fail(f"K8 {case}: launch counters did not move: {sce.launches}")
+        xp = x.clone().requires_grad_()
+        loss_p = sce.reference_softmax_ce(xp, lab)
+        (dx_p,) = torch.autograd.grad(loss_p, xp, up, retain_graph=True)
+        ignored = lab == -100
+        if not torch.isfinite(loss).all() or not torch.isfinite(
+                dx.float()).all():
+            fail(f"K8 {case}: non-finite kernel output")
+        if (loss[ignored] != 0).any() or (dx[ignored] != 0).any():
+            fail(f"K8 {case}: an ignored row's loss or dx is not exactly 0")
+        e_loss = max_err(loss, loss_p)
+        if e_loss > K8_LOSS_TOL:
+            fail(f"K8 {case} loss: max abs err {e_loss:.3e} > "
+                 f"{K8_LOSS_TOL}")
+        atol, rtol = K8_DX_TOL[dtype]
+        excess = ((dx.float() - dx_p.float()).abs()
+                  - (atol + rtol * dx_p.float().abs())).max().item()
+        if excess > 0:
+            fail(f"K8 {case} dx: max abs err {max_err(dx, dx_p):.3e} "
+                 f"exceeds atol {atol} + rtol {rtol} |plain|")
+        if kind == "oob":
+            picked_none = ((lab < 0) | (lab >= v)) & ~ignored
+            lse_p = torch.logsumexp(x.float(), -1)
+            e_oob = max_err(loss[picked_none], lse_p[picked_none])
+            if e_oob > K8_LOSS_TOL:
+                fail(f"K8 oob: loss is not the lse where no column is "
+                     f"picked ({e_oob:.3e})")
+        item = x.element_size()
+        valid = int((~ignored).sum())
+        # the bytes this data needs: an ignored row is neither read
+        # forward nor backward (its dx is written as zeros)
+        fwd_bytes = valid * v * item + n * 12
+        bwd_bytes = valid * v * item + n * v * item + n * 12
+        row = dict(case=case, n=n, v=v, dtype=str(dtype).replace(
+            "torch.", ""), valid_rows=valid,
+            max_abs_err=dict(loss=e_loss, dx=max_err(dx, dx_p)),
+            fwd_ms=time_ms(lambda: sce.softmax_ce_fwd(x, lab32), 20),
+            bwd_ms=time_ms(lambda: sce.softmax_ce_bwd(x, lab32, lse, up),
+                           20),
+            plain_fwd_ms=time_ms(lambda: sce.reference_softmax_ce(x, lab),
+                                 5),
+            plain_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                loss_p, xp, up, retain_graph=True), 5),
+            fwd_bound=bound_ms(fwd_bytes, 4 * valid * v,
+                               PEAK_FLOPS[torch.float32]),
+            bwd_bound=bound_ms(bwd_bytes, 4 * valid * v,
+                               PEAK_FLOPS[torch.float32]))
+        # yardstick: torch's cross entropy (per row) and its backward; it
+        # asserts on a label outside [0, V), so those take column 0 there
+        lib_lab = torch.where((lab < 0) & ~ignored | (lab >= v),
+                              torch.zeros_like(lab), lab)
+        xl = x.clone().requires_grad_()
+        lib = F.cross_entropy(xl, lib_lab, ignore_index=-100,
+                              reduction="none")
+        row["library_fwd_ms"] = time_ms(lambda: F.cross_entropy(
+            x, lib_lab, ignore_index=-100, reduction="none"), 20)
+        row["library_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            lib, xl, up, retain_graph=True), 20)
+        say("K8 " + json.dumps(row))
+        rows[case] = row
+        del x, lab, lab32, up, loss, lse, dx, xp, loss_p, dx_p, xl, lib
+        del lib_lab
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the BART main path (training, cross-check, generate)
+# ---------------------------------------------------------------------------
+
+# bart-base at the reference's default BartConfig (d_model 768, 6 + 6
+# layers, 12 heads, FFN 3072, vocab 50265, 1024 positions), fp32, nothing
+# cut; batch 8 x encoder 1024 + decoder 1024 (the denoising objective
+# rebuilds the whole document, so both sides run at the full
+# max_position_embeddings)
+BART_BATCH, BART_SEQ = 8, 1024
+BART_XCHECK_LAYERS = 2
+# the 14b cross-check in fp32: both steps run the same cuBLAS matmuls; the
+# norms and the loss differ by the kernels' summation orders (a few ulps),
+# so the loss agrees to ~1e-6 of ~11 and each gradient to ~1e-5 of its
+# norm.  The control (ignored rows given a gradient) moves the gradients
+# by the share of ignored rows, ~10 %.
+BART_LOSS_TOL = 1e-4
+BART_GRAD_REL_TOL = 1e-3
+BART_GEN = dict(batch=4, new=32, num_beams=4)
+
+
+def bart_per_step(c: BartConfig):
+    """Exact launches per step: one K8a and one K8b; LayerNorm after the
+    embeddings of each stack, twice per encoder layer and three times
+    per decoder layer (forward and dx each); AdamW per trainable
+    parameter (16 per encoder layer, 26 per decoder layer, 3 per stack
+    and the shared embedding; not the frozen final_logits_bias)."""
+    norms = 1 + 2 * c.encoder_layers + 1 + 3 * c.decoder_layers
+    want = {k: 0 for k in PER_STEP}
+    want.update(ce_fwd=1, ce_bwd=1, ln_fwd=norms, ln_bwd_dx=norms,
+                adamw=7 + 16 * c.encoder_layers + 26 * c.decoder_layers)
+    return want
+
+
+def bart_step_flops(c: BartConfig, b: int, s: int) -> int:
+    """FLOPs of one training step's matrix products (3 x the forward's 2
+    per multiply-add), encoder and decoder at ``s`` tokens each: the
+    projections, the FFNs, attention scores and context over all ``s``
+    keys (the masks are additive, so nothing is skipped) and the head."""
+    d, v = c.d_model, c.vocab_size
+    enc = c.encoder_layers * (4 * d * d + 2 * d * c.encoder_ffn_dim
+                              + 2 * s * d)
+    dec = c.decoder_layers * (8 * d * d + 2 * d * c.decoder_ffn_dim
+                              + 4 * s * d) + d * v
+    return 6 * b * s * (enc + dec)
+
+
+def bart_batch(cfg, b, s, seed):
+    """Encoder ids with each row's tail padded (mask 0, pad id), decoder
+    ids from the start token, labels -100 at the decoder's padded tail
+    (tails up to 20 % of a row, ~10 % on average)."""
+    rs = np.random.RandomState(seed)
+    v = cfg.vocab_size
+    enc = rs.randint(3, v, (b, s))
+    mask = np.ones((b, s), np.int64)
+    dec = rs.randint(3, v, (b, s))
+    dec[:, 0] = cfg.decoder_start_token_id
+    labels = rs.randint(3, v, (b, s))
+    for r in range(b):
+        pad_enc, pad_dec = rs.randint(0, s // 5, 2)
+        if pad_enc:
+            mask[r, s - pad_enc:] = 0
+            enc[r, s - pad_enc:] = cfg.pad_token_id
+        if pad_dec:
+            dec[r, s - pad_dec:] = cfg.pad_token_id
+            labels[r, s - pad_dec:] = -100
+    return tuple(torch.from_numpy(a).cuda() for a in (enc, mask, dec,
+                                                      labels))
+
+
+def bart_step_fn(m, enc, mask, dec, labels):
+    return m.loss_fn(m(enc, dec, attention_mask=mask), labels)
+
+
+def build_bart_trainer(cfg, seed):
+    model = BartForConditionalGeneration(cfg, seed=seed)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01)
+    return model, opt, train_step(model, None, opt, step_fn=bart_step_fn)
+
+
+def bart_train_main_path():
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = BartConfig()
+    model, opt, step = build_bart_trainer(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    n_tensors = len(list(model.parameters()))
+    per_step = bart_per_step(cfg)
+    if n_tensors != per_step["adamw"] + 1:
+        fail(f"bart-base has {n_tensors} parameter tensors")
+    say(f"bart: bart-base (d_model {cfg.d_model}, {cfg.encoder_layers} + "
+        f"{cfg.decoder_layers} layers, {cfg.encoder_attention_heads} heads,"
+        f" FFN {cfg.encoder_ffn_dim}, vocab {cfg.vocab_size}), fp32, N = "
+        f"{n_params} trainable parameters in {n_tensors - 1} tensors (+ the"
+        f" frozen final_logits_bias), batch {BART_BATCH} x encoder "
+        f"{BART_SEQ} + decoder {BART_SEQ}, AdamW(1e-4, weight decay 0.01), "
+        f"built in {time.perf_counter() - t0:.3f} s")
+    batch = bart_batch(cfg, BART_BATCH, BART_SEQ, seed=0)
+    valid = int((batch[3] != -100).sum())
+    tokens = 2 * BART_BATCH * BART_SEQ
+    reset_counts()                   # count the main path's launches only
+    losses, step_s = [], []
+    for i in range(sum(N_STEPS.values())):
+        before = counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(step(*batch))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        after = counts()
+        moved = {k: after[k] - before[k] for k in per_step}
+        if moved != per_step:
+            fail(f"bart step {i}: launches {moved} != {per_step}")
+        say(f"bart step {i}: {1e3 * step_s[-1]:.2f} ms, "
+            f"{tokens / step_s[-1]:.1f} tokens/s (encoder + decoder), "
+            f"peak memory {torch.cuda.max_memory_allocated()} bytes")
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    vals = [float(l) for l in losses]
+    say(f"bart: losses {vals}")
+    if not all(np.isfinite(vals)) or not vals[-1] < vals[0]:
+        fail(f"bart losses not finite and falling: {vals}")
+    if float(model.final_logits_bias.abs().sum()) != 0.0:
+        fail("bart: the frozen final_logits_bias moved")
+    timed = step_s[N_STEPS["cold"] + N_STEPS["warmup"]:]
+    mean_s = sum(timed) / len(timed)
+    flops = bart_step_flops(cfg, BART_BATCH, BART_SEQ)
+    util = flops / mean_s / PEAK_FLOPS[torch.float32]
+    say(f"bart: timed steps {[round(1e3 * t, 2) for t in timed]}; mean "
+        f"{1e3 * mean_s:.2f} ms = {tokens / mean_s:.1f} tokens/s "
+        f"({valid} labelled decoder tokens a step); matrix products "
+        f"{flops:.4e} FLOP a step = {100 * util:.2f} % of 67 TFLOP/s "
+        f"fp32; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    say(f"bart: launches over {sum(N_STEPS.values())} steps {launches}")
+    return model, launches
+
+
+def plain_bart_loss(P, cfg, enc, mask, dec, labels, fault=None):
+    """The forward and loss of ``models/bart.py`` composed from the plain
+    versions (``layer_norm_ref``, ``reference_softmax_ce``) in fp32.
+    ``fault="ce_ignored_grad"`` keeps the forward and gives the ignored
+    rows the gradient of their clamped label's loss (a K8b that does not
+    zero g there)."""
+    d = cfg.d_model
+
+    def lnorm(x, name):
+        return ln.layer_norm_ref(x, P[name + ".weight"], P[name + ".bias"],
+                                 1e-5)
+
+    def linear(x, name):
+        return torch.matmul(x, P[name + ".weight"]) + P[name + ".bias"]
+
+    def attention(x, pre, heads, kv, key_mask, causal):
+        b, sq = x.shape[:2]
+        mem = x if kv is None else kv
+        sk, dk = mem.shape[1], d // heads
+        q = linear(x, pre + "q_proj").reshape(b, sq, heads, dk) \
+            .transpose(1, 2)
+        k = linear(mem, pre + "k_proj").reshape(b, sk, heads, dk) \
+            .transpose(1, 2)
+        v = linear(mem, pre + "v_proj").reshape(b, sk, heads, dk) \
+            .transpose(1, 2)
+        s = torch.matmul(q, k.transpose(-1, -2)) * dk ** -0.5
+        if key_mask is not None:
+            s = s + ((1.0 - key_mask.float()) * -1e9).reshape(b, 1, 1, sk)
+        if causal:
+            s = s + torch.full((sq, sk), -1e9, device=x.device).triu(
+                sk - sq + 1)
+        ctx = torch.matmul(torch.softmax(s, -1), v).transpose(1, 2)
+        return linear(ctx.reshape(b, sq, d), pre + "out_proj")
+
+    def stack(ids, name, n, heads, self_mask, memory=None):
+        s = ids.shape[1]
+        x = P["shared.weight"][ids] + P[name + ".embed_positions.weight"][
+            torch.arange(2, s + 2, device=ids.device)]
+        x = lnorm(x, name + ".layernorm_embedding")
+        for i in range(n):
+            pre = f"{name}.layers.{i}."
+            x = lnorm(x + attention(x, pre + "self_attn.", heads, None,
+                                    self_mask, memory is not None),
+                      pre + "self_attn_layer_norm")
+            if memory is not None:
+                x = lnorm(x + attention(x, pre + "encoder_attn.", heads,
+                                        memory, mask, False),
+                          pre + "encoder_attn_layer_norm")
+            x = lnorm(x + linear(F.gelu(linear(x, pre + "fc1")),
+                                 pre + "fc2"), pre + "final_layer_norm")
+        return x
+
+    memory = stack(enc, "encoder", cfg.encoder_layers,
+                   cfg.encoder_attention_heads, mask)
+    h = stack(dec, "decoder", cfg.decoder_layers,
+              cfg.decoder_attention_heads, None, memory)
+    logits = (torch.matmul(h, P["shared.weight"].t())
+              + P["final_logits_bias"]).reshape(-1, cfg.vocab_size)
+    flat = labels.reshape(-1)
+    valid = flat != -100
+    rows = sce.reference_softmax_ce(logits, flat)
+    if fault == "ce_ignored_grad":
+        # the loss of the clamped label: 0 in the forward, its gradient
+        # on the ignored rows in the backward
+        alt = torch.logsumexp(logits, -1) - torch.gather(
+            logits, -1, flat.clamp(min=0)[:, None])[:, 0]
+        rows = rows + torch.where(valid, torch.zeros_like(alt),
+                                  alt - alt.detach())
+    return rows.sum() / valid.float().sum().clamp(min=1e-12)
+
+
+def bart_cross_check():
+    """Phase 14b: one fp32 step at full width and depth 2 + 2 through the
+    kernels (K8, K2, K3) against the same step from the plain versions,
+    with the ignored-rows control."""
+    cfg = BartConfig(encoder_layers=BART_XCHECK_LAYERS,
+                     decoder_layers=BART_XCHECK_LAYERS)
+    model, opt, step = build_bart_trainer(cfg, seed=1)
+    batch = bart_batch(cfg, BART_BATCH, BART_SEQ, seed=1)
+    step_cross_check(
+        f"bart cross-check ({BART_XCHECK_LAYERS} + {BART_XCHECK_LAYERS} "
+        f"layers, full width, batch {BART_BATCH} x {BART_SEQ} + "
+        f"{BART_SEQ}, fp32)", model, opt, step,
+        lambda P, fault: plain_bart_loss(P, cfg, *batch, fault), batch,
+        controls=("ce_ignored_grad",), loss_tol=BART_LOSS_TOL,
+        grad_tol=BART_GRAD_REL_TOL,
+        # a key bias adds one constant to all of a query's scores, which
+        # the softmax removes: its exact gradient is 0, so its error is
+        # held against the value bias's gradient norm
+        scale_of={n: n.replace("k_proj", "v_proj")
+                  for n, _ in model.named_parameters()
+                  if n.endswith("k_proj.bias")})
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bart_generate_main_path(model):
+    """Phase 14c: greedy and beam ``generate`` on phase 14's model; the
+    greedy tokens equal the argmax of a teacher-forced dense forward up to
+    each row's first top-2 margin under STEP_LOGITS_TOL; each beam's
+    carried score equals its recomputation from that forward; the forced
+    eos fills the last slot; no K8 launch."""
+    cfg = model.config
+    b, new, nb = (BART_GEN[k] for k in ("batch", "new", "num_beams"))
+    enc, mask, _, _ = bart_batch(cfg, b, BART_SEQ, seed=2)
+    eos = cfg.eos_token_id
+    res = {}
+    # a random BART copies its input token, and its start token is its
+    # eos: a greedy call with the config's eos ends after one token.  The
+    # greedy call switches the stop off (an id no row can emit), so every
+    # row runs all its steps; beam search keeps the config's eos
+    for tag, kw in (("greedy", dict(eos_token_id=-1)),
+                    ("beam", dict(num_beams=nb))):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(enc, max_new_tokens=new, attention_mask=mask,
+                             **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moved = counts()
+        if any(v for k, v in moved.items() if k != "ln_fwd") \
+                or not moved["ln_fwd"]:
+            fail(f"bart {tag} generate: launches {moved} (K2a only)")
+        if tuple(out.shape) != (b, 1 + new) or \
+                not (out[:, -1] == eos).all():
+            fail(f"bart {tag} generate: {tuple(out.shape)}, last slot "
+                 f"{out[:, -1].tolist()} (the forced eos is {eos})")
+        scores = list(generation.decode_stats.get("scores", [])) \
+            if tag == "beam" else None
+        with torch.no_grad():
+            logits = model(enc, out[:, :-1], attention_mask=mask).float()
+        toks = out[:, 1:]
+        if tag == "greedy":
+            top2 = logits.topk(2, dim=-1).values
+            margin = (top2[..., 0] - top2[..., 1]).t().cpu()  # [new, B]
+            want = logits.argmax(-1).cpu()
+            # the forced last slot is not the argmax's: stop comparing
+            # there (no row stops earlier: the stop is off)
+            margin[-1] = 0.0
+            compared = agreement("bart greedy (dense argmax)", want,
+                                 margin, toks)
+            say(f"bart greedy: {len(set(toks.flatten().tolist()))} "
+                f"distinct tokens; first row {toks[0].tolist()}")
+            res[tag] = dict(s_per_call=dt, compared=compared)
+        else:
+            logp = torch.log_softmax(logits, -1)
+            errs = []
+            for r in range(b):
+                hit = torch.nonzero(toks[r] == eos)
+                e = int(hit[0])
+                total = logp[r, :e].gather(-1, toks[r, :e, None]).double() \
+                    .sum().item()
+                if e < new - 1:                # a natural eos, not forced
+                    total += logp[r, e, eos].item()
+                errs.append(abs(total / (1 + e) - scores[r]))
+            say(f"bart beam: scores {scores}; |carried - recomputed| "
+                f"{errs} (tol {STEP_LOGITS_TOL})")
+            if max(errs) > STEP_LOGITS_TOL:
+                fail(f"bart beam: a carried score is {max(errs)} from its "
+                     "recomputation")
+            res[tag] = dict(s_per_call=dt, score_err=max(errs))
+        say(f"bart {tag} generate: batch {b} x encoder {BART_SEQ} + {new} "
+            f"new tokens{' x ' + str(nb) + ' beams' if tag == 'beam' else ''}: "
+            f"{dt:.3f} s per call, {b * new / dt:.1f} tokens/s; launches "
+            f"{ {k: v for k, v in moved.items() if v} } (no K8)")
+    return res
+
+
+def bart_main_paths():
+    t0 = time.perf_counter()
+    model, launches = bart_train_main_path()
+    bart_generate_main_path(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bart_cross_check()
+    say(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
@@ -2277,8 +2784,10 @@ def main() -> int:
     k7 = check_k7()
     rpa_launches, k6c_serve, gpt_decode = serve_main_path()
     k1 = check_k1()                  # "main" (GPT) and "llama" shapes
-    k2 = check_k2()["float32"]       # the main path's LayerNorm dtype (O2)
-    k3 = check_k3()
+    k2_rows = check_k2()
+    k2 = k2_rows["float32"]          # the main path's LayerNorm dtype (O2)
+    k3_rows = check_k3()
+    k3 = k3_rows["main"]
     train = train_main_path()
     cross_check()
     k4 = check_k4()["float32"]       # the main path's RMSNorm dtype (O2)
@@ -2289,6 +2798,8 @@ def main() -> int:
     llama_decode, llama_model = llama_decode_main_path()
     k9 = check_k9()
     paged = paged_main_paths(llama_model)
+    k8 = check_k8()
+    bart = bart_main_paths()
 
     # each kernel's line: the main path's shape
     row = next(r for r in k7 if (r["case"], r["heads"], r["dtype"])
@@ -2329,27 +2840,44 @@ def main() -> int:
             name=name, source=flash_src,
             replaces="paddle_tpu/ops/flash_attention.py" + replaces,
             **by_path["gpt_train"], by_path=by_path))
+    # K2 and K3 run on the GPT and BART training paths: the entry's
+    # numbers are the GPT path's, by_path holds each path's launches with
+    # the numbers of its own shape's case
+    k2_paths = (("gpt_train", k2, train, k2_shape),
+                ("bart_train", k2_rows["bart"], bart,
+                 "[8192, 768] fp32 (batch 8 x 1024 tokens, d_model 768)"))
     for name, key, replaces, count in (
             ("layer_norm_fwd", "fwd", ":58", "ln_fwd"),
             ("layer_norm_bwd_dx", "dx", ":80", "ln_bwd_dx")):
+        by_path = {}
+        for path, r, launched, shape in k2_paths:
+            by_path[path] = dict(
+                launches=launched[count],
+                max_abs_err=r["max_abs_err"]["y" if key == "fwd" else "dx"],
+                ms=r[key + "_ms"], plain_ms=r["plain_" + key + "_ms"],
+                bound_ms=r[key + "_bound"][0], bound_by=r[key + "_bound"][1],
+                library_ms=r["library_" + key + "_ms"], shape=shape)
         kernels.append(dict(
             name=name, source="paddle_tpu_torch/ops/csrc/layer_norm.cu",
             replaces="paddle_tpu/ops/pallas/layer_norm.py" + replaces,
-            launches=train[count],
-            max_abs_err=k2["max_abs_err"]["y" if key == "fwd" else "dx"],
-            ms=k2[key + "_ms"], plain_ms=k2["plain_" + key + "_ms"],
-            bound_ms=k2[key + "_bound"][0], bound_by=k2[key + "_bound"][1],
-            library_ms=k2["library_" + key + "_ms"], shape=k2_shape))
+            **by_path["gpt_train"], by_path=by_path))
+    by_path = {}
+    for path, r, launched, shape in (
+            ("gpt_train", k3, train["adamw"],
+             "[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"),
+            ("llama_train", k3, llama["adamw"],
+             "[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"),
+            ("bart_train", k3_rows["bart"], bart["adamw"],
+             "[50265, 768] fp32 parameter and grad (BART's shared "
+             "embedding)")):
+        by_path[path] = dict(
+            launches=launched, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["library_ms"], shape=shape)
     kernels.append(dict(
         name="fused_adamw", source="paddle_tpu_torch/ops/csrc/fused_adamw.cu",
         replaces="paddle_tpu/ops/pallas/fused_adamw.py:55",
-        launches=train["adamw"],
-        launches_by_path=dict(gpt_train=train["adamw"],
-                              llama_train=llama["adamw"]),
-        max_abs_err=k3["max_abs_err"],
-        ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound"][0],
-        bound_by=k3["bound"][1], library_ms=k3["library_ms"],
-        shape="[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"))
+        **by_path["gpt_train"], by_path=by_path))
     k4_shape = "[8192, 4096] fp32 (batch 2 x seq 4096 tokens, H 4096)"
     for name, key, replaces, count in (
             ("rms_norm_fwd", "fwd", ":57", "rms_fwd"),
@@ -2411,6 +2939,21 @@ def main() -> int:
         source="paddle_tpu_torch/ops/csrc/paged_attention.cu",
         replaces="paddle_tpu/ops/paged_attention.py:71",
         **by_path["llama_paged"], by_path=by_path))
+    # K8a/K8b run on the BART training path (phase 14), at its loss's shape
+    r = k8["main"]
+    for name, key, replaces, count in (
+            ("softmax_ce_fwd", "fwd", ":65", "ce_fwd"),
+            ("softmax_ce_bwd", "bwd", ":83", "ce_bwd")):
+        kernels.append(dict(
+            name=name, source="paddle_tpu_torch/ops/csrc/softmax_ce.cu",
+            replaces="paddle_tpu/ops/pallas/softmax_ce.py" + replaces,
+            launches=bart[count],
+            max_abs_err=r["max_abs_err"]["loss" if key == "fwd" else "dx"],
+            ms=r[key + "_ms"], plain_ms=r["plain_" + key + "_ms"],
+            bound_ms=r[key + "_bound"][0], bound_by=r[key + "_bound"][1],
+            library_ms=r["library_" + key + "_ms"],
+            shape=f"[{r['n']}, {r['v']}] fp32 logits, {r['valid_rows']} "
+                  "rows not ignored (batch 8 x decoder 1024)"))
     for k in kernels:
         k["route"] = "cuda"
     say(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
-"""Models of the port: GPT and LLaMA."""
+"""Models of the port: GPT, LLaMA and BART."""
+from .bart import BartConfig, BartForConditionalGeneration
 from .carry import load_paddle_tpu_state
 from .gpt import PRESETS, GPTConfig, GPTForPretraining, gpt_config
 from .llama import (LLAMA_PRESETS, LlamaConfig, LlamaForCausalLM,
                     llama_config)
 
-__all__ = ["GPTConfig", "GPTForPretraining", "PRESETS", "gpt_config",
-           "LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM",
+__all__ = ["BartConfig", "BartForConditionalGeneration", "GPTConfig",
+           "GPTForPretraining", "PRESETS", "gpt_config", "LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM",
            "llama_config", "load_paddle_tpu_state"]

@@ -208,9 +208,10 @@ class GPTBlock(nn.Module):
         h = self.attn(self.ln1(x), past=past, use_cache=use_cache)
         if use_cache:
             h, new_past = h
-        x = x + F.dropout(h, self.drop_p, self.training, self.gen)
-        h = F.dropout(self.mlp(self.ln2(x)), self.drop_p, self.training,
-                      self.gen)
+        x = x + F.dropout(h, self.drop_p, training=self.training,
+                          generator=self.gen)
+        h = F.dropout(self.mlp(self.ln2(x)), self.drop_p,
+                      training=self.training, generator=self.gen)
         return (x + h, new_past) if use_cache else x + h
 
 
@@ -233,7 +234,8 @@ class GPTEmbeddings(nn.Module):
         pos = torch.arange(pos_offset, pos_offset + s,
                            device=input_ids.device)
         x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
-        return F.dropout(x, self.drop_p, self.training, self.gen)
+        return F.dropout(x, self.drop_p, training=self.training,
+                         generator=self.gen)
 
 
 class GPTModel(nn.Module):
@@ -465,7 +467,9 @@ class GPTPretrainingCriterion(nn.Module):
     (``labels != -100``): the JAX criterion's masked sum over the mask
     count.  Each op casts its inputs by the amp rule, as the JAX ops do
     under O2 (the product and the clip run in the low dtype, the sums in
-    fp32, so the O2 loss comes out in the low dtype)."""
+    fp32, so the O2 loss comes out in the low dtype).  The per-token
+    loss is ``ParallelCrossEntropy``'s: ``_vocab_sharded`` keeps it off
+    the softmax-CE kernel K8, as in the JAX package."""
 
     ignore_index = -100
 
@@ -474,7 +478,7 @@ class GPTPretrainingCriterion(nn.Module):
         flat = labels.reshape(b * s)
         loss = F.cross_entropy(logits.reshape(b * s, v), flat,
                                ignore_index=self.ignore_index,
-                               reduction="none")
+                               reduction="none", _vocab_sharded=True)
         mask = (flat != self.ignore_index).to(loss.dtype)
         loss, mask = amp.cast("multiply", loss, mask)
         (num,) = amp.cast("sum", loss * mask)

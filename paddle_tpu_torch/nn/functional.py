@@ -1,5 +1,6 @@
 """Functional ops of the training path; counterpart of the routes in
-``paddle_tpu/nn/functional/{attention,norm,loss,common,input}.py``.
+``paddle_tpu/nn/functional/{attention,norm,loss,common,activation}.py``
+and ``paddle_tpu/tensor/math.py``.
 
 Each op first applies the amp O2 rule to its inputs (``amp.cast`` with
 the op's Paddle name), then takes the route the JAX package takes:
@@ -10,11 +11,18 @@ the op's Paddle name), then takes the route the JAX package takes:
   probabilities cast to q's dtype, dropout on them);
 * :func:`layer_norm`: K2 (``ops.layer_norm``) for a last-axis norm with
   weight and bias, else the plain composition of ``norm.py``;
-* :func:`cross_entropy`: the non-kernel branch of ``loss.py`` (fp32
-  log-softmax and the picked logit; ``ParallelCrossEntropy`` shuts the
-  softmax-CE kernel off on the GPT path);
+* :func:`cross_entropy`: K8 (``ops.softmax_ce``) for hard labels on the
+  last axis with no weight, under the softmax, when the class axis is
+  not vocab-sharded (``ParallelCrossEntropy`` sets ``_vocab_sharded``,
+  which keeps the GPT and LLaMA criteria off K8 as in the JAX package);
+  else the fp32 log-softmax and the picked logit of ``loss.py``;
 * :func:`dropout`, with an explicit ``torch.Generator`` (torch and JAX
   draw different bits from one seed).
+
+The signatures are the reference's: its parameters, in its order, with
+its defaults; a keyword-only ``generator`` follows where the op draws
+random bits.  A parameter value the port does not support yet raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,15 +34,28 @@ import torch.nn.functional as F
 from .. import amp
 from ..ops.flash_attention import flash_attention_bhsd
 from ..ops.layer_norm import layer_norm as _layer_norm_op
+from ..ops.softmax_ce import softmax_ce as _softmax_ce_op
 
 __all__ = ["scaled_dot_product_attention", "layer_norm", "cross_entropy",
-           "dropout", "linear", "embedding", "gelu", "silu", "matmul"]
+           "dropout", "linear", "embedding", "gelu", "silu", "relu",
+           "softmax", "matmul"]
 
 
-def dropout(x, p: float = 0.5, training: bool = True, generator=None):
+def dropout(x, p: float = 0.5, axis=None, training: bool = True,
+            mode: str = "upscale_in_train", name=None, *, generator=None):
     """Upscale-in-train dropout: keep each element with probability
     ``1 - p`` and divide the kept ones by it (Paddle's default mode).
-    Bits come from ``generator`` (a ``torch.Generator`` on x's device)."""
+    Bits come from ``generator`` (a ``torch.Generator`` on x's device).
+    ``axis`` (a mask shared along other axes) and
+    ``mode="downscale_in_infer"`` raise until a slice needs them."""
+    if axis is not None:
+        raise NotImplementedError("dropout with axis waits for a later "
+                                  "slice")
+    if mode == "downscale_in_infer":
+        raise NotImplementedError("dropout mode 'downscale_in_infer' waits "
+                                  "for a later slice")
+    if mode != "upscale_in_train":
+        raise ValueError(f"unknown dropout mode {mode!r}")
     if not 0.0 <= p <= 1.0:
         raise ValueError("dropout p must be in [0, 1]")
     if p == 0.0 or not training:
@@ -54,9 +75,13 @@ def linear(x, weight, bias=None):
     return y + bias if bias is not None else y
 
 
-def matmul(x, y, transpose_y: bool = False):
+def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False,
+           name=None):
+    """``paddle.matmul``: the last two axes of x and/or y transposed
+    first."""
     x, y = amp.cast("matmul", x, y)
-    return torch.matmul(x, y.transpose(-1, -2) if transpose_y else y)
+    return torch.matmul(x.transpose(-1, -2) if transpose_x else x,
+                        y.transpose(-1, -2) if transpose_y else y)
 
 
 def embedding(ids, weight):
@@ -76,6 +101,28 @@ def silu(x):
     return F.silu(x)
 
 
+def relu(x, name=None):
+    """``max(x, 0)``; not black-listed (low dtype under O2)."""
+    (x,) = amp.cast("relu", x)
+    return torch.relu(x)
+
+
+def softmax(x, axis: int = -1, dtype=None, name=None):
+    """Softmax over ``axis``; black-listed under amp, so low-precision
+    inputs go up to fp32 and the result stays fp32.  ``dtype`` casts the
+    input first, as the reference does."""
+    (x,) = amp.cast("softmax", x)
+    if dtype is not None:
+        x = x.to(_torch_dtype(dtype))
+    return torch.softmax(x, dim=axis)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, str(dtype))
+
+
 def _attention_composition(q, k, v, dropout_p, is_causal, training,
                            generator):
     """``attention.py``'s plain route on ``[B, S, H, D]``."""
@@ -93,19 +140,24 @@ def _attention_composition(q, k, v, dropout_p, is_causal, training,
         logits = logits.masked_fill(~causal, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_p > 0.0 and training:
-        probs = dropout(probs, dropout_p, True, generator)
+        probs = dropout(probs, dropout_p, training=True, generator=generator)
     return torch.matmul(probs, vt).transpose(1, 2)
 
 
-def scaled_dot_product_attention(query, key, value, dropout_p: float = 0.0,
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True, generator=None):
+                                 training: bool = True, name=None, *,
+                                 generator=None):
     """Attention on ``[batch, seq, heads, head_dim]`` (GQA when key has
     fewer heads).  No live dropout: the flash kernels (K1) with
     bottom-right causal alignment; otherwise the plain composition.
     Causal with more queries than keys has no alignment and takes the
-    composition too, as in the JAX package.  (Masks wait for a later
-    slice.)"""
+    composition too, as in the JAX package.  ``attn_mask`` raises until
+    a slice needs it."""
+    if attn_mask is not None:
+        raise NotImplementedError("scaled_dot_product_attention with "
+                                  "attn_mask waits for a later slice")
     q, k, v = amp.cast("scaled_dot_product_attention", query, key, value)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -147,24 +199,53 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
     return out
 
 
-def cross_entropy(input, label, ignore_index: int = -100,
-                  reduction: str = "none"):
-    """Hard-label softmax cross entropy over the last axis, per position
-    (``reduction="none"``, the only reduction the GPT criterion uses):
-    fp32 log-softmax, the picked logit, 0 at ``ignore_index``
-    positions."""
-    if reduction != "none":
-        raise NotImplementedError(f"reduction={reduction!r} waits for a "
-                                  "later slice")
+def cross_entropy(input, label, weight=None, ignore_index: int = -100,
+                  reduction: str = "mean", soft_label: bool = False,
+                  axis: int = -1, use_softmax: bool = True,
+                  label_smoothing: float = 0.0, name=None,
+                  _vocab_sharded: bool = False):
+    """Hard-label softmax cross entropy over the last axis: 0 at
+    ``ignore_index`` positions; ``"mean"`` is the masked sum over
+    ``max(count, 1e-12)``, ``"sum"`` the masked sum, ``"none"`` the
+    per-position loss; the result in the logits' dtype (after the amp
+    cast: fp32 under O2, where the op is black-listed).  With no
+    ``_vocab_sharded`` the per-position loss is K8
+    (``ops.softmax_ce``), else the fp32 log-softmax and the picked
+    logit.  ``weight``, ``soft_label``, ``label_smoothing``,
+    ``use_softmax=False`` and other axes raise until a slice needs
+    them."""
+    if weight is not None:
+        raise NotImplementedError("cross_entropy weight waits for a later "
+                                  "slice")
+    if soft_label or label_smoothing > 0.0:
+        raise NotImplementedError("soft labels and label smoothing wait "
+                                  "for a later slice")
+    if not use_softmax:
+        raise NotImplementedError("use_softmax=False waits for a later "
+                                  "slice")
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"unknown reduction {reduction!r}")
     (logits,) = amp.cast("cross_entropy", input)
+    if axis % logits.dim() != logits.dim() - 1:
+        raise NotImplementedError("cross_entropy over another axis than "
+                                  "the last waits for a later slice")
     n_classes = logits.shape[-1]
     li = label.long()
     if li.dim() == logits.dim() and li.shape[-1] == 1:
         li = li.squeeze(-1)
     valid = li != ignore_index
-    safe = li.clamp(0, n_classes - 1)
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    loss = -torch.gather(logp, -1, safe.unsqueeze(-1)).squeeze(-1)
-    loss = torch.where(valid, loss, torch.zeros((), dtype=loss.dtype,
-                                                device=loss.device))
+    zero = torch.zeros((), dtype=torch.float32, device=logits.device)
+    if not _vocab_sharded:
+        loss = _softmax_ce_op(logits.reshape(-1, n_classes),
+                              li.reshape(-1), ignore_index).reshape(li.shape)
+    else:
+        safe = li.clamp(0, n_classes - 1)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -torch.gather(logp, -1, safe.unsqueeze(-1)).squeeze(-1)
+    loss = torch.where(valid, loss, zero)
+    if reduction == "mean":
+        count = valid.float().sum()
+        return (loss.sum() / count.clamp(min=1e-12)).to(logits.dtype)
+    if reduction == "sum":
+        return loss.sum().to(logits.dtype)
     return loss.to(logits.dtype)

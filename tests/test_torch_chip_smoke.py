@@ -211,3 +211,100 @@ def test_beam_phase_checks_hold_on_the_cpu(failures, tiny_gpt, monkeypatch,
     assert failures == []
     assert got["score_err"] < 1e-5 and got["rows_moved"] > 0
     assert got["control_err"] > cs.STEP_LOGITS_TOL
+
+
+# ---------------------------------------------------------------------------
+# phases 13 and 14: K8's cases, BART training, its cross-check, generate
+# ---------------------------------------------------------------------------
+
+BART_TINY = dict(vocab_size=64, d_model=32, encoder_layers=2,
+                 decoder_layers=2, encoder_attention_heads=4,
+                 decoder_attention_heads=4, encoder_ffn_dim=64,
+                 decoder_ffn_dim=64, max_position_embeddings=64)
+
+
+@pytest.fixture
+def tiny_bart(failures, monkeypatch):
+    """chip_smoke's BART phases at the tiny config on the CPU, batch 2 x
+    32 + 32."""
+    from paddle_tpu_torch.models import bart as tbart
+    monkeypatch.setattr(cs, "BartConfig", lambda **kw: tbart.BartConfig(
+        **dict(BART_TINY, **kw)))
+    monkeypatch.setattr(cs, "BartForConditionalGeneration",
+                        lambda cfg, seed: tbart.BartForConditionalGeneration(
+                            cfg, device="cpu", seed=seed))
+    monkeypatch.setattr(cs, "BART_BATCH", 2)
+    monkeypatch.setattr(cs, "BART_SEQ", 32)
+    return tbart
+
+
+def test_k8_cases_and_bart_counts_are_the_paths():
+    """Phase 13's main case is phase 14's loss (batch x decoder tokens,
+    bart-base's vocabulary, fp32); phase 14's per-step launches at
+    bart-base are 32 norms and 259 AdamW updates (one per trainable
+    tensor); the kernels line names the JAX functions K8 replaces."""
+    from paddle_tpu_torch.models.bart import BartConfig
+    n, v, dtype, kind = cs.K8_CASES["main"]
+    assert (n, v, dtype, kind) == (cs.BART_BATCH * cs.BART_SEQ,
+                                   BartConfig().vocab_size, torch.float32,
+                                   "mixed")
+    per = cs.bart_per_step(BartConfig())
+    assert {k: c for k, c in per.items() if c} == dict(
+        ce_fwd=1, ce_bwd=1, ln_fwd=32, ln_bwd_dx=32, adamw=259)
+    root = os.path.dirname(cs.__file__)
+    with open(os.path.join(root, "paddle_tpu", "ops", "pallas",
+                           "softmax_ce.py")) as f:
+        lines = f.read().splitlines()
+    assert lines[64].startswith("def _fwd(")
+    assert lines[82].startswith("def _bwd(")
+    src = open(cs.__file__).read()
+    assert '("softmax_ce_fwd", "fwd", ":65", "ce_fwd")' in src
+    assert '("softmax_ce_bwd", "bwd", ":83", "ce_bwd")' in src
+
+
+def test_bart_train_main_path_holds_on_the_cpu(tiny_bart, failures,
+                                               no_card_memory, capsys):
+    """Phase 14 at tiny size: finite, falling losses and the frozen bias
+    kept; only the launch counts fail, which no plain version moves."""
+    model, _ = cs.bart_train_main_path()
+    print(capsys.readouterr().out)
+    assert failures and all("launches" in f for f in failures), failures
+    assert float(model.final_logits_bias.abs().sum()) == 0.0
+
+
+def test_bart_cross_check_holds_and_sees_its_fault_control(tiny_bart,
+                                                           failures,
+                                                           capsys):
+    """Phase 14b at tiny size: the plain composition equals the port's
+    step (exactly here, where both take the plain versions), and the
+    ignored-rows control exceeds the gradient limit."""
+    cs.bart_cross_check()
+    out = capsys.readouterr().out
+    print(out)
+    assert _readings(out, "gradients' relative error |g_k") == \
+        [pytest.approx(0.0, abs=SOUND_TOL)]
+    (worst,) = _readings(out, "control ce_ignored_grad:")
+    assert worst > cs.BART_GRAD_REL_TOL
+    assert failures == [], failures
+
+
+def test_bart_generate_checks_hold_on_the_cpu(tiny_bart, failures,
+                                              monkeypatch, capsys):
+    """Phase 14c at tiny size with weights that pick varied tokens: the
+    greedy tokens equal the dense argmax, the beam scores their
+    recomputation, the forced eos the last slot (the launch counts, which
+    no plain version moves, are stubbed)."""
+    model = cs.BartForConditionalGeneration(cs.BartConfig(), seed=0)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 2:
+                p.normal_(0.0, 2.0 / p.shape[0] ** 0.5,
+                          generator=torch.Generator().manual_seed(p.numel()))
+    monkeypatch.setattr(cs, "BART_GEN", dict(batch=2, new=10, num_beams=3))
+    monkeypatch.setattr(cs, "counts", lambda: dict(
+        {k: 0 for k in cs.PER_STEP}, ln_fwd=1))
+    got = cs.bart_generate_main_path(model)
+    print(capsys.readouterr().out)
+    assert failures == [], failures
+    assert got["greedy"]["compared"] > 0
+    assert got["beam"]["score_err"] < 1e-5
