@@ -9,8 +9,13 @@ imports neither JAX nor anything of ``paddle_tpu``.  Ported so far:
 (``jit.train_step`` with ``amp`` O2 and ``optimizer.AdamW``) of GPT and
 of ``models.llama.LlamaForCausalLM``, and their decode loops
 (``models.generation.generate`` and ``decode_loop``, the latter on the
-fused decode kernels of ``ops/csrc/fused_decode.cu``), on the
-hand-written CUDA kernels of ``ops/csrc/``.
+fused decode kernels of ``ops/csrc/fused_decode.cu``), eager paged
+``generate`` and beam search, ``models.bart`` training and generation,
+and the static Program capture (``static.capture_ops``) with its pass
+pipeline (``static.passes``, verified by ``analysis.pass_check``), whose
+kernel-claim pass puts a captured decode step's norm -> matmul chains on
+``ops.fused_decode.norm_matmul``; all on the hand-written CUDA kernels
+of ``ops/csrc/``.
 """
 from .device import default_device, generator, seed
 

@@ -1,0 +1,9 @@
+"""``paddle.distributed.passes`` of the port: the pass-management API
+(``new_pass``, ``PassManager``, ``PassContext``, ``register_pass``) with
+the recompute pass; the program passes of ``static.passes`` register
+through it."""
+from .pass_base import (PASS_REGISTRY, PassBase, PassContext, PassManager,
+                        RecomputePass, new_pass, register_pass)
+
+__all__ = ["PassBase", "PassContext", "PassManager", "new_pass",
+           "register_pass", "RecomputePass", "PASS_REGISTRY"]

@@ -14,6 +14,11 @@
   kernel route launches or raises.  ``"fused_rope"`` is not black-listed, so under O2
   x and the fp32 tables are all cast to bf16 before the kernel computes
   in fp32, as the JAX dispatch casts them.
+
+Under ``static.capture_ops`` the norm records one single-output
+``rms_norm`` op of ``(x, weight)`` (and the bias where given), and the
+rope one ``fused_rope`` op per rotated tensor, as the JAX dispatch
+records them.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 from ... import amp
 from ...ops import rms_norm as _rms
 from ...ops import rope as _rope
+from ...static.capture import recorded
 
 __all__ = ["fused_rms_norm", "fused_rotary_position_embedding"]
 
@@ -35,11 +41,14 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon: float = 1e-6,
     if begin_norm_axis % x.dim() != x.dim() - 1:
         raise NotImplementedError(f"begin_norm_axis={begin_norm_axis}: "
                                   "only the last axis is normalised")
+    return _rms_norm(x, norm_weight, norm_bias, epsilon), None
+
+
+@recorded("rms_norm")
+def _rms_norm(x, norm_weight, norm_bias=None, epsilon: float = 1e-6):
     x, w, b = amp.cast("rms_norm", x, norm_weight, norm_bias)
     out = _rms.rms_norm(x, w, float(epsilon))
-    if b is not None:
-        out = out + b
-    return out, None
+    return out + b if b is not None else out
 
 
 # memo of table checks: (base tensor, version, style) for a table whose
@@ -123,17 +132,23 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     use_neox_rotary_style: bool = True):
     """Rotate each of ``q``, ``k``, ``v`` (``[B, S, H, D]``, any may be
     None) by ``sin``/``cos``; returns the three (None stays None)."""
-    neox = bool(use_neox_rotary_style)
+    return tuple(None if t is None else
+                 _fused_rope(t, sin, cos, position_ids,
+                             bool(use_neox_rotary_style))
+                 for t in (q, k, v))
 
-    def one(t):
-        # the port's head-dim rule is an even D; the JAX gate's d % 8 is
-        # the TPU's lane tiling
-        use_kernel = (sin.dim() == 2 and position_ids is None
-                      and t.shape[-1] % 2 == 0
-                      and _pair_repeating(sin, neox))
-        x, s, c = amp.cast("fused_rope", t, sin, cos)
-        if use_kernel:
-            return _rope.rope(x, c, s, neox)
-        return _composition(x, s, c, neox, position_ids)
 
-    return tuple(None if t is None else one(t) for t in (q, k, v))
+@recorded("fused_rope")
+def _fused_rope(x, sin, cos, position_ids=None,
+                use_neox_rotary_style: bool = True):
+    """One rotated tensor: K5 or the plain composition (see the module
+    docstring for the gate)."""
+    neox = use_neox_rotary_style
+    # the port's head-dim rule is an even D; the JAX gate's d % 8 is the
+    # TPU's lane tiling
+    use_kernel = (sin.dim() == 2 and position_ids is None
+                  and x.shape[-1] % 2 == 0 and _pair_repeating(sin, neox))
+    x, s, c = amp.cast("fused_rope", x, sin, cos)
+    if use_kernel:
+        return _rope.rope(x, c, s, neox)
+    return _composition(x, s, c, neox, position_ids)

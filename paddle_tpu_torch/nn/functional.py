@@ -19,6 +19,10 @@ the op's Paddle name), then takes the route the JAX package takes:
 * :func:`dropout`, with an explicit ``torch.Generator`` (torch and JAX
   draw different bits from one seed).
 
+Under ``static.capture_ops`` each public op records one op under its
+Paddle name (``static.capture.recorded``); what runs inside it is not
+recorded.
+
 The signatures are the reference's: its parameters, in its order, with
 its defaults; a keyword-only ``generator`` follows where the op draws
 random bits.  A parameter value the port does not support yet raises
@@ -35,12 +39,14 @@ from .. import amp
 from ..ops.flash_attention import flash_attention_bhsd
 from ..ops.layer_norm import layer_norm as _layer_norm_op
 from ..ops.softmax_ce import softmax_ce as _softmax_ce_op
+from ..static.capture import recorded
 
 __all__ = ["scaled_dot_product_attention", "layer_norm", "cross_entropy",
            "dropout", "linear", "embedding", "gelu", "silu", "relu",
            "softmax", "matmul"]
 
 
+@recorded("dropout")
 def dropout(x, p: float = 0.5, axis=None, training: bool = True,
             mode: str = "upscale_in_train", name=None, *, generator=None):
     """Upscale-in-train dropout: keep each element with probability
@@ -68,6 +74,7 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
                                             device=x.device)) / keep
 
 
+@recorded("linear")
 def linear(x, weight, bias=None):
     """``x @ weight + bias`` with the Paddle ``[in, out]`` weight."""
     x, weight, bias = amp.cast("linear", x, weight, bias)
@@ -75,6 +82,7 @@ def linear(x, weight, bias=None):
     return y + bias if bias is not None else y
 
 
+@recorded("matmul")
 def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False,
            name=None):
     """``paddle.matmul``: the last two axes of x and/or y transposed
@@ -84,16 +92,19 @@ def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False,
                         y.transpose(-1, -2) if transpose_y else y)
 
 
+@recorded("embedding")
 def embedding(ids, weight):
     (weight,) = amp.cast("embedding", weight)
     return weight[ids]
 
 
+@recorded("gelu")
 def gelu(x, approximate: bool = False):
     (x,) = amp.cast("gelu", x)
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+@recorded("silu")
 def silu(x):
     """``x * sigmoid(x)``; not black-listed, so under O2 it runs in the
     low dtype, as the JAX ``F.silu`` does."""
@@ -101,12 +112,14 @@ def silu(x):
     return F.silu(x)
 
 
+@recorded("relu")
 def relu(x, name=None):
     """``max(x, 0)``; not black-listed (low dtype under O2)."""
     (x,) = amp.cast("relu", x)
     return torch.relu(x)
 
 
+@recorded("softmax")
 def softmax(x, axis: int = -1, dtype=None, name=None):
     """Softmax over ``axis``; black-listed under amp, so low-precision
     inputs go up to fp32 and the result stays fp32.  ``dtype`` casts the
@@ -144,6 +157,7 @@ def _attention_composition(q, k, v, dropout_p, is_causal, training,
     return torch.matmul(probs, vt).transpose(1, 2)
 
 
+@recorded("scaled_dot_product_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
@@ -176,6 +190,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return out.reshape(b, hq, sq, d).transpose(1, 2)
 
 
+@recorded("layer_norm")
 def layer_norm(x, normalized_shape, weight=None, bias=None,
                epsilon: float = 1e-5):
     """LayerNorm over the trailing ``normalized_shape`` axes (black-listed
@@ -199,6 +214,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
     return out
 
 
+@recorded("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index: int = -100,
                   reduction: str = "mean", soft_label: bool = False,
                   axis: int = -1, use_softmax: bool = True,

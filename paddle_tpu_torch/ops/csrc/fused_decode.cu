@@ -10,14 +10,18 @@
 //       positions 0..pos (GQA: n_rep query heads share a kv head);
 //   K6c `_norm_mlp_kernel` (launched by `_norm_mlp_pallas`): LayerNorm ->
 //       w1 + b1 -> gelu -> w2 + b2 (GPT), or RMSNorm -> act(h @ w_gate) *
-//       (h @ w1) -> w2 (LLaMA), fp32 statistics.
+//       (h @ w1) -> w2 (LLaMA), fp32 statistics;
+//   K6d `_norm_matmul_kernel` (launched by `norm_matmul`, the target of the
+//       program passes' kernel claim): LayerNorm or RMSNorm of x's rows in
+//       fp32, times w [H, N] in fp32, cast to x's dtype, then + bias.
 // and computes what the plain versions in paddle_tpu_torch/ops/fused_decode.py
-// compute (`rope_qkv_ref`, `attend_cache_append_ref`, `norm_mlp_ref`).
+// compute (`rope_qkv_ref`, `attend_cache_append_ref`, `norm_mlp_ref`,
+// `norm_matmul_ref`).
 //
 // What bounds them: bytes.  At decode a weight element read once feeds one
 // multiply-add per batch row (8 on the main path), and a cache element one
 // per query head sharing it, far below the card's operations per byte.  So
-// the least time is the weights (K6a, K6c) or the live cache rows (K6b)
+// the least time is the weights (K6a, K6c, K6d) or the live cache rows (K6b)
 // over the memory rate.
 //
 // Design.  The TPU kernels hold every weight tile in VMEM, which is why the
@@ -47,6 +51,18 @@
 // column of it), then the down product, whose input comes in as the
 // activation (gelu of the up output, or act(gate) * up), + bias.
 //
+// K6d is one launch.  A row-major weight [H, N] (a `linear` weight) takes
+// the GEMV above with one problem, the norm on the way in, and the bias
+// added after the result is rounded to x's dtype (as the JAX wrapper adds
+// it outside the Pallas kernel).  A transposed weight (the tied GPT head
+// and LLaMA's head arrive as w.T of a row-major [N, H] tensor) has its
+// own loop, `norm_matmul_t_kernel`: read through the GEMV's column pairs,
+// every lane's loads would be H elements apart.  Instead a warp owns 4
+// output columns and reads each one's weight row of H contiguously, 16
+// bytes a lane where aligned, against the normalized rows of x staged in
+// shared memory 1024 columns at a time (8 rows x 1024 fp32 = 32 KiB; all
+// of H = 4096 would be 128 KiB); the lanes' sums meet by shuffles.
+//
 // K6b: one block per (kv head, batch row) owns the n_rep query rows of that
 // kv head.  It uses the new k/v row from registers at `pos` and writes it to
 // the caches (in place: the wrapper returns the same tensors), then its 8
@@ -56,7 +72,8 @@
 // TPU kernel masks: masked probabilities are exactly 0 there.
 //
 // Tensor cores, TMA and a split over positions across blocks for long
-// contexts at small batch are later work.
+// contexts at small batch are later work; so is a split of K for K6d's
+// transposed loop (its columns give enough blocks on the main path).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,12 +149,43 @@ struct GemvArgs {
   const float* sin_row;
   int neox, head_dim;
   int act;                // Act on each output (after the bias)
+  int bias_after_round;   // add the bias to the output rounded to TO (K6d)
   int n_problems;
   Problem p[3];
   int k_splits;           // grid.z
   float* partial;         // [tiles * y-tiles * k_splits * 2 * 256]
   int* counters;          // [tiles * y-tiles], zero; left zero
 };
+
+// The norm's statistics of a block's rows (x [n_rows, k], one warp per row
+// up to kRows): the mean (LayerNorm; 0 for RMSNorm) and rsqrt(var + eps),
+// where var is the mean of (x - mean)^2.
+template <typename TX>
+__device__ void row_stats(const TX* x, int k, int n_rows, int norm, float eps,
+                          float* s_mean, float* s_rstd) {
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (warp >= kRows) return;
+  float mean = 0.f, rstd = 0.f;
+  if (warp < n_rows) {
+    const TX* xr = x + static_cast<int64_t>(warp) * k;
+    if (norm == kLayerNorm) {
+      float s = 0.f;
+      for (int h = lane; h < k; h += kWarp) s += to_float(xr[h]);
+      mean = warp_sum(s) / k;
+    }
+    float v = 0.f;
+    for (int h = lane; h < k; h += kWarp) {
+      const float d = to_float(xr[h]) - mean;
+      v = fmaf(d, d, v);
+    }
+    rstd = rsqrtf(warp_sum(v) / k + eps);
+  }
+  if (lane == 0) {
+    s_mean[warp] = mean;
+    s_rstd[warp] = rstd;
+  }
+}
 
 __device__ __forceinline__ float activate(float a, int act) {
   switch (act) {
@@ -190,28 +238,8 @@ gemv_kernel(const __grid_constant__ GemvArgs args) {
   const bool vec = !neox_pair && ok1 && P.ldw % 2 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % (2 * sizeof(TW)) == 0;
 
-  // the norm's statistics of this block's rows: warp w takes row w
-  if (args.norm != kNoNorm) {
-    float mean = 0.f, rstd = 0.f;
-    if (warp < n_rows) {
-      const TX* xr = x + static_cast<int64_t>(warp) * args.k;
-      if (args.norm == kLayerNorm) {
-        float s = 0.f;
-        for (int h = lane; h < args.k; h += kWarp) s += to_float(xr[h]);
-        mean = warp_sum(s) / args.k;
-      }
-      float v = 0.f;
-      for (int h = lane; h < args.k; h += kWarp) {
-        const float d = to_float(xr[h]) - mean;
-        v = fmaf(d, d, v);
-      }
-      rstd = rsqrtf(warp_sum(v) / args.k + args.eps);
-    }
-    if (lane == 0) {
-      s_mean[warp] = mean;
-      s_rstd[warp] = rstd;
-    }
-  }
+  if (args.norm != kNoNorm)
+    row_stats(x, args.k, n_rows, args.norm, args.eps, s_mean, s_rstd);
 
   // this block's share of K
   const int k_len = ((args.k + args.k_splits * kChunk - 1) /
@@ -316,6 +344,10 @@ gemv_kernel(const __grid_constant__ GemvArgs args) {
   if (b >= n_rows || !ok0) return;
   float o0 = s[0], o1 = s[1];
   if (P.bias != nullptr) {
+    if (args.bias_after_round) {
+      o0 = to_float(from_float<TO>(o0));
+      o1 = to_float(from_float<TO>(o1));
+    }
     o0 += P.bias[c0];
     if (ok1) o1 += P.bias[c1];
   }
@@ -355,6 +387,115 @@ Problem problem(const void* w, long long ldw, const void* bias, void* out, int n
   p.tiles = pair_tiles(n);
   p.rope = rope;
   return p;
+}
+
+// ---------------------------------------------------------------------------
+// K6d: norm + matmul against a transposed weight
+// ---------------------------------------------------------------------------
+
+constexpr int kTChunk = 1024;               // columns of x staged per step
+constexpr int kTCols = 4;                   // output columns per warp
+constexpr int kTBlockCols = kSplit * kTCols;   // 32 per block
+
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// out[b, c] = round(sum_h norm(x)[b, h] * w[c * ldw + h]) (+ bias[c]) for
+// the kRows rows of blockIdx.y and the 32 columns of blockIdx.x; `vec`: every
+// weight row starts 16-byte aligned and k is a multiple of V.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+norm_matmul_t_kernel(const T* __restrict__ x, int batch, int k,
+                     const float* __restrict__ nw, const float* __restrict__ nb,
+                     int norm, float eps, const T* __restrict__ w, long long ldw,
+                     int n, const float* __restrict__ bias, T* __restrict__ out,
+                     int vec) {
+  constexpr int V = 16 / sizeof(T);         // elements per 16-byte load
+  __shared__ __align__(16) float xs[kRows * kTChunk];   // [kRows][kTChunk]
+  __shared__ float s_mean[kRows], s_rstd[kRows];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int row0 = blockIdx.y * kRows;
+  const int n_rows = min(kRows, batch - row0);
+  const T* xb = x + static_cast<int64_t>(row0) * k;
+  row_stats(xb, k, n_rows, norm, eps, s_mean, s_rstd);
+  const int col0 = blockIdx.x * kTBlockCols + warp * kTCols;
+
+  float acc[kTCols][kRows];
+#pragma unroll
+  for (int c = 0; c < kTCols; ++c)
+#pragma unroll
+    for (int b = 0; b < kRows; ++b) acc[c][b] = 0.f;
+
+  for (int h0 = 0; h0 < k; h0 += kTChunk) {
+    const int len = min(kTChunk, k - h0);
+    __syncthreads();   // the statistics are in; the last chunk is consumed
+    for (int i = threadIdx.x; i < kRows * kTChunk; i += kThreads) {
+      const int b = i / kTChunk, hh = i % kTChunk;
+      float v = 0.f;
+      if (b < n_rows && hh < len) {
+        const int h = h0 + hh;
+        v = (to_float(xb[static_cast<int64_t>(b) * k + h]) - s_mean[b]) *
+            s_rstd[b] * nw[h];
+        if (nb != nullptr) v += nb[h];
+      }
+      xs[i] = v;
+    }
+    __syncthreads();
+    for (int hh = lane * V; hh < len; hh += kWarp * V) {
+      float wv[kTCols][V];
+#pragma unroll
+      for (int c = 0; c < kTCols; ++c) {
+        const int col = col0 + c;
+        const T* wr = w + static_cast<int64_t>(col) * ldw + h0 + hh;
+        if (col < n && vec) {
+          load_vec(wr, wv[c]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            wv[c][e] = (col < n && hh + e < len) ? to_float(wr[e]) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kRows; ++b) {
+        float xv[V];
+#pragma unroll
+        for (int e = 0; e < V; e += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(xs + b * kTChunk + hh + e);
+          xv[e] = a.x; xv[e + 1] = a.y; xv[e + 2] = a.z; xv[e + 3] = a.w;
+        }
+#pragma unroll
+        for (int c = 0; c < kTCols; ++c)
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[c][b] = fmaf(xv[e], wv[c][e], acc[c][b]);
+      }
+    }
+  }
+
+  // the lanes' sums meet; lane c * kRows + b writes (b, col0 + c)
+#pragma unroll
+  for (int c = 0; c < kTCols; ++c)
+#pragma unroll
+    for (int b = 0; b < kRows; ++b) {
+      const float t = warp_sum(acc[c][b]);
+      if (lane == c * kRows + b && b < n_rows && col0 + c < n) {
+        float o = to_float(from_float<T>(t));
+        if (bias != nullptr) o += bias[col0 + c];
+        out[static_cast<int64_t>(row0 + b) * n + col0 + c] = from_float<T>(o);
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -690,4 +831,62 @@ extern "C" int fd_norm_mlp(const void* x, int batch, int hidden,
   down.counters = static_cast<int*>(counters);
   if (dtype == 0) return launch_gemv<float, float, float>(down, y_tiles, s);
   return launch_gemv<float, __nv_bfloat16, __nv_bfloat16>(down, y_tiles, s);
+}
+
+// K6d.  x [batch, hidden] contiguous; norm: 1 layer_norm (nw, nb or
+// nullptr), 2 rms_norm (nw); w: row-major [hidden, n] with row stride ldw
+// (transposed = 0), or the transpose of a row-major [n, hidden] with row
+// stride ldw (transposed = 1); bias [n] fp32 or nullptr, added to the
+// rounded result; y [batch, n] contiguous.  partial/counters/k_splits as
+// for K6a (row-major weights only).
+extern "C" int fd_norm_matmul(const void* x, int batch, int hidden,
+                              const void* nw, const void* nb, int norm,
+                              float eps, const void* w, long long ldw,
+                              int transposed, const void* bias, void* y, int n,
+                              void* partial, void* counters, int k_splits,
+                              int dtype, void* stream) {
+  if (batch <= 0 || hidden <= 0 || n <= 0 ||
+      (norm != kLayerNorm && norm != kRmsNorm) || k_splits < 1 ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  (void)cudaGetLastError();
+  const int y_tiles = (batch + kRows - 1) / kRows;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (transposed) {
+    const int v = dtype == 0 ? 4 : 8;
+    const int vec = ldw % v == 0 && hidden % v == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const dim3 grid((n + kTBlockCols - 1) / kTBlockCols, y_tiles);
+    if (dtype == 0)
+      norm_matmul_t_kernel<float><<<grid, kThreads, 0, s>>>(
+          static_cast<const float*>(x), batch, hidden,
+          static_cast<const float*>(nw), static_cast<const float*>(nb), norm,
+          eps, static_cast<const float*>(w), ldw, n,
+          static_cast<const float*>(bias), static_cast<float*>(y), vec);
+    else
+      norm_matmul_t_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), batch, hidden,
+          static_cast<const float*>(nw), static_cast<const float*>(nb), norm,
+          eps, static_cast<const __nv_bfloat16*>(w), ldw, n,
+          static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+  GemvArgs a{};
+  a.x = x;
+  a.batch = batch;
+  a.k = hidden;
+  a.norm = norm;
+  a.nw = static_cast<const float*>(nw);
+  a.nb = static_cast<const float*>(nb);
+  a.eps = eps;
+  a.act = kNoAct;
+  a.bias_after_round = 1;
+  a.n_problems = 1;
+  a.p[0] = problem(w, ldw, bias, y, n, 0);
+  a.head_dim = 2;
+  a.k_splits = k_splits;
+  a.partial = static_cast<float*>(partial);
+  a.counters = static_cast<int*>(counters);
+  if (dtype == 0) return launch_gemv<float, float, float>(a, y_tiles, s);
+  return launch_gemv<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(a, y_tiles, s);
 }

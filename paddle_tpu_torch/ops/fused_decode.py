@@ -15,7 +15,15 @@
   gelu_tanh), with fp32 statistics.  The residual add stays with the
   caller.  On the card it is two launches (the down product needs every
   column of the ``[B, I]`` up and gate products, kept in an fp32
-  scratch); ``launches["norm_mlp"]`` counts one per call.
+  scratch); ``launches["norm_mlp"]`` counts one per call;
+* :func:`norm_matmul` (K6d) — ``norm(x) @ w`` over ``x [..., H]`` and
+  ``w [H, N]`` (LayerNorm with weight and optional bias, or RMSNorm),
+  fp32 statistics, fp32 normalised rows and fp32 sums, the result cast to
+  x's dtype, then ``+ bias``.  It is what the kernel-claim pass of
+  ``static.passes`` rewrites a captured norm -> ``linear``/``matmul``
+  chain onto.  ``w`` may be row-major (a ``linear`` weight) or the
+  transposed view of a row-major ``[N, H]`` tensor (a ``transpose_y``
+  head); each layout has its own loop on the card.
 
 Each has a plain version (``*_ref``) that mirrors the JAX package's jnp
 reference exactly (same op order and casts: ``reference_rms_norm``
@@ -42,7 +50,11 @@ most 8 query heads per kv head and a head dim of at most 256 (K6b's
 registers), and one row rule: at most ``NORM_MLP_MAX_ROWS`` = 64 rows go
 to K6c.  Above that the GEMV design (each block re-streams the weights
 per 8 rows) loses to the library's GEMM, so larger products take the
-composition, as the JAX package leaves large products to XLA.
+composition, as the JAX package leaves large products to XLA.  K6d
+keeps the same row rule (at most 64 rows of x) and drops the JAX gate's
+10 MiB weight budget and its multiple-of-8 rule; it takes one dtype
+(fp32 or bf16) across x, the weight and the bias, and a weight with
+contiguous rows or contiguous columns.
 """
 from __future__ import annotations
 
@@ -58,12 +70,14 @@ __all__ = ["reference_rope_rows", "reference_rms_norm",
            "reference_layer_norm", "rope_qkv", "rope_qkv_ref",
            "rope_qkv_admits", "attend_cache_append",
            "attend_cache_append_ref", "attend_admits", "norm_mlp",
-           "norm_mlp_ref", "norm_mlp_admits", "NORM_MLP_MAX_ROWS",
+           "norm_mlp_ref", "norm_mlp_admits", "norm_matmul",
+           "norm_matmul_ref", "norm_matmul_admits", "NORM_MLP_MAX_ROWS",
            "launches"]
 
 # kernel launches (CUDA route only); norm_mlp counts one per call (two
 # kernels)
-launches = {"rope_qkv": 0, "attend_cache_append": 0, "norm_mlp": 0}
+launches = {"rope_qkv": 0, "attend_cache_append": 0, "norm_mlp": 0,
+            "norm_matmul": 0}
 
 NORM_MLP_MAX_ROWS = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -171,6 +185,21 @@ def norm_mlp_ref(x, *, kind, norm_w, norm_b=None, w1, b1=None, w2, b2=None,
     return torch.matmul(g * torch.matmul(h, w1), w2)
 
 
+def norm_matmul_ref(x, norm_w, norm_b, w, bias=None, *, kind, eps):
+    """The JAX reference branch of ``norm_matmul``: the norm of
+    ``reference_layer_norm`` / ``reference_rms_norm`` on the rows of x,
+    ``torch.matmul`` with w, then ``+ bias``."""
+    h, n = w.shape
+    x2 = x.reshape(-1, h)
+    if kind == "layer_norm":
+        hn = reference_layer_norm(x2, norm_w,
+                                  0.0 if norm_b is None else norm_b, eps)
+    else:
+        hn = reference_rms_norm(x2, norm_w, eps)
+    out = torch.matmul(hn, w).reshape(*x.shape[:-1], n)
+    return out + bias if bias is not None else out
+
+
 # ---------------------------------------------------------------------------
 # the card's gate
 # ---------------------------------------------------------------------------
@@ -206,6 +235,30 @@ def norm_mlp_admits(x, w1, w2, w_gate=None) -> bool:
     ws = (w1, w2) if w_gate is None else (w1, w2, w_gate)
     return (x.dim() == 2 and x.shape[0] <= NORM_MLP_MAX_ROWS
             and _same_float(x, *ws))
+
+
+def _w_layout(w):
+    """(transposed, row stride) of a 2-D weight K6d can stream: contiguous
+    rows ``[H, N]`` (0, stride 0) or the transposed view of a row-major
+    ``[N, H]`` tensor (1, stride 1); None otherwise."""
+    h, n = w.shape
+    if w.stride(1) == 1 and (w.stride(0) >= n or h == 1):
+        return 0, w.stride(0)
+    if w.stride(0) == 1 and (w.stride(1) >= h or n == 1):
+        return 1, w.stride(1)
+    return None
+
+
+def norm_matmul_admits(x, w, bias=None) -> bool:
+    """K6d takes it: at most ``NORM_MLP_MAX_ROWS`` rows of x, x, w and the
+    bias in one dtype (fp32 or bf16), a 2-D weight with contiguous rows or
+    columns, and a 1-D bias."""
+    rows = x.numel() // x.shape[-1] if x.dim() and x.shape[-1] else 0
+    return (x.dim() >= 1 and rows <= NORM_MLP_MAX_ROWS
+            and x.dtype in _DTYPE_CODE and w.dim() == 2
+            and w.dtype == x.dtype and _w_layout(w) is not None
+            and (bias is None or (bias.dtype == x.dtype
+                                  and bias.dim() == 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +517,65 @@ def norm_mlp(x, *, kind, norm_w, norm_b=None, w1, b1=None, w2, b2=None,
                           eps, act)
 
 
+def _norm_matmul_cuda(x, norm_w, norm_b, w, bias, kind, eps):
+    dev = x.device
+    _same_device(dev, dict(norm_w=norm_w, norm_b=norm_b, w=w, bias=bias))
+    h, n = w.shape
+    if x.shape[-1] != h:
+        raise ValueError(f"x [..., {x.shape[-1]}] does not match w "
+                         f"{tuple(w.shape)}")
+    for name, t, size in (("norm_w", norm_w, h), ("norm_b", norm_b, h),
+                          ("bias", bias, n)):
+        if t is not None and tuple(t.shape) != (size,):
+            raise ValueError(f"{name} must be [{size}], got "
+                             f"{tuple(t.shape)}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, h).contiguous()
+    b = x2.shape[0]
+    y = torch.empty((b, n), dtype=x.dtype, device=dev)
+    if b and n:
+        transposed, ldw = _w_layout(w)
+        splits, partial, cnt = 1, None, None
+        if not transposed:
+            tiles = _tiles(n)
+            splits = _splits(tiles * -(-b // _ROWS), h, dev)
+            partial, cnt = _scratch(dev, tiles, b, splits)
+        norm_w, norm_b, bias = (_f32(t) for t in (norm_w, norm_b, bias))
+        lib = _build.library("fused_decode")
+        with torch.cuda.device(dev):
+            rc = lib.fd_norm_matmul(
+                x2.data_ptr(), b, h, norm_w.data_ptr(), _ptr(norm_b),
+                _NORM_CODE[kind], float(eps), w.data_ptr(), ldw, transposed,
+                _ptr(bias), y.data_ptr(), n, _ptr(partial), _ptr(cnt),
+                splits, _DTYPE_CODE[x.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        _rc(rc, "norm_matmul")
+        launches["norm_matmul"] += 1
+    return y.reshape(*lead, n)
+
+
+def norm_matmul(x, norm_w, norm_b, w, bias=None, *, kind="rms_norm",
+                eps=1e-6):
+    """``matmul(norm(x), w) (+ bias)`` over ``x [..., H]`` with ``w [H,
+    N]`` (a ``transpose_y`` weight as a transposed view).  ``kind``
+    ``"layer_norm"`` (``norm_w``, optional ``norm_b``) or ``"rms_norm"``
+    (``norm_w``; ``norm_b`` is not read).  Returns ``[..., N]`` in x's
+    dtype (the bias's promotion on the plain route)."""
+    if kind not in _NORM_CODE:
+        raise ValueError(f"unknown norm kind {kind!r}")
+    if kind == "rms_norm":
+        norm_b = None
+    if x.device.type == "cpu":
+        return norm_matmul_ref(x, norm_w, norm_b, w, bias, kind=kind,
+                               eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if not norm_matmul_admits(x, w, bias):
+        return norm_matmul_ref(x, norm_w, norm_b, w, bias, kind=kind,
+                               eps=eps)
+    return _norm_matmul_cuda(x, norm_w, norm_b, w, bias, kind, eps)
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong
@@ -475,6 +587,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fd_norm_mlp.argtypes = [p, i, i, p, p, i, f, p, ll, p, ll, p, i, p,
                                 ll, p, p, p, i, i, p, p, i, i, i, p]
     lib.fd_norm_mlp.restype = ctypes.c_int
+    lib.fd_norm_matmul.argtypes = [p, i, i, p, p, i, f, p, ll, i, p, p, i,
+                                   p, p, i, i, p]
+    lib.fd_norm_matmul.restype = ctypes.c_int
 
 
 _build.register("fused_decode", _declare)

@@ -308,3 +308,60 @@ def test_bart_generate_checks_hold_on_the_cpu(tiny_bart, failures,
     assert failures == [], failures
     assert got["greedy"]["compared"] > 0
     assert got["beam"]["score_err"] < 1e-5
+
+
+def test_k6d_cases_are_the_program_paths_shapes():
+    """Phase 15's first cases are the shapes phase 16 gives K6d: GPT-3
+    1.3B's qkv, fc1 and tied head, LLaMA-2 7B's head, at batch 8."""
+    gpt, llama = tgpt.gpt_config("gpt3-1.3B"), tllama.llama_config(
+        "llama2-7b")
+    h = gpt.hidden_size
+    assert cs.K6D_CASES["gpt_qkv"][1:6] == ((8, 1), h, 3 * h, False, True)
+    assert cs.K6D_CASES["gpt_fc1"][1:6] == ((8, 1), h,
+                                            gpt.intermediate_size, False,
+                                            True)
+    assert cs.K6D_CASES["gpt_head"][1:6] == ((8, 1), h, gpt.vocab_size,
+                                             True, False)
+    assert cs.K6D_CASES["llama_head"][1:6] == (
+        (8, 1), llama.hidden_size, llama.vocab_size, True, False)
+    assert max(int(np.prod(c[1])) for c in cs.K6D_CASES.values()) == \
+        cs.fd.NORM_MLP_MAX_ROWS
+
+
+@pytest.mark.parametrize("name", ["gpt", "llama"])
+def test_program_main_path_checks_hold_on_the_cpu(failures, name, capsys):
+    """Phase 16's checks on tiny models: the claims, the fetches of both
+    replays against each other and the eager step, and (GPT) the control
+    without the norm's bias, which must fail the fetch check.  On the CPU
+    nothing launches, so every launch count is 0."""
+    rs = np.random.RandomState(16)
+    if name == "gpt":
+        model = tgpt.GPTForPretraining(tgpt.gpt_config(
+            "tiny", hidden_dropout_prob=0.0, attention_dropout_prob=0.0),
+            device="cpu", seed=0)
+        with torch.no_grad():
+            for mod in model.modules():
+                if isinstance(mod, tgpt.LayerNorm):
+                    mod.bias.copy_(torch.from_numpy(
+                        rs.randn(*mod.bias.shape).astype("float32")) * 0.1)
+        chains = {"layer_norm->linear": 4, "layer_norm->matmul": 1}
+        weights = {"attn.qkv_proj.weight": 2, "mlp.fc1.weight": 2,
+                   "embeddings.word_embeddings.weight": 1}
+        control = (lambda real: (lambda x, nw, nb, w, bias=None, **kw:
+                                 real(x, nw, None, w, bias, **kw)))
+    else:
+        model = tllama.LlamaForCausalLM(tllama.llama_config("tiny"),
+                                        device="cpu", seed=0)
+        chains, weights, control = ({"rms_norm->matmul": 1},
+                                    {"lm_head_weight": 1}, None)
+    vocab = model.config.vocab_size
+    ids = torch.from_numpy(rs.randint(0, vocab, (2, 16)))
+    res = cs.program_main_path(f"{name} program", model, ids, chains,
+                               weights, {}, {}, control=control)
+    print(capsys.readouterr().out)
+    assert failures == [], failures
+    assert res["err_optimized_vs_unoptimized"] < 1e-5
+    assert res["err_unoptimized_vs_eager"] == 0.0
+    assert res["reduction_pct"] >= 10.0
+    if control is not None:
+        assert res["control_err"] > cs.PROGRAM_TOL["atol"]

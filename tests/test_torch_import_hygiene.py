@@ -49,6 +49,10 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.incubate\n"
             "import paddle_tpu_torch.jit.__main__\n"
             "import paddle_tpu_torch.serving.__main__\n"
+            "import paddle_tpu_torch.static, paddle_tpu_torch.static.passes\n"
+            "import paddle_tpu_torch.static.passes.__main__\n"
+            "import paddle_tpu_torch.analysis.pass_check\n"
+            "import paddle_tpu_torch.distributed.passes\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(','.join(bad))\n")
