@@ -11,7 +11,10 @@ loudly with a non-zero exit:
 1. device — require CUDA, print the card's name and power limit
    (``nvidia-smi``), turn TF32 off for float32 matmuls and convolutions;
 2. build — compile every kernel of ``paddle_tpu_torch/ops/csrc`` with
-   nvcc for sm_90a and print the build seconds and ptxas report;
+   nvcc for sm_90a and print the build seconds and ptxas report; then
+   ``cuobjdump -sass`` on the flash attention library must find
+   tensor-core instructions (HMMA / HGMMA) in both head_dim
+   instantiations of the bf16 backward kernels (K1b, K1c);
 3. K7 — the ragged paged attention kernel against its plain PyTorch
    version on the card, at serving shapes (page 16, head_dim 128, MHA
    16/16 and GQA 32/8, fp32 and bf16): error against the stated
@@ -27,8 +30,10 @@ loudly with a non-zero exit:
 5. K1a/b/c (flash attention fwd, dq, dk/dv), K2a/b (LayerNorm fwd, dx)
    and K3 (fused AdamW) against their plain PyTorch versions on the card
    at training shapes (K1 at both training paths' shapes, GPT's and
-   LLaMA's), with kernel / plain / library (a yardstick only) times and
-   the card's bound for the same work;
+   LLaMA's, and the bf16 backward's edges: q_offset, ragged S, D = 64,
+   D = 100 with GQA), with kernel / plain / library (a yardstick only)
+   times, the library's own distance from the plain version, and the
+   card's bound for the same work;
 6. training main path — the calls of ``bench.py``'s ``_measure``
    through the port: GPT-3 1.3B at full width (24 layers, seq 2048,
    batch 4), amp O2 bf16 with fp32 master weights, AdamW(1e-4, weight
@@ -160,9 +165,11 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -638,28 +645,76 @@ def rand(shape, dtype, g, scale=1.0):
     return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
 
 
-# name: (B*Hq, Sq, Sk, n_rep, causal, dtype); "main" is the GPT training
-# path's shape (batch 4 x 16 heads, seq 2048, head_dim 128, bf16, causal),
-# "llama" the LLaMA training path's (batch 2 x 32 heads, seq 4096)
+# name: (B*Hq, Sq, Sk, n_rep, causal, dtype, head_dim); "main" is the GPT
+# training path's shape (batch 4 x 16 heads, seq 2048, head_dim 128, bf16,
+# causal), "llama" the LLaMA training path's (batch 2 x 32 heads, seq
+# 4096).  The bf16 backward runs on the tensor cores; its edges: a
+# bottom-right q_offset, a ragged causal S = 1000, D = 64, and D = 100
+# (not a multiple of 8: the scalar staging path) with GQA.
 K1_CASES = {
-    "causal-bf16": (16, 2048, 2048, 1, True, torch.bfloat16),
-    "causal-fp32": (16, 2048, 2048, 1, True, torch.float32),
-    "full-bf16": (16, 2048, 2048, 1, False, torch.bfloat16),
-    "full-fp32": (16, 2048, 2048, 1, False, torch.float32),
-    "q_offset-fp32": (16, 512, 2048, 1, True, torch.float32),
-    "gqa4-bf16": (16, 2048, 2048, 4, True, torch.bfloat16),
-    "main": (64, 2048, 2048, 1, True, torch.bfloat16),
-    "llama": (64, 4096, 4096, 1, True, torch.bfloat16),
+    "causal-bf16": (16, 2048, 2048, 1, True, torch.bfloat16, 128),
+    "causal-fp32": (16, 2048, 2048, 1, True, torch.float32, 128),
+    "full-bf16": (16, 2048, 2048, 1, False, torch.bfloat16, 128),
+    "full-fp32": (16, 2048, 2048, 1, False, torch.float32, 128),
+    "q_offset-fp32": (16, 512, 2048, 1, True, torch.float32, 128),
+    "gqa4-bf16": (16, 2048, 2048, 4, True, torch.bfloat16, 128),
+    "q_offset-bf16": (16, 512, 2048, 1, True, torch.bfloat16, 128),
+    "ragged-bf16": (16, 1000, 1000, 1, True, torch.bfloat16, 128),
+    "d64-bf16": (16, 2048, 2048, 1, True, torch.bfloat16, 64),
+    "d100-gqa2-bf16": (16, 1000, 1000, 2, True, torch.bfloat16, 100),
+    "main": (64, 2048, 2048, 1, True, torch.bfloat16, 128),
+    "llama": (64, 4096, 4096, 1, True, torch.bfloat16, 128),
 }
+# the bf16 backward kernels, which must hold tensor-core instructions
+TC_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+
+
+def parse_sass(text: str) -> dict:
+    """HMMA / HGMMA (tensor-core) instruction counts per function of
+    ``cuobjdump -sass`` output, keyed by mangled name."""
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(r"\bHG?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+def tc_instances(counts: dict, kernel: str) -> dict:
+    """{head_dim: count} of the instantiations of template ``kernel``."""
+    token = f"{len(kernel)}{kernel}I"       # <length><name>I<args>E
+    return {int(re.search(r"ILi(\d+)E", fn).group(1)): n
+            for fn, n in counts.items() if token in fn}
+
+
+def check_sass():
+    """Fail unless both bf16 backward kernels (D = 64 and 128) hold
+    tensor-core instructions in the built library's SASS."""
+    lib = _build.library("flash_attention")._name
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass {lib}: {out.stderr.strip()}")
+    counts = parse_sass(out.stdout)
+    found = {k: tc_instances(counts, k) for k in TC_KERNELS}
+    say("sass: HMMA/HGMMA per kernel " + json.dumps(
+        {fn: n for fn, n in counts.items() if "flash" in fn}))
+    for kernel, by_d in found.items():
+        if sorted(by_d) != [64, 128] or not all(by_d.values()):
+            fail(f"{kernel}: tensor-core instructions by head_dim {by_d}")
+    return found
 
 
 def check_k1():
     rows = {}
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    d = 128
-    scale = 1.0 / d ** 0.5
-    for case, (bh, sq, sk, n_rep, causal, dtype) in K1_CASES.items():
+    for case, (bh, sq, sk, n_rep, causal, dtype, d) in K1_CASES.items():
+        scale = 1.0 / d ** 0.5
         q = rand((bh, sq, d), dtype, g).requires_grad_()
         k = rand((bh // n_rep, sk, d), dtype, g).requires_grad_()
         v = rand((bh // n_rep, sk, d), dtype, g).requires_grad_()
@@ -721,9 +776,20 @@ def check_k1():
         lout = F.scaled_dot_product_attention(lq, lk, lv,
                                               is_causal=lib_causal)
         ldo = do.reshape(1, bh, sq, d)
+        lib_errs = None      # the library's own distance from the plain version
+        if lib_causal or not causal:
+            ldq, ldk, ldv = torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                                retain_graph=True)
+            group = (bh // n_rep, n_rep, sk, d)
+            lib_errs = dict(
+                o=max_err(lout.reshape(bh, sq, d), ref),
+                dq=max_err(ldq.reshape(bh, sq, d), rdq),
+                dkv=max(max_err(ldk.float().reshape(group).sum(1), rdk),
+                        max_err(ldv.float().reshape(group).sum(1), rdv)))
+            del ldq, ldk, ldv
         row = dict(case=case, bh=bh, sq=sq, sk=sk, d=d, n_rep=n_rep,
                    causal=causal, dtype=str(dtype).replace("torch.", ""),
-                   max_abs_err=errs,
+                   max_abs_err=errs, library_max_abs_err=lib_errs,
                    fwd_ms=time_ms(fwd, 10), dq_ms=time_ms(dq_kernel, 5),
                    dkv_ms=time_ms(dkv_kernel, 5),
                    plain_fwd_ms=time_ms(
@@ -3146,6 +3212,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"ptxas {name}: {line.strip()}")
+    sass = check_sass()              # K1b/K1c bf16 on the tensor cores
 
     k7 = check_k7()
     rpa_launches, k6c_serve, gpt_decode = serve_main_path()
@@ -3207,10 +3274,13 @@ def main() -> int:
                 bound_ms=r[key + "_bound"][0],
                 bound_by=r[key + "_bound"][1],
                 library_ms=r[f"library_{phase}_ms"], shape=shape)
-        kernels.append(dict(
+        entry = dict(
             name=name, source=flash_src,
             replaces="paddle_tpu/ops/flash_attention.py" + replaces,
-            **by_path["gpt_train"], by_path=by_path))
+            **by_path["gpt_train"], by_path=by_path)
+        if key != "fwd":    # tensor-core instructions by head_dim (bf16)
+            entry["sass_hmma"] = sass[f"flash_bwd_{key}_kernel"]
+        kernels.append(entry)
     # K2 and K3 run on the GPT and BART training paths: the entry's
     # numbers are the GPT path's, by_path holds each path's launches with
     # the numbers of its own shape's case

@@ -126,7 +126,8 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool,
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: float,
                         causal: bool, q_offset: int = 0, n_rep: int = 1):
     """K1b then K1c on CUDA tensors: ``(dq, dk, dv)`` from the forward's
-    ``out`` and ``lse`` and the output gradient ``dout``."""
+    ``out`` and ``lse`` and the output gradient ``dout``.  bf16 runs the
+    tensor-core kernels, float32 the CUDA-core ones."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()

@@ -169,6 +169,59 @@ def test_k9_cases_are_the_paged_paths_shapes():
         open(cs.__file__).read()
 
 
+def test_k1_cases_are_the_training_paths_shapes():
+    """Phase 5's "main" and "llama" cases are the GPT and LLaMA training
+    steps' attention (batch x heads, seq, head_dim, bf16, causal), every
+    older case stays, and the bf16 tensor-core backward's edges are there:
+    a bottom-right q_offset, a ragged causal S = 1000, D = 64 and a D
+    that is not a multiple of 8."""
+    for case, cfg, b, s in (
+            ("main", tgpt.gpt_config("gpt3-1.3B"), cs.TRAIN_BATCH,
+             cs.TRAIN_SEQ),
+            ("llama", tllama.llama_config(cs.LLAMA_PRESET), cs.LLAMA_BATCH,
+             cs.LLAMA_SEQ)):
+        bh, sq, sk, n_rep, causal, dtype, d = cs.K1_CASES[case]
+        assert (bh, sq, sk, causal, dtype) == (b * cfg.num_heads, s, s, True,
+                                               torch.bfloat16)
+        assert n_rep == cfg.num_heads // getattr(cfg, "num_kv_heads",
+                                                 cfg.num_heads)
+        assert d == cfg.hidden_size // cfg.num_heads
+    assert {"causal-bf16", "causal-fp32", "full-bf16", "full-fp32",
+            "q_offset-fp32", "gqa4-bf16"} <= set(cs.K1_CASES)
+    bf16 = [c for c in cs.K1_CASES.values() if c[5] == torch.bfloat16]
+    assert cs.K1_CASES["q_offset-bf16"] == (16, 512, 2048, 1, True,
+                                            torch.bfloat16, 128)
+    assert any(c[1] == c[2] == 1000 and c[4] for c in bf16)
+    assert any(c[6] == 64 for c in bf16)
+    assert any(c[6] % 8 for c in bf16)
+
+
+def test_sass_check_reads_the_bf16_backward_instantiations():
+    """The SASS check counts HMMA / HGMMA per function and picks out the
+    head_dim instantiations of the two tensor-core templates (mangled
+    ``<len><name>I``), not the fp32 kernels, whose names extend them."""
+    ns = "_ZN12_GLOBAL__N_1"
+    text = "\n".join([
+        f"\tFunction : {ns}19flash_bwd_dq_kernelILi128EEEvPK13__nv_bf",
+        "\t/*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "\t/*0110*/  HMMA.16816.F32.BF16 R16, R8, R14, R16 ;",
+        f"\tFunction : {ns}19flash_bwd_dq_kernelILi64EEEvPK13__nv_bf",
+        "\t/*0100*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        f"\tFunction : {ns}24flash_bwd_dq_fp32_kernelIfLi128EEEvPKT_",
+        "\t/*0100*/  FFMA R1, R2, R3, R1 ;",
+        f"\tFunction : {ns}20flash_bwd_dkv_kernelILi128EEEvPK13__nv_bf",
+        "\t/*0100*/  FFMA R1, R2, R3, R1 ;"])
+    counts = cs.parse_sass(text)
+    assert sorted(counts.values()) == [0, 0, 1, 2]
+    assert cs.tc_instances(counts, "flash_bwd_dq_kernel") == {128: 2, 64: 1}
+    assert cs.tc_instances(counts, "flash_bwd_dkv_kernel") == {128: 0}
+    with open(os.path.join(os.path.dirname(cs.__file__), "paddle_tpu_torch",
+                           "ops", "csrc", "flash_attention.cu")) as f:
+        src = f.read()
+    for kernel in cs.TC_KERNELS:
+        assert f"\n{kernel}(const bf16*" in src
+
+
 @pytest.mark.parametrize("name", ["llama", "gpt"])
 def test_paged_step_check_holds_and_sees_its_fault_control(
         failures, tiny_llama, tiny_gpt, name, capsys):

@@ -75,8 +75,8 @@ FLASH_CASES = {
 }
 
 
-def _flash_inputs(case, seed=0):
-    causal, bh, sq, sk, d, n_rep = FLASH_CASES[case]
+def _flash_inputs(case, seed=0, cases=FLASH_CASES):
+    causal, bh, sq, sk, d, n_rep = cases[case]
     rs = np.random.RandomState(seed)
     q = rs.randn(bh, sq, d).astype(np.float32)
     k = rs.randn(bh // n_rep, sk, d).astype(np.float32)
@@ -126,6 +126,60 @@ def test_flash_plain_matches_jax_kernel_bf16():
         assert g.dtype == torch.bfloat16, name
         np.testing.assert_allclose(_np(g), _np(w), rtol=BF16_TOL,
                                    atol=BF16_TOL, err_msg=name)
+
+
+# the tensor-core backward's cases: FLASH_CASES and the training paths'
+# head_dim at a causal S = 256
+ROUNDING_CASES = dict(FLASH_CASES, d128=(True, 2, 256, 256, 128, 1))
+# chip_smoke.py's KTOL for bf16 (atol, rtol): the card's kernel check
+CARD_BF16_TOL = (2e-2, 1e-2)
+
+
+def _bf16_operand_backward(arrs, kw):
+    """The bf16 backward's roundings on the card, in plain torch: bf16
+    inputs, fp32 sums, fp32 P = exp(scale S - LSE) and dS = P o (dP -
+    delta), P and dS rounded to bf16 before the products that take them
+    (dV = P^T dO, dQ = scale dS K, dK = scale dS^T Q); delta = rowsum(O dO)
+    of the bf16 forward output; the GQA group summed in fp32; each
+    gradient rounded to bf16 once."""
+    q, k, v, do = (_t(a, torch.bfloat16).float() for a in arrs)
+    scale, n_rep = kw["scale"], kw["n_rep"]
+    k, v = k.repeat_interleave(n_rep, 0), v.repeat_interleave(n_rep, 0)
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    if kw["causal"]:
+        qi = torch.arange(s.shape[1])[:, None] + kw["q_offset"]
+        s = torch.where(qi >= torch.arange(s.shape[2])[None], s,
+                        torch.tensor(tfa.NEG_INF))
+    p = torch.exp(s - torch.logsumexp(s, -1, keepdim=True))
+    out = torch.einsum("bqk,bkd->bqd", p, v).bfloat16().float()
+    delta = (out * do).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bqd,bkd->bqk", do, v) - delta)
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dq = scale * torch.einsum("bqk,bkd->bqd", dsb, k)
+    dk = scale * torch.einsum("bqk,bqd->bkd", dsb, q)
+    dv = torch.einsum("bqk,bqd->bkd", pb, do)
+    group = (-1, n_rep) + tuple(dk.shape[1:])
+    return tuple(t.bfloat16() for t in (dq, dk.reshape(group).sum(1),
+                                         dv.reshape(group).sum(1)))
+
+
+@pytest.mark.parametrize("case", list(ROUNDING_CASES))
+def test_flash_bf16_operand_roundings_fit_the_tolerances(case):
+    """Rounding P and dS to bf16 before their products (the tensor-core
+    kernels' operands) keeps the gradients within BF16_TOL of the JAX
+    kernels' bf16 gradients (interpret mode) and within the card's bf16
+    KTOL of the fp32 plain version on the same bf16 inputs."""
+    arrs, kw = _flash_inputs(case, seed=2, cases=ROUNDING_CASES)
+    want = _jax_flash(arrs, kw, jnp.bfloat16)[1:]
+    got = _bf16_operand_backward(arrs, kw)
+    rounded = [_np(_t(a, torch.bfloat16)) for a in arrs]
+    plain = _port_flash(rounded, kw, torch.float32)[1:]
+    atol, rtol = CARD_BF16_TOL
+    for name, g, w, p in zip(("dq", "dk", "dv"), got, want, plain):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=BF16_TOL,
+                                   atol=BF16_TOL, err_msg=name)
+        np.testing.assert_allclose(_np(g), _np(p), rtol=rtol, atol=atol,
+                                   err_msg=name)
 
 
 def test_flash_plain_lse_matches_jax_kernel():
