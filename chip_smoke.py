@@ -5,6 +5,9 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --ab fa_a.cu fa_b.cu ...`` instead times copies
+of a kernel source against each other: ``compare_variants``.)
+
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
 
@@ -14,13 +17,16 @@ loudly with a non-zero exit:
    nvcc for sm_90a and print the build seconds and ptxas report; then
    ``cuobjdump -sass`` on the flash attention library must find
    tensor-core instructions (HMMA / HGMMA) in both head_dim
-   instantiations of the bf16 backward kernels (K1b, K1c);
+   instantiations of the bf16 forward and backward kernels (K1a, K1b,
+   K1c), and none in the fp32 kernels;
 3. K7 — the ragged paged attention kernel against its plain PyTorch
    version on the card, at serving shapes (page 16, head_dim 128, MHA
-   16/16 and GQA 32/8, fp32 and bf16): error against the stated
-   tolerance, exact zeros on the empty slot, kernel / plain / library
-   (``scaled_dot_product_attention``, a yardstick only) times and the
-   card's bound for the same work;
+   16/16 and GQA 32/8, fp32 and bf16; a decode whose lengths straddle
+   the page splits) with NaN in every pool byte no row needs: error
+   against the stated tolerance, exact zeros on padding rows and the
+   empty slot, a second launch bitwise equal to the first, kernel /
+   plain / library (``scaled_dot_product_attention``, a yardstick only)
+   times and the card's bound for the same work;
 4. serving main path — GPT-3 1.3B (random weights from a seed, fp32)
    served by ``ServingEngine`` (max_batch 8, page 16): 8 requests, two
    sharing a 64-token prefix, one sampled; every greedy request returns
@@ -30,8 +36,9 @@ loudly with a non-zero exit:
 5. K1a/b/c (flash attention fwd, dq, dk/dv), K2a/b (LayerNorm fwd, dx)
    and K3 (fused AdamW) against their plain PyTorch versions on the card
    at training shapes (K1 at both training paths' shapes, GPT's and
-   LLaMA's, and the bf16 backward's edges: q_offset, ragged S, D = 64,
-   D = 100 with GQA), with kernel / plain / library (a yardstick only)
+   LLaMA's, and the bf16 kernels' edges: q_offset, ragged S, D = 64,
+   D = 100 with GQA, one query row), with kernel / plain / library (a
+   yardstick only)
    times, the library's own distance from the plain version, and the
    card's bound for the same work;
 6. training main path — the calls of ``bench.py``'s ``_measure``
@@ -163,6 +170,8 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import gc
 import json
 import re
@@ -273,6 +282,13 @@ def time_ms(fn, iters: int) -> float:
 # ---------------------------------------------------------------------------
 
 def make_case(kv_lens, q_lens, q_width, nh, nkv, dtype, seed, ps=16, hd=128):
+    """A batch over pools of each sequence's pages plus one page no row
+    owns, in a random order (unused table slots at page 0).  Every pool
+    byte no row needs (the spare page, slots past a length, an empty
+    slot's pages) is NaN in the pools the kernel gets and 0 in the copies
+    the plain version gets, so a kernel that read one would return NaN.
+    Returns (q, k, v with NaN, kv_lens, q_lens, tables) and (k, v with
+    0)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -282,17 +298,24 @@ def make_case(kv_lens, q_lens, q_width, nh, nkv, dtype, seed, ps=16, hd=128):
     n_pages = sum(pages) + 1
     perm = torch.randperm(n_pages, generator=g, device=dev)
     tables = torch.zeros(b, ppseq, dtype=torch.int32, device=dev)
+    live = torch.zeros(n_pages, ps, dtype=torch.bool, device=dev)
     at = 0
     for i, n in enumerate(pages):
         tables[i, :n] = perm[at:at + n]
         at += n
+        if q_lens[i]:
+            t = torch.arange(kv_lens[i], device=dev)
+            live[tables[i, t // ps].long(), t % ps] = True
+    dead = ~live[None, :, :, None]
     shape = (nkv, n_pages, ps, hd)
     kp = torch.randn(shape, generator=g, device=dev).to(dtype)
     vp = torch.randn(shape, generator=g, device=dev).to(dtype)
     q = torch.randn(b, q_width, nh, hd, generator=g, device=dev).to(dtype)
     i32 = dict(dtype=torch.int32, device=dev)
-    return (q, kp, vp, torch.tensor(kv_lens, **i32),
-            torch.tensor(q_lens, **i32), tables)
+    poisoned = [p.masked_fill(dead, float("nan")) for p in (kp, vp)]
+    clean = tuple(p.masked_fill(dead, 0.0) for p in (kp, vp))
+    return (q, *poisoned, torch.tensor(kv_lens, **i32),
+            torch.tensor(q_lens, **i32), tables), clean
 
 
 def bound(kv_lens, q_lens, q_width, nh, nkv, dtype, ps=16, hd=128):
@@ -344,6 +367,11 @@ CASES = {
                    q_lens=[1] * 8, q_width=1),
     # decode of 8 sequences at the model's full context
     "decode-2048": dict(kv_lens=[2048] * 8, q_lens=[1] * 8, q_width=1),
+    # decode whose lengths straddle the page-split boundaries: fewer live
+    # pages than splits (empty splits), one page each, runs that end
+    # mid-page, and a long context
+    "decode-split": dict(kv_lens=[1, 16, 17, 63, 64, 65, 1000, 2047],
+                         q_lens=[1] * 8, q_width=1),
 }
 HEADS = {"mha": (16, 16), "gqa": (32, 8)}
 
@@ -355,14 +383,23 @@ def check_k7():
         for heads, (nh, nkv) in HEADS.items():
             for dtype in (torch.float32, torch.bfloat16):
                 seed += 1
-                args = make_case(spec["kv_lens"], spec["q_lens"],
-                                 spec["q_width"], nh, nkv, dtype, seed)
+                args, clean = make_case(spec["kv_lens"], spec["q_lens"],
+                                        spec["q_width"], nh, nkv, dtype,
+                                        seed)
+                plain_args = (args[0], *clean, *args[3:])
                 before = rpa.launches
                 out = rpa.ragged_paged_attention(*args)
                 torch.cuda.synchronize()
                 if rpa.launches != before + 1:
                     fail(f"K7 {case}: launches did not increase")
-                ref = rpa.ragged_paged_attention_ref(*args)
+                # the page splits merge in a fixed order: a second launch
+                # on the same inputs gives the same bits
+                again = rpa.ragged_paged_attention(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(out, again):
+                    fail(f"K7 {case}/{heads}/{dtype}: a second launch on "
+                         "the same inputs differs")
+                ref = rpa.ragged_paged_attention_ref(*plain_args)
                 if out.dtype != dtype or out.shape != args[0].shape:
                     fail(f"K7 {case}: output {out.dtype} {out.shape}")
                 if not torch.isfinite(out.float()).all():
@@ -384,8 +421,8 @@ def check_k7():
                          f"{TOL[dtype]}")
                 ms = time_ms(lambda: rpa.ragged_paged_attention(*args), 20)
                 plain_ms = time_ms(
-                    lambda: rpa.ragged_paged_attention_ref(*args), 3)
-                library_ms = time_ms(library_fn(*args), 10)
+                    lambda: rpa.ragged_paged_attention_ref(*plain_args), 3)
+                library_ms = time_ms(library_fn(*plain_args), 10)
                 bound_ms, bound_by = bound(spec["kv_lens"], spec["q_lens"],
                                            spec["q_width"], nh, nkv, dtype)
                 row = dict(case=case, heads=heads,
@@ -395,7 +432,7 @@ def check_k7():
                            bound_ms=bound_ms, bound_by=bound_by)
                 say("K7 " + json.dumps(row))
                 results.append(row)
-                del args, out, ref
+                del args, clean, plain_args, out, again, ref
     torch.cuda.empty_cache()
     return results
 
@@ -648,9 +685,10 @@ def rand(shape, dtype, g, scale=1.0):
 # name: (B*Hq, Sq, Sk, n_rep, causal, dtype, head_dim); "main" is the GPT
 # training path's shape (batch 4 x 16 heads, seq 2048, head_dim 128, bf16,
 # causal), "llama" the LLaMA training path's (batch 2 x 32 heads, seq
-# 4096).  The bf16 backward runs on the tensor cores; its edges: a
-# bottom-right q_offset, a ragged causal S = 1000, D = 64, and D = 100
-# (not a multiple of 8: the scalar staging path) with GQA.
+# 4096).  bf16 runs on the tensor cores; its edges: a bottom-right
+# q_offset, a ragged causal S = 1000, D = 64, D = 100 (not a multiple of
+# 8: the scalar staging path) with GQA, and one query row against 2048
+# keys (q_offset 2047: one live warp in a query tile).
 K1_CASES = {
     "causal-bf16": (16, 2048, 2048, 1, True, torch.bfloat16, 128),
     "causal-fp32": (16, 2048, 2048, 1, True, torch.float32, 128),
@@ -662,11 +700,14 @@ K1_CASES = {
     "ragged-bf16": (16, 1000, 1000, 1, True, torch.bfloat16, 128),
     "d64-bf16": (16, 2048, 2048, 1, True, torch.bfloat16, 64),
     "d100-gqa2-bf16": (16, 1000, 1000, 2, True, torch.bfloat16, 100),
+    "q1-bf16": (64, 1, 2048, 1, True, torch.bfloat16, 128),
     "main": (64, 2048, 2048, 1, True, torch.bfloat16, 128),
     "llama": (64, 4096, 4096, 1, True, torch.bfloat16, 128),
 }
-# the bf16 backward kernels, which must hold tensor-core instructions
-TC_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# the bf16 kernels, which must hold tensor-core instructions (and the
+# CUDA-core `_fp32` kernels none)
+TC_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+              "flash_bwd_dkv_kernel")
 
 
 def parse_sass(text: str) -> dict:
@@ -691,8 +732,9 @@ def tc_instances(counts: dict, kernel: str) -> dict:
 
 
 def check_sass():
-    """Fail unless both bf16 backward kernels (D = 64 and 128) hold
-    tensor-core instructions in the built library's SASS."""
+    """Fail unless the bf16 forward and both bf16 backward kernels (D = 64
+    and 128) hold tensor-core instructions in the built library's SASS,
+    and the fp32 kernels none."""
     lib = _build.library("flash_attention")._name
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", lib], capture_output=True,
@@ -706,6 +748,9 @@ def check_sass():
     for kernel, by_d in found.items():
         if sorted(by_d) != [64, 128] or not all(by_d.values()):
             fail(f"{kernel}: tensor-core instructions by head_dim {by_d}")
+    fp32 = {fn: n for fn, n in counts.items() if "_fp32_kernel" in fn}
+    if len(fp32) != 6 or any(fp32.values()):
+        fail(f"fp32 kernels: tensor-core instructions {fp32}")
     return found
 
 
@@ -766,27 +811,31 @@ def check_k1():
         def plain_bwd():
             torch.autograd.grad(ref, (q, k, v), do, retain_graph=True)
 
-        # the library yardstick: [B, H, S, D] views, GQA as repeated heads
+        # the library yardstick: [B, H, S, D] views, GQA as repeated heads;
+        # sdpa's causal mask is top-left, so Sq != Sk takes the bottom-right
+        # mask explicitly (none where every pair is visible)
         lq = qd.reshape(1, bh, sq, d).clone().requires_grad_()
         lk = kd.repeat_interleave(n_rep, 0).reshape(1, bh, sk, d).clone() \
             .requires_grad_()
         lv = vd.repeat_interleave(n_rep, 0).reshape(1, bh, sk, d).clone() \
             .requires_grad_()
-        lib_causal = causal and sq == sk
-        lout = F.scaled_dot_product_attention(lq, lk, lv,
-                                              is_causal=lib_causal)
+        lib_kw = dict(is_causal=causal)
+        if causal and sq != sk:
+            vis = torch.arange(sq, device="cuda")[:, None] + off \
+                >= torch.arange(sk, device="cuda")[None]
+            lib_kw = {} if vis.all() else dict(attn_mask=vis)
+        lout = F.scaled_dot_product_attention(lq, lk, lv, **lib_kw)
         ldo = do.reshape(1, bh, sq, d)
-        lib_errs = None      # the library's own distance from the plain version
-        if lib_causal or not causal:
-            ldq, ldk, ldv = torch.autograd.grad(lout, (lq, lk, lv), ldo,
-                                                retain_graph=True)
-            group = (bh // n_rep, n_rep, sk, d)
-            lib_errs = dict(
-                o=max_err(lout.reshape(bh, sq, d), ref),
-                dq=max_err(ldq.reshape(bh, sq, d), rdq),
-                dkv=max(max_err(ldk.float().reshape(group).sum(1), rdk),
-                        max_err(ldv.float().reshape(group).sum(1), rdv)))
-            del ldq, ldk, ldv
+        # the library's own distance from the plain version
+        ldq, ldk, ldv = torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                            retain_graph=True)
+        group = (bh // n_rep, n_rep, sk, d)
+        lib_errs = dict(
+            o=max_err(lout.reshape(bh, sq, d), ref),
+            dq=max_err(ldq.reshape(bh, sq, d), rdq),
+            dkv=max(max_err(ldk.float().reshape(group).sum(1), rdk),
+                    max_err(ldv.float().reshape(group).sum(1), rdv)))
+        del ldq, ldk, ldv
         row = dict(case=case, bh=bh, sq=sq, sk=sk, d=d, n_rep=n_rep,
                    causal=causal, dtype=str(dtype).replace("torch.", ""),
                    max_abs_err=errs, library_max_abs_err=lib_errs,
@@ -796,16 +845,12 @@ def check_k1():
                        lambda: fa.reference_attention_bhsd(
                            qd, kd, vd, scale, causal, off, n_rep), 3),
                    plain_bwd_ms=time_ms(plain_bwd, 3))
-        if lib_causal or not causal:
-            row["library_fwd_ms"] = time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    lq.detach(), lk.detach(), lv.detach(),
-                    is_causal=lib_causal), 10)
-            row["library_bwd_ms"] = time_ms(
-                lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
-                                            retain_graph=True), 5)
-        else:     # sdpa's causal mask is top-left: no bottom-right yardstick
-            row["library_fwd_ms"] = row["library_bwd_ms"] = None
+        row["library_fwd_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                lq.detach(), lk.detach(), lv.detach(), **lib_kw), 10)
+        row["library_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo,
+                                        retain_graph=True), 5)
         peak = PEAK_FLOPS[dtype]
         item = q.element_size()
         pairs = bh * visible_pairs(sq, sk, causal, off)
@@ -3189,6 +3234,110 @@ def program_main_paths(llama):
     return dict(gpt=gpt, llama=llama_res)
 
 
+# ---------------------------------------------------------------------------
+# kernel variants: python3 chip_smoke.py --ab A.cu B.cu ...
+# ---------------------------------------------------------------------------
+
+AB_K7_CASES = ("decode", "decode-2048", "mixed")
+
+
+def compare_variants(paths) -> int:
+    """Time copies of ``csrc/flash_attention.cu`` (files named ``fa_*.cu``)
+    or ``csrc/ragged_paged_attention.cu`` (``rpa_*.cu``), each built with
+    the port's nvcc flags into its own library, on the same inputs in
+    turns (every variant, then again in reverse order): K1a's forward at
+    the two training shapes, K7 at phase 3's cases with the wrapper's
+    page splits and twice as many.  One line per case: each variant's
+    times and its max abs error from the plain version."""
+    out_dir = _build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {Path(p).stem: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+         str(out_dir / (Path(p).stem + ".so")), p], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for p in paths}
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"nvcc {name}: {log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                say(f"ptxas {name}: {line.strip()}")
+        lib = ctypes.CDLL(str(out_dir / (name + ".so")))
+        (fa if name.startswith("fa_") else rpa)._declare(lib)
+        libs[name] = lib
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def turns(fns):
+        ms = {n: [] for n in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for n in order:
+                ms[n].append(time_ms(fns[n], 20))
+        return ms
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    fa_libs = {n: lib for n, lib in libs.items() if n.startswith("fa_")}
+    for case in ("main", "llama") if fa_libs else ():
+        bh, sq, sk, _, _, dtype, d = K1_CASES[case]
+        q, k, v = (rand((bh, n, d), dtype, g) for n in (sq, sk, sk))
+        ref = fa.reference_attention_bhsd(q, k, v, d ** -0.5, True)
+        outs = {n: (torch.empty_like(q), torch.empty(bh, sq, device="cuda"))
+                for n in fa_libs}
+        fns = {n: functools.partial(
+            lib.flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            outs[n][0].data_ptr(), outs[n][1].data_ptr(), bh, sq, sk, d, 1,
+            1, 0, d ** -0.5, fa._DTYPE_CODE[dtype], stream)
+            for n, lib in fa_libs.items()}
+        errs = {}
+        for n, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            errs[n] = max_err(outs[n][0], ref)
+        say("AB K1a " + json.dumps(dict(case=case, ms=turns(fns),
+                                        max_abs_err=errs)))
+        del q, k, v, ref, outs
+    rpa_libs = {n: lib for n, lib in libs.items() if n.startswith("rpa_")}
+    for case in AB_K7_CASES if rpa_libs else ():
+        spec = CASES[case]
+        for heads, (nh, nkv) in HEADS.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                args, clean = make_case(spec["kv_lens"], spec["q_lens"],
+                                        spec["q_width"], nh, nkv, dtype, 7)
+                q, kp, vp, kvl, ql, tables = args
+                ref = rpa.ragged_paged_attention_ref(q, *clean, kvl, ql,
+                                                     tables)
+                b, qw, _, hd = q.shape
+                ppseq = tables.shape[1]
+                groups = -(-(nh // nkv * qw) // rpa._ROWS) * nkv
+                base = rpa._splits(groups, b, ppseq, q.device)
+                fns, errs, outs = {}, {}, {}
+                for mult in (1, 2):
+                    splits = min(base * mult, ppseq)
+                    part, cnt = rpa._scratch(q.device, groups * b,
+                                             max(splits, 2), hd)
+                    for n, lib in rpa_libs.items():
+                        key = f"{n}/splits={splits}"
+                        outs[key] = out = torch.empty_like(q)
+                        fns[key] = functools.partial(
+                            lib.rpa_forward, *(t.data_ptr() for t in args),
+                            out.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+                            b, qw, nh, nkv, kp.shape[1], kp.shape[2], hd,
+                            ppseq, splits, hd ** -0.5, rpa._DTYPE_CODE[dtype],
+                            rpa._DTYPE_CODE[dtype], stream)
+                        fns[key]()
+                        torch.cuda.synchronize()
+                        errs[key] = max(max_err(out[i, :n], ref[i, :n])
+                                        for i, n in enumerate(spec["q_lens"])
+                                        if n)
+                say("AB K7 " + json.dumps(dict(
+                    case=case, heads=heads,
+                    dtype=str(dtype).replace("torch.", ""), ms=turns(fns),
+                    max_abs_err=errs)))
+                del args, clean, ref, outs, fns
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
@@ -3205,14 +3354,16 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}; matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
+    if "--ab" in sys.argv:
+        return compare_variants(sys.argv[sys.argv.index("--ab") + 1:])
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry" in line:
                 say(f"ptxas {name}: {line.strip()}")
-    sass = check_sass()              # K1b/K1c bf16 on the tensor cores
+    sass = check_sass()              # K1a/K1b/K1c bf16 on the tensor cores
 
     k7 = check_k7()
     rpa_launches, k6c_serve, gpt_decode = serve_main_path()
@@ -3278,8 +3429,9 @@ def main() -> int:
             name=name, source=flash_src,
             replaces="paddle_tpu/ops/flash_attention.py" + replaces,
             **by_path["gpt_train"], by_path=by_path)
-        if key != "fwd":    # tensor-core instructions by head_dim (bf16)
-            entry["sass_hmma"] = sass[f"flash_bwd_{key}_kernel"]
+        # tensor-core instructions by head_dim (bf16)
+        entry["sass_hmma"] = sass["flash_fwd_kernel" if key == "fwd"
+                                  else f"flash_bwd_{key}_kernel"]
         kernels.append(entry)
     # K2 and K3 run on the GPT and BART training paths: the entry's
     # numbers are the GPT path's, by_path holds each path's launches with

@@ -23,7 +23,7 @@
 // ~100 MB of inputs and outputs each: hundreds of operations per byte, so
 // the bf16 tensor cores (989 TFLOP/s) set the bound.
 //
-// The forward and the fp32 backward (CUDA cores): the TPU kernel walks a
+// fp32 (CUDA cores, the `_fp32` kernels): the TPU kernel walks a
 // sequential grid over key blocks with the whole K/V of a head resident
 // in VMEM; here the walk is a loop inside a block that owns a 64-row tile.
 //   * Tiles of 64 rows x D (D <= 128, zero-filled past D) are staged in
@@ -40,10 +40,11 @@
 //     that can see its key tile, max(0, k0 - q_offset) / 64.
 //   * The products are scalar fp32 FMAs.  fp32 stays there: TF32 keeps
 //     ~3 digits and cannot meet fp32 tolerances, and no training path
-//     runs an fp32 backward.  The forward's tensor-core redesign is later
-//     work.
+//     runs fp32 attention.  The serving and decode prefills and the
+//     program replays do (the replays at one query row: a decode shape
+//     for a prefill kernel, later work).
 //
-// The bf16 backward (K1b, K1c) runs on the tensor cores:
+// bf16 (K1a, K1b, K1c) runs on the tensor cores:
 //   * mma.sync m16n8k16 bf16 x bf16 -> fp32 (inline PTX), fp32
 //     accumulators in registers.  Tiles are bf16 in shared memory, rows
 //     padded by 16 bytes (stride D + 8) so the 8 row addresses of every
@@ -54,7 +55,29 @@
 //     a scalar staging loop.  The streamed tiles are a two-stage ring:
 //     the next tile is in flight while the current one multiplies.
 //   * 128 threads (4 warps x 16 rows of a 64-row tile), ~104 KB of shared
-//     memory: two blocks (8 warps) resident per SM.
+//     memory (the forward ~87 KB): two blocks (8 warps) resident per SM.
+//   * forward (K1a): a block owns a query tile and walks the key tiles it
+//     can see, heavy (late, causal) query tiles first.  Q's A fragments
+//     are loaded once through ldmatrix and stay in registers; K and V
+//     stream through the ring.  S = Q K^T; the online softmax runs on the
+//     accumulator layout in registers (a row's max and sum are shuffles
+//     over the 4 lanes that share it; exp2 with scale * log2(e) folded
+//     in; the scale multiplies the fp32 S, not the bf16 Q, whose rounding
+//     the plain version lacks); O += P V with P as two bf16 A fragments
+//     in registers, hi = bf16(P) and lo = bf16(P - hi), ~16 bits of P for
+//     one more product per V fragment: P rounded once to bf16 puts O a
+//     bf16 step from the plain version wherever |O| >= 2, and delta =
+//     rowsum(O dO) carries that into every dq of the training step; O /
+//     l in fp32, cast once.  A warp skips a key tile that none of its 16
+//     rows can see; only a tile that straddles the diagonal or a ragged
+//     edge for the warp's rows takes the masked loop (full tiles skip the
+//     visibility test and the mask compare).
+//     The tile height is the backward's 64 rows x 4 warps, so every part
+//     is shared with it; 128 rows x 8 warps would halve the K/V traffic
+//     per query row, but at 16 warps per SM the registers (O 64, S 32,
+//     Q 32 per thread at D = 128) no longer fit without spills.  ptxas
+//     (CUDA 12.8, sm_90a): 225 registers at D = 128, 162 at D = 64, no
+//     spills; chip_smoke.py's phase 2 prints the report of each build.
 //   * dq (K1b): a block owns a query tile (Q, dO resident) and walks the
 //     key tiles it can see (K, V streamed): S = Q K^T, dP = dO V^T,
 //     dS = P o (dP - delta), dQ += dS K.  Heavy (late, causal) query
@@ -70,8 +93,11 @@
 //     applied only on tiles that straddle the diagonal or a ragged edge.
 //   * Two deterministic kernels (no fp32 atomics on dq), as the JAX
 //     package splits them: S and dP are computed in both, 7 tile products
-//     per (query, key) tile pair against a fused kernel's 5.  Later work:
-//     wgmma with TMA, warp specialisation, the fused layout.
+//     per (query, key) tile pair against a fused kernel's 5.
+// Left on the table: wgmma with TMA (mma.sync reaches only part of the
+// card's bf16 rate, and each ldmatrix of K or V feeds two products of a
+// 16-row warp), warp specialisation, the fused backward layout, and the
+// fp32 forward at one query row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,18 +116,11 @@ constexpr int kPStride = kTile + 1;
 constexpr float kMaskValue = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // max / sum over the 16 lanes that share ty (xor offsets < 16 stay in the
 // half-warp)
@@ -211,14 +230,15 @@ __device__ __forceinline__ int key_tiles(const Shape& s, int qt) {
 }
 
 // ---------------------------------------------------------------------------
-// K1a: forward
+// K1a: forward, fp32 (CUDA cores)
 // ---------------------------------------------------------------------------
 
-template <typename T, int kD>
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, Shape s) {
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, Shape s) {
+  using T = float;
   extern __shared__ float smem[];
   constexpr int kTileWords = kTile * (kD + 1);
   float* sq_ = smem;                    // Q * scale
@@ -513,6 +533,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kTcThreads = 128;     // 4 warps x 16 rows of a 64-row tile
 constexpr int kPad = 8;             // bf16 row padding: 16 bytes
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int kD>
 __host__ __device__ constexpr int tc_row() { return kD + kPad; }
@@ -684,6 +705,206 @@ __device__ __forceinline__ void tile_xb_tc(float (&acc)[kD / 8][4],
       mma(acc[2 * dn], af, bf[0], bf[1]);
       mma(acc[2 * dn + 1], af, bf[2], bf[3]);
     }
+  }
+}
+
+// x[8][4] = A B^T as tile_abt_tc, with A's fragments in registers
+template <int kD>
+__device__ __forceinline__ void tile_abt_tc(float (&x)[8][4],
+                                            const uint32_t (&af)[kD / 16][4],
+                                            uint32_t b) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks) {
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bf[4];
+      ldsm(bf, b + (np * 16 * tc_row<kD>() + ks * 16) * 2);
+      mma(x[2 * np], af[ks], bf[0], bf[1]);
+      mma(x[2 * np + 1], af[ks], bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[kD / 8][4] += X B as tile_xb_tc, with X carried as two bf16 terms,
+// hi = bf16(x) and lo = bf16(x - hi): ~16 bits of x for one more product
+// per B fragment
+template <int kD>
+__device__ __forceinline__ void tile_xb_tc2(float (&acc)[kD / 8][4],
+                                            const float (&x)[8][4],
+                                            uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* xi = x[2 * kk + (i >> 1)] + 2 * (i & 1);
+      const __nv_bfloat162 h = __floats2bfloat162_rn(xi[0], xi[1]);
+      const float2 hf = __bfloat1622float2(h);
+      const __nv_bfloat162 l = __floats2bfloat162_rn(xi[0] - hf.x, xi[1] - hf.y);
+      hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[i] = *reinterpret_cast<const uint32_t*>(&l);
+    }
+#pragma unroll
+    for (int dn = 0; dn < kD / 16; ++dn) {
+      uint32_t bf[4];
+      ldsm_t(bf, b + (kk * 16 * tc_row<kD>() + dn * 16) * 2);
+      mma(acc[2 * dn], hi, bf[0], bf[1]);
+      mma(acc[2 * dn + 1], hi, bf[2], bf[3]);
+      mma(acc[2 * dn], lo, bf[0], bf[1]);
+      mma(acc[2 * dn + 1], lo, bf[2], bf[3]);
+    }
+  }
+}
+
+// max over the 4 lanes that share an accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---------------------------------------------------------------------------
+// K1a: forward, bf16 (tensor cores)
+// ---------------------------------------------------------------------------
+
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, Shape s) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  constexpr int kT = tc_tile<kD>();
+  bf16* sq_ = reinterpret_cast<bf16*>(tc_smem);   // Q, read once
+  bf16* sk_ = sq_ + kT;                           // K [2 stages]
+  bf16* sv_ = sk_ + 2 * kT;                       // V [2 stages]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;      // heavy (late) tiles first
+  const int bh = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q0 = qt * kTile;
+  const int wq0 = q0 + warp * 16;                 // this warp's first row
+  const int rows = min(kTile, s.sq - q0);
+  const int64_t row_base = static_cast<int64_t>(bh) * s.sq + q0;
+  const int64_t kv_base = static_cast<int64_t>(bh / s.n_rep) * s.sk;
+
+  stage_tile<kD>(sq_, q + row_base * s.d, rows, s.d, s.vec);
+  cp_async_commit();
+  const int n_kt = key_tiles(s, qt);
+  auto stage = [&](int kt) {
+    const int k0 = kt * kTile;
+    const int64_t off = (kv_base + k0) * s.d;
+    stage_tile<kD>(sk_ + (kt & 1) * kT, k + off, min(kTile, s.sk - k0), s.d, s.vec);
+    stage_tile<kD>(sv_ + (kt & 1) * kT, v + off, min(kTile, s.sk - k0), s.d, s.vec);
+  };
+  if (n_kt > 0) stage(0);
+  cp_async_commit();
+  cp_async_wait<1>();                 // Q has landed
+  __syncthreads();
+  uint32_t qf[kD / 16][4];
+  const uint32_t q_a = smem_u32(sq_ + warp * 16 * tc_row<kD>() + a_offset<kD>(lane));
+#pragma unroll
+  for (int ks = 0; ks < kD / 16; ++ks) ldsm(qf[ks], q_a + ks * 32);
+
+  // this thread's rows wq0 + g and + 8 (g = lane / 4): the running max of
+  // scale * log2(e) * S, and this thread's share of the row sum
+  const float scale_l2 = s.scale * kLog2e;
+  float m2[2] = {kMaskValue, kMaskValue};
+  float l[2] = {0.f, 0.f};
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) stage(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int k0 = kt * kTile;
+    // no row of this warp sees a key of the tile: nothing to add
+    const bool none = wq0 >= s.sq || (s.causal && s.q_offset + wq0 + 15 < k0);
+    if (!none) {
+      const bf16* tk = sk_ + (kt & 1) * kT;
+      const bf16* tv = sv_ + (kt & 1) * kT;
+      float sc[8][4];
+      tile_abt_tc<kD>(sc, qf, smem_u32(tk + bt_offset<kD>(lane)));   // S = Q K^T
+      const bool full = wq0 + 16 <= s.sq && k0 + kTile <= s.sk &&
+                        (!s.causal || s.q_offset + wq0 >= k0 + kTile - 1);
+      float mx[2] = {kMaskValue, kMaskValue};
+      if (full) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sc[n][e] *= scale_l2;
+            mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            float t = sc[n][e] * scale_l2;
+            if (!visible(s, wq0 + lane / 4 + 8 * h,
+                         k0 + 8 * n + 2 * (lane % 4) + (e & 1)))
+              t = kMaskValue;
+            sc[n][e] = t;
+            mx[h] = fmaxf(mx[h], t);
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m2[h], quad_max(mx[h]));
+        alpha[h] = exp2f(m2[h] - m_new);
+        m2[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // a masked key adds exactly 0, also before any key was seen
+          const float t = sc[n][e];
+          const float p = !full && t == kMaskValue ? 0.f : exp2f(t - m2[e >> 1]);
+          sc[n][e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      tile_xb_tc2<kD>(acc, sc, smem_u32(tv + a_offset<kD>(lane)));    // O += P V
+    }
+    __syncthreads();                  // the next stage() refills this slot
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lr = quad_sum(l[h]);
+    const int r = warp * 16 + lane / 4 + 8 * h;
+    if (r >= rows) continue;
+    const float lc = fmaxf(lr, 1e-30f);
+    bf16* orow = o + (row_base + r) * s.d;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n) {
+      const float x0 = lr > 0.f ? acc[n][2 * h] / lc : 0.f;
+      const float x1 = lr > 0.f ? acc[n][2 * h + 1] / lc : 0.f;
+      store_pair(orow, 8 * n + 2 * (lane % 4), x0, x1, s.d, s.vec);
+    }
+    if (lane % 4 == 0)
+      lse[row_base + r] = (lr > 0.f ? m2[h] * kLn2 : kMaskValue) + logf(lc);
   }
 }
 
@@ -902,27 +1123,38 @@ constexpr size_t smem_bytes(int tiles) {
   return (static_cast<size_t>(tiles) * kTile * (kD + 1) + kTile * kPStride) * sizeof(float);
 }
 
-template <typename T, int kD>
-int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-        const Shape& s, cudaStream_t st) {
-  const size_t smem = smem_bytes<kD>(3);
-  if (const int err = set_smem(flash_fwd_kernel<T, kD>, smem)) return err;
-  const dim3 grid((s.sq + kTile - 1) / kTile, bh);
-  flash_fwd_kernel<T, kD><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), s);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the tensor-core kernels: a resident pair of tiles and a two-stage ring
-// of a pair (+ the dk/dv kernel's LSE and delta ring), bf16
+// the tensor-core kernels: bf16 tiles (resident ones and a two-stage ring
+// of a pair) + the dk/dv kernel's LSE and delta ring
 template <int kD>
-constexpr size_t tc_smem_bytes(int row_words) {
-  return 6 * tc_tile<kD>() * sizeof(bf16) + row_words * sizeof(float);
+constexpr size_t tc_smem_bytes(int tiles, int row_words) {
+  return tiles * tc_tile<kD>() * sizeof(bf16) + row_words * sizeof(float);
 }
 
 // fp32: the CUDA-core kernel; bf16: the tensor-core kernel.  The shared
 // memory attribute is set once per instantiation.
+template <typename T, int kD>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+        const Shape& s, cudaStream_t st) {
+  const dim3 grid((s.sq + kTile - 1) / kTile, bh);
+  if constexpr (std::is_same<T, float>::value) {
+    const size_t smem = smem_bytes<kD>(3);
+    static const int attr = set_smem(flash_fwd_fp32_kernel<kD>, smem);
+    if (attr) return attr;
+    flash_fwd_fp32_kernel<kD><<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), static_cast<float*>(lse), s);
+  } else {
+    const size_t smem = tc_smem_bytes<kD>(5, 0);
+    static const int attr = set_smem(flash_fwd_kernel<kD>, smem);
+    if (attr) return attr;
+    flash_fwd_kernel<kD><<<grid, kTcThreads, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o),
+        static_cast<float*>(lse), s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int kD>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, int bh, const Shape& s,
@@ -937,7 +1169,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dq), s);
   } else {
-    const size_t smem = tc_smem_bytes<kD>(0);
+    const size_t smem = tc_smem_bytes<kD>(6, 0);
     static const int attr = set_smem(flash_bwd_dq_kernel<kD>, smem);
     if (attr) return attr;
     flash_bwd_dq_kernel<kD><<<grid, kTcThreads, smem, st>>>(
@@ -963,7 +1195,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s);
   } else {
-    const size_t smem = tc_smem_bytes<kD>(4 * kTile);
+    const size_t smem = tc_smem_bytes<kD>(6, 4 * kTile);
     static const int attr = set_smem(flash_bwd_dkv_kernel<kD>, smem);
     if (attr) return attr;
     flash_bwd_dkv_kernel<kD><<<grid, kTcThreads, smem, st>>>(
@@ -1010,7 +1242,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* stream) {
   if (bad_args(bh, sq, sk, d, n_rep)) return static_cast<int>(cudaErrorInvalidValue);
   (void)cudaGetLastError();   // report this launch, not an older error
-  const Shape s{sq, sk, d, n_rep, causal, q_offset, scale};
+  const Shape s{sq, sk, d, n_rep, causal, q_offset, scale, vec_ok(d, {q, k, v, o})};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(T, D) fwd<T, D>(q, k, v, o, lse, bh, s, st)
   FA_DISPATCH(CALL);

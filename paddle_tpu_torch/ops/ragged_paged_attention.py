@@ -39,7 +39,9 @@ launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
-_SMEM_LIMIT = 227 * 1024
+_SMEM_LIMIT = 227 * 1024 - 64
+_ROWS = 8              # query rows per block (a row group), as the kernel
+_MAX_Z = 65535         # grid.z = B * splits
 
 
 def append_positions(kv_lens, tables, live, page_size, sink):
@@ -128,13 +130,52 @@ def _check_cuda(q, k_pages, v_pages, kv_lens, q_lens, page_tables):
         raise ValueError(f"nh={nh} is not a multiple of nkv={nkv}")
     if hd > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} > {_MAX_HEAD_DIM}")
-    if 2 * ps * hd * 4 > _SMEM_LIMIT:
+    # one stage of the prefill ring (a K and a V page) and the run's page
+    # ids; the kernel's launcher refuses any other layout that does not fit
+    if 2 * ps * hd * k_pages.element_size() + 4 * page_tables.shape[-1] \
+            > _SMEM_LIMIT:
         raise ValueError(f"a page tile ps={ps} x hd={hd} does not fit "
                          "in shared memory")
     if kv_lens.shape != (b,) or q_lens.shape != (b,) \
             or page_tables.dim() != 2 or page_tables.shape[0] != b:
         raise ValueError("kv_lens/q_lens must be [B] and page_tables "
                          "[B, ppseq]")
+
+
+_sm_count = {}
+_partials = {}
+_counters = {}
+
+
+def _splits(groups: int, batch: int, ppseq: int, dev) -> int:
+    """Page runs per row group: enough that the grid holds about two
+    blocks per SM (decode), no more than the table has pages, and 1
+    where the row groups alone fill the card (prefill)."""
+    sms = _sm_count.get(dev)
+    if sms is None:
+        sms = _sm_count[dev] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = groups * batch
+    if blocks >= 2 * sms:
+        return 1
+    return max(1, min(-(-2 * sms // blocks), ppseq, _MAX_Z // batch))
+
+
+def _scratch(dev, groups: int, splits: int, hd: int):
+    """(fp32 partial states, zeroed per-group counters) for a split
+    launch, kept per device and grown on demand.  The kernel leaves every
+    counter it used at 0, so one pair serves every launch on its
+    stream."""
+    need = groups * splits * _ROWS * (hd + 2)
+    part = _partials.get(dev)
+    if part is None or part.numel() < need:
+        part = _partials[dev] = torch.empty(need, dtype=torch.float32,
+                                            device=dev)
+    cnt = _counters.get(dev)
+    if cnt is None or cnt.numel() < groups:
+        cnt = _counters[dev] = torch.zeros(max(groups, 4096),
+                                           dtype=torch.int32, device=dev)
+    return part, cnt
 
 
 def ragged_paged_attention(q, k_pages, v_pages, kv_lens, q_lens,
@@ -155,15 +196,22 @@ def ragged_paged_attention(q, k_pages, v_pages, kv_lens, q_lens,
         return out
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    ppseq = page_tables.shape[1]
+    groups = -(-(nh // nkv * qw) // _ROWS) * nkv
+    splits = _splits(groups, b, ppseq, q.device)
+    part = cnt = None
+    if splits > 1:
+        part, cnt = _scratch(q.device, groups * b, splits, hd)
     lib = _build.library("ragged_paged_attention")
     # the CUDA runtime launches on the calling thread's current device
     with torch.cuda.device(q.device):
         rc = lib.rpa_forward(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             kv_lens.data_ptr(), q_lens.data_ptr(), page_tables.data_ptr(),
-            out.data_ptr(), b, qw, nh, nkv, n_pages, ps, hd,
-            page_tables.shape[1], float(scale), _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_pages.dtype],
+            out.data_ptr(), part.data_ptr() if part is not None else None,
+            cnt.data_ptr() if cnt is not None else None, b, qw, nh, nkv,
+            n_pages, ps, hd, ppseq, splits, float(scale),
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: "
@@ -175,8 +223,8 @@ def ragged_paged_attention(q, k_pages, v_pages, kv_lens, q_lens,
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rpa_forward.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                i, ctypes.c_float, i, i, p]
+    lib.rpa_forward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                i, i, i, i, ctypes.c_float, i, i, p]
     lib.rpa_forward.restype = ctypes.c_int
 
 

@@ -194,12 +194,46 @@ def test_k1_cases_are_the_training_paths_shapes():
     assert any(c[1] == c[2] == 1000 and c[4] for c in bf16)
     assert any(c[6] == 64 for c in bf16)
     assert any(c[6] % 8 for c in bf16)
+    # one query row against 2048 keys at q_offset 2047: one live warp in
+    # the forward's query tile
+    bh, sq, sk, n_rep, causal, dtype, d = cs.K1_CASES["q1-bf16"]
+    assert (sq, sk, causal, dtype, d) == (1, 2048, True, torch.bfloat16, 128)
+
+
+def test_k7_cases_keep_the_old_shapes_and_straddle_the_page_splits():
+    """Phase 3 keeps its mixed, decode and full-context cases and adds a
+    decode whose lengths straddle the page splits the wrapper picks on an
+    H100 (132 SMs): a run of fewer live pages than splits, one page, a
+    last page cut mid-way, at every head layout of ``HEADS``."""
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    assert {"mixed", "decode", "decode-2048"} <= set(cs.CASES)
+    assert set(cs.HEADS) == {"mha", "gqa"}
+    spec = cs.CASES["decode-split"]
+    assert spec["q_lens"] == [1] * 8 and spec["q_width"] == 1
+    ps = 16
+    ppseq = -(-max(spec["kv_lens"]) // ps)
+    for nh, nkv in cs.HEADS.values():
+        groups = -(-nh // nkv // rpa._ROWS) * nkv
+        dev = torch.device("cuda", 0)
+        rpa._sm_count[dev] = 132
+        try:
+            splits = rpa._splits(groups, 8, ppseq, dev)
+        finally:
+            del rpa._sm_count[dev]
+        assert splits > 1
+        live = [-(-n // ps) for n in spec["kv_lens"]]
+        per = [-(-n // splits) for n in live]
+        assert any(n < splits for n in live)             # empty runs
+        assert any(p == 1 for p in per)
+        assert any(n % ps and n > ps for n in spec["kv_lens"])
+        assert any(n % p for n, p in zip(live, per))     # a short last run
 
 
 def test_sass_check_reads_the_bf16_backward_instantiations():
     """The SASS check counts HMMA / HGMMA per function and picks out the
-    head_dim instantiations of the two tensor-core templates (mangled
-    ``<len><name>I``), not the fp32 kernels, whose names extend them."""
+    head_dim instantiations of the three tensor-core templates (mangled
+    ``<len><name>I``: the bf16 forward and both backward kernels), not
+    the fp32 kernels, whose names extend them."""
     ns = "_ZN12_GLOBAL__N_1"
     text = "\n".join([
         f"\tFunction : {ns}19flash_bwd_dq_kernelILi128EEEvPK13__nv_bf",
@@ -210,11 +244,19 @@ def test_sass_check_reads_the_bf16_backward_instantiations():
         f"\tFunction : {ns}24flash_bwd_dq_fp32_kernelIfLi128EEEvPKT_",
         "\t/*0100*/  FFMA R1, R2, R3, R1 ;",
         f"\tFunction : {ns}20flash_bwd_dkv_kernelILi128EEEvPK13__nv_bf",
+        "\t/*0100*/  FFMA R1, R2, R3, R1 ;",
+        f"\tFunction : {ns}16flash_fwd_kernelILi128EEEvPK13__nv_bfloat16",
+        "\t/*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "\t/*0110*/  HMMA.16816.F32.BF16 R16, R8, R14, R16 ;",
+        "\t/*0120*/  HMMA.16816.F32.BF16 R20, R8, R14, R20 ;",
+        f"\tFunction : {ns}21flash_fwd_fp32_kernelILi64EEEvPKfS2_S2_Pf",
         "\t/*0100*/  FFMA R1, R2, R3, R1 ;"])
     counts = cs.parse_sass(text)
-    assert sorted(counts.values()) == [0, 0, 1, 2]
+    assert sorted(counts.values()) == [0, 0, 0, 1, 2, 3]
     assert cs.tc_instances(counts, "flash_bwd_dq_kernel") == {128: 2, 64: 1}
     assert cs.tc_instances(counts, "flash_bwd_dkv_kernel") == {128: 0}
+    assert cs.tc_instances(counts, "flash_fwd_kernel") == {128: 3}
+    assert "flash_fwd_kernel" in cs.TC_KERNELS
     with open(os.path.join(os.path.dirname(cs.__file__), "paddle_tpu_torch",
                            "ops", "csrc", "flash_attention.cu")) as f:
         src = f.read()

@@ -69,6 +69,83 @@ def test_plain_version_matches_jax_reference_and_kernel(interpret, nh, nkv):
     assert np.all(port[2] == 0.0) and np.all(jker[2] == 0.0)
 
 
+NEG = -1e30
+
+
+def _split_states(q, kp, vp, kv_lens, q_lens, tables, pages):
+    """The kernel's page splits in plain torch: each row's positions cut
+    into runs of ``pages`` pages, and each run's fp32 online-softmax
+    state over the positions the row attends: (m, l, acc), with m =
+    -1e30, l = 0, acc = 0 for a run it attends none of.  Returns
+    m, l [S, B, Q, nh] and acc [S, B, Q, nh, hd]."""
+    b, qw, nh, hd = q.shape
+    nkv, _, ps, _ = kp.shape
+    rep = nh // nkv
+    t = tables.shape[1] * ps
+    tbl = tables.long()
+    k = kp[:, tbl].transpose(0, 1).reshape(b, nkv, t, hd)
+    v = vp[:, tbl].transpose(0, 1).reshape(b, nkv, t, hd)
+    k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    s = torch.einsum("bqhd,bhtd->bqht", q.float(), k.float()) / hd ** 0.5
+    pos = torch.arange(t)
+    qpos = (kv_lens - q_lens)[:, None] + torch.arange(qw)[None]
+    seen = (pos[None, None] <= qpos[..., None]) \
+        & (pos[None, None] < kv_lens[:, None, None])          # [B, Q, T]
+    seen = seen[:, :, None].expand(s.shape)
+    run = pages * ps
+    states = []
+    for lo in range(0, t, run):
+        sl, ok = s[..., lo:lo + run], seen[..., lo:lo + run]
+        m = torch.where(ok, sl, torch.tensor(NEG)).amax(-1)
+        p = torch.where(ok, torch.exp(sl - m[..., None]), torch.tensor(0.0))
+        acc = torch.einsum("bqht,bhtd->bqhd", p, v[:, :, lo:lo + run].float())
+        states.append((m, p.sum(-1), acc))
+    return tuple(torch.stack(x) for x in zip(*states))
+
+
+def _merge_in_split_order(m, l, acc):
+    """The last block's merge: the splits' states in split order, rescaled
+    to their common max; a row whose splits are all empty is 0."""
+    mx = m.amax(0)
+    den = torch.zeros_like(mx)
+    num = torch.zeros_like(acc[0])
+    for z in range(m.shape[0]):
+        f = torch.exp(m[z] - mx)
+        den = den + l[z] * f
+        num = num + acc[z] * f[..., None]
+    safe = torch.where(den > 0, den, torch.ones_like(den))
+    return torch.where(den[..., None] > 0, num / safe[..., None],
+                       torch.zeros_like(num))
+
+
+@pytest.mark.parametrize("pages", [1, 2, 4])
+@pytest.mark.parametrize("nh,nkv", [(4, 4), (4, 2)], ids=["mha", "gqa"])
+def test_page_split_merge_matches_references(nh, nkv, pages):
+    """K7's split over pages, modelled on the mixed batch: runs of 1, 2
+    and 4 pages merged in split order equal the port's plain version and
+    the JAX reference (RTOL / ATOL) on every live row.  Runs a row does
+    not attend publish exactly (-1e30, 0, 0), and the empty slot, whose
+    every run is empty, merges to exactly 0; nothing is NaN."""
+    arrs = _case(np.random.RandomState(5), nh, nkv)
+    t = [torch.from_numpy(a) for a in arrs]
+    m, l, acc = _split_states(*t, pages)
+    got = _merge_in_split_order(m, l, acc).numpy()
+    port = trpa.ragged_paged_attention_ref(*t).numpy()
+    jref = np.asarray(jrpa.ragged_paged_attention_ref(
+        *(jnp.asarray(a) for a in arrs)))
+    for b, n in enumerate(arrs[4]):
+        np.testing.assert_allclose(got[b, :n], port[b, :n], rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(got[b, :n], jref[b, :n], rtol=RTOL,
+                                   atol=ATOL)
+    empty = l == 0
+    assert empty.any() and (~empty).any()
+    assert torch.all(m[empty] == NEG)
+    assert torch.all(acc[empty] == 0)
+    assert np.isfinite(got).all()
+    assert torch.all(empty[:, 2]) and np.all(got[2] == 0.0)
+
+
 def test_plain_version_bf16_keeps_dtype_and_fp32_statistics():
     arrs = list(_case(np.random.RandomState(1), 4, 2))
     t = [torch.from_numpy(a) for a in arrs]

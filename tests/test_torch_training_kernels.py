@@ -182,6 +182,72 @@ def test_flash_bf16_operand_roundings_fit_the_tolerances(case):
                                    err_msg=name)
 
 
+# the tensor-core forward's key tile
+KEY_TILE = 64
+
+
+def _bf16_operand_forward(arrs, kw):
+    """The bf16 forward's roundings on the card, in plain torch: bf16
+    inputs, fp32 S = Q K^T with the scale applied to S (not to the bf16
+    Q), the fp32 online (m, l) over key tiles of 64, P = exp(S - m)
+    carried into P V as two bf16 terms (hi = bf16(P), lo = bf16(P - hi)),
+    O = acc / l in fp32 rounded to bf16 once, and the fp32 LSE = m +
+    log(l)."""
+    q, k, v = (_t(a, torch.bfloat16).float() for a in arrs[:3])
+    scale, n_rep = kw["scale"], kw["n_rep"]
+    k, v = k.repeat_interleave(n_rep, 0), v.repeat_interleave(n_rep, 0)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    m = torch.full((bh, sq, 1), tfa.NEG_INF)
+    l = torch.zeros(bh, sq, 1)
+    acc = torch.zeros(bh, sq, d)
+    qi = torch.arange(sq)[:, None] + kw["q_offset"]
+    for k0 in range(0, sk, KEY_TILE):
+        s = torch.einsum("bqd,bkd->bqk", q, k[:, k0:k0 + KEY_TILE]) * scale
+        seen = torch.ones(sq, s.shape[2], dtype=torch.bool)
+        if kw["causal"]:
+            seen = qi >= torch.arange(k0, k0 + s.shape[2])[None]
+        s = torch.where(seen, s, torch.tensor(tfa.NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(seen, torch.exp(s - m_new), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        vb = v[:, k0:k0 + KEY_TILE]
+        acc = acc * alpha + torch.einsum("bqk,bkd->bqd", hi, vb) \
+            + torch.einsum("bqk,bkd->bqd", lo, vb)
+        m = m_new
+    lc = l.clamp_min(1e-30)
+    return (acc / lc).bfloat16(), (m + torch.log(lc))[..., 0]
+
+
+@pytest.mark.parametrize("case", list(ROUNDING_CASES))
+def test_flash_bf16_forward_roundings_fit_the_tolerances(case):
+    """The tensor-core forward's roundings (scale on the fp32 S, P in
+    two bf16 terms before P V, O cast once) keep O within BF16_TOL of
+    the JAX kernel's bf16 output (interpret mode) and within the card's
+    bf16 KTOL of the fp32 plain version on the same bf16 inputs; the LSE
+    within F32_TOL of both."""
+    arrs, kw = _flash_inputs(case, seed=3, cases=ROUNDING_CASES)
+    got, got_lse = _bf16_operand_forward(arrs, kw)
+    with jax.enable_x64(False):
+        want, want_lse = jfa._flash_fwd(
+            *(_j(a, jnp.bfloat16) for a in arrs[:3]), kw["scale"],
+            kw["causal"], 16, 16, True, kw["q_offset"], kw["n_rep"])
+    rounded = [_t(_np(_t(a, torch.bfloat16))) for a in arrs[:3]]
+    plain, plain_lse = tfa.reference_attention_bhsd(
+        *rounded, kw["scale"], kw["causal"], kw["q_offset"], kw["n_rep"],
+        return_lse=True)
+    atol, rtol = CARD_BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(want), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    np.testing.assert_allclose(_np(got), _np(plain), rtol=rtol, atol=atol)
+    for other in (want_lse, plain_lse):
+        np.testing.assert_allclose(_np(got_lse), _np(other), rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
 def test_flash_plain_lse_matches_jax_kernel():
     """The fp32 row log-sum-exp (the kernel's second output), F32_TOL."""
     arrs, kw = _flash_inputs("q_offset")
