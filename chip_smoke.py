@@ -652,15 +652,23 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def check_close(what, got, want, dtype):
-    """Fail unless |got - want| <= atol + rtol |want| everywhere (KTOL)."""
+def close_excess(got, want, dtype) -> float:
+    """max(|got - want| - (atol + rtol |want|)) under KTOL: above 0 where
+    the two are not close; inf where got is not finite."""
     atol, rtol = KTOL[dtype]
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
+        return float("inf")
+    return ((g - w).abs() - (atol + rtol * w.abs())).max().item()
+
+
+def check_close(what, got, want, dtype):
+    """Fail unless |got - want| <= atol + rtol |want| everywhere (KTOL)."""
+    atol, rtol = KTOL[dtype]
+    if not torch.isfinite(got.float()).all():
         fail(f"{what}: non-finite kernel output")
-    excess = ((g - w).abs() - (atol + rtol * w.abs())).max().item()
-    if excess > 0:
-        fail(f"{what}: max abs err {max_err(g, w):.3e} exceeds "
+    if close_excess(got, want, dtype) > 0:
+        fail(f"{what}: max abs err {max_err(got, want):.3e} exceeds "
              f"atol {atol} + rtol {rtol} |plain|")
 
 
@@ -869,46 +877,143 @@ def check_k1():
     return rows
 
 
+# name: (N, H, x dtype, w/b dtype, x).  "float32" is the GPT training
+# path's LayerNorm ([8192, 2048] fp32: batch 4 x 2048 tokens, under O2 in
+# fp32), "bart" the BART path's (batch 8 x 1024 tokens, d_model 768) and
+# "decode" the 8 rows of a GPT decode step (phases 12 and 16).  The vector
+# route at each of its widths (768, 2048, 4096) in both dtypes; the
+# generic route by an odd width and by a view one element past 16-byte
+# alignment ("unaligned"); and "offset", x = K2_OFFSET + N(0, 1), where a
+# one-pass variance E[x²] - mean² loses the digits the tolerance needs
+# (its control, `mean_offset_control`, must fail the check; dw there is
+# held as `offset_dw_want` says).  Other x are N(0, 2²).
+K2_CASES = {
+    "float32": (8192, 2048, torch.float32, torch.float32, "randn"),
+    "bfloat16": (8192, 2048, torch.bfloat16, torch.float32, "randn"),
+    "bart": (8192, 768, torch.float32, torch.float32, "randn"),
+    "decode": (8, 2048, torch.float32, torch.float32, "randn"),
+    "bart-bf16": (8192, 768, torch.bfloat16, torch.bfloat16, "randn"),
+    "h4096": (8192, 4096, torch.float32, torch.bfloat16, "randn"),
+    "odd-fp32": (37, 1001, torch.float32, torch.float32, "randn"),
+    "odd-bf16": (37, 1001, torch.bfloat16, torch.bfloat16, "randn"),
+    "unaligned": (8192, 2048, torch.float32, torch.float32, "unaligned"),
+    "offset": (8192, 2048, torch.float32, torch.float32, "offset"),
+}
+K2_OFFSET = 100.0
+
+
+def one_pass_layer_norm(x, w, b, eps: float = 1e-5):
+    """LayerNorm with the one-pass variance E[x²] - mean², in plain fp32:
+    the formula a one-pass kernel would use, for the mean-offset control."""
+    xf = x.float()
+    m = xf.mean(dim=-1, keepdim=True)
+    var = xf.square().mean(dim=-1, keepdim=True) - m.square()
+    return ((xf - m) * torch.rsqrt(var + eps) * w.float()
+            + b.float()).to(x.dtype)
+
+
+def mean_offset_control(x, w, b):
+    """The one-pass formula against the plain version on a mean-offset x:
+    it must fall outside `check_close`'s tolerance, which shows that the
+    case would catch a one-pass kernel.  Returns its excess."""
+    excess = close_excess(one_pass_layer_norm(x, w, b),
+                          ln.layer_norm_ref(x, w, b, 1e-5), x.dtype)
+    say(f"K2 offset {K2_OFFSET}: the one-pass control's excess over the "
+        f"tolerance {excess:.3e} (must be > 0)")
+    if excess <= 0:
+        fail("K2: the one-pass variance passes the mean-offset check")
+    return excess
+
+
+def offset_dw_want(x, mean, gy, dw_plain):
+    """The plain dw on the mean-offset case, moved to first order by the
+    kernel's and the plain version's fp32 means' difference d_i:
+    dw_j - sum_i g_ij rstd_i d_i.  Each mean is a few ulps of 100 from the
+    exact one, and dw sums that over 8192 rows of g: at offset 100 the
+    plain fp32 dw itself is 1.5e-3 from a float64 one, past KTOL (a CPU
+    run).  y, dx and db are held as in the other cases."""
+    xf = x.float()
+    m = xf.mean(dim=-1)
+    r = torch.rsqrt((xf - m[:, None]).square().mean(dim=-1) + 1e-5)
+    shift = (gy.double() * (r.double() * (mean - m).double())[:, None]) \
+        .sum(0)
+    return (dw_plain.double() - shift).float()
+
+
+def k2_inputs(n, h, dtype, wdtype, kind, g):
+    """x (a leaf that requires grad), w, b, the upstream gradient."""
+    if kind == "offset":
+        x = (K2_OFFSET + torch.randn((n, h), generator=g, device="cuda")) \
+            .to(dtype)
+    else:
+        x = rand((n, h), dtype, g, 2.0)
+    if kind == "unaligned":
+        flat = torch.empty(n * h + 1, dtype=dtype, device="cuda")
+        flat[1:].copy_(x.reshape(-1))
+        x = flat[1:].view(n, h)
+    w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")).to(wdtype)
+    b = (0.1 * torch.randn(h, generator=g, device="cuda")).to(wdtype)
+    gy = rand((n, h), dtype, g)
+    return (x.requires_grad_(), w.requires_grad_(), b.requires_grad_(), gy)
+
+
 def check_k2():
+    """Phase 5's K2 cases: y, dx, dw and db against the plain version, the
+    route each takes (the wrapper's `route` and the kernel's `ln_route`
+    agree), a relaunch of each kernel bitwise equal to the first, the
+    mean-offset control, and the times."""
     rows = {}
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
-    # GPT's [8192, 2048] in both dtypes, and BART's [8192, 768] fp32
-    for key, n, h, dtype in (("float32", 8192, 2048, torch.float32),
-                             ("bfloat16", 8192, 2048, torch.bfloat16),
-                             ("bart", 8192, 768, torch.float32)):
-        x = rand((n, h), dtype, g, 2.0).requires_grad_()
-        w = (1 + 0.1 * torch.randn(h, generator=g, device="cuda")) \
-            .requires_grad_()
-        b = (0.1 * torch.randn(h, generator=g, device="cuda")) \
-            .requires_grad_()
-        gy = rand((n, h), dtype, g)
+    lib = _build.library("layer_norm")
+    for key, (n, h, dtype, wdtype, kind) in K2_CASES.items():
+        x, w, b, gy = k2_inputs(n, h, dtype, wdtype, kind, g)
+        want = ("vector" if h in ln.VECTOR_WIDTHS and kind != "unaligned"
+                else "generic")
+        got = ln.route(h, (x, w, b))
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, b))
+        c_route = lib.ln_route(h, int(aligned))
+        if got != want or c_route != (h if want == "vector" else 0):
+            fail(f"K2 {key}: route {got} (kernel {c_route}), want {want}")
         before = dict(ln.launches)
         y = ln.layer_norm(x, w, b, 1e-5)
         dx, dw, db = torch.autograd.grad(y, (x, w, b), gy)
         torch.cuda.synchronize()
         if any(ln.launches[k] != before[k] + 1 for k in before):
-            fail(f"K2 {dtype}: launch counters did not move: {ln.launches}")
+            fail(f"K2 {key}: launch counters did not move: {ln.launches}")
+        xd, wd_, bd = x.detach(), w.detach(), b.detach()
+        y2, mean, rstd = ln.layer_norm_fwd(xd, wd_, bd, 1e-5)
+        dx2 = ln.layer_norm_bwd(xd, wd_, mean, rstd, gy)
+        torch.cuda.synchronize()
+        if not (torch.equal(y2, y) and torch.equal(dx2, dx)):
+            fail(f"K2 {key}: a relaunch is not bitwise equal to the first")
         yr = ln.layer_norm_ref(x, w, b, 1e-5)
         dxr, dwr, dbr = torch.autograd.grad(yr, (x, w, b), gy,
                                             retain_graph=True)
+        control, dw_want = None, dwr
+        if kind == "offset":
+            control = mean_offset_control(xd, wd_, bd)
+            dw_want = offset_dw_want(xd, mean, gy, dwr)
         for name, a, r, dt in (("y", y, yr, dtype), ("dx", dx, dxr, dtype),
-                               ("dw", dw, dwr, torch.float32),
+                               ("dw", dw, dw_want, torch.float32),
                                ("db", db, dbr, torch.float32)):
-            check_close(f"K2 {dtype} {name}", a, r, dt)
-        xd, wd_, bd = x.detach(), w.detach(), b.detach()
-        _, mean, rstd = ln.layer_norm_fwd(xd, wd_, bd, 1e-5)
+            check_close(f"K2 {key} {name}", a, r, dt)
         # the library yardstick takes weights in x's dtype
         lw, lb = wd_.to(dtype), bd.to(dtype)
         lib_y = F.layer_norm(x, (h,), lw, lb, 1e-5)
-        item = x.element_size()
-        row = dict(dtype=str(dtype).replace("torch.", ""), n=n, h=h,
+        item, w_item = x.element_size(), w.element_size()
+        row = dict(case=key, dtype=str(dtype).replace("torch.", ""),
+                   w_dtype=str(wdtype).replace("torch.", ""), n=n, h=h,
+                   route=got,
                    max_abs_err=dict(y=max_err(y, yr), dx=max_err(dx, dxr),
                                     dw=max_err(dw, dwr), db=max_err(db, dbr)),
+                   one_pass_excess=control,
                    fwd_ms=time_ms(lambda: ln.layer_norm_fwd(xd, wd_, bd,
                                                             1e-5), 20),
                    dx_ms=time_ms(lambda: ln.layer_norm_bwd(xd, wd_, mean,
                                                            rstd, gy), 20),
+                   dwdb_ms=time_ms(lambda: ln.layer_norm_dw_db(
+                       xd, mean, rstd, gy, w.dtype, b.dtype), 20),
                    plain_fwd_ms=time_ms(lambda: ln.layer_norm_ref(
                        xd, wd_, bd, 1e-5), 5),
                    plain_dx_ms=time_ms(lambda: torch.autograd.grad(
@@ -917,13 +1022,14 @@ def check_k2():
                        xd, (h,), lw, lb, 1e-5), 20),
                    library_dx_ms=time_ms(lambda: torch.autograd.grad(
                        lib_y, x, gy, retain_graph=True), 20),
-                   fwd_bound=bound_ms(2 * n * h * item + 8 * n + 8 * h,
+                   fwd_bound=bound_ms(2 * n * h * item + 8 * n
+                                      + 2 * h * w_item,
                                       8 * n * h, PEAK_FLOPS[torch.float32]),
-                   dx_bound=bound_ms(3 * n * h * item + 8 * n + 4 * h,
+                   dx_bound=bound_ms(3 * n * h * item + 8 * n + h * w_item,
                                      10 * n * h, PEAK_FLOPS[torch.float32]))
         say("K2 " + json.dumps(row))
         rows[key] = row
-        del x, w, b, gy, y, dx, dw, db, yr, dxr, dwr, dbr, lib_y
+        del x, w, b, gy, y, dx, dw, db, yr, dxr, dwr, dbr, lib_y, y2, dx2
         torch.cuda.empty_cache()
     return rows
 
@@ -2321,7 +2427,8 @@ def paged_main_path(tag, model, ids, new, layers, per_forward, prefill,
         f"{peak} bytes ({peak / 2**30:.2f} GiB); the dense eager call "
         f"{dt_dense:.3f} s, {1e3 * dt_dense / new:.2f} ms per token "
         f"({equal} of {b * new} tokens equal to the paged call's)")
-    return dict(launches=moved["paged_attention"], steps=stats["steps"],
+    return dict(launches=moved["paged_attention"], ln_fwd=moved["ln_fwd"],
+                steps=stats["steps"],
                 s_per_call=dt, ms_per_token=1e3 * dt / new,
                 tokens_per_s=b * new / dt, dense_s_per_call=dt_dense,
                 host_reads=stats2["host_reads"],
@@ -3239,16 +3346,19 @@ def program_main_paths(llama):
 # ---------------------------------------------------------------------------
 
 AB_K7_CASES = ("decode", "decode-2048", "mixed")
+AB_K2_CASES = ("float32", "bfloat16", "bart", "decode")
 
 
 def compare_variants(paths) -> int:
-    """Time copies of ``csrc/flash_attention.cu`` (files named ``fa_*.cu``)
-    or ``csrc/ragged_paged_attention.cu`` (``rpa_*.cu``), each built with
-    the port's nvcc flags into its own library, on the same inputs in
-    turns (every variant, then again in reverse order): K1a's forward at
-    the two training shapes, K7 at phase 3's cases with the wrapper's
-    page splits and twice as many.  One line per case: each variant's
-    times and its max abs error from the plain version."""
+    """Time copies of ``csrc/flash_attention.cu`` (files named ``fa_*.cu``),
+    ``csrc/ragged_paged_attention.cu`` (``rpa_*.cu``) or
+    ``csrc/layer_norm.cu`` (``ln_*.cu``), each built with the port's nvcc
+    flags into its own library, on the same inputs in turns (every
+    variant, then again in reverse order): K1a's forward at the two
+    training shapes, K7 at phase 3's cases with the wrapper's page splits
+    and twice as many, K2a and K2b at phase 5's GPT, bf16, BART and
+    decode cases beside the library's call.  One line per case: each
+    variant's times and its max abs error from the plain version."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {Path(p).stem: subprocess.Popen(
@@ -3264,7 +3374,7 @@ def compare_variants(paths) -> int:
             if "registers" in line or "spill" in line or "entry" in line:
                 say(f"ptxas {name}: {line.strip()}")
         lib = ctypes.CDLL(str(out_dir / (name + ".so")))
-        (fa if name.startswith("fa_") else rpa)._declare(lib)
+        {"fa": fa, "rpa": rpa, "ln": ln}[name.split("_")[0]]._declare(lib)
         libs[name] = lib
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -3335,6 +3445,45 @@ def compare_variants(paths) -> int:
                     dtype=str(dtype).replace("torch.", ""), ms=turns(fns),
                     max_abs_err=errs)))
                 del args, clean, ref, outs, fns
+    ln_libs = {n: lib for n, lib in libs.items() if n.startswith("ln_")}
+    for case in AB_K2_CASES if ln_libs else ():
+        n, h, dtype, wdtype, kind = K2_CASES[case]
+        x, w, b, gy = (t.detach() for t in k2_inputs(n, h, dtype, wdtype,
+                                                      kind, g))
+        xr = x.clone().requires_grad_()
+        yr = ln.layer_norm_ref(xr, w, b, 1e-5)
+        dxr, = torch.autograd.grad(yr, xr, gy)
+        xf = x.float()
+        mean = xf.mean(dim=-1)
+        rstd = torch.rsqrt((xf - mean[:, None]).square().mean(dim=-1) + 1e-5)
+        codes = (ln._DTYPE_CODE[dtype], ln._DTYPE_CODE[wdtype], stream)
+        fwd, bwd, errs, outs = {}, {}, {}, {}
+        for name, lib in ln_libs.items():
+            # kept in `outs`: the launches below write through raw pointers
+            outs[name] = y, dx, m_out, r_out = (
+                torch.empty_like(x), torch.empty_like(x),
+                torch.empty_like(mean), torch.empty_like(rstd))
+            fwd[name] = functools.partial(
+                lib.ln_forward, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                y.data_ptr(), m_out.data_ptr(), r_out.data_ptr(), n, h, 1e-5,
+                *codes)
+            bwd[name] = functools.partial(
+                lib.ln_backward_dx, x.data_ptr(), w.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), gy.data_ptr(),
+                dx.data_ptr(), n, h, *codes)
+            if fwd[name]() or bwd[name]():
+                fail(f"AB K2 {name}: launch failed")
+            torch.cuda.synchronize()
+            errs[name] = dict(y=max_err(y, yr), dx=max_err(dx, dxr))
+        lw, lb = w.to(dtype), b.to(dtype)
+        lib_y = F.layer_norm(xr, (h,), lw, lb, 1e-5)
+        fwd["library"] = lambda: F.layer_norm(x, (h,), lw, lb, 1e-5)
+        bwd["library"] = lambda: torch.autograd.grad(lib_y, xr, gy,
+                                                     retain_graph=True)
+        say("AB K2 " + json.dumps(dict(
+            case=case, n=n, h=h, dtype=str(dtype).replace("torch.", ""),
+            fwd_ms=turns(fwd), dx_ms=turns(bwd), max_abs_err=errs)))
+        del x, w, b, gy, xr, yr, dxr, fwd, bwd, outs, lib_y
     return 0
 
 
@@ -3433,12 +3582,17 @@ def main() -> int:
         entry["sass_hmma"] = sass["flash_fwd_kernel" if key == "fwd"
                                   else f"flash_bwd_{key}_kernel"]
         kernels.append(entry)
-    # K2 and K3 run on the GPT and BART training paths: the entry's
-    # numbers are the GPT path's, by_path holds each path's launches with
-    # the numbers of its own shape's case
+    # K2 and K3 run on the GPT and BART training paths, K2a also on GPT's
+    # decode steps: the entry's numbers are the GPT training path's,
+    # by_path holds each path's launches with the numbers of its own
+    # shape's case
     k2_paths = (("gpt_train", k2, train, k2_shape),
                 ("bart_train", k2_rows["bart"], bart,
-                 "[8192, 768] fp32 (batch 8 x 1024 tokens, d_model 768)"))
+                 "[8192, 768] fp32 (batch 8 x 1024 tokens, d_model 768)"),
+                ("gpt_decode", k2_rows["decode"],
+                 {"ln_fwd": paged["gpt"]["ln_fwd"], "ln_bwd_dx": 0},
+                 "[8, 2048] fp32 (a decode step's 8 rows; launches of "
+                 "phase 12's paged GPT-3 1.3B call)"))
     for name, key, replaces, count in (
             ("layer_norm_fwd", "fwd", ":58", "ln_fwd"),
             ("layer_norm_bwd_dx", "dx", ":80", "ln_bwd_dx")):

@@ -16,6 +16,10 @@ serving step does.
 On CUDA tensors the wrapper launches ``csrc/layer_norm.cu`` (design notes
 there) or raises; on CPU tensors it takes :func:`layer_norm_ref`, the
 plain version the CPU tests and ``chip_smoke.py`` hold the kernel to.
+:func:`route` names the kernel's route for a call: ``"vector"`` (rows of
+768, 2048 or 4096 held in registers, 16-byte loads) or ``"generic"``
+(any other width up to 8192, or a pointer that is not 16-byte aligned:
+scalar loads); a wider row raises.
 """
 from __future__ import annotations
 
@@ -26,13 +30,16 @@ import torch
 from . import _build
 
 __all__ = ["layer_norm", "layer_norm_ref", "layer_norm_fwd",
-           "layer_norm_bwd", "launches"]
+           "layer_norm_bwd", "layer_norm_dw_db", "route", "launches"]
 
 # kernel launches by name (CUDA route only)
 launches = {"ln_fwd": 0, "ln_bwd_dx": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 227 * 1024
+# csrc/layer_norm.cu's routes (its `ln_route`): the widths of the vector
+# instantiations, and the widest row of the generic one
+VECTOR_WIDTHS = (768, 2048, 4096)
+GENERIC_MAX_H = 8192
 
 
 def layer_norm_ref(x, w, b, eps: float = 1e-5):
@@ -64,9 +71,19 @@ def _check(x2d, w, b=None):
         raise TypeError(f"weight {w.dtype} and bias {b.dtype} differ")
     if x2d.dtype not in _DTYPE_CODE:
         raise TypeError(f"x must be float32 or bfloat16, got {x2d.dtype}")
-    if 2 * x2d.shape[1] * 4 > _SMEM_LIMIT:
-        raise ValueError(f"hidden size {x2d.shape[1]} does not fit a row "
-                         "in shared memory")
+
+
+def route(h: int, tensors) -> str:
+    """The kernel's route for rows of ``h`` elements in a call that passes
+    ``tensors`` (every x-shaped tensor and w, b): ``"vector"`` where h is
+    an instantiated width and every ``data_ptr()`` is 16-byte aligned,
+    else ``"generic"``.  Raises ValueError where no route takes h."""
+    if h in VECTOR_WIDTHS and all(t.data_ptr() % 16 == 0 for t in tensors):
+        return "vector"
+    if 0 < h <= GENERIC_MAX_H:
+        return "generic"
+    raise ValueError(f"hidden size {h} is wider than the LayerNorm "
+                     f"kernel's {GENERIC_MAX_H}")
 
 
 def _rc(rc, what):
@@ -84,8 +101,9 @@ def layer_norm_fwd(x2d, w, b, eps: float):
     rstd = torch.empty_like(mean)
     if n == 0:
         return y, mean, rstd
-    lib = _build.library("layer_norm")
     w, b = w.contiguous(), b.contiguous()
+    route(h, (x2d, w, b, y))
+    lib = _build.library("layer_norm")
     with torch.cuda.device(x2d.device):
         rc = lib.ln_forward(x2d.data_ptr(), w.data_ptr(), b.data_ptr(),
                             y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
@@ -108,8 +126,9 @@ def layer_norm_bwd(x2d, w, mean, rstd, g2d):
     dx = torch.empty_like(x2d)
     if n == 0:
         return dx
-    lib = _build.library("layer_norm")
     w = w.contiguous()
+    route(h, (x2d, w, g2d, dx))
+    lib = _build.library("layer_norm")
     with torch.cuda.device(x2d.device):
         rc = lib.ln_backward_dx(x2d.data_ptr(), w.data_ptr(),
                                 mean.data_ptr(), rstd.data_ptr(),
@@ -119,6 +138,14 @@ def layer_norm_bwd(x2d, w, mean, rstd, g2d):
     _rc(rc, "layer_norm backward")
     launches["ln_bwd_dx"] += 1
     return dx
+
+
+def layer_norm_dw_db(x2d, mean, rstd, g2d, w_dtype, b_dtype):
+    """``(dw, db)``: the backward's cross-row reductions, in torch outside
+    the kernel, as ``_ln_bwd`` leaves them to XLA."""
+    g32 = g2d.float()
+    xhat = (x2d.float() - mean[:, None]) * rstd[:, None]
+    return (g32 * xhat).sum(0).to(w_dtype), g32.sum(0).to(b_dtype)
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -135,11 +162,7 @@ class _LayerNorm(torch.autograd.Function):
         x2d, w, mean, rstd = ctx.saved_tensors
         g2d = g.reshape(x2d.shape).to(x2d.dtype).contiguous()
         dx = layer_norm_bwd(x2d, w, mean, rstd, g2d)
-        # dw / db: cross-row reductions, as ``_ln_bwd`` leaves them to XLA
-        g32 = g2d.float()
-        xhat = (x2d.float() - mean[:, None]) * rstd[:, None]
-        dw = (g32 * xhat).sum(0).to(w.dtype)
-        db = g32.sum(0).to(ctx.b_dtype)
+        dw, db = layer_norm_dw_db(x2d, mean, rstd, g2d, w.dtype, ctx.b_dtype)
         return dx.reshape(g.shape), dw, db, None
 
 
@@ -158,6 +181,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ln_forward.restype = ctypes.c_int
     lib.ln_backward_dx.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
     lib.ln_backward_dx.restype = ctypes.c_int
+    lib.ln_route.argtypes = [i, i]
+    lib.ln_route.restype = ctypes.c_int
 
 
 _build.register("layer_norm", _declare)

@@ -357,6 +357,75 @@ def test_k8_cases_and_bart_counts_are_the_paths():
     assert '("softmax_ce_bwd", "bwd", ":83", "ce_bwd")' in src
 
 
+def test_k2_cases_are_the_paths_shapes():
+    """Phase 5's K2 cases hold the GPT training step's LayerNorm (batch x
+    seq rows of GPT-3 1.3B's width, fp32: O2 keeps LayerNorm in fp32),
+    bart-base's, the 8 rows of a GPT decode step (phases 12 and 16), an
+    odd width and a view one element past 16-byte alignment (both the
+    kernel's generic route), and the mean offset; the kernels line names
+    the JAX functions K2a and K2b replace."""
+    from paddle_tpu_torch.models.bart import BartConfig
+    from paddle_tpu_torch.ops import layer_norm as tln
+    h = tgpt.gpt_config("gpt3-1.3B").hidden_size
+    cases = cs.K2_CASES
+    f32 = torch.float32
+    assert cases["float32"] == (cs.TRAIN_BATCH * cs.TRAIN_SEQ, h, f32, f32,
+                                "randn")
+    assert cases["bart"] == (cs.BART_BATCH * cs.BART_SEQ,
+                             BartConfig().d_model, f32, f32, "randn")
+    assert cases["decode"] == (cs.PAGED_GPT["batch"], h, f32, f32, "randn")
+    odd = [c for c in cases.values() if c[1] % 2]
+    assert {c[2] for c in odd} == {f32, torch.bfloat16}
+    assert all(c[1] not in tln.VECTOR_WIDTHS for c in odd)
+    assert (cs.TRAIN_BATCH * cs.TRAIN_SEQ, h, f32, f32, "unaligned") in \
+        cases.values()
+    assert (cs.TRAIN_BATCH * cs.TRAIN_SEQ, h, f32, f32, "offset") in \
+        cases.values()
+    # every width of the vector route
+    assert {c[1] for c in cases.values()} >= set(tln.VECTOR_WIDTHS)
+    assert set(cs.AB_K2_CASES) <= set(cases)
+    root = os.path.dirname(cs.__file__)
+    with open(os.path.join(root, "paddle_tpu", "ops", "pallas",
+                           "layer_norm.py")) as f:
+        lines = f.read().splitlines()
+    assert lines[57].startswith("def _fwd(")
+    assert lines[79].startswith("def _bwd_dx(")
+    src = open(cs.__file__).read()
+    assert '("layer_norm_fwd", "fwd", ":58", "ln_fwd")' in src
+    assert '("layer_norm_bwd_dx", "dx", ":80", "ln_bwd_dx")' in src
+
+
+def test_k2_mean_offset_control_fails_on_the_cpu(failures, capsys):
+    """At phase 5's mean offset the plain version passes `check_close`
+    against the float64 formula, and the one-pass formula (E[x²] -
+    mean² in fp32) fails it against the plain version: the case would
+    catch a one-pass kernel."""
+    from paddle_tpu_torch.ops import layer_norm as tln
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(64, 2048).astype(np.float32)
+                         + cs.K2_OFFSET)
+    w = torch.from_numpy(1 + 0.1 * rs.randn(2048).astype(np.float32))
+    b = torch.from_numpy(0.1 * rs.randn(2048).astype(np.float32))
+    xd, wd, bd = x.double(), w.double(), b.double()
+    m = xd.mean(dim=-1, keepdim=True)
+    exact = (xd - m) * torch.rsqrt((xd - m).square().mean(
+        dim=-1, keepdim=True) + 1e-5) * wd + bd
+    assert cs.close_excess(tln.layer_norm_ref(x, w, b, 1e-5), exact,
+                           torch.float32) <= 0
+    cs.check_close("plain", tln.layer_norm_ref(x, w, b, 1e-5), exact,
+                   torch.float32)
+    excess = cs.mean_offset_control(x, w, b)
+    print(capsys.readouterr().out)
+    assert excess > 0
+    assert failures == []
+    # without the offset the one-pass formula passes: it is the offset
+    # that the check needs to see the fault
+    x0 = x - cs.K2_OFFSET
+    assert cs.close_excess(cs.one_pass_layer_norm(x0, w, b),
+                           tln.layer_norm_ref(x0, w, b, 1e-5),
+                           torch.float32) <= 0
+
+
 def test_bart_train_main_path_holds_on_the_cpu(tiny_bart, failures,
                                                no_card_memory, capsys):
     """Phase 14 at tiny size: finite, falling losses and the frozen bias

@@ -290,32 +290,91 @@ def test_sdpa_route_matches_jax_functional():
 # K2: LayerNorm
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_layer_norm_plain_matches_jax_kernel(dtype):
-    """y, dx, dw, db on x [40, 96] (40 rows: a ragged last row block of
+# name: (dtype, H, mean offset of x).  "offset": x = 100 + N(0, 1), where a
+# one-pass variance E[x²] - mean² would lose the digits; "odd": an H that
+# is not a multiple of 4 (the CUDA kernel's generic route).
+LN_CASES = {
+    "float32": ("float32", 96, None),
+    "bfloat16": ("bfloat16", 96, None),
+    "offset-float32": ("float32", 96, 100.0),
+    "odd-float32": ("float32", 97, None),
+    "odd-bfloat16": ("bfloat16", 97, None),
+}
+
+
+def _one_pass_layer_norm(x, w, b, eps):
+    xf = x.float()
+    m = xf.mean(dim=-1, keepdim=True)
+    var = xf.square().mean(dim=-1, keepdim=True) - m.square()
+    return (xf - m) * torch.rsqrt(var + eps) * w + b
+
+
+@pytest.mark.parametrize("case", list(LN_CASES))
+def test_layer_norm_plain_matches_jax_kernel(case):
+    """y, dx, dw, db on x [40, H] (40 rows: a ragged last row block of
     the JAX kernel's 16).  fp32: F32_TOL; bf16 x with fp32 w/b (the O2
-    layout): BF16_TOL."""
+    layout): BF16_TOL.
+
+    At the mean offset the two fp32 means (JAX's and torch's sums in other
+    orders) differ by an ulp or two of 100 (7.6e-6 each), and y and dw
+    carry that difference d_i: y by -d_i rstd_i w, dw by -sum_i g_i
+    rstd_i d_i, up to 2e-4 over 40 rows.  JAX's y and dw are moved by
+    those first-order terms, from its own saved mean and rstd, before the
+    comparison at F32_TOL; the one-pass formula, moved the same way,
+    misses y by ~4e-3, so the case would catch it."""
+    dtype, h, offset = LN_CASES[case]
     tdt = getattr(torch, dtype)
     jdt = getattr(jnp, dtype)
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     rs = np.random.RandomState(7)
-    x = rs.randn(40, 96).astype(np.float32) * 2 + 0.5
-    w = 1 + 0.1 * rs.randn(96).astype(np.float32)
-    b = 0.1 * rs.randn(96).astype(np.float32)
-    g = rs.randn(40, 96).astype(np.float32)
+    if offset is None:
+        x = rs.randn(40, h).astype(np.float32) * 2 + 0.5
+    else:
+        x = rs.randn(40, h).astype(np.float32) + offset
+    w = 1 + 0.1 * rs.randn(h).astype(np.float32)
+    b = 0.1 * rs.randn(h).astype(np.float32)
+    g = rs.randn(40, h).astype(np.float32)
 
     def f(x, w, b):
         return jln.layer_norm_pallas(x, w, b, 1e-5, 16, True)
     jy, vjp = jax.vjp(f, _j(x, jdt), _j(w), _j(b))
-    want = (jy,) + tuple(vjp(_j(g, jdt)))
+    want = [_np(a) for a in (jy,) + tuple(vjp(_j(g, jdt)))]
 
     tx, tw, tb = _t(x, tdt, True), _t(w, grad=True), _t(b, grad=True)
     ty = tln.layer_norm(tx, tw, tb, 1e-5)
     got = (ty,) + torch.autograd.grad(ty, (tx, tw, tb), _t(g, tdt))
     assert ty.dtype == tdt
+    if offset is not None:
+        _, jm, jr = jln._fwd(_j(x), _j(w), _j(b), 1e-5, 16, True)
+        jm, jr = (np.asarray(a, np.float64)[:, 0] for a in (jm, jr))
+        d = _t(x).mean(dim=-1).double().numpy() - jm
+        want[0] = want[0] - (d * jr)[:, None] * w
+        want[2] = want[2] - (g * (jr * d)[:, None]).sum(0)
+        one_pass = _one_pass_layer_norm(_t(x), _t(w), _t(b), 1e-5)
+        assert np.max(np.abs(_np(one_pass) - want[0])) > 10 * tol
     for name, wv, gv in zip(("y", "dx", "dw", "db"), want, got):
-        np.testing.assert_allclose(_np(gv), _np(wv), rtol=tol, atol=tol,
+        np.testing.assert_allclose(_np(gv), wv, rtol=tol, atol=tol,
                                    err_msg=name)
+
+
+def test_layer_norm_routes():
+    """The wrapper's route: the vector route at 768, 2048 and 4096 with
+    every pointer 16-byte aligned; the generic one for any other width up
+    to 8192 and for a view one element past alignment; a wider row
+    raises."""
+    w = torch.ones(2048)
+    for h in (768, 2048, 4096):
+        x = torch.zeros(4, h)
+        assert tln.route(h, (x, torch.ones(h))) == "vector"
+    for h in (40, 96, 97, 1000, 1001, 5120, 8192):
+        x = torch.zeros(4, h)
+        assert tln.route(h, (x, torch.ones(h))) == "generic"
+    flat = torch.zeros(4 * 2048 + 1)
+    view = flat[1:].view(4, 2048)
+    assert view.data_ptr() % 16 != 0
+    assert tln.route(2048, (view, w)) == "generic"
+    with pytest.raises(ValueError, match="wider"):
+        tln.route(8193, (torch.zeros(1, 8193),))
 
 
 def test_layer_norm_is_not_the_serving_numerics():
