@@ -37,8 +37,8 @@ loudly with a non-zero exit:
    and K3 (fused AdamW) against their plain PyTorch versions on the card
    at training shapes (K1 at both training paths' shapes, GPT's and
    LLaMA's, and the bf16 kernels' edges: q_offset, ragged S, D = 64,
-   D = 100 with GQA, one query row), with kernel / plain / library (a
-   yardstick only)
+   D = 100 with GQA, one query row; K2 also on rows wider than 8192, the
+   wide route), with kernel / plain / library (a yardstick only)
    times, the library's own distance from the plain version, and the
    card's bound for the same work;
 6. training main path — the calls of ``bench.py``'s ``_measure``
@@ -74,8 +74,11 @@ loudly with a non-zero exit:
 9. K6a (rope + QKV), K6b (attend + cache append) and K6c (norm + MLP)
    against their plain PyTorch versions on the card at the decode paths'
    shapes (llama2-7b and GPT-3 1.3B at batch 8, plus GQA 32/8, neox rope
-   and bf16 cases), with kernel / plain / library (a yardstick only,
-   where one PyTorch call computes the same) times and the card's bound;
+   and bf16 cases; K6c also at 33 and 64 rows, each case on the stream
+   route, a relaunch bitwise equal), with kernel / plain / library (a
+   yardstick only, where one PyTorch call computes the same; for K6c a
+   composition, ``composition_ms``) times and the card's bound, K6c's
+   weights rotating over copies past twice the L2;
 10. decode main path — ``decode_loop`` on ``llama2-7b`` at full width
    and depth (32 layers, fp32, nothing cut), batch 8 x prompt 512 + 128
    new tokens: every row returns its tokens, per call exactly 32 launches
@@ -142,8 +145,11 @@ loudly with a non-zero exit:
    and ln -> fc1 (row-major weights with biases) and its tied head,
    LLaMA-2 7B's head (both the transposed view of a row-major [V, H]),
    all at batch 8 in fp32, then bf16, 1, 33 and 64 rows, odd H = 40 and
-   N = 37 in both layouts and 3-D x; kernel / plain / library (the norm
-   then one product, a yardstick only) times and the card's bound;
+   N = 37 in both layouts and 3-D x; each case's route (the stream
+   kernel, the odd ones the generic GEMV), a relaunch bitwise equal;
+   kernel / plain / library (the norm then one product, a yardstick
+   only) times over weight copies past twice the L2, and the card's
+   bound;
 16. program-pass main path — ``capture_decode_program`` on GPT-3 1.3B
    rebuilt from phase 4's seed (LayerNorm parameters drawn from a second
    seed) and on phase 10's llama2-7b, batch 8 x prompt 256, then
@@ -170,9 +176,11 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import gc
+import itertools
 import json
 import re
 import subprocess
@@ -898,6 +906,9 @@ K2_CASES = {
     "odd-bf16": (37, 1001, torch.bfloat16, torch.bfloat16, "randn"),
     "unaligned": (8192, 2048, torch.float32, torch.float32, "unaligned"),
     "offset": (8192, 2048, torch.float32, torch.float32, "offset"),
+    "wide-fp32": (512, 12288, torch.float32, torch.float32, "randn"),
+    "wide-bf16": (512, 12288, torch.bfloat16, torch.float32, "randn"),
+    "wide-odd": (512, 10007, torch.float32, torch.float32, "randn"),
 }
 K2_OFFSET = 100.0
 
@@ -969,11 +980,12 @@ def check_k2():
     for key, (n, h, dtype, wdtype, kind) in K2_CASES.items():
         x, w, b, gy = k2_inputs(n, h, dtype, wdtype, kind, g)
         want = ("vector" if h in ln.VECTOR_WIDTHS and kind != "unaligned"
-                else "generic")
+                else "wide" if h > ln.GENERIC_MAX_H else "generic")
         got = ln.route(h, (x, w, b))
         aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, b))
         c_route = lib.ln_route(h, int(aligned))
-        if got != want or c_route != (h if want == "vector" else 0):
+        if got != want or c_route != {"vector": h, "generic": 0,
+                                      "wide": 1}[want]:
             fail(f"K2 {key}: route {got} (kernel {c_route}), want {want}")
         before = dict(ln.launches)
         y = ln.layer_norm(x, w, b, 1e-5)
@@ -1762,12 +1774,34 @@ K6B_CASES = {   # (nh, nkv, s_total, pos, dtype)
     "gqa": (32, 8, 640, 575, torch.float32),
     "bf16": (32, 32, 640, 575, torch.bfloat16),
 }
-K6C_CASES = {   # (kind, act, hidden, inter, dtype)
-    "llama": ("rms_norm", "silu", 4096, 11008, torch.float32),
-    "gpt": ("layer_norm", "gelu_tanh", 2048, 8192, torch.float32),
-    "bf16": ("rms_norm", "silu", 4096, 11008, torch.bfloat16),
+# K6c also at 33 and 64 rows (serving's decode-only steps take it up to
+# the gate's 64).  Every K6c case is a main-path shape: each must take the
+# stream route.
+K6C_CASES = {   # (kind, act, hidden, inter, dtype, rows)
+    "llama": ("rms_norm", "silu", 4096, 11008, torch.float32, 8),
+    "gpt": ("layer_norm", "gelu_tanh", 2048, 8192, torch.float32, 8),
+    "bf16": ("rms_norm", "silu", 4096, 11008, torch.bfloat16, 8),
+    "rows33": ("layer_norm", "gelu_tanh", 2048, 8192, torch.float32, 33),
+    "rows64": ("rms_norm", "silu", 4096, 11008, torch.float32, 64),
 }
 K6_BATCH, HD = 8, 128
+# K6c/K6d times rotate over copies of the weights whose bytes together pass
+# twice the H100's 50 MB L2, so that no case reads its weight from L2 (a
+# decode step's next layer brings other weights)
+ROTATE_BYTES = 100e6
+
+
+def weight_copies(nbytes: float) -> int:
+    """Copies of a weight of ``nbytes`` whose total passes ROTATE_BYTES."""
+    return int(ROTATE_BYTES // nbytes) + 1
+
+
+def time_rotating(fns, iters: int) -> float:
+    """:func:`time_ms` of calls that take ``fns`` in turn (one per weight
+    copy); ``iters`` is rounded up to whole rounds."""
+    it = itertools.cycle(fns)
+    rounds = -(-iters // len(fns)) * len(fns)
+    return time_ms(lambda: next(it)(), rounds)
 
 
 def k6_row(kernel, case, dtype, errs, ms, plain_ms, library_ms, bound,
@@ -1910,10 +1944,38 @@ def check_k6b(g):
     return rows
 
 
+def k6c_composition(kind, act, x, norm_w, norm_b, w1, b1, w2, b2, w_gate):
+    """K6c's yardstick: no single PyTorch call computes norm -> (gated)
+    MLP, so a composition: the norm, then two or three ``addmm`` /
+    ``matmul`` and the activation."""
+    h = x.shape[-1]
+    if kind == "layer_norm":
+        def run():
+            hn = F.layer_norm(x, (h,), norm_w, norm_b, 1e-5)
+            a = F.gelu(torch.addmm(b1, hn, w1),
+                       approximate="tanh" if act == "gelu_tanh" else "none")
+            return torch.addmm(b2, a, w2)
+        return run
+
+    def run():
+        hn = F.rms_norm(x, (h,), norm_w, 1e-5)
+        return torch.matmul(F.silu(torch.matmul(hn, w_gate))
+                            * torch.matmul(hn, w1), w2)
+    return run
+
+
+def check_relaunch(what, fn, first):
+    """A second launch on the same inputs gives the same bits."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(again, first):
+        fail(f"{what}: a relaunch is not bitwise equal to the first "
+             f"(max diff {max_err(again, first):.3e})")
+
+
 def check_k6c(g):
     rows = {}
-    b = K6_BATCH
-    for case, (kind, act, h, inter, dtype) in K6C_CASES.items():
+    for case, (kind, act, h, inter, dtype, b) in K6C_CASES.items():
         ln_kind = kind == "layer_norm"
         x = rand((b, h), dtype, g, 2.0)
         arrays = dict(
@@ -1926,7 +1988,13 @@ def check_k6c(g):
             b2=rand((h,), dtype, g, 0.1) if ln_kind else None,
             w_gate=None if ln_kind else rand((h, inter), dtype, g, 0.02))
         kw = dict(kind=kind, act=act, eps=1e-5, **arrays)
+        route = fd.norm_mlp_route(x, arrays["w1"], arrays["w2"],
+                                  arrays["w_gate"])
+        if route != "stream":
+            fail(f"K6c {case}: route {route}, want stream (a main-path "
+                 "shape)")
         got = check_launch("norm_mlp", lambda: fd.norm_mlp(x, **kw))
+        check_relaunch(f"K6c {case}", lambda: fd.norm_mlp(x, **kw), got)
         ref = fd.norm_mlp_ref(x, **kw)
         ref32 = fd.norm_mlp_ref(x.float(), **dict(kw, **dict(zip(
             arrays, f32(*arrays.values()))))) \
@@ -1935,20 +2003,31 @@ def check_k6c(g):
             fail(f"K6c {case}: {got.dtype} {tuple(got.shape)}")
         errs = {"y": check_k6_close(f"K6c {case}", got, ref, ref32, dtype)}
         n_up = 1 if ln_kind else 2
+        w_bytes = x.element_size() * h * inter * (n_up + 1)
+        # the weights rotate over copies; x and the vectors stay
+        copies = [kw] + [dict(kw, **{k: arrays[k].clone() for k in
+                                     ("w1", "w2", "w_gate")
+                                     if arrays[k] is not None})
+                         for _ in range(weight_copies(w_bytes) - 1)]
         # the weights, x and y; the norm's vectors and the biases
         vectors = 3 * h + inter if ln_kind else h
-        nbytes = x.element_size() * (h * inter * n_up + inter * h
-                                     + 2 * b * h + vectors)
+        nbytes = w_bytes + x.element_size() * (2 * b * h + vectors)
         rows[case] = k6_row(
             "K6c", case, dtype, errs,
-            time_ms(lambda: fd.norm_mlp(x, **kw), 20),
-            time_ms(lambda: fd.norm_mlp_ref(x, **kw), 10),
+            time_rotating([functools.partial(fd.norm_mlp, x, **c)
+                           for c in copies], 20),
+            time_rotating([functools.partial(fd.norm_mlp_ref, x, **c)
+                           for c in copies], 10),
             # no single PyTorch call computes norm -> (gated) MLP
             None,
             bound_ms(nbytes, 2 * b * inter * h * (n_up + 1),
                      PEAK_FLOPS[dtype]),
+            composition_ms=time_rotating([k6c_composition(
+                kind, act, x, c["norm_w"], c["norm_b"], c["w1"], c["b1"],
+                c["w2"], c["b2"], c["w_gate"]) for c in copies], 20),
+            route=route, weight_copies=len(copies),
             shape=f"x [{b}, {h}], {kind} + {act}, inter {inter}")
-        del x, arrays, kw, got, ref, ref32
+        del x, arrays, kw, got, ref, ref32, copies
     return rows
 
 
@@ -3034,6 +3113,9 @@ K6D_CASES = {
     "odd": ("layer_norm", (5,), 40, 37, False, True, torch.float32),
     "odd_t": ("rms_norm", (3, 2), 40, 37, True, True, torch.float32),
 }
+# the cases off the stream route (N 37 is no multiple of the 16-byte
+# vector): the generic GEMV; every other case is a main-path shape
+K6D_GENERIC = ("odd", "odd_t")
 
 
 # the K6d launches of one optimized GPT-3 1.3B decode step
@@ -3078,50 +3160,73 @@ def check_k6d():
         kw = dict(kind=kind, eps=1e-5)
         if not fd.norm_matmul_admits(x, w, b):
             fail(f"K6d {case}: the gate does not admit it")
+        route = fd.norm_matmul_route(x, w)
+        want = "generic" if case in K6D_GENERIC else "stream"
+        c_route = _build.library("fused_decode").fd_route(
+            int(transposed), x.numel() // h, n, h,
+            w.stride(1) if transposed else w.stride(0),
+            fd._DTYPE_CODE[dtype],
+            int(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0))
+        if route != want or c_route != (want == "stream"):
+            fail(f"K6d {case}: route {route} (kernel {c_route}), want "
+                 f"{want}")
         got = check_launch("norm_matmul", lambda: fd.norm_matmul(*args, **kw))
+        check_relaunch(f"K6d {case}", lambda: fd.norm_matmul(*args, **kw),
+                       got)
         ref = fd.norm_matmul_ref(*args, **kw)
         ref32 = fd.norm_matmul_ref(*f32(*args), **kw) \
             if dtype != torch.float32 else None
         if got.dtype != dtype or got.shape != (*lead, n):
             fail(f"K6d {case}: {got.dtype} {tuple(got.shape)}")
         errs = {"y": check_k6_close(f"K6d {case}", got, ref, ref32, dtype)}
-        lib = k6d_library(kind, *args)
         r = x.numel() // h
         item = x.element_size()
+        # the weight rotates over copies (a transposed one as a fresh
+        # view of a copy of its [n, h] tensor)
+        copies = [args] + [
+            (x, nw, nb, w.t().clone().t() if transposed else w.clone(), b)
+            for _ in range(weight_copies(item * h * n) - 1)]
+        libs = [k6d_library(kind, *c) for c in copies]
         vectors = (2 if kind == "layer_norm" else 1) * h + n * bool(bias)
         nbytes = item * (r * h + h * n + r * n + vectors)
         w_shape = f"[{n}, {h}]^T" if transposed else f"[{h}, {n}]"
         rows[case] = k6_row(
             "K6d", case, dtype, errs,
-            time_ms(lambda: fd.norm_matmul(*args, **kw), 20),
-            time_ms(lambda: fd.norm_matmul_ref(*args, **kw), 10),
-            time_ms(lib, 20),
+            time_rotating([functools.partial(fd.norm_matmul, *c, **kw)
+                           for c in copies], 20),
+            time_rotating([functools.partial(fd.norm_matmul_ref, *c, **kw)
+                           for c in copies], 10),
+            time_rotating(libs, 20),
             bound_ms(nbytes, 2 * r * h * n + 8 * r * h, PEAK_FLOPS[dtype]),
+            route=route, weight_copies=len(copies),
             shape=f"x [{', '.join(map(str, lead))}, {h}], w {w_shape}"
                   f"{' + bias' if bias else ''}, {kind}")
         if case in K6D_GPT_STEP:
-            step.append((case, args, kw, lib))
-        del x, nw, nb, w, b, args, got, ref, ref32, lib
+            step.append((case, copies, kw, libs))
+        del x, nw, nb, w, b, args, got, ref, ref32
     # one GPT-3 1.3B decode step's launches (phase 16's optimized replay),
-    # timed as one: 24 x qkv, 24 x fc1, the tied head
+    # timed as one: 24 x qkv, 24 x fc1, the tied head, each launch on the
+    # next weight copy, as each layer brings its own weights
     def per_step(pick):
         def run():
-            for case, args, kw, lib in step:
-                f = pick(args, kw, lib)
-                for _ in range(K6D_GPT_STEP[case]):
-                    f()
+            for case, copies, kw, libs in step:
+                for i in range(K6D_GPT_STEP[case]):
+                    j = i % len(copies)
+                    pick(copies[j], kw, libs[j])()
         return run
     rows["gpt_step"] = k6_row(
         "K6d", "gpt_step", torch.float32,
         {"y": {"plain": max(rows[c]["max_abs_err"]["y"]["plain"]
                             for c in K6D_GPT_STEP)}},
         time_ms(per_step(lambda a, kw, lib:
-                         lambda: fd.norm_matmul(*a, **kw)), 10),
+                         functools.partial(fd.norm_matmul, *a, **kw)), 10),
         time_ms(per_step(lambda a, kw, lib:
-                         lambda: fd.norm_matmul_ref(*a, **kw)), 5),
+                         functools.partial(fd.norm_matmul_ref, *a, **kw)),
+                5),
         time_ms(per_step(lambda a, kw, lib: lib), 10),
         (sum(rows[c]["bound_ms"] * m for c, m in K6D_GPT_STEP.items()),
          "bytes"),
+        route="stream",
         shape="one decode step: " + ", ".join(
             f"{m} x ({rows[c]['shape']})" for c, m in K6D_GPT_STEP.items()))
     del step
@@ -3347,18 +3452,120 @@ def program_main_paths(llama):
 
 AB_K7_CASES = ("decode", "decode-2048", "mixed")
 AB_K2_CASES = ("float32", "bfloat16", "bart", "decode")
+# phase 9's and phase 15's main-path K6c / K6d cases
+AB_K6C_CASES = ("llama", "gpt")
+AB_K6D_CASES = ("gpt_qkv", "gpt_fc1", "gpt_head", "llama_head")
+
+
+@contextlib.contextmanager
+def fd_variant(lib, route):
+    """``fused_decode``'s wrappers on a variant's library, its K6c / K6d
+    calls forced onto ``route`` (a library built from a source without the
+    stream kernel has only the generic route)."""
+    keep = (_build._libs.get("fused_decode"), fd.norm_matmul_route,
+            fd.norm_mlp_route, dict(fd._occupancy), dict(fd._plans))
+    _build._libs["fused_decode"] = lib
+    fd._occupancy.clear()
+    fd._plans.clear()
+    fd.norm_matmul_route = lambda *a: route
+    fd.norm_mlp_route = lambda *a: route
+    try:
+        yield
+    finally:
+        if keep[0] is None:
+            _build._libs.pop("fused_decode", None)
+        else:
+            _build._libs["fused_decode"] = keep[0]
+        fd.norm_matmul_route, fd.norm_mlp_route = keep[1], keep[2]
+        fd._occupancy.clear()
+        fd._occupancy.update(keep[3])
+        fd._plans.clear()
+        fd._plans.update(keep[4])
+
+
+def ab_fused_decode(libs, turns, g):
+    """K6c and K6d of each ``fd_*`` variant, on every route it has, at the
+    main-path cases, the weights rotating over copies as in phases 9 and
+    15; each variant's error from the plain version."""
+    routes = {}
+    for name, lib in libs.items():
+        for route in ("stream", "generic"):
+            if route == "generic" or hasattr(lib, "fd_norm_matmul_stream"):
+                routes[f"{name}/{route}"] = (lib, route)
+
+    def in_variant(key, fn):
+        lib, route = routes[key]
+
+        def run():
+            with fd_variant(lib, route):
+                return fn()
+        return run
+    for case in AB_K6C_CASES:
+        kind, act, h, inter, dtype, b = K6C_CASES[case]
+        ln_kind = kind == "layer_norm"
+        x = rand((b, h), dtype, g, 2.0)
+        n_up = 1 if ln_kind else 2
+        base = dict(kind=kind, act=act, eps=1e-5,
+                    norm_w=(1 + 0.1 * torch.randn(h, generator=g,
+                                                  device="cuda")).to(dtype),
+                    norm_b=rand((h,), dtype, g, 0.1) if ln_kind else None,
+                    b1=rand((inter,), dtype, g, 0.1) if ln_kind else None,
+                    b2=rand((h,), dtype, g, 0.1) if ln_kind else None)
+        copies = [dict(base, w1=rand((h, inter), dtype, g, 0.02),
+                       w2=rand((inter, h), dtype, g, 0.02),
+                       w_gate=None if ln_kind
+                       else rand((h, inter), dtype, g, 0.02))
+                  for _ in range(weight_copies(
+                      x.element_size() * h * inter * (n_up + 1)))]
+        ref = fd.norm_mlp_ref(x, **copies[0])
+        fns, errs = {}, {}
+        for key in routes:
+            out = in_variant(key, lambda: fd.norm_mlp(x, **copies[0]))()
+            torch.cuda.synchronize()
+            errs[key] = max_err(out, ref)
+            calls = [functools.partial(fd.norm_mlp, x, **c) for c in copies]
+            it = itertools.cycle(calls)
+            fns[key] = in_variant(key, lambda it=it: next(it)())
+        say("AB K6c " + json.dumps(dict(case=case, ms=turns(fns),
+                                        max_abs_err=errs)))
+        del x, copies, ref, fns
+    for case in AB_K6D_CASES:
+        kind, lead, h, n, transposed, bias, dtype = K6D_CASES[case]
+        args = k6d_case(kind, lead, h, n, transposed, bias, dtype, g)
+        x, nw, nb, w, b = args
+        copies = [args] + [
+            (x, nw, nb, w.t().clone().t() if transposed else w.clone(), b)
+            for _ in range(weight_copies(x.element_size() * h * n) - 1)]
+        kw = dict(kind=kind, eps=1e-5)
+        ref = fd.norm_matmul_ref(*args, **kw)
+        fns, errs = {}, {}
+        for key in routes:
+            out = in_variant(key, lambda: fd.norm_matmul(*args, **kw))()
+            torch.cuda.synchronize()
+            errs[key] = max_err(out, ref)
+            it = itertools.cycle([functools.partial(fd.norm_matmul, *c, **kw)
+                                  for c in copies])
+            fns[key] = in_variant(key, lambda it=it: next(it)())
+        lib_fns = itertools.cycle([k6d_library(kind, *c) for c in copies])
+        fns["library"] = lambda: next(lib_fns)()
+        say("AB K6d " + json.dumps(dict(case=case, ms=turns(fns),
+                                        max_abs_err=errs)))
+        del x, nw, nb, w, b, args, copies, ref, fns
 
 
 def compare_variants(paths) -> int:
     """Time copies of ``csrc/flash_attention.cu`` (files named ``fa_*.cu``),
-    ``csrc/ragged_paged_attention.cu`` (``rpa_*.cu``) or
-    ``csrc/layer_norm.cu`` (``ln_*.cu``), each built with the port's nvcc
-    flags into its own library, on the same inputs in turns (every
-    variant, then again in reverse order): K1a's forward at the two
-    training shapes, K7 at phase 3's cases with the wrapper's page splits
-    and twice as many, K2a and K2b at phase 5's GPT, bf16, BART and
-    decode cases beside the library's call.  One line per case: each
-    variant's times and its max abs error from the plain version."""
+    ``csrc/ragged_paged_attention.cu`` (``rpa_*.cu``),
+    ``csrc/layer_norm.cu`` (``ln_*.cu``) or ``csrc/fused_decode.cu``
+    (``fd_*.cu``), each built with the port's nvcc flags into its own
+    library, on the same inputs in turns (every variant, then again in
+    reverse order): K1a's forward at the two training shapes, K7 at phase
+    3's cases with the wrapper's page splits and twice as many, K2a and
+    K2b at phase 5's GPT, bf16, BART and decode cases beside the
+    library's call, K6c and K6d at phase 9's and phase 15's main-path
+    cases on each route a variant has (``ab_fused_decode``).  One line per
+    case: each variant's times and its max abs error from the plain
+    version."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {Path(p).stem: subprocess.Popen(
@@ -3374,7 +3581,8 @@ def compare_variants(paths) -> int:
             if "registers" in line or "spill" in line or "entry" in line:
                 say(f"ptxas {name}: {line.strip()}")
         lib = ctypes.CDLL(str(out_dir / (name + ".so")))
-        {"fa": fa, "rpa": rpa, "ln": ln}[name.split("_")[0]]._declare(lib)
+        {"fa": fa, "rpa": rpa, "ln": ln,
+         "fd": fd}[name.split("_")[0]]._declare(lib)
         libs[name] = lib
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -3484,6 +3692,9 @@ def compare_variants(paths) -> int:
             case=case, n=n, h=h, dtype=str(dtype).replace("torch.", ""),
             fwd_ms=turns(fwd), dx_ms=turns(bwd), max_abs_err=errs)))
         del x, w, b, gy, xr, yr, dxr, fwd, bwd, outs, lib_y
+    fd_libs = {n: lib for n, lib in libs.items() if n.startswith("fd_")}
+    if fd_libs:
+        ab_fused_decode(fd_libs, turns, g)
     return 0
 
 
@@ -3667,6 +3878,8 @@ def main() -> int:
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 shape=r["shape"] + " " + r["dtype"])
+            if "composition_ms" in r:    # K6c: not one PyTorch call
+                by_path[path]["composition_ms"] = r["composition_ms"]
         kernels.append(dict(
             name=name, source="paddle_tpu_torch/ops/csrc/fused_decode.cu",
             replaces="paddle_tpu/ops/pallas/fused_decode.py" + replaces,

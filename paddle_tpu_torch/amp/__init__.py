@@ -69,10 +69,19 @@ def _check_level(level: str) -> None:
 
 
 @contextlib.contextmanager
-def auto_cast(enable: bool = True, level: str = "O1",
-              dtype: str = "float16"):
+def auto_cast(enable: bool = True, custom_white_list=None,
+              custom_black_list=None, level: str = "O1",
+              dtype: str = "float16", use_promote: bool = True):
     """``paddle.amp.auto_cast`` at level O2: inside the block, the port's
-    ops cast their inputs by the O2 rule (see :func:`cast`)."""
+    ops cast their inputs by the O2 rule (see :func:`cast`).  Custom
+    white or black lists and ``use_promote=False`` wait for a later
+    slice and raise ``NotImplementedError``."""
+    if custom_white_list or custom_black_list:
+        raise NotImplementedError("custom amp op lists wait for a later "
+                                  "slice")
+    if not use_promote:
+        raise NotImplementedError("use_promote=False waits for a later "
+                                  "slice")
     if enable:
         _check_level(level)
         low = _low_dtype(dtype)
@@ -102,19 +111,30 @@ def cast(op_name: str, *tensors):
 
 
 def decorate(models, optimizers=None, level: str = "O2",
-             dtype: str = "float16", master_weight: Optional[bool] = None):
+             dtype: str = "float16", master_weight: Optional[bool] = None,
+             save_dtype: Optional[str] = None, master_grad: bool = False,
+             excluded_layers=None):
     """``paddle.amp.decorate`` at level O2: cast every fp32 parameter to
     ``dtype`` in place (the ``Parameter`` objects stay, so an optimizer
-    built before keeps them), except those of norm layers; set
-    ``multi_precision`` on the optimizers unless ``master_weight`` is
-    False.  Returns what it was given, as Paddle does."""
+    built before keeps them), except those of norm layers and of the
+    layer types in ``excluded_layers``; set ``multi_precision`` on the
+    optimizers unless ``master_weight`` is False.  Returns what it was
+    given, as Paddle does.  ``save_dtype`` and ``master_grad=True`` wait
+    for a later slice and raise ``NotImplementedError``."""
+    if save_dtype is not None:
+        raise NotImplementedError("save_dtype waits for a later slice")
+    if master_grad:
+        raise NotImplementedError("master_grad waits for a later slice")
     _check_level(level)
     low = _low_dtype(dtype)
+    excluded = tuple(excluded_layers or ())
     single_model = isinstance(models, torch.nn.Module)
     model_list = [models] if single_model else list(models)
     for model in model_list:
         for layer in model.modules():
             if any(k in type(layer).__name__ for k in _FP32_KEEP_LAYERS):
+                continue
+            if excluded and isinstance(layer, excluded):
                 continue
             for p in layer._parameters.values():
                 if p is not None and p.dtype == torch.float32:

@@ -19,10 +19,20 @@ __all__ = ["TrainStep", "train_step"]
 
 
 class TrainStep:
+    """The reference's parameters in its order.  ``mesh`` and
+    ``batch_spec`` (an SPMD mesh and its batch sharding) wait for the
+    distributed slice and raise ``NotImplementedError`` when given;
+    ``donate`` changes nothing here (the eager step updates the
+    parameters in place either way)."""
+
     def __init__(self, model, loss_fn=None, optimizer=None, scaler=None,
-                 step_fn=None):
+                 mesh=None, batch_spec=None, step_fn=None,
+                 donate: bool = True):
         if scaler is not None:
             raise NotImplementedError("GradScaler waits for a later slice")
+        if mesh is not None or batch_spec is not None:
+            raise NotImplementedError("a mesh and batch_spec wait for the "
+                                      "distributed slice")
         if loss_fn is None and step_fn is None:
             raise ValueError("give loss_fn or step_fn")
         self.model = model
@@ -51,8 +61,9 @@ class TrainStep:
 
 
 def train_step(model, loss_fn=None, optimizer=None, scaler=None,
-               step_fn=None) -> TrainStep:
+               mesh=None, **kwargs) -> TrainStep:
     """Build the training step of ``model``: ``step_fn(model, *batch)``
     returns the loss (or ``loss_fn(model(batch[0]), *batch[1:])`` does);
-    the model is put in training mode."""
-    return TrainStep(model, loss_fn, optimizer, scaler, step_fn)
+    the model is put in training mode.  ``kwargs`` are
+    :class:`TrainStep`'s (``batch_spec``, ``step_fn``, ``donate``)."""
+    return TrainStep(model, loss_fn, optimizer, scaler, mesh=mesh, **kwargs)

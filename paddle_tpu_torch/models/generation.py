@@ -434,8 +434,8 @@ def generate(model, input_ids, max_new_tokens: int = 20,
              length_penalty: float = 1.0,
              pad_token_id: Optional[int] = None,
              use_cache: bool = True, use_paged_cache: bool = False,
-             generator: Optional[torch.Generator] = None,
-             _megakernel: bool = False):
+             _megakernel: Optional[bool] = None, *,
+             generator: Optional[torch.Generator] = None, **unused):
     """``input_ids [B, S]`` (a tensor or an array) -> ``[B, S + n]``
     token ids on the model's device, ``n <= max_new_tokens`` (fewer when
     every row has met ``eos_token_id``).  ``decode_strategy``
@@ -445,7 +445,13 @@ def generate(model, input_ids, max_new_tokens: int = 20,
     with ``pad_token_id``, else the eos, else 0) over the dense cache;
     ``use_paged_cache`` runs the eager loop over page pools.
     ``_megakernel`` picks the compiled loop (:func:`decode_loop`), which
-    neither of those takes."""
+    neither of those takes; ``None`` means FLAGS_megakernel_decode's
+    default, off.  The reference ignores keywords it does not know
+    (``**unused``); here they raise ``NotImplementedError``, so that a
+    misspelt option is not silently dropped."""
+    if unused:
+        raise NotImplementedError(f"generate does not take "
+                                  f"{sorted(unused)}")
     dev = model.device
     ids = torch.as_tensor(input_ids, device=dev)
     if ids.dim() != 2:
@@ -467,7 +473,7 @@ def generate(model, input_ids, max_new_tokens: int = 20,
     params = inspect.signature(model.forward).parameters
     supports_cache = use_cache and "use_cache" in params
     last_only = supports_cache and "last_logits_only" in params
-    compiled = _megakernel
+    compiled = bool(_megakernel)
     if compiled and _megakernel_fallback_reason(
             model, decode_strategy, num_beams, use_paged_cache,
             supports_cache, max_new) is not None:

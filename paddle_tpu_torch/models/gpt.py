@@ -151,8 +151,11 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = Linear(c.hidden_size, c.hidden_size, std=std,
                                gen=gen, device=device)
 
-    def forward(self, x, past=None, use_cache: bool = False):
-        """``past``: optional (k, v) cache ``[B, S_past, nh, hd]``,
+    def forward(self, x, training: bool = True, past=None,
+                use_cache: bool = False):
+        """``training`` turns attention dropout on (the block passes its
+        own mode, as in the JAX package).  ``past``: optional (k, v)
+        cache ``[B, S_past, nh, hd]``,
         concatenated before the new keys along seq, or a
         ``PagedLayerView`` (one token per row: append and attend through
         ``paged_attention``); with ``use_cache`` returns ``(out,
@@ -176,8 +179,8 @@ class MultiHeadAttention(nn.Module):
             v = torch.cat([past[1], v], dim=1)
         # bottom-right causal alignment: K1's q_offset = sk - sq
         out = F.scaled_dot_product_attention(
-            q, k, v, dropout_p=self.attn_drop if self.training else 0.0,
-            is_causal=True, training=self.training, generator=self.gen)
+            q, k, v, dropout_p=self.attn_drop if training else 0.0,
+            is_causal=True, training=training, generator=self.gen)
         out = self.out_proj(out.reshape(b, s, hidden))
         return (out, (k, v)) if use_cache else out
 
@@ -205,7 +208,8 @@ class GPTBlock(nn.Module):
         self.gen = gen
 
     def forward(self, x, past=None, use_cache: bool = False):
-        h = self.attn(self.ln1(x), past=past, use_cache=use_cache)
+        h = self.attn(self.ln1(x), training=self.training, past=past,
+                      use_cache=use_cache)
         if use_cache:
             h, new_past = h
         x = x + F.dropout(h, self.drop_p, training=self.training,

@@ -93,9 +93,18 @@ def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False,
 
 
 @recorded("embedding")
-def embedding(ids, weight):
+def embedding(x, weight, padding_idx=None, sparse: bool = False, name=None):
+    """Rows of ``weight`` gathered by the ids ``x``; rows whose id is
+    ``padding_idx`` (negative: counted from the end) are zeros, as in the
+    JAX package.  ``sparse`` is accepted for API parity and changes
+    nothing, as there: the gather is dense either way."""
     (weight,) = amp.cast("embedding", weight)
-    return weight[ids]
+    out = weight[x]
+    if padding_idx is not None:
+        pad = padding_idx if padding_idx >= 0 \
+            else weight.shape[0] + padding_idx
+        out = out.masked_fill((x == pad)[..., None], 0)
+    return out
 
 
 @recorded("gelu")

@@ -46,22 +46,58 @@
 //     block of a tile to arrive (an atomic counter per tile, reset by that
 //     block) adds them in a fixed order, so the result does not depend on
 //     the order the blocks ran in, and applies the epilogue.
-// K6c is two launches of it: the norm (on the way in) and the up (and gate)
-// products into an fp32 scratch [B, I] (the down product needs every
-// column of it), then the down product, whose input comes in as the
-// activation (gelu of the up output, or act(gate) * up), + bias.
 //
-// K6d is one launch.  A row-major weight [H, N] (a `linear` weight) takes
-// the GEMV above with one problem, the norm on the way in, and the bias
-// added after the result is rounded to x's dtype (as the JAX wrapper adds
-// it outside the Pallas kernel).  A transposed weight (the tied GPT head
-// and LLaMA's head arrive as w.T of a row-major [N, H] tensor) has its
-// own loop, `norm_matmul_t_kernel`: read through the GEMV's column pairs,
-// every lane's loads would be H elements apart.  Instead a warp owns 4
-// output columns and reads each one's weight row of H contiguously, 16
-// bytes a lane where aligned, against the normalized rows of x staged in
-// shared memory 1024 columns at a time (8 rows x 1024 fp32 = 32 KiB; all
-// of H = 4096 would be 128 KiB); the lanes' sums meet by shuffles.
+// K6c and K6d take two routes.  The generic route is the GEMV above:
+// K6c as two launches of it (the norm on the way in and the up (and gate)
+// products into an fp32 scratch [B, I], then the down product of the
+// activation, made on the way in, + bias), K6d as one (a row-major weight,
+// the bias added after the result is rounded to x's dtype, as the JAX
+// wrapper adds it outside the Pallas kernel) or, for a transposed weight
+// (the heads arrive as w.T of a row-major [N, H]), `norm_matmul_t_kernel`:
+// a warp owns 4 output columns and reads each one's weight row of H
+// contiguously against the normalized rows staged 1024 columns at a time.
+// It takes the shapes the stream route does not (odd N or K, unaligned
+// views); K6a keeps it on every shape.
+//
+// The stream route takes the main path's shapes: a persistent walk that
+// reads each weight byte once per launch, at any of the gate's 1..64 rows.
+//   * The grid is the blocks the card holds at once (the SM count times
+//     the blocks an SM holds of the form the launch takes).  The weight's
+//     (column tile, K step) units are dealt out in tile-major order as in
+//     stream-K: block j takes q + (j < r) consecutive units, so shares
+//     differ by at most one step.  The wrapper computes the plan.
+//   * A unit is 32 rows of 512 bytes of weight: for a row-major [K, N]
+//     weight 32 rows of K by 512 bytes of columns, for a transposed one 32
+//     output columns by 512 bytes of K.
+//   * A tile a block holds whole is written with its epilogue.  A tile cut
+//     by a share boundary: each block publishes its fp32 part; the last to
+//     arrive (an atomic counter per tile, reset by it) adds the parts in
+//     block order, so the result does not depend on which block came last
+//     and a relaunch is bitwise equal.  (Waiting for the owner of the
+//     tile's last step instead would stall that block for its
+//     neighbour's whole share.)
+// Two forms, chosen by shape alone:
+//   * resident (`stream_resident_kernel`, up to 8 rows: the main path):
+//     each block first makes the normalized fp32 rows of x (or act(gate) *
+//     up) for every K step its share touches and keeps them in shared
+//     memory for the whole launch; then each lane streams its own 4 x 16
+//     bytes of every unit through a ring of up to 8 stages with cp.async
+//     and reads back only what it copied, so the main loop has no barrier
+//     and divides nothing (cursors walk the tiles and steps).  Row-major:
+//     warp w takes the unit's K rows 4w..4w+3, a lane 16 bytes of
+//     columns, and the warps' sums meet in a fixed tree at a tile's end;
+//     transposed: warp w takes the unit's columns 4w..4w+3, a lane 16
+//     bytes of K, and the lanes' sums meet by a butterfly.  Two blocks an
+//     SM where their windows fit, else one.
+//   * staged (`stream_gemv_kernel`, 9..64 rows): x's rows for each step
+//     ride in the ring beside the weight and are normalized per step from
+//     statistics the block computes once; the row groups of 8 walk each
+//     stage in shared memory, the warps splitting the rows, then the K.
+// K6c stays two launches of it (up and gate, then down); `fd_route` says
+// which route a product takes.  A/B on the card (`chip_smoke.py --ab`,
+// PERF.md): a shared ring filled by all threads with two barriers a step
+// was issue-bound; bulk copies (cp.async.bulk, a producer warp, mbarriers)
+// of 512-byte rows were slower still.
 //
 // K6b: one block per (kv head, batch row) owns the n_rep query rows of that
 // kv head.  It uses the new k/v row from registers at `pos` and writes it to
@@ -71,9 +107,8 @@
 // in shared memory.  Only rows 0..pos are read, not the S_total rows the
 // TPU kernel masks: masked probabilities are exactly 0 there.
 //
-// Tensor cores, TMA and a split over positions across blocks for long
-// contexts at small batch are later work; so is a split of K for K6d's
-// transposed loop (its columns give enough blocks on the main path).
+// Tensor cores, TMA bulk copies and a split over positions across blocks
+// for long contexts at small batch are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -412,6 +447,18 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
   }
 }
 
+// Four consecutive elements into fp32 (16 or 8 bytes, aligned to that).
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
 // out[b, c] = round(sum_h norm(x)[b, h] * w[c * ldw + h]) (+ bias[c]) for
 // the kRows rows of blockIdx.y and the 32 columns of blockIdx.x; `vec`: every
 // weight row starts 16-byte aligned and k is a multiple of V.
@@ -702,6 +749,991 @@ int attend_dispatch(const void* q, const void* k_new, const void* v_new,
                           n_heads, n_kv, head_dim, s_total, pos, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// K6c and K6d on the main path: the persistent weight-streaming GEMV
+// ---------------------------------------------------------------------------
+
+constexpr int kStreamThreads = 256;
+constexpr int kStreamWarps = kStreamThreads / kWarp;   // 8
+constexpr int kSegBytes = 512;        // one stage row: 32 lanes x 16 bytes
+constexpr int kStageRows = 32;        // rows of a stage
+constexpr int kTransPad = 16;         // pad of a transposed stage row (banks)
+constexpr int kStreamMaxRows = 64;    // rows of x (the gate's limit)
+constexpr int kMaxStages = 4;
+constexpr int kResRows = 8;           // the resident form's rows (the main path)
+constexpr int kResMaxStages = 8;
+constexpr int kSmemBudget = 227 * 1024;   // dynamic shared memory a block may use
+
+// A tile is kTN output columns, a step kKS of the reduction axis.  Row-major
+// [K, N]: a stage row is kKS-th of a tile's K (32 rows) and 512 bytes of its
+// columns, a lane owns kVec adjacent columns.  Transposed (w.T of a row-major
+// [N, K]): a stage row is one output column's 512 contiguous bytes of K, a
+// lane owns one column.  Either way a stage is 32 x 512 bytes of weight.
+template <typename TW, bool kTrans>
+struct Geo {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(TW));
+  static constexpr int kTN = kTrans ? kStageRows : kWarp * kVec;
+  static constexpr int kKS = kTrans ? kSegBytes / static_cast<int>(sizeof(TW)) : kStageRows;
+  static constexpr int kRowBytes = kTrans ? kSegBytes + kTransPad : kSegBytes;
+  static constexpr int kStage = kStageRows * kRowBytes;
+  static constexpr int kAcc = kTrans ? 8 : kVec * 8;   // a lane's columns x 8 rows
+};
+
+struct StreamProblem {
+  const void* w;
+  long long ldw;          // row stride, in elements
+  const float* bias;      // [n] fp32, or nullptr
+  void* out;              // [batch, n] contiguous, or [n][8] (out_t)
+  int n;
+  int tiles;              // ceil(n / kTN)
+  int out_t;              // the output as [n][8]: a resident down product's x
+};
+
+struct StreamArgs {
+  const void* x;          // [batch, k] contiguous (TX)
+  const float* gate;      // [batch, k] fp32, or nullptr: x comes in as act(gate) * x
+  int batch, k;
+  int norm;               // Norm applied to x's rows on the way in
+  const float* nw;
+  const float* nb;
+  float eps;
+  int gate_act, act, bias_after_round;
+  int n_problems;
+  StreamProblem p[2];
+  int ksteps;             // ceil(k / kKS)
+  int q, r;               // the plan: block j takes q + (j < r) units from j q + min(j, r)
+  int groups;             // row groups of 8 (1, 2, 4 or 8)
+  int stages;
+  int window;             // steps of x the resident form holds: min(q + (r > 0), ksteps)
+  int slots;              // tiles a share touches at most: the resident row-major parts
+  const float* xn_ready;  // x already normalized, fp32: [batch][k] (transposed) or
+                          // [k][8] (row-major); the resident form copies its window
+  float* h;               // a gated up launch: act(gate) * up, [n][8], made by the
+                          // second of a column tile's up and gate tiles to finish
+  float* work;            // fp32 parts: [grid][2][batch][kTN]; the resident
+                          // row-major form's [grid][slots][8 warps][batch][kTN]
+  int* counters;          // [tiles], zero; left zero
+};
+
+struct StreamLayout {
+  int x_ring, x_stage, xn, red, stats, total;   // bytes
+};
+
+// Shared memory: the weight ring, the x ring (raw rows of each step, and the
+// gate's), the step's normalized fp32 x, the warps' sums and the statistics.
+template <typename TX, typename TW, bool kTrans>
+__host__ __device__ inline StreamLayout stream_layout(int groups, bool gated, int stages) {
+  using G = Geo<TW, kTrans>;
+  const int rows = groups * 8;
+  StreamLayout l;
+  l.x_ring = stages * G::kStage;
+  l.x_stage = rows * G::kKS * static_cast<int>(sizeof(TX)) * (gated ? 2 : 1);
+  l.xn = l.x_ring + stages * l.x_stage;
+  l.red = l.xn + rows * G::kKS * 4;
+  l.stats = l.red + kStreamWarps * kWarp * G::kAcc * 4;
+  l.total = l.stats + 2 * kStreamMaxRows * 4 + 16;
+  return l;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most `pending` groups are in flight (0..kResMaxStages - 1)
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::); break;
+  }
+}
+
+// Programmatic dependent launch: a kernel launched with it may start while
+// the one before it on the stream runs; it waits here before reading what
+// that one wrote.  The one before lets it start early.
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// the block a unit belongs to, under the plan (q >= 1)
+__device__ __forceinline__ int block_of(int u, int q, int r) {
+  const int big = r * (q + 1);
+  return u < big ? u / (q + 1) : r + (u - big) / q;
+}
+__device__ __forceinline__ int share_start(int j, int q, int r) { return j * q + min(j, r); }
+
+template <typename TX, typename TW, typename TO, bool kTrans>
+__global__ void __launch_bounds__(kStreamThreads)
+stream_gemv_kernel(const __grid_constant__ StreamArgs a) {
+  using G = Geo<TW, kTrans>;
+  constexpr int V = G::kVec, TN = G::kTN, KS = G::kKS, ACC = G::kAcc;
+  constexpr int XE = 16 / static_cast<int>(sizeof(TX));   // x elements a 16-byte piece
+  constexpr int XC = KS / XE;                               // pieces a row of a step
+  extern __shared__ __align__(16) unsigned char ring_smem[];
+  unsigned char* smem = ring_smem;
+  const bool gated = a.gate != nullptr;
+  const int rows = a.groups * 8;
+  const int S = a.stages;
+  const StreamLayout L = stream_layout<TX, TW, kTrans>(a.groups, gated, S);
+  unsigned char* w_ring = smem;
+  unsigned char* x_ring = smem + L.x_ring;
+  float* xn = reinterpret_cast<float*>(smem + L.xn);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* s_mean = reinterpret_cast<float*>(smem + L.stats);
+  float* s_rstd = s_mean + kStreamMaxRows;
+  int* s_last = reinterpret_cast<int*>(s_rstd + kStreamMaxRows);
+
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int j = blockIdx.x;
+  const int start = share_start(j, a.q, a.r);
+  const int end = start + a.q + (j < a.r ? 1 : 0);
+  const int first_tile = start / a.ksteps;
+  const int tiles0 = a.p[0].tiles;
+  const TX* x = static_cast<const TX*>(a.x);
+  // warp -> (row group, k group): the row groups' warps split each step's k
+  const int kw = kStreamWarps / a.groups;
+  const int rg = warp / kw, kg = warp % kw;
+
+  // the copies of one unit (tile t, step s): 32 x 512 weight bytes and the
+  // step's rows of x (and of the gate), 16 bytes a copy, 0 past the edges
+  auto load_unit = [&](int u, int slot) {
+    const int t = u / a.ksteps, s = u % a.ksteps;
+    const int pi = (a.n_problems > 1 && t >= tiles0) ? 1 : 0;
+    const StreamProblem& P = a.p[pi];
+    const int n0 = (t - (pi ? tiles0 : 0)) * TN, k0 = s * KS;
+    const TW* w = static_cast<const TW*>(P.w);
+    unsigned char* dst = w_ring + slot * G::kStage;
+    for (int c = tid; c < kStageRows * kWarp; c += kStreamThreads) {
+      const int row = c / kWarp, seg = c % kWarp;
+      const int n = kTrans ? n0 + row : n0 + seg * V;
+      const int k = kTrans ? k0 + seg * V : k0 + row;
+      const bool in = n < P.n && k < a.k;
+      const TW* src = !in ? w
+                      : kTrans ? w + static_cast<int64_t>(n) * P.ldw + k
+                               : w + static_cast<int64_t>(k) * P.ldw + n;
+      cp_async16(dst + row * G::kRowBytes + seg * 16, src, in);
+    }
+    unsigned char* xd = x_ring + slot * L.x_stage;
+    for (int c = tid; c < rows * XC; c += kStreamThreads) {
+      const int b = c / XC, piece = c % XC, k = k0 + piece * XE;
+      const bool in = b < a.batch && k < a.k;
+      const int64_t at = static_cast<int64_t>(b) * a.k + k;
+      cp_async16(xd + c * 16, in ? x + at : x, in);
+      if (gated) cp_async16(xd + (rows * XC + c) * 16, in ? a.gate + at : a.gate, in);
+    }
+  };
+
+  // the first S - 1 units' copies go out before the statistics
+  for (int i = 0; i < S - 1; ++i) {
+    if (start + i < end) load_unit(start + i, i);
+    cp_async_commit();
+  }
+  // the norm's statistics of every row, once per block, a warp a row, in
+  // the plain version's order: the mean, then the mean of (x - mean)^2
+  // (16-byte loads: the route has k % XE == 0 and x aligned)
+  if (a.norm != kNoNorm) {
+    const int pieces = a.k / XE;
+    for (int b = warp; b < a.batch; b += kStreamWarps) {
+      const TX* xr = x + static_cast<int64_t>(b) * a.k;
+      float mean = 0.f;
+      if (a.norm == kLayerNorm) {
+        float s = 0.f;
+#pragma unroll 4
+        for (int i = lane; i < pieces; i += kWarp) {
+          float v[XE];
+          load_vec(xr + i * XE, v);
+#pragma unroll
+          for (int e = 0; e < XE; ++e) s += v[e];
+        }
+        mean = warp_sum(s) / a.k;
+      }
+      float var = 0.f;
+#pragma unroll 4
+      for (int i = lane; i < pieces; i += kWarp) {
+        float v[XE];
+        load_vec(xr + i * XE, v);
+#pragma unroll
+        for (int e = 0; e < XE; ++e) {
+          const float d = v[e] - mean;
+          var = fmaf(d, d, var);
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(var) / a.k + a.eps);
+      if (lane == 0) {
+        s_mean[b] = mean;
+        s_rstd[b] = rstd;
+      }
+    }
+  }
+
+  float acc[ACC];
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
+
+  for (int u = start; u < end; ++u) {
+    const int i = u - start, slot = i % S;
+    cp_async_wait(S - 2);   // this unit's copies have landed (this thread's)
+    __syncthreads();        // everyone's; the slot of unit u - 1 is free
+    if (u + S - 1 < end) load_unit(u + S - 1, (i + S - 1) % S);
+    cp_async_commit();
+    const int t = u / a.ksteps, s = u % a.ksteps, k0 = s * KS;
+
+    // this step's x, normalized (or act(gate) * up) in fp32, once a block
+    {
+      const unsigned char* xs = x_ring + slot * L.x_stage;
+      for (int e = tid; e < rows * KS; e += kStreamThreads) {
+        const int b = e / KS, kk = e % KS, k = k0 + kk;
+        float v = 0.f;
+        if (b < a.batch && k < a.k) {
+          v = to_float(reinterpret_cast<const TX*>(xs)[e]);
+          if (a.norm != kNoNorm) {
+            v = (v - s_mean[b]) * s_rstd[b] * a.nw[k];
+            if (a.nb != nullptr) v += a.nb[k];
+          } else if (gated) {
+            v = activate(reinterpret_cast<const float*>(xs)[rows * KS + e], a.gate_act) * v;
+          }
+        }
+        if constexpr (kTrans)
+          xn[e] = v;                                  // [row][KS]
+        else
+          xn[((b >> 3) * KS + kk) * 8 + (b & 7)] = v;   // [group][KS][8]
+      }
+    }
+    __syncthreads();
+
+    if (rg * 8 < a.batch) {
+      const unsigned char* ws = w_ring + slot * G::kStage;
+      if constexpr (kTrans) {
+        // lane = column; each warp of the group takes 32 / kw pieces of K
+        const int per = (KS / V) / kw;
+        for (int ch = kg * per; ch < (kg + 1) * per; ++ch) {
+          float wv[V];
+          load_vec(reinterpret_cast<const TW*>(ws + lane * G::kRowBytes + ch * 16), wv);
+#pragma unroll
+          for (int b = 0; b < 8; ++b) {
+            const float* xr = xn + (rg * 8 + b) * KS + ch * V;
+            float s2 = acc[b];
+#pragma unroll
+            for (int e = 0; e < V; e += 4) {
+              const float4 xv = *reinterpret_cast<const float4*>(xr + e);
+              s2 = fmaf(xv.x, wv[e], s2);
+              s2 = fmaf(xv.y, wv[e + 1], s2);
+              s2 = fmaf(xv.z, wv[e + 2], s2);
+              s2 = fmaf(xv.w, wv[e + 3], s2);
+            }
+            acc[b] = s2;
+          }
+        }
+      } else {
+        // lane = V adjacent columns; each warp of the group takes 32 / kw rows
+        const int per = KS / kw;
+        for (int kk = kg * per; kk < (kg + 1) * per; ++kk) {
+          float wv[V];
+          load_vec(reinterpret_cast<const TW*>(ws + kk * kSegBytes + lane * 16), wv);
+          const float* xr = xn + (rg * KS + kk) * 8;
+          const float4 xa = *reinterpret_cast<const float4*>(xr);
+          const float4 xb = *reinterpret_cast<const float4*>(xr + 4);
+          const float xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+#pragma unroll
+            for (int b = 0; b < 8; ++b) acc[c * 8 + b] = fmaf(xv[b], wv[c], acc[c * 8 + b]);
+        }
+      }
+    }
+
+    if (s != a.ksteps - 1 && u != end - 1) continue;
+
+    // the end of this block's part of tile t: the warps' sums meet
+    {
+      float* mine = red + warp * ACC * kWarp + lane;   // [warp][ACC][lane]
+#pragma unroll
+      for (int e = 0; e < ACC; ++e) {
+        mine[e * kWarp] = acc[e];
+        acc[e] = 0.f;
+      }
+    }
+    __syncthreads();
+    const int pi = (a.n_problems > 1 && t >= tiles0) ? 1 : 0;
+    const StreamProblem& P = a.p[pi];
+    const int n0 = (t - (pi ? tiles0 : 0)) * TN;
+    const int t_first = t * a.ksteps, t_end = t_first + a.ksteps;
+    const int outs = a.batch * TN;
+    auto warps_sum = [&](int o) {
+      const int b = o / TN, col = o % TN, g = b >> 3, bb = b & 7;
+      const int ln = kTrans ? col : col / V, e = kTrans ? bb : (col % V) * 8 + bb;
+      float v = 0.f;
+      for (int w = 0; w < kw; ++w) v += red[((g * kw + w) * ACC + e) * kWarp + ln];
+      return v;
+    };
+    auto epilogue = [&](int o, float v) {
+      const int b = o / TN, n = n0 + o % TN;
+      if (n >= P.n) return;
+      if (P.bias != nullptr) {
+        if (a.bias_after_round) v = to_float(from_float<TO>(v));
+        v += P.bias[n];
+      }
+      v = activate(v, a.act);
+      static_cast<TO*>(P.out)[static_cast<int64_t>(b) * P.n + n] = from_float<TO>(v);
+    };
+    if (start <= t_first && end >= t_end) {   // the whole tile is this block's
+      for (int o = tid; o < outs; o += kStreamThreads) epilogue(o, warps_sum(o));
+      continue;
+    }
+    // a tile cut by a share boundary: publish this block's part (slot 0 for
+    // its first tile, 1 for its last); the last block to arrive adds every
+    // part in block order, so the sum does not depend on who arrived last
+    float* part = a.work + static_cast<int64_t>(j * 2 + (t == first_tile ? 0 : 1)) * outs;
+    for (int o = tid; o < outs; o += kStreamThreads) __stcg(part + o, warps_sum(o));
+    __threadfence();
+    __syncthreads();
+    const int jlo = block_of(t_first, a.q, a.r), jhi = block_of(t_end - 1, a.q, a.r);
+    if (tid == 0) *s_last = atomicAdd(a.counters + t, 1) == jhi - jlo;
+    __syncthreads();
+    if (!*s_last) continue;
+    __threadfence();
+    for (int o = tid; o < outs; o += kStreamThreads) {
+      float v = 0.f;
+      for (int jj = jlo; jj <= jhi; ++jj) {
+        const int sl = share_start(jj, a.q, a.r) / a.ksteps == t ? 0 : 1;
+        v += __ldcg(a.work + static_cast<int64_t>(jj * 2 + sl) * outs + o);
+      }
+      epilogue(o, v);
+    }
+    if (tid == 0) a.counters[t] = 0;
+  }
+  cp_async_wait(0);
+}
+
+// The resident form (rows <= 8, the main path).  x's rows, made once
+// beforehand in fp32, stay in shared memory for every step a block's share
+// touches (`window` steps, copied in beside the first weight stages), and
+// the weight ring is lane-private: each lane copies 4 x 16 bytes of a unit
+// and reads back only what it copied, so the main loop has no barrier and
+// each warp runs ahead on its own.  Transposed: warp w takes the unit's
+// columns 4w..4w+3, a lane 16 bytes of K, and the lanes' sums meet by a
+// butterfly at a tile's end.  Row-major: warp w takes the unit's K rows
+// 4w..4w+3, a lane 16 bytes of columns; at a tile's end each warp leaves
+// its sums in the work buffer, and once the block's copies have drained
+// it adds them in warp order (`publish`).
+template <typename TW, bool kTrans>
+struct ResGeo {
+  static constexpr int kAcc = kTrans ? 4 * kResRows : Geo<TW, kTrans>::kVec * kResRows;
+};
+
+template <typename TW, bool kTrans>
+__host__ __device__ inline StreamLayout resident_layout(int window, int stages) {
+  using G = Geo<TW, kTrans>;
+  StreamLayout l;
+  l.x_ring = 0;
+  l.x_stage = 0;
+  l.xn = stages * kStageRows * kSegBytes;
+  l.red = l.xn + kResRows * window * G::kKS * 4;
+  l.stats = l.red;             // s_last
+  l.total = l.stats + 16;
+  return l;
+}
+
+// The resident form's stages (3..kResMaxStages) where it takes the launch
+// at `per_sm` blocks an SM, else 0 (more rows, or a window too wide).
+constexpr int kSmemPerSm = 228 * 1024;   // an SM's shared memory, 1 KiB a block reserved
+template <typename TW, bool kTrans>
+int resident_stages(int batch, int window, int per_sm) {
+  if (batch > kResRows) return 0;
+  const int budget = min(kSmemBudget, kSmemPerSm / per_sm - 1024);
+  const int fixed = resident_layout<TW, kTrans>(window, 0).total;
+  const int s = (budget - fixed) / (kStageRows * kSegBytes);
+  // two blocks an SM only where each keeps a deep ring (A/B: a 3-stage
+  // ring at two blocks waits on memory, PERF.md)
+  return s < (per_sm > 1 ? 6 : 3) ? 0 : s > kResMaxStages ? kResMaxStages : s;
+}
+
+template <typename TX, typename TW, typename TO, bool kTrans>
+__global__ void __launch_bounds__(kStreamThreads)
+stream_resident_kernel(const __grid_constant__ StreamArgs a) {
+  using G = Geo<TW, kTrans>;
+  constexpr int V = G::kVec, TN = G::kTN, KS = G::kKS;
+  constexpr int ACC = ResGeo<TW, kTrans>::kAcc;
+  extern __shared__ __align__(16) unsigned char res_smem[];
+  const int S = a.stages, win = a.window;
+  const StreamLayout L = resident_layout<TW, kTrans>(win, S);
+  unsigned char* ring = res_smem;
+  float* xn = reinterpret_cast<float*>(res_smem + L.xn);
+  int* s_last = reinterpret_cast<int*>(res_smem + L.stats);
+
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  const int j = blockIdx.x;
+  const int start = share_start(j, a.q, a.r);
+  const int end = start + a.q + (j < a.r ? 1 : 0);
+  const int first_tile = start / a.ksteps;
+  const int s_first = start % a.ksteps;
+  const int tiles0 = a.p[0].tiles;
+  // the copies: a cursor over this block's units (the next to copy: its
+  // tile and step) and this lane's 4 source rows at that step, advanced
+  // by a step's stride, so the loop divides nothing
+  int lu = start, lt = first_tile, ls = s_first, lslot = 0;
+  const TW* lp[4];
+  bool ln_in[4];
+  const TW* lbase = nullptr;
+  int64_t lstep = 0;
+  auto set_tile = [&]() {
+    const int pi = (a.n_problems > 1 && lt >= tiles0) ? 1 : 0;
+    const StreamProblem& P = a.p[pi];
+    const int n0 = (lt - (pi ? tiles0 : 0)) * TN;
+    lbase = static_cast<const TW*>(P.w);
+    lstep = kTrans ? KS : static_cast<int64_t>(KS) * P.ldw;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int n = kTrans ? n0 + warp * 4 + r : n0 + lane * V;
+      const int k = kTrans ? ls * KS + lane * V : ls * KS + warp * 4 + r;
+      ln_in[r] = n < P.n;
+      lp[r] = lbase + (kTrans ? static_cast<int64_t>(n) * P.ldw + k
+                              : static_cast<int64_t>(k) * P.ldw + n);
+    }
+  };
+  // this lane's 4 x 16 bytes of the cursor's unit into its own place in
+  // slot lslot; then the cursor moves on
+  auto issue = [&]() {
+    unsigned char* dst = ring + lslot * (kStageRows * kSegBytes) + warp * 4 * kSegBytes + lane * 16;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = kTrans ? ls * KS + lane * V : ls * KS + warp * 4 + r;
+      const bool in = ln_in[r] && k < a.k;
+      cp_async16(dst + r * kSegBytes, in ? lp[r] : lbase, in);
+      lp[r] += lstep;
+    }
+    ++lu;
+    if (++lslot == S) lslot = 0;
+    if (++ls == a.ksteps) {
+      ls = 0;
+      ++lt;
+      if (lu < end) set_tile();
+    }
+  };
+  set_tile();
+  for (int i = 0; i < S - 1; ++i) {
+    if (lu < end) issue();
+    else if (++lslot == S) lslot = 0;
+    cp_async_commit();
+  }
+  grid_dep_wait();   // the launch before wrote x's rows
+  // x's rows, made once beforehand (`norm_rows_kernel`, or the up launch's
+  // act(gate) * up): the window is a copy, 16 bytes a piece, in flight
+  // behind the first weight stages; then everything in flight lands
+  {
+    const int quads = kResRows * win * KS / 4;
+    for (int e = tid; e < quads; e += kStreamThreads) {
+      int k;
+      bool in;
+      const float* src;
+      float* dst;
+      if constexpr (kTrans) {   // [b][k] into [b][wi]
+        const int b = e / (win * KS / 4), wi = (e % (win * KS / 4)) * 4;
+        k = ((s_first + wi / KS) % a.ksteps) * KS + wi % KS;
+        in = b < a.batch && k < a.k;
+        src = a.xn_ready + static_cast<int64_t>(b) * a.k + k;
+        dst = xn + b * win * KS + wi;
+      } else {                  // [k][8] into [wi][8], half a row group a piece
+        const int wi = e / 2, h4 = (e % 2) * 4;
+        k = ((s_first + wi / KS) % a.ksteps) * KS + wi % KS;
+        in = k < a.k;
+        src = a.xn_ready + static_cast<int64_t>(k) * kResRows + h4;
+        dst = xn + wi * kResRows + h4;
+      }
+      cp_async16(dst, in ? src : a.xn_ready, in);
+    }
+    cp_async_commit();
+  }
+
+  cp_async_wait(0);
+  __syncthreads();
+
+  float acc[ACC];
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
+
+  // tile tt's output (b, col): the bias (after rounding, K6d), the
+  // activation, the store
+  auto tile_out = [&](int tt, int b, int col, float v) {
+    const int pi = (a.n_problems > 1 && tt >= tiles0) ? 1 : 0;
+    const StreamProblem& P = a.p[pi];
+    const int n = (tt - (pi ? tiles0 : 0)) * TN + col;
+    if (b >= a.batch || n >= P.n) return;
+    if (P.bias != nullptr) {
+      if (a.bias_after_round) v = to_float(from_float<TO>(v));
+      v += P.bias[n];
+    }
+    v = activate(v, a.act);
+    static_cast<TO*>(P.out)[P.out_t ? static_cast<int64_t>(n) * kResRows + b
+                                    : static_cast<int64_t>(b) * P.n + n] = from_float<TO>(v);
+  };
+  // A tile whose outputs need other blocks: one cut by a share boundary
+  // (the last block to arrive adds every part in block order), and in a
+  // gated up launch every tile (the second of a column's up and gate tiles
+  // to be written makes act(gate) * up).  Published after this block's
+  // copies have drained: thread 0's fence would otherwise wait on them.
+  auto publish = [&](int tt, bool whole) {
+    const int t_first = tt * a.ksteps, t_end = t_first + a.ksteps;
+    const int outs = a.batch * TN;
+    const int jlo = block_of(t_first, a.q, a.r), jhi = block_of(t_end - 1, a.q, a.r);
+    if (!kTrans) {
+      // row-major: every warp on the tile left its part.  This block adds
+      // its own in warp order (into warp 0's place); a whole tile is then
+      // written, a cut one's last block to arrive adds the blocks' sums in
+      // block order
+      __syncthreads();   // this block's warps' parts are written
+      const int64_t stride = static_cast<int64_t>(kStreamWarps) * outs;
+      float* mine = a.work + static_cast<int64_t>(j * a.slots + tt - first_tile) * stride;
+#pragma unroll 2
+      for (int o = tid; o < outs; o += kStreamThreads) {
+        float p[kStreamWarps];
+#pragma unroll
+        for (int w = 0; w < kStreamWarps; ++w) p[w] = __ldcg(mine + w * outs + o);
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < kStreamWarps; ++w) v += p[w];
+        if (whole)
+          tile_out(tt, o / TN, o % TN, v);
+        else
+          __stcg(mine + o, v);
+      }
+      if (!whole) {
+        __syncthreads();   // orders this block's sum before thread 0's fence
+        if (tid == 0) {
+          __threadfence();
+          *s_last = atomicAdd(a.counters + tt, 1) == jhi - jlo;
+          __threadfence();
+        }
+        __syncthreads();
+        if (!*s_last) return;
+#pragma unroll 2
+        for (int o = tid; o < outs; o += kStreamThreads) {
+          float v = 0.f;
+          int jj = jlo;
+          auto part_at = [&](int jb) {
+            return __ldcg(a.work + static_cast<int64_t>(
+                                       jb * a.slots + tt - share_start(jb, a.q, a.r) / a.ksteps) *
+                                       stride + o);
+          };
+          for (; jj + 3 <= jhi; jj += 4) {   // four loads in flight, added in block order
+            const float p0 = part_at(jj), p1 = part_at(jj + 1);
+            const float p2 = part_at(jj + 2), p3 = part_at(jj + 3);
+            v += p0;
+            v += p1;
+            v += p2;
+            v += p3;
+          }
+          for (; jj <= jhi; ++jj) v += part_at(jj);
+          tile_out(tt, o / TN, o % TN, v);
+        }
+        if (tid == 0) a.counters[tt] = 0;
+      }
+    } else if (!whole) {
+      __syncthreads();   // the barrier orders this block's part before thread 0's fence
+      if (tid == 0) {
+        __threadfence();
+        *s_last = atomicAdd(a.counters + tt, 1) == jhi - jlo;
+        __threadfence();
+      }
+      __syncthreads();
+      if (!*s_last) return;
+      // slot 0 for the blocks whose first tile this is (all but jlo, whose
+      // share began before it)
+      auto part_at = [&](int jj, int o) {
+        const int sl = (jj == jlo && share_start(jj, a.q, a.r) < t_first) ? 1 : 0;
+        return __ldcg(a.work + static_cast<int64_t>(jj * 2 + sl) * outs + o);
+      };
+#pragma unroll 2
+      for (int o = tid; o < outs; o += kStreamThreads) {
+        float v = 0.f;
+        int jj = jlo;
+        for (; jj + 3 <= jhi; jj += 4) {   // four loads in flight, added in block order
+          const float p0 = part_at(jj, o), p1 = part_at(jj + 1, o);
+          const float p2 = part_at(jj + 2, o), p3 = part_at(jj + 3, o);
+          v += p0;
+          v += p1;
+          v += p2;
+          v += p3;
+        }
+        for (; jj <= jhi; ++jj) v += part_at(jj, o);
+        tile_out(tt, o / TN, o % TN, v);
+      }
+      if (tid == 0) a.counters[tt] = 0;
+    }
+    if (a.h == nullptr) return;
+    const int c = tt < tiles0 ? tt : tt - tiles0;
+    int* pair = a.counters + tiles0 + a.p[1].tiles + c;
+    __syncthreads();   // the tile's outputs are written
+    if (tid == 0) {
+      __threadfence();
+      *s_last = atomicAdd(pair, 1) == 1;
+      __threadfence();
+    }
+    __syncthreads();
+    if (!*s_last) return;
+    const float* up = static_cast<const float*>(a.p[0].out);
+    const float* gate = static_cast<const float*>(a.p[1].out);
+    for (int o = tid; o < TN * kResRows; o += kStreamThreads) {
+      const int n = c * TN + o / kResRows, b = o % kResRows;
+      if (b < a.batch && n < a.p[0].n) {
+        const int64_t at = static_cast<int64_t>(n) * kResRows + b;
+        a.h[at] = activate(__ldcg(gate + at), a.gate_act) * __ldcg(up + at);
+      }
+    }
+    if (tid == 0) *pair = 0;
+  };
+  constexpr int kPending = 8;
+  int pending[kPending];
+  bool pending_whole[kPending];
+  int n_pending = 0;
+  auto defer = [&](int tt, bool whole) {
+    if (n_pending == kPending) {
+      publish(tt, whole);   // a long share of a gated launch: at once
+      return;
+    }
+    pending[n_pending] = tt;
+    pending_whole[n_pending] = whole;
+    ++n_pending;
+  };
+
+  // the consumer's cursor: unit u's tile t, step s, slot and place xw in
+  // the window (the share walks the steps in order, so xw counts units)
+  int t = first_tile, s = s_first, cslot = 0, xw = 0;
+  auto next = [&]() {
+    if (++cslot == S) cslot = 0;
+    if (++xw == a.ksteps) xw = 0;
+    if (++s == a.ksteps) {
+      s = 0;
+      ++t;
+    }
+  };
+  for (int u = start; u < end; ++u, next()) {
+    if (lu < end) issue();   // into the slot of unit u - 1: this lane read it
+    else if (++lslot == S) lslot = 0;
+    cp_async_commit();
+    cp_async_wait(S - 1);   // this lane's copies of unit u have landed
+    const unsigned char* ws = ring + cslot * (kStageRows * kSegBytes) + warp * 4 * kSegBytes + lane * 16;
+    if constexpr (kTrans) {
+      float xv[kResRows][V];
+#pragma unroll
+      for (int b = 0; b < kResRows; ++b) {
+        const float* xr = xn + (b * win + xw) * KS + lane * V;
+#pragma unroll
+        for (int e = 0; e < V; e += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(xr + e);
+          xv[b][e] = q.x; xv[b][e + 1] = q.y; xv[b][e + 2] = q.z; xv[b][e + 3] = q.w;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float wv[V];
+        load_vec(reinterpret_cast<const TW*>(ws + c * kSegBytes), wv);
+#pragma unroll
+        for (int b = 0; b < kResRows; ++b) {
+          float s2 = acc[c * kResRows + b];
+#pragma unroll
+          for (int e = 0; e < V; ++e) s2 = fmaf(xv[b][e], wv[e], s2);
+          acc[c * kResRows + b] = s2;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float wv[V];
+        load_vec(reinterpret_cast<const TW*>(ws + r * kSegBytes), wv);
+        const float* xr = xn + (xw * KS + warp * 4 + r) * kResRows;
+        const float4 xa = *reinterpret_cast<const float4*>(xr);
+        const float4 xb = *reinterpret_cast<const float4*>(xr + 4);
+        const float xv[kResRows] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+#pragma unroll
+          for (int b = 0; b < kResRows; ++b)
+            acc[c * kResRows + b] = fmaf(xv[b], wv[c], acc[c * kResRows + b]);
+      }
+    }
+    if (s != a.ksteps - 1 && u != end - 1) continue;
+
+    // the end of this block's part of tile t: the sums meet
+    const int t_first = t * a.ksteps, t_end = t_first + a.ksteps;
+    const bool whole = start <= t_first && end >= t_end;
+    float* part = a.work + static_cast<int64_t>(j * 2 + (t == first_tile ? 0 : 1)) *
+                               (a.batch * TN);
+    if constexpr (kTrans) {
+      // butterfly: every lane gets the 32 sums; lane c * 8 + b keeps (c, b)
+      // (A/B: a 31-shuffle reduce-scatter was slower: its selects)
+      float mine = 0.f;
+#pragma unroll
+      for (int e = 0; e < ACC; ++e) {
+        const float v = warp_sum(acc[e]);
+        if (e == lane) mine = v;
+        acc[e] = 0.f;
+      }
+      const int b = lane % kResRows, col = warp * 4 + lane / kResRows;
+      if (whole)
+        tile_out(t, b, col, mine);
+      else if (b < a.batch)
+        __stcg(part + b * TN + col, mine);
+    } else {
+      // this warp's sums of tile t (it took 4 of each unit's K rows) into
+      // the work buffer: no barrier here; the parts are added after the
+      // stream (publish)
+      float* wp = a.work + (static_cast<int64_t>(j * a.slots + t - first_tile) * kStreamWarps +
+                            warp) * (a.batch * TN);
+#pragma unroll
+      for (int b = 0; b < kResRows; ++b) {
+        if (b >= a.batch) break;
+#pragma unroll
+        for (int c = 0; c < V; c += 4)
+          __stcg(reinterpret_cast<float4*>(wp + b * TN + lane * V + c),
+                 make_float4(acc[c * kResRows + b], acc[(c + 1) * kResRows + b],
+                             acc[(c + 2) * kResRows + b], acc[(c + 3) * kResRows + b]));
+      }
+#pragma unroll
+      for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
+    }
+    if (!kTrans || !whole || a.h != nullptr) defer(t, whole);
+  }
+  cp_async_wait(0);
+  __syncthreads();   // every warp's parts of this block are written
+  for (int i = 0; i < n_pending; ++i) publish(pending[i], pending_whole[i]);
+}
+
+// The resident form's x, made once: each row's norm in fp32 with the
+// plain version's statistics (the mean, then the mean of (x - mean)^2),
+// as [batch][k] (a transposed weight's) or [k][8] (a row-major one's).
+template <typename TX>
+__global__ void __launch_bounds__(kStreamThreads)
+norm_rows_kernel(const TX* __restrict__ x, int k, const float* __restrict__ nw,
+                 const float* __restrict__ nb, int norm, float eps, float* __restrict__ out,
+                 int interleaved) {
+  __shared__ float red[kStreamWarps];
+  grid_dep_launch();   // the stream kernel may start its weight copies
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const TX* xr = x + static_cast<int64_t>(b) * k;
+  const int quads = k / 4;
+  auto block_sum = [&](float v) {
+    v = warp_sum(v);
+    if (tid % kWarp == 0) red[tid / kWarp] = v;
+    __syncthreads();
+    float t = 0.f;
+    for (int w = 0; w < kStreamWarps; ++w) t += red[w];
+    __syncthreads();
+    return t;
+  };
+  float mean = 0.f;
+  if (norm == kLayerNorm) {
+    float s = 0.f;
+#pragma unroll 4
+    for (int q = tid; q < quads; q += kStreamThreads) {
+      float v[4];
+      load4(xr + 4 * q, v);
+      s += v[0];
+      s += v[1];
+      s += v[2];
+      s += v[3];
+    }
+    mean = block_sum(s) / k;
+  }
+  float var = 0.f;
+#pragma unroll 4
+  for (int q = tid; q < quads; q += kStreamThreads) {
+    float v[4];
+    load4(xr + 4 * q, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d = v[e] - mean;
+      var = fmaf(d, d, var);
+    }
+  }
+  const float rstd = rsqrtf(block_sum(var) / k + eps);
+#pragma unroll 4
+  for (int q = tid; q < quads; q += kStreamThreads) {
+    float v[4], w4[4], b4[4] = {0.f, 0.f, 0.f, 0.f};
+    load4(xr + 4 * q, v);
+    load4(nw + 4 * q, w4);
+    if (nb != nullptr) load4(nb + 4 * q, b4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = (v[e] - mean) * rstd * w4[e] + b4[e];
+    if (interleaved) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) out[static_cast<int64_t>(4 * q + e) * kResRows + b] = v[e];
+    } else {
+      *reinterpret_cast<float4*>(out + static_cast<int64_t>(b) * k + 4 * q) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// The stages that fit the budget (at most kMaxStages, at least 2), or 0.
+template <typename TX, typename TW, bool kTrans>
+int stream_stages(int groups, bool gated) {
+  for (int s = kMaxStages; s >= 2; --s)
+    if (stream_layout<TX, TW, kTrans>(groups, gated, s).total <= kSmemBudget) return s;
+  return 0;
+}
+
+// The dynamic shared memory attribute, once per kernel.
+template <typename K>
+int allow_smem(K kernel, bool* done) {
+  if (*done) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBudget);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *done = true;
+  return 0;
+}
+
+int row_groups(int batch) {
+  const int g = (batch + 7) / 8;
+  return g <= 1 ? 1 : g <= 2 ? 2 : g <= 4 ? 4 : 8;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// The window of x a resident launch holds: the steps of the longest share.
+int resident_window(int q, int r, int ksteps) {
+  const int longest = q + (r > 0 ? 1 : 0);
+  return longest < ksteps ? longest : ksteps;
+}
+
+// Blocks an SM holds at once of the form a launch of `tiles` x `ksteps`
+// units at `batch` rows takes (>= 1), or -error: the resident form runs
+// one block an SM (its window and ring fill the shared memory), the
+// staged form as many as fit.
+template <typename TX, typename TW, typename TO, bool kTrans>
+int stream_occupancy(int batch, bool gated, int tiles, int ksteps) {
+  const int sms = sm_count();
+  const long long units = static_cast<long long>(tiles) * ksteps;
+  if (sms < 1 || units < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  for (int per_sm = 2; per_sm >= 1; --per_sm) {   // two blocks an SM where their windows fit
+    const long long blocks = static_cast<long long>(per_sm) * sms;
+    const int grid = static_cast<int>(units < blocks ? units : blocks);
+    if (resident_stages<TW, kTrans>(
+            batch,
+            resident_window(static_cast<int>(units / grid), static_cast<int>(units % grid),
+                            ksteps),
+            per_sm) > 0)
+      return per_sm;
+  }
+  const int groups = row_groups(batch);
+  const int stages = stream_stages<TX, TW, kTrans>(groups, gated);
+  if (stages == 0) return -static_cast<int>(cudaErrorInvalidValue);
+  static bool done = false;
+  const auto kernel = stream_gemv_kernel<TX, TW, TO, kTrans>;
+  const int rc = allow_smem(kernel, &done);
+  if (rc != 0) return -rc;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kernel, kStreamThreads, stream_layout<TX, TW, kTrans>(groups, gated, stages).total);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return n > 0 ? n : -static_cast<int>(cudaErrorInvalidConfiguration);
+}
+
+// Whether the resident form takes a launch of `k` (its reduction axis) at
+// `batch` rows under the plan (grid, q, r).
+template <typename TW, bool kTrans>
+bool resident_takes(int batch, int k, int grid, int q, int r) {
+  const int sms = sm_count();
+  const int ksteps = (k + Geo<TW, kTrans>::kKS - 1) / Geo<TW, kTrans>::kKS;
+  return sms > 0 && grid > 0 &&
+         resident_stages<TW, kTrans>(batch, resident_window(q, r, ksteps),
+                                     (grid + sms - 1) / sms) > 0;
+}
+
+// x's rows made once for a resident launch (`norm_rows_kernel`).
+template <typename TX>
+int launch_norm_rows(const void* x, int batch, int k, const void* nw, const void* nb,
+                     int norm, float eps, float* out, int interleaved, cudaStream_t stream) {
+  norm_rows_kernel<TX><<<batch, kStreamThreads, 0, stream>>>(
+      static_cast<const TX*>(x), k, static_cast<const float*>(nw),
+      static_cast<const float*>(nb), norm, eps, out, interleaved);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Fill the plan and the tiles of `a` (its problems set) and launch `grid`
+// blocks of the resident form (`resident`; it must take the launch) or of
+// the staged one; the plan must cover the tiles' units exactly.
+template <typename TX, typename TW, typename TO, bool kTrans>
+int launch_stream(StreamArgs& a, int grid, bool resident, cudaStream_t stream) {
+  using G = Geo<TW, kTrans>;
+  int tiles = 0;
+  for (int i = 0; i < a.n_problems; ++i) {
+    a.p[i].tiles = (a.p[i].n + G::kTN - 1) / G::kTN;
+    tiles += a.p[i].tiles;
+  }
+  a.ksteps = (a.k + G::kKS - 1) / G::kKS;
+  if (grid < 1 || a.q < 1 || a.r < 0 || a.r >= grid ||
+      static_cast<long long>(a.q) * grid + a.r != static_cast<long long>(tiles) * a.ksteps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.window = resident_window(a.q, a.r, a.ksteps);
+  a.slots = (a.q + a.ksteps) / a.ksteps + 1;   // ceil((q + 1) / ksteps) + 1
+  const int sms = sm_count();
+  a.stages = !resident || sms < 1
+                 ? 0
+                 : resident_stages<TW, kTrans>(a.batch, a.window, (grid + sms - 1) / sms);
+  if (resident && a.stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.stages > 0) {
+    static bool done = false;
+    const auto kernel = stream_resident_kernel<TX, TW, TO, kTrans>;
+    const int rc = allow_smem(kernel, &done);
+    if (rc != 0) return rc;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg{};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(kStreamThreads);
+    cfg.dynamicSmemBytes = resident_layout<TW, kTrans>(a.window, a.stages).total;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+  a.groups = row_groups(a.batch);
+  a.stages = stream_stages<TX, TW, kTrans>(a.groups, a.gate != nullptr);
+  if (a.stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  static bool done = false;
+  const auto kernel = stream_gemv_kernel<TX, TW, TO, kTrans>;
+  const int rc = allow_smem(kernel, &done);
+  if (rc != 0) return rc;
+  kernel<<<grid, kStreamThreads, stream_layout<TX, TW, kTrans>(a.groups, a.gate != nullptr,
+                                                                a.stages).total,
+           stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The route of one product: the stream kernel takes rows 1..64 of fp32 or
+// bf16 where every pointer is 16-byte aligned and n, k and the row stride
+// are multiples of the 16-byte vector; the generic GEMV takes the rest.
+int stream_route(int transposed, int rows, int n, int k, long long ldw, int dtype,
+                 bool aligned) {
+  if (dtype != 0 && dtype != 1) return 0;
+  const int v = dtype == 0 ? 4 : 8;
+  return aligned && rows >= 1 && rows <= kStreamMaxRows && n > 0 && k > 0 &&
+         n % v == 0 && k % v == 0 && ldw % v == 0 && ldw >= (transposed ? k : n);
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Each entry returns
@@ -889,4 +1921,178 @@ extern "C" int fd_norm_matmul(const void* x, int batch, int hidden,
   a.counters = static_cast<int*>(counters);
   if (dtype == 0) return launch_gemv<float, float, float>(a, y_tiles, s);
   return launch_gemv<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(a, y_tiles, s);
+}
+
+// The stream kernel's route of one product (1) or the generic GEMV's (0):
+// rows 1..64 of x, fp32 or bf16, every pointer 16-byte aligned (`aligned`),
+// n, k and the weight's row stride multiples of the 16-byte vector.
+extern "C" int fd_route(int transposed, int rows, int n, int k, long long ldw,
+                        int dtype, int aligned) {
+  return stream_route(transposed, rows, n, k, ldw, dtype, aligned != 0);
+}
+
+// Blocks of the stream kernel an SM holds at once, for the instantiation a
+// launch of `kind` takes (0: K6d; 1: K6c's up and gate products into fp32;
+// 2: K6c's down product of the fp32 scratch) at `rows` rows of x (and a
+// gate for kind 2) over `tiles` x `ksteps` units; a negative CUDA error
+// where none fits.
+extern "C" int fd_stream_occupancy(int kind, int transposed, int rows, int gated,
+                                   int dtype, int tiles, int ksteps) {
+  using bf = __nv_bfloat16;
+  if (rows < 1 || rows > kStreamMaxRows || kind < 0 || kind > 2 ||
+      (transposed && kind != 0))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const bool gt = gated != 0;
+  if (dtype == 0)
+    return transposed ? stream_occupancy<float, float, float, true>(rows, gt, tiles, ksteps)
+                      : stream_occupancy<float, float, float, false>(rows, gt, tiles, ksteps);
+  if (dtype != 1) return -static_cast<int>(cudaErrorInvalidValue);
+  if (kind == 0)
+    return transposed ? stream_occupancy<bf, bf, bf, true>(rows, gt, tiles, ksteps)
+                      : stream_occupancy<bf, bf, bf, false>(rows, gt, tiles, ksteps);
+  if (kind == 1) return stream_occupancy<bf, bf, float, false>(rows, gt, tiles, ksteps);
+  return stream_occupancy<float, bf, bf, false>(rows, gt, tiles, ksteps);
+}
+
+// K6d on the stream route: arguments as fd_norm_matmul's, with the plan in
+// place of the split: `grid` blocks, block j taking q + (j < r) units
+// (tile, K step) from j q + min(j, r); work fp32 [grid][2][batch][tile
+// columns]; counters int [tiles], zero; xbuf fp32 [8 * hidden] (x's
+// normalized rows for the resident form, up to 8 rows).
+extern "C" int fd_norm_matmul_stream(const void* x, int batch, int hidden,
+                                     const void* nw, const void* nb, int norm,
+                                     float eps, const void* w, long long ldw,
+                                     int transposed, const void* bias, void* y,
+                                     int n, void* work, void* counters, void* xbuf,
+                                     int grid, int q, int r, int dtype, void* stream) {
+  if (batch <= 0 || batch > kStreamMaxRows || hidden <= 0 || n <= 0 ||
+      (norm != kLayerNorm && norm != kRmsNorm) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  (void)cudaGetLastError();
+  StreamArgs a{};
+  a.x = x;
+  a.batch = batch;
+  a.k = hidden;
+  a.norm = norm;
+  a.nw = static_cast<const float*>(nw);
+  a.nb = static_cast<const float*>(nb);
+  a.eps = eps;
+  a.act = kNoAct;
+  a.bias_after_round = 1;
+  a.n_problems = 1;
+  a.p[0] = StreamProblem{w, ldw, static_cast<const float*>(bias), y, n, 0, 0};
+  a.q = q;
+  a.r = r;
+  a.work = static_cast<float*>(work);
+  a.counters = static_cast<int*>(counters);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  const bool res = dtype == 0 ? (transposed ? resident_takes<float, true>(batch, hidden, grid, q, r)
+                                            : resident_takes<float, false>(batch, hidden, grid, q, r))
+                              : (transposed ? resident_takes<bf, true>(batch, hidden, grid, q, r)
+                                            : resident_takes<bf, false>(batch, hidden, grid, q, r));
+  if (res) {
+    const int rc = dtype == 0
+        ? launch_norm_rows<float>(x, batch, hidden, nw, nb, norm, eps, static_cast<float*>(xbuf),
+                                  !transposed, s)
+        : launch_norm_rows<bf>(x, batch, hidden, nw, nb, norm, eps, static_cast<float*>(xbuf),
+                               !transposed, s);
+    if (rc != 0) return rc;
+    a.xn_ready = static_cast<const float*>(xbuf);
+  }
+  if (dtype == 0)
+    return transposed ? launch_stream<float, float, float, true>(a, grid, res, s)
+                      : launch_stream<float, float, float, false>(a, grid, res, s);
+  return transposed ? launch_stream<bf, bf, bf, true>(a, grid, res, s)
+                    : launch_stream<bf, bf, bf, false>(a, grid, res, s);
+}
+
+// K6c on the stream route: arguments as fd_norm_mlp's, with a plan for each
+// launch (grid_up/q_up/r_up over the up and gate products' tiles, then
+// grid_down/q_down/r_down over the down product's); work and counters as
+// for fd_norm_matmul_stream, sized for the larger launch (counters for the
+// up launch's tiles and column tiles once more).  scratch fp32, at least
+// max(24 inter + 8 hidden, n_up batch inter): where the resident form takes
+// both launches, up, gate and act(gate) * up as [inter][8] and x's rows as
+// [hidden][8]; else up and gate as [batch][inter].
+extern "C" int fd_norm_mlp_stream(const void* x, int batch, int hidden,
+                                  const void* nw, const void* nb, int norm,
+                                  float eps, const void* w1, long long ld1,
+                                  const void* wg, long long ldg, const void* b1,
+                                  int act, const void* w2, long long ld2,
+                                  const void* b2, void* scratch, void* y,
+                                  int inter, int out_dim, void* work,
+                                  void* counters, int grid_up, int q_up,
+                                  int r_up, int grid_down, int q_down,
+                                  int r_down, int dtype, void* stream) {
+  if (batch <= 0 || batch > kStreamMaxRows ||
+      (norm != kLayerNorm && norm != kRmsNorm) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  (void)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf = __nv_bfloat16;
+  const bool res = dtype == 0
+      ? resident_takes<float, false>(batch, hidden, grid_up, q_up, r_up) &&
+            resident_takes<float, false>(batch, inter, grid_down, q_down, r_down)
+      : resident_takes<bf, false>(batch, hidden, grid_up, q_up, r_up) &&
+            resident_takes<bf, false>(batch, inter, grid_down, q_down, r_down);
+  float* f = static_cast<float*>(scratch);
+  const int64_t il = static_cast<int64_t>(kResRows) * inter;
+  float* up_out = f;
+  float* gate_out = res ? f + il : f + static_cast<int64_t>(batch) * inter;
+  float* h = f + 2 * il;
+  float* xn = f + 3 * il;
+
+  StreamArgs up{};
+  up.x = x;
+  up.batch = batch;
+  up.k = hidden;
+  up.norm = norm;
+  up.nw = static_cast<const float*>(nw);
+  up.nb = static_cast<const float*>(nb);
+  up.eps = eps;
+  up.act = wg != nullptr ? kNoAct : act;
+  up.n_problems = wg != nullptr ? 2 : 1;
+  up.p[0] = StreamProblem{w1, ld1, static_cast<const float*>(b1), up_out, inter, 0, res};
+  if (wg != nullptr) up.p[1] = StreamProblem{wg, ldg, nullptr, gate_out, inter, 0, res};
+  up.q = q_up;
+  up.r = r_up;
+  up.work = static_cast<float*>(work);
+  up.counters = static_cast<int*>(counters);
+  if (res) {
+    const int rc = dtype == 0
+        ? launch_norm_rows<float>(x, batch, hidden, nw, nb, norm, eps, xn, 1, s)
+        : launch_norm_rows<bf>(x, batch, hidden, nw, nb, norm, eps, xn, 1, s);
+    if (rc != 0) return rc;
+    up.xn_ready = xn;
+    if (wg != nullptr) {
+      up.h = h;
+      up.gate_act = act;
+    }
+  }
+  const int rc = dtype == 0 ? launch_stream<float, float, float, false>(up, grid_up, res, s)
+                            : launch_stream<bf, bf, float, false>(up, grid_up, res, s);
+  if (rc != 0) return rc;
+
+  StreamArgs down{};
+  down.batch = batch;
+  down.k = inter;
+  down.norm = kNoNorm;
+  down.act = kNoAct;
+  down.n_problems = 1;
+  down.p[0] = StreamProblem{w2, ld2, static_cast<const float*>(b2), y, out_dim, 0, 0};
+  down.q = q_down;
+  down.r = r_down;
+  down.work = static_cast<float*>(work);
+  down.counters = static_cast<int*>(counters);
+  if (res) {   // x: act(gate) * up, or GPT's activated up, made by the up launch
+    down.x = wg != nullptr ? h : up_out;
+    down.xn_ready = static_cast<const float*>(down.x);
+  } else {     // x comes in as act(gate) * up, made per step
+    down.x = up_out;
+    down.gate = wg != nullptr ? gate_out : nullptr;
+    down.gate_act = act;
+  }
+  return dtype == 0 ? launch_stream<float, float, float, false>(down, grid_down, res, s)
+                    : launch_stream<float, bf, bf, false>(down, grid_down, res, s);
 }

@@ -44,8 +44,13 @@
 // Widths without an instantiation, and pointers that are not 16-byte
 // aligned, take the generic route: the same kernel with one element per
 // chunk (scalar loads), 256 threads a row, a runtime tail, and 1-32
-// elements per thread (H <= 8192).  `ln_route` says which route a call
-// takes; the launches below follow it.
+// elements per thread (H <= 8192).  Wider rows take the wide route: a block
+// of 1024 threads per row streams it from device memory (scalar loads, any
+// alignment), once for the mean, again for the squared deviations and a
+// third time for the output (the dx: once for the pair of sums, again for
+// dx), the row staying in L1 between passes; the same statistics, sums and
+// fixed reduction order as the other routes.  `ln_route` says which route a
+// call takes; the launches below follow it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,6 +75,8 @@ constexpr int kRowsPerBlock = 2;
 // The generic route: threads per row, and the most elements per thread.
 constexpr int kGenericThreads = 256;
 constexpr int kGenericMaxItems = 32;
+// The wide route: threads per row.
+constexpr int kWideThreads = 1024;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -342,6 +349,72 @@ layer_norm_bwd_dx_kernel(const T* __restrict__ x, const TW* __restrict__ w,
   }
 }
 
+// The wide route: one block of kWideThreads per row, any width, the row
+// read again for each pass (statistics as above: the mean, then the sum of
+// squared deviations; every thread gets the same bits).
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kWideThreads)
+layer_norm_wide_fwd_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                           const TW* __restrict__ b, T* __restrict__ y,
+                           float* __restrict__ mean, float* __restrict__ rstd,
+                           int n_rows, int h, float eps) {
+  __shared__ float red[2][kWideThreads / kWarp];
+  for (int row = blockIdx.x; row < n_rows; row += gridDim.x) {
+    const int64_t off = static_cast<int64_t>(row) * h;
+    const T* xr = x + off;
+    float s[1] = {0.f};
+    for (int c = threadIdx.x; c < h; c += kWideThreads) s[0] += to_float(xr[c]);
+    row_sum<kWideThreads>(s, red[0]);
+    const float m = s[0] / h;
+    float ss[1] = {0.f};
+    for (int c = threadIdx.x; c < h; c += kWideThreads) {
+      const float d = to_float(xr[c]) - m;
+      ss[0] += d * d;
+    }
+    row_sum<kWideThreads>(ss, red[1]);
+    const float r = rsqrtf(ss[0] / h + eps);
+    for (int c = threadIdx.x; c < h; c += kWideThreads)
+      y[off + c] = from_float<T>((to_float(xr[c]) - m) * r * to_float(w[c]) +
+                                 to_float(b[c]));
+    if (threadIdx.x == 0) {
+      mean[row] = m;
+      rstd[row] = r;
+    }
+  }
+}
+
+template <typename T, typename TW>
+__global__ void __launch_bounds__(kWideThreads)
+layer_norm_wide_bwd_dx_kernel(const T* __restrict__ x, const TW* __restrict__ w,
+                              const float* __restrict__ mean,
+                              const float* __restrict__ rstd,
+                              const T* __restrict__ g, T* __restrict__ dx,
+                              int n_rows, int h) {
+  __shared__ float red[2][kWideThreads / kWarp * 2];
+  int slot = 0;
+  for (int row = blockIdx.x; row < n_rows; row += gridDim.x) {
+    const int64_t off = static_cast<int64_t>(row) * h;
+    const float m = mean[row];
+    const float r = rstd[row];
+    float s[2] = {0.f, 0.f};
+    for (int c = threadIdx.x; c < h; c += kWideThreads) {
+      const float xhat = (to_float(x[off + c]) - m) * r;
+      const float wg = to_float(g[off + c]) * to_float(w[c]);
+      s[0] += wg;
+      s[1] += wg * xhat;
+    }
+    row_sum<kWideThreads>(s, red[slot]);
+    slot ^= 1;
+    const float mu1 = s[0] / h;
+    const float mu2 = s[1] / h;
+    for (int c = threadIdx.x; c < h; c += kWideThreads) {
+      const float xhat = (to_float(x[off + c]) - m) * r;
+      const float wg = to_float(g[off + c]) * to_float(w[c]);
+      dx[off + c] = from_float<T>(r * (wg - mu1 - xhat * mu2));
+    }
+  }
+}
+
 int sm_count() {
   static int count[64];
   int dev = 0;
@@ -419,13 +492,36 @@ int launch_generic(const Args& a) {
   return launch<kFwd, T, TW, 1, kGenericThreads, kItems, 1, true>(a);
 }
 
+template <bool kFwd, typename T, typename TW>
+int launch_wide(const Args& a) {
+  static int resident = 0;
+  if constexpr (kFwd) {
+    const auto kernel = layer_norm_wide_fwd_kernel<T, TW>;
+    const int grid = grid_for(kernel, kWideThreads, 1, a.n_rows, &resident);
+    kernel<<<grid, kWideThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.x), static_cast<const TW*>(a.w),
+        static_cast<const TW*>(a.b), static_cast<T*>(a.out),
+        static_cast<float*>(a.mean_out), static_cast<float*>(a.rstd_out),
+        a.n_rows, a.h, a.eps);
+  } else {
+    const auto kernel = layer_norm_wide_bwd_dx_kernel<T, TW>;
+    const int grid = grid_for(kernel, kWideThreads, 1, a.n_rows, &resident);
+    kernel<<<grid, kWideThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.x), static_cast<const TW*>(a.w),
+        static_cast<const float*>(a.mean), static_cast<const float*>(a.rstd),
+        static_cast<const T*>(a.g), static_cast<T*>(a.out), a.n_rows, a.h);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The route of a row of h elements: h itself for a vector instantiation
-// (every pointer 16-byte aligned), 0 for the generic route, -1 for none.
+// (every pointer 16-byte aligned), 0 for the generic route (h <= 8192), 1
+// for the wide route (h > 8192), -1 for none (h <= 0).
 int route(int h, bool aligned) {
   if (h <= 0) return -1;
   if (aligned && (h == 768 || h == 2048 || h == 4096)) return h;
   if (h <= kGenericThreads * kGenericMaxItems) return 0;
-  return -1;
+  return 1;
 }
 
 template <bool kFwd, typename T, typename TW>
@@ -450,6 +546,8 @@ int dispatch(const Args& a, bool aligned) {
       if (items <= 16) return launch_generic<kFwd, T, TW, 16>(a);
       return launch_generic<kFwd, T, TW, kGenericMaxItems>(a);
     }
+    case 1:
+      return launch_wide<kFwd, T, TW>(a);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -475,7 +573,8 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 
 // The route a call with rows of h elements takes: h (768, 2048 or 4096:
 // the vector route) when `aligned` (every pointer of the call 16-byte
-// aligned), 0 for the generic route (h <= 8192), -1 when none takes it.
+// aligned), 0 for the generic route (h <= 8192), 1 for the wide route (h >
+// 8192), -1 when none takes it (h <= 0).
 extern "C" int ln_route(int h, int aligned) { return route(h, aligned != 0); }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (x/y/g/dx share `x_dtype`, w/b

@@ -17,6 +17,16 @@ The contract is the JAX package's:
 There is no block-multiple gate (the kernel masks ragged tails) and no
 GQA gate: both were TPU-only rules of ``ops/pallas/flash_attention.py``.
 
+``causal`` with ``q_offset < 0`` raises ``ValueError`` on every route,
+the CPU's included.  Then the first ``-q_offset`` query rows see no key,
+and the reference defines no answer for them: its jnp reference gives
+such a row a uniform average over all keys, its Pallas kernel 0 where
+its loop visits no key block and a uniform average over one block's keys
+where it does, so the answer depends on its block size.  The CUDA
+kernels would give 0 and the plain version a uniform row; no path of
+the port builds the shape (``scaled_dot_product_attention`` sends causal
+``Sq > Sk`` to its composition).
+
 On CUDA tensors :func:`flash_attention_bhsd` is a ``torch.autograd.
 Function`` over ``csrc/flash_attention.cu`` (design notes there) that
 launches or raises; on CPU tensors it takes :func:`reference_attention_bhsd`
@@ -91,6 +101,15 @@ def _check(q, k, v, n_rep):
         raise ValueError("empty attention input")
 
 
+def _check_offset(causal, q_offset):
+    """Raise where a causal query row would see no key (module
+    docstring)."""
+    if causal and int(q_offset) < 0:
+        raise ValueError(f"causal attention with q_offset {int(q_offset)} "
+                         "< 0: the first query rows see no key, and the "
+                         "reference defines no answer for them")
+
+
 def _rc(rc, what):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
@@ -104,6 +123,7 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool,
                         q_offset: int = 0, n_rep: int = 1):
     """K1a on CUDA tensors: ``(out, lse)`` with out in q's dtype and fp32
     ``lse [B*Hq, Sq]``."""
+    _check_offset(causal, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -128,6 +148,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float,
     """K1b then K1c on CUDA tensors: ``(dq, dk, dv)`` from the forward's
     ``out`` and ``lse`` and the output gradient ``dout``.  bf16 runs the
     tensor-core kernels, float32 the CUDA-core ones."""
+    _check_offset(causal, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -181,7 +202,9 @@ def flash_attention_bhsd(q, k, v, scale: float, causal: bool,
                          q_offset: int = 0, n_rep: int = 1):
     """Attention over ``[B*H, S, D]`` (contract in the module docstring).
     CPU tensors take the plain version; CUDA tensors launch the kernels
-    on the current stream, or raise."""
+    on the current stream, or raise.  ``causal`` with ``q_offset < 0``
+    raises on both (module docstring)."""
+    _check_offset(causal, q_offset)
     if q.device.type == "cpu":
         return reference_attention_bhsd(q, k, v, scale, causal, q_offset,
                                         n_rep)

@@ -13,9 +13,11 @@
   b2`` (``kind="layer_norm"``, GPT) or RMSNorm -> ``act(h @ w_gate) *
   (h @ w1)`` -> ``w2`` (``kind="rms_norm"``, LLaMA; ``act`` silu or
   gelu_tanh), with fp32 statistics.  The residual add stays with the
-  caller.  On the card it is two launches (the down product needs every
-  column of the ``[B, I]`` up and gate products, kept in an fp32
-  scratch); ``launches["norm_mlp"]`` counts one per call;
+  caller.  On the card the up (and gate) and the down products are two
+  launches (the down product needs every column of the up and gate
+  products, kept in an fp32 scratch), after a small one that normalizes
+  x on the stream route's resident form; ``launches["norm_mlp"]`` counts
+  one per call;
 * :func:`norm_matmul` (K6d) — ``norm(x) @ w`` over ``x [..., H]`` and
   ``w [H, N]`` (LayerNorm with weight and optional bias, or RMSNorm),
   fp32 statistics, fp32 normalised rows and fp32 sums, the result cast to
@@ -24,6 +26,19 @@
   chain onto.  ``w`` may be row-major (a ``linear`` weight) or the
   transposed view of a row-major ``[N, H]`` tensor (a ``transpose_y``
   head); each layout has its own loop on the card.
+
+**Routes of K6c and K6d on the card.**  :func:`fd_route` (the twin of
+``csrc/fused_decode.cu``'s ``fd_route``) sends a product to the
+persistent weight-streaming kernel (``"stream"``: rows 1..64, fp32 or
+bf16, 16-byte aligned pointers, N, K and the row stride multiples of the
+16-byte vector) or to the generic GEMV (``"generic"``: the rest, such as
+odd widths or unaligned views); :func:`norm_matmul_route` and
+:func:`norm_mlp_route` name a call's route.  The stream kernel's grid and
+its shares of the weight are :func:`stream_plan`'s, a pure function of
+the tiles, the steps and the blocks the card holds; a tile cut by a
+share boundary is summed from :func:`stream_contributors`' parts in block
+order.  The route depends on shapes and pointers only, never on whether a
+build or a launch failed.
 
 Each has a plain version (``*_ref``) that mirrors the JAX package's jnp
 reference exactly (same op order and casts: ``reference_rms_norm``
@@ -60,6 +75,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -72,7 +88,9 @@ __all__ = ["reference_rope_rows", "reference_rms_norm",
            "attend_cache_append_ref", "attend_admits", "norm_mlp",
            "norm_mlp_ref", "norm_mlp_admits", "norm_matmul",
            "norm_matmul_ref", "norm_matmul_admits", "NORM_MLP_MAX_ROWS",
-           "launches"]
+           "fd_route", "norm_matmul_route", "norm_mlp_route",
+           "stream_geometry", "stream_plan", "stream_shares",
+           "stream_contributors", "StreamPlan", "launches"]
 
 # kernel launches (CUDA route only); norm_mlp counts one per call (two
 # kernels)
@@ -86,6 +104,10 @@ _SILU, _GELU_TANH, _GELU = 1, 2, 3
 # csrc/fused_decode.cu's GEMV geometry: 32 column pairs x 8 rows a block,
 # 256 threads; a split of K keeps at least this many rows
 _TILE_PAIRS, _ROWS, _THREADS, _MIN_SPLIT_K = 32, 8, 256, 512
+# csrc/fused_decode.cu's stream kernel: a unit is 32 stage rows of 512
+# bytes; launch kinds of fd_stream_occupancy
+_STAGE_ROWS, _SEG_BYTES = 32, 512
+_K6D, _K6C_UP, _K6C_DOWN = 0, 1, 2
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +284,115 @@ def norm_matmul_admits(x, w, bias=None) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the stream route of K6c and K6d: its rule and its plan (pure functions)
+# ---------------------------------------------------------------------------
+
+def fd_route(transposed: bool, rows: int, n: int, k: int, ldw: int, dtype,
+             aligned: bool) -> int:
+    """Twin of ``csrc/fused_decode.cu``'s ``fd_route``: 1 where the stream
+    kernel takes a product of ``rows`` rows against ``n`` columns over
+    ``k`` (a weight of row stride ``ldw``, transposed or not), 0 where the
+    generic GEMV does."""
+    if dtype not in _DTYPE_CODE:
+        return 0
+    v = 16 // dtype.itemsize
+    return int(bool(aligned) and 1 <= rows <= NORM_MLP_MAX_ROWS and n > 0
+               and k > 0 and n % v == 0 and k % v == 0 and ldw % v == 0
+               and ldw >= (k if transposed else n))
+
+
+def _aligned(*ts) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def norm_matmul_route(x, w) -> str:
+    """``"stream"`` or ``"generic"``: the route K6d takes on the card for
+    a call :func:`norm_matmul_admits` admits."""
+    h, n = w.shape
+    rows = x.numel() // h if h else 0
+    transposed, ldw = _w_layout(w)
+    x2 = x.reshape(-1, h)
+    return "stream" if fd_route(
+        transposed, rows, n, h, ldw, x.dtype,
+        _aligned(w) and x2.is_contiguous() and _aligned(x2)) \
+        else "generic"
+
+
+def norm_mlp_route(x, w1, w2, w_gate=None) -> str:
+    """``"stream"`` (both launches on the stream kernel) or
+    ``"generic"`` (both on the generic GEMV): the route K6c takes on the
+    card for a call :func:`norm_mlp_admits` admits."""
+    b, h = x.shape
+    inter, out_dim = w1.shape[1], w2.shape[1]
+    ok = _aligned(x, w1, w2, w_gate) and x.is_contiguous()
+    ups = (w1,) if w_gate is None else (w1, w_gate)
+    ok = ok and all(fd_route(False, b, inter, h, w.stride(0), x.dtype, True)
+                    for w in ups)
+    ok = ok and fd_route(False, b, out_dim, inter, w2.stride(0), x.dtype,
+                         True)
+    return "stream" if ok else "generic"
+
+
+def stream_geometry(transposed: bool, itemsize: int):
+    """(tile columns, K per step) of the stream kernel: 32 stage rows of
+    512 bytes, a row-major weight's rows along K and a transposed one's
+    along the columns."""
+    if transposed:
+        return _STAGE_ROWS, _SEG_BYTES // itemsize
+    return 32 * (16 // itemsize), _STAGE_ROWS
+
+
+class StreamPlan(NamedTuple):
+    """Block j of ``grid`` takes units ``[j q + min(j, r), ... + q + (j <
+    r))`` of the ``tiles x ksteps`` (tile, step) units, tile-major."""
+    grid: int
+    q: int
+    r: int
+    tiles: int
+    ksteps: int
+
+
+def stream_plan(tiles: int, ksteps: int, blocks: int) -> StreamPlan:
+    """Deal the units out to at most ``blocks`` blocks (the ones the card
+    holds at once), each at least one unit, shares differing by at most
+    one."""
+    units = tiles * ksteps
+    if units < 1 or blocks < 1:
+        raise ValueError(f"no units ({tiles} x {ksteps}) or blocks "
+                         f"({blocks})")
+    grid = min(blocks, units)
+    q, r = divmod(units, grid)
+    return StreamPlan(grid, q, r, tiles, ksteps)
+
+
+def stream_shares(plan: StreamPlan):
+    """[(first unit, end unit)] of every block."""
+    out = []
+    for j in range(plan.grid):
+        start = j * plan.q + min(j, plan.r)
+        out.append((start, start + plan.q + (j < plan.r)))
+    return out
+
+
+def _block_of(plan: StreamPlan, unit: int) -> int:
+    big = plan.r * (plan.q + 1)
+    return unit // (plan.q + 1) if unit < big \
+        else plan.r + (unit - big) // plan.q
+
+
+def stream_contributors(plan: StreamPlan, tile: int):
+    """[(block, slot)] of the blocks whose shares cut ``tile``, in block
+    order: the order their fp32 parts are added in.  Slot 0 is a block's
+    first tile, 1 its last."""
+    lo, hi = tile * plan.ksteps, (tile + 1) * plan.ksteps
+    out = []
+    for j in range(_block_of(plan, lo), _block_of(plan, hi - 1) + 1):
+        start = j * plan.q + min(j, plan.r)
+        out.append((j, 0 if start // plan.ksteps == tile else 1))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the CUDA route
 # ---------------------------------------------------------------------------
 
@@ -286,20 +417,76 @@ def _tiles(n: int) -> int:
     return -(-(-(-n // 2)) // _TILE_PAIRS)
 
 
-def _scratch(dev, tiles: int, rows: int, splits: int):
-    """(partial sums, zeroed tile counters) for a split-K GEMV.  The
-    kernel leaves every counter it used at 0, so one buffer per device
-    serves every launch on its stream."""
-    y_tiles = -(-rows // _ROWS)
-    n_tiles = tiles * y_tiles
+def _tile_counters(dev, n_tiles: int):
+    """Zeroed tile counters.  The kernels leave every counter they used
+    at 0, so one buffer per device serves every launch on its stream."""
     cnt = _counters.get(dev)
     if cnt is None or cnt.numel() < n_tiles:
         cnt = _counters[dev] = torch.zeros(max(n_tiles, 4096),
                                            dtype=torch.int32, device=dev)
+    return cnt
+
+
+def _scratch(dev, tiles: int, rows: int, splits: int):
+    """(partial sums, zeroed tile counters) for a split-K GEMV."""
+    n_tiles = tiles * -(-rows // _ROWS)
     partial = torch.empty(n_tiles * splits * 2 * _THREADS
                           if splits > 1 else 1, dtype=torch.float32,
                           device=dev)
-    return partial, cnt
+    return partial, _tile_counters(dev, n_tiles)
+
+
+_occupancy = {}
+
+
+def _stream_blocks(dev, kind: int, transposed: bool, rows: int, gated: bool,
+                   dtype, tiles: int, ksteps: int) -> int:
+    """The stream kernel's blocks the card holds at once for one launch:
+    the SM count times the occupancy of the form the launch takes (asked
+    of the kernel's C side once per shape)."""
+    key = (dev, kind, bool(transposed), rows, bool(gated), dtype, tiles,
+           ksteps)
+    per_sm = _occupancy.get(key)
+    if per_sm is None:
+        lib = _build.library("fused_decode")
+        with torch.cuda.device(dev):
+            per_sm = lib.fd_stream_occupancy(kind, int(bool(transposed)),
+                                             rows, int(bool(gated)),
+                                             _DTYPE_CODE[dtype], tiles,
+                                             ksteps)
+        if per_sm < 1:
+            raise RuntimeError(f"stream kernel occupancy: CUDA error "
+                               f"{-per_sm}")
+        _occupancy[key] = per_sm
+    sms = _sm_count.get(dev)
+    if sms is None:
+        sms = _sm_count[dev] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return per_sm * sms
+
+
+_plans = {}
+
+
+def _work_floats(plan: StreamPlan, rows: int, tn: int) -> int:
+    """fp32 parts a launch may leave: two tiles a block, or (the resident
+    row-major form) every warp's part of every tile a share touches."""
+    slots = -(-(plan.q + 1) // plan.ksteps) + 1
+    return plan.grid * rows * tn * max(2, 8 * slots)
+
+
+def _plan_for(dev, kind, transposed, rows, gated, dtype, n_tiles, k):
+    """(tile columns, the launch's plan), kept per shape: a decode step
+    asks for the same few every layer."""
+    tn, ks = stream_geometry(transposed, dtype.itemsize)
+    tiles, ksteps = n_tiles(tn), -(-k // ks)
+    key = (dev, kind, bool(transposed), rows, bool(gated), dtype, tiles,
+           ksteps)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = stream_plan(tiles, ksteps, _stream_blocks(
+            dev, kind, transposed, rows, gated, dtype, tiles, ksteps))
+    return tn, plan
 
 
 def _f32(t):
@@ -469,29 +656,49 @@ def _norm_mlp_cuda(x, kind, norm_w, norm_b, w1, b1, w2, b2, w_gate, eps,
         act_code = _GELU_TANH if act == "gelu_tanh" else _SILU
     x = x.contiguous()
     y = torch.empty((b, out_dim), dtype=x.dtype, device=dev)
-    if b:
+    if not b:
+        return y
+    n_up = 1 if w_gate is None else 2      # up (and gate) products
+    stream = norm_mlp_route(x, w1, w2, w_gate) == "stream"
+    # the stream route's scratch holds either layout (csrc: fd_norm_mlp_stream)
+    scratch = torch.empty(max(24 * inter + 8 * h, n_up * b * inter) if stream
+                          else n_up * b * inter, dtype=torch.float32,
+                          device=dev)
+    norm_w, norm_b, b1, b2 = (_f32(t) for t in (norm_w, norm_b, b1, b2))
+    lib = _build.library("fused_decode")
+    common = (x.data_ptr(), b, h, norm_w.data_ptr(), _ptr(norm_b),
+              _NORM_CODE[kind], float(eps), w1.data_ptr(), w1.stride(0),
+              _ptr(w_gate), 0 if w_gate is None else w_gate.stride(0),
+              _ptr(b1), act_code, w2.data_ptr(), w2.stride(0), _ptr(b2),
+              scratch.data_ptr(), y.data_ptr(), inter, out_dim)
+    if stream:
+        tn, up = _plan_for(dev, _K6C_UP, False, b, False, x.dtype,
+                           lambda tn: n_up * -(-inter // tn), h)
+        _, down = _plan_for(dev, _K6C_DOWN, False, b, w_gate is not None,
+                            x.dtype, lambda tn: -(-out_dim // tn), inter)
+        work = torch.empty(max(_work_floats(up, b, tn),
+                               _work_floats(down, b, tn)),
+                           dtype=torch.float32, device=dev)
+        # the up launch's tiles, then its column tiles' up/gate pairs
+        cnt = _tile_counters(dev, max(up.tiles + -(-inter // tn), down.tiles))
+        with torch.cuda.device(dev):
+            rc = lib.fd_norm_mlp_stream(
+                *common, work.data_ptr(), cnt.data_ptr(), up.grid, up.q,
+                up.r, down.grid, down.q, down.r, _DTYPE_CODE[x.dtype],
+                torch.cuda.current_stream().cuda_stream)
+    else:
         y_tiles = -(-b // _ROWS)
-        n_up = 1 if w_gate is None else 2      # up (and gate) products
         t_up, t_down = n_up * _tiles(inter), _tiles(out_dim)
         s_up = _splits(t_up * y_tiles, h, dev)
         s_down = _splits(t_down * y_tiles, inter, dev)
         partial, cnt = _scratch(dev, max(t_up, t_down), b,
                                 max(s_up, s_down))
-        scratch = torch.empty((n_up, b, inter), dtype=torch.float32,
-                              device=dev)
-        norm_w, norm_b, b1, b2 = (_f32(t) for t in (norm_w, norm_b, b1, b2))
-        lib = _build.library("fused_decode")
         with torch.cuda.device(dev):
             rc = lib.fd_norm_mlp(
-                x.data_ptr(), b, h, norm_w.data_ptr(), _ptr(norm_b),
-                _NORM_CODE[kind], float(eps), w1.data_ptr(), w1.stride(0),
-                _ptr(w_gate), 0 if w_gate is None else w_gate.stride(0),
-                _ptr(b1), act_code, w2.data_ptr(), w2.stride(0), _ptr(b2),
-                scratch.data_ptr(), y.data_ptr(), inter, out_dim,
-                partial.data_ptr(), cnt.data_ptr(), s_up, s_down,
+                *common, partial.data_ptr(), cnt.data_ptr(), s_up, s_down,
                 _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
-        _rc(rc, "norm_mlp")
-        launches["norm_mlp"] += 1
+    _rc(rc, "norm_mlp")
+    launches["norm_mlp"] += 1
     return y
 
 
@@ -535,20 +742,36 @@ def _norm_matmul_cuda(x, norm_w, norm_b, w, bias, kind, eps):
     y = torch.empty((b, n), dtype=x.dtype, device=dev)
     if b and n:
         transposed, ldw = _w_layout(w)
-        splits, partial, cnt = 1, None, None
-        if not transposed:
-            tiles = _tiles(n)
-            splits = _splits(tiles * -(-b // _ROWS), h, dev)
-            partial, cnt = _scratch(dev, tiles, b, splits)
         norm_w, norm_b, bias = (_f32(t) for t in (norm_w, norm_b, bias))
         lib = _build.library("fused_decode")
-        with torch.cuda.device(dev):
-            rc = lib.fd_norm_matmul(
-                x2.data_ptr(), b, h, norm_w.data_ptr(), _ptr(norm_b),
-                _NORM_CODE[kind], float(eps), w.data_ptr(), ldw, transposed,
-                _ptr(bias), y.data_ptr(), n, _ptr(partial), _ptr(cnt),
-                splits, _DTYPE_CODE[x.dtype],
-                torch.cuda.current_stream().cuda_stream)
+        common = (x2.data_ptr(), b, h, norm_w.data_ptr(), _ptr(norm_b),
+                  _NORM_CODE[kind], float(eps), w.data_ptr(), ldw,
+                  transposed, _ptr(bias), y.data_ptr(), n)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if norm_matmul_route(x2, w) == "stream":
+            tn, plan = _plan_for(dev, _K6D, transposed, b, False, x.dtype,
+                                 lambda tn: -(-n // tn), h)
+            work = torch.empty(_work_floats(plan, b, tn),
+                               dtype=torch.float32, device=dev)
+            cnt = _tile_counters(dev, plan.tiles)
+            # x's normalized rows, where the resident form (<= 8 rows) runs
+            xbuf = torch.empty(8 * h if b <= 8 else 1, dtype=torch.float32,
+                               device=dev)
+            with torch.cuda.device(dev):
+                rc = lib.fd_norm_matmul_stream(
+                    *common, work.data_ptr(), cnt.data_ptr(),
+                    xbuf.data_ptr(), plan.grid, plan.q, plan.r,
+                    _DTYPE_CODE[x.dtype], stream)
+        else:
+            splits, partial, cnt = 1, None, None
+            if not transposed:
+                tiles = _tiles(n)
+                splits = _splits(tiles * -(-b // _ROWS), h, dev)
+                partial, cnt = _scratch(dev, tiles, b, splits)
+            with torch.cuda.device(dev):
+                rc = lib.fd_norm_matmul(
+                    *common, _ptr(partial), _ptr(cnt), splits,
+                    _DTYPE_CODE[x.dtype], stream)
         _rc(rc, "norm_matmul")
         launches["norm_matmul"] += 1
     return y.reshape(*lead, n)
@@ -590,6 +813,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fd_norm_matmul.argtypes = [p, i, i, p, p, i, f, p, ll, i, p, p, i,
                                    p, p, i, i, p]
     lib.fd_norm_matmul.restype = ctypes.c_int
+    # the stream route (absent from a variant built from an older source)
+    if hasattr(lib, "fd_route"):
+        lib.fd_route.argtypes = [i, i, i, i, ll, i, i]
+        lib.fd_route.restype = ctypes.c_int
+        lib.fd_stream_occupancy.argtypes = [i, i, i, i, i, i, i]
+        lib.fd_stream_occupancy.restype = ctypes.c_int
+        lib.fd_norm_matmul_stream.argtypes = [p, i, i, p, p, i, f, p, ll, i,
+                                              p, p, i, p, p, p, i, i, i, i,
+                                              p]
+        lib.fd_norm_matmul_stream.restype = ctypes.c_int
+        lib.fd_norm_mlp_stream.argtypes = [p, i, i, p, p, i, f, p, ll, p, ll,
+                                           p, i, p, ll, p, p, p, i, i, p, p,
+                                           i, i, i, i, i, i, i, p]
+        lib.fd_norm_mlp_stream.restype = ctypes.c_int
 
 
 _build.register("fused_decode", _declare)

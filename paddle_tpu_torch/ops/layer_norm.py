@@ -17,9 +17,10 @@ On CUDA tensors the wrapper launches ``csrc/layer_norm.cu`` (design notes
 there) or raises; on CPU tensors it takes :func:`layer_norm_ref`, the
 plain version the CPU tests and ``chip_smoke.py`` hold the kernel to.
 :func:`route` names the kernel's route for a call: ``"vector"`` (rows of
-768, 2048 or 4096 held in registers, 16-byte loads) or ``"generic"``
-(any other width up to 8192, or a pointer that is not 16-byte aligned:
-scalar loads); a wider row raises.
+768, 2048 or 4096 held in registers, 16-byte loads), ``"generic"`` (any
+other width up to 8192, or a pointer that is not 16-byte aligned: scalar
+loads) or ``"wide"`` (rows wider than 8192, at any alignment: a block of
+1024 threads streams each row).
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ launches = {"ln_fwd": 0, "ln_bwd_dx": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/layer_norm.cu's routes (its `ln_route`): the widths of the vector
-# instantiations, and the widest row of the generic one
+# instantiations, and the widest row of the generic one (wider rows take the
+# wide route)
 VECTOR_WIDTHS = (768, 2048, 4096)
 GENERIC_MAX_H = 8192
 
@@ -77,13 +79,15 @@ def route(h: int, tensors) -> str:
     """The kernel's route for rows of ``h`` elements in a call that passes
     ``tensors`` (every x-shaped tensor and w, b): ``"vector"`` where h is
     an instantiated width and every ``data_ptr()`` is 16-byte aligned,
-    else ``"generic"``.  Raises ValueError where no route takes h."""
+    ``"generic"`` for any other h up to ``GENERIC_MAX_H``, ``"wide"``
+    above it.  Raises ValueError where no route takes h (h <= 0)."""
     if h in VECTOR_WIDTHS and all(t.data_ptr() % 16 == 0 for t in tensors):
         return "vector"
     if 0 < h <= GENERIC_MAX_H:
         return "generic"
-    raise ValueError(f"hidden size {h} is wider than the LayerNorm "
-                     f"kernel's {GENERIC_MAX_H}")
+    if h > GENERIC_MAX_H:
+        return "wide"
+    raise ValueError(f"hidden size {h}: no LayerNorm route takes it")
 
 
 def _rc(rc, what):

@@ -26,8 +26,13 @@ _LOW = (torch.float16, torch.bfloat16)
 
 
 class Optimizer(torch.optim.Optimizer):
+    """``weight_decay`` is kept for the subclasses (AdamW decays
+    decoupled; Adam's coupled L2 raises until a slice supports it);
+    ``name`` is a label, as in Paddle."""
+
     def __init__(self, learning_rate=0.001, parameters=None,
-                 grad_clip=None, multi_precision=False):
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
         if parameters is None:
             raise ValueError("parameters must be given (the port trains "
                              "eagerly, as Paddle's dygraph mode does)")
@@ -41,6 +46,8 @@ class Optimizer(torch.optim.Optimizer):
             raise NotImplementedError("parameter groups wait for a later "
                                       "slice; pass a list of parameters")
         super().__init__(params, {})
+        self._weight_decay = weight_decay
+        self._name = name
         self._learning_rate = float(learning_rate)
         self._multi_precision = bool(multi_precision)
         # the learning rate as a one-element fp32 tensor per device
@@ -81,7 +88,7 @@ class Optimizer(torch.optim.Optimizer):
     def _update_param(self, p, g):
         raise NotImplementedError
 
-    def clear_grad(self) -> None:
+    def clear_grad(self, set_to_zero: bool = True) -> None:
         """Drop every gradient (``None``), as the JAX package's
-        ``clear_grad`` does."""
+        ``clear_grad`` does whatever ``set_to_zero`` says."""
         self.zero_grad(set_to_none=True)

@@ -19,17 +19,26 @@ __all__ = ["Adam", "AdamW"]
 
 
 class Adam(Optimizer):
+    """``lazy_mode``, ``use_multi_tensor`` and ``amsgrad`` wait for a later
+    slice and raise ``NotImplementedError`` when set."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, multi_precision=False, amsgrad=False):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, amsgrad=False, name=None):
         if weight_decay:
             raise NotImplementedError("L2 regularization in Adam waits for "
                                       "a later slice (AdamW decays "
                                       "decoupled)")
+        if lazy_mode:
+            raise NotImplementedError("lazy_mode waits for a later slice")
+        if use_multi_tensor:
+            raise NotImplementedError("use_multi_tensor waits for a later "
+                                      "slice (each parameter launches K3)")
         if amsgrad:
             raise NotImplementedError("amsgrad waits for a later slice")
-        super().__init__(learning_rate, parameters, grad_clip,
-                         multi_precision)
+        super().__init__(learning_rate, parameters, weight_decay,
+                         grad_clip, multi_precision, name)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
@@ -76,12 +85,15 @@ class AdamW(Adam):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
                  lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
-                 multi_precision=False, amsgrad=False):
+                 lazy_mode=False, multi_precision=False, amsgrad=False,
+                 name=None):
         if not isinstance(weight_decay, (int, float)):
             raise NotImplementedError("regularizer objects wait for a later "
                                       "slice; pass a float weight_decay")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip, multi_precision, amsgrad)
+                         None, grad_clip, lazy_mode, multi_precision,
+                         amsgrad=amsgrad, name=name)
+        self._weight_decay = weight_decay
         self._wd = float(weight_decay)
         self._lr_ratio = lr_ratio
         self._apply_decay_param_fun = apply_decay_param_fun

@@ -60,6 +60,13 @@ class ServingEngine:
     CUDA card and raises without one; the model must already live on
     the engine's device.  Use as a context manager or call
     ``start()``/``stop()``.
+
+    The reference's predicted-cost admission (``perf_model``,
+    ``max_step_cost_s``) and its step watchdog
+    (``health_recovery_steps``, ``max_watchdog_relaunches``) wait for a
+    later slice: a value other than the default raises
+    ``NotImplementedError`` (``perf_model="auto"`` loads a model only
+    for ``max_step_cost_s > 0``, so it and ``None`` mean none).
     """
 
     def __init__(self, model, *, max_batch: int = 8, page_size: int = 16,
@@ -68,7 +75,18 @@ class ServingEngine:
                  eos_token_id: Optional[int] = None,
                  max_queue: int = 1024, max_prefill_chunk: int = 0,
                  prefix_caching: bool = True, seed: int = 0,
-                 dtype="float32", device=None):
+                 dtype: str = "float32", perf_model="auto",
+                 max_step_cost_s: Optional[float] = None,
+                 health_recovery_steps: int = 64,
+                 max_watchdog_relaunches: int = 3, device=None):
+        if perf_model not in ("auto", None) or max_step_cost_s:
+            raise NotImplementedError(
+                "predicted-cost admission (perf_model, max_step_cost_s) "
+                "waits for a later slice")
+        if health_recovery_steps != 64 or max_watchdog_relaunches != 3:
+            raise NotImplementedError(
+                "the step watchdog (health_recovery_steps, "
+                "max_watchdog_relaunches) waits for a later slice")
         self.device = default_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the "
@@ -114,6 +132,7 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
         self._running = False
         self._accepting = False
+        self.health = "ok"          # "failed" once the loop dies or wedges
         # counters (written by the loop thread under self._lock)
         self._steps = 0
         self._dispatches = 0
@@ -138,31 +157,44 @@ class ServingEngine:
         self._thread.start()
         return self
 
-    def stop(self, timeout: float = 30.0) -> None:
-        """Stop accepting requests, let every admitted/queued request
-        finish (bounded by ``timeout``; whatever is left then fails),
-        and join the loop thread (bounded by ``timeout`` again; a step
-        still running past it is reported)."""
+    def stop(self, drain: bool = True, timeout: float = 30.0,
+             join_timeout: float = 5.0) -> dict:
+        """Stop accepting requests; with ``drain`` let every admitted or
+        queued request finish first (bounded by ``timeout``), else fail
+        them at once; whatever is left then fails.  Join the loop thread
+        within ``join_timeout``.  Returns ``{"engine", "health",
+        "wedged"}``, the reference's keys: ``wedged`` is True when the
+        loop thread is still in a step after ``join_timeout`` (health
+        then goes ``"failed"``)."""
         with self._wake:
             self._accepting = False
             self._wake.notify_all()
-        deadline = time.monotonic() + float(timeout)
-        while time.monotonic() < deadline:
-            with self._lock:
-                if not self.scheduler.has_work():
-                    break
-            time.sleep(0.01)
+        if drain:
+            deadline = time.monotonic() + float(timeout)
+            while time.monotonic() < deadline:
+                with self._lock:
+                    if not self.scheduler.has_work():
+                        break
+                time.sleep(0.01)
         with self._wake:
             self._running = False
             self._fail_all_locked("engine stopped")
             self._wake.notify_all()
+        wedged = False
         t, self._thread = self._thread, None
         if t is not None:
-            t.join(timeout=timeout)
+            t.join(timeout=join_timeout)
             if t.is_alive():
+                wedged = True
                 warnings.warn(f"serving engine {self.engine_id}: loop "
-                              f"thread still in a step after {timeout}s",
-                              stacklevel=2)
+                              f"thread still in a step after "
+                              f"{join_timeout}s", stacklevel=2)
+                with self._lock:
+                    self.health = "failed"
+        with self._lock:
+            health = self.health
+        return {"engine": self.engine_id, "health": health,
+                "wedged": wedged}
 
     def __enter__(self):
         return self.start()
@@ -173,12 +205,22 @@ class ServingEngine:
     # -- request side ----------------------------------------------------
     def submit(self, input_ids, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None,
-               temperature: float = 0.0) -> Request:
-        """Queue one generation request; returns the live handle."""
+               temperature: float = 0.0,
+               request_id: Optional[str] = None,
+               trace=None,
+               deadline_s: Optional[float] = None) -> Request:
+        """Queue one generation request; returns the live handle (whose
+        ``id`` is ``request_id`` when given).  ``trace`` (a parent span)
+        and ``deadline_s`` wait for a later slice and raise
+        ``NotImplementedError`` when given."""
+        if trace is not None:
+            raise NotImplementedError("request tracing waits for a later "
+                                      "slice")
         req = Request(input_ids, max_new_tokens=max_new_tokens,
                       eos_token_id=(self.default_eos if eos_token_id
                                     is None else eos_token_id),
-                      temperature=temperature)
+                      temperature=temperature, request_id=request_id,
+                      deadline_s=deadline_s)
         req._cancel_cb = self._cancel_request
         with self._wake:
             if not self._accepting:
@@ -210,6 +252,7 @@ class ServingEngine:
                           f"{type(e).__name__}: {e}", stacklevel=1)
             with self._wake:
                 self._accepting = False
+                self.health = "failed"
                 self._fail_all_locked(f"engine loop failed: "
                                       f"{type(e).__name__}: {e}")
 

@@ -97,7 +97,11 @@ class Request:
     def __init__(self, input_ids: Sequence[int], max_new_tokens: int = 32,
                  eos_token_id: Optional[int] = None,
                  temperature: float = 0.0,
-                 request_id: Optional[str] = None):
+                 request_id: Optional[str] = None,
+                 deadline_s: Optional[float] = None):
+        if deadline_s is not None:
+            raise NotImplementedError("request deadlines wait for a later "
+                                      "slice")
         self.id = request_id if request_id is not None \
             else str(next(Request._IDS))
         self.prompt: List[int] = [int(t) for t in np.asarray(
@@ -227,7 +231,12 @@ class Scheduler:
     def __init__(self, pool: PagePool, max_batch: int,
                  max_pages_per_seq: int, prefix_cache=None,
                  max_queue: int = 1024, max_prefill_chunk: int = 0,
-                 max_seq_len: int = 0):
+                 max_seq_len: int = 0, perf_model=None,
+                 max_step_cost_s: float = 0.0):
+        if perf_model is not None or max_step_cost_s:
+            raise NotImplementedError(
+                "predicted-cost admission (perf_model, max_step_cost_s) "
+                "waits for a later slice")
         self.pool = pool
         self.max_batch = int(max_batch)
         self.ppseq = int(max_pages_per_seq)

@@ -529,3 +529,44 @@ def test_program_main_path_checks_hold_on_the_cpu(failures, name, capsys):
     assert res["reduction_pct"] >= 10.0
     if control is not None:
         assert res["control_err"] > cs.PROGRAM_TOL["atol"]
+
+
+def test_k6c_and_k6d_cases_take_their_routes():
+    """Phase 9's K6c cases are the decode paths' shapes (llama2-7b's and
+    GPT-3 1.3B's MLPs at batch 8, bf16, 33 and 64 rows: the gate's limit)
+    and phase 15's K6d cases the program paths'; every one takes the
+    stream route but ``odd`` and ``odd_t``, which take the generic one.
+    The A/B cases are phase 9's and 15's main-path cases, and the weight
+    copies a time rotates over pass twice the L2."""
+    from paddle_tpu_torch.ops import fused_decode as tfd
+    gpt, llama = tgpt.gpt_config("gpt3-1.3B"), tllama.llama_config(
+        "llama2-7b")
+    f32 = torch.float32
+    assert cs.K6C_CASES["llama"] == ("rms_norm", "silu", llama.hidden_size,
+                                     llama.intermediate_size, f32, 8)
+    assert cs.K6C_CASES["gpt"] == ("layer_norm", "gelu_tanh",
+                                   gpt.hidden_size, gpt.intermediate_size,
+                                   f32, 8)
+    assert {c[5] for c in cs.K6C_CASES.values()} == {8, 33, 64}
+    assert max(c[5] for c in cs.K6C_CASES.values()) == \
+        tfd.NORM_MLP_MAX_ROWS
+    for kind, act, h, inter, dtype, rows in cs.K6C_CASES.values():
+        def m(*shape):
+            return torch.empty(*shape, dtype=dtype, device="meta")
+        wg = m(h, inter) if kind == "rms_norm" else None
+        assert tfd.norm_mlp_route(m(rows, h), m(h, inter), m(inter, h),
+                                  wg) == "stream"
+    for name, (kind, lead, h, n, transposed, bias, dtype) in \
+            cs.K6D_CASES.items():
+        x = torch.empty(*lead, h, dtype=dtype, device="meta")
+        w = torch.empty(n, h, dtype=dtype, device="meta").t() \
+            if transposed else torch.empty(h, n, dtype=dtype, device="meta")
+        want = "generic" if name in cs.K6D_GENERIC else "stream"
+        assert tfd.norm_matmul_route(x, w) == want, name
+    assert set(cs.K6D_GENERIC) == {"odd", "odd_t"}
+    assert set(cs.AB_K6C_CASES) == {"llama", "gpt"}
+    assert set(cs.AB_K6D_CASES) == set(cs.K6D_GPT_STEP) | {"llama_head"}
+    for nbytes in (33.5e6, 50.3e6, 67.1e6, 134e6, 541e6):
+        k = cs.weight_copies(nbytes)
+        assert k * nbytes > cs.ROTATE_BYTES >= (k - 1) * nbytes
+    assert cs.ROTATE_BYTES >= 2 * 50e6

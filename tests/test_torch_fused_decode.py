@@ -268,3 +268,67 @@ def test_jax_gumbel_is_what_categorical_adds():
     np.testing.assert_array_equal(
         np.asarray(jax.random.categorical(key, logits, axis=-1)),
         np.asarray(jnp.argmax(logits + g, axis=-1)))
+
+
+# ---------------------------------------------------------------------------
+# K6c's stream route on the card: its rule and its plans
+# ---------------------------------------------------------------------------
+
+# K6c's main-path calls (phase 9 of chip_smoke.py: the decode loops' and
+# serving's decode-only steps): name: (rows, H, I, gated, dtype)
+K6C_MAIN_PATH = {
+    "llama": (8, 4096, 11008, True, torch.float32),
+    "gpt": (8, 2048, 8192, False, torch.float32),
+    "bf16": (8, 4096, 11008, True, torch.bfloat16),
+    "rows33": (33, 2048, 8192, False, torch.float32),
+    "rows64": (64, 4096, 11008, True, torch.float32),
+}
+
+
+def _meta_mlp(rows, h, inter, gated, dtype):
+    def m(*shape):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+    return m(rows, h), m(h, inter), m(inter, h), m(h, inter) if gated \
+        else None
+
+
+@pytest.mark.parametrize("name", list(K6C_MAIN_PATH))
+def test_norm_mlp_main_path_shapes_take_the_stream_route(name):
+    x, w1, w2, wg = _meta_mlp(*K6C_MAIN_PATH[name])
+    assert tfd.norm_mlp_admits(x, w1, w2, wg)
+    assert tfd.norm_mlp_route(x, w1, w2, wg) == "stream"
+
+
+def test_norm_mlp_odd_widths_and_views_take_the_generic_route():
+    """Both launches go generic where either product is off the rule: an
+    odd intermediate size, an unaligned weight view, a bf16 width that is
+    not a multiple of 8."""
+    x = torch.zeros(8, 64)
+    assert tfd.norm_mlp_route(x, torch.zeros(64, 96),
+                              torch.zeros(96, 64)) == "stream"
+    assert tfd.norm_mlp_route(x, torch.zeros(64, 97),
+                              torch.zeros(97, 64)) == "generic"
+    w1 = torch.zeros(64 * 96 + 1)[1:].view(64, 96)
+    assert tfd.norm_mlp_route(x, w1, torch.zeros(96, 64)) == "generic"
+    xb = torch.zeros(8, 64, dtype=torch.bfloat16)
+    assert tfd.norm_mlp_route(
+        xb, torch.zeros(64, 100, dtype=torch.bfloat16),
+        torch.zeros(100, 64, dtype=torch.bfloat16)) == "generic"
+
+
+@pytest.mark.parametrize("blocks", [132, 264, 3, 131])
+@pytest.mark.parametrize("name", list(K6C_MAIN_PATH))
+def test_norm_mlp_plans_cover_both_launches(name, blocks):
+    """The up (and gate) launch deals its n_up x ceil(I / tile) tiles'
+    steps out, the down launch its ceil(H / tile) tiles' steps over I;
+    each covers every unit once with shares differing by at most one."""
+    rows, h, inter, gated, dtype = K6C_MAIN_PATH[name]
+    tn, ks = tfd.stream_geometry(False, dtype.itemsize)
+    for tiles, k in (((1 + gated) * -(-inter // tn), h),
+                     (-(-h // tn), inter)):
+        plan = tfd.stream_plan(tiles, -(-k // ks), blocks)
+        shares = tfd.stream_shares(plan)
+        assert shares[0][0] == 0 and shares[-1][1] == tiles * plan.ksteps
+        assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+        lengths = [e - s for s, e in shares]
+        assert max(lengths) - min(lengths) <= 1

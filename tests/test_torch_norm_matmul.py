@@ -178,3 +178,152 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         tfd.norm_matmul(meta[0][:8], *meta[1:], kind="layer_norm")
     with pytest.raises(ValueError, match="unsupported device"):
         tfd.norm_matmul(*meta, kind="layer_norm")
+
+
+# ---------------------------------------------------------------------------
+# the stream route on the card: its rule and its plan (pure functions)
+# ---------------------------------------------------------------------------
+
+# K6d's main-path products (phase 15 of chip_smoke.py, the program-pass
+# paths): name: (x's rows, H, N, transposed, dtype)
+MAIN_PATH = {
+    "gpt_qkv": (8, 2048, 6144, False, torch.float32),
+    "gpt_fc1": (8, 2048, 8192, False, torch.float32),
+    "gpt_head": (8, 2048, 50304, True, torch.float32),
+    "llama_head": (8, 4096, 32000, True, torch.float32),
+    "bf16_head": (8, 4096, 32000, True, torch.bfloat16),
+    "bf16_fc1": (8, 2048, 8192, False, torch.bfloat16),
+    "rows1": (1, 2048, 50304, True, torch.float32),
+    "rows33": (33, 2048, 6144, False, torch.float32),
+    "rows64": (64, 4096, 32000, True, torch.float32),
+}
+
+
+def _meta_weight(h, n, transposed, dtype):
+    if transposed:
+        return torch.empty(n, h, dtype=dtype, device="meta").t()
+    return torch.empty(h, n, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("name", list(MAIN_PATH))
+def test_main_path_shapes_take_the_stream_route(name):
+    rows, h, n, transposed, dtype = MAIN_PATH[name]
+    x = torch.empty(rows, h, dtype=dtype, device="meta")
+    w = _meta_weight(h, n, transposed, dtype)
+    assert tfd.norm_matmul_admits(x, w)
+    assert tfd.norm_matmul_route(x, w) == "stream"
+    assert tfd.fd_route(transposed, rows, n, h, h if transposed else n,
+                        dtype, True) == 1
+
+
+def test_odd_shapes_and_unaligned_views_take_the_generic_route():
+    """Phase 15's ``odd`` / ``odd_t`` (H 40, N 37), a bf16 N that is a
+    multiple of 4 but not of 8, an unaligned x or weight view, a row
+    stride that is not a multiple of the vector: the generic GEMV."""
+    assert tfd.norm_matmul_route(torch.zeros(5, 40),
+                                 torch.zeros(40, 37)) == "generic"
+    assert tfd.norm_matmul_route(torch.zeros(3, 2, 40),
+                                 torch.zeros(37, 40).t()) == "generic"
+    assert tfd.norm_matmul_route(
+        torch.zeros(8, 64, dtype=torch.bfloat16),
+        torch.zeros(64, 36, dtype=torch.bfloat16)) == "generic"
+    x = torch.zeros(8 * 64 + 1)[1:].view(8, 64)
+    assert x.data_ptr() % 16 and \
+        tfd.norm_matmul_route(x, torch.zeros(64, 32)) == "generic"
+    w = torch.zeros(64 * 32 + 1)[1:].view(64, 32)
+    assert tfd.norm_matmul_route(torch.zeros(8, 64), w) == "generic"
+    w = torch.zeros(64, 34)[:, :32]                 # row stride 34
+    assert tfd.norm_matmul_route(torch.zeros(8, 64), w) == "generic"
+    assert tfd.norm_matmul_route(torch.zeros(8, 64),
+                                 torch.zeros(64, 32)) == "stream"
+    # the rule itself: rows past the gate, an unaligned call
+    assert tfd.fd_route(False, 65, 32, 64, 32, torch.float32, True) == 0
+    assert tfd.fd_route(False, 8, 32, 64, 32, torch.float32, False) == 0
+    assert tfd.fd_route(True, 8, 32, 64, 60, torch.float32, True) == 0
+
+
+def _plan_units(name, blocks):
+    rows, h, n, transposed, dtype = MAIN_PATH[name]
+    tn, ks = tfd.stream_geometry(transposed, dtype.itemsize)
+    return tfd.stream_plan(-(-n // tn), -(-h // ks), blocks)
+
+
+@pytest.mark.parametrize("blocks", [132, 264, 1, 7, 131, 1000, 10 ** 6])
+@pytest.mark.parametrize("name", list(MAIN_PATH))
+def test_stream_plan_covers_every_unit_once(name, blocks):
+    """Every (tile, K step) unit lies in exactly one block's share, the
+    shares are contiguous and tile-major, differ by at most one unit, and
+    each block cuts at most two tiles (its parts' slots 0 and 1)."""
+    plan = _plan_units(name, blocks)
+    shares = tfd.stream_shares(plan)
+    units = plan.tiles * plan.ksteps
+    assert plan.grid == min(blocks, units)
+    assert shares[0][0] == 0 and shares[-1][1] == units
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    lengths = {end - start for start, end in shares}
+    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= 1
+    seen = {}
+    for t in range(plan.tiles):
+        parts = tfd.stream_contributors(plan, t)
+        covered = sum(min(e, (t + 1) * plan.ksteps) - max(s, t *
+                                                            plan.ksteps)
+                      for s, e in (shares[j] for j, _ in parts))
+        assert covered == plan.ksteps
+        assert [j for j, _ in parts] == sorted(j for j, _ in parts)
+        for j, slot in parts:
+            if len(parts) > 1:
+                seen.setdefault((j, slot), []).append(t)
+    assert all(len(ts) == 1 for ts in seen.values())
+
+
+def _stream_model(xn, w, plan, tn, ks):
+    """The kernel's arithmetic in torch: each block sums its units' fp32
+    products tile by tile; a whole tile is written at once, a cut one
+    from the blocks' parts added in block order."""
+    b, n = xn.shape[0], w.shape[1]
+    out = torch.full((b, plan.tiles * tn), float("nan"))
+    parts = {}
+    for j, (start, end) in enumerate(tfd.stream_shares(plan)):
+        first = start // plan.ksteps
+        for t in range(first, (end - 1) // plan.ksteps + 1):
+            lo = max(start, t * plan.ksteps) - t * plan.ksteps
+            hi = min(end, (t + 1) * plan.ksteps) - t * plan.ksteps
+            acc = torch.zeros(b, tn)
+            for s in range(lo, hi):
+                wt = torch.zeros(ks, tn)
+                blk = w[s * ks:(s + 1) * ks, t * tn:(t + 1) * tn]
+                wt[:blk.shape[0], :blk.shape[1]] = blk
+                xk = torch.zeros(b, ks)
+                xb = xn[:, s * ks:(s + 1) * ks]
+                xk[:, :xb.shape[1]] = xb
+                acc = acc + xk @ wt
+            if hi - lo == plan.ksteps:
+                out[:, t * tn:(t + 1) * tn] = acc
+            else:
+                parts[(j, 0 if t == first else 1)] = acc
+    for t in range(plan.tiles):
+        cut = tfd.stream_contributors(plan, t)
+        if any(key in parts for key in cut):
+            s = torch.zeros(b, tn)
+            for key in cut:
+                s = s + parts[key]
+            out[:, t * tn:(t + 1) * tn] = s
+    return out[:, :n]
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("blocks", [1, 5, 13, 64])
+def test_stream_combine_model_matches_matmul(transposed, blocks):
+    """A torch model of the plan's fixed-order combine (parts summed in
+    block order) equals ``xn @ w`` within fp32 2e-5, on a shape with a
+    ragged last tile and step, and gives the same bits twice."""
+    rs = np.random.RandomState(blocks)
+    h, n = (600, 100) if transposed else (100, 600)
+    xn = torch.from_numpy(rs.randn(8, h).astype(np.float32))
+    w = torch.from_numpy(rs.randn(h, n).astype(np.float32) * 0.05)
+    tn, ks = tfd.stream_geometry(transposed, 4)
+    plan = tfd.stream_plan(-(-n // tn), -(-h // ks), blocks)
+    got = _stream_model(xn, w, plan, tn, ks)
+    np.testing.assert_allclose(got.numpy(), (xn @ w).numpy(), rtol=F32_TOL,
+                               atol=F32_TOL)
+    assert torch.equal(got, _stream_model(xn, w, plan, tn, ks))

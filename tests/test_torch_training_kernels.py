@@ -360,8 +360,8 @@ def test_layer_norm_plain_matches_jax_kernel(case):
 def test_layer_norm_routes():
     """The wrapper's route: the vector route at 768, 2048 and 4096 with
     every pointer 16-byte aligned; the generic one for any other width up
-    to 8192 and for a view one element past alignment; a wider row
-    raises."""
+    to 8192 and for a view one element past alignment; the wide one for
+    any wider row; no route for an empty row."""
     w = torch.ones(2048)
     for h in (768, 2048, 4096):
         x = torch.zeros(4, h)
@@ -373,8 +373,61 @@ def test_layer_norm_routes():
     view = flat[1:].view(4, 2048)
     assert view.data_ptr() % 16 != 0
     assert tln.route(2048, (view, w)) == "generic"
-    with pytest.raises(ValueError, match="wider"):
-        tln.route(8193, (torch.zeros(1, 8193),))
+    for h in (8193, 10007, 12288, 29056):
+        assert tln.route(h, (torch.zeros(1, h),)) == "wide"
+    with pytest.raises(ValueError, match="no LayerNorm route"):
+        tln.route(0, (torch.zeros(1, 0),))
+
+
+@pytest.mark.parametrize("dtype,h", [("float32", 12288), ("bfloat16", 12288),
+                                     ("float32", 10007)])
+def test_layer_norm_wide_rows_match_jax_kernel(dtype, h):
+    """Rows wider than 8192 (the card's wide route): y, dx, dw, db of the
+    plain version on x [4, H] against the JAX Pallas kernel (interpret
+    mode), F32_TOL in fp32 and BF16_TOL in bf16, as at the narrow
+    widths."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    rs = np.random.RandomState(8)
+    x = rs.randn(4, h).astype(np.float32) * 2 + 0.5
+    w = 1 + 0.1 * rs.randn(h).astype(np.float32)
+    b = 0.1 * rs.randn(h).astype(np.float32)
+    g = rs.randn(4, h).astype(np.float32)
+
+    def f(x, w, b):
+        return jln.layer_norm_pallas(x, w, b, 1e-5, 16, True)
+    jy, vjp = jax.vjp(f, _j(x, jdt), _j(w), _j(b))
+    want = [_np(a) for a in (jy,) + tuple(vjp(_j(g, jdt)))]
+    tx, tw, tb = _t(x, tdt, True), _t(w, grad=True), _t(b, grad=True)
+    ty = tln.layer_norm(tx, tw, tb, 1e-5)
+    got = (ty,) + torch.autograd.grad(ty, (tx, tw, tb), _t(g, tdt))
+    assert tln.route(h, (tx, tw, tb)) == "wide"
+    for name, wv, gv in zip(("y", "dx", "dw", "db"), want, got):
+        np.testing.assert_allclose(_np(gv), wv, rtol=tol, atol=tol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("entry", ["bhsd", "fwd", "bwd"])
+def test_flash_attention_rejects_rows_that_see_no_key(entry):
+    """``causal`` with ``q_offset < 0`` leaves the first query rows no
+    key, where the reference's answer depends on its block size: every
+    entry point raises, on CPU tensors as on CUDA ones; ``q_offset`` 0 and
+    the non-causal case still compute."""
+    q = torch.randn(2, 8, 16)
+    k = torch.randn(2, 4, 16)
+    calls = {
+        "bhsd": lambda c, o: tfa.flash_attention_bhsd(q, k, k, 0.25, c, o),
+        "fwd": lambda c, o: tfa.flash_attention_fwd(q, k, k, 0.25, c, o),
+        "bwd": lambda c, o: tfa.flash_attention_bwd(q, k, k, q, q[..., 0],
+                                                    q, 0.25, c, o),
+    }
+    with pytest.raises(ValueError, match="q_offset -1"):
+        calls[entry](True, -1)
+    with pytest.raises(ValueError, match="q_offset -4"):
+        calls[entry](True, -4)
+    if entry == "bhsd":
+        assert calls[entry](True, 0).shape == q.shape
+        assert calls[entry](False, -4).shape == q.shape
 
 
 def test_layer_norm_is_not_the_serving_numerics():
