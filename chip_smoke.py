@@ -74,10 +74,12 @@ loudly with a non-zero exit:
 9. K6a (rope + QKV), K6b (attend + cache append) and K6c (norm + MLP)
    against their plain PyTorch versions on the card at the decode paths'
    shapes (llama2-7b and GPT-3 1.3B at batch 8, plus GQA 32/8, neox rope
-   and bf16 cases; K6c also at 33 and 64 rows, each case on the stream
-   route, a relaunch bitwise equal), with kernel / plain / library (a
+   and bf16 cases; K6c also at 33 and 64 rows; every K6a and K6c case on
+   its stream route, K6a's route as the kernel's ``fd_qkv_route`` gives
+   it, a relaunch bitwise equal), with kernel / plain / library (a
    yardstick only, where one PyTorch call computes the same; for K6c a
-   composition, ``composition_ms``) times and the card's bound, K6c's
+   composition, ``composition_ms``) times and the card's bound, K6a's
+   generic GEMV on the same inputs (``generic_ms``), K6a's and K6c's
    weights rotating over copies past twice the L2;
 10. decode main path — ``decode_loop`` on ``llama2-7b`` at full width
    and depth (32 layers, fp32, nothing cut), batch 8 x prompt 512 + 128
@@ -1768,6 +1770,8 @@ K6A_CASES = {   # (hidden, nh, nkv, rope, bias, dtype)
     "neox": (4096, 32, 32, "neox", False, torch.float32),
     "bf16": (4096, 32, 32, "interleaved", False, torch.bfloat16),
 }
+# every main-path K6a case must take the stream form
+K6A_STREAM = tuple(K6A_CASES)
 K6B_CASES = {   # (nh, nkv, s_total, pos, dtype)
     "llama": (32, 32, 640, 575, torch.float32),
     "gpt": (16, 16, 320, 287, torch.float32),
@@ -1852,25 +1856,61 @@ def check_launch(key, fn):
     return out
 
 
+@contextlib.contextmanager
+def qkv_route_forced(route):
+    """K6a's calls forced onto ``route`` ("stream" or "generic")."""
+    keep = fd.qkv_route
+    fd.qkv_route = lambda *a: int(route == "stream")
+    try:
+        yield
+    finally:
+        fd.qkv_route = keep
+
+
+def k6a_case(case, g):
+    """(x, packed q/k/v weight, wq, wk, wv, biases, cos, sin, kw) of a
+    K6A_CASES case: GPT's q/k/v are column slices of its packed [H, 3H]
+    projection, LLaMA's three parameters of their own."""
+    h, nh, nkv, rope_mode, bias, dtype = K6A_CASES[case]
+    nq, nk = nh * HD, nkv * HD
+    x = rand((K6_BATCH, h), dtype, g)
+    packed = rand((h, nq + 2 * nk), dtype, g, 0.02)
+    bs = [rand((n,), dtype, g, 0.1) if bias else None for n in (nq, nk, nk)]
+    cos = sin = None
+    if rope_mode:
+        tc, ts = rope_tables(576, HD, rope_mode == "neox", torch.float32)
+        cos, sin = tc[575], ts[575]
+    kw = dict(n_heads=nh, n_kv=nkv, head_dim=HD, neox=rope_mode == "neox")
+    return x, packed, k6a_weights(case, packed), bs, cos, sin, kw
+
+
+def k6a_weights(case, packed):
+    h, nh, nkv = K6A_CASES[case][:3]
+    nq, nk = nh * HD, nkv * HD
+    ws = packed[:, :nq], packed[:, nq:nq + nk], packed[:, nq + nk:]
+    return ws if case == "gpt" else tuple(w.contiguous() for w in ws)
+
+
 def check_k6a(g):
     rows = {}
     b = K6_BATCH
+    lib = _build.library("fused_decode")
     for case, (h, nh, nkv, rope_mode, bias, dtype) in K6A_CASES.items():
         nq, nk = nh * HD, nkv * HD
-        x = rand((b, h), dtype, g)
-        packed = rand((h, nq + 2 * nk), dtype, g, 0.02)
-        wq, wk, wv = packed[:, :nq], packed[:, nq:nq + nk], packed[:, nq + nk:]
-        if case != "gpt":    # LLaMA's are three parameters
-            wq, wk, wv = (w.contiguous() for w in (wq, wk, wv))
-        bs = [rand((n,), dtype, g, 0.1) if bias else None
-              for n in (nq, nk, nk)]
-        cos = sin = None
-        if rope_mode:
-            tc, ts = rope_tables(576, HD, rope_mode == "neox", torch.float32)
-            cos, sin = tc[575], ts[575]
-        kw = dict(n_heads=nh, n_kv=nkv, head_dim=HD, neox=rope_mode == "neox")
+        x, packed, (wq, wk, wv), bs, cos, sin, kw = k6a_case(case, g)
+        neox = kw["neox"]
+        route = fd.rope_qkv_route(x, wq, wk, wv, HD, neox)
+        c_route = lib.fd_qkv_route(b, nq, nk, h, wq.stride(0), wk.stride(0),
+                                   wv.stride(0), HD, int(neox),
+                                   fd._DTYPE_CODE[dtype], 1)
+        if (route == "stream") != bool(c_route):
+            fail(f"K6a {case}: rope_qkv_route says {route}, the kernel's "
+                 f"fd_qkv_route {c_route}")
+        if case in K6A_STREAM and route != "stream":
+            fail(f"K6a {case}: route {route}, want stream")
         args = (x, wq, wk, wv, *bs, cos, sin)
         got = check_launch("rope_qkv", lambda: fd.rope_qkv(*args, **kw))
+        check_relaunch(f"K6a {case}", lambda: fd.rope_qkv(*args, **kw), got)
         ref = fd.rope_qkv_ref(*args, **kw)
         ref32 = fd.rope_qkv_ref(*f32(*args), **kw) \
             if dtype != torch.float32 else (None,) * 3
@@ -1881,19 +1921,33 @@ def check_k6a(g):
             errs[name] = check_k6_close(f"K6a {case} {name}", a, r, r32,
                                         dtype)
         n_out = nq + 2 * nk
+        # the weights rotate over copies (GPT's packed projection is read
+        # as its three column slices); x, the biases and cos/sin stay
+        copies = [packed] + [packed.clone() for _ in range(
+            weight_copies(x.element_size() * h * n_out) - 1)]
+        calls = [functools.partial(fd.rope_qkv, x, *k6a_weights(case, c),
+                                   *bs, cos, sin, **kw) for c in copies]
+        plain = [functools.partial(fd.rope_qkv_ref, x, *k6a_weights(case, c),
+                                   *bs, cos, sin, **kw) for c in copies]
+        ms = time_rotating(calls, 20)
+        generic_ms = None
+        if route == "stream":    # the generic GEMV on the same inputs
+            with qkv_route_forced("generic"):
+                generic_ms = time_rotating(calls, 20)
         # the weights, x, q/k/v and the biases; the fp32 cos/sin row
         nbytes = x.element_size() * (h * n_out + b * h + b * n_out
                                      + n_out * bias) \
             + 4 * 2 * HD * bool(rope_mode)
         rows[case] = k6_row(
-            "K6a", case, dtype, errs,
-            time_ms(lambda: fd.rope_qkv(*args, **kw), 20),
-            time_ms(lambda: fd.rope_qkv_ref(*args, **kw), 10),
+            "K6a", case, dtype, errs, ms, time_rotating(plain, 10),
             # the product part as one library call on the packed weight
-            time_ms(lambda: torch.matmul(x, packed), 20),
+            time_rotating([functools.partial(torch.matmul, x, c)
+                           for c in copies], 20),
             bound_ms(nbytes, 2 * b * h * n_out, PEAK_FLOPS[dtype]),
+            route=route, generic_ms=generic_ms, weight_copies=len(copies),
             shape=f"x [{b}, {h}], w [{h}, {nq}+{nk}+{nk}]")
-        del x, packed, wq, wk, wv, bs, got, ref, args
+        del x, packed, wq, wk, wv, bs, got, ref, ref32, args, copies, calls
+        del plain
     return rows
 
 
@@ -1965,12 +2019,15 @@ def k6c_composition(kind, act, x, norm_w, norm_b, w1, b1, w2, b2, w_gate):
 
 
 def check_relaunch(what, fn, first):
-    """A second launch on the same inputs gives the same bits."""
+    """A second launch on the same inputs gives the same bits (``first``
+    a tensor or a tuple of them)."""
     again = fn()
     torch.cuda.synchronize()
-    if not torch.equal(again, first):
-        fail(f"{what}: a relaunch is not bitwise equal to the first "
-             f"(max diff {max_err(again, first):.3e})")
+    pairs = zip(again, first) if isinstance(first, tuple) else [(again, first)]
+    for a, f in pairs:
+        if not torch.equal(a, f):
+            fail(f"{what}: a relaunch is not bitwise equal to the first "
+                 f"(max diff {max_err(a, f):.3e})")
 
 
 def check_k6c(g):
@@ -3453,22 +3510,25 @@ def program_main_paths(llama):
 AB_K7_CASES = ("decode", "decode-2048", "mixed")
 AB_K2_CASES = ("float32", "bfloat16", "bart", "decode")
 # phase 9's and phase 15's main-path K6c / K6d cases
+AB_K6A_CASES = ("llama", "gpt", "bf16")
 AB_K6C_CASES = ("llama", "gpt")
 AB_K6D_CASES = ("gpt_qkv", "gpt_fc1", "gpt_head", "llama_head")
 
 
 @contextlib.contextmanager
 def fd_variant(lib, route):
-    """``fused_decode``'s wrappers on a variant's library, its K6c / K6d
-    calls forced onto ``route`` (a library built from a source without the
-    stream kernel has only the generic route)."""
+    """``fused_decode``'s wrappers on a variant's library, its K6a, K6c
+    and K6d calls forced onto ``route`` (a library built from a source
+    without a stream form has only the generic route)."""
     keep = (_build._libs.get("fused_decode"), fd.norm_matmul_route,
-            fd.norm_mlp_route, dict(fd._occupancy), dict(fd._plans))
+            fd.norm_mlp_route, fd.qkv_route, dict(fd._occupancy),
+            dict(fd._plans))
     _build._libs["fused_decode"] = lib
     fd._occupancy.clear()
     fd._plans.clear()
     fd.norm_matmul_route = lambda *a: route
     fd.norm_mlp_route = lambda *a: route
+    fd.qkv_route = lambda *a: int(route == "stream")
     try:
         yield
     finally:
@@ -3476,30 +3536,54 @@ def fd_variant(lib, route):
             _build._libs.pop("fused_decode", None)
         else:
             _build._libs["fused_decode"] = keep[0]
-        fd.norm_matmul_route, fd.norm_mlp_route = keep[1], keep[2]
+        fd.norm_matmul_route, fd.norm_mlp_route, fd.qkv_route = keep[1:4]
         fd._occupancy.clear()
-        fd._occupancy.update(keep[3])
+        fd._occupancy.update(keep[4])
         fd._plans.clear()
-        fd._plans.update(keep[4])
+        fd._plans.update(keep[5])
 
 
 def ab_fused_decode(libs, turns, g):
-    """K6c and K6d of each ``fd_*`` variant, on every route it has, at the
-    main-path cases, the weights rotating over copies as in phases 9 and
-    15; each variant's error from the plain version."""
-    routes = {}
+    """K6a, K6c and K6d of each ``fd_*`` variant, on every route it has,
+    at the main-path cases, the weights rotating over copies as in phases
+    9 and 15; each variant's error from the plain version."""
+    routes, qkv_routes = {}, {}
     for name, lib in libs.items():
         for route in ("stream", "generic"):
             if route == "generic" or hasattr(lib, "fd_norm_matmul_stream"):
                 routes[f"{name}/{route}"] = (lib, route)
+            if route == "generic" or hasattr(lib, "fd_rope_qkv_stream"):
+                qkv_routes[f"{name}/{route}"] = (lib, route)
 
-    def in_variant(key, fn):
-        lib, route = routes[key]
+    def in_variant(key, fn, table=routes):
+        lib, route = table[key]
 
         def run():
             with fd_variant(lib, route):
                 return fn()
         return run
+    for case in AB_K6A_CASES:
+        x, packed, ws, bs, cos, sin, kw = k6a_case(case, g)
+        h, nh, nkv = K6A_CASES[case][:3]
+        copies = [packed] + [packed.clone() for _ in range(weight_copies(
+            x.element_size() * h * packed.shape[1]) - 1)]
+        ref = fd.rope_qkv_ref(x, *ws, *bs, cos, sin, **kw)
+        fns, errs = {}, {}
+        for key in qkv_routes:
+            out = in_variant(key, lambda: fd.rope_qkv(x, *ws, *bs, cos, sin,
+                                                      **kw), qkv_routes)()
+            torch.cuda.synchronize()
+            errs[key] = max(max_err(a, r) for a, r in zip(out, ref))
+            it = itertools.cycle([functools.partial(
+                fd.rope_qkv, x, *k6a_weights(case, c), *bs, cos, sin, **kw)
+                for c in copies])
+            fns[key] = in_variant(key, lambda it=it: next(it)(), qkv_routes)
+        lib_fns = itertools.cycle([functools.partial(torch.matmul, x, c)
+                                   for c in copies])
+        fns["library"] = lambda: next(lib_fns)()
+        say("AB K6a " + json.dumps(dict(case=case, ms=turns(fns),
+                                        max_abs_err=errs)))
+        del x, packed, ws, bs, copies, ref, fns
     for case in AB_K6C_CASES:
         kind, act, h, inter, dtype, b = K6C_CASES[case]
         ln_kind = kind == "layer_norm"
@@ -3562,8 +3646,8 @@ def compare_variants(paths) -> int:
     reverse order): K1a's forward at the two training shapes, K7 at phase
     3's cases with the wrapper's page splits and twice as many, K2a and
     K2b at phase 5's GPT, bf16, BART and decode cases beside the
-    library's call, K6c and K6d at phase 9's and phase 15's main-path
-    cases on each route a variant has (``ab_fused_decode``).  One line per
+    library's call, K6a, K6c and K6d at phase 9's and phase 15's
+    main-path cases on each route a variant has (``ab_fused_decode``).  One line per
     case: each variant's times and its max abs error from the plain
     version."""
     out_dir = _build.BUILD_DIR / "variants"
@@ -3698,6 +3782,166 @@ def compare_variants(paths) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# python3 chip_smoke.py --ab-paths A.cu: the decode paths on another source
+# python3 chip_smoke.py --marks: K6a's time by phase
+# ---------------------------------------------------------------------------
+
+AB_PATH_PAIRS = 10
+
+
+def build_variant(path, name):
+    """``csrc/fused_decode.cu``'s copy at ``path`` built with the port's
+    flags into its own library, its entry points declared."""
+    out = _build.BUILD_DIR / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(out / f"{name}.so"), str(path)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        fail(f"nvcc {path}: {proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(out / f"{name}.so"))
+    fd._declare(lib)
+    return lib
+
+
+def compare_paths(path) -> int:
+    """The compiled decode loops (phase 10's llama2-7b, phase 4b's GPT-3
+    1.3B) with ``fused_decode``'s library built from ``path`` against this
+    tree's, ``AB_PATH_PAIRS`` pairs of synchronized calls in turns: the
+    tokens, each side's quartiles of seconds a call and the pairs this
+    tree's side won, then each side's K6a kernels' device ms a call
+    (profiler).  K6a takes only the generic route on a source without
+    its stream form."""
+    _build.build_all()
+    other = build_variant(path, "paths_other")
+    ours = _build.library("fused_decode")
+
+    @contextlib.contextmanager
+    def side(name):
+        keep = fd.qkv_route
+        fd._occupancy.clear()
+        fd._plans.clear()
+        if name == "other":
+            _build._libs["fused_decode"] = other
+            if not hasattr(other, "fd_rope_qkv_stream"):
+                fd.qkv_route = lambda *a: 0
+        try:
+            yield
+        finally:
+            _build._libs["fused_decode"], fd.qkv_route = ours, keep
+            fd._occupancy.clear()
+            fd._plans.clear()
+
+    for name, build, shape in (
+            (DECODE_PRESET, lambda: LlamaForCausalLM(
+                llama_config(DECODE_PRESET), seed=0), DECODE),
+            ("gpt3-1.3B", lambda: GPTForPretraining(
+                gpt_config("gpt3-1.3B"), seed=0), GPT_DECODE)):
+        model = build()
+        b, s, n = shape["batch"], shape["prompt"], shape["new"]
+        ids = torch.from_numpy(np.random.RandomState(2).randint(
+            0, model.config.vocab_size, (b, s))).cuda()
+        toks, secs, k6a_ms, wins = {}, {"other": [], "ours": []}, {}, 0
+        for v in ("other", "ours"):
+            with side(v):
+                toks[v] = decode_call(model, ids, n)[0]
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    decode_call(model, ids, n)
+                k6a_ms[v] = sum(e.device_time_total for e in prof.key_averages()
+                                if "gemv_kernel" in e.key or "qkv_" in e.key) / 1e3
+        for i in range(AB_PATH_PAIRS):
+            pair = {}
+            for v in ("other", "ours") if i % 2 == 0 else ("ours", "other"):
+                with side(v):
+                    pair[v] = decode_call(model, ids, n)[1]
+                secs[v].append(pair[v])
+            wins += pair["ours"] < pair["other"]
+        say("AB paths " + json.dumps(dict(
+            model=name, tokens_equal=torch.equal(toks["other"], toks["ours"]),
+            s_per_call_quartiles={v: np.percentile(x, [25, 50, 75]).tolist()
+                                  for v, x in secs.items()},
+            ours_faster_pairs=f"{wins} of {AB_PATH_PAIRS}",
+            k6a_device_ms_per_call=k6a_ms, decode_steps=n - 1)))
+        del model, ids
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def marked_source() -> str:
+    """``csrc/fused_decode.cu`` with %globaltimer marks in K6a's stream
+    kernel: per block its start, its window and first stages landed, its
+    end; per warp the end of its stream; read back by ``fd_read_marks``."""
+    src = (_build.CSRC_DIR / "fused_decode.cu").read_text()
+    head, tail = src.split("qkv_stream_kernel(const __grid_constant__", 1)
+    marks = ("__device__ unsigned long long qkv_marks[1024][3];\n"
+             "__device__ unsigned long long qkv_warp_marks[1024][8];\n"
+             "__device__ __forceinline__ unsigned long long gtime() {\n"
+             "  unsigned long long t;\n"
+             "  asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t));\n"
+             "  return t;\n}\n")
+    cut = head.rindex("template <typename T>")
+    head = head[:cut] + marks + head[cut:]
+    for old, new in (
+            ("  grid_dep_launch();", "  if (tid == 0) qkv_marks[j][0] = gtime();\n"
+             "  grid_dep_launch();"),
+            ("  cp_async_wait(0);\n  __syncthreads();\n",
+             "  cp_async_wait(0);\n  __syncthreads();\n"
+             "  if (tid == 0) qkv_marks[j][1] = gtime();\n"),
+            ("  cp_async_wait(0);\n}", "  cp_async_wait(0);\n"
+             "  if (lane == 0) qkv_warp_marks[j][warp] = gtime();\n"
+             "  __syncthreads();\n  if (tid == 0) qkv_marks[j][2] = gtime();\n}")):
+        if tail.count(old) != 1:
+            fail(f"--marks: the K6a kernel no longer has {old!r}")
+        tail = tail.replace(old, new, 1)
+    return (head + "qkv_stream_kernel(const __grid_constant__" + tail +
+            '\nextern "C" int fd_read_marks(void* blocks, void* warps) {\n'
+            "  if (cudaMemcpyFromSymbol(blocks, qkv_marks, sizeof(qkv_marks)) != cudaSuccess)\n"
+            "    return 1;\n"
+            "  return static_cast<int>(cudaMemcpyFromSymbol(warps, qkv_warp_marks,\n"
+            "                                                sizeof(qkv_warp_marks)));\n}\n")
+
+
+def k6a_marks() -> int:
+    """K6a's stream kernel by phase at phase 9's cases, in microseconds
+    from the first block's start (quartiles over blocks): the window and
+    first stages landed, each block's last warp done, the warps' spread
+    within a block, each block's end; and the call's time with the
+    marks in."""
+    _build.build_all()
+    path = _build.BUILD_DIR / "variants" / "fd_marks.cu"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(marked_source())
+    lib = build_variant(path, "fd_marks")
+    lib.fd_read_marks.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    q = lambda a: np.percentile(a / 1e3, [0, 25, 50, 75, 100]).round(2).tolist()
+    for case in K6A_CASES:
+        x, packed, ws, bs, cos, sin, kw = k6a_case(case, g)
+        with fd_variant(lib, "stream"):
+            call = functools.partial(fd.rope_qkv, x, *ws, *bs, cos, sin, **kw)
+            ms = time_ms(call, 20)
+            call()
+            torch.cuda.synchronize()
+            plan = next(iter(fd._plans.values()))
+        blocks = np.zeros((1024, 3), np.uint64)
+        warps = np.zeros((1024, 8), np.uint64)
+        if lib.fd_read_marks(blocks.ctypes.data, warps.ctypes.data):
+            fail("--marks: reading the marks failed")
+        b = blocks[:plan.grid].astype(np.int64)
+        w = warps[:plan.grid].astype(np.int64)
+        t0 = b[:, 0].min()
+        say("marks K6a " + json.dumps(dict(
+            case=case, ms=ms, grid=plan.grid, units_a_block=plan.q,
+            us_min_q1_median_q3_max=dict(
+                first_stages_in=q(b[:, 1] - t0), last_warp_done=q(w.max(1) - t0),
+                warp_spread=q(w.max(1) - w.min(1)), block_end=q(b[:, 2] - t0)))))
+        del x, packed, ws
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
@@ -3716,6 +3960,10 @@ def main() -> int:
         f"{torch.backends.cudnn.allow_tf32}")
     if "--ab" in sys.argv:
         return compare_variants(sys.argv[sys.argv.index("--ab") + 1:])
+    if "--ab-paths" in sys.argv:
+        return compare_paths(sys.argv[sys.argv.index("--ab-paths") + 1])
+    if "--marks" in sys.argv:
+        return k6a_marks()
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")

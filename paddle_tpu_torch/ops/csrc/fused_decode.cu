@@ -28,9 +28,11 @@
 // JAX package gates them to 10 MiB; here nothing is resident and nothing is
 // gated by size: the weights and the cache stream from device memory.
 //
-// K6a and K6c share one weight-streaming GEMV (`gemv_kernel`) for a few
-// rows of x [B, K] against row-major weights [K, N] (any row stride, so
-// GPT's q/k/v are read as column slices of the packed [H, 3H] projection):
+// K6a, K6c and K6d take two routes, chosen by shape alone (`fd_qkv_route`,
+// `fd_route`): a generic GEMV for any shape, and a stream form for the main
+// path's (below).  The generic GEMV (`gemv_kernel`) takes a few rows of
+// x [B, K] against row-major weights [K, N] (any row stride, so GPT's
+// q/k/v are read as column slices of the packed [H, 3H] projection):
 //   * a block owns 32 column pairs (one per lane) of one weight matrix and
 //     8 rows of x (grid.y tiles larger batches); each thread owns one pair,
 //     (2j, 2j+1), or (j, j + hd/2) for a neox rotation, so the rope
@@ -47,8 +49,9 @@
 //     block) adds them in a fixed order, so the result does not depend on
 //     the order the blocks ran in, and applies the epilogue.
 //
-// K6c and K6d take two routes.  The generic route is the GEMV above:
-// K6c as two launches of it (the norm on the way in and the up (and gate)
+// On the generic route K6a is one launch of the GEMV above (its three
+// problems, the rope in the epilogue), K6c two launches of it (the norm on
+// the way in and the up (and gate)
 // products into an fp32 scratch [B, I], then the down product of the
 // activation, made on the way in, + bias), K6d as one (a row-major weight,
 // the bias added after the result is rounded to x's dtype, as the JAX
@@ -57,10 +60,11 @@
 // a warp owns 4 output columns and reads each one's weight row of H
 // contiguously against the normalized rows staged 1024 columns at a time.
 // It takes the shapes the stream route does not (odd N or K, unaligned
-// views); K6a keeps it on every shape.
+// views, K6a beyond 8 rows).
 //
 // The stream route takes the main path's shapes: a persistent walk that
-// reads each weight byte once per launch, at any of the gate's 1..64 rows.
+// reads each weight byte once per launch, at any of the gate's 1..64 rows
+// (K6a: 1..8, its own kernel `qkv_stream_kernel`, described at it).
 //   * The grid is the blocks the card holds at once (the SM count times
 //     the blocks an SM holds of the form the launch takes).  The weight's
 //     (column tile, K step) units are dealt out in tile-major order as in
@@ -787,6 +791,7 @@ struct StreamProblem {
   int n;
   int tiles;              // ceil(n / kTN)
   int out_t;              // the output as [n][8]: a resident down product's x
+  int rope;               // K6a: rotate the output's column pairs by cos/sin
 };
 
 struct StreamArgs {
@@ -798,8 +803,11 @@ struct StreamArgs {
   const float* nb;
   float eps;
   int gate_act, act, bias_after_round;
+  const float* cos_row;   // K6a: [head_dim] fp32 (problems with rope)
+  const float* sin_row;
+  int neox, head_dim;
   int n_problems;
-  StreamProblem p[2];
+  StreamProblem p[3];
   int ksteps;             // ceil(k / kKS)
   int q, r;               // the plan: block j takes q + (j < r) units from j q + min(j, r)
   int groups;             // row groups of 8 (1, 2, 4 or 8)
@@ -835,9 +843,12 @@ __host__ __device__ inline StreamLayout stream_layout(int groups, bool gated, in
   return l;
 }
 
+// 16 bytes (0 past an edge: zeros), with a 256-byte L2 prefetch of the
+// source's line (A/B: 2-4 % off K6a's times, K6c's and K6d's unmoved,
+// PERF.md)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(in ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -1149,15 +1160,19 @@ __host__ __device__ inline StreamLayout resident_layout(int window, int stages) 
 // The resident form's stages (3..kResMaxStages) where it takes the launch
 // at `per_sm` blocks an SM, else 0 (more rows, or a window too wide).
 constexpr int kSmemPerSm = 228 * 1024;   // an SM's shared memory, 1 KiB a block reserved
-template <typename TW, bool kTrans>
-int resident_stages(int batch, int window, int per_sm) {
-  if (batch > kResRows) return 0;
+// The stages of a ring beside `fixed` bytes of a block at `per_sm` blocks
+// an SM, or 0.
+int ring_stages(int fixed, int per_sm) {
   const int budget = min(kSmemBudget, kSmemPerSm / per_sm - 1024);
-  const int fixed = resident_layout<TW, kTrans>(window, 0).total;
   const int s = (budget - fixed) / (kStageRows * kSegBytes);
   // two blocks an SM only where each keeps a deep ring (A/B: a 3-stage
   // ring at two blocks waits on memory, PERF.md)
   return s < (per_sm > 1 ? 6 : 3) ? 0 : s > kResMaxStages ? kResMaxStages : s;
+}
+template <typename TW, bool kTrans>
+int resident_stages(int batch, int window, int per_sm) {
+  if (batch > kResRows) return 0;
+  return ring_stages(resident_layout<TW, kTrans>(window, 0).total, per_sm);
 }
 
 template <typename TX, typename TW, typename TO, bool kTrans>
@@ -1734,6 +1749,422 @@ int stream_route(int transposed, int rows, int n, int k, long long ldw, int dtyp
          n % v == 0 && k % v == 0 && ldw % v == 0 && ldw >= (transposed ? k : n);
 }
 
+// ---------------------------------------------------------------------------
+// K6a on the main path: the resident stream form over q, k and v
+// ---------------------------------------------------------------------------
+//
+// Replaces K6a's TPU kernel for the main path's shapes (fd_qkv_route).
+// Bound: the weights' bytes (fp32 llama2-7b: 201 MB, 0.060 ms at
+// 3.35 TB/s).  One stream launch deals the three products' (tile, step)
+// units out as K6d's plan does (a tile is 512 bytes of columns, a step 32
+// rows of K), one block an SM with an 8-stage lane-private cp.async ring.
+// x's rows come in as they lie ([b][k]; no pre-pass, nothing to
+// normalize) into a window kept for the whole launch, behind the first
+// weight stages.  Unlike the resident form above, a warp owns 64 bytes of
+// every stage row's columns and all 32 rows, so the warps never add each
+// other's sums: lane (grp, chunk) copies rows 4 grp .. 4 grp + 3 of the
+// warp's 16-byte `chunk`, 8 rows x 64 bytes in each copy instruction.
+//   * fp32, on CUDA cores: each lane multiplies only what it copied (its 4
+//     columns x 4 rows against x's 8 rows, 4 rows a 16-byte load of the
+//     window); at a tile's end the 8 lanes of a chunk meet by a butterfly.
+//     (TF32 would miss the fp32 tolerance.)
+//   * bf16, on the tensor cores: outT [TN, 8] = wT x xT with
+//     mma.m16n8k16 (the 8 rows of x are its n = 8 side).  The warp's
+//     32 x 64 bytes are kept XOR-swizzled by 16-byte chunk so that
+//     ldmatrix.trans reads the weight rows as A fragments without bank
+//     conflicts; ldmatrix reads x's k-contiguous rows as B fragments (the
+//     window's rows padded by 16 bytes).  No element is converted and no
+//     product is made on the CUDA cores.
+// A tile's sums go to the block's part in the work buffer.  A second
+// launch (`qkv_epilogue_kernel`, one block a tile, programmatic dependent
+// launch) adds each tile's parts in block order, so a relaunch is bitwise
+// equal, then the bias and the rope of each column pair, one rounding.
+// Column pairs lie inside a tile: (2i, 2i + 1), or neox (j, j + hd / 2)
+// where hd divides the tile's columns (the route's rule).
+// A warp takes 2 KiB of a 16 KiB stage: its 64 bytes of each of the
+// step's 32 rows (A/B: 16 rows of 128 bytes streamed faster but cost more
+// in parts and cut tiles, 4-22 % slower, PERF.md).
+template <typename T>
+struct QkvGeo {
+  static constexpr bool kMma = sizeof(T) == 2;
+  static constexpr int kItem = static_cast<int>(sizeof(T));
+  static constexpr int kVec = 16 / kItem;
+  static constexpr int kKS = kStageRows;                     // rows of K a step
+  static constexpr int kStage = kStageRows * kSegBytes;      // 16 KiB
+  static constexpr int kWarpBytes = kStage / kStreamWarps;   // 2 KiB
+  static constexpr int kWarpCols = 64 / kItem;               // a warp's columns
+  static constexpr int kTN = kStreamWarps * kWarpCols;       // 128 fp32, 256 bf16
+  // x's window: 8 rows of `window` steps (bf16: + 16 bytes, for ldmatrix)
+  __host__ __device__ static int x_stride(int window) {
+    return window * kKS * kItem + (kMma ? 16 : 0);
+  }
+  __host__ __device__ static int fixed(int window) { return kResRows * x_stride(window); }
+  // a byte offset in a warp's part of a bf16 stage: each 64-byte row's
+  // 16-byte chunks XOR (row / 2) % 4, so that ldmatrix's 8 rows of one
+  // chunk fall in 8 distinct bank groups
+  __host__ __device__ static int swizzled(int row, int chunk) {
+    return row * 64 + 16 * (chunk ^ ((row >> 1) & 3));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// four 8 x 8 bf16 matrices; lanes 8 i .. 8 i + 7 address matrix i's rows
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// c[16 x 8] += a[16 x 16] b[16 x 8], bf16 operands, fp32 sums
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the problem of tile t (of all the launch's tiles) and its first column
+__device__ __forceinline__ int tile_problem(const StreamArgs& a, int t, int tn, int* n0) {
+  int pi = 0;
+  while (pi + 1 < a.n_problems && t >= a.p[pi].tiles) {
+    t -= a.p[pi].tiles;
+    ++pi;
+  }
+  *n0 = t * tn;
+  return pi;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStreamThreads)
+qkv_stream_kernel(const __grid_constant__ StreamArgs a) {
+  using G = QkvGeo<T>;
+  constexpr int V = G::kVec, TN = G::kTN, KS = G::kKS, STAGE = G::kStage;
+  constexpr int WARP_BYTES = G::kWarpBytes;
+  constexpr int MT = G::kWarpCols / 16, KH = KS / 16;   // bf16: 2 m16 tiles, 2 k16 steps
+  extern __shared__ __align__(16) unsigned char qkv_smem[];
+  const int S = a.stages, win = a.window;
+  const int xstride = G::x_stride(win);
+  unsigned char* ring = qkv_smem;
+  unsigned char* xs = qkv_smem + S * STAGE;
+
+  const int tid = threadIdx.x, warp = tid / kWarp, lane = tid % kWarp;
+  // the copies: lane (grp, chunk) takes rows 4 grp .. 4 grp + 3 of the
+  // warp's 16-byte `chunk`; the mma fragments: lane (g, tq), the same split
+  const int grp = lane / 4, chunk = lane % 4;
+  const int g = grp, tq = chunk;
+  const int j = blockIdx.x;
+  const int start = share_start(j, a.q, a.r);
+  const int end = start + a.q + (j < a.r ? 1 : 0);
+  const int first_tile = start / a.ksteps;
+  const int s_first = start % a.ksteps;
+  grid_dep_launch();   // the epilogue kernel may be scheduled
+
+  // x's window: [8][window steps x KS], row b's step s_first + i at i;
+  // rows past the batch and K past k are zeros
+  auto fill_window = [&]() {
+    const T* x = static_cast<const T*>(a.x);
+    const int per_row = win * KS / V;
+    for (int e = tid; e < kResRows * per_row; e += kStreamThreads) {
+      const int b = e / per_row, wi = (e % per_row) * V;
+      const int k = ((s_first + wi / KS) % a.ksteps) * KS + wi % KS;
+      const bool in = b < a.batch && k < a.k;
+      cp_async16(xs + b * xstride + wi * static_cast<int>(sizeof(T)),
+                 in ? x + static_cast<int64_t>(b) * a.k + k : x, in);
+    }
+    cp_async_commit();
+  };
+
+  // the copies: a cursor over this block's units and this lane's 4 rows
+  int lu = start, lt = first_tile, ls = s_first, lslot = 0;
+  const T* lp[4];
+  bool l_in = false;
+  const T* lbase = nullptr;
+  int64_t lstep = 0;
+  auto set_tile = [&]() {
+    int n0;
+    const StreamProblem& P = a.p[tile_problem(a, lt, TN, &n0)];
+    const int n = n0 + warp * G::kWarpCols + chunk * V;
+    lbase = static_cast<const T*>(P.w);
+    lstep = static_cast<int64_t>(KS) * P.ldw;
+    l_in = n < P.n;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      lp[r] = lbase + static_cast<int64_t>(ls * KS + 4 * grp + r) * P.ldw + n;
+  };
+  auto issue = [&]() {
+    unsigned char* dst = ring + lslot * STAGE + warp * WARP_BYTES;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 4 * grp + r;
+      const bool in = l_in && ls * KS + row < a.k;
+      const int off = G::kMma ? G::swizzled(row, chunk) : (r * kWarp + lane) * 16;
+      cp_async16(dst + off, in ? lp[r] : lbase, in);
+      lp[r] += lstep;
+    }
+    ++lu;
+    if (++lslot == S) lslot = 0;
+    if (++ls == a.ksteps) {
+      ls = 0;
+      ++lt;
+      if (lu < end) set_tile();
+    }
+  };
+  // the first weight stages go out before the window (A/B: the window
+  // first waits on its L2 reads before the stream starts, PERF.md); then
+  // everything in flight lands
+  set_tile();
+  for (int i = 0; i < S - 1; ++i) {
+    if (lu < end) issue();
+    else if (++lslot == S) lslot = 0;
+    cp_async_commit();
+  }
+  fill_window();
+  cp_async_wait(0);
+  __syncthreads();
+
+  // this block's sums of tile t: its part in the work buffer, [batch][TN]
+  float* const work = a.work + static_cast<int64_t>(j) * a.slots * (a.batch * TN);
+
+  constexpr int ACC = G::kMma ? 4 * MT : 4 * kResRows;
+  float acc[ACC];
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
+  // bf16: this lane's ldmatrix addresses.  A (mt, h): matrix mi = lane / 8
+  // holds K rows 16 h + 8 (mi / 2) .. + 7 of columns 16 mt + 8 (mi % 2) .. + 7;
+  // B: matrix mi holds x's 8 rows at K 8 mi .. 8 mi + 7 of the step
+  uint32_t a_off[MT][KH] = {}, x_off = 0;
+  if constexpr (G::kMma) {
+    const int mi = lane / 8, ri = lane % 8;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < KH; ++h)
+        a_off[mt][h] = warp * WARP_BYTES +
+                       G::swizzled(16 * h + 8 * (mi >> 1) + ri, 2 * mt + (mi & 1));
+    x_off = ri * xstride + 16 * mi;
+  }
+  const uint32_t ring_s = smem_u32(ring), xs_s = smem_u32(xs);
+  const float* xf = reinterpret_cast<const float*>(xs);
+
+  // the consumer's cursor: unit u's tile t, step s, slot, place xw in the window
+  int t = first_tile, s = s_first, cslot = 0, xw = 0;
+  for (int u = start; u < end; ++u) {
+    if (lu < end) issue();   // into the slot of unit u - 1, read by now
+    else if (++lslot == S) lslot = 0;
+    cp_async_commit();
+    cp_async_wait(S - 1);   // this lane's copies of unit u have landed
+    if constexpr (G::kMma) {
+      __syncwarp();          // and the warp's
+      uint32_t xb[4];
+      ldsm(xb, xs_s + x_off + xw * KS * 2);
+      const uint32_t st = ring_s + cslot * STAGE;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < KH; ++h) {
+          uint32_t af[4];
+          ldsm_t(af, st + a_off[mt][h]);
+          mma_bf16(acc + 4 * mt, af, xb[2 * h], xb[2 * h + 1]);
+        }
+    } else {
+      // this lane's 4 rows x 4 columns, then each row of x's 4 values at them
+      const unsigned char* ws = ring + cslot * STAGE + warp * WARP_BYTES + lane * 16;
+      float wv[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) load_vec(reinterpret_cast<const float*>(ws + r * kWarp * 16), wv[r]);
+#pragma unroll
+      for (int b = 0; b < kResRows; ++b) {
+        const float4 xq =
+            *reinterpret_cast<const float4*>(xf + b * (xstride / 4) + xw * KS + 4 * grp);
+        const float xv[4] = {xq.x, xq.y, xq.z, xq.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            acc[c * kResRows + b] = fmaf(xv[r], wv[r][c], acc[c * kResRows + b]);
+      }
+    }
+    const bool tile_end = s == a.ksteps - 1 || u == end - 1;
+    if (tile_end) {
+      // this block's sums of tile t into its part (slot: t's place among
+      // the share's tiles); qkv_epilogue_kernel writes the tile
+      float* part = work + (t - first_tile) * (a.batch * TN);
+      if constexpr (G::kMma) {
+        // accumulator e of m-tile mt: column 16 mt + g (+ 8 for e >= 2),
+        // row 2 tq + e % 2
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = warp * G::kWarpCols + 16 * mt + g + 8 * (e >> 1);
+            const int b = 2 * tq + (e & 1);
+            if (b < a.batch) __stcg(part + b * TN + col, acc[4 * mt + e]);
+          }
+      } else {
+        // the 8 groups of a chunk took other rows of the same columns
+#pragma unroll
+        for (int e = 0; e < ACC; ++e) {
+          float v = acc[e];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          acc[e] = v;
+        }
+        // group grp writes row grp's 4 columns
+#pragma unroll
+        for (int b = 0; b < kResRows; ++b)
+          if (b == grp && b < a.batch)
+            __stcg(reinterpret_cast<float4*>(part + b * TN + warp * G::kWarpCols + chunk * V),
+                   make_float4(acc[b], acc[kResRows + b], acc[2 * kResRows + b],
+                               acc[3 * kResRows + b]));
+      }
+#pragma unroll
+      for (int e = 0; e < ACC; ++e) acc[e] = 0.f;
+    }
+    if (++cslot == S) cslot = 0;
+    if (++xw == a.ksteps) xw = 0;
+    if (++s == a.ksteps) {
+      s = 0;
+      ++t;
+    }
+  }
+  cp_async_wait(0);
+}
+
+// K6a's epilogue: tile blockIdx.x's sums (the parts of the blocks whose
+// shares cover it, added in block order), the bias, the rope of each
+// column pair, one rounding to T.  Launched behind the stream kernel with
+// programmatic dependent launch, so that its blocks wait on the device,
+// not behind a fence: the stream kernel's tail pays no fence or counter
+// under a full memory load (A/B, PERF.md).
+template <typename T>
+__global__ void __launch_bounds__(kStreamThreads)
+qkv_epilogue_kernel(const __grid_constant__ StreamArgs a) {
+  constexpr int TN = QkvGeo<T>::kTN;
+  const int tt = blockIdx.x, t_first = tt * a.ksteps;
+  const int jlo = block_of(t_first, a.q, a.r), jhi = block_of(t_first + a.ksteps - 1, a.q, a.r);
+  int n0;
+  const StreamProblem& P = a.p[tile_problem(a, tt, TN, &n0)];
+  const bool neox = P.rope && a.neox;
+  const int half = a.head_dim / 2;
+  T* out = static_cast<T*>(P.out);
+  grid_dep_wait();   // the stream kernel's parts are written
+  for (int p = threadIdx.x; p < a.batch * (TN / 2); p += kStreamThreads) {
+    const int b = p / (TN / 2), i = p % (TN / 2);
+    const int c0 = neox ? (i / half) * a.head_dim + i % half : 2 * i;
+    const int c1 = neox ? c0 + half : c0 + 1;
+    const int n = n0 + c0, m = n0 + c1;
+    if (m >= P.n) continue;   // a pair lies inside one head: both or neither
+    float v0 = 0.f, v1 = 0.f;
+    for (int jb = jlo; jb <= jhi; ++jb) {
+      const float* part = a.work +
+          (static_cast<int64_t>(jb) * a.slots + tt - share_start(jb, a.q, a.r) / a.ksteps) *
+              (a.batch * TN) + b * TN;
+      v0 += part[c0];
+      v1 += part[c1];
+    }
+    if (P.bias != nullptr) {
+      v0 += P.bias[n];
+      v1 += P.bias[m];
+    }
+    if (P.rope) {
+      const int d0 = n % a.head_dim, d1 = m % a.head_dim;
+      const float r0 = v0 * a.cos_row[d0] - v1 * a.sin_row[d0];
+      const float r1 = v1 * a.cos_row[d1] + v0 * a.sin_row[d1];
+      v0 = r0;
+      v1 = r1;
+    }
+    out[static_cast<int64_t>(b) * P.n + n] = from_float<T>(v0);
+    out[static_cast<int64_t>(b) * P.n + m] = from_float<T>(v1);
+  }
+}
+
+// Blocks an SM holds at once of K6a's stream form for `tiles` x `ksteps`
+// units: one (A/B: two blocks an SM, each with a 6-stage ring, were 5-10 %
+// slower at every main-path shape, PERF.md), or -error.
+template <typename T>
+int qkv_occupancy(int tiles, int ksteps) {
+  const int sms = sm_count();
+  const long long units = static_cast<long long>(tiles) * ksteps;
+  if (sms < 1 || units < 1) return -static_cast<int>(cudaErrorInvalidValue);
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  const int window = resident_window(static_cast<int>(units / grid),
+                                     static_cast<int>(units % grid), ksteps);
+  return ring_stages(QkvGeo<T>::fixed(window), 1) > 0 ? 1
+                                                      : -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Fill the plan of `a` (its three problems set) and launch `grid` blocks
+// of K6a's stream form; the plan must cover the tiles' units exactly.
+template <typename T>
+int launch_qkv(StreamArgs& a, int grid, cudaStream_t stream) {
+  using G = QkvGeo<T>;
+  int tiles = 0;
+  for (int i = 0; i < a.n_problems; ++i) {
+    a.p[i].tiles = (a.p[i].n + G::kTN - 1) / G::kTN;
+    tiles += a.p[i].tiles;
+  }
+  a.ksteps = (a.k + G::kKS - 1) / G::kKS;
+  if (grid < 1 || a.q < 1 || a.r < 0 || a.r >= grid ||
+      static_cast<long long>(a.q) * grid + a.r != static_cast<long long>(tiles) * a.ksteps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.window = resident_window(a.q, a.r, a.ksteps);
+  a.slots = (a.q + a.ksteps) / a.ksteps + 1;   // ceil((q + 1) / ksteps) + 1
+  const int sms = sm_count();
+  a.stages = sms < 1 ? 0 : ring_stages(G::fixed(a.window), (grid + sms - 1) / sms);
+  if (a.stages == 0) return static_cast<int>(cudaErrorInvalidValue);
+  static bool done = false;
+  const auto kernel = qkv_stream_kernel<T>;
+  const int rc = allow_smem(kernel, &done);
+  if (rc != 0) return rc;
+  kernel<<<grid, kStreamThreads, a.stages * G::kStage + G::fixed(a.window), stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(tiles);
+  cfg.blockDim = dim3(kStreamThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, qkv_epilogue_kernel<T>, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The route of K6a: the stream form takes 1..8 rows where each of the
+// three products is on the stream kernel's rule (stream_route), a neox
+// rotation's column pairs lie inside a tile (the head dim divides the
+// tile's 512 bytes of columns) and the window of all of K fits beside a
+// 3-stage ring; the generic GEMV takes the rest.  (GPT-3 1.3B's 50 MB
+// product, the smallest on the main path, is faster on the stream form:
+// A/B, PERF.md.)
+int qkv_route(int rows, int nq, int nk, int k, long long ldq, long long ldk, long long ldv,
+              int head_dim, int neox_rope, int dtype, bool aligned) {
+  if (dtype != 0 && dtype != 1) return 0;
+  const int item = dtype == 0 ? 4 : 2;
+  const int tn = dtype == 0 ? QkvGeo<float>::kTN : QkvGeo<__nv_bfloat16>::kTN;
+  const long long ksteps = (k + kStageRows - 1) / kStageRows;
+  const long long window = kResRows * (ksteps * kStageRows * item + (dtype == 1 ? 16 : 0));
+  return rows >= 1 && rows <= kResRows && head_dim > 0 && head_dim % 2 == 0 &&
+         (!neox_rope || tn % head_dim == 0) &&
+         stream_route(0, rows, nq, k, ldq, dtype, aligned) &&
+         stream_route(0, rows, nk, k, ldk, dtype, aligned) &&
+         stream_route(0, rows, nk, k, ldv, dtype, aligned) &&
+         window + 3LL * kStageRows * kSegBytes <= kSmemBudget;
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Each entry returns
@@ -1777,6 +2208,59 @@ extern "C" int fd_rope_qkv(const void* x, int batch, int hidden,
   if (dtype == 1)
     return launch_gemv<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(a, y_tiles, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K6a on the stream route: arguments as fd_rope_qkv's, with the plan in
+// place of the split (`grid` blocks, block j taking q + (j < r) units from
+// j q + min(j, r) of the tiles of q, k and v in that order); work fp32
+// [grid][ceil((q + 1) / ksteps) + 1][batch][tile columns].  Two launches:
+// the stream kernel, then its epilogue.  The call must be on fd_qkv_route.
+extern "C" int fd_rope_qkv_stream(const void* x, int batch, int hidden,
+                                  const void* wq, const void* wk, const void* wv,
+                                  long long ldq, long long ldk, long long ldv,
+                                  const void* bq, const void* bk, const void* bv,
+                                  const void* cos_row, const void* sin_row, int neox,
+                                  void* q, void* k, void* v, int nq, int nk,
+                                  int head_dim, void* work, int grid,
+                                  int plan_q, int plan_r, int dtype, void* stream) {
+  const bool aligned = [&] {
+    for (const void* p : {x, wq, wk, wv})
+      if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+    return true;
+  }();
+  const int rope = cos_row != nullptr;
+  if (!qkv_route(batch, nq, nk, hidden, ldq, ldk, ldv, head_dim, rope && neox, dtype, aligned))
+    return static_cast<int>(cudaErrorInvalidValue);
+  (void)cudaGetLastError();
+  StreamArgs a{};
+  a.x = x;
+  a.batch = batch;
+  a.k = hidden;
+  a.norm = kNoNorm;
+  a.act = kNoAct;
+  a.cos_row = static_cast<const float*>(cos_row);
+  a.sin_row = static_cast<const float*>(sin_row);
+  a.neox = neox;
+  a.head_dim = head_dim;
+  a.n_problems = 3;
+  a.p[0] = StreamProblem{wq, ldq, static_cast<const float*>(bq), q, nq, 0, 0, rope};
+  a.p[1] = StreamProblem{wk, ldk, static_cast<const float*>(bk), k, nk, 0, 0, rope};
+  a.p[2] = StreamProblem{wv, ldv, static_cast<const float*>(bv), v, nk, 0, 0, 0};
+  a.q = plan_q;
+  a.r = plan_r;
+  a.work = static_cast<float*>(work);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_qkv<float>(a, grid, s) : launch_qkv<__nv_bfloat16>(a, grid, s);
+}
+
+// K6a's route (1: the stream form, 0: the generic GEMV) of a call of
+// `rows` rows of x [rows, k] against q/k/v weights of nq / nk / nk columns
+// and row strides ldq / ldk / ldv; neox_rope: a neox rotation is applied;
+// aligned: every pointer 16-byte aligned.
+extern "C" int fd_qkv_route(int rows, int nq, int nk, int k, long long ldq, long long ldk,
+                            long long ldv, int head_dim, int neox_rope, int dtype,
+                            int aligned) {
+  return qkv_route(rows, nq, nk, k, ldq, ldk, ldv, head_dim, neox_rope, dtype, aligned != 0);
 }
 
 // K6b.  q [batch, n_heads, head_dim]; k_new/v_new [batch, n_kv, head_dim];
@@ -1933,15 +2417,21 @@ extern "C" int fd_route(int transposed, int rows, int n, int k, long long ldw,
 
 // Blocks of the stream kernel an SM holds at once, for the instantiation a
 // launch of `kind` takes (0: K6d; 1: K6c's up and gate products into fp32;
-// 2: K6c's down product of the fp32 scratch) at `rows` rows of x (and a
+// 2: K6c's down product of the fp32 scratch; 3: K6a) at `rows` rows of x (and a
 // gate for kind 2) over `tiles` x `ksteps` units; a negative CUDA error
 // where none fits.
 extern "C" int fd_stream_occupancy(int kind, int transposed, int rows, int gated,
                                    int dtype, int tiles, int ksteps) {
   using bf = __nv_bfloat16;
-  if (rows < 1 || rows > kStreamMaxRows || kind < 0 || kind > 2 ||
+  if (rows < 1 || rows > kStreamMaxRows || kind < 0 || kind > 3 ||
       (transposed && kind != 0))
     return -static_cast<int>(cudaErrorInvalidValue);
+  if (kind == 3) {   // K6a's stream form (1..8 rows)
+    if (rows > kResRows) return -static_cast<int>(cudaErrorInvalidValue);
+    return dtype == 0 ? qkv_occupancy<float>(tiles, ksteps)
+         : dtype == 1 ? qkv_occupancy<bf>(tiles, ksteps)
+                      : -static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool gt = gated != 0;
   if (dtype == 0)
     return transposed ? stream_occupancy<float, float, float, true>(rows, gt, tiles, ksteps)

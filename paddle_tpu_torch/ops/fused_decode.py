@@ -27,13 +27,20 @@
   transposed view of a row-major ``[N, H]`` tensor (a ``transpose_y``
   head); each layout has its own loop on the card.
 
-**Routes of K6c and K6d on the card.**  :func:`fd_route` (the twin of
-``csrc/fused_decode.cu``'s ``fd_route``) sends a product to the
+**Routes of K6a, K6c and K6d on the card.**  :func:`fd_route` (the twin
+of ``csrc/fused_decode.cu``'s ``fd_route``) sends a product to the
 persistent weight-streaming kernel (``"stream"``: rows 1..64, fp32 or
 bf16, 16-byte aligned pointers, N, K and the row stride multiples of the
 16-byte vector) or to the generic GEMV (``"generic"``: the rest, such as
 odd widths or unaligned views); :func:`norm_matmul_route` and
-:func:`norm_mlp_route` name a call's route.  The stream kernel's grid and
+:func:`norm_mlp_route` name a call's route.  K6a's stream form
+(:func:`qkv_route`, the twin of ``fd_qkv_route``; :func:`rope_qkv_route`
+names a call's route) is one launch over q's, k's and v's tiles at 1..8
+rows: fp32 on the CUDA cores, bf16 on the tensor cores
+(``mma.m16n8k16``), the bias and the rope of each column pair in its
+epilogue; it leaves to the generic GEMV more rows, a neox head dim that
+does not divide a tile's 512 bytes of columns, and a K whose window of
+x does not fit.  The stream kernel's grid and
 its shares of the weight are :func:`stream_plan`'s, a pure function of
 the tiles, the steps and the blocks the card holds; a tile cut by a
 share boundary is summed from :func:`stream_contributors`' parts in block
@@ -74,6 +81,7 @@ contiguous rows or contiguous columns.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -88,7 +96,8 @@ __all__ = ["reference_rope_rows", "reference_rms_norm",
            "attend_cache_append_ref", "attend_admits", "norm_mlp",
            "norm_mlp_ref", "norm_mlp_admits", "norm_matmul",
            "norm_matmul_ref", "norm_matmul_admits", "NORM_MLP_MAX_ROWS",
-           "fd_route", "norm_matmul_route", "norm_mlp_route",
+           "fd_route", "norm_matmul_route", "norm_mlp_route", "qkv_route",
+           "rope_qkv_route",
            "stream_geometry", "stream_plan", "stream_shares",
            "stream_contributors", "StreamPlan", "launches"]
 
@@ -107,7 +116,10 @@ _TILE_PAIRS, _ROWS, _THREADS, _MIN_SPLIT_K = 32, 8, 256, 512
 # csrc/fused_decode.cu's stream kernel: a unit is 32 stage rows of 512
 # bytes; launch kinds of fd_stream_occupancy
 _STAGE_ROWS, _SEG_BYTES = 32, 512
-_K6D, _K6C_UP, _K6C_DOWN = 0, 1, 2
+_K6D, _K6C_UP, _K6C_DOWN, _K6A = 0, 1, 2, 3
+# csrc/fused_decode.cu's K6a stream form: up to 8 rows (its window), the
+# dynamic shared memory a block may use, and the least weight bytes it takes
+_QKV_MAX_ROWS, _SMEM_BUDGET = 8, 227 * 1024
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +345,44 @@ def norm_mlp_route(x, w1, w2, w_gate=None) -> str:
     return "stream" if ok else "generic"
 
 
+@functools.lru_cache(maxsize=None)   # a decode step asks the same every layer
+def qkv_route(rows: int, nq: int, nk: int, k: int, ldq: int, ldk: int,
+              ldv: int, head_dim: int, neox_rope: bool, dtype,
+              aligned: bool) -> int:
+    """Twin of ``csrc/fused_decode.cu``'s ``fd_qkv_route``: 1 where K6a's
+    stream form takes ``rows`` rows against q/k/v weights of ``nq`` /
+    ``nk`` / ``nk`` columns over ``k`` (row strides ``ldq`` / ``ldk`` /
+    ``ldv``), 0 where the generic GEMV does.  The form takes 1..8 rows
+    where each product is on :func:`fd_route`'s rule, a neox rotation's
+    column pairs ``(j, j + hd/2)`` lie inside one tile (``hd`` divides its
+    512 bytes of columns) and the window of x's rows over all of K fits
+    beside a 3-stage ring."""
+    if dtype not in _DTYPE_CODE:
+        return 0
+    item = dtype.itemsize
+    tn, ks = stream_geometry(False, item)
+    ksteps = -(-k // ks)
+    window = _QKV_MAX_ROWS * (ksteps * ks * item
+                              + (16 if dtype == torch.bfloat16 else 0))
+    return int(1 <= rows <= _QKV_MAX_ROWS and head_dim > 0
+               and head_dim % 2 == 0
+               and (not neox_rope or tn % head_dim == 0)
+               and all(fd_route(False, rows, n, k, ld, dtype, aligned)
+                       for n, ld in ((nq, ldq), (nk, ldk), (nk, ldv)))
+               and window + 3 * _STAGE_ROWS * _SEG_BYTES <= _SMEM_BUDGET)
+
+
+def rope_qkv_route(x, wq, wk, wv, head_dim: int, neox: bool) -> str:
+    """``"stream"`` or ``"generic"``: the route K6a takes on the card for
+    a call :func:`rope_qkv_admits` admits (``neox``: a neox rotation is
+    applied; without cos/sin pass False)."""
+    b, h = x.shape
+    return "stream" if qkv_route(
+        b, wq.shape[1], wk.shape[1], h, wq.stride(0), wk.stride(0),
+        wv.stride(0), head_dim, neox, x.dtype,
+        x.is_contiguous() and _aligned(x, wq, wk, wv)) else "generic"
+
+
 def stream_geometry(transposed: bool, itemsize: int):
     """(tile columns, K per step) of the stream kernel: 32 stage rows of
     512 bytes, a row-major weight's rows along K and a transposed one's
@@ -533,20 +583,39 @@ def _rope_qkv_cuda(x, wq, wk, wv, bq, bk, bv, cos_row, sin_row, n_heads,
     k = torch.empty((b, nk), dtype=x.dtype, device=dev)
     v = torch.empty((b, nk), dtype=x.dtype, device=dev)
     if b:
-        tiles = _tiles(nq) + 2 * _tiles(nk)
-        splits = _splits(tiles * -(-b // _ROWS), h, dev)
-        partial, cnt = _scratch(dev, tiles, b, splits)
+        neox = bool(neox) and cos_row is not None
         bq, bk, bv, cos_row, sin_row = (_f32(t) for t in
                                         (bq, bk, bv, cos_row, sin_row))
         lib = _build.library("fused_decode")
-        with torch.cuda.device(dev):
-            rc = lib.fd_rope_qkv(
-                x.data_ptr(), b, h, wq.data_ptr(), wk.data_ptr(),
-                wv.data_ptr(), wq.stride(0), wk.stride(0), wv.stride(0),
-                _ptr(bq), _ptr(bk), _ptr(bv), _ptr(cos_row), _ptr(sin_row),
-                int(bool(neox)), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                nq, nk, head_dim, partial.data_ptr(), cnt.data_ptr(), splits,
-                _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+        px, pq, pk, pv = (x.data_ptr(), wq.data_ptr(), wk.data_ptr(),
+                          wv.data_ptr())
+        ldq, ldk, ldv = wq.stride(0), wk.stride(0), wv.stride(0)
+        common = (px, b, h, pq, pk, pv, ldq, ldk, ldv, _ptr(bq), _ptr(bk),
+                  _ptr(bv), _ptr(cos_row), _ptr(sin_row), int(neox),
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), nq, nk, head_dim)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # rope_qkv_route's rule on what is read here already (a decode
+        # step's loop is host-bound: each call's microseconds count)
+        if qkv_route(b, nq, nk, h, ldq, ldk, ldv, head_dim, neox, x.dtype,
+                     (px | pq | pk | pv) % 16 == 0):
+            tn, plan = _plan_for(dev, _K6A, False, b, False, x.dtype,
+                                 lambda tn: -(-nq // tn) + 2 * -(-nk // tn),
+                                 h)
+            slots = -(-(plan.q + 1) // plan.ksteps) + 1
+            work = torch.empty(plan.grid * slots * b * tn,
+                               dtype=torch.float32, device=dev)
+            with torch.cuda.device(dev):
+                rc = lib.fd_rope_qkv_stream(
+                    *common, work.data_ptr(), plan.grid, plan.q, plan.r,
+                    _DTYPE_CODE[x.dtype], stream)
+        else:
+            tiles = _tiles(nq) + 2 * _tiles(nk)
+            splits = _splits(tiles * -(-b // _ROWS), h, dev)
+            partial, cnt = _scratch(dev, tiles, b, splits)
+            with torch.cuda.device(dev):
+                rc = lib.fd_rope_qkv(
+                    *common, partial.data_ptr(), cnt.data_ptr(), splits,
+                    _DTYPE_CODE[x.dtype], stream)
         _rc(rc, "rope_qkv")
         launches["rope_qkv"] += 1
     return (q.view(b, n_heads, head_dim), k.view(b, n_kv, head_dim),
@@ -827,6 +896,14 @@ def _declare(lib: ctypes.CDLL) -> None:
                                            p, i, p, ll, p, p, p, i, i, p, p,
                                            i, i, i, i, i, i, i, p]
         lib.fd_norm_mlp_stream.restype = ctypes.c_int
+    # K6a's stream form (absent from a variant built from an older source)
+    if hasattr(lib, "fd_qkv_route"):
+        lib.fd_qkv_route.argtypes = [i, i, i, i, ll, ll, ll, i, i, i, i]
+        lib.fd_qkv_route.restype = ctypes.c_int
+        lib.fd_rope_qkv_stream.argtypes = [p, i, i, p, p, p, ll, ll, ll, p, p,
+                                           p, p, p, i, p, p, p, i, i, i, p, i,
+                                           i, i, i, p]
+        lib.fd_rope_qkv_stream.restype = ctypes.c_int
 
 
 _build.register("fused_decode", _declare)
