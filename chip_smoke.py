@@ -28,11 +28,31 @@ loudly with a non-zero exit:
    plain / library (``scaled_dot_product_attention``, a yardstick only)
    times and the card's bound for the same work;
 4. serving main path — GPT-3 1.3B (random weights from a seed, fp32)
-   served by ``ServingEngine`` (max_batch 8, page 16): 8 requests, two
-   sharing a 64-token prefix, one sampled; every greedy request returns
-   its 32 tokens, K7 ran exactly once per layer per step, the prefix
+   served by ``ServingEngine`` (max_batch 8, page 16): 8 requests of
+   17-512 prompt tokens, two sharing a 64-token prefix, one sampled, 32
+   new tokens each, in two waves (seven queued before the loop starts,
+   then the eighth, which hits the prefix cache); every request returns
+   its 32 tokens, K7 ran exactly once per layer per step, K6c once per
+   layer on every decode step, one host read per step, the prefix
    cache hit, and the engine's step logits for a prompt match the dense
    forward (which runs K1a and K2a);
+4c. LLaMA serving — phase 10's llama2-7b (32 layers, MHA 32/32, fp32,
+   nothing cut) served the same way (pools of 8 x 40 + 1 pages): the
+   same checks (K7 = 32 x steps, K6c 32 on every decode step), and the
+   ragged decode step's logits against the dense forward, with a fault
+   control (the step's rope rows gathered at pos - 1) that must fail;
+4d. the fused serving window — the same requests at
+   ``FLAGS_serving_fused_steps = 4`` on both models: every token
+   (greedy and the sampled one) equal to the single-step run's,
+   iterations > dispatches, one host read per dispatch, K7 once per
+   layer per dispatched iteration; ms per decode iteration beside the
+   single step's, the idle iterations after a finish, the generator's
+   state snapshot not waiting for the device, and one window and one
+   step traced alone (``torch.profiler``: wall and the device's busy
+   share);
+4e. HTTP — ``InferenceServer`` over a llama2-7b engine on loopback, four
+   concurrent ``generate_http`` streams: tokens equal to 4c's for the
+   same prompts, ``/metrics`` counting them;
 5. K1a/b/c (flash attention fwd, dq, dk/dv), K2a/b (LayerNorm fwd, dx)
    and K3 (fused AdamW) against their plain PyTorch versions on the card
    at training shapes (K1 at both training paths' shapes, GPT's and
@@ -167,13 +187,15 @@ loudly with a non-zero exit:
 
 Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
-them in the JAX package).  Phase 4 also counts K6c on the engine's decode-only steps (at most 64
-rows take it), and phase 4b runs ``decode_loop`` greedy on its GPT-3
-1.3B model (batch 8 x prompt 256 + 64 new) with exact K6 launches.
+them in the JAX package).  Phase 4d's GPT-3 1.3B run follows phase 4 on
+its model, and phase 4b runs ``decode_loop`` greedy on it (batch 8 x
+prompt 256 + 64 new) with exact K6 launches.  Phases 4c-4e run after
+phase 16, on phase 10's llama2-7b, before that model is freed.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after (phase 16: after the passes, whose claim checks itself with
-K6d, and before the replays).  The line before the last is ``{"kernels": [...]}``; the last
+K6d, and before the replays; phases 4, 4c, 4d and 4e: around each
+engine run).  The line before the last is ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -187,7 +209,9 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -197,6 +221,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.analysis.pass_check import CARD_TOL
+from paddle_tpu_torch.flags import set_flags
+from paddle_tpu_torch.inference.serving import (InferenceServer,
+                                                generate_http)
 from paddle_tpu_torch.jit import train_step
 from paddle_tpu_torch.models import generation
 from paddle_tpu_torch.models.bart import (BartConfig,
@@ -383,7 +410,9 @@ CASES = {
     "decode-split": dict(kv_lens=[1, 16, 17, 63, 64, 65, 1000, 2047],
                          q_lens=[1] * 8, q_width=1),
 }
-HEADS = {"mha": (16, 16), "gqa": (32, 8)}
+HEADS = {"mha": (16, 16), "gqa": (32, 8), "llama": (32, 32)}
+# llama2-7b's heads (phases 4c-4e serve it) at the decode case only
+K7_LLAMA_CASES = {("decode", torch.float32)}
 
 
 def check_k7():
@@ -392,10 +421,16 @@ def check_k7():
     for case, spec in CASES.items():
         for heads, (nh, nkv) in HEADS.items():
             for dtype in (torch.float32, torch.bfloat16):
-                seed += 1
+                if heads == "llama":
+                    if (case, dtype) not in K7_LLAMA_CASES:
+                        continue
+                    case_seed = 1000     # the other cases keep their seeds
+                else:
+                    seed += 1
+                    case_seed = seed
                 args, clean = make_case(spec["kv_lens"], spec["q_lens"],
                                         spec["q_width"], nh, nkv, dtype,
-                                        seed)
+                                        case_seed)
                 plain_args = (args[0], *clean, *args[3:])
                 before = rpa.launches
                 out = rpa.ragged_paged_attention(*args)
@@ -448,10 +483,362 @@ def check_k7():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phases 4, 4c, 4d, 4e: serving (the main path)
 # ---------------------------------------------------------------------------
 
+# the served requests: six prompts of these lengths, then two sharing a
+# 64-token prefix (4 full pages of 16) with 16 tokens of their own; one
+# sampled; 32 new tokens each
+SERVE = dict(lengths=(17, 64, 128, 200, 333, 512), prefix=64, tail=16,
+             new=32, sampled=2, temperature=0.8)
+SERVE_ENGINE = dict(max_batch=8, page_size=16)
+# llama2-7b's engine: 40 pages of 16 a sequence (640 tokens: the longest
+# prompt + 32 fits), 8 sequences' worth plus the sink
+LLAMA_SERVE_PAGES = 40
+FUSED_STEPS = 4                  # FLAGS_serving_fused_steps of phase 4d
+AB_TURNS = 7                     # phase 4d's window / step turns
+HTTP_STREAMS = (0, 1, 3, 4)      # phase 4e: four greedy requests of wave 1
+
+
+def serve_prompts(vocab):
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, vocab, (n,)).tolist() for n in SERVE["lengths"]]
+    shared = rs.randint(0, vocab, (SERVE["prefix"],)).tolist()
+    prompts += [shared + rs.randint(0, vocab, (SERVE["tail"],)).tolist()
+                for _ in range(2)]
+    temps = [0.0] * len(prompts)
+    temps[SERVE["sampled"]] = SERVE["temperature"]
+    return prompts, temps
+
+
+def serve_waves(engine, prompts, temps):
+    """Wave 1, every request but the last, is queued before the loop
+    starts, so the first step admits all of it and every run (single
+    step or windows) plans the same steps; the last request, sharing the
+    one before's prefix, is submitted once wave 1 has finished and hits
+    the prefix cache.  Returns (tokens per request, requests, wall s)."""
+    new = SERVE["new"]
+    t0 = time.perf_counter()
+    engine._accepting = True         # queue wave 1 before the first plan
+    reqs = [engine.submit(p, max_new_tokens=new, temperature=t)
+            for p, t in zip(prompts[:-1], temps[:-1])]
+    engine.start()
+    outs = [r.wait(timeout=600) for r in reqs]
+    reqs.append(engine.submit(prompts[-1], max_new_tokens=new,
+                              temperature=temps[-1]))
+    outs.append(reqs[-1].wait(timeout=600))
+    wall = time.perf_counter() - t0
+    engine.stop()
+    return outs, reqs, wall
+
+
+def serve_run(tag, engine, prompts, temps, layers, vocab):
+    """One counted serving run (K7's and K6c's counts set to 0 just
+    before, read just after) and the checks every run must pass: each
+    request's 32 tokens in the vocabulary, K7 once per layer per
+    dispatched iteration (idle window iterations included) and the
+    engine's count agreeing, K6c a multiple of the layers on at least
+    every dispatched decode iteration, one host read per dispatch, a
+    prefix-cache hit and no failed step."""
+    rpa.launches = 0                 # count this run's launches only
+    fd.launches["norm_mlp"] = 0
+    outs, reqs, wall = serve_waves(engine, prompts, temps)
+    k7, k6c = rpa.launches, fd.launches["norm_mlp"]
+    stats = engine.stats()
+    say(f"{tag}: engine stats: {json.dumps(stats)}")
+    for i, (o, t) in enumerate(zip(outs, temps)):
+        if len(o) != SERVE["new"]:
+            fail(f"{tag}: request {i} (temperature {t}) returned {len(o)} "
+                 "tokens")
+        if not all(0 <= x < vocab for x in o):
+            fail(f"{tag}: request {i} returned a token outside the "
+                 "vocabulary")
+    steps, idle = stats["steps"], stats["window_idle_iterations"]
+    dispatched = steps + idle
+    if k7 != layers * dispatched or stats["kernel_launches"] != k7:
+        fail(f"{tag}: K7 launches {k7} != {layers} x {dispatched} "
+             f"dispatched iterations (engine counted "
+             f"{stats['kernel_launches']})")
+    if stats["host_reads"] != stats["dispatches"]:
+        fail(f"{tag}: {stats['host_reads']} host reads for "
+             f"{stats['dispatches']} dispatches")
+    if stats["prefix_cache"]["hits"] < 1:
+        fail(f"{tag}: prefix cache scored no hit: {stats['prefix_cache']}")
+    if stats["failed_steps"]:
+        fail(f"{tag}: {stats['failed_steps']} failed steps")
+    n_decode = steps - stats["prefill_steps"]
+    # K6c takes every step of at most 64 rows (B x bucketed Q): each
+    # decode iteration, idle ones included, and any prefill that small
+    if k6c % layers or k6c < layers * (n_decode + idle):
+        fail(f"{tag}: K6c launches {k6c} are not {layers} per step on at "
+             f"least the {n_decode + idle} dispatched decode iterations")
+    n_tok = sum(len(o) for o in outs)
+    ttft = [r.first_token_at - r.submitted_at for r in reqs]
+    ms_decode = 1e3 * stats["decode_step_s"] / max(n_decode, 1)
+    say(f"{tag}: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s; {steps} iterations in "
+        f"{stats['dispatches']} dispatches ({idle} idle); TTFT mean "
+        f"{1e3 * sum(ttft) / len(ttft):.1f} ms, max {1e3 * max(ttft):.1f} "
+        f"ms; prefix cache {stats['prefix_cache']}")
+    say(f"{tag}: {stats['prefill_steps']} steps with prefill, "
+        f"{1e3 * stats['prefill_step_s'] / max(stats['prefill_steps'], 1):.2f}"
+        f" ms each; {n_decode} decode iterations, {ms_decode:.2f} ms each "
+        "(host clock around dispatch + the read that waits for it)")
+    say(f"{tag}: K7 launches {k7} = {layers} x {dispatched} dispatched "
+        f"iterations; K6c (norm_mlp) launches {k6c} = {layers} x "
+        f"{k6c // layers} steps of at most {fd.NORM_MLP_MAX_ROWS} rows "
+        f"({n_decode + idle} decode iterations)")
+    return dict(outs=outs, stats=stats, k7=k7, k6c=k6c, wall=wall,
+                tokens_per_s=n_tok / wall, ms_decode=ms_decode)
+
+
+def window_state(engine, model):
+    """Eight live lanes at wave 1's lengths midway (each prompt + 16),
+    their pages laid out in order in the engine's pools, for one window
+    or step outside the engine (the engine must be stopped)."""
+    dev = model.device
+    ps, ppseq = engine.pool.page_size, engine.scheduler.ppseq
+    prompts, _ = serve_prompts(model.config.vocab_size)
+    lens = [len(p) + SERVE["new"] // 2 for p in prompts]
+    tables = np.zeros((engine.max_batch, ppseq), "int32")
+    at = 0
+    for i, n in enumerate(lens):
+        k = -(-(n + FUSED_STEPS) // ps)
+        tables[i, :k] = np.arange(at, at + k)
+        at += k
+    if at >= engine.pool.sink:
+        fail(f"window state needs {at} pages, the pools hold "
+             f"{engine.pool.sink}")
+    b = engine.max_batch
+
+    def put(a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    return dict(tok=put(np.arange(1, b + 1)), kv=put(lens),
+                tables=put(tables), temps=put(np.zeros(b), torch.float32))
+
+
+def device_busy_s(prof) -> float:
+    from torch.autograd import DeviceType
+    return sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e6
+
+
+def trace_window(tag, engine, model):
+    """One window of ``FUSED_STEPS`` iterations and one single step on
+    the same lanes, each traced alone with ``torch.profiler`` after a
+    warm call: wall ms per iteration and the device's busy share of the
+    wall time (device kernel time / host clock, dispatch to read)."""
+    st = window_state(engine, model)
+    dev = model.device
+    b = engine.max_batch
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, window = model.build_fused_window_step(FUSED_STEPS)
+    params, step = engine._params, engine._step_fn
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    eos = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    budgets = torch.full((b,), 2 ** 30, dtype=torch.int32, device=dev)
+
+    def one_window():
+        packed, _ = window(params, st["tok"], engine._pools, st["kv"], live,
+                           st["tables"], st["temps"], eos, budgets, gen,
+                           FUSED_STEPS)
+        return packed.cpu()
+
+    def one_step():
+        page_ids, slots = rpa.append_positions(st["kv"], st["tables"], live,
+                                               engine.pool.page_size,
+                                               engine.pool.sink)
+        q = live.to(torch.int32)
+        with torch.no_grad():
+            logits, _ = step(params, st["tok"][:, None], st["kv"][:, None],
+                             engine._pools, page_ids[:, None],
+                             slots[:, None], st["kv"] + q, q, st["tables"])
+            return generation.serving_sample(logits, st["temps"],
+                                             gen).cpu()
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    out = {}
+    for name, fn, iters in (("window", one_window, FUSED_STEPS),
+                            ("step", one_step, 1)):
+        fn()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall = time.perf_counter() - t0
+        busy = device_busy_s(prof)
+        out[name] = dict(traced_ms_per_iteration=1e3 * wall / iters,
+                         busy_share=busy / wall)
+        say(f"{tag}: one {name} of {iters} iteration(s) on 8 lanes, "
+            f"traced: {1e3 * wall:.3f} ms wall, {1e3 * wall / iters:.3f} ms "
+            f"an iteration, device busy {1e3 * busy:.3f} ms = "
+            f"{100 * busy / wall:.2f} % of the wall")
+    # untraced, in turns on the same lanes: a window (its dispatch, then
+    # the read) against FUSED_STEPS single steps (each dispatch + read)
+    win, disp, steps = [], [], []
+    for _ in range(AB_TURNS):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        packed, _ = window(params, st["tok"], engine._pools, st["kv"], live,
+                           st["tables"], st["temps"], eos, budgets, gen,
+                           FUSED_STEPS)
+        t1 = time.perf_counter()
+        packed.cpu()
+        t2 = time.perf_counter()
+        for _ in range(FUSED_STEPS):
+            one_step()
+        t3 = time.perf_counter()
+        disp.append(1e3 * (t1 - t0) / FUSED_STEPS)
+        win.append(1e3 * (t2 - t0) / FUSED_STEPS)
+        steps.append(1e3 * (t3 - t2) / FUSED_STEPS)
+    for key, vals in (("window_ms", win), ("window_dispatch_ms", disp),
+                      ("step_ms", steps)):
+        out[key] = float(np.median(vals))
+    say(f"{tag}: in turns ({AB_TURNS} x): a window {out['window_ms']:.3f} "
+        f"ms an iteration (its dispatch {out['window_dispatch_ms']:.3f}), "
+        f"a single step {out['step_ms']:.3f} ms (medians; "
+        f"windows {[round(v, 3) for v in win]}, steps "
+        f"{[round(v, 3) for v in steps]})")
+    return out
+
+
+def synchronize(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_rng_snapshot_is_host_only(gen):
+    """``generator.get_state()`` (the window's per-iteration snapshot)
+    must not wait for the device: taken behind a ~0.1 s sleep kernel, it
+    returns long before the sleep ends."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    gen.get_state()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    say(f"generator.get_state() behind a sleep kernel: {1e3 * dt:.3f} ms "
+        f"(the sleep {1e3 * total:.3f} ms)")
+    if dt > total / 4:
+        fail(f"generator.get_state() waited for the device ({dt:.4f} s of "
+             f"{total:.4f} s)")
+
+
+def window_run(tag, model, prompts, temps, single, layers, engine_kw):
+    """Phase 4d on one model: the same requests at
+    ``FLAGS_serving_fused_steps = FUSED_STEPS``.  Every token (greedy and
+    the sampled one, same seed) equals the single-step run's; the
+    windows ran (iterations > dispatches); then one window and one step
+    traced alone."""
+    set_flags({"FLAGS_serving_fused_steps": FUSED_STEPS})
+    try:
+        engine = ServingEngine(model, **engine_kw, device=model.device)
+        res = serve_run(tag, engine, prompts, temps, layers,
+                        model.config.vocab_size)
+    finally:
+        set_flags({"FLAGS_serving_fused_steps": 1})
+    st = res["stats"]
+    for i, (got, want) in enumerate(zip(res["outs"], single["outs"])):
+        if got != want:
+            fail(f"{tag}: request {i} (temperature {temps[i]}) gave other "
+                 f"tokens than the single-step run: {got} != {want}")
+    if st["steps"] <= st["dispatches"]:
+        fail(f"{tag}: {st['steps']} iterations in {st['dispatches']} "
+             "dispatches: the windows did not run")
+    say(f"{tag}: tokens equal to the single-step run's (greedy and sampled)"
+        f"; {res['ms_decode']:.2f} ms a decode iteration against "
+        f"{single['ms_decode']:.2f} single-step; {st['host_reads']} host "
+        f"reads for {st['steps']} iterations (single-step "
+        f"{single['stats']['host_reads']} for {single['stats']['steps']}); "
+        f"{st['window_idle_iterations']} idle window iterations")
+    if model.device.type == "cuda":
+        check_rng_snapshot_is_host_only(engine._gen)
+    res["trace"] = trace_window(tag, engine, model)
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def http_run(tag, model, prompts, want, layers, engine_kw):
+    """Phase 4e: ``InferenceServer`` over a fresh engine on loopback,
+    the requests of ``HTTP_STREAMS`` as concurrent ``generate_http``
+    streams: their tokens equal ``want``'s, ``/metrics`` counts them, and
+    K7 runs once per layer per dispatched iteration."""
+    set_flags({"FLAGS_serving_engine": True})
+    engine = ServingEngine(model, **engine_kw, device=model.device)
+    srv = None
+    outs = [None] * len(HTTP_STREAMS)
+    try:
+        rpa.launches = 0             # count this run's launches only
+        fd.launches["norm_mlp"] = 0
+        engine.start()
+        srv = InferenceServer(engine=engine,
+                              max_in_flight=len(HTTP_STREAMS)).start()
+
+        def run(i, r):
+            try:
+                outs[i] = list(generate_http(
+                    srv.url, prompts[r], max_new_tokens=SERVE["new"],
+                    timeout=600))
+            except (RuntimeError, OSError) as e:
+                outs[i] = e
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i, r))
+                   for i, r in enumerate(HTTP_STREAMS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            fail(f"{tag}: a stream did not end in 900 s")
+        deadline = time.monotonic() + 30
+        while srv.served < len(HTTP_STREAMS) and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)         # a handler counts after its done line
+        with urllib.request.urlopen(srv.url + "/metrics",
+                                    timeout=60) as r:
+            metrics_text = r.read().decode()
+    finally:
+        if srv is not None:
+            srv.stop()
+        engine.stop()
+        set_flags({"FLAGS_serving_engine": False})
+    k7 = rpa.launches
+    stats = engine.stats()
+    for i, r in enumerate(HTTP_STREAMS):
+        if outs[i] != want[r]:
+            fail(f"{tag}: stream {i} (request {r}) gave {outs[i]}, the "
+                 f"in-process run {want[r]}")
+    served = (f'paddle_serving_requests_total{{outcome="served",server='
+              f'"{srv.server_id}"}} {len(HTTP_STREAMS)}')
+    decoded = (f'paddle_serving_engine_tokens_total{{engine='
+               f'"{engine.engine_id}",phase="decode"}} '
+               f'{len(HTTP_STREAMS) * SERVE["new"]}')
+    for line in (served, decoded):
+        if line not in metrics_text:
+            fail(f"{tag}: /metrics lacks {line!r}")
+    dispatched = stats["steps"] + stats["window_idle_iterations"]
+    if k7 != layers * dispatched:
+        fail(f"{tag}: K7 launches {k7} != {layers} x {dispatched}")
+    n_tok = len(HTTP_STREAMS) * SERVE["new"]
+    say(f"{tag}: {len(HTTP_STREAMS)} concurrent generate_http streams on "
+        f"{srv.url}: tokens equal to the in-process run's; {n_tok} tokens "
+        f"in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; /metrics counts "
+        f"them; K7 launches {k7} = {layers} x {dispatched}; K6c "
+        f"{fd.launches['norm_mlp']}")
+    del engine
+    torch.cuda.empty_cache()
+    return dict(k7=k7, k6c=fd.launches["norm_mlp"], wall=wall,
+                tokens_per_s=n_tok / wall)
+
+
 def serve_main_path():
+    """Phase 4 (GPT-3 1.3B, single step) and phase 4d's GPT run."""
     cfg = gpt_config("gpt3-1.3B", hidden_dropout_prob=0.0,
                      attention_dropout_prob=0.0)
     if cfg.num_layers != N_LAYERS:
@@ -462,84 +849,25 @@ def serve_main_path():
     n_params = sum(p.numel() for p in model.parameters())
     say(f"model: gpt3-1.3B fp32, {n_params} parameters, built in "
         f"{time.perf_counter() - t0:.3f} s")
-    rs = np.random.RandomState(0)
-    v = cfg.vocab_size
-    prompts = [rs.randint(0, v, (n,)).tolist()
-               for n in (17, 64, 128, 200, 333, 512)]
-    shared = rs.randint(0, v, (64,)).tolist()      # 4 full pages of 16
-    prompts += [shared + rs.randint(0, v, (16,)).tolist() for _ in range(2)]
-    temps = [0.0] * 8
-    temps[2] = 0.8
-
-    engine = ServingEngine(model, max_batch=8, page_size=16)
+    prompts, temps = serve_prompts(cfg.vocab_size)
+    engine = ServingEngine(model, **SERVE_ENGINE, device=model.device)
     pool_bytes = 2 * N_LAYERS * engine.pool.num_pages * 16 \
         * cfg.hidden_size * 4
     say(f"engine: {engine.pool.num_pages} pages of 16 x {N_LAYERS} layers, "
         f"pools {pool_bytes} bytes")
-    rpa.launches = 0                 # count the main path's launches only
-    fd.launches["norm_mlp"] = 0
-    t_start = time.perf_counter()
-    engine.start()
-    reqs = [engine.submit(p, max_new_tokens=32, temperature=t)
-            for p, t in zip(prompts[:7], temps[:7])]
-    # the 8th shares the 7th's prefix: submit it once the 7th's prompt
-    # is in the prefix cache (after its first token)
-    deadline = time.monotonic() + 600
-    while reqs[6].first_token_at is None and not reqs[6].done:
-        if time.monotonic() > deadline:
-            fail("the 7th request produced no token in 600 s")
-        time.sleep(0.001)
-    reqs.append(engine.submit(prompts[7], max_new_tokens=32,
-                              temperature=temps[7]))
-    outs = [r.wait(timeout=600) for r in reqs]
-    wall = time.perf_counter() - t_start
-    engine.stop()
-    launches = rpa.launches
-    k6c = fd.launches["norm_mlp"]
-    stats = engine.stats()
-    say(f"engine stats: {json.dumps(stats)}")
-    for i, (o, t) in enumerate(zip(outs, temps)):
-        if len(o) != 32:
-            fail(f"request {i} (temperature {t}) returned {len(o)} tokens")
-        if not all(0 <= x < v for x in o):
-            fail(f"request {i} returned a token outside the vocabulary")
-    steps = stats["steps"]
-    if launches != N_LAYERS * steps or stats["kernel_launches"] != launches:
-        fail(f"K7 launches {launches} != {N_LAYERS} x {steps} steps "
-             f"(engine counted {stats['kernel_launches']})")
-    if stats["prefix_cache"]["hits"] < 1:
-        fail(f"prefix cache scored no hit: {stats['prefix_cache']}")
-    if stats["failed_steps"]:
-        fail(f"{stats['failed_steps']} failed steps")
-    n_tok = sum(len(o) for o in outs)
-    ttft = [r.first_token_at - r.submitted_at for r in reqs]
-    say(f"main path: {len(reqs)} requests, {n_tok} tokens in {wall:.3f} s "
-        f"= {n_tok / wall:.1f} tokens/s; {steps} steps, "
-        f"{1e3 * wall / steps:.2f} ms/step (wall/steps); TTFT mean "
-        f"{1e3 * sum(ttft) / len(ttft):.1f} ms, max "
-        f"{1e3 * max(ttft):.1f} ms; prefix cache {stats['prefix_cache']}")
-    n_decode = steps - stats["prefill_steps"]
-    say(f"main path: {stats['prefill_steps']} steps with prefill, "
-        f"{1e3 * stats['prefill_step_s'] / max(stats['prefill_steps'], 1):.2f}"
-        f" ms each; {n_decode} decode steps, "
-        f"{1e3 * stats['decode_step_s'] / max(n_decode, 1):.2f} ms each "
-        "(host clock around dispatch + token read)")
-    say(f"main path: K7 launches {launches} = {N_LAYERS} x {steps} steps")
-    # K6c takes every step of at most 64 rows (B x bucketed Q): each
-    # decode-only step, and any prefill step that small
-    if k6c % N_LAYERS or k6c < N_LAYERS * n_decode:
-        fail(f"K6c launches {k6c} are not {N_LAYERS} per step on at least "
-             f"the {n_decode} decode steps")
-    say(f"main path: K6c (norm_mlp) launches {k6c} = {N_LAYERS} x "
-        f"{k6c // N_LAYERS} steps of at most {fd.NORM_MLP_MAX_ROWS} rows "
-        f"({n_decode} decode-only steps)")
+    single = serve_run("main path", engine, prompts, temps, N_LAYERS,
+                       cfg.vocab_size)
     del engine
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    window = window_run("gpt window", model, prompts, temps, single,
+                        N_LAYERS, SERVE_ENGINE)
+    say(f"phase 4d (gpt3-1.3B): {time.perf_counter() - t1:.1f} s")
     check_step_logits(model, prompts[3])
     gpt_decode = gpt_decode_main_path(model)
     del model
     torch.cuda.empty_cache()
-    return launches, k6c, gpt_decode
+    return single, window, gpt_decode
 
 
 def check_step_logits(model, prompt):
@@ -576,6 +904,97 @@ def check_step_logits(model, prompt):
         f"{dense.abs().max().item():.3f})")
     if err > LOGITS_TOL:
         fail(f"step logits differ from the dense forward by {err}")
+
+
+def check_llama_step_logits(model, prompt):
+    """LLaMA's ragged step against the dense forward: a prefill of all
+    but the prompt's last token, then the decode step of the last (the
+    step serving runs most), on fresh ``[nkv, P, ps, hd]`` pools; its
+    logits must be within ``LOGITS_TOL`` of the dense forward's last row.
+    The fault control, the same decode step with its rope rows gathered
+    at ``pos - 1`` (the cached keys rotated at their own positions), must
+    not.  Returns (error, control error)."""
+    ps = 16
+    c = model.config
+    hd = c.hidden_size // c.num_heads
+    dev = model.device
+    params, step = model.build_ragged_decode_step()
+    dense = model(torch.tensor([prompt], device=dev))[0, -1]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    errs = []
+    for shift in (0, 1):
+        pool = PagePool(num_pages=-(-len(prompt) // ps) + 1, page_size=ps)
+        sched = Scheduler(pool, max_batch=8,
+                          max_pages_per_seq=pool.num_pages - 1)
+        sched.submit(Request(prompt[:-1], max_new_tokens=2))
+        shape = (c.num_kv_heads, pool.num_pages, ps, hd)
+        pools = [(torch.zeros(shape, device=dev),
+                  torch.zeros(shape, device=dev))
+                 for _ in range(c.num_layers)]
+        for it in range(2):
+            plan, _, _ = sched.plan_step()
+            pos = put(plan.pos)
+            if it == 1:
+                pos = (pos - shift).clamp(min=0)
+            logits, pools = step(params, put(plan.tok), pos, pools,
+                                 put(plan.page_ids), put(plan.slots),
+                                 put(plan.kv_lens), put(plan.q_lens),
+                                 put(plan.tables))
+            sched.commit(plan)
+            plan.seqs[0].tokens.append(prompt[-1])
+        if not torch.isfinite(logits[0]).all() or \
+                logits.shape[1] != c.vocab_size:
+            fail(f"llama step logits: shape {tuple(logits.shape)} or "
+                 "non-finite")
+        errs.append((logits[0] - dense).abs().max().item())
+    err, ctrl = errs
+    say(f"llama step vs dense forward, prompt of {len(prompt)} (prefill "
+        f"{len(prompt) - 1}, then a decode step): last-row logits max abs "
+        f"err {err:.3e} (tol {LOGITS_TOL}; |logits| max "
+        f"{dense.abs().max().item():.3f}); control, rope rows at pos - 1: "
+        f"{ctrl:.3e}")
+    if err > LOGITS_TOL:
+        fail(f"llama step logits differ from the dense forward by {err}")
+    if ctrl <= LOGITS_TOL:
+        fail(f"llama step control (rope at pos - 1) passed the logit "
+             f"check ({ctrl})")
+    return err, ctrl
+
+
+def llama_serve_main_path(model):
+    """Phases 4c, 4d and 4e on phase 10's llama2-7b (32 layers, MHA
+    32/32, fp32, nothing cut)."""
+    t0 = time.perf_counter()
+    cfg = model.config
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    hd = cfg.hidden_size // cfg.num_heads
+    kw = dict(SERVE_ENGINE, max_pages_per_seq=LLAMA_SERVE_PAGES,
+              num_pages=SERVE_ENGINE["max_batch"] * LLAMA_SERVE_PAGES + 1)
+    prompts, temps = serve_prompts(vocab)
+    engine = ServingEngine(model, **kw, device=model.device)
+    pool_bytes = 2 * layers * cfg.num_kv_heads * kw["num_pages"] \
+        * SERVE_ENGINE["page_size"] * hd * 4
+    say(f"llama serve: {kw['num_pages']} pages of "
+        f"{SERVE_ENGINE['page_size']} x {layers} layers x "
+        f"{cfg.num_kv_heads} kv heads, pools {pool_bytes} bytes")
+    single = serve_run("llama serve", engine, prompts, temps, layers, vocab)
+    del engine
+    torch.cuda.empty_cache()
+    err, ctrl = check_llama_step_logits(model, prompts[3])
+    say(f"phase 4c: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    window = window_run("llama window", model, prompts, temps, single,
+                        layers, kw)
+    say(f"phase 4d (llama2-7b): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    http = http_run("llama http", model, prompts, single["outs"], layers,
+                    kw)
+    say(f"phase 4e: {time.perf_counter() - t1:.1f} s")
+    return dict(single=single, window=window, http=http, step_err=err,
+                control_err=ctrl)
 
 
 # ---------------------------------------------------------------------------
@@ -3974,7 +4393,7 @@ def main() -> int:
     sass = check_sass()              # K1a/K1b/K1c bf16 on the tensor cores
 
     k7 = check_k7()
-    rpa_launches, k6c_serve, gpt_decode = serve_main_path()
+    gpt_serve, gpt_window, gpt_decode = serve_main_path()
     k1 = check_k1()                  # "main" (GPT) and "llama" shapes
     k2_rows = check_k2()
     k2 = k2_rows["float32"]          # the main path's LayerNorm dtype (O2)
@@ -3992,25 +4411,41 @@ def main() -> int:
     paged = paged_main_paths(llama_model)
     k6d = check_k6d()
     programs = program_main_paths(llama_model)
+    llama_serve = llama_serve_main_path(llama_model["model"])
     del llama_model
     gc.collect()
     torch.cuda.empty_cache()
     k8 = check_k8()
     bart = bart_main_paths()
 
-    # each kernel's line: the main path's shape
-    row = next(r for r in k7 if (r["case"], r["heads"], r["dtype"])
-               == ("decode", "mha", "float32"))
+    # each kernel's line: the main path's shape.  K7 runs on the serving
+    # paths: the entry's numbers are phase 4's (GPT-3 1.3B, single step),
+    # by_path holds each serving path's launches with the numbers of its
+    # own heads' decode case
+    by_path = {}
+    for path, heads, launched in (
+            ("gpt_serve", "mha", gpt_serve["k7"]),
+            ("gpt_window", "mha", gpt_window["k7"]),
+            ("llama_serve", "llama", llama_serve["single"]["k7"]),
+            ("llama_window", "llama", llama_serve["window"]["k7"]),
+            ("llama_http", "llama", llama_serve["http"]["k7"])):
+        row = next(r for r in k7 if (r["case"], r["heads"], r["dtype"])
+                   == ("decode", heads, "float32"))
+        nh, nkv = HEADS[heads]
+        by_path[path] = dict(
+            launches=launched, max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"],
+            shape=f"decode, B=8, Q=1, nh={nh}, nkv={nkv}, hd=128, ps=16, "
+                  "fp32")
     k1_shape = "[64, 2048, 128] bf16 causal (batch 4 x 16 heads)"
     k2_shape = "[8192, 2048] fp32 (batch 4 x seq 2048 tokens, H 2048)"
     kernels = [dict(
         name="ragged_paged_attention",
         source="paddle_tpu_torch/ops/csrc/ragged_paged_attention.cu",
         replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:207",
-        launches=rpa_launches, max_abs_err=row["max_abs_err"],
-        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-        bound_by=row["bound_by"], library_ms=row["library_ms"],
-        shape="decode, B=8, Q=1, nh=nkv=16, hd=128, ps=16, fp32")]
+        **by_path["gpt_serve"], by_path=by_path)]
     flash_src = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
     # K1 runs on both training paths, each at its own shape: the entry's
     # numbers are the GPT path's (its first), and by_path holds each
@@ -4115,7 +4550,15 @@ def main() -> int:
             ("norm_mlp", "k6c", "norm_mlp", ":363")):
         paths = list(k6_paths)
         if key == "k6c":
-            paths.append(("gpt_serve", "gpt", {"norm_mlp": k6c_serve}))
+            paths += [
+                ("gpt_serve", "gpt", {"norm_mlp": gpt_serve["k6c"]}),
+                ("gpt_window", "gpt", {"norm_mlp": gpt_window["k6c"]}),
+                ("llama_serve", "llama",
+                 {"norm_mlp": llama_serve["single"]["k6c"]}),
+                ("llama_window", "llama",
+                 {"norm_mlp": llama_serve["window"]["k6c"]}),
+                ("llama_http", "llama",
+                 {"norm_mlp": llama_serve["http"]["k6c"]})]
         by_path = {}
         for path, case, launched in paths:
             r = k6[key][case]

@@ -3,9 +3,11 @@ NVIDIA H100.
 
 The JAX package ``paddle_tpu`` stays the reference; this package
 imports neither JAX nor anything of ``paddle_tpu``.  Ported so far:
-``models.gpt.GPTForPretraining`` served by ``serving.ServingEngine``
-(continuous batching over paged KV pools, attention in
-``ops/csrc/ragged_paged_attention.cu``), the pretraining step
+``models.gpt.GPTForPretraining`` and ``models.llama.LlamaForCausalLM``
+served by ``serving.ServingEngine`` (continuous batching over paged KV
+pools, attention in ``ops/csrc/ragged_paged_attention.cu``; fused decode
+windows; HTTP ``/generate`` in ``inference.serving``; metrics, events
+and request traces in ``observability``), the pretraining step
 (``jit.train_step`` with ``amp`` O2 and ``optimizer.AdamW``) of GPT and
 of ``models.llama.LlamaForCausalLM``, and their decode loops
 (``models.generation.generate`` and ``decode_loop``, the latter on the

@@ -44,7 +44,9 @@ events and spans wait for the observability slice; the counts of the
 last call are in :data:`decode_stats`.
 
 :func:`build_ragged_decode_step` is the serving engine's batched step
-over paged KV pools (GPT layout; LLaMA waits for its serving slice).
+over paged KV pools, for GPT and LLaMA, and :func:`build_fused_window_step`
+runs up to ``max_window`` of its decode iterations with one host read;
+both sample with :func:`serving_sample`.
 """
 from __future__ import annotations
 
@@ -57,11 +59,12 @@ import torch
 from ..device import default_device
 from ..ops import fused_decode as _fd
 from ..ops import paged_attention as _pa
-from ..ops.ragged_paged_attention import ragged_paged_attention
+from ..ops.ragged_paged_attention import (append_positions,
+                                          ragged_paged_attention)
 
 __all__ = ["generate", "decode_loop", "seq2seq_generate",
-           "build_ragged_decode_step", "decode_stats",
-           "EAGER_FINISHED_SYNC_EVERY"]
+           "build_ragged_decode_step", "build_fused_window_step",
+           "serving_sample", "decode_stats", "EAGER_FINISHED_SYNC_EVERY"]
 
 _GREEDY = ("greedy_search", "greedy")
 # the default of the JAX package's FLAGS_eager_finished_sync_every
@@ -591,7 +594,25 @@ def build_ragged_decode_step(model):
     padded to ``Q``); their k/v land at ``(page_ids, slots)`` BEFORE the
     one-launch ragged paged attention, so the new tokens attend to
     themselves causally.  ``params`` are views of the model's
-    parameters in the JAX step's layout."""
+    parameters in the JAX step's layout.
+
+    The family is read off the layout of the model's
+    ``build_decode_step`` params, as in the JAX package: GPT
+    (``blocks``) or LLaMA (``layers``)."""
+    params, _ = model.build_decode_step()
+    if "layers" in params:
+        return params, _llama_ragged_step(model.config)
+    if "blocks" in params:
+        return _gpt_ragged_step(model)
+    raise TypeError(
+        f"{type(model).__name__}.build_decode_step() params carry "
+        "neither a GPT ('blocks') nor a LLaMA ('layers') layout — "
+        "build_ragged_decode_step has no adapter for it")
+
+
+def _gpt_ragged_step(model):
+    """GPT's step; its params hold each block's packed ``[H, 3H]``
+    q/k/v weight, so one product gives q, k and v."""
     c = model.config
     nh = int(c.num_heads)
     hidden = int(c.hidden_size)
@@ -640,3 +661,165 @@ def build_ragged_decode_step(model):
         return logits, pools
 
     return params, step
+
+
+def _llama_ragged_step(c):
+    """LLaMA's step over the params of ``build_decode_step`` (the JAX
+    step's LLaMA branch): the embedding times ``embed_scale``, the rope
+    rows gathered at ``pos`` (interleaved), RMSNorm with the rsqrt cast
+    back first, three q/k/v products with optional biases, GQA through
+    the ragged kernel, then RMSNorm + SwiGLU (or ``gelu_tanh``) through
+    ``norm_mlp`` (K6c on the card at <= 64 rows), and a tied or untied
+    head on each sequence's last valid row."""
+    nh, nkv = int(c.num_heads), int(c.num_kv_heads)
+    hidden = int(c.hidden_size)
+    hd = hidden // nh
+    eps, act, scale = float(c.rms_eps), c.hidden_act, float(c.embed_scale)
+
+    @torch.no_grad()
+    def step(p, tok, pos, pools, page_ids, slots, kv_lens, q_lens, tables):
+        b, qw = tok.shape
+        x = p["embed"][tok.long()]
+        if scale != 1.0:
+            x = x * scale
+        cos = p["cos"][pos.long()][:, :, None, :]           # [B, Q, 1, hd]
+        sin = p["sin"][pos.long()][:, :, None, :]
+        for i, lp in enumerate(p["layers"]):
+            h2 = _fd.reference_rms_norm(x, lp["ln1_w"], eps) \
+                .reshape(b * qw, hidden)
+            qp = torch.matmul(h2, lp["wq"]).reshape(b, qw, nh, hd)
+            kp = torch.matmul(h2, lp["wk"]).reshape(b, qw, nkv, hd)
+            vp = torch.matmul(h2, lp["wv"]).reshape(b, qw, nkv, hd)
+            if lp["bq"] is not None:
+                qp = qp + lp["bq"].reshape(nh, hd)
+            if lp["bk"] is not None:
+                kp = kp + lp["bk"].reshape(nkv, hd)
+            if lp["bv"] is not None:
+                vp = vp + lp["bv"].reshape(nkv, hd)
+            qp = _fd.reference_rope_rows(qp, cos, sin)
+            kp = _fd.reference_rope_rows(kp, cos, sin)
+            kpg = _scatter_pages(pools[i][0], kp, page_ids, slots)
+            vpg = _scatter_pages(pools[i][1], vp, page_ids, slots)
+            ctx = ragged_paged_attention(qp.contiguous(), kpg, vpg,
+                                         kv_lens, q_lens, tables)
+            x = x + torch.matmul(ctx.reshape(b, qw, nh * hd), lp["wo"])
+            x = x + _fd.norm_mlp(
+                x.reshape(b * qw, hidden), kind="rms_norm",
+                norm_w=lp["ln2_w"], w_gate=lp["wg"], w1=lp["wu"],
+                w2=lp["wd"], eps=eps, act=act).reshape(b, qw, hidden)
+        h = _fd.reference_rms_norm(x, p["norm_w"], eps)
+        logits = torch.matmul(_last_valid_rows(h, q_lens),
+                              p["lm_w"].transpose(0, 1))
+        return logits, pools
+
+    return step
+
+
+def serving_sample(logits, temps, generator):
+    """Next token per lane of a serving step, on the device: argmax
+    where ``temperature == 0``, else a categorical draw on ``logits /
+    max(t, 1e-6)`` (Gumbel-max: ONE ``torch.rand`` of the logits' shape
+    from ``generator`` per call, greedy lanes included, so the stream
+    advances alike whatever the lanes' temperatures).  A lane whose
+    logits hold a NaN gets -1."""
+    logits = logits.float()
+    greedy = logits.argmax(dim=-1)
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(
+        u.clamp_min(torch.finfo(torch.float32).tiny)))
+    scaled = logits / temps.clamp_min(1e-6)[:, None]
+    sampled = (scaled + gumbel).argmax(dim=-1)
+    nxt = torch.where(temps > 0, sampled, greedy)
+    nxt = torch.where(torch.isnan(logits).any(dim=-1),
+                      torch.full_like(nxt, -1), nxt)
+    return nxt.to(torch.int32)
+
+
+def build_fused_window_step(model, max_window: int):
+    """The serving window: up to ``max_window`` ragged decode iterations
+    (Q = 1) with one host read at the end — the port of the JAX
+    package's ``build_fused_window_step``, whose ``lax.while_loop`` is a
+    host loop of the same step here.
+
+    Returns ``(params, window)`` with::
+
+        window(params, tok [B], pools, kv_lens [B], live [B] bool,
+               tables [B, ppseq], temps [B], eos_ids [B], budgets [B],
+               generator, n_steps, *, rng_states=None)
+          -> (packed [B, max_window + 2] int32, pools)
+
+    ``kv_lens`` are the PRE-append lengths; ``tok`` is each live lane's
+    pending token; ``n_steps`` (a host int, 1..``max_window``) is the
+    number of iterations dispatched.  Each iteration re-derives the
+    page-append cursors on the device (``append_positions``), runs the
+    ragged step at Q = 1 and samples with :func:`serving_sample`, one
+    draw from ``generator`` per iteration.  EOS, budget and
+    ``finished`` stay on the device and nothing is read back inside the
+    loop, so the loop cannot stop on the first finish as the JAX loop
+    does: once any lane has finished, ``~any(finished)`` is folded into
+    ``live`` and every remaining iteration runs at ``q_lens = 0``,
+    writing only the sink page and changing no token, length, buffer
+    column or count.  Tokens, pools at every live position and the
+    iteration count then equal the JAX window's.  A lane sampling the
+    NaN sentinel (-1) finishes there.
+
+    ``packed`` is the one host read: columns ``[:max_window]`` hold the
+    per-lane tokens (column ``j`` = iteration ``j``; only the first
+    ``steps`` are live), column ``[max_window]`` the finished mask and
+    column ``[max_window + 1]`` the iterations that ran (``steps``),
+    broadcast to every lane.  ``rng_states``, a list, receives
+    ``generator.get_state()`` before the first draw and after each
+    (host state, no device read): restoring ``rng_states[steps]`` after
+    the read leaves the generator where ``steps`` single steps would."""
+    params, step = build_ragged_decode_step(model)
+    max_window = int(max_window)
+
+    @torch.no_grad()
+    def window(p, tok, pools, kv_lens, live, tables, temps, eos_ids,
+               budgets, generator, n_steps, *, rng_states=None):
+        n = int(n_steps)
+        if not 1 <= n <= max_window:
+            raise ValueError(f"n_steps={n} is outside 1..{max_window}")
+        b = tok.shape[0]
+        dev = tok.device
+        page_size, sink = pools[0][0].shape[2], pools[0][0].shape[1] - 1
+        tok = tok.to(torch.int32)
+        kv = kv_lens.to(torch.int32)
+        live = live.to(torch.bool)
+        temps = temps.float()
+        eos_ids = eos_ids.to(torch.int32)
+        budgets = budgets.to(torch.int32)
+        finished = torch.zeros(b, dtype=torch.bool, device=dev)
+        ngen = torch.zeros(b, dtype=torch.int32, device=dev)
+        ran = torch.zeros((), dtype=torch.int32, device=dev)
+        buf = torch.zeros(b, max_window, dtype=torch.int32, device=dev)
+        if rng_states is not None:
+            rng_states.append(generator.get_state())
+        zero = torch.zeros_like(tok)
+        for i in range(n):
+            go = ~finished.any()      # False from the first finish on
+            act = live & go
+            q_lens = act.to(torch.int32)
+            page_ids, slots = append_positions(kv, tables, act, page_size,
+                                               sink)
+            kv_next = kv + q_lens
+            logits, pools = step(p, tok[:, None], kv[:, None], pools,
+                                 page_ids[:, None], slots[:, None],
+                                 kv_next, q_lens, tables)
+            nxt = serving_sample(logits, temps, generator)
+            if rng_states is not None:
+                rng_states.append(generator.get_state())
+            # as the JAX loop: every lane's draw lands in the buffer
+            # (dead lanes' too) and live lanes feed theirs back
+            buf[:, i] = torch.where(go, nxt, buf[:, i])
+            ngen += q_lens
+            finished |= act & ((nxt == eos_ids) | (ngen >= budgets)
+                               | (nxt < 0))
+            tok = torch.where(go, torch.where(live, nxt, zero), tok)
+            kv = kv_next
+            ran += go.to(torch.int32)
+        packed = torch.cat([buf, finished.to(torch.int32)[:, None],
+                            ran.expand(b)[:, None]], dim=1)
+        return packed, pools
+
+    return params, window

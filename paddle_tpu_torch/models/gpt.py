@@ -413,6 +413,13 @@ class GPTForPretraining(nn.Module):
         from .generation import build_ragged_decode_step
         return build_ragged_decode_step(self)
 
+    def build_fused_window_step(self, max_window: int):
+        """The serving window: up to ``max_window`` ragged decode
+        iterations with one host read; see
+        ``models.generation.build_fused_window_step``."""
+        from .generation import build_fused_window_step
+        return build_fused_window_step(self, max_window)
+
 
 def _build_gpt_decode_step(model: GPTForPretraining):
     """``(params, step)`` with ``step(params, tok [B], caches, pos) ->

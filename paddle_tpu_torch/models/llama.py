@@ -24,11 +24,12 @@ JAX step's RMSNorm numerics; ``generate`` is
 With a paged cache (one ``PagedLayerView`` per layer, from eager paged
 ``generate``) each row is rotated at its own length through ``[B, 1,
 D]`` tables and attends through ``ops.paged_attention`` (K9's
-counterpart on CUDA).
+counterpart on CUDA).  :meth:`LlamaForCausalLM.build_ragged_decode_step`
+and :meth:`~LlamaForCausalLM.build_fused_window_step` are the serving
+engine's step and window (``models.generation``).
 
-Not ported yet, and raising ``NotImplementedError``: the paged serving
-step (the LLaMA serving slice) and ``sequence_parallel`` (the
-distributed slice).
+Not ported yet, and raising ``NotImplementedError``: ``sequence_parallel``
+(the distributed slice).
 """
 from __future__ import annotations
 
@@ -50,9 +51,6 @@ from .gpt import (Embedding, GPTPretrainingCriterion, Linear,
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "llama_config", "LlamaModel",
            "LlamaForCausalLM", "LlamaPretrainingCriterion"]
-
-_SERVING = "waits for the LLaMA serving slice"
-
 
 @dataclass
 class LlamaConfig:
@@ -374,7 +372,17 @@ class LlamaForCausalLM(nn.Module):
         return _build_llama_decode_step(self)
 
     def build_ragged_decode_step(self):
-        raise NotImplementedError(f"the paged decode step {_SERVING}")
+        """Batched serving-engine step over paged KV pools; see
+        ``models.generation.build_ragged_decode_step``."""
+        from .generation import build_ragged_decode_step
+        return build_ragged_decode_step(self)
+
+    def build_fused_window_step(self, max_window: int):
+        """The serving window: up to ``max_window`` ragged decode
+        iterations with one host read; see
+        ``models.generation.build_fused_window_step``."""
+        from .generation import build_fused_window_step
+        return build_fused_window_step(self, max_window)
 
 
 def _build_llama_decode_step(model: LlamaForCausalLM):

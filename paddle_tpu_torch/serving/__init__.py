@@ -7,7 +7,10 @@
   attends a whole ragged batch;
 * :class:`~.prefix_cache.PrefixCache` — content-hashed, refcounted
   sharing of immutable prompt-prefix pages across requests;
-* :class:`~.engine.ServingEngine` — the streaming front-end.
+* :class:`~.engine.ServingEngine` — the streaming front-end, over GPT or
+  LLaMA; ``FLAGS_serving_fused_steps`` runs steady-state decode as
+  windows with one host read each; ``inference.serving`` serves it over
+  HTTP.
 
 Quick start::
 

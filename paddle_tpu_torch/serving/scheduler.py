@@ -1,8 +1,8 @@
 """Continuous-batching scheduler — iteration-level request admission
 over a refcounted KV page pool (Orca-style); a copy of
-``paddle_tpu/serving/scheduler.py`` (numpy and stdlib only) without the
-parts of later slices: fused-window budgets and plan pre-staging,
-quarantine bisection, deadlines, perf-model admission and tracing.
+``paddle_tpu/serving/scheduler.py`` (numpy and stdlib only) with its
+fused-window budgets and plan pre-staging, without the parts of later
+slices: quarantine bisection, deadlines and perf-model admission.
 
 This scheduler re-plans every token iteration:
 
@@ -114,6 +114,10 @@ class Request:
         self.temperature = float(temperature)
         self.tokens: List[int] = []        # generated ids, in order
         self.error: Optional[str] = None
+        # machine-readable failure class for the HTTP layer's status
+        # mapping: "unhealthy" -> 503, "cancelled" stays in-band; None
+        # for ordinary errors
+        self.error_kind: Optional[str] = None
         self._queue: "queue.Queue" = queue.Queue()
         self._done = threading.Event()
         self.submitted_at = time.monotonic()
@@ -123,6 +127,13 @@ class Request:
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
         self.evictions = 0
+        # request-trace handles (observability.tracing), set by the
+        # engine at submit: the root request span ties every annotation
+        # together; the queue span is open whenever the request waits
+        # for admission (incl. after an eviction)
+        self.trace = None              # TraceContext of the root span
+        self._root_span = None
+        self._queue_span = None
 
     # -- consumer side ---------------------------------------------------
     def stream(self, timeout: Optional[float] = 60.0):
@@ -163,6 +174,7 @@ class Request:
         consumers see the error.  Idempotent after finish."""
         if self._done.is_set():
             return
+        self.error_kind = self.error_kind or "cancelled"
         cb = self._cancel_cb
         if cb is not None:
             cb(self, reason)
@@ -188,6 +200,15 @@ class Request:
             return
         self.error = error
         self.finished_at = time.monotonic()
+        # close the trace: a queue span still open here means the
+        # request died waiting (rejected / engine stopped)
+        qs, self._queue_span = self._queue_span, None
+        if qs is not None:
+            qs.end(status="error" if error else "cancelled")
+        rs, self._root_span = self._root_span, None
+        if rs is not None:
+            rs.end(status="error" if error else "ok", error=error,
+                   n_tokens=len(self.tokens), evictions=self.evictions)
         self._done.set()
         self._queue.put(None)
 
@@ -209,6 +230,10 @@ class _Sequence:
         self.cached_tokens = 0
         self.cache_inserted = False
 
+    @property
+    def n_generated(self) -> int:
+        return len(self.req.tokens)
+
 
 class StepPlan:
     """One ragged iteration, planned: the active sequences and the
@@ -221,6 +246,32 @@ class StepPlan:
     def __init__(self, **kw):
         for k, v in kw.items():
             setattr(self, k, v)
+
+
+class _Prestage:
+    """The double-buffered plan half-step: admission work computed
+    WHILE the device runs a fused window, against the projected
+    post-window state (every live lane + ``window`` decode tokens, no
+    finishes, no page churn).  ``matches`` decides at the next
+    boundary whether the projection held — a finish, an eviction or a
+    queue-head change invalidates it and the staged work is
+    discarded.  (The reference also stages the perf model's prediction
+    for the head; the port has no perf model, so the projection is all
+    it stages.)"""
+
+    __slots__ = ("running_ids", "head_id", "free_pages")
+
+    def __init__(self, running_ids, head_id, free_pages):
+        self.running_ids = running_ids
+        self.head_id = head_id
+        self.free_pages = free_pages
+
+    def matches(self, sched: "Scheduler") -> bool:
+        if tuple(s.req.id for s in sched.running) != self.running_ids:
+            return False
+        if not sched.waiting or sched.waiting[0].req.id != self.head_id:
+            return False
+        return sched.pool.available() == self.free_pages
 
 
 class Scheduler:
@@ -252,6 +303,13 @@ class Scheduler:
         self.waiting: deque = deque()
         self.running: List[_Sequence] = []
         self.evictions = 0
+        # double-buffered plan (fused serving windows): admission
+        # decisions pre-staged against the projected post-window state
+        # while the device runs, committed or discarded at the boundary
+        self._prestage: Optional[_Prestage] = None
+        self.prestaged_plans = 0
+        self.prestage_commits = 0
+        self.prestage_discards = 0
 
     # -- queue side ------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -392,6 +450,12 @@ class Scheduler:
         is runnable."""
         admitted: List[_Sequence] = []
         evicted: List[_Sequence] = []
+        pre, self._prestage = self._prestage, None
+        if pre is not None:
+            if pre.matches(self):
+                self.prestage_commits += 1
+            else:
+                self.prestage_discards += 1
         while True:
             seq = self._admit_one()
             if seq is None:
@@ -483,3 +547,74 @@ class Scheduler:
             if seq.req.done:
                 continue
             seq.kv_len = int(plan.kv_lens[i])
+
+    # -- fused serving windows -------------------------------------------
+    def window_budget(self, plan: StepPlan, max_steps: int):
+        """How many iterations the device may run on ``plan`` without
+        a host boundary: clamp ``max_steps`` to the tightest remaining
+        token budget (a lane hitting its budget finishes — the window
+        exits there anyway) and to what the page pool can host WITHOUT
+        eviction, then pre-allocate every page the window can touch
+        and refresh ``plan.tables`` so the on-device append cursors
+        stay in-bounds.  Returns ``(w, clamp_reason)``; ``w == 1``
+        means the single-step path (with its eviction machinery)
+        should run instead — nothing was allocated."""
+        w = int(max_steps)
+        reason = "window_full"
+        rem = min(seq.req.max_new_tokens - len(seq.req.tokens)
+                  for seq in plan.seqs)
+        w = min(w, max(rem, 1))
+        avail = self.pool.available()
+        while w > 1 and sum(self._pages_needed(s, s.kv_len + w)
+                            for s in plan.seqs) > avail:
+            w -= 1
+            reason = "page_limit"
+        if w <= 1:
+            return 1, reason
+        for seq in plan.seqs:
+            if not self._grow(seq, seq.kv_len + w):
+                # the avail math above makes this unreachable; any
+                # pages already granted are owned and trimmed at the
+                # next commit, so bailing to single-step is safe
+                return 1, "page_limit"
+        for i, seq in enumerate(plan.seqs):
+            plan.tables[i, :len(seq.pages)] = seq.pages
+        return w, reason
+
+    def commit_window(self, plan: StepPlan, steps: int) -> None:
+        """Commit a fused window's outcome: every surviving lane ran
+        exactly ``steps`` decode iterations (no lane runs past the
+        FIRST finish, so lanes never diverge mid-window).  Pages the
+        clamped window reserved but never wrote are returned to the
+        pool."""
+        for seq in plan.seqs:
+            if seq.req.done:
+                continue
+            seq.kv_len += int(steps)
+            self._trim_pages(seq)
+
+    def _trim_pages(self, seq: _Sequence) -> None:
+        """Drop owned pages past what ``kv_len`` occupies (window
+        over-allocation after an early exit).  Trailing pages are
+        never prefix-cache-shared — shared pages cover only the prompt
+        prefix — so a plain unref is enough."""
+        keep = -(-seq.kv_len // self.pool.page_size)
+        while len(seq.pages) > max(keep, 1):
+            self.pool.unref(seq.pages.pop())
+
+    def prestage_plan(self, plan: StepPlan, window: int) -> None:
+        """Double-buffered plan: called right after a fused window is
+        DISPATCHED (device busy, host free) — stage the next boundary's
+        admission against the projected post-window state: all plan
+        lanes decoding, window pages already charged to the pool, queue
+        unchanged.  ``plan_step`` commits the staged work when the
+        window exits exactly as projected (full run, no finishes) and
+        discards it otherwise."""
+        if not self.waiting:
+            self._prestage = None
+            return
+        self.prestaged_plans += 1
+        self._prestage = _Prestage(
+            running_ids=tuple(s.req.id for s in self.running),
+            head_id=self.waiting[0].req.id,
+            free_pages=self.pool.available())

@@ -204,15 +204,19 @@ def test_k7_cases_keep_the_old_shapes_and_straddle_the_page_splits():
     """Phase 3 keeps its mixed, decode and full-context cases and adds a
     decode whose lengths straddle the page splits the wrapper picks on an
     H100 (132 SMs): a run of fewer live pages than splits, one page, a
-    last page cut mid-way, at every head layout of ``HEADS``."""
+    last page cut mid-way, at every head layout it runs at (MHA 16/16,
+    GQA 32/8); llama2-7b's heads (MHA 32/32, served in phases 4c-4e) run
+    the fp32 decode case only."""
     from paddle_tpu_torch.ops import ragged_paged_attention as rpa
     assert {"mixed", "decode", "decode-2048"} <= set(cs.CASES)
-    assert set(cs.HEADS) == {"mha", "gqa"}
+    assert set(cs.HEADS) == {"mha", "gqa", "llama"}
+    assert cs.HEADS["llama"] == (32, 32)
+    assert cs.K7_LLAMA_CASES == {("decode", torch.float32)}
     spec = cs.CASES["decode-split"]
     assert spec["q_lens"] == [1] * 8 and spec["q_width"] == 1
     ps = 16
     ppseq = -(-max(spec["kv_lens"]) // ps)
-    for nh, nkv in cs.HEADS.values():
+    for nh, nkv in (cs.HEADS["mha"], cs.HEADS["gqa"]):
         groups = -(-nh // nkv // rpa._ROWS) * nkv
         dev = torch.device("cuda", 0)
         rpa._sm_count[dev] = 132
@@ -570,3 +574,110 @@ def test_k6c_and_k6d_cases_take_their_routes():
         k = cs.weight_copies(nbytes)
         assert k * nbytes > cs.ROTATE_BYTES >= (k - 1) * nbytes
     assert cs.ROTATE_BYTES >= 2 * 50e6
+
+
+# ---------------------------------------------------------------------------
+# phases 4, 4c, 4d and 4e: serving, the window and HTTP
+# ---------------------------------------------------------------------------
+
+TINY_SERVE = dict(lengths=(5, 9, 13, 20, 27, 40), prefix=16, tail=8, new=8,
+                  sampled=2, temperature=0.8)
+
+
+@pytest.fixture
+def serving(failures, monkeypatch):
+    """Phases 4-4e at tiny size on the CPU: the requests cut to fit
+    tiny's 128 positions (the longest 40 + 8), 4 pages of 16 a sequence,
+    and K7 and K6c replaced by counting plain versions (one count a
+    call, K6c at most 64 rows, as the card's wrappers count their
+    launches); a check whose limit is the card's reads at the CPU's
+    scale (``LOGITS_TOL`` 1e-4: the sound step reads ~1e-7)."""
+    from paddle_tpu_torch.models import generation
+    from paddle_tpu_torch.ops import fused_decode as fd
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    monkeypatch.setattr(cs, "SERVE", TINY_SERVE)
+    monkeypatch.setattr(cs, "LLAMA_SERVE_PAGES", 4)
+    monkeypatch.setattr(cs, "LOGITS_TOL", 1e-4)
+    attend, mlp = generation.ragged_paged_attention, fd.norm_mlp
+
+    def counted_attend(*a, **k):
+        rpa.launches += 1
+        return attend(*a, **k)
+
+    def counted_mlp(x, **k):
+        if x.shape[0] <= fd.NORM_MLP_MAX_ROWS:
+            fd.launches["norm_mlp"] += 1
+        return mlp(x, **k)
+
+    monkeypatch.setattr(generation, "ragged_paged_attention", counted_attend)
+    monkeypatch.setattr(fd, "norm_mlp", counted_mlp)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    return failures
+
+
+def test_serving_phases_hold_on_the_cpu(serving, capsys):
+    """Phases 4c (with its logit check and fault control), 4d and 4e on
+    a tiny GQA LLaMA: every check passes, the window's tokens equal the
+    single step's (greedy and sampled), HTTP's equal the in-process
+    run's, K7 runs once per layer per dispatched iteration."""
+    model = tllama.LlamaForCausalLM(tllama.llama_config("tiny"),
+                                    device="cpu", seed=0)
+    got = cs.llama_serve_main_path(model)
+    print(capsys.readouterr().out)
+    assert serving == []
+    single, window = got["single"], got["window"]
+    assert got["step_err"] < 1e-5 and got["control_err"] > cs.LOGITS_TOL
+    assert single["k7"] == 2 * single["stats"]["steps"] > 0
+    st = window["stats"]
+    assert st["steps"] > st["dispatches"] == st["host_reads"]
+    assert window["k7"] == 2 * (st["steps"] + st["window_idle_iterations"])
+    assert window["outs"] == single["outs"]
+    assert got["http"]["k7"] > 0
+    assert set(window["trace"]) == {"window", "step", "window_ms",
+                                    "window_dispatch_ms", "step_ms"}
+
+
+def test_gpt_serve_and_window_runs_hold_on_the_cpu(serving, tiny_gpt,
+                                                   capsys):
+    model, _ = tiny_gpt
+    prompts, temps = cs.serve_prompts(model.config.vocab_size)
+    assert [len(p) for p in prompts] == [5, 9, 13, 20, 27, 40, 24, 24]
+    assert prompts[-1][:16] == prompts[-2][:16]
+    assert temps.count(0.0) == 7 and temps[2] == 0.8
+    engine = cs.ServingEngine(model, **cs.SERVE_ENGINE, device="cpu")
+    single = cs.serve_run("main path", engine, prompts, temps, 2,
+                          model.config.vocab_size)
+    window = cs.window_run("gpt window", model, prompts, temps, single, 2,
+                           cs.SERVE_ENGINE)
+    print(capsys.readouterr().out)
+    assert serving == []
+    assert window["outs"] == single["outs"]
+
+
+def test_serving_checks_fail_on_a_wrong_launch_count(serving, tiny_gpt,
+                                                     monkeypatch, capsys):
+    """A K7 that counted twice a call, or a window that gave other
+    tokens, fails the phase's checks."""
+    model, _ = tiny_gpt
+    prompts, temps = cs.serve_prompts(model.config.vocab_size)
+    from paddle_tpu_torch.models import generation
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    once = generation.ragged_paged_attention
+
+    def twice(*a, **k):
+        rpa.launches += 1
+        return once(*a, **k)
+
+    monkeypatch.setattr(generation, "ragged_paged_attention", twice)
+    engine = cs.ServingEngine(model, **cs.SERVE_ENGINE, device="cpu")
+    single = cs.serve_run("main path", engine, prompts, temps, 2,
+                          model.config.vocab_size)
+    assert any("K7 launches" in f for f in serving)
+    serving.clear()
+    monkeypatch.setattr(generation, "ragged_paged_attention", once)
+    single["outs"][0] = [t + 1 for t in single["outs"][0]]
+    cs.window_run("gpt window", model, prompts, temps, single, 2,
+                  cs.SERVE_ENGINE)
+    capsys.readouterr()
+    assert any("other tokens than the single-step run" in f
+               for f in serving)

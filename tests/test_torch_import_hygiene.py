@@ -53,6 +53,9 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.static.passes.__main__\n"
             "import paddle_tpu_torch.analysis.pass_check\n"
             "import paddle_tpu_torch.distributed.passes\n"
+            "import paddle_tpu_torch.flags, paddle_tpu_torch.observability\n"
+            "import paddle_tpu_torch.inference.serving\n"
+            "import paddle_tpu_torch.resilience.retry\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(','.join(bad))\n")

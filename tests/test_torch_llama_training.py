@@ -202,14 +202,14 @@ def test_unported_options_raise():
     ids = torch.zeros(1, 4, dtype=torch.long)
     # the dense and the paged KV cache and beam search are ported
     # (tests/test_torch_decode_loop.py, tests/test_torch_paged_generate.py);
-    # a past of neither kind is refused, and the paged serving step is not
-    # ported
+    # a past of neither kind is refused.  The paged serving step is ported
+    # too (tests/test_torch_llama_serving.py): it reads the layers' views
     with pytest.raises(TypeError, match="PagedLayerView"):
         m(ids, past=[None, None])
     with pytest.raises(TypeError, match="PagedLayerView"):
         m.llama.layers[0].self_attn(torch.zeros(1, 4, 64), past=object())
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        m.build_ragged_decode_step()
+    params, step = m.build_ragged_decode_step()
+    assert len(params["layers"]) == 2 and callable(step)
 
 
 def test_default_device_without_a_card_raises():

@@ -4,7 +4,7 @@ order, with its defaults and kinds (read with ``inspect.signature``);
 only a keyword-only ``generator`` or ``device`` may follow them.  Then
 what each repaired parameter does: where the port honours it, the same
 as the reference (``embedding``'s ``padding_idx``, ``submit``'s
-``request_id``, ``decorate``'s ``excluded_layers``, the attention's
+``request_id`` and ``trace``, ``decorate``'s ``excluded_layers``, the attention's
 ``training``, ``stop``'s result); where it does not, a value other than
 the default raises ``NotImplementedError``.
 """
@@ -18,6 +18,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu import amp as jamp
 from paddle_tpu.core.tensor import Tensor
+from paddle_tpu.inference import serving as jhttp
 from paddle_tpu.models import generation as jgen
 from paddle_tpu.models import gpt as jgpt
 from paddle_tpu.nn import functional as jF
@@ -27,10 +28,13 @@ from paddle_tpu.serving import engine as jengine
 from paddle_tpu.serving import scheduler as jsched
 
 from paddle_tpu_torch import amp, optimizer
+from paddle_tpu_torch.flags import set_flags
+from paddle_tpu_torch.inference import serving as thttp
 from paddle_tpu_torch.models import GPTForPretraining, gpt_config
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.nn import functional as tF
+from paddle_tpu_torch.observability import tracing as ttracing
 from paddle_tpu_torch.optimizer import optimizer as topt_base
 from paddle_tpu_torch.optimizer import optimizers as topt
 from paddle_tpu_torch.serving import engine as tengine
@@ -51,6 +55,17 @@ PAIRS = {
     "Request.__init__": (jsched.Request.__init__, tsched.Request.__init__),
     "Scheduler.__init__": (jsched.Scheduler.__init__,
                            tsched.Scheduler.__init__),
+    "Scheduler.window_budget": (jsched.Scheduler.window_budget,
+                                tsched.Scheduler.window_budget),
+    "Scheduler.commit_window": (jsched.Scheduler.commit_window,
+                                tsched.Scheduler.commit_window),
+    "Scheduler.prestage_plan": (jsched.Scheduler.prestage_plan,
+                                tsched.Scheduler.prestage_plan),
+    "build_fused_window_step": (jgen.build_fused_window_step,
+                                tgen.build_fused_window_step),
+    "InferenceServer.__init__": (jhttp.InferenceServer.__init__,
+                                 thttp.InferenceServer.__init__),
+    "generate_http": (jhttp.generate_http, thttp.generate_http),
     "embedding": (jF.embedding, tF.embedding),
     "auto_cast": (jamp.auto_cast, amp.auto_cast),
     "decorate": (jamp.decorate, amp.decorate),
@@ -108,6 +123,8 @@ UNSUPPORTED = {
     "engine max_watchdog_relaunches": lambda: tengine.ServingEngine(
         None, max_watchdog_relaunches=1),
     "request deadline_s": lambda: tsched.Request([1, 2], deadline_s=1.0),
+    "InferenceServer predictor": lambda: thttp.InferenceServer(
+        predictor=object(), engine=object()),
     "scheduler perf_model": lambda: tsched.Scheduler(
         tsched.PagePool(8, 4), 2, 2, perf_model=object()),
     "scheduler max_step_cost_s": lambda: tsched.Scheduler(
@@ -165,18 +182,28 @@ def engine_model():
     return _tiny_gpt()
 
 
-def test_submit_takes_the_request_id_and_rejects_trace(engine_model):
+def test_submit_takes_the_request_id_and_rejects_trace(engine_model,
+                                                      tmp_path):
+    """``request_id`` names the request; ``trace`` is honoured now (a
+    ``TraceContext`` parents the request's root span, as in the
+    reference); ``deadline_s`` still raises."""
     eng = tengine.ServingEngine(engine_model, max_batch=2, page_size=8,
                                 device="cpu").start()
+    parent = ttracing.TraceContext(ttracing.new_trace_id(),
+                                   ttracing.new_span_id())
+    set_flags({"FLAGS_observability_dir": str(tmp_path)})
     try:
         req = eng.submit([1, 2, 3], max_new_tokens=2, request_id="r-7")
         assert req.id == "r-7"
         assert len(req.wait(timeout=60)) == 2
-        with pytest.raises(NotImplementedError):
-            eng.submit([1, 2, 3], trace=object())
+        traced = eng.submit([1, 2, 3], max_new_tokens=2, trace=parent)
+        assert len(traced.wait(timeout=60)) == 2
+        assert traced.trace.trace_id == parent.trace_id
+        assert traced.trace.span_id != parent.span_id
         with pytest.raises(NotImplementedError):
             eng.submit([1, 2, 3], deadline_s=5.0)
     finally:
+        set_flags({"FLAGS_observability_dir": ""})
         eng.stop()
 
 
