@@ -53,6 +53,32 @@ loudly with a non-zero exit:
 4e. HTTP — ``InferenceServer`` over a llama2-7b engine on loopback, four
    concurrent ``generate_http`` streams: tokens equal to 4c's for the
    same prompts, ``/metrics`` counting them;
+4f. fault containment on phase 4's GPT-3 1.3B — phase 4's 8 prompts, all
+   greedy and queued before the loop starts, 32 new tokens, each run
+   with its own event log and its K7 / K6c launches printed: a clean run
+   (the oracle), then under ``FLAGS_fault_schedule`` ``serving_step@3=
+   exc`` (one request quarantined alone, the innocents equal to the
+   oracle, its prompt rejected at admission when resubmitted, health
+   quarantining then degraded), ``@3=nan`` (the NaN sentinel quarantines
+   its lane alone), ``@5=stall:6`` at a 2 s step timeout (one relaunch,
+   every stream requeued and equal to the oracle, health degraded then
+   ok after 8 clean steps, one step_timeout; the relaunch's time and
+   peak memory), the same stall past a relaunch cap of 0 (health failed,
+   every request unhealthy, a late submit rejected), a deadline that
+   ends mid-batch (that request cancelled, the others equal, every page
+   back, K7 / K6c equal to the clean run's), predicted-cost admission on
+   a ``batch_step`` head fitted to the clean run's own timings with a
+   budget between its decode-step and 512-token-admission predictions
+   (admissions deferred, tokens equal, ``predicted_cost_s`` on every
+   admission, a doomed deadline rejected up front) and ``python -m
+   paddle_tpu_torch.observability watchdog --perf-model`` over the clean
+   run (exit 0).  A stream that differs from the oracle passes only where
+   the dense forward's top-2 margin at its first differing token is
+   under 1e-3 (a probe or re-prefill runs its rows in other products);
+   each such case prints;
+4g. one watchdog relaunch on phase 10's llama2-7b (a clean run, then the
+   stall run): every stream equal to the clean run's as in 4f, the
+   relaunch's time and the peak memory with both pool sets alive;
 5. K1a/b/c (flash attention fwd, dq, dk/dv), K2a/b (LayerNorm fwd, dx)
    and K3 (fused AdamW) against their plain PyTorch versions on the card
    at training shapes (K1 at both training paths' shapes, GPT's and
@@ -189,8 +215,9 @@ Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
 them in the JAX package).  Phase 4d's GPT-3 1.3B run follows phase 4 on
 its model, and phase 4b runs ``decode_loop`` greedy on it (batch 8 x
-prompt 256 + 64 new) with exact K6 launches.  Phases 4c-4e run after
-phase 16, on phase 10's llama2-7b, before that model is freed.
+prompt 256 + 64 new) with exact K6 launches, then phase 4f.  Phases
+4c-4e and 4g run after phase 16, on phase 10's llama2-7b, before that
+model is freed.
 
 Each main path's launch counts are set to 0 just before it runs and read
 just after (phase 16: after the passes, whose claim checks itself with
@@ -206,9 +233,12 @@ import functools
 import gc
 import itertools
 import json
+import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -231,6 +261,7 @@ from paddle_tpu_torch.models.bart import (BartConfig,
 from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
 from paddle_tpu_torch.models.gpt import LayerNorm as GPTLayerNorm
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_config
+from paddle_tpu_torch.observability.events import read_events
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_adamw as adamw
@@ -247,6 +278,7 @@ from paddle_tpu_torch.serving.__main__ import _print_device_profile
 from paddle_tpu_torch.static.passes import (capture_decode_program, graph,
                                             run_program_passes)
 from paddle_tpu_torch.static.passes.__main__ import quartiles, replay_times
+from paddle_tpu_torch.tuning.learned import fit_from_telemetry, save_model
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -865,9 +897,10 @@ def serve_main_path():
     say(f"phase 4d (gpt3-1.3B): {time.perf_counter() - t1:.1f} s")
     check_step_logits(model, prompts[3])
     gpt_decode = gpt_decode_main_path(model)
+    faults = fault_main_path(model)
     del model
     torch.cuda.empty_cache()
-    return single, window, gpt_decode
+    return single, window, gpt_decode, faults
 
 
 def check_step_logits(model, prompt):
@@ -995,6 +1028,408 @@ def llama_serve_main_path(model):
     say(f"phase 4e: {time.perf_counter() - t1:.1f} s")
     return dict(single=single, window=window, http=http, step_err=err,
                 control_err=ctrl)
+
+
+# ---------------------------------------------------------------------------
+# phases 4f and 4g: fault containment (quarantine, the NaN sentinel, the
+# watchdog and its cap, deadlines, predicted-cost admission, the SLO gate)
+# ---------------------------------------------------------------------------
+
+FAULT_TIMEOUT_S = 2.0            # FLAGS_serving_step_timeout_s of the stalls
+FAULT_STALL = "serving_step@5=stall:6"
+FAULT_RECOVERY_STEPS = 8         # health_recovery_steps of the stall run
+FAULT_WAIT_S = 120.0             # the phases' limit on any one request
+FAULT_DEADLINE_REQUEST = 3       # whose deadline ends mid-batch
+CARD = ""                        # nvidia-smi's name and power limit
+
+
+def fault_run(tag, model, prompts, engine_kw, schedule="", flags=None,
+              submit_kw=None, during=None):
+    """One counted serving run of ``prompts`` (all greedy, ``SERVE["new"]``
+    tokens each, every request queued before the loop starts, so the first
+    step admits them all) under ``FLAGS_fault_schedule = schedule``, with an
+    event directory of its own.  K7's and K6c's counts are set to 0 just
+    before and read just after.  ``submit_kw`` maps a request's index to
+    more ``submit`` arguments; ``during(engine, reqs)`` runs once every
+    request has ended, before the engine stops.  A request that fails
+    leaves None in ``outs``; one that outlives ``FAULT_WAIT_S`` fails the
+    phase.  The engine is dropped on return (each request's cancel hook
+    too), so its pools are free for the next run."""
+    gc.collect()                     # the last run's engine and its pools
+    obs = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    set_flags({"FLAGS_observability_dir": obs,
+               "FLAGS_fault_schedule": schedule, **(flags or {})})
+    rpa.launches = 0                 # count this run's launches only
+    fd.launches["norm_mlp"] = 0
+    engine = ServingEngine(model, **engine_kw, device=model.device)
+    free0 = engine.pool.available()
+    extra, reqs = None, []
+    try:
+        t0 = time.perf_counter()
+        engine._accepting = True     # queue every request before the loop
+        reqs = [engine.submit(p, max_new_tokens=SERVE["new"],
+                              **(submit_kw or {}).get(i, {}))
+                for i, p in enumerate(prompts)]
+        engine.start()
+        outs = []
+        for r in reqs:
+            try:
+                outs.append(r.wait(timeout=FAULT_WAIT_S))
+            except RuntimeError:
+                outs.append(None)    # failed: its error_kind says why
+            except TimeoutError:
+                fail(f"{tag}: request {r.id} still running after "
+                     f"{FAULT_WAIT_S} s")
+        wall = time.perf_counter() - t0
+        k7, k6c = rpa.launches, fd.launches["norm_mlp"]
+        with engine._lock:           # the last step's events are written
+            pass
+        if during is not None:
+            extra = during(engine, reqs)
+        stats = engine.stats()
+    finally:
+        stopped = engine.stop(drain=False, join_timeout=10.0)
+        set_flags({"FLAGS_observability_dir": "", "FLAGS_fault_schedule": "",
+                   "FLAGS_serving_step_timeout_s": 0.0})
+        # a relaunch's abandoned thread wakes from its stall, sees the new
+        # epoch and returns; it holds the engine, its pools and the model
+        for thread, _, _ in engine._abandoned:
+            thread.join(timeout=30.0)
+            if thread.is_alive():
+                fail(f"{tag}: an abandoned loop thread outlived its stall")
+        for r in reqs:
+            r._cancel_cb = None      # the hook holds the engine
+        del engine
+    recs = read_events(obs)
+    health = [e["state"] for e in recs if e["kind"] == "health_transition"]
+    kinds = {}
+    for e in recs:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    say(f"{tag} [{CARD}]: {wall:.3f} s; K7 launches {k7}, K6c (norm_mlp) "
+        f"launches {k6c}; {stats['steps']} steps, {stats['failed_steps']} "
+        f"failed; health {health or ['ok']}; quarantined "
+        f"{stats['quarantined']}, cancelled {stats['cancelled']}, relaunches "
+        f"{stats['watchdog_relaunches']}, deferred admissions "
+        f"{stats['deferred_admissions']}; error kinds "
+        f"{[r.error_kind for r in reqs]}; events "
+        f"{json.dumps(kinds, sort_keys=True)}")
+    return dict(outs=outs, reqs=reqs, stats=stats, k7=k7, k6c=k6c, wall=wall,
+                recs=recs, health=health, dir=obs, extra=extra, free0=free0,
+                stopped=stopped)
+
+
+def top2_margin(model, ids) -> float:
+    """The top-2 margin of the dense forward's last-row logits."""
+    with torch.no_grad():
+        row = model(torch.tensor([ids], device=model.device))[0, -1].float()
+    top = row.topk(2).values
+    return float(top[0] - top[1])
+
+
+def hold_tokens(tag, model, prompts, oracle, outs, skip=()):
+    """Each stream of ``outs`` (but ``skip``) against the clean run's: the
+    tokens equal, or, at the first that differs, the dense forward's top-2
+    margin over prompt + the tokens before it is under STEP_LOGITS_TOL (a
+    probe, a relaunch's re-prefill or a smaller prefill runs its rows in
+    other products, whose low bits may differ).  Prints each such case."""
+    cases = 0
+    for i, (want, got) in enumerate(zip(oracle, outs)):
+        if i in skip:
+            continue
+        if got is None or len(got) != len(want):
+            fail(f"{tag}: request {i} returned {got}, the clean run {want}")
+        if got == want:
+            continue
+        j = next(k for k, (a, b) in enumerate(zip(want, got)) if a != b)
+        margin = top2_margin(model, prompts[i] + want[:j])
+        say(f"{tag} [{CARD}]: request {i} differs from the clean run at "
+            f"token {j} ({got[j]} vs {want[j]}), where the dense forward's "
+            f"top-2 margin is {margin:.3e} (tol {STEP_LOGITS_TOL})")
+        if margin >= STEP_LOGITS_TOL:
+            fail(f"{tag}: request {i} differs from the clean run at token "
+                 f"{j} with a top-2 margin of {margin} >= {STEP_LOGITS_TOL}")
+        cases += 1
+    return cases
+
+
+def relaunch_numbers(tag, run):
+    """The stall run's relaunch: the step_timeout event's age, and the time
+    from it to the end of the new epoch's first step (the re-prefill)."""
+    recs = run["recs"]
+    timeouts = [e for e in recs if e["kind"] == "step_timeout"]
+    if len(timeouts) != 1:
+        fail(f"{tag}: {len(timeouts)} step_timeout events, want 1")
+    to = timeouts[0]
+    after = [e for e in recs if e["kind"] == "batch_step"
+             and e["ts"] > to["ts"]]
+    if not after:
+        fail(f"{tag}: no step after the relaunch")
+    relaunch_s = after[0]["ts"] - to["ts"]
+    say(f"{tag} [{CARD}]: the watchdog fired at a dispatch age of "
+        f"{to['age_s']} s (timeout {to['timeout_s']} s); relaunch to the end "
+        f"of the new epoch's first step (re-prefill of {after[0]['tokens']} "
+        f"tokens, its step {after[0]['step_s']} s): {relaunch_s:.3f} s")
+    return dict(age_s=to["age_s"], relaunch_s=relaunch_s,
+                reprefill_step_s=after[0]["step_s"])
+
+
+def check_stall_run(tag, model, prompts, oracle, run, layers):
+    """A stall past the timeout: one relaunch, every stream requeued and
+    equal to the clean run's, health degraded then ok, one step_timeout."""
+    st = run["stats"]
+    if st["watchdog_relaunches"] != 1:
+        fail(f"{tag}: {st['watchdog_relaunches']} relaunches, want 1")
+    evictions = [r.evictions for r in run["reqs"]]
+    if min(evictions) < 1:
+        fail(f"{tag}: evictions {evictions}: a stream was not requeued")
+    hold_tokens(tag, model, prompts, oracle, run["outs"])
+    if run["health"] != ["degraded", "ok"]:
+        fail(f"{tag}: health went {run['health']}, want degraded then ok")
+    if run["k7"] != layers * st["steps"]:
+        fail(f"{tag}: K7 launches {run['k7']} != {layers} x {st['steps']}")
+    return relaunch_numbers(tag, run)
+
+
+def check_oracle(tag, clean, vocab):
+    """The clean run's streams: every one its ``SERVE["new"]`` tokens, in
+    the vocabulary."""
+    for i, o in enumerate(clean["outs"]):
+        if o is None or len(o) != SERVE["new"] or \
+                not all(0 <= x < vocab for x in o):
+            fail(f"{tag}: request {i} returned {o}")
+    return clean["outs"]
+
+
+def fault_main_path(model):
+    """Phase 4f on GPT-3 1.3B (phase 4's model): a clean run as the oracle,
+    then exc, nan, stall, stall past the cap, a deadline, predicted-cost
+    admission on a head fitted to the clean run, and the SLO watchdog."""
+    t_phase = time.perf_counter()
+    vocab, layers = model.config.vocab_size, model.config.num_layers
+    prompts, _ = serve_prompts(vocab)
+    kw = dict(SERVE_ENGINE)
+    runs = {}
+    clean = runs["clean"] = fault_run("faults clean", model, prompts, kw)
+    oracle = check_oracle("faults clean", clean, vocab)
+    st = clean["stats"]
+    if clean["k7"] != layers * st["steps"] or \
+            clean["k6c"] != layers * (st["steps"] - st["prefill_steps"]):
+        fail(f"faults clean: K7 {clean['k7']} / K6c {clean['k6c']} are not "
+             f"{layers} per step / decode step ({st['steps']} steps)")
+
+    # exc: the sticky poison fails one request alone; its prompt is then
+    # rejected at admission
+    def resubmit(engine, reqs):
+        bad = [r for r in reqs if r.error_kind == "quarantined"]
+        if len(bad) != 1:
+            return None
+        again = engine.submit(bad[0].prompt, max_new_tokens=SERVE["new"])
+        return again.done, again.error_kind
+
+    exc = runs["exc"] = fault_run("faults exc", model, prompts, kw,
+                                  schedule="serving_step@3=exc",
+                                  during=resubmit)
+    bad = [i for i, r in enumerate(exc["reqs"])
+           if r.error_kind == "quarantined"]
+    if len(bad) != 1 or exc["outs"][bad[0]] is not None:
+        fail(f"faults exc: quarantined {bad}, want exactly one request")
+    hold_tokens("faults exc", model, prompts, oracle, exc["outs"], skip=bad)
+    if exc["extra"] != (True, "quarantined"):
+        fail(f"faults exc: the quarantined prompt resubmitted gave "
+             f"{exc['extra']}, want a rejection at admission")
+    if exc["health"] != ["quarantining", "degraded"]:
+        fail(f"faults exc: health went {exc['health']}")
+
+    # nan: the lane's sentinel (-1) quarantines it alone
+    nan = runs["nan"] = fault_run("faults nan", model, prompts, kw,
+                                  schedule="serving_step@3=nan")
+    bad = [i for i, r in enumerate(nan["reqs"])
+           if r.error_kind == "quarantined"]
+    reasons = [e["reason"] for e in nan["recs"] if e["kind"] == "quarantine"]
+    if len(bad) != 1 or reasons != ["nan_logits"]:
+        fail(f"faults nan: quarantined {bad} for {reasons}")
+    hold_tokens("faults nan", model, prompts, oracle, nan["outs"], skip=bad)
+
+    # stall: one relaunch, every stream finishes equal to the oracle; the
+    # peak counts the model, both pool sets and the re-prefill
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    stall = runs["stall"] = fault_run(
+        "faults stall", model, prompts,
+        dict(kw, health_recovery_steps=FAULT_RECOVERY_STEPS),
+        schedule=FAULT_STALL,
+        flags={"FLAGS_serving_step_timeout_s": FAULT_TIMEOUT_S})
+    relaunch = check_stall_run("faults stall", model, prompts, oracle, stall,
+                               layers)
+    relaunch["peak_bytes"] = torch.cuda.max_memory_allocated()
+    say(f"faults stall [{CARD}]: peak memory {relaunch['peak_bytes']} bytes "
+        "with both pool sets alive")
+
+    # stall past the cap: failed, every request unhealthy, submit rejected
+    def late_submit(engine, reqs):
+        late = engine.submit(prompts[0], max_new_tokens=2)
+        return late.done, late.error_kind
+
+    cap = runs["cap"] = fault_run(
+        "faults cap", model, prompts, dict(kw, max_watchdog_relaunches=0),
+        schedule=FAULT_STALL,
+        flags={"FLAGS_serving_step_timeout_s": FAULT_TIMEOUT_S},
+        during=late_submit)
+    kinds = [r.error_kind for r in cap["reqs"]]
+    if kinds != ["unhealthy"] * len(prompts) or \
+            any(o is not None for o in cap["outs"]):
+        fail(f"faults cap: error kinds {kinds}, want every one unhealthy")
+    if cap["health"][-1:] != ["failed"] or \
+            cap["extra"] != (True, "unhealthy"):
+        fail(f"faults cap: health {cap['health']}, late submit "
+             f"{cap['extra']}")
+
+    # a deadline that ends mid-batch (half the clean run's wall time)
+    deadline_s = clean["wall"] / 2
+    late = runs["deadline"] = fault_run(
+        "faults deadline", model, prompts, dict(kw, prefix_caching=False),
+        submit_kw={FAULT_DEADLINE_REQUEST: {"deadline_s": deadline_s}})
+    r = late["reqs"][FAULT_DEADLINE_REQUEST]
+    if r.error_kind != "deadline" or \
+            not 0 < len(r.tokens) < SERVE["new"]:
+        fail(f"faults deadline: request {FAULT_DEADLINE_REQUEST} ended "
+             f"{r.error_kind} after {len(r.tokens)} tokens (deadline "
+             f"{deadline_s:.3f} s), want a cancel mid-batch")
+    hold_tokens("faults deadline", model, prompts, oracle, late["outs"],
+                skip=(FAULT_DEADLINE_REQUEST,))
+    if late["stats"]["free_pages"] != late["free0"]:
+        fail(f"faults deadline: {late['stats']['free_pages']} free pages "
+             f"after the run, {late['free0']} before")
+    if (late["k7"], late["k6c"]) != (clean["k7"], clean["k6c"]):
+        fail(f"faults deadline: K7/K6c launches {late['k7']}/{late['k6c']}, "
+             f"the clean run's {clean['k7']}/{clean['k6c']}")
+    say(f"faults deadline [{CARD}]: request {FAULT_DEADLINE_REQUEST} "
+        f"cancelled after {len(r.tokens)} of {SERVE['new']} tokens at "
+        f"deadline_s {deadline_s:.3f}")
+
+    predicted = predicted_admission(model, prompts, oracle, clean, kw)
+    runs["predicted"] = predicted["run"]
+    slo = slo_watchdog(clean["dir"], predicted["model_dir"])
+    for run in runs.values():
+        shutil.rmtree(run["dir"], ignore_errors=True)
+    shutil.rmtree(predicted["model_dir"], ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase 4f [{CARD}]: {phase_s:.1f} s")
+    return dict(runs=runs, relaunch=relaunch, predicted=predicted, slo=slo,
+                k7=clean["k7"], k6c=clean["k6c"], phase_s=phase_s)
+
+
+def predicted_admission(model, prompts, oracle, clean, kw):
+    """Fit a batch_step head to the clean run's own timings, then serve
+    again with a budget between its decode-step and 512-token-prefill
+    predictions: admissions are deferred, every token equals the clean
+    run's, every serving_admit carries its prediction, and a doomed
+    deadline is rejected up front."""
+    model_dir = tempfile.mkdtemp(prefix="chip_smoke_perf_model_")
+    perf, summary = fit_from_telemetry(None, [clean["dir"]])
+    if not perf.has("batch_step"):
+        fail(f"predicted admission: no batch_step head fitted: {summary}")
+    save_model(perf, model_dir)
+    steps = [e for e in clean["recs"] if e["kind"] == "batch_step"
+             and e["prefill_seqs"] == 0]
+    occ = float(np.median([e["page_occupancy"] for e in steps]))
+    # the two prices, as the scheduler's admission features give them: a
+    # decode step of the full batch, and the step that admits the
+    # 512-token prompt into a batch of b - 1 decoding lanes
+    b = SERVE_ENGINE["max_batch"]
+    n = max(len(p) for p in prompts)
+    decode = perf.predict("batch_step", dict(
+        batch=b, prefill_seqs=0, decode_seqs=b, q_width=1, tokens=b,
+        queue_depth=0, page_occupancy=occ, fused_steps=1))
+    prefill = perf.predict("batch_step", dict(
+        batch=b, prefill_seqs=1, decode_seqs=b - 1, q_width=n,
+        tokens=n + b - 1, queue_depth=0, page_occupancy=occ, fused_steps=1))
+    budget = math.sqrt(decode * prefill)
+    say(f"predicted admission [{CARD}]: batch_step head on "
+        f"{summary['batch_step']['n_samples']} steps of the clean run "
+        f"(holdout MALE {summary['batch_step']['holdout_male']}); predicted "
+        f"decode step ({b} lanes) {decode:.6f} s, the {n}-token prefill "
+        f"admitted beside {b - 1} decoding lanes {prefill:.6f} s; budget "
+        f"max_step_cost_s {budget:.6f} s (their geometric mean)")
+    if not prefill > 1.5 * decode:
+        fail(f"predicted admission: the head predicts the {n}-token "
+             f"prefill ({prefill}) no dearer than a decode step ({decode})")
+
+    def doomed(engine, reqs):
+        r = engine.submit(prompts[0], max_new_tokens=SERVE["new"],
+                          deadline_s=1e-3)
+        return r.done, r.error_kind, r.error
+
+    run = fault_run("faults predicted", model, prompts,
+                    dict(kw, perf_model=perf, max_step_cost_s=budget),
+                    during=doomed)
+    if run["stats"]["deferred_admissions"] < 1:
+        fail("predicted admission: no admission was deferred")
+    hold_tokens("faults predicted", model, prompts, oracle, run["outs"])
+    admits = [e for e in run["recs"] if e["kind"] == "serving_admit"]
+    if not admits or any(e["predicted_cost_s"] is None for e in admits):
+        fail(f"predicted admission: serving_admit without predicted_cost_s: "
+             f"{[e['predicted_cost_s'] for e in admits]}")
+    done, kind, err = run["extra"]
+    if not done or kind != "deadline":
+        fail(f"predicted admission: a doomed deadline gave {kind}: {err}")
+    say(f"predicted admission [{CARD}]: {run['stats']['deferred_admissions']}"
+        f" deferred admissions; predicted_cost_s of the {len(admits)} "
+        f"admissions {[e['predicted_cost_s'] for e in admits]}; the doomed "
+        f"deadline: {err}")
+    return dict(run=run, decode_s=decode, prefill_s=prefill, budget_s=budget,
+                model_dir=model_dir, summary=summary["batch_step"])
+
+
+def slo_watchdog(log_dir, model_dir):
+    """``python -m paddle_tpu_torch.observability watchdog --perf-model``
+    over the clean run's log, against the head fitted to it: exit 0."""
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.observability", "watchdog",
+           "--dir", log_dir, "--perf-model", model_dir]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                          cwd=str(Path(__file__).resolve().parent))
+    say(f"slo watchdog: exit {proc.returncode}: {proc.stdout.strip()} "
+        f"{proc.stderr.strip()}")
+    if proc.returncode != 0:
+        fail(f"the SLO watchdog over the clean run exited {proc.returncode}")
+    return proc.returncode
+
+
+def llama_relaunch_main_path(model):
+    """Phase 4g on phase 10's llama2-7b (32 layers, fp32): a clean run,
+    then one watchdog relaunch; every stream equal to the clean run's, the
+    peak memory with both pool sets alive."""
+    t_phase = time.perf_counter()
+    cfg = model.config
+    layers = cfg.num_layers
+    prompts, _ = serve_prompts(cfg.vocab_size)
+    kw = dict(SERVE_ENGINE, max_pages_per_seq=LLAMA_SERVE_PAGES,
+              num_pages=SERVE_ENGINE["max_batch"] * LLAMA_SERVE_PAGES + 1)
+    clean = fault_run("llama relaunch clean", model, prompts, kw)
+    check_oracle("llama relaunch clean", clean, cfg.vocab_size)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    stall = fault_run(
+        "llama relaunch", model, prompts,
+        dict(kw, health_recovery_steps=FAULT_RECOVERY_STEPS),
+        schedule=FAULT_STALL,
+        flags={"FLAGS_serving_step_timeout_s": FAULT_TIMEOUT_S})
+    peak = torch.cuda.max_memory_allocated()
+    relaunch = check_stall_run("llama relaunch", model, prompts,
+                               clean["outs"], stall, layers)
+    hd = cfg.hidden_size // cfg.num_heads
+    pool_bytes = 2 * layers * cfg.num_kv_heads * kw["num_pages"] \
+        * SERVE_ENGINE["page_size"] * hd * 4
+    relaunch.update(peak_bytes=peak, pool_bytes=pool_bytes)
+    for run in (clean, stall):
+        shutil.rmtree(run["dir"], ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase 4g [{CARD}]: {phase_s:.1f} s; peak memory {peak} bytes with "
+        f"both pool sets alive (pools {pool_bytes} bytes each); K7 launches "
+        f"{stall['k7']}, K6c {stall['k6c']} (clean run {clean['k7']}, "
+        f"{clean['k6c']})")
+    return dict(relaunch=relaunch, k7=stall["k7"], k6c=stall["k6c"],
+                clean_k7=clean["k7"], clean_k6c=clean["k6c"], phase_s=phase_s)
 
 
 # ---------------------------------------------------------------------------
@@ -4371,6 +4806,8 @@ def main() -> int:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     say(card)
+    global CARD
+    CARD = card
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -4393,7 +4830,7 @@ def main() -> int:
     sass = check_sass()              # K1a/K1b/K1c bf16 on the tensor cores
 
     k7 = check_k7()
-    gpt_serve, gpt_window, gpt_decode = serve_main_path()
+    gpt_serve, gpt_window, gpt_decode, gpt_faults = serve_main_path()
     k1 = check_k1()                  # "main" (GPT) and "llama" shapes
     k2_rows = check_k2()
     k2 = k2_rows["float32"]          # the main path's LayerNorm dtype (O2)
@@ -4412,6 +4849,7 @@ def main() -> int:
     k6d = check_k6d()
     programs = program_main_paths(llama_model)
     llama_serve = llama_serve_main_path(llama_model["model"])
+    llama_serve["relaunch"] = llama_relaunch_main_path(llama_model["model"])
     del llama_model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4428,7 +4866,9 @@ def main() -> int:
             ("gpt_window", "mha", gpt_window["k7"]),
             ("llama_serve", "llama", llama_serve["single"]["k7"]),
             ("llama_window", "llama", llama_serve["window"]["k7"]),
-            ("llama_http", "llama", llama_serve["http"]["k7"])):
+            ("llama_http", "llama", llama_serve["http"]["k7"]),
+            ("gpt_faults", "mha", gpt_faults["k7"]),
+            ("llama_relaunch", "llama", llama_serve["relaunch"]["k7"])):
         row = next(r for r in k7 if (r["case"], r["heads"], r["dtype"])
                    == ("decode", heads, "float32"))
         nh, nkv = HEADS[heads]
@@ -4558,7 +4998,10 @@ def main() -> int:
                 ("llama_window", "llama",
                  {"norm_mlp": llama_serve["window"]["k6c"]}),
                 ("llama_http", "llama",
-                 {"norm_mlp": llama_serve["http"]["k6c"]})]
+                 {"norm_mlp": llama_serve["http"]["k6c"]}),
+                ("gpt_faults", "gpt", {"norm_mlp": gpt_faults["k6c"]}),
+                ("llama_relaunch", "llama",
+                 {"norm_mlp": llama_serve["relaunch"]["k6c"]})]
         by_path = {}
         for path, case, launched in paths:
             r = k6[key][case]

@@ -5,8 +5,10 @@ reads.
 ``define_flag`` registers a typed flag and takes its value from the
 ``FLAGS_<name>`` environment variable when one is set;
 ``set_flags`` / ``get_flags`` have the reference's call signatures.  The
-JAX package's flags that configure JAX (transfer guard, compilation
-caches) and those of unported subsystems are not defined here.
+JAX package's flags that configure JAX (transfer guard, the XLA
+compilation cache) and those of unported subsystems are not defined
+here; ``tuning_cache_dir`` only names the directory of the learned perf
+model (``tuning.learned``).
 """
 from __future__ import annotations
 
@@ -134,3 +136,47 @@ define_flag("observability_dir", "",
             "directory for the structured event log (events.jsonl; see "
             "paddle_tpu_torch.observability); empty: disabled",
             on_change=_apply_observability_dir)
+
+
+define_flag("tuning_cache_dir", "",
+            "directory of the learned performance model "
+            "(perf_model.json; paddle_tpu_torch.tuning.learned), which "
+            "predicted-cost serving admission and `python -m "
+            "paddle_tpu_torch.observability watchdog --perf-model` read; "
+            "empty: disabled.  The port has no autotune cache and no XLA "
+            "compilation cache under it")
+
+
+def _apply_fault_schedule(text: str):
+    """Deterministic chaos layer (paddle_tpu_torch.resilience.faults):
+    parse and install the fault-injection schedule.  A malformed
+    schedule raises here, so set_flags rejects it and an env typo warns
+    at import instead of silently not injecting."""
+    from .resilience.faults import install_schedule
+    install_schedule(text)
+
+
+define_flag("fault_schedule", "",
+            "deterministic fault-injection schedule "
+            "'point@N=kind[:arg];...' over the named fault points "
+            "(step, ckpt_write, collective, compile, serving_step); "
+            "kinds: crash, exit, stall, exc, truncate, corrupt, nan "
+            "(nan: serving_step only — on-device NaN-logits poison). "
+            "Empty: disabled.  See paddle_tpu_torch.resilience.faults",
+            on_change=_apply_fault_schedule)
+define_flag("serving_step_timeout_s", 0.0,
+            "serving engine hung-step watchdog (seconds): >0 bounds "
+            "every device dispatch (single step or fused window); on "
+            "expiry the watchdog dumps the flight recorder, emits a "
+            "step_timeout event, abandons the wedged loop thread "
+            "(fresh device pools + page pool) and resumes every "
+            "running stream via requeue-at-front — token-exact under "
+            "deterministic decode, no stream silently truncated.  "
+            "0 (default): disabled")
+define_flag("serving_predicted_admission", 0.0,
+            "per-iteration batch-step cost budget (seconds) for "
+            "serving admission: >0 admits new prefills only while the "
+            "learned perf model's predicted step cost stays under the "
+            "budget (predicted_cost_s rides serving_admit events); "
+            "0 or no trained batch_step head: raw page/token caps "
+            "only")

@@ -8,14 +8,17 @@ A threaded stdlib HTTP server:
   ``FLAGS_serving_engine`` with a ``paddle_tpu_torch.serving.
   ServingEngine`` attached (the flag off: 404): JSON request
   ``{"input_ids": [...], "max_new_tokens", "eos_token_id",
-  "temperature", "stream"}``.  Streaming responses are
+  "temperature", "deadline_s", "stream"}``.  Streaming responses are
   newline-delimited JSON — one ``{"token": id}`` line per generated
   token as the batch iterations land, closed by ``{"done": true,
   "tokens": [...]}``; ``"stream": false`` returns one JSON body.  A
   client that disconnects mid-stream is detected at the next token
-  write and its request cancelled (pages freed immediately).  A field
-  the engine does not support yet (``deadline_s``) answers **501** with
-  the engine's message.
+  write and its request cancelled (pages freed immediately).  A request
+  the engine rejects at admission answers by its ``error_kind``: a
+  doomed ``deadline_s`` or an unhealthy engine **503** with
+  ``Retry-After``, a quarantined prompt (and any other rejection)
+  **400**.  A field the engine raises ``NotImplementedError`` on answers
+  **501** with the engine's message (every field above is honoured).
 - ``POST /predict`` — **501**: the port has no ``Predictor`` (the
   ``jit.save`` artifact runtime), so ``InferenceServer(predictor=...)``
   raises ``NotImplementedError``.

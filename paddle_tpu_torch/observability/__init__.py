@@ -10,16 +10,19 @@ the lock sanitizer; copies of the jax-free modules of
   ``FLAGS_observability_dir``.
 * :mod:`~.tracing` — per-request traces (W3C ``traceparent`` in/out,
   spans riding the event envelope) and the flight recorder.
+* :mod:`~.watchdog` — the SLO regression gate over per-kind duration
+  baselines, or against the learned perf model's predictions
+  (``model_check``, ``perf_regression`` events).
 * :mod:`~.lockwatch` — the lock-graph sanitizer behind
   ``FLAGS_lock_sanitizer``.
 
-Not ported yet: the SLO ``watchdog`` and the ``python -m
-paddle_tpu.observability`` CLI (they wait for the fault-containment
-slice).
+CLI: ``python -m paddle_tpu_torch.observability
+{snapshot,tail,report,trace,watchdog}`` (exit 3 on a regression).
 """
 from . import metrics  # noqa: F401
 from . import events   # noqa: F401
 from . import tracing  # noqa: F401
+from . import watchdog  # noqa: F401
 from . import lockwatch  # noqa: F401
 from .lockwatch import (LockOrderError, make_lock, make_rlock,  # noqa: F401
                         make_condition, reset_lockwatch)
@@ -29,7 +32,7 @@ from .events import emit, span, read_events, EVENT_SCHEMA  # noqa: F401
 from .tracing import (start_span, trace_span, parse_traceparent,  # noqa: F401
                       format_traceparent, dump_flight, flight_snapshot)
 
-__all__ = ["metrics", "events", "tracing", "counter", "gauge",
+__all__ = ["metrics", "events", "tracing", "watchdog", "counter", "gauge",
            "histogram", "default_registry", "HistogramValue",
            "MetricsRegistry", "emit", "span", "read_events",
            "EVENT_SCHEMA", "start_span", "trace_span",

@@ -1,6 +1,14 @@
-"""paddle_tpu_torch.resilience — the shared retry helper
-(:func:`~.retry.with_retries`), copied from ``paddle_tpu/resilience/``.
-Fault injection, checkpointing and the supervisor are not ported."""
+"""paddle_tpu_torch.resilience — deterministic fault injection
+(:mod:`.faults`, driven by ``FLAGS_fault_schedule``) and the shared
+retry helper (:func:`~.retry.with_retries`), copied from
+``paddle_tpu/resilience/``.  Both are stdlib-only and import-safe from
+``flags.py``.  Checkpointing and the training supervisor are not
+ported."""
+from .faults import (FaultInjector, FaultSpec, InjectedFault,  # noqa: F401
+                     get_injector, install_schedule, maybe_fault,
+                     parse_schedule)
 from .retry import deterministic_jitter, with_retries
 
-__all__ = ["with_retries", "deterministic_jitter"]
+__all__ = ["FaultInjector", "FaultSpec", "InjectedFault", "get_injector",
+           "install_schedule", "maybe_fault", "parse_schedule",
+           "with_retries", "deterministic_jitter"]

@@ -10,7 +10,10 @@
 * :class:`~.engine.ServingEngine` — the streaming front-end, over GPT or
   LLaMA; ``FLAGS_serving_fused_steps`` runs steady-state decode as
   windows with one host read each; ``inference.serving`` serves it over
-  HTTP.
+  HTTP.  Its fault containment: quarantine bisection, the NaN-logits
+  sentinel, the hung-step watchdog (``FLAGS_serving_step_timeout_s``),
+  deadlines, the health ladder and predicted-cost admission
+  (``tuning.learned``).
 
 Quick start::
 

@@ -18,7 +18,11 @@ engine over HTTP (``inference.serving.InferenceServer`` with
 /generate`` (``generate_http``) instead of the in-process API.
 ``--profile`` traces the served window with ``torch.profiler`` and
 prints device time by kernel and the device's busy share of the wall
-time.
+time.  The fault-containment options ride the flags
+(``FLAGS_fault_schedule``, ``FLAGS_serving_step_timeout_s``,
+``FLAGS_serving_predicted_admission``): a quarantined or
+deadline-cancelled request prints as FAILED with its ``error_kind``
+while the other streams complete (the exit code is then 1).
 """
 from __future__ import annotations
 
@@ -138,22 +142,28 @@ def main(argv=None) -> int:
         prof_ctx = profile(activities=acts)
     with prof_ctx as prof, engine:
         t0 = time.perf_counter()  # noqa: PTL501 — the demo's printed wall time
+        kinds = [None] * len(prompts)   # each failed request's error_kind
         if args.serve:
             outs = _serve_http(engine, prompts, args.max_new)
         else:
             outs = []
-            for req in [engine.submit(p, max_new_tokens=args.max_new)
-                        for p in prompts]:
+            for i, req in enumerate([
+                    engine.submit(p, max_new_tokens=args.max_new)
+                    for p in prompts]):
                 try:
                     outs.append(req.wait(timeout=300))
                 except (RuntimeError, TimeoutError) as e:
+                    # a quarantined / deadline-cancelled request fails
+                    # alone — the remaining streams still complete
                     outs.append(e)
+                    kinds[i] = req.error_kind
         wall = time.perf_counter() - t0  # noqa: PTL501 — see t0
     failed = 0
     for i, (p, toks) in enumerate(zip(prompts, outs)):
         if isinstance(toks, Exception):
             failed += 1
-            print(f"request {i}: prompt[{len(p)}] -> FAILED: {toks}")
+            print(f"request {i}: prompt[{len(p)}] -> FAILED ({kinds[i]}): "
+                  f"{toks}")
         else:
             print(f"request {i}: prompt[{len(p)}] -> {toks}")
     stats = engine.stats()

@@ -1,8 +1,9 @@
 """Continuous-batching scheduler — iteration-level request admission
 over a refcounted KV page pool (Orca-style); a copy of
-``paddle_tpu/serving/scheduler.py`` (numpy and stdlib only) with its
-fused-window budgets and plan pre-staging, without the parts of later
-slices: quarantine bisection, deadlines and perf-model admission.
+``paddle_tpu/serving/scheduler.py`` (numpy and stdlib only): fused-window
+budgets and plan pre-staging, deadlines (up-front rejection of a doomed
+request), predicted-cost admission against a learned perf model, and the
+quarantine-bisection queue the engine's fault containment drives.
 
 This scheduler re-plans every token iteration:
 
@@ -99,9 +100,6 @@ class Request:
                  temperature: float = 0.0,
                  request_id: Optional[str] = None,
                  deadline_s: Optional[float] = None):
-        if deadline_s is not None:
-            raise NotImplementedError("request deadlines wait for a later "
-                                      "slice")
         self.id = request_id if request_id is not None \
             else str(next(Request._IDS))
         self.prompt: List[int] = [int(t) for t in np.asarray(
@@ -115,12 +113,16 @@ class Request:
         self.tokens: List[int] = []        # generated ids, in order
         self.error: Optional[str] = None
         # machine-readable failure class for the HTTP layer's status
-        # mapping: "unhealthy" -> 503, "cancelled" stays in-band; None
-        # for ordinary errors
+        # mapping: "deadline"/"unhealthy" -> 503, "quarantined" -> 400,
+        # "cancelled" stays in-band; None for ordinary errors
         self.error_kind: Optional[str] = None
         self._queue: "queue.Queue" = queue.Queue()
         self._done = threading.Event()
         self.submitted_at = time.monotonic()
+        self.deadline_s = None if deadline_s is None \
+            else float(deadline_s)
+        self.deadline_at = None if deadline_s is None \
+            else self.submitted_at + float(deadline_s)
         # engine-installed cancel hook: routes cancel() through the
         # engine lock so pages and the batch slot free immediately
         self._cancel_cb = None
@@ -174,11 +176,11 @@ class Request:
         consumers see the error.  Idempotent after finish."""
         if self._done.is_set():
             return
-        self.error_kind = self.error_kind or "cancelled"
         cb = self._cancel_cb
         if cb is not None:
             cb(self, reason)
         else:
+            self.error_kind = self.error_kind or "cancelled"
             self._finish(error=reason)
 
     @property
@@ -219,7 +221,7 @@ class _Sequence:
     committed to pages, and the owned/shared page list."""
 
     __slots__ = ("req", "tokens", "kv_len", "pages", "shared",
-                 "cached_tokens", "cache_inserted")
+                 "cached_tokens", "cache_inserted", "predicted_cost_s")
 
     def __init__(self, req: Request):
         self.req = req
@@ -229,6 +231,9 @@ class _Sequence:
         self.shared: set = set()       # page ids held via prefix cache
         self.cached_tokens = 0
         self.cache_inserted = False
+        # learned-model step-cost estimate at admission (None: raw
+        # page/token caps decided alone); rides serving_admit events
+        self.predicted_cost_s: Optional[float] = None
 
     @property
     def n_generated(self) -> int:
@@ -241,7 +246,8 @@ class StepPlan:
 
     __slots__ = ("seqs", "tok", "pos", "page_ids", "slots",
                  "kv_lens", "q_lens", "tables", "temps",
-                 "n_prefill", "n_decode", "fed_prefill", "fed_decode")
+                 "n_prefill", "n_decode", "fed_prefill", "fed_decode",
+                 "bisect_group")
 
     def __init__(self, **kw):
         for k, v in kw.items():
@@ -255,16 +261,15 @@ class _Prestage:
     finishes, no page churn).  ``matches`` decides at the next
     boundary whether the projection held — a finish, an eviction or a
     queue-head change invalidates it and the staged work is
-    discarded.  (The reference also stages the perf model's prediction
-    for the head; the port has no perf model, so the projection is all
-    it stages.)"""
+    discarded."""
 
-    __slots__ = ("running_ids", "head_id", "free_pages")
+    __slots__ = ("running_ids", "head_id", "free_pages", "prediction")
 
-    def __init__(self, running_ids, head_id, free_pages):
+    def __init__(self, running_ids, head_id, free_pages, prediction):
         self.running_ids = running_ids
         self.head_id = head_id
         self.free_pages = free_pages
+        self.prediction = prediction   # (req_id, predicted_cost_s)
 
     def matches(self, sched: "Scheduler") -> bool:
         if tuple(s.req.id for s in sched.running) != self.running_ids:
@@ -284,10 +289,6 @@ class Scheduler:
                  max_queue: int = 1024, max_prefill_chunk: int = 0,
                  max_seq_len: int = 0, perf_model=None,
                  max_step_cost_s: float = 0.0):
-        if perf_model is not None or max_step_cost_s:
-            raise NotImplementedError(
-                "predicted-cost admission (perf_model, max_step_cost_s) "
-                "waits for a later slice")
         self.pool = pool
         self.max_batch = int(max_batch)
         self.ppseq = int(max_pages_per_seq)
@@ -300,13 +301,28 @@ class Scheduler:
         # per-iteration chunk (bounds Q and the step's latency impact
         # on co-scheduled decodes)
         self.max_prefill_chunk = int(max_prefill_chunk)
+        # predicted-cost admission (tuning.learned): with a trained
+        # batch_step head and a budget, new prefills are admitted only
+        # while the PREDICTED next-step cost stays under the budget —
+        # the cap follows what a prefill actually costs co-scheduled
+        # decodes, not a raw page/token count
+        self.perf_model = perf_model
+        self.max_step_cost_s = float(max_step_cost_s or 0.0)
+        self.deferred_admissions = 0
         self.waiting: deque = deque()
         self.running: List[_Sequence] = []
         self.evictions = 0
+        # quarantine bisection (engine fault containment): while
+        # non-empty, plan_step restricts each plan to the front
+        # group's members (by request id) and pauses admission — the
+        # engine splits a failed group in half and pushes both halves
+        # here until the offender is isolated
+        self.bisect_groups: deque = deque()
         # double-buffered plan (fused serving windows): admission
         # decisions pre-staged against the projected post-window state
         # while the device runs, committed or discarded at the boundary
         self._prestage: Optional[_Prestage] = None
+        self._staged_pred = None
         self.prestaged_plans = 0
         self.prestage_commits = 0
         self.prestage_discards = 0
@@ -324,7 +340,28 @@ class Scheduler:
         if len(self.waiting) >= self.max_queue:
             req._finish(error="queue full")
             return
-        self.waiting.append(_Sequence(req))
+        seq = _Sequence(req)
+        if req.deadline_at is not None and self.perf_model is not None:
+            # predicted-cost admission consults the remaining deadline:
+            # a request whose full decode cannot fit inside it is doomed
+            # — reject up front (HTTP maps error_kind="deadline" to
+            # 503) instead of burning batch slots on a stream that must
+            # be cancelled mid-flight.  The per-step prediction is a
+            # conservative per-token estimate (it prices the admission
+            # step, prefill included).
+            pred = self._predicted_admit_cost(seq)
+            if pred is not None:
+                need_s = pred * max(req.max_new_tokens, 1)
+                remaining = req.deadline_at - time.monotonic()
+                if need_s > remaining:
+                    req.error_kind = "deadline"
+                    req._finish(
+                        error=f"deadline infeasible: predicted "
+                              f"{need_s:.3f}s of decode exceeds the "
+                              f"{remaining:.3f}s remaining before the "
+                              f"deadline")
+                    return
+        self.waiting.append(seq)
 
     def queue_depth(self) -> int:
         return len(self.waiting)
@@ -360,11 +397,76 @@ class Scheduler:
         seq.shared = set()
         seq.kv_len = 0
 
+    # -- predicted-cost admission ----------------------------------------
+    def _chunk_len(self, seq: _Sequence) -> int:
+        n = max(len(seq.req.prompt) + len(seq.req.tokens) - seq.kv_len,
+                0)
+        if self.max_prefill_chunk:
+            n = min(n, self.max_prefill_chunk)
+        return n
+
+    def _predicted_admit_cost(self, seq: _Sequence,
+                              projected_decode: bool = False
+                              ) -> Optional[float]:
+        """The learned model's batch-step seconds for the NEXT
+        iteration with ``seq`` admitted on top of the running batch
+        (the same feature vector ``batch_step`` events log).  None when
+        the model can't answer — admission then falls back to the raw
+        caps; a model error must never wedge the queue.
+
+        ``projected_decode`` evaluates the POST-window projection the
+        fused path pre-stages against: every running lane a one-token
+        decode (the state a full fused window leaves behind)."""
+        chunk = self._chunk_len(seq)
+        if projected_decode:
+            chunks = [1 for _ in self.running]
+            decode = len(self.running)
+        else:
+            chunks = [self._chunk_len(s) for s in self.running]
+            decode = sum(1 for s in self.running
+                         if s.kv_len >= len(s.req.prompt))
+        feats = {
+            "batch": float(len(self.running) + 1),
+            "prefill_seqs": float(len(self.running) - decode + 1),
+            "decode_seqs": float(decode),
+            "q_width": float(max(chunks + [chunk, 1])),
+            "tokens": float(sum(chunks) + chunk),
+            "queue_depth": float(len(self.waiting)),
+            "page_occupancy": round(
+                1.0 - self.pool.available()
+                / max(self.pool.num_pages - 1, 1), 4),
+            # the step being priced is a single-step admission boundary
+            "fused_steps": 1.0,
+        }
+        try:
+            return self.perf_model.predict("batch_step", feats)
+        except Exception:  # noqa: PTL401 — a perf-model failure must
+            # never wedge admission; None falls back to the raw caps
+            return None
+
     # -- admission / eviction --------------------------------------------
     def _admit_one(self) -> Optional[_Sequence]:
         if not self.waiting or len(self.running) >= self.max_batch:
             return None
         seq = self.waiting[0]
+        if self.perf_model is not None and self.max_step_cost_s > 0:
+            staged = self._staged_pred
+            if staged is not None and staged[0] == seq.req.id:
+                # double-buffered plan: the prediction was computed
+                # while the device ran the last fused window
+                pred = staged[1]
+                self._staged_pred = None
+            else:
+                pred = self._predicted_admit_cost(seq)
+            seq.predicted_cost_s = pred
+            if pred is not None and pred > self.max_step_cost_s \
+                    and self.running:
+                # admitting this prefill would blow the step budget —
+                # defer until the running batch shrinks.  An empty
+                # batch always admits (the budget shapes latency, it
+                # must never starve the queue)
+                self.deferred_admissions += 1
+                return None
         # refresh: an evicted requeued sequence re-enters with its
         # generated-so-far tokens included
         seq.tokens = list(seq.req.prompt) + list(seq.req.tokens)
@@ -442,31 +544,69 @@ class Scheduler:
         req._finish(error=error)
         return False
 
+    def rebind_pool(self, pool: PagePool, prefix_cache=None) -> None:
+        """Watchdog relaunch: the abandoned dispatch may still write
+        into the old device buffers, so the engine replaces them AND
+        the host page accounting wholesale — rebind to the fresh pool,
+        drop staged plans and any in-flight bisection episode."""
+        self.pool = pool
+        self.prefix_cache = prefix_cache
+        self._prestage = None
+        self._staged_pred = None
+        self.bisect_groups.clear()
+
+    # -- quarantine bisection (engine fault containment) -----------------
+    def bisect_push_front(self, groups) -> None:
+        """Push request-id groups at the FRONT of the bisection queue
+        (the engine splits a failed batch in half and narrows first)."""
+        for g in reversed(list(groups)):
+            self.bisect_groups.appendleft(frozenset(g))
+
+    def bisect_done(self, group) -> None:
+        """A restricted plan for ``group`` resolved (ran clean, or was
+        contained) — retire it."""
+        if self.bisect_groups and self.bisect_groups[0] == group:
+            self.bisect_groups.popleft()
+
     # -- the per-iteration plan ------------------------------------------
     def plan_step(self):
         """Admit what fits, grow pages for this iteration's tokens
         (evicting under pressure), and lay out the padded step arrays.
         Returns (plan, admitted, evicted) — plan is None when nothing
         is runnable."""
-        admitted: List[_Sequence] = []
-        evicted: List[_Sequence] = []
         pre, self._prestage = self._prestage, None
+        self._staged_pred = None
         if pre is not None:
             if pre.matches(self):
                 self.prestage_commits += 1
+                self._staged_pred = pre.prediction
             else:
                 self.prestage_discards += 1
-        while True:
-            seq = self._admit_one()
-            if seq is None:
+        # quarantine bisection: restrict the plan to the front group's
+        # members and pause admission until the episode resolves
+        group = None
+        while self.bisect_groups:
+            g = self.bisect_groups[0]
+            if any(s.req.id in g for s in self.running):
+                group = g
                 break
-            admitted.append(seq)
+            self.bisect_groups.popleft()   # members finished meanwhile
+        admitted: List[_Sequence] = []
+        evicted: List[_Sequence] = []
+        if group is None:
+            while True:
+                seq = self._admit_one()
+                if seq is None:
+                    break
+                admitted.append(seq)
 
         # per-sequence chunk of NEW tokens this iteration
         active: List[Tuple[_Sequence, List[int]]] = []
         for seq in list(self.running):
             if seq not in self.running:
                 continue       # evicted by an earlier seq's growth
+            if group is not None and seq.req.id not in group:
+                continue       # parked while the bisection probes
             chunk = seq.tokens[seq.kv_len:]
             if self.max_prefill_chunk and \
                     len(chunk) > self.max_prefill_chunk:
@@ -534,7 +674,8 @@ class Scheduler:
                         slots=slots, kv_lens=kv_lens, q_lens=q_lens,
                         tables=tables, temps=temps,
                         n_prefill=n_prefill, n_decode=n_decode,
-                        fed_prefill=fed_prefill, fed_decode=fed_decode)
+                        fed_prefill=fed_prefill, fed_decode=fed_decode,
+                        bisect_group=group)
         return plan, admitted, evicted
 
     def commit(self, plan: StepPlan) -> None:
@@ -605,8 +746,9 @@ class Scheduler:
     def prestage_plan(self, plan: StepPlan, window: int) -> None:
         """Double-buffered plan: called right after a fused window is
         DISPATCHED (device busy, host free) — stage the next boundary's
-        admission against the projected post-window state: all plan
-        lanes decoding, window pages already charged to the pool, queue
+        admission (and the perf model's price for the queue head)
+        against the projected post-window state: all plan lanes
+        decoding, window pages already charged to the pool, queue
         unchanged.  ``plan_step`` commits the staged work when the
         window exits exactly as projected (full run, no finishes) and
         discards it otherwise."""
@@ -614,7 +756,14 @@ class Scheduler:
             self._prestage = None
             return
         self.prestaged_plans += 1
+        head = self.waiting[0]
+        prediction = None
+        if self.perf_model is not None and self.max_step_cost_s > 0:
+            pred = self._predicted_admit_cost(head,
+                                              projected_decode=True)
+            prediction = (head.req.id, pred)
         self._prestage = _Prestage(
             running_ids=tuple(s.req.id for s in self.running),
-            head_id=self.waiting[0].req.id,
-            free_pages=self.pool.available())
+            head_id=head.req.id,
+            free_pages=self.pool.available(),
+            prediction=prediction)

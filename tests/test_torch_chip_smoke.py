@@ -17,6 +17,7 @@ is asserted.
 """
 import os
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -681,3 +682,88 @@ def test_serving_checks_fail_on_a_wrong_launch_count(serving, tiny_gpt,
     capsys.readouterr()
     assert any("other tokens than the single-step run" in f
                for f in serving)
+
+
+# ---------------------------------------------------------------------------
+# phases 4f and 4g: fault containment
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def faulting(serving, no_card_memory, monkeypatch):
+    """Phases 4f and 4g at tiny size on the CPU: 32 new tokens (so the
+    stall run has the 8 clean steps its recovery needs; LLaMA's pools 5
+    pages of 16 a sequence), the watchdog's
+    timeout 0.5 s and the stall 1.5 s, and every step paced by a host
+    sleep of 15 ms plus 0.1 ms a fed position, so the timing-dependent
+    checks (a deadline at half the clean run's wall time, a fitted head
+    that tells a prefill from a decode step) read as on the card."""
+    from paddle_tpu_torch.serving import engine as tengine
+    monkeypatch.setattr(cs, "SERVE", dict(TINY_SERVE, new=32, sampled=0,
+                                          temperature=0.0))
+    monkeypatch.setattr(cs, "LLAMA_SERVE_PAGES", 5)   # 40 + 32 tokens
+    monkeypatch.setattr(cs, "FAULT_TIMEOUT_S", 0.5)
+    monkeypatch.setattr(cs, "FAULT_STALL", "serving_step@5=stall:1.5")
+
+    class Paced(tengine.ServingEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            step = self._step_fn
+
+            def paced(params, tok, *rest):
+                time.sleep(0.015 + 1e-4 * tok.numel())
+                return step(params, tok, *rest)
+            self._step_fn = paced
+
+    monkeypatch.setattr(cs, "ServingEngine", Paced)
+    return serving
+
+
+def test_fault_phase_holds_on_the_cpu(faulting, tiny_gpt, capsys):
+    """Phase 4f on a tiny GPT after a warm-up run (on the card phase 4
+    warms the step shapes): every check passes — one quarantined request
+    under exc and under nan, one relaunch with every stream equal, the
+    cap's failed engine, the deadline's cancel mid-batch, deferred
+    admissions under the fitted head, the SLO watchdog's exit 0."""
+    model, _ = tiny_gpt
+    prompts, temps = cs.serve_prompts(model.config.vocab_size)
+    assert temps == [0.0] * 8
+    cs.fault_run("warm-up", model, prompts, cs.SERVE_ENGINE)
+    got = cs.fault_main_path(model)
+    print(capsys.readouterr().out)
+    assert faulting == []
+    runs = got["runs"]
+    assert set(runs) == {"clean", "exc", "nan", "stall", "cap", "deadline",
+                         "predicted"}
+    assert runs["clean"]["k7"] == 2 * runs["clean"]["stats"]["steps"] > 0
+    assert runs["stall"]["stats"]["watchdog_relaunches"] == 1
+    assert got["relaunch"]["relaunch_s"] > 0
+    assert got["predicted"]["prefill_s"] > got["predicted"]["budget_s"] \
+        > got["predicted"]["decode_s"]
+    assert got["slo"] == 0
+
+
+def test_fault_phase_sees_a_stream_that_differs(faulting, tiny_gpt,
+                                               capsys):
+    """A stream that differs from the clean run where the margin is wide
+    fails the token check."""
+    model, _ = tiny_gpt
+    prompts, _ = cs.serve_prompts(model.config.vocab_size)
+    want = [[1, 2, 3]] * len(prompts)
+    got = [list(w) for w in want]
+    got[1] = [1, 9, 3]
+    cs.hold_tokens("control", model, prompts, want, got)
+    capsys.readouterr()
+    assert any("request 1 differs" in f for f in faulting)
+
+
+def test_llama_relaunch_phase_holds_on_the_cpu(faulting, capsys):
+    """Phase 4g on a tiny GQA LLaMA: one relaunch, every stream equal to
+    the clean run's, health degraded then ok."""
+    model = tllama.LlamaForCausalLM(tllama.llama_config("tiny"),
+                                    device="cpu", seed=0)
+    got = cs.llama_relaunch_main_path(model)
+    print(capsys.readouterr().out)
+    assert faulting == []
+    # the stalled step launched nothing and the re-prefill took its place
+    assert got["k7"] == got["clean_k7"] > 0
+    assert got["relaunch"]["pool_bytes"] > 0

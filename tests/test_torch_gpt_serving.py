@@ -225,8 +225,11 @@ def test_engine_sampling_is_seeded_and_nan_fails_the_lane_alone(models):
         bad.gpt.final_ln.weight[0] = float("nan")
     with ServingEngine(bad, max_batch=2, page_size=8, device="cpu") as eng:
         req = eng.submit(prompt, max_new_tokens=4)
-        with pytest.raises(RuntimeError, match="NaN logits"):
+        # the NaN sentinel quarantines the lane, as in the JAX engine
+        with pytest.raises(RuntimeError, match="quarantined: nan_logits"):
             req.wait(timeout=60)
+        assert req.error_kind == "quarantined"
+        assert eng.stats()["quarantined"] == 1
 
 
 def test_engine_reads_the_device_once_per_step(models, prompts,

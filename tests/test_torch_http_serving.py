@@ -265,13 +265,17 @@ def test_traceparent_is_echoed_and_parents_the_request(servers, tmp_path):
 
 
 def test_unported_fields_answer_501(servers):
-    """``deadline_s`` reaches the engine, which does not support it yet:
-    501 with its message, and nothing is queued; ``/predict`` has no
-    Predictor behind it: 501; and the server refuses a predictor."""
+    """``deadline_s`` now reaches the engine and is honoured: a deadline
+    the request can meet answers 200 with its tokens from both servers
+    (the 503 of a doomed one is held in
+    ``test_torch_serving_faults.py``); ``/predict`` has no Predictor
+    behind it: 501; and the server refuses a predictor."""
     srv = servers["port"]
-    code, _, body = _status(srv.url, "/generate", _json(
-        {"input_ids": [1, 2, 3], "deadline_s": 5.0}))
-    assert code == 501 and "deadline" in json.loads(body)["error"]
+    body = _json({"input_ids": [1, 2, 3], "max_new_tokens": 2,
+                  "deadline_s": 60.0, "stream": False})
+    for name in ("port", "jax"):
+        code, _, raw = _status(servers[name].url, "/generate", body)
+        assert code == 200 and len(json.loads(raw)["tokens"]) == 2, name
     assert _status(srv.url, "/predict", b"x")[0] == 501
     with pytest.raises(NotImplementedError):
         InferenceServer(predictor=object(), engine=object())

@@ -1,9 +1,12 @@
 """The observability modules copied into the port
 (``paddle_tpu_torch.observability``: metrics, events, tracing,
-lockwatch) and ``resilience.retry``, held to cases of the JAX package's
-own tests (``tests/test_observability.py``, ``tests/test_tracing.py``,
-``tests/test_lockwatch.py``), run against the copies; and the copies'
-public surface against the reference's (signatures, the event schema).
+lockwatch, the SLO watchdog and the ``python -m`` CLI) and
+``resilience.retry`` / ``resilience.faults``, held to cases of the JAX
+package's own tests (``tests/test_observability.py``,
+``tests/test_tracing.py``, ``tests/test_lockwatch.py``), run against the
+copies; the copies' public surface against the reference's (signatures,
+the event schema); and both CLIs over one event log of the port's
+engine, which must print the same output.
 """
 import inspect
 import json
@@ -17,18 +20,22 @@ from paddle_tpu.observability import events as jevents
 from paddle_tpu.observability import lockwatch as jlockwatch
 from paddle_tpu.observability import metrics as jmetrics
 from paddle_tpu.observability import tracing as jtracing
+from paddle_tpu.observability import watchdog as jwatchdog
+from paddle_tpu.observability.__main__ import main as jax_obs_main
+from paddle_tpu.resilience import faults as jfaults
 from paddle_tpu.resilience import retry as jretry
 
 from paddle_tpu_torch.flags import set_flags
 from paddle_tpu_torch.observability import events, lockwatch, metrics
-from paddle_tpu_torch.observability import tracing
+from paddle_tpu_torch.observability import tracing, watchdog
 from paddle_tpu_torch.observability import events as obs_events
+from paddle_tpu_torch.observability.__main__ import main as obs_main
 from paddle_tpu_torch.observability.lockwatch import (
     LockOrderError, make_condition, make_lock, make_rlock,
     reset_lockwatch)
 from paddle_tpu_torch.observability.metrics import (HistogramValue,
                                                     MetricsRegistry)
-from paddle_tpu_torch.resilience import retry
+from paddle_tpu_torch.resilience import faults, retry
 
 
 @pytest.fixture
@@ -70,6 +77,16 @@ SURFACE = {
                                           "make_condition",
                                           "reset_lockwatch"]),
     "retry": (jretry, retry, ["with_retries", "deterministic_jitter"]),
+    "watchdog": (jwatchdog, watchdog, ["duration_key", "collect_durations",
+                                       "summarize", "compute_baselines",
+                                       "check", "self_check",
+                                       "model_check"]),
+    "faults": (jfaults, faults, ["parse_schedule", "install_schedule",
+                                 "get_injector", "maybe_fault",
+                                 "queue_serving_poison",
+                                 "take_serving_poison",
+                                 "queue_collective_damage",
+                                 "take_collective_damage"]),
 }
 
 
@@ -542,3 +559,148 @@ def test_engine_adopts_instrumented_locks(sanitizer_on):
         out = engine.submit([1, 2, 3], max_new_tokens=4).wait(
             timeout=120)
     assert len(out) == 4
+
+
+# ---------------------------------------------------------------------------
+# resilience.faults and the CLI (python -m paddle_tpu_torch.observability)
+# ---------------------------------------------------------------------------
+
+SCHEDULES = {
+    "serving exc + stall": "serving_step@3=exc; serving_step@5=stall:6",
+    "every kind": ("step@1=crash,step@2=exit:3,compile@1=exc:ValueError,"
+                   "ckpt_write@2=truncate,collective@1=corrupt,"
+                   "serving_step@2=nan"),
+    "nan off serving_step": "step@1=nan",
+    "truncate at step": "step@1=truncate",
+    "unknown point": "nowhere@1=exc",
+    "malformed": "serving_step=exc",
+    "occurrence 0": "serving_step@0=exc",
+}
+
+
+@pytest.mark.parametrize("case", list(SCHEDULES))
+def test_fault_schedule_parses_as_the_reference(case):
+    """The same schedule string parses to the same specs, or is refused
+    with the same message, in both packages."""
+    def parse(mod):
+        try:
+            return [(f.point, f.occurrence, f.kind, f.arg)
+                    for f in mod.parse_schedule(SCHEDULES[case])]
+        except ValueError as e:
+            return str(e)
+    assert parse(faults) == parse(jfaults)
+
+
+def test_serving_poison_is_sticky_and_stall_fires_once():
+    """``exc``/``nan`` at ``serving_step`` queue a poison directive for
+    the engine instead of raising; ``stall`` sleeps at its occurrence
+    only; the flag installs the schedule and refuses a malformed one."""
+    set_flags({"FLAGS_fault_schedule":
+               "serving_step@1=exc;serving_step@2=nan;"
+               "serving_step@3=stall:0.05"})
+    try:
+        inj = faults.get_injector()
+        faults.maybe_fault("serving_step")
+        faults.maybe_fault("serving_step")
+        assert faults.take_serving_poison() == ("exc", None)
+        assert faults.take_serving_poison() == ("nan", None)
+        assert faults.take_serving_poison() is None
+        t0 = time.monotonic()
+        faults.maybe_fault("serving_step")
+        assert time.monotonic() - t0 >= 0.05
+        t0 = time.monotonic()
+        faults.maybe_fault("serving_step")
+        assert time.monotonic() - t0 < 0.05
+        assert inj.fired_log == [("serving_step", 1, "exc"),
+                                 ("serving_step", 2, "nan"),
+                                 ("serving_step", 3, "stall")]
+        with pytest.raises(ValueError):
+            set_flags({"FLAGS_fault_schedule": "serving_step@1=melt"})
+    finally:
+        set_flags({"FLAGS_fault_schedule": ""})
+    assert faults.get_injector() is None
+
+
+@pytest.fixture(scope="module")
+def engine_log(tmp_path_factory):
+    """One event log of the port's engine (tiny GPT, two requests, a
+    traced request among them) plus two step records, and a second log
+    of the same engine to baseline it against."""
+    from paddle_tpu_torch.models import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.serving import ServingEngine
+    model = GPTForPretraining(gpt_config(
+        "tiny", hidden_dropout_prob=0.0, attention_dropout_prob=0.0),
+        device="cpu", seed=1)
+    dirs, trace_ids = [], []
+    for i in range(2):
+        d = str(tmp_path_factory.mktemp(f"cli{i}"))
+        set_flags({"FLAGS_observability_dir": d})
+        try:
+            with ServingEngine(model, max_batch=2, page_size=8,
+                               device="cpu") as eng:
+                reqs = [eng.submit(list(range(3, 3 + n)), max_new_tokens=12)
+                        for n in (5, 9)]
+                for r in reqs:
+                    r.wait(timeout=60)
+            for s in range(8):
+                events.emit("step", step=s, step_time_s=0.01 * (1 + s % 3),
+                            loss=1.0 / (s + 1))
+        finally:
+            set_flags({"FLAGS_observability_dir": ""})
+        dirs.append(d)
+        trace_ids.append(reqs[0].trace.trace_id)
+    return dirs, trace_ids[0]
+
+
+CLI = {
+    "report": lambda d, b, t: ["report", "--dir", d],
+    "report --json": lambda d, b, t: ["report", "--dir", d, "--json"],
+    "tail": lambda d, b, t: ["tail", "--dir", d, "-n", "7"],
+    "tail --kind": lambda d, b, t: ["tail", "--dir", d, "--kind",
+                                    "batch_step"],
+    "trace": lambda d, b, t: ["trace", t, "--dir", d],
+    "trace --json": lambda d, b, t: ["trace", t, "--dir", d, "--json"],
+    "trace unknown": lambda d, b, t: ["trace", "0" * 32, "--dir", d],
+    "watchdog self": lambda d, b, t: ["watchdog", "--dir", d],
+    "watchdog baseline": lambda d, b, t: ["watchdog", "--dir", d,
+                                          "--baseline", b, "--json"],
+    "watchdog strict": lambda d, b, t: ["watchdog", "--dir", d,
+                                        "--tolerance", "-0.9",
+                                        "--min-seconds", "0"],
+}
+
+
+@pytest.mark.parametrize("case", list(CLI))
+def test_cli_prints_what_the_reference_prints(engine_log, capsys, case):
+    """Both CLIs over one event log of the port's engine: the same exit
+    code and the same standard output."""
+    (log, base), trace_id = engine_log
+    argv = CLI[case](log, base, trace_id)
+    got = []
+    for main in (obs_main, jax_obs_main):
+        rc = main(argv)
+        got.append((rc, capsys.readouterr().out))
+    assert got[0] == got[1]
+    assert got[0][1] or case == "trace unknown"
+
+
+def test_cli_snapshot_prints_the_registry(capsys):
+    """``snapshot`` prints the process registry (each package its own):
+    a family registered alike in both prints alike, in JSON and in the
+    Prometheus text."""
+    name = "paddle_cli_parity_total"
+    for mod in (metrics, jmetrics):
+        c = mod.counter(name, "a family both registries hold",
+                        labels=("side",))
+        c.labels(side="x").inc(3)
+    outs = []
+    for main, mod in ((obs_main, metrics), (jax_obs_main, jmetrics)):
+        assert main(["snapshot"]) == 0
+        snap = json.loads(capsys.readouterr().out)
+        assert snap == json.loads(json.dumps(
+            mod.default_registry().snapshot(), sort_keys=True))
+        assert main(["snapshot", "--prometheus"]) == 0
+        prom = [ln for ln in capsys.readouterr().out.splitlines()
+                if name in ln]
+        outs.append((snap[name], prom))
+    assert outs[0] == outs[1]

@@ -4,9 +4,11 @@ order, with its defaults and kinds (read with ``inspect.signature``);
 only a keyword-only ``generator`` or ``device`` may follow them.  Then
 what each repaired parameter does: where the port honours it, the same
 as the reference (``embedding``'s ``padding_idx``, ``submit``'s
-``request_id`` and ``trace``, ``decorate``'s ``excluded_layers``, the attention's
-``training``, ``stop``'s result); where it does not, a value other than
-the default raises ``NotImplementedError``.
+``request_id``, ``trace`` and ``deadline_s``, the engine's and the
+scheduler's fault-containment and admission parameters, ``decorate``'s
+``excluded_layers``, the attention's ``training``, ``stop``'s result);
+where it does not, a value other than the default raises
+``NotImplementedError``.
 """
 import importlib
 import inspect
@@ -114,21 +116,8 @@ def _tiny_gpt():
 
 
 UNSUPPORTED = {
-    "engine perf_model": lambda: tengine.ServingEngine(
-        None, perf_model=object()),
-    "engine max_step_cost_s": lambda: tengine.ServingEngine(
-        None, max_step_cost_s=0.5),
-    "engine health_recovery_steps": lambda: tengine.ServingEngine(
-        None, health_recovery_steps=8),
-    "engine max_watchdog_relaunches": lambda: tengine.ServingEngine(
-        None, max_watchdog_relaunches=1),
-    "request deadline_s": lambda: tsched.Request([1, 2], deadline_s=1.0),
     "InferenceServer predictor": lambda: thttp.InferenceServer(
         predictor=object(), engine=object()),
-    "scheduler perf_model": lambda: tsched.Scheduler(
-        tsched.PagePool(8, 4), 2, 2, perf_model=object()),
-    "scheduler max_step_cost_s": lambda: tsched.Scheduler(
-        tsched.PagePool(8, 4), 2, 2, max_step_cost_s=0.5),
     "auto_cast custom_white_list": lambda: amp.auto_cast(
         custom_white_list=["matmul"]).__enter__(),
     "auto_cast custom_black_list": lambda: amp.auto_cast(
@@ -161,6 +150,57 @@ def test_unsupported_parameter_raises(case):
         UNSUPPORTED[case]()
 
 
+class _BatchStepModel:
+    """A learned-perf-model stand-in with a ``batch_step`` head."""
+
+    def has(self, family):
+        return family == "batch_step"
+
+    def predict(self, family, feats):
+        return 0.01
+
+
+def _engine(**kw):
+    return tengine.ServingEngine(_tiny_gpt(), max_batch=2, page_size=8,
+                                 device="cpu", **kw)
+
+
+def _scheduler(mod, **kw):
+    return mod.Scheduler(mod.PagePool(8, 4), 2, 2, **kw)
+
+
+# the parameters this port took and raised on until its fault-containment
+# slice: each is now honoured as in the reference
+HONOURED = {
+    "engine perf_model": lambda: _engine(
+        perf_model=_BatchStepModel(),
+        max_step_cost_s=0.5).scheduler.perf_model.__class__.__name__
+    == "_BatchStepModel",
+    "engine max_step_cost_s": lambda: (
+        lambda e: (e.scheduler.max_step_cost_s, e.scheduler.perf_model))(
+        _engine(max_step_cost_s=0.5)) == (0.5, None),
+    "engine health_recovery_steps": lambda: _engine(
+        health_recovery_steps=8).health_recovery_steps == 8,
+    "engine max_watchdog_relaunches": lambda: _engine(
+        max_watchdog_relaunches=1).max_watchdog_relaunches == 1,
+    "request deadline_s": lambda: all(
+        (r.deadline_s, round(r.deadline_at - r.submitted_at, 6)) == (1.0, 1.0)
+        for r in (jsched.Request([1, 2], deadline_s=1.0),
+                  tsched.Request([1, 2], deadline_s=1.0))),
+    "scheduler perf_model": lambda: all(
+        isinstance(_scheduler(m, perf_model=_BatchStepModel()).perf_model,
+                   _BatchStepModel) for m in (jsched, tsched)),
+    "scheduler max_step_cost_s": lambda: all(
+        _scheduler(m, max_step_cost_s=0.5).max_step_cost_s == 0.5
+        for m in (jsched, tsched)),
+}
+
+
+@pytest.mark.parametrize("case", list(HONOURED))
+def test_formerly_unported_parameter_is_honoured(case):
+    assert HONOURED[case]()
+
+
 # ---------------------------------------------------------------------------
 # parameters the port honours
 # ---------------------------------------------------------------------------
@@ -184,9 +224,10 @@ def engine_model():
 
 def test_submit_takes_the_request_id_and_rejects_trace(engine_model,
                                                       tmp_path):
-    """``request_id`` names the request; ``trace`` is honoured now (a
+    """``request_id`` names the request; ``trace`` is honoured (a
     ``TraceContext`` parents the request's root span, as in the
-    reference); ``deadline_s`` still raises."""
+    reference), and so is ``deadline_s`` (a deadline the request meets
+    changes nothing)."""
     eng = tengine.ServingEngine(engine_model, max_batch=2, page_size=8,
                                 device="cpu").start()
     parent = ttracing.TraceContext(ttracing.new_trace_id(),
@@ -200,8 +241,8 @@ def test_submit_takes_the_request_id_and_rejects_trace(engine_model,
         assert len(traced.wait(timeout=60)) == 2
         assert traced.trace.trace_id == parent.trace_id
         assert traced.trace.span_id != parent.span_id
-        with pytest.raises(NotImplementedError):
-            eng.submit([1, 2, 3], deadline_s=5.0)
+        timed = eng.submit([1, 2, 3], max_new_tokens=2, deadline_s=60.0)
+        assert timed.deadline_s == 60.0 and len(timed.wait(timeout=60)) == 2
     finally:
         set_flags({"FLAGS_observability_dir": ""})
         eng.stop()
