@@ -6,7 +6,8 @@ Run from the root of a checkout, on a machine with one CUDA card::
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --ab fa_a.cu fa_b.cu ...`` instead times copies
-of a kernel source against each other: ``compare_variants``.)
+of a kernel source against each other: ``compare_variants``;
+``--fleet`` runs phase 4h alone: ``fleet_alone``.)
 
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
@@ -79,6 +80,24 @@ loudly with a non-zero exit:
 4g. one watchdog relaunch on phase 10's llama2-7b (a clean run, then the
    stall run): every stream equal to the clean run's as in 4f, the
    relaunch's time and the peak memory with both pool sets alive;
+4h. fleet serving on GPT-3 1.3B — 16 greedy prompts (8 sharing a 2-page
+   prefix with 4-16 tokens of their own, then phase 4's 8) through one
+   in-process engine on phase 4's model (the oracle), then through
+   ``FleetRouter`` over a ``ReplicaSupervisor`` of two ``python -m
+   paddle_tpu_torch.serving.fleet --worker`` replicas at the same widths
+   and seed (max_batch 8, page 16, each with its own event log and
+   tuning dir) as 16 concurrent ``generate_http`` streams, in three
+   waves: clean (affinity hits; each replica's ``/health`` K7 = 24 x its
+   dispatched iterations, > 0; then ``python -m paddle_tpu_torch.tuning
+   fit --from-events`` on each replica's log, and the router's merged
+   model at the largest input version + 1), the prefix's owner SIGKILLed
+   once a stream has 4 tokens (a resubmission, one ``crash`` restart,
+   the replica routable again), a rolling restart mid-traffic (two
+   ``rolling`` restarts); every stream untruncated and equal to the
+   oracle up to a top-2 margin under 1e-3 as in 4f, the route events of
+   waves 2 and 3 priced (``predicted_cost_s``); tokens/s per wave beside
+   the single engine's, the router's TTFT p50 / p99, SIGKILL to routable,
+   each replica's memory, and no worker alive after the phase;
 5. K1a/b/c (flash attention fwd, dq, dk/dv), K2a/b (LayerNorm fwd, dx)
    and K3 (fused AdamW) against their plain PyTorch versions on the card
    at training shapes (K1 at both training paths' shapes, GPT's and
@@ -215,7 +234,8 @@ Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
 them in the JAX package).  Phase 4d's GPT-3 1.3B run follows phase 4 on
 its model, and phase 4b runs ``decode_loop`` greedy on it (batch 8 x
-prompt 256 + 64 new) with exact K6 launches, then phase 4f.  Phases
+prompt 256 + 64 new) with exact K6 launches, then phases 4f and 4h.
+Phases
 4c-4e and 4g run after phase 16, on phase 10's llama2-7b, before that
 model is freed.
 
@@ -234,6 +254,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -275,10 +296,12 @@ from paddle_tpu_torch.ops import softmax_ce as sce
 from paddle_tpu_torch.serving import PagePool, Request, Scheduler
 from paddle_tpu_torch.serving import ServingEngine
 from paddle_tpu_torch.serving.__main__ import _print_device_profile
+from paddle_tpu_torch.serving.fleet import FleetRouter, ReplicaSupervisor
 from paddle_tpu_torch.static.passes import (capture_decode_program, graph,
                                             run_program_passes)
 from paddle_tpu_torch.static.passes.__main__ import quartiles, replay_times
-from paddle_tpu_torch.tuning.learned import fit_from_telemetry, save_model
+from paddle_tpu_torch.tuning.learned import (fit_from_telemetry, load_model,
+                                             save_model)
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -898,6 +921,9 @@ def serve_main_path():
     check_step_logits(model, prompts[3])
     gpt_decode = gpt_decode_main_path(model)
     faults = fault_main_path(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    faults["fleet"] = fleet_main_path(model)
     del model
     torch.cuda.empty_cache()
     return single, window, gpt_decode, faults
@@ -1430,6 +1456,358 @@ def llama_relaunch_main_path(model):
         f"{clean['k6c']})")
     return dict(relaunch=relaunch, k7=stall["k7"], k6c=stall["k6c"],
                 clean_k7=clean["k7"], clean_k6c=clean["k6c"], phase_s=phase_s)
+
+
+# ---------------------------------------------------------------------------
+# phase 4h: fleet serving — two GPT-3 1.3B replicas behind the router
+# ---------------------------------------------------------------------------
+
+FLEET_REPLICAS = 2
+FLEET_SHARED = dict(streams=8, pages=2, tail=(4, 16))  # the prefix's streams
+FLEET_TRIGGER_TOKENS = 4         # tokens some stream has at a kill / restart
+FLEET_READY_S = 180.0            # a replica's limit to publish its port file
+FLEET_WAIT_S = 600.0             # the phase's limit on any one stream
+FLEET_MODEL_WAIT_S = 60.0        # the router's limit to merge the models
+ROOT = str(Path(__file__).resolve().parent)
+
+
+def fleet_prompts(vocab):
+    """Eight prompts sharing a 2-page (32-token) prefix, each with 4-16
+    tokens of its own, then phase 4's eight (17-512 tokens); the shared
+    prefix."""
+    rs = np.random.RandomState(1)
+    shared = rs.randint(0, vocab, (FLEET_SHARED["pages"]
+                                   * SERVE_ENGINE["page_size"],)).tolist()
+    lo, hi = FLEET_SHARED["tail"]
+    prompts = [shared + rs.randint(0, vocab,
+                                   (int(rs.randint(lo, hi + 1)),)).tolist()
+               for _ in range(FLEET_SHARED["streams"])]
+    return prompts + serve_prompts(vocab)[0], shared
+
+
+def fleet_oracle(model, prompts):
+    """The prompts through one in-process engine on phase 4's model (every
+    request queued before the loop starts): the tokens and the wall s."""
+    engine = ServingEngine(model, **SERVE_ENGINE, device=model.device)
+    t0 = time.perf_counter()
+    engine._accepting = True
+    reqs = [engine.submit(p, max_new_tokens=SERVE["new"]) for p in prompts]
+    engine.start()
+    outs = [r.wait(timeout=FLEET_WAIT_S) for r in reqs]
+    wall = time.perf_counter() - t0
+    engine.stop()
+    vocab = model.config.vocab_size
+    for i, o in enumerate(outs):
+        if len(o) != SERVE["new"] or not all(0 <= x < vocab for x in o):
+            fail(f"fleet oracle: request {i} returned {o}")
+    del engine, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return outs, wall
+
+
+def fleet_wave(tag, url, prompts, trigger=None):
+    """Every prompt as a concurrent greedy ``generate_http`` stream through
+    the router.  ``trigger()`` runs on this thread once some stream has
+    ``FLEET_TRIGGER_TOKENS`` tokens.  A stream that fails leaves None.
+    ``ttft`` is each stream's first token from the wave's start, ``wall``
+    the wave's start to its last stream's end."""
+    outs = [None] * len(prompts)
+    ttft = [None] * len(prompts)
+    ends = [None] * len(prompts)
+    started = threading.Event()
+    t0 = time.perf_counter()
+
+    def run(i):
+        toks = []
+        try:
+            for t in generate_http(url, prompts[i],
+                                   max_new_tokens=SERVE["new"],
+                                   timeout=FLEET_WAIT_S):
+                if not toks:
+                    ttft[i] = time.perf_counter() - t0
+                toks.append(int(t))
+                if len(toks) >= FLEET_TRIGGER_TOKENS:
+                    started.set()
+            outs[i] = toks
+            ends[i] = time.perf_counter()
+        except (RuntimeError, OSError) as e:
+            say(f"{tag}: stream {i} failed: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    extra = None
+    if trigger is not None:
+        if not started.wait(timeout=FLEET_WAIT_S):
+            fail(f"{tag}: no stream reached {FLEET_TRIGGER_TOKENS} tokens")
+        extra = trigger()
+    for t in threads:
+        t.join(timeout=FLEET_WAIT_S + 60)
+    if any(t.is_alive() for t in threads):
+        fail(f"{tag}: a stream did not end in {FLEET_WAIT_S} s")
+    # the wave ends with its last stream (a rolling restart outlasts it)
+    wall = max([e for e in ends if e is not None] or [time.perf_counter()]) \
+        - t0
+    return dict(outs=outs, wall=wall, ttft=ttft, extra=extra)
+
+
+def fleet_ttft(hist, before):
+    """p50 / p99 of the router's ``paddle_fleet_ttft_seconds`` histogram
+    over the observations since ``before`` (its bucket counts then)."""
+    from paddle_tpu_torch.observability.metrics import HistogramValue
+    delta = HistogramValue(hist.buckets)
+    delta.bucket_counts = [a - b for a, b in
+                           zip(hist.bucket_counts, before)]
+    delta.count = sum(delta.bucket_counts)
+    return delta.quantile(0.5), delta.quantile(0.99), delta.count
+
+
+def replica_health(tag, sup, layers, require):
+    """Each published replica's ``/health``: K7 launches equal to
+    ``layers`` x its dispatched iterations (and > 0 with ``require``)."""
+    out = {}
+    for h in sup.replicas:
+        if h.url is None:
+            continue
+        with urllib.request.urlopen(h.url.rstrip("/") + "/health",
+                                    timeout=60) as r:
+            st = json.loads(r.read())["engine"]
+        dispatched = st["steps"] + st["window_idle_iterations"]
+        k7 = st["kernel_launches"]
+        if k7 != layers * dispatched or (require and k7 == 0):
+            fail(f"{tag}: replica {h.id}'s K7 launches {k7} are not "
+                 f"{layers} x {dispatched} dispatched iterations (> 0)")
+        out[h.id] = dict(k7=k7, steps=st["steps"], pid=h.proc.pid,
+                         decode_step_s=st["decode_step_s"],
+                         prefix_hits=st["prefix_cache"]["hits"])
+    say(f"{tag} [{CARD}]: replicas' /health: {json.dumps(out)}")
+    return out
+
+
+def card_memory_mib() -> int:
+    """``nvidia-smi``'s memory.used of the card, in MiB."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return int(smi.stdout.strip().splitlines()[0])
+
+
+def replica_memory(tag, sup, before_mib):
+    """``nvidia-smi --query-compute-apps`` beside each replica's pid, and
+    the card's memory.used over ``before_mib`` (its reading before the
+    replicas started): what the replicas hold together."""
+    smi = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    pids = {str(h.proc.pid): h.id for h in sup.replicas if h.alive}
+    held = card_memory_mib() - before_mib
+    say(f"{tag} [{CARD}]: replica pids {pids}; nvidia-smi compute apps: "
+        f"{smi.stdout.strip().splitlines()} (this process {os.getpid()}); "
+        f"the card's memory.used grew {held} MiB since before the "
+        f"{len(pids)} replicas started")
+    return dict(apps=smi.stdout.strip().splitlines(), replicas_mib=held)
+
+
+def fit_replica_models(tag, dirs):
+    """``python -m paddle_tpu_torch.tuning fit --from-events`` on each
+    replica's event log, all at once: each writes its perf_model.json."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.tuning", "--dir", tune,
+         "fit", "--from-events", obs], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for obs, tune in dirs]
+    versions = []
+    for (obs, tune), proc in zip(dirs, procs):
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            fail(f"{tag}: tuning fit on {obs} exited {proc.returncode}: "
+                 f"{out.strip()} {err.strip()}")
+        summary = json.loads(out)
+        say(f"{tag}: tuning fit on {os.path.basename(obs)}: version "
+            f"{summary['perf_model_version']}, batch_step "
+            f"{json.dumps(summary['perf_model'].get('batch_step'))}")
+        versions.append(load_model(tune).version)
+    return versions
+
+
+def fleet_main_path(model):
+    """Phase 4h on GPT-3 1.3B: the oracle on phase 4's model, then two
+    replicas of the port's fleet worker at the same widths and seed behind
+    the router, in three waves (clean; the prefix's owner SIGKILLed; a
+    rolling restart), each stream held to the oracle."""
+    t_phase = time.perf_counter()
+    cfg = model.config
+    layers, vocab = cfg.num_layers, cfg.vocab_size
+    prompts, shared = fleet_prompts(vocab)
+    oracle, oracle_wall = fleet_oracle(model, prompts)
+    n_tok = len(prompts) * SERVE["new"]
+    say(f"fleet oracle [{CARD}]: {len(prompts)} requests through one engine "
+        f"in {oracle_wall:.3f} s = {n_tok / oracle_wall:.1f} tokens/s")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    obs_router = os.path.join(root, "obs-router")
+    dirs = [(os.path.join(root, f"obs-{i}"), os.path.join(root, f"tune-{i}"))
+            for i in range(FLEET_REPLICAS)]
+    worker_args = ["--layers", str(layers), "--hidden", str(cfg.hidden_size),
+                   "--heads", str(cfg.num_heads), "--vocab", str(vocab),
+                   "--max-pos", str(cfg.max_position_embeddings),
+                   "--max-batch", str(SERVE_ENGINE["max_batch"]),
+                   "--page-size", str(SERVE_ENGINE["page_size"]),
+                   "--seed", "0", "--device", model.device.type]
+    env = {"FLAGS_observability_dir": os.path.join(root, "obs-{replica}"),
+           "FLAGS_tuning_cache_dir": os.path.join(root, "tune-{replica}"),
+           "PYTHONPATH": os.pathsep.join(
+               [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    set_flags({"FLAGS_observability_dir": obs_router})
+    sup = ReplicaSupervisor(FLEET_REPLICAS, worker_args=worker_args, env=env,
+                            ready_timeout=FLEET_READY_S)
+    router = None
+    waves = {}
+    try:
+        before_mib = card_memory_mib()
+        t0 = time.perf_counter()
+        sup.start()
+        start_s = time.perf_counter() - t0
+        say(f"fleet [{CARD}]: {FLEET_REPLICAS} replicas published their "
+            f"ports in {start_s:.3f} s")
+        router = FleetRouter(sup, page_size=SERVE_ENGINE["page_size"],
+                             model_dirs=[tune for _, tune in dirs],
+                             poll_interval=0.25).start()
+        hist = router._h_ttft.hist
+
+        def wave(tag, trigger=None):
+            before = list(hist.bucket_counts)
+            stats0 = router.fleet_stats()
+            t_start = time.time()
+            res = fleet_wave(tag, router.url, prompts, trigger)
+            hold_tokens(tag, model, prompts, oracle, res["outs"])
+            p50, p99, n = fleet_ttft(hist, before)
+            stats = router.fleet_stats()
+            res.update(t_start=t_start, ttft_p50=p50, ttft_p99=p99,
+                       tokens_per_s=n_tok / res["wall"], stats=stats,
+                       resubmitted=stats["resubmitted"]
+                       - stats0["resubmitted"],
+                       affinity_hits=stats["affinity_hits"]
+                       - stats0["affinity_hits"])
+            say(f"{tag} [{CARD}]: {len(prompts)} streams, {n_tok} tokens in "
+                f"{res['wall']:.3f} s = {res['tokens_per_s']:.1f} tokens/s "
+                f"(one engine: {n_tok / oracle_wall:.1f}); router TTFT p50 "
+                f"{p50:.4f} s, p99 {p99:.4f} s ({n} observations); client "
+                f"TTFT max {max(t for t in res['ttft'] if t is not None):.4f}"
+                f" s; affinity hits "
+                f"{res['affinity_hits']}, resubmitted {res['resubmitted']}; "
+                f"every stream equal to the oracle up to near-ties")
+            return res
+
+        # wave 1: clean; both replicas launched K7, then each fits its model
+        waves["clean"] = wave("fleet wave 1")
+        health1 = replica_health("fleet wave 1", sup, layers, require=True)
+        mem = replica_memory("fleet wave 1", sup, before_mib)
+        if waves["clean"]["affinity_hits"] < 1:
+            fail("fleet wave 1: no affinity hit")
+        versions = fit_replica_models("fleet", dirs)
+        want_version = max(versions) + 1
+        deadline = time.monotonic() + FLEET_MODEL_WAIT_S
+        while router.fleet_stats()["model_version"] != want_version:
+            if time.monotonic() > deadline:
+                fail(f"fleet: the router's merged model is version "
+                     f"{router.fleet_stats()['model_version']}, want "
+                     f"{want_version} (inputs {versions})")
+            time.sleep(0.05)
+        say(f"fleet: merged model version {want_version} from replica "
+            f"versions {versions}")
+
+        # wave 2: SIGKILL the prefix's owner mid-stream
+        owner = router._owners[router._prompt_keys(shared)[-1]]
+        h_owner = next(h for h in sup.replicas if h.id == owner)
+        back = {}
+
+        def kill():
+            t_kill = time.perf_counter()
+            sup.kill(owner)
+
+            def watch():
+                while time.perf_counter() - t_kill < FLEET_READY_S + 60:
+                    if h_owner.restarts >= 1 and h_owner.routable():
+                        back["s"] = time.perf_counter() - t_kill
+                        return
+                    time.sleep(0.05)
+
+            back["thread"] = threading.Thread(target=watch, daemon=True)
+            back["thread"].start()
+            return t_kill
+
+        waves["kill"] = wave("fleet wave 2", trigger=kill)
+        back["thread"].join(timeout=FLEET_READY_S + 90)
+        if "s" not in back:
+            fail(f"fleet wave 2: replica {owner} not routable again")
+        if waves["kill"]["resubmitted"] < 1:
+            fail("fleet wave 2: no stream was resubmitted")
+        restarts = read_events(obs_router, kinds=["replica_restart"])
+        crash = [e for e in restarts if e["reason"] == "crash"]
+        if [e["replica"] for e in crash] != [owner]:
+            fail(f"fleet wave 2: crash events {crash}, want one for {owner}")
+        say(f"fleet wave 2 [{CARD}]: replica {owner} (the prefix's owner) "
+            f"SIGKILLed; routable again {back['s']:.3f} s later")
+        replica_health("fleet wave 2", sup, layers, require=False)
+
+        # wave 3: a rolling restart mid-traffic
+        t_roll = {}
+
+        def roll():
+            t = time.perf_counter()
+            sup.rolling_restart()
+            t_roll["s"] = time.perf_counter() - t
+
+        waves["rolling"] = wave("fleet wave 3", trigger=roll)
+        rolling = [e for e in read_events(obs_router,
+                                          kinds=["replica_restart"])
+                   if e["reason"] == "rolling"]
+        if len(rolling) != FLEET_REPLICAS:
+            fail(f"fleet wave 3: {len(rolling)} rolling restart events")
+        say(f"fleet wave 3 [{CARD}]: rolling restart of {FLEET_REPLICAS} "
+            f"replicas in {t_roll['s']:.3f} s")
+        replica_health("fleet wave 3", sup, layers, require=False)
+        routes = [e for e in read_events(obs_router, kinds=["router_route"])
+                  if e["ts"] >= waves["kill"]["t_start"]]
+        bare = [e for e in routes if e.get("predicted_cost_s") is None]
+        if not routes or bare:
+            fail(f"fleet: {len(bare)} of {len(routes)} router_route events "
+                 "of waves 2 and 3 lack predicted_cost_s")
+        costs = sorted(e["predicted_cost_s"] for e in routes)
+        say(f"fleet: {len(routes)} router_route events of waves 2 and 3 "
+            f"carry predicted_cost_s ({costs[0]:.3e}-{costs[-1]:.3e} s)")
+    finally:
+        if router is not None:
+            router.stop()
+        sup.stop()
+        set_flags({"FLAGS_observability_dir": ""})
+    alive = [h.id for h in sup.replicas if h.alive]
+    if alive:
+        fail(f"fleet: replicas {alive} outlived the supervisor's stop")
+    shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    say(f"phase 4h [{CARD}]: {phase_s:.1f} s")
+    return dict(k7=sum(r["k7"] for r in health1.values()), health=health1,
+                waves={k: {f: v[f] for f in ("wall", "tokens_per_s",
+                                             "ttft_p50", "ttft_p99",
+                                             "resubmitted", "affinity_hits")}
+                       for k, v in waves.items()},
+                oracle_tokens_per_s=n_tok / oracle_wall, back_s=back["s"],
+                rolling_s=t_roll["s"], memory=mem, start_s=start_s,
+                phase_s=phase_s)
+
+
+def fleet_alone() -> int:
+    """``--fleet``: phase 4h alone (the kernels built, GPT-3 1.3B from phase
+    4's seed as the oracle's model, then the fleet); its numbers and its
+    checks as in the full run."""
+    say(f"build: {_build.build_all():.3f} s")
+    model = GPTForPretraining(gpt_config("gpt3-1.3B", hidden_dropout_prob=0.0,
+                                         attention_dropout_prob=0.0), seed=0)
+    say(json.dumps(fleet_main_path(model)))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -4820,6 +5198,8 @@ def main() -> int:
         return compare_paths(sys.argv[sys.argv.index("--ab-paths") + 1])
     if "--marks" in sys.argv:
         return k6a_marks()
+    if "--fleet" in sys.argv:
+        return fleet_alone()
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")
@@ -4868,6 +5248,7 @@ def main() -> int:
             ("llama_window", "llama", llama_serve["window"]["k7"]),
             ("llama_http", "llama", llama_serve["http"]["k7"]),
             ("gpt_faults", "mha", gpt_faults["k7"]),
+            ("gpt_fleet", "mha", gpt_faults["fleet"]["k7"]),
             ("llama_relaunch", "llama", llama_serve["relaunch"]["k7"])):
         row = next(r for r in k7 if (r["case"], r["heads"], r["dtype"])
                    == ("decode", heads, "float32"))

@@ -18,6 +18,9 @@ silently wrong numbers on every replay.  This module is its verifier:
 * a float64 re-scan: a ``TorchFunctionMode`` over the optimized replay
   counts the float64 tensors it makes, which must not exceed the
   original replay's.
+
+Each verification emits a ``graph_pass`` event (op counts and
+``allclose``), as the reference's does.
 """
 from __future__ import annotations
 
@@ -176,6 +179,7 @@ def verify_pass(name: str, corpus: Optional[List[dict]] = None,
                 check_hazards: bool = True) -> List[Finding]:
     """Replay-equivalence + float64 verification of one registered pass
     over the corpus.  Returns findings (empty = verified)."""
+    from ..observability import events
     from ..static.passes import run_program_passes
     findings: List[Finding] = []
     for entry in corpus or build_corpus():
@@ -184,6 +188,12 @@ def verify_pass(name: str, corpus: Optional[List[dict]] = None,
                                     label=f"verify:{entry['label']}")
         args = (entry["feed_names"], entry["fetches"], entry["feed_arrays"])
         res = check_equivalence(prog, opt, *args)
+        events.emit("graph_pass", pass_name=name,
+                    program=f"verify:{entry['label']}",
+                    ops_before=res["ops_before"],
+                    ops_after=res["ops_after"],
+                    removed=res["ops_before"] - res["ops_after"],
+                    allclose=res["allclose"])
         if not res["allclose"]:
             findings.append(_finding(
                 f"pass {name!r} broke replay equivalence on "
@@ -207,6 +217,7 @@ def verify_registered_passes(corpus: Optional[List[dict]] = None,
     pass registered outside the verified harness has no verifier
     invocation)."""
     from ..distributed.passes.pass_base import PASS_REGISTRY
+    from ..observability import events
     from ..static.passes import (DEFAULT_PIPELINE, PROGRAM_PASSES,
                                  run_program_passes)
     corpus = corpus or build_corpus()
@@ -224,11 +235,18 @@ def verify_registered_passes(corpus: Optional[List[dict]] = None,
     # (ordering bugs, root-set drift between stages)
     for entry in corpus:
         prog = entry["program"]
-        opt, _ = run_program_passes(
+        opt, report = run_program_passes(
             prog, entry["fetches"], names=DEFAULT_PIPELINE,
             label=f"verify-pipeline:{entry['label']}")
         res = check_equivalence(prog, opt, entry["feed_names"],
                                 entry["fetches"], entry["feed_arrays"])
+        events.emit("graph_pass", pass_name="pipeline",
+                    program=f"verify-pipeline:{entry['label']}",
+                    ops_before=res["ops_before"],
+                    ops_after=res["ops_after"],
+                    removed=res["ops_before"] - res["ops_after"],
+                    op_class_delta=report["op_class_delta"] or None,
+                    allclose=res["allclose"])
         if not res["allclose"]:
             findings.append(_finding(
                 f"default pipeline broke replay equivalence on "

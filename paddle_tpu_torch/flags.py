@@ -7,8 +7,9 @@ reads.
 ``set_flags`` / ``get_flags`` have the reference's call signatures.  The
 JAX package's flags that configure JAX (transfer guard, the XLA
 compilation cache) and those of unported subsystems are not defined
-here; ``tuning_cache_dir`` only names the directory of the learned perf
-model (``tuning.learned``).
+here; ``tuning_cache_dir`` names the tuning cache's directory
+(``tuning.cache``, ``tuning.learned``) without the reference's XLA
+compilation cache.
 """
 from __future__ import annotations
 
@@ -139,12 +140,15 @@ define_flag("observability_dir", "",
 
 
 define_flag("tuning_cache_dir", "",
-            "directory of the learned performance model "
-            "(perf_model.json; paddle_tpu_torch.tuning.learned), which "
-            "predicted-cost serving admission and `python -m "
-            "paddle_tpu_torch.observability watchdog --perf-model` read; "
-            "empty: disabled.  The port has no autotune cache and no XLA "
-            "compilation cache under it")
+            "directory of the persistent tuning cache (<kind>.jsonl; "
+            "paddle_tpu_torch.tuning.cache) and of the learned "
+            "performance model (perf_model.json; paddle_tpu_torch."
+            "tuning.learned), which predicted-cost serving admission, "
+            "the fleet router and `python -m paddle_tpu_torch."
+            "observability watchdog --perf-model` read; `python -m "
+            "paddle_tpu_torch.tuning` manages it.  Empty: disabled.  The "
+            "port compiles no XLA programs, so no compilation cache "
+            "lives under it")
 
 
 def _apply_fault_schedule(text: str):

@@ -39,9 +39,11 @@ indices and tables to the card once for all layers
 (``decode_stats["table_copies"]``).  ``num_beams > 1`` runs
 :func:`_beam_search`, HF-semantics beam search over the dense cache, and
 :func:`seq2seq_generate` the encoder-decoder loop over a caller's
-``decode_step``.  The ``decode_loop`` / ``decode_compile`` observability
-events and spans wait for the observability slice; the counts of the
-last call are in :data:`decode_stats`.
+``decode_step``.  The compiled loop emits the reference's observability
+records: a ``decode_loop`` span and event a call (a ``decode_loop``
+event with the ``fallback`` reason when a request takes the eager loop),
+and a ``decode_compile`` span around the first call of a signature; the
+counts of the last call are in :data:`decode_stats`.
 
 :func:`build_ragged_decode_step` is the serving engine's batched step
 over paged KV pools, for GPT and LLaMA, and :func:`build_fused_window_step`
@@ -50,6 +52,7 @@ both sample with :func:`serving_sample`.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 from typing import Optional
 
@@ -57,6 +60,7 @@ import numpy as np
 import torch
 
 from ..device import default_device
+from ..observability import events, tracing
 from ..ops import fused_decode as _fd
 from ..ops import paged_attention as _pa
 from ..ops.ragged_paged_attention import (append_positions,
@@ -157,7 +161,10 @@ def _compiled_decode(model, ids, max_new, strategy, temperature, top_k,
                      top_p, eos_token_id, last_only, generator):
     """Prefill once, then the model's decode step over preallocated
     caches and token buffer, all updated in place; sampling and EOS on
-    the device."""
+    the device.  The first call with a signature runs its token loop
+    inside a ``decode_compile`` span, as the reference spans the first
+    call of each signature's program (here the loop's first launches of
+    the decode kernels)."""
     kw = {"last_logits_only": True} if last_only else {}
     logits, past = model(ids, use_cache=True, **kw)
     params, step = model.build_decode_step()
@@ -174,26 +181,37 @@ def _compiled_decode(model, ids, max_new, strategy, temperature, top_k,
         vc[:, :s_prompt] = v
         caches.append((kc, vc))
     del past
+    seen = model.__dict__.setdefault("_decode_signatures", set())
+    ckey = (tuple(ids.shape), str(ids.dtype), int(max_new), str(strategy),
+            float(temperature or 1.0), int(top_k or 0),
+            float(top_p or 1.0),
+            None if eos_token_id is None else int(eos_token_id),
+            tuple((tuple(k.shape), str(k.dtype)) for k, _ in caches))
+    span = contextlib.nullcontext() if ckey in seen else tracing.trace_span(
+        "decode_compile", attrs={"batch": int(b), "prompt_len": int(s_prompt),
+                                 "max_new_tokens": int(max_new)})
+    seen.add(ckey)
     finished = torch.zeros(b, dtype=torch.bool, device=ids.device)
     sync = EAGER_FINISHED_SYNC_EVERY
     reads = steps = 0
     n_run = max_new
-    for i in range(max_new):
-        nxt = _sample_logits(logits, strategy, temperature, top_k, top_p,
-                             generator)
-        if eos_token_id is not None:
-            nxt = torch.where(finished, eos_token_id, nxt)
-            finished |= nxt == eos_token_id
-        tokens[:, s_prompt + i] = nxt
-        if i == max_new - 1:
-            break
-        if eos_token_id is not None and i % sync == sync - 1:
-            reads += 1
-            if bool(finished.all()):        # the hoisted poll
-                n_run = i + 1
+    with span:
+        for i in range(max_new):
+            nxt = _sample_logits(logits, strategy, temperature, top_k, top_p,
+                                 generator)
+            if eos_token_id is not None:
+                nxt = torch.where(finished, eos_token_id, nxt)
+                finished |= nxt == eos_token_id
+            tokens[:, s_prompt + i] = nxt
+            if i == max_new - 1:
                 break
-        logits, _ = step(params, nxt, caches, s_prompt + i)
-        steps += 1
+            if eos_token_id is not None and i % sync == sync - 1:
+                reads += 1
+                if bool(finished.all()):        # the hoisted poll
+                    n_run = i + 1
+                    break
+            logits, _ = step(params, nxt, caches, s_prompt + i)
+            steps += 1
     n = n_run
     if eos_token_id is not None:
         n = _generated_count(tokens, s_prompt, n_run, eos_token_id)
@@ -476,11 +494,10 @@ def generate(model, input_ids, max_new_tokens: int = 20,
     params = inspect.signature(model.forward).parameters
     supports_cache = use_cache and "use_cache" in params
     last_only = supports_cache and "last_logits_only" in params
-    compiled = bool(_megakernel)
-    if compiled and _megakernel_fallback_reason(
-            model, decode_strategy, num_beams, use_paged_cache,
-            supports_cache, max_new) is not None:
-        compiled = False
+    mk_reason = _megakernel_fallback_reason(
+        model, decode_strategy, num_beams, use_paged_cache,
+        supports_cache, max_new) if _megakernel else None
+    compiled = bool(_megakernel) and mk_reason is None
     gen = generator if generator is not None else model.generator
     args = (model, ids, max_new, decode_strategy, temperature, top_k, top_p,
             eos_token_id)
@@ -489,7 +506,28 @@ def generate(model, input_ids, max_new_tokens: int = 20,
     try:
         with torch.no_grad():
             if compiled:
-                return _compiled_decode(*args, last_only, gen)
+                # the whole compiled generation (prefill + token loop) is
+                # one span; the decode_compile child and the decode_loop
+                # event land inside it, as in the reference
+                with tracing.trace_span(
+                        "decode_loop",
+                        attrs={"model": type(model).__name__,
+                               "strategy": decode_strategy}):
+                    out = _compiled_decode(*args, last_only, gen)
+                    events.emit("decode_loop", model=type(model).__name__,
+                                batch=int(ids.shape[0]),
+                                prompt_len=int(s_prompt),
+                                max_new_tokens=max_new,
+                                generated=int(out.shape[1]) - s_prompt,
+                                strategy=decode_strategy, compiled=True)
+                return out
+            if _megakernel:
+                events.emit("decode_loop", model=type(model).__name__,
+                            batch=int(ids.shape[0]),
+                            prompt_len=int(s_prompt),
+                            max_new_tokens=max_new,
+                            strategy=decode_strategy, compiled=False,
+                            fallback=mk_reason)
             if num_beams > 1:
                 if decode_strategy not in ("beam_search",) + _GREEDY:
                     raise NotImplementedError(

@@ -12,7 +12,9 @@ equivalence on a randomized corpus (``analysis.pass_check``).
 
 * :func:`run_program_passes` — apply a pipeline to a copy of a program;
   returns ``(optimized, report)``.  The per-pass stats (op counts, op
-  class deltas) land in ``program.pass_log`` and the report;
+  class deltas) land in ``program.pass_log``, the report and one
+  ``graph_pass`` event a pass (the learned perf model's ``step``
+  features read them);
 * :func:`capture_decode_program` — capture one KV-cache decode step of a
   model as a Program (``python -m paddle_tpu_torch.static.passes`` and
   the tests use it).
@@ -215,9 +217,11 @@ def run_program_passes(program: Program, fetches: Sequence,
                        context: Optional[PassContext] = None
                        ) -> Tuple[Program, Dict[str, Any]]:
     """Apply the pipeline to a COPY of ``program`` (the original and
-    every _OpRecord stay untouched).  ``fetches`` are the replay roots
-    (fetch tensors; the runner adds the program's writeback sources
-    itself).  The report holds the per-pass stats."""
+    every _OpRecord stay untouched), emitting one ``graph_pass`` event
+    per pass.  ``fetches`` are the replay roots (fetch tensors; the
+    runner adds the program's writeback sources itself).  The report
+    holds the per-pass stats."""
+    from ...observability import events
     names = tuple(names) if names is not None else DEFAULT_PIPELINE
     opt = program._copy()
     context = context or PassContext(strategy=strategy)
@@ -228,9 +232,16 @@ def run_program_passes(program: Program, fetches: Sequence,
     n0 = len(opt.ops)
     manager = PassManager([new_pass(n) for n in names])
     manager.apply(opt, None, context)
+    per_pass = context.attrs.get("program_pass_log", [])
+    for st in per_pass:
+        events.emit("graph_pass", pass_name=st["pass"], program=label,
+                    ops_before=st["ops_before"],
+                    ops_after=st["ops_after"], removed=st["removed"],
+                    hints=st["hints"],
+                    op_class_delta=st["op_class_delta"] or None)
     report = {
         "program": label,
-        "passes": context.attrs.get("program_pass_log", []),
+        "passes": per_pass,
         "ops_before": n0, "ops_after": len(opt.ops),
         "reduction_pct": round(100.0 * (n0 - len(opt.ops)) / n0, 2)
         if n0 else 0.0,

@@ -1,5 +1,5 @@
-"""paddle_tpu_torch.tuning — the learned performance model, from
-``paddle_tpu/tuning/``.
+"""paddle_tpu_torch.tuning — the learned performance model and the
+persistent tuning cache, from ``paddle_tpu/tuning/``.
 
 * :mod:`cost_model` — the analytic cost terms the model's ``flash`` and
   ``plan`` feature dicts carry as a prior;
@@ -10,15 +10,22 @@
   ``FLAGS_tuning_cache_dir``.  The serving scheduler admits prefills
   against its predicted batch-step cost, and ``python -m
   paddle_tpu_torch.observability watchdog --perf-model`` checks a run's
-  step times against it.
-
-Not ported: the persistent tuning cache (``cache.py``) and ``python -m
-paddle_tpu.tuning``; the port has no autotuner or mesh tuner to feed.
+  step times against it;
+* :mod:`cache` — the persistent tuning cache: a versioned JSONL store
+  under ``FLAGS_tuning_cache_dir`` with atomic-rename writes, corruption
+  fallback and hit/miss counters (no XLA compilation cache under it);
+* CLI — ``python -m paddle_tpu_torch.tuning {stats,dump,prune,fit,merge}``
+  (``fit --from-events <obs-dir>`` trains the learned model, ``merge``
+  folds replicas' ``perf_model.json`` files into one for the fleet
+  router).  ``warm`` raises ``NotImplementedError``: it writes the TPU
+  flash kernel's block picks, and the port's flash tiles are fixed in
+  ``ops/csrc/flash_attention.cu``.
 """
+from .cache import SCHEMA_VERSION, TuningCache, canonical_key, get_cache
 from .cost_model import Coefficients, dtype_bytes, flash_features
 from .learned import (LearnedPerfModel, fit_from_telemetry, load_model,
                       save_model)
 
-__all__ = ["Coefficients", "dtype_bytes", "flash_features",
-           "LearnedPerfModel", "fit_from_telemetry", "load_model",
+__all__ = ["SCHEMA_VERSION", "TuningCache", "canonical_key", "get_cache",
+           "Coefficients", "dtype_bytes", "flash_features", "LearnedPerfModel", "fit_from_telemetry", "load_model",
            "save_model"]

@@ -56,6 +56,11 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.flags, paddle_tpu_torch.observability\n"
             "import paddle_tpu_torch.inference.serving\n"
             "import paddle_tpu_torch.resilience.retry\n"
+            "import paddle_tpu_torch.resilience.driver\n"
+            "import paddle_tpu_torch.tuning, paddle_tpu_torch.tuning.cache\n"
+            "import paddle_tpu_torch.tuning.__main__\n"
+            "import paddle_tpu_torch.serving.fleet\n"
+            "import paddle_tpu_torch.serving.fleet.__main__\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(','.join(bad))\n")

@@ -28,6 +28,10 @@ from paddle_tpu.optimizer import optimizer as jopt_base
 from paddle_tpu.optimizer import optimizers as jopt
 from paddle_tpu.serving import engine as jengine
 from paddle_tpu.serving import scheduler as jsched
+from paddle_tpu.serving.fleet import perf_merge as jmerge
+from paddle_tpu.serving.fleet import replica as jreplica
+from paddle_tpu.serving.fleet import router as jrouter
+from paddle_tpu.tuning import cache as jcache
 
 from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.flags import set_flags
@@ -39,11 +43,17 @@ from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.observability import tracing as ttracing
 from paddle_tpu_torch.optimizer import optimizer as topt_base
 from paddle_tpu_torch.optimizer import optimizers as topt
+from paddle_tpu_torch.resilience import driver as tdriver
 from paddle_tpu_torch.serving import engine as tengine
 from paddle_tpu_torch.serving import scheduler as tsched
+from paddle_tpu_torch.serving.fleet import perf_merge as tmerge
+from paddle_tpu_torch.serving.fleet import replica as treplica
+from paddle_tpu_torch.serving.fleet import router as trouter
+from paddle_tpu_torch.tuning import cache as tcache
 
 # the modules (each package's ``jit`` exports the function of that name)
 jtrain = importlib.import_module("paddle_tpu.jit.train_step")
+jdriver = importlib.import_module("paddle_tpu.resilience.driver")
 ttrain = importlib.import_module("paddle_tpu_torch.jit.train_step")
 
 # name: (the reference, the port)
@@ -83,6 +93,21 @@ PAIRS = {
     "MultiHeadAttention.forward": (jgpt.MultiHeadAttention.forward,
                                    tgpt.MultiHeadAttention.forward),
     "generate": (jgen.generate, tgen.generate),
+    "FleetRouter.__init__": (jrouter.FleetRouter.__init__,
+                             trouter.FleetRouter.__init__),
+    "ReplicaSupervisor.__init__": (jreplica.ReplicaSupervisor.__init__,
+                                   treplica.ReplicaSupervisor.__init__),
+    "ReplicaSupervisor.rolling_restart": (
+        jreplica.ReplicaSupervisor.rolling_restart,
+        treplica.ReplicaSupervisor.rolling_restart),
+    "ReplicaSupervisor.restart_replica": (
+        jreplica.ReplicaSupervisor.restart_replica,
+        treplica.ReplicaSupervisor.restart_replica),
+    "merge_models": (jmerge.merge_models, tmerge.merge_models),
+    "restart_backoff": (jdriver.restart_backoff, tdriver.restart_backoff),
+    "TuningCache.__init__": (jcache.TuningCache.__init__,
+                             tcache.TuningCache.__init__),
+    "TuningCache.prune": (jcache.TuningCache.prune, tcache.TuningCache.prune),
 }
 EXTRA = {"generator", "device"}
 
