@@ -7,7 +7,8 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 (``python3 chip_smoke.py --ab fa_a.cu fa_b.cu ...`` instead times copies
 of a kernel source against each other: ``compare_variants``;
-``--fleet`` runs phase 4h alone: ``fleet_alone``.)
+``--fleet`` runs phase 4h alone: ``fleet_alone``; ``--distributed``
+runs phase 17 alone: ``distributed_alone``, on every visible card.)
 
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
@@ -228,7 +229,29 @@ loudly with a non-zero exit:
    optimized fetches (logits and every layer's cache) match the
    unoptimized replay and the eager step, and a control (K6d without the
    LayerNorm's bias) must fail that check; op counts, each pass's
-   removals and the replay times before and after.
+   removals and the replay times before and after;
+17. data-parallel training — the ranks started through the port's
+   launcher (``python -m paddle_tpu_torch.distributed.launch``), one per
+   visible card, on NCCL (at one card a world of one, as the driver runs
+   it): every collective on CUDA tensors against values computed on the
+   host from the seed; rank 0's oracle (the global batch of 4 x 2048 a
+   rank as that many accumulated micro-batches on one card, then one
+   AdamW step; at one rank phase 6's ``train_step`` itself) and one
+   card's plain step time; GPT-3 1.3B O2 under ``DataParallel`` and under
+   ``group_sharded_parallel(level="os_g")`` (ZeRO stage 2), 3 steps held
+   against the oracle (at one rank bit-equal in losses, parameters, fp32
+   masters and, for DataParallel, the first gradients; else losses
+   0.0625, gradients 2e-2 relative norm, values 3 x 2.1 lr) and stage 2
+   against DataParallel the same way, every rank's parameters
+   bit-identical after each step, then 5 more steps (the last 4 timed);
+   per step
+   exactly phase 6's launches of K1a-c and K2a/b, and of K3 292
+   (DataParallel) or one per bucket shard (stage 2); step ms, tokens/s,
+   scaling against one card, the bucket collectives of one step timed
+   alone and the peak memory of each mode; with two or more ranks the
+   sanitizer's raise under ``collective@2=truncate``; then a SIGKILLed
+   rank: the launcher restarts the group and exits 0, or exits non-zero
+   with no restart left, each within ``DIST_KILL_S``.
 
 Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
@@ -5174,9 +5197,582 @@ def k6a_marks() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 17: data-parallel training on NCCL (DataParallel, ZeRO stage 2)
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3                   # steps held against the oracle
+DIST_TIMED = dict(warmup=1, timed=4)   # then these, timed
+DIST_LAUNCH_S = 900              # the launcher's limit (the ranks' builds
+#                                  are cache hits: it builds first)
+DIST_KILL_S = 300                # each SIGKILL run's limit
+DIST_COLL_N = 1 << 20            # elements per rank in the collective checks
+DIST_SEED = 17
+# a parameter's value after DIST_STEPS Adam steps, held element-wise: each
+# step's update may differ by 2.1 lr where the gradient's sign is bf16
+# noise (6b's rule), the median by lr / 100
+DIST_PARAM_MAX = DIST_STEPS * 2.1e-4
+DIST_PARAM_MEDIAN = DIST_STEPS * 1e-6
+
+
+def dist_global_batch(cfg, world):
+    """The global batch: ``world`` shards of phase 6's 4 x 2048 (at one
+    rank, phase 6's batch itself), on the host."""
+    rs = np.random.RandomState(0)
+    n = world * TRAIN_BATCH
+    return (torch.from_numpy(rs.randint(0, cfg.vocab_size, (n, TRAIN_SEQ))),
+            torch.from_numpy(rs.randint(0, cfg.vocab_size, (n, TRAIN_SEQ))))
+
+
+def dist_shard(batch, rank, dev):
+    return tuple(t[rank * TRAIN_BATCH:(rank + 1) * TRAIN_BATCH].to(dev)
+                 for t in batch)
+
+
+def dist_collectives(dist, rank, world, dev):
+    """Every collective on CUDA tensors against the values computed on the
+    host from the seed: fp32 within 1e-5 + 1e-5 |x|; the bf16 sum within
+    ``world`` bf16 roundings of the partial sums, 2^-8 sum_r |x_r| each
+    (NCCL rounds every hop's partial sum to bf16).  Point-to-point ops
+    need two ranks."""
+    g = torch.Generator().manual_seed(DIST_SEED)
+    xs = torch.randn(world, DIST_COLL_N, generator=g)
+    chunks = [x.chunk(world) for x in xs]
+    errs = {}
+
+    def hold(name, got, want, bound=None):
+        got = got.float().cpu()
+        if bound is None:
+            bound = 1e-5 + 1e-5 * want.abs()
+        errs[name] = (got - want).abs().max().item()
+        if not bool(((got - want).abs() <= bound).all()):
+            fail(f"rank {rank}: {name} off by {errs[name]:.3e}")
+
+    def mine():
+        return xs[rank].to(dev, copy=True)
+
+    for name, op, want in (("sum", dist.ReduceOp.SUM, xs.sum(0)),
+                           ("max", dist.ReduceOp.MAX, xs.max(0).values),
+                           ("min", dist.ReduceOp.MIN, xs.min(0).values),
+                           ("avg", dist.ReduceOp.AVG, xs.mean(0)),
+                           ("prod", dist.ReduceOp.PROD, xs.prod(0))):
+        t = mine()
+        dist.all_reduce(t, op=op)
+        hold(f"all_reduce_{name}", t, want)
+    t = mine().bfloat16()
+    dist.all_reduce(t)
+    xb = xs.bfloat16().float()
+    hold("all_reduce_bf16", t, xb.sum(0),
+         bound=world * 2.0 ** -8 * xb.abs().sum(0))
+    t = mine()
+    dist.all_reduce(t, sync_op=False).wait()
+    hold("all_reduce_async", t, xs.sum(0))
+    t = mine()
+    dist.reduce(t, dst=0)
+    hold("reduce", t, xs.sum(0))
+    lst = []
+    dist.all_gather(lst, mine())
+    hold("all_gather", torch.cat(lst), xs.reshape(-1))
+    t = mine()
+    dist.broadcast(t, src=world - 1)
+    hold("broadcast", t, xs[world - 1])
+    t = torch.empty_like(chunks[0][0], device=dev)
+    dist.scatter(t, [c.to(dev, copy=True) for c in chunks[0]], src=0)
+    hold("scatter", t, chunks[0][rank])
+    for name, op, want in (("sum", dist.ReduceOp.SUM, xs.sum(0)),
+                           ("avg", dist.ReduceOp.AVG, xs.mean(0))):
+        hold(f"reduce_scatter_{name}", dist.reduce_scatter(mine(), op=op),
+             want.chunk(world)[rank])
+    hold("alltoall_single", dist.alltoall_single(mine()),
+         torch.cat([chunks[j][rank] for j in range(world)]))
+    outs = []
+    dist.alltoall(outs, [c.to(dev, copy=True) for c in chunks[rank]])
+    hold("alltoall", torch.cat(outs),
+         torch.cat([chunks[j][rank] for j in range(world)]))
+    if world > 1:
+        recv = torch.empty(DIST_COLL_N, device=dev)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, mine(), (rank + 1) % world),
+            dist.P2POp(dist.irecv, recv, (rank - 1) % world)])
+        for w in works:
+            w.wait()
+        hold("batch_isend_irecv", recv, xs[(rank - 1) % world])
+    dist.barrier()
+    objs = []
+    dist.all_gather_object(objs, rank)
+    if objs != list(range(world)):
+        fail(f"rank {rank}: all_gather_object gave {objs}")
+    return errs
+
+
+def host(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t`` (a copy even when ``t`` is on the host)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def dist_values(model, opt, sharded):
+    """Every parameter's fp32 value on the host: its master where it has
+    one (under ZeRO gathered from the shards one bucket at a time, a
+    collective call), else the parameter."""
+    inner = getattr(model, "_layers", model)
+    if not sharded:
+        return {n: host(opt.state[p].get("master", p).float())
+                for n, p in inner.named_parameters()}
+    vals = {}
+    for k, b in enumerate(opt._reducer.buckets):
+        master = opt._state.get(k, {}).get("master")
+        full = opt._gather(master, b.numel) if master is not None else None
+        for p, off in zip(b.params, b.offsets):
+            src = p if full is None else full[off:off + p.numel()]
+            vals[id(p)] = host(src.float().reshape(p.shape))
+        del full
+    return {n: vals[id(p)] for n, p in inner.named_parameters()}
+
+
+def dist_oracle(cfg, batch, world, dev):
+    """Rank 0's oracle: the same global batch on one card, ``world``
+    micro-batches accumulated per step (each loss over ``world``), then
+    one plain AdamW step; at one rank it is phase 6's ``train_step``
+    itself.  Returns the losses, the first step's gradients and the
+    values after ``DIST_STEPS`` steps on the host, and one card's plain
+    step ms at one shard (timed after)."""
+    _, model, opt, step = build_trainer(N_LAYERS, seed=0)
+    shards = [dist_shard(batch, j, dev) for j in range(world)]
+    grads, losses = {}, []
+    for s in range(DIST_STEPS):
+        if world == 1:
+            hooks = []
+            if s == 0:
+                grads, hooks = snapshot_grads(model)
+            losses.append(float(step(*shards[0])))
+            for h in hooks:
+                h.remove()
+            continue
+        total = 0.0
+        for j in range(world):
+            loss = o2_step_fn(model, *shards[j])
+            (loss / world).backward()
+            total += float(loss.detach()) / world
+        if s == 0:
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        losses.append(total)
+    grads = {n: host(g) for n, g in grads.items()}
+    values = dist_values(model, opt, False)
+    params = {n: host(p) for n, p in model.named_parameters()}
+    step_s = []
+    for i in range(sum(DIST_TIMED.values())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*shards[0])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    one_card_ms = 1e3 * float(np.mean(step_s[DIST_TIMED["warmup"]:]))
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, grads=grads, values=values, params=params,
+                one_card_ms=one_card_ms)
+
+
+def dist_identical(dist, reducer):
+    """True when every rank's parameters equal rank 0's bit for bit."""
+    same = True
+    for b in reducer.buckets:
+        ref = b.param_buf.clone()
+        dist.broadcast(ref, src=0)
+        same = same and bool(torch.equal(ref, b.param_buf))
+    flag = torch.tensor([1 if same else 0], device=b.param_buf.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def dist_comm_ms(dist, reducer, mode):
+    """One step's bucket collectives timed alone (CUDA events): the
+    all-reduce of every bucket, or stage 2's reduce-scatter and
+    all-gather."""
+    from paddle_tpu_torch.distributed.parallel import (all_gather_single,
+                                                      reduce_scatter_single)
+    pg = reducer.group.process_group
+    tdist = torch.distributed
+
+    def run():
+        for b in reducer.buckets:
+            if mode == "dp":
+                tdist.all_reduce(b.grad_buf, op=tdist.ReduceOp.AVG, group=pg)
+            else:
+                reduce_scatter_single(b.shard_grad, b.grad_buf,
+                                      op=tdist.ReduceOp.AVG, group=pg)
+                n = b.shard_grad.numel()
+                r = reducer.group.rank
+                all_gather_single(b.param_buf,
+                                  b.param_buf[r * n:(r + 1) * n], group=pg)
+    return time_ms(run, 3)
+
+
+def dist_run(mode, dist, cfg, batch, rank, world, dev):
+    """GPT-3 1.3B O2 on every rank: ``DIST_STEPS`` steps held against the
+    oracle (the first one written out to read the averaged gradients
+    before the optimizer step), then ``DIST_TIMED`` more, timed; the
+    launches per step exact on every rank and the parameters bit-identical
+    across ranks after each held step."""
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # what is still allocated before the run (tensors of the run before
+    # that NCCL's work list has not let go of yet), read beside the peak
+    base = torch.cuda.memory_allocated()
+    model = GPTForPretraining(cfg, seed=0)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    model, opt = amp.decorate(models=model, optimizers=opt, level="O2",
+                              dtype="bfloat16")
+    if mode == "dp":
+        model = dist.DataParallel(model)
+    else:
+        model, opt, _ = group_sharded_parallel(model, opt, level="os_g")
+    reducer = model._reducer
+    step = train_step(model, None, opt, step_fn=o2_step_fn)
+    local = dist_shard(batch, rank, dev)
+    # phase 6's launches a step on every rank; K3 once a parameter under
+    # DataParallel, once a bucket shard under ZeRO stage 2
+    per_step = dict(PER_STEP, adamw=(PER_STEP["adamw"] if mode == "dp"
+                                     else len(reducer.buckets)))
+    out = dict(buckets=len(reducer.buckets), losses=[], step_s=[])
+    reset_counts()                   # count the main path's launches only
+    n_total = DIST_STEPS + sum(DIST_TIMED.values())
+    for s in range(n_total):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if s == 0 and mode == "dp":
+            loss = o2_step_fn(model, *local)
+            loss.backward()
+            if rank == 0:
+                out["grads"] = {n: host(p.grad) for n, p in
+                                model._layers.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            loss = loss.detach()
+        else:
+            loss = step(*local)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        after = counts()
+        moved = {k: after[k] - before[k] for k in per_step}
+        if moved != per_step:
+            fail(f"rank {rank} {mode} step {s}: launches {moved} != "
+                 f"{per_step}")
+        loss = loss.float()          # the global mean, in fp32
+        dist.all_reduce(loss, op=dist.ReduceOp.AVG)
+        out["losses"].append(float(loss))
+        if s < DIST_STEPS and not dist_identical(dist, reducer):
+            fail(f"{mode} step {s}: the ranks' parameters differ")
+        if s == DIST_STEPS - 1:
+            # the training steps' peak, before the host copies (the
+            # sharded masters' gathers free buffers NCCL has used, which
+            # stay allocated until their stream events are processed)
+            peak = torch.cuda.max_memory_allocated()
+            if rank == 0 or mode != "dp":
+                values = dist_values(model, opt, mode != "dp")
+            if rank == 0:
+                out["values"] = values
+                out["params"] = {n: host(p) for n, p in
+                                 model._layers.named_parameters()}
+            torch.cuda.empty_cache()     # processes those events
+            torch.cuda.reset_peak_memory_stats()
+    out["launches"] = counts()
+    mem = torch.tensor([max(peak, torch.cuda.max_memory_allocated()),
+                        base], device=dev)
+    dist.all_reduce(mem, op=dist.ReduceOp.MAX)
+    out["peak_bytes"], out["base_bytes"] = (int(v) for v in mem.tolist())
+    out["comm_ms"] = dist_comm_ms(dist, reducer, mode)
+    timed = out["step_s"][DIST_STEPS + DIST_TIMED["warmup"]:]
+    out["step_ms"] = 1e3 * float(np.mean(timed))
+    out["tokens_s"] = world * TRAIN_BATCH * TRAIN_SEQ / float(np.mean(timed))
+    del model, opt, step, reducer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_compare(tag, got, want, exact):
+    """``got``'s losses and values against ``want``'s: bit-equal when
+    ``exact``, else within phase 6b/8b's tolerances (losses 0.0625; each
+    value after DIST_STEPS steps within DIST_PARAM_MAX, each tensor's
+    median within DIST_PARAM_MEDIAN); the first step's gradients by
+    relative norm (GRAD_REL_TOL) where both sides have them."""
+    lg, lw = got["losses"][:DIST_STEPS], want["losses"][:DIST_STEPS]
+    say(f"distributed: {tag}: losses {lg} against {lw}")
+    if exact:
+        if lg != lw:
+            fail(f"{tag}: losses {lg} != {lw}")
+        for key in ("values", "params", "grads"):
+            for n, w in want.get(key, {}).items():
+                if key in got and not torch.equal(got[key][n], w):
+                    fail(f"{tag}: {key} {n} differs")
+        what = "losses, parameters, fp32 values" + (
+            " and first gradients" if "grads" in got else "")
+        say(f"distributed: {tag}: {what} bit-equal")
+        return dict(bit_equal=what)
+    worst = max(abs(a - b) for a, b in zip(lg, lw))
+    if not worst <= XCHECK_LOSS_TOL:
+        fail(f"{tag}: losses differ by {worst}")
+    res = dict(loss_diff=worst)
+    if "grads" in got and "grads" in want:
+        rels = {n: ((got["grads"][n].float() - w.float()).norm()
+                    / w.float().norm()).item()
+                for n, w in want["grads"].items()}
+        n = max(rels, key=rels.get)
+        res["grad_rel"] = rels[n]
+        say(f"distributed: {tag}: first gradients' relative error worst "
+            f"{rels[n]:.3e} ({n}), median "
+            f"{float(np.median(list(rels.values()))):.3e} "
+            f"(tol {GRAD_REL_TOL})")
+        if not rels[n] <= GRAD_REL_TOL:
+            fail(f"{tag}: gradient of {n}: relative error {rels[n]:.3e}")
+    mx = med = 0.0
+    for n, w in want["values"].items():
+        d = (got["values"][n] - w).abs()
+        mx, med = max(mx, d.max().item()), max(med, d.median().item())
+    res.update(value_max=mx, value_median=med)
+    say(f"distributed: {tag}: values after {DIST_STEPS} steps: worst max "
+        f"diff {mx:.3e} (tol {DIST_PARAM_MAX:.2e}), worst median {med:.3e} "
+        f"(tol {DIST_PARAM_MEDIAN:.1e})")
+    if not (mx <= DIST_PARAM_MAX and med <= DIST_PARAM_MEDIAN):
+        fail(f"{tag}: values differ")
+    return res
+
+
+def dist_sanitizer(dist, world, dev):
+    """Under ``collective@2=truncate`` the sanitizer must raise on every
+    rank at the second all-reduce, before it launches, instead of
+    hanging; the group stays usable.  One rank has nobody to disagree
+    with."""
+    from paddle_tpu_torch.distributed.communication import sanitizer
+    if world == 1:
+        return "one rank: nothing to disagree with"
+    set_flags({"collective_sanitizer": True,
+               "fault_schedule": "collective@2=truncate"})
+    sanitizer.reset_sanitizer()
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        dist.all_reduce(torch.ones(1024, device=dev))
+        dist.all_reduce(torch.ones(1024, device=dev))
+    except sanitizer.CollectiveMismatchError as e:
+        raised = [e.seq, e.rank_a, e.rank_b]
+    finally:
+        set_flags({"fault_schedule": "", "collective_sanitizer": False})
+        sanitizer.reset_sanitizer()
+    secs = time.perf_counter() - t0
+    if raised != [1, 0, world - 1]:
+        fail(f"the sanitizer did not raise at the damaged call: {raised}")
+    t = torch.ones(4, device=dev)
+    dist.all_reduce(t)
+    if t.tolist() != [float(world)] * 4:
+        fail("the group is not usable after the sanitizer's raise")
+    return f"raised at call #1 (rank 0 vs rank {world - 1}) in {secs:.3f} s"
+
+
+def distributed_rank(out_dir: str) -> int:
+    """One rank of phase 17 (``--distributed-rank DIR``, started by the
+    port's launcher): the collectives, the oracle (rank 0), DataParallel
+    and ZeRO stage 2 on GPT-3 1.3B, the sanitizer; rank 0 holds the
+    comparisons; each rank writes ``DIR/rank<r>.json``."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed.env import runtime
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = runtime().device
+    res = dict(rank=rank, world=world, backend=dist.get_backend(),
+               device=torch.cuda.get_device_name(dev))
+    res["collective_errs"] = dist_collectives(dist, rank, world, dev)
+    cfg = gpt_config("gpt3-1.3B", num_layers=N_LAYERS,
+                     max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    batch = dist_global_batch(cfg, world)
+    oracle = dist_oracle(cfg, batch, world, dev) if rank == 0 else None
+    dist.barrier()
+    dp = dist_run("dp", dist, cfg, batch, rank, world, dev)
+    osg = dist_run("os_g", dist, cfg, batch, rank, world, dev)
+    if rank == 0:
+        res["dp_vs_oracle"] = dist_compare("DataParallel vs the oracle", dp,
+                                           oracle, exact=world == 1)
+        res["os_g_vs_dp"] = dist_compare("os_g vs DataParallel", osg, dp,
+                                         exact=world == 1)
+        if world == 1:
+            dist_compare("os_g vs the oracle", osg, oracle, exact=True)
+        res["one_card_ms"] = oracle["one_card_ms"]
+        res["oracle_losses"] = oracle["losses"]
+    for key, run in (("dp", dp), ("os_g", osg)):
+        res[key] = {k: v for k, v in run.items()
+                    if k not in ("values", "params", "grads")}
+    dist.barrier()                   # rank 0's comparisons ran on the host
+    res["sanitizer"] = dist_sanitizer(dist, world, dev)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+# one rank of the SIGKILL checks, written next to their logs and started by
+# the launcher: join the NCCL group and all-reduce once; the last rank
+# SIGKILLs itself on its first attempt (every attempt under
+# DIST_KILL_ALWAYS; a marker file counts them) while the others wait in a
+# second all-reduce until the launcher stops them
+KILL_RANK_SOURCE = """\
+import os, signal, sys
+import torch
+from paddle_tpu_torch import distributed as dist
+from paddle_tpu_torch.distributed.env import runtime
+dist.init_parallel_env()
+rank, world = dist.get_rank(), dist.get_world_size()
+t = torch.ones(1, device=runtime().device)
+dist.all_reduce(t)
+marker = os.path.join(sys.argv[1], f"attempt.{rank}")
+first = not os.path.exists(marker)
+with open(marker, "a") as f:
+    f.write("x")
+if rank == world - 1 and (first or os.environ.get("DIST_KILL_ALWAYS")):
+    os.kill(os.getpid(), signal.SIGKILL)
+dist.all_reduce(t)
+if t.item() != world * world:
+    sys.exit(f"rank {rank}: {t.item()} after two all-reduces")
+dist.destroy_process_group()
+"""
+
+
+def dist_launch(world, log_dir, script, args, max_restart, timeout,
+                env=None):
+    """``script`` on ``world`` ranks through the port's launcher."""
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(world), "--log_dir", str(log_dir),
+           "--max_restart", str(max_restart), str(script), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout, cwd=ROOT,
+                          env=dict(os.environ,
+                                   PADDLE_ELASTIC_RESTART_BACKOFF="0",
+                                   **(env or {})))
+    return proc, time.perf_counter() - t0
+
+
+def dist_logs(log_dir) -> str:
+    return "".join(f"--- {p.name}\n" + p.read_text(errors="replace")[-4000:]
+                   for p in sorted(Path(log_dir).glob("workerlog.*")))
+
+
+def dist_kill_checks(world, root):
+    """A SIGKILLed rank: the launcher restarts the group and exits 0
+    (max_restart 1), or exits non-zero once the restarts run out
+    (max_restart 0), each within DIST_KILL_S."""
+    res = {}
+    for tag, restarts, env in (("restart", 1, None),
+                               ("give_up", 0, {"DIST_KILL_ALWAYS": "1"})):
+        d = root / f"kill_{tag}"
+        d.mkdir()
+        script = d / "kill_rank.py"
+        script.write_text(KILL_RANK_SOURCE)
+        proc, secs = dist_launch(world, d / "logs", script, [str(d)],
+                                 restarts, DIST_KILL_S, env)
+        attempts = len((d / f"attempt.{world - 1}").read_text())
+        res[tag] = dict(rc=proc.returncode, s=round(secs, 3),
+                        attempts=attempts)
+        want_rc = (lambda rc: rc == 0) if tag == "restart" \
+            else (lambda rc: rc != 0)
+        if not want_rc(proc.returncode) or \
+                attempts != (2 if tag == "restart" else 1):
+            fail(f"SIGKILL {tag}: launcher rc {proc.returncode}, "
+                 f"{attempts} attempts\n{proc.stderr[-3000:]}"
+                 f"{dist_logs(d / 'logs')}")
+        say(f"distributed: a SIGKILLed rank, max_restart {restarts}: "
+            f"launcher rc {proc.returncode} after {attempts} attempt(s) in "
+            f"{secs:.3f} s")
+    return res
+
+
+def distributed_main_path():
+    """Phase 17: the ranks through the port's launcher at the visible
+    card count (NCCL), then the SIGKILL checks; prints the numbers and
+    returns rank 0's results."""
+    world = torch.cuda.device_count()
+    for args in (["--query-gpu=index,name,power.limit",
+                  "--format=csv,noheader"], ["topo", "-m"],
+                 ["nvlink", "--status"]):
+        smi = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                             text=True, timeout=60)
+        say(f"distributed: nvidia-smi {' '.join(args)} (rc {smi.returncode})"
+            f"\n{(smi.stdout + smi.stderr).rstrip()[:3000]}")
+    root = Path(ROOT) / "chiprun_out" / "distributed"
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "run").mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc, secs = dist_launch(world, root / "logs", Path(__file__).resolve(),
+                             ["--distributed-rank", str(root / "run")], 0,
+                             DIST_LAUNCH_S)
+    if proc.returncode != 0:
+        fail(f"phase 17: the launcher exited {proc.returncode}\n"
+             f"{proc.stderr[-3000:]}{dist_logs(root / 'logs')}")
+    ranks = [json.loads((root / "run" / f"rank{r}.json").read_text())
+             for r in range(world)]
+    r0 = ranks[0]
+    say(f"distributed: {world} rank(s), {r0['backend']}, {r0['device']}; "
+        f"phase 17's ranks ran {secs:.3f} s")
+    worst = {k: max(r["collective_errs"][k] for r in ranks)
+             for k in r0["collective_errs"]}
+    say(f"distributed: collectives' worst error over the ranks: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+    for mode in ("dp", "os_g"):
+        m = r0[mode]
+        per_card = m["tokens_s"] / world
+        say(f"distributed: {mode}: {m['buckets']} buckets; step ms "
+            f"{[round(1e3 * t, 2) for t in m['step_s']]}; timed mean "
+            f"{m['step_ms']:.2f} ms = {m['tokens_s']:.1f} tokens/s "
+            f"({per_card:.1f} a card), one card's plain step in this call "
+            f"{r0['one_card_ms']:.2f} ms: scaling "
+            f"{r0['one_card_ms'] / m['step_ms']:.4f} (against PERF.md's "
+            f"214.20 ms: {214.20 / m['step_ms']:.4f}); the step's bucket "
+            f"collectives alone {m['comm_ms']:.3f} ms; peak memory "
+            f"{m['peak_bytes']} bytes ({m['peak_bytes'] / 2**30:.2f} GiB, "
+            f"the largest rank's), of which {m['base_bytes']} bytes "
+            f"({m['base_bytes'] / 2**30:.2f} GiB) allocated before the "
+            "run")
+        say(f"distributed: {mode}: launches over "
+            f"{len(m['step_s'])} steps {m['launches']}")
+    say(f"distributed: rank 0's comparisons: DataParallel vs the oracle "
+        f"{r0['dp_vs_oracle']}; os_g vs DataParallel {r0['os_g_vs_dp']}; "
+        f"the oracle's losses {r0['oracle_losses']}")
+    say(f"distributed: sanitizer: {r0['sanitizer']}")
+    r0["kill"] = dist_kill_checks(world, root)
+    return r0
+
+
+def distributed_alone() -> int:
+    """``--distributed``: phase 17 alone, after the build."""
+    say(f"build: {_build.build_all():.3f} s")
+    distributed_main_path()
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
+    if "--distributed-rank" in sys.argv:
+        return distributed_rank(sys.argv[sys.argv.index("--distributed-rank")
+                                         + 1])
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -5200,6 +5796,8 @@ def main() -> int:
         return k6a_marks()
     if "--fleet" in sys.argv:
         return fleet_alone()
+    if "--distributed" in sys.argv:
+        return distributed_alone()
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")
@@ -5235,6 +5833,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k8 = check_k8()
     bart = bart_main_paths()
+    dist17 = distributed_main_path()
 
     # each kernel's line: the main path's shape.  K7 runs on the serving
     # paths: the entry's numbers are phase 4's (GPT-3 1.3B, single step),
@@ -5271,9 +5870,15 @@ def main() -> int:
     # K1 runs on both training paths, each at its own shape: the entry's
     # numbers are the GPT path's (its first), and by_path holds each
     # path's launches with the numbers of its own shape's case
+    world = dist17["world"]
+    dist_shape = f" on each of {world} rank(s)"
     k1_paths = (("gpt_train", "main", train, k1_shape),
                 ("llama_train", "llama", llama,
-                 "[64, 4096, 128] bf16 causal (batch 2 x 32 heads)"))
+                 "[64, 4096, 128] bf16 causal (batch 2 x 32 heads)"),
+                ("gpt_dist_dp", "main", dist17["dp"]["launches"],
+                 k1_shape + dist_shape),
+                ("gpt_dist_os_g", "main", dist17["os_g"]["launches"],
+                 k1_shape + dist_shape))
     for name, key, replaces, err in (
             ("flash_attention_fwd", "fwd", ":113", "o"),
             ("flash_attention_bwd_dq", "dq", ":269", "dq"),
@@ -5307,7 +5912,11 @@ def main() -> int:
                 ("gpt_decode", k2_rows["decode"],
                  {"ln_fwd": paged["gpt"]["ln_fwd"], "ln_bwd_dx": 0},
                  "[8, 2048] fp32 (a decode step's 8 rows; launches of "
-                 "phase 12's paged GPT-3 1.3B call)"))
+                 "phase 12's paged GPT-3 1.3B call)"),
+                ("gpt_dist_dp", k2, dist17["dp"]["launches"],
+                 k2_shape + dist_shape),
+                ("gpt_dist_os_g", k2, dist17["os_g"]["launches"],
+                 k2_shape + dist_shape))
     for name, key, replaces, count in (
             ("layer_norm_fwd", "fwd", ":58", "ln_fwd"),
             ("layer_norm_bwd_dx", "dx", ":80", "ln_bwd_dx")):
@@ -5331,7 +5940,14 @@ def main() -> int:
              "[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"),
             ("bart_train", k3_rows["bart"], bart["adamw"],
              "[50265, 768] fp32 parameter and grad (BART's shared "
-             "embedding)")):
+             "embedding)"),
+            ("gpt_dist_dp", k3, dist17["dp"]["launches"]["adamw"],
+             "[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"
+             + dist_shape),
+            ("gpt_dist_os_g", k3, dist17["os_g"]["launches"]["adamw"],
+             f"one bucket's 1/{world} shard a launch ({dist17['os_g']['buckets']}"
+             " buckets of <= 25 MB, flat bf16 grad on an fp32 master); "
+             "the numbers are the [2048, 8192] case's")):
         by_path[path] = dict(
             launches=launched, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],

@@ -1,5 +1,44 @@
-"""``paddle.distributed`` of the port: so far only the pass-management
-API of ``distributed.passes``."""
+"""``paddle.distributed`` of the port (ref: ``paddle_tpu/distributed``).
+
+One process per card: ``init_parallel_env`` (or ``fleet.init``) joins
+the process group the launcher's environment describes (NCCL on the
+card, gloo with ``device="cpu"``); ``communication`` holds the groups,
+the store, the collectives and their sanitizer; ``DataParallel`` averages
+gradients with a bucketed reducer; ``fleet`` and ``sharding`` add the
+hybrid topology and ZeRO stages 1-2; ``launch`` starts and supervises
+the ranks; ``passes`` holds the pass-management API.
+"""
+from .env import ParallelEnv, get_rank, get_world_size, is_initialized
+from .mesh import (HYBRID_AXES, build_mesh, ensure_mesh, get_mesh,
+                   set_mesh)
+from .parallel import DataParallel, init_parallel_env, spawn
+from .communication.store import Store, TCPStore
+from .communication import (Group, ReduceOp, get_group, new_group,
+                            destroy_process_group, all_reduce, all_gather,
+                            all_gather_object, broadcast,
+                            broadcast_object_list, reduce, scatter, gather,
+                            scatter_object_list, reduce_scatter, alltoall,
+                            alltoall_single, send, recv, isend, irecv,
+                            P2POp, batch_isend_irecv, barrier, wait, stream,
+                            CollectiveMismatchError, get_sanitizer,
+                            reset_sanitizer)
 from . import passes
 
-__all__ = ["passes"]
+
+def get_backend() -> str:
+    """``"nccl"`` or ``"gloo"``: the backend ``init_parallel_env``
+    chose (raises before it ran)."""
+    from .env import runtime
+    rt = runtime()
+    if rt is None:
+        raise RuntimeError("the process group is not initialized")
+    return rt.backend
+
+
+def __getattr__(name):
+    import importlib
+    if name in ("fleet", "launch", "sharding"):
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module '{__name__}' has no attribute '{name}'")

@@ -1,0 +1,2 @@
+from .group_sharded import (GroupShardedStage2, group_sharded_parallel,
+                            save_group_sharded_model)

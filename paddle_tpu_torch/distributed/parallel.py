@@ -1,0 +1,427 @@
+"""``init_parallel_env``, ``DataParallel`` and ``spawn``; counterpart of
+``paddle_tpu/distributed/parallel.py``.
+
+The JAX package drives every device from one process: its gradients are
+global arrays and XLA inserts the reduction into the jitted step, so its
+``DataParallel`` only marks the model.  The port runs one process per
+card, as upstream Paddle on GPUs, so ``DataParallel`` reduces the
+gradients itself, with one bucketed reducer written on
+``torch.distributed`` (:class:`_Reducer`, upstream's ``EagerReducer``):
+
+* the parameters are packed, in reverse order, into flat buckets of one
+  dtype (``last_comm_buffer_size`` MB for the first one filled, then
+  ``comm_buffer_size`` MB each), each slot aligned to 256 bytes and each
+  bucket padded to a multiple of the group size; the parameters become
+  views of the bucket's flat ``param_buf``, which the group's first rank
+  broadcasts when ``DataParallel`` is built;
+* as backward finishes each parameter's gradient
+  (``register_post_accumulate_grad_hook``), the gradient is copied into
+  its slot of the bucket's flat ``grad_buf`` and becomes a view of it;
+  a full bucket launches an async average over the group (buckets launch
+  in bucket order, the same on every rank);
+* the end of backward (an autograd engine callback) fills the slots of
+  unused parameters (with zeros, or with what they accumulated outside
+  the sync), launches the rest and waits on every bucket's work, so the
+  optimizer's step reads averaged gradients (on the card the wait makes
+  the compute stream wait for NCCL's; the host does not block).
+
+ZeRO stages 1 and 2 (``fleet/meta_parallel/sharding``) shard the
+optimizer over the same buckets: stage 1 averages a bucket and each rank
+updates its own shard, stage 2 reduce-scatters the bucket instead (the
+reducer's ``mode``).
+"""
+from __future__ import annotations
+
+import contextlib
+import datetime
+import os
+from typing import Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+from . import env as _env
+from .communication.group import ReduceOp, _resolve_group
+from .communication.store import TCPStore
+from .env import ParallelEnv
+
+__all__ = ["init_parallel_env", "DataParallel", "spawn"]
+
+# the process group's timeout: a collective that waits longer fails
+TIMEOUT_S = 300.0
+# set by the launcher and spawn when they serve PADDLE_MASTER's store
+STORE_SERVED_ENV = "PADDLE_LAUNCHER_STORE"
+_MB = 1 << 20
+_ALIGN_BYTES = 256
+
+
+def serve_store(world_size: int) -> TCPStore:
+    """A rendezvous store on a free local port, for the ranks a launcher
+    starts (they connect to it as clients: ``STORE_SERVED_ENV``)."""
+    return TCPStore("127.0.0.1", 0, is_master=True, world_size=world_size,
+                    timeout=TIMEOUT_S)
+
+
+def init_parallel_env(*, device=None) -> ParallelEnv:
+    """ref: ``paddle.distributed.init_parallel_env``.  Joins this process
+    to the group the launcher's environment describes
+    (``PADDLE_TRAINER_ID``, ``PADDLE_TRAINERS_NUM``, ``PADDLE_MASTER``):
+    NCCL on ``cuda:<FLAGS_selected_gpus>`` by default, which raises
+    without a card; gloo on the CPU when the caller passes
+    ``device="cpu"``.  A single process without ``PADDLE_MASTER`` makes
+    a world of one.  Calling it again changes nothing."""
+    if _env.is_initialized():
+        return ParallelEnv()
+    e = ParallelEnv()
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available for NCCL; pass "
+                               "device='cpu' to run the group on gloo")
+        dev = torch.device("cuda", e.device_id if dev.index is None
+                           else dev.index)
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    elif dev.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"unsupported device {dev}")
+    if e.master:
+        host, _, port = e.master.rpartition(":")
+    elif e.world_size == 1:
+        host, port = "127.0.0.1", 0
+    else:
+        raise RuntimeError("PADDLE_MASTER is not set for a world of "
+                           f"{e.world_size}: start the ranks with python -m "
+                           "paddle_tpu_torch.distributed.launch")
+    # the launcher (and spawn) serve the store themselves: then every rank
+    # is a client, and no rank races another process for the port
+    served = os.environ.get(STORE_SERVED_ENV) == "1"
+    store = TCPStore(host, int(port), is_master=e.rank == 0 and not served,
+                     world_size=e.world_size, timeout=TIMEOUT_S)
+    dist.init_process_group(backend, store=store.torch_store, rank=e.rank,
+                            world_size=e.world_size,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    _env._mark_initialized(store, backend, dev)
+    return e
+
+
+# ---------------------------------------------------------------------------
+# the bucketed reducer
+# ---------------------------------------------------------------------------
+
+# ``all_gather_into_tensor`` / ``reduce_scatter_tensor`` under the names
+# newer torch gives them
+all_gather_single = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def reducer_of(p) -> Optional["_Reducer"]:
+    """The reducer whose buckets hold parameter ``p`` (the sharded
+    optimizers find their parameters' buckets this way)."""
+    return getattr(p, "_dist_reducer", None)
+
+
+class _Bucket:
+    """Flat parameter and gradient buffers of one dtype; ``offsets[i]``
+    is parameter i's slot."""
+
+    def __init__(self, params: List[torch.Tensor], nranks: int, key):
+        self.params = params
+        self.key = key
+        p0 = params[0]
+        self.dtype, self.device = p0.dtype, p0.device
+        align = max(_ALIGN_BYTES // p0.element_size(), 1)
+        self.offsets, o = [], 0
+        for p in params:
+            self.offsets.append(o)
+            o += -(-p.numel() // align) * align
+        unit = align * nranks
+        self.numel = -(-o // unit) * unit
+        self.param_buf = torch.zeros(self.numel, dtype=self.dtype,
+                                     device=self.device)
+        self.grad_buf = torch.zeros_like(self.param_buf)
+        self.shard_grad: Optional[torch.Tensor] = None
+        with torch.no_grad():
+            for p, off in zip(params, self.offsets):
+                view = self.param_buf[off:off + p.numel()]
+                view.copy_(p.detach().reshape(-1))
+                p.data = view.view(p.shape)
+        self.pending: set = set()
+        self.work = None
+
+    def slot(self, i: int) -> torch.Tensor:
+        off = self.offsets[i]
+        return self.grad_buf[off:off + self.params[i].numel()]
+
+    def aliased(self) -> bool:
+        base = self.param_buf.data_ptr()
+        size = self.param_buf.element_size()
+        return all(p.dtype == self.dtype and p.device == self.device
+                   and p.data_ptr() == base + off * size
+                   for p, off in zip(self.params, self.offsets))
+
+
+class _Reducer:
+    """Bucketed gradient averaging over ``group`` (module docstring).
+    ``mode`` is ``"all_reduce"`` (DataParallel, ZeRO stage 1) or
+    ``"reduce_scatter"`` (stage 2: each rank receives the average of its
+    shard in ``bucket.shard_grad``; ``grad_buf`` keeps the rank's own
+    gradient)."""
+
+    def __init__(self, params, group, bucket_bytes: float,
+                 first_bucket_bytes: float):
+        self.params, seen = [], set()
+        for p in params:
+            if p.requires_grad and id(p) not in seen:
+                seen.add(id(p))
+                self.params.append(p)
+        for p in self.params:
+            if reducer_of(p) is not None:
+                raise ValueError("a parameter is already in a DataParallel "
+                                 "or group-sharded wrapper")
+        self.group = group
+        self.nranks = group.nranks
+        self.bucket_bytes = float(bucket_bytes)
+        self.first_bucket_bytes = float(first_bucket_bytes)
+        self.mode = "all_reduce"
+        self.sync_enabled = True
+        self._key_fn = None
+        self._armed = False
+        self._next = 0
+        self._build()
+        self._hooks = [p.register_post_accumulate_grad_hook(self._on_grad)
+                       for p in self.params]
+        for p in self.params:
+            p._dist_reducer = self
+
+    # -- layout ----------------------------------------------------------
+    def _build(self) -> None:
+        """One open bucket per (dtype, device, key), filled in reverse
+        parameter order and closed when the next parameter would pass
+        the size limit (the first bucket closed has the small limit);
+        the buckets launch in the order they closed, the open ones
+        last."""
+        self.buckets = []        # the old gradient buffers go first
+        buckets, open_ = [], {}
+        for p in reversed(self.params):
+            key = (p.dtype, p.device,
+                   self._key_fn(p) if self._key_fn else None)
+            nbytes = p.numel() * p.element_size()
+            cur, size = open_.get(key, ([], 0))
+            limit = self.bucket_bytes if buckets else self.first_bucket_bytes
+            if cur and size + nbytes > limit:
+                buckets.append(_Bucket(cur, self.nranks, key))
+                cur, size = [], 0
+            open_[key] = (cur + [p], size + nbytes)
+        buckets += [_Bucket(cur, self.nranks, key)
+                    for key, (cur, _) in open_.items()]
+        self.buckets = buckets
+        self._slot = {}
+        for b in buckets:
+            for i, p in enumerate(b.params):
+                self._slot[id(p)] = (b, i)
+        self._shard_buffers()
+
+    def _shard_buffers(self) -> None:
+        for b in self.buckets:
+            b.shard_grad = torch.zeros(
+                b.numel // self.nranks, dtype=b.dtype, device=b.device) \
+                if self.mode == "reduce_scatter" else None
+
+    def set_mode(self, mode: str) -> None:
+        if mode not in ("all_reduce", "reduce_scatter"):
+            raise ValueError(f"unknown reducer mode {mode!r}")
+        self.mode = mode
+        self._shard_buffers()
+
+    def split_by(self, key_fn) -> None:
+        """Make every bucket hold one value of ``key_fn(param)`` (the
+        sharded optimizers' decay groups) as ``bucket.key[2]``: the
+        buckets are rebuilt only if one mixes two values."""
+        self._key_fn = key_fn
+        keys = [{key_fn(p) for p in b.params} for b in self.buckets]
+        if any(len(k) > 1 for k in keys):
+            self._build()
+            return
+        for b, (k,) in zip(self.buckets, keys):
+            b.key = b.key[:2] + (k,)
+
+    def sync_layout(self) -> None:
+        """Rebuild the buckets if a parameter no longer views its slot
+        (``amp.decorate`` after wrapping casts a parameter in place)."""
+        if not all(b.aliased() for b in self.buckets):
+            self._build()
+
+    # -- backward --------------------------------------------------------
+    def _on_grad(self, p) -> None:
+        if not self.sync_enabled:
+            return
+        if not self._armed:
+            self._armed = True
+            self._next = 0
+            for b in self.buckets:
+                b.pending = set(range(len(b.params)))
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self._finalize)
+        b, i = self._slot[id(p)]
+        self._take(b, i)
+        b.pending.discard(i)
+        if not b.pending:
+            self._launch_ready()
+
+    @staticmethod
+    def _take(b: _Bucket, i: int) -> None:
+        """Parameter i's gradient into its slot; the gradient becomes a
+        view of the slot (zeros when the parameter has none)."""
+        p, slot = b.params[i], b.slot(i)
+        g = p.grad
+        if g is None:
+            slot.zero_()
+        elif g.data_ptr() != slot.data_ptr():
+            slot.copy_(g.reshape(-1))
+        p.grad = slot.view(p.shape)
+
+    def _launch_ready(self) -> None:
+        while self._next < len(self.buckets) and \
+                not self.buckets[self._next].pending:
+            self._launch(self.buckets[self._next])
+            self._next += 1
+
+    def _launch(self, b: _Bucket) -> None:
+        from .communication.collective_ops import _collective_entry
+        pg = self.group.process_group
+        if self.mode == "all_reduce":
+            _collective_entry("all_reduce", self.group, tensor=b.grad_buf,
+                              reduce_op=ReduceOp.AVG)
+            b.work = dist.all_reduce(b.grad_buf, op=dist.ReduceOp.AVG,
+                                     group=pg, async_op=True)
+        else:
+            _collective_entry("reduce_scatter", self.group,
+                              tensor=b.grad_buf, reduce_op=ReduceOp.AVG)
+            b.work = reduce_scatter_single(
+                b.shard_grad, b.grad_buf, op=dist.ReduceOp.AVG, group=pg,
+                async_op=True)
+
+    def _finalize(self) -> None:
+        self._armed = False
+        for b in self.buckets[self._next:]:
+            for i in sorted(b.pending):
+                self._take(b, i)      # unused in this backward
+            b.pending.clear()
+        self._launch_ready()
+        for b in self.buckets:
+            if b.work is not None:
+                b.work.wait()
+                b.work = None
+
+
+class DataParallel(torch.nn.Module):
+    """ref: ``python/paddle/distributed/parallel.py`` DataParallel: the
+    reference's parameters in its order.  ``comm_buffer_size`` and
+    ``last_comm_buffer_size`` are bucket sizes in MB (module
+    docstring); ``group`` defaults to every rank; ``strategy`` is
+    accepted and read by nothing, as in the reference.  Gradients of
+    parameters unused in a backward are averaged as zeros whatever
+    ``find_unused_parameters`` says (every rank then steps the same
+    parameters).  Requires ``init_parallel_env`` first."""
+
+    def __init__(self, layers: torch.nn.Module, strategy=None,
+                 comm_buffer_size: int = 25, last_comm_buffer_size: int = 1,
+                 find_unused_parameters: bool = False, group=None):
+        super().__init__()
+        self._layers = layers
+        self._group = _resolve_group(group)
+        self.find_unused_parameters = find_unused_parameters
+        self.comm_buffer_size = comm_buffer_size
+        self.last_comm_buffer_size = last_comm_buffer_size
+        self._reducer = _Reducer(layers.parameters(), self._group,
+                                 comm_buffer_size * _MB,
+                                 last_comm_buffer_size * _MB)
+        self._sync_params_buffers()
+
+    @torch.no_grad()
+    def _sync_params_buffers(self) -> None:
+        """The group's first rank's parameters and buffers on every rank,
+        as upstream's DataParallel does when it is built."""
+        from .communication.collective_ops import broadcast
+        src = self._group.ranks[0]
+        for b in self._reducer.buckets:
+            broadcast(b.param_buf, src=src, group=self._group)
+        for t in self._layers.buffers():
+            broadcast(t, src=src, group=self._group)
+
+    def forward(self, *inputs, **kwargs):
+        self._reducer.sync_layout()
+        return self._layers(*inputs, **kwargs)
+
+    @contextlib.contextmanager
+    def no_sync(self):
+        """Backward inside leaves the gradients local (accumulating);
+        the first backward outside averages them (ref:
+        ``DataParallel.no_sync``)."""
+        old = self._reducer.sync_enabled
+        self._reducer.sync_enabled = False
+        try:
+            yield
+        finally:
+            self._reducer.sync_enabled = old
+
+    def scale_loss(self, loss):
+        """The loss unchanged: the reducer averages the gradients."""
+        return loss
+
+    def state_dict(self, *args, **kwargs):
+        return self._layers.state_dict(*args, **kwargs)
+
+    def set_state_dict(self, state_dict, *args, **kwargs):
+        return self._layers.load_state_dict(state_dict, *args, **kwargs)
+
+    def __getattr__(self, name):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            return getattr(self._modules["_layers"], name)
+
+
+# ---------------------------------------------------------------------------
+# spawn
+# ---------------------------------------------------------------------------
+
+def _spawn_entry(index: int, func, args, env: Dict[str, str]) -> None:
+    os.environ.update(env[index])
+    func(*args)
+
+
+def spawn(func, args=(), nprocs: int = -1, join: bool = True, daemon=False,
+          **options):
+    """ref: ``paddle.distributed.spawn``: start ``nprocs`` processes
+    (``-1``: one per visible card), each with the launcher's environment
+    for its rank, and call ``func(*args)`` in each; ``func`` calls
+    ``init_parallel_env`` itself, rank r on card r.  The option
+    ``backend="gloo"`` lets ``nprocs`` run without a card, for
+    ``init_parallel_env(device="cpu")``; other options raise
+    ``NotImplementedError``.  Returns torch's process context (``join``
+    it with a timeout when ``join=False``)."""
+    import torch.multiprocessing as mp
+    unknown = sorted(set(options) - {"backend"})
+    if unknown:
+        raise NotImplementedError(f"spawn options {unknown}")
+    if nprocs == -1:
+        nprocs = torch.cuda.device_count()
+        if nprocs < 1:
+            raise RuntimeError("spawn(nprocs=-1) found no CUDA card; pass "
+                               "nprocs with backend='gloo'")
+    store = serve_store(nprocs)
+    env = [{"PADDLE_TRAINER_ID": str(r), "PADDLE_TRAINERS_NUM": str(nprocs),
+            "PADDLE_MASTER": f"127.0.0.1:{store.port}",
+            STORE_SERVED_ENV: "1", "PADDLE_RANK_IN_NODE": str(r),
+            "FLAGS_selected_gpus": str(r)} for r in range(nprocs)]
+    ctx = mp.start_processes(_spawn_entry, args=(func, tuple(args), env),
+                             nprocs=nprocs, join=join, daemon=daemon,
+                             start_method="spawn")
+    if ctx is not None:
+        ctx.store = store            # served while the ranks may run
+    return ctx

@@ -5,16 +5,20 @@ distributed/passes/pass_base.py ``PassBase``/``PassManager``/``new_pass``/
 
 The program passes of ``static.passes`` register through this machinery,
 so a pass's ``_incompatible`` list and ``new_pass`` names work across
-both families.  Of the distributed passes only the recompute pass is here
-(``program_remat_hints`` declares itself incompatible with it); the AMP,
-sharding, gradient-merge and schedule passes wait for ``distributed/``.
+both families (``program_remat_hints`` declares itself incompatible with
+the recompute pass).  The distributed passes are the reference's
+strategy-lowered ones: each maps onto ``fleet.DistributedStrategy``'s
+knobs; gradient merge is a real transform (it wraps the context's
+optimizer in ``GradientMergeOptimizer``).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 __all__ = ["PASS_REGISTRY", "register_pass", "PassContext", "PassBase",
-           "new_pass", "PassManager", "RecomputePass"]
+           "new_pass", "PassManager", "AMPPass", "FP16Pass", "RecomputePass",
+           "ShardingPass", "GradientMergePass", "FuseAllReducePass",
+           "FusedAttentionPass", "FusedFeedForwardPass"]
 
 PASS_REGISTRY: Dict[str, type] = {}
 
@@ -132,6 +136,34 @@ class PassManager:
         return context
 
 
+# ---------------------------------------------------------------------------
+# the knob-mapping passes (strategy-lowered, as in the reference)
+# ---------------------------------------------------------------------------
+
+@register_pass("auto_parallel_amp")
+class AMPPass(PassBase):
+    """ref: auto_parallel_amp.py — lowered to the amp strategy knobs
+    (``amp.auto_cast`` / ``amp.decorate`` are the runtime mechanism)."""
+
+    def _apply_single_impl(self, main_program, startup_program, context):
+        if context.strategy is not None:
+            context.strategy.amp = True
+            for k, v in self._attrs.items():
+                if k in context.strategy.amp_configs:
+                    context.strategy.amp_configs[k] = v
+        context.attrs["amp"] = dict(self._attrs) or {"enable": True}
+
+
+@register_pass("auto_parallel_fp16")
+class FP16Pass(AMPPass):
+    """ref: auto_parallel_fp16.py — pure-fp16 == amp O2."""
+
+    def _apply_single_impl(self, main_program, startup_program, context):
+        super()._apply_single_impl(main_program, startup_program, context)
+        if context.strategy is not None:
+            context.strategy.amp_configs["use_pure_fp16"] = True
+
+
 @register_pass("auto_parallel_recompute")
 class RecomputePass(PassBase):
     """ref: auto_parallel_recompute.py — lowered to the strategy's
@@ -145,3 +177,85 @@ class RecomputePass(PassBase):
             if cps is not None:
                 context.strategy.recompute_configs["checkpoints"] = cps
         context.attrs["recompute"] = True
+
+
+@register_pass("auto_parallel_sharding")
+class ShardingPass(PassBase):
+    """ref: auto_parallel_sharding.py — lowered to the sharding knobs
+    (``stage``, ``sharding_degree``) of the strategy."""
+
+    def _apply_single_impl(self, main_program, startup_program, context):
+        if context.strategy is not None:
+            context.strategy.sharding = True
+            for k in ("stage", "sharding_degree", "degree"):
+                v = self.get_attr(k)
+                if v is not None:
+                    key = "sharding_degree" if k == "degree" else k
+                    context.strategy.sharding_configs[key] = v
+        context.attrs["sharding"] = dict(self._attrs)
+
+
+@register_pass("auto_parallel_gradient_merge_pass")
+class GradientMergePass(PassBase):
+    """ref: auto_parallel_gradient_merge.py — a real transform: wraps the
+    context's optimizer in k-step gradient accumulation."""
+
+    def _apply_single_impl(self, main_program, startup_program, context):
+        from .gradient_merge import GradientMergeOptimizer
+        k = int(self.get_attr("k_steps", 1))
+        avg = bool(self.get_attr("avg", True))
+        if context.strategy is not None:
+            context.strategy.gradient_merge = True
+            context.strategy.gradient_merge_configs["k_steps"] = k
+            context.strategy.gradient_merge_configs["avg"] = avg
+        if context.optimizer is not None and k > 1:
+            context.optimizer = GradientMergeOptimizer(context.optimizer,
+                                                       k_steps=k, avg=avg)
+        context.attrs["gradient_merge"] = {"k_steps": k, "avg": avg}
+
+
+def _make_schedule_pass(mode: str):
+    @register_pass(f"pipeline_scheduler_{mode}")
+    class _SchedulePass(PassBase):
+        """ref: pipeline_scheduler_pass.py — records the schedule mode in
+        the strategy (pipelines wait for a later slice)."""
+
+        _mode = mode
+
+        def _apply_single_impl(self, main_program, startup_program,
+                               context):
+            if context.strategy is not None:
+                context.strategy.pipeline = True
+                context.strategy.pipeline_configs["schedule_mode"] = \
+                    self._mode
+            context.attrs["pipeline_schedule"] = self._mode
+    return _SchedulePass
+
+
+for _mode in ("FThenB", "1F1B", "VPP", "ZBH1", "ZBVPP"):
+    _make_schedule_pass(_mode)
+
+
+@register_pass("fuse_all_reduce")
+class FuseAllReducePass(PassBase):
+    """ref: fuse_all_reduce.py — satisfied by construction: DataParallel's
+    reducer all-reduces flat buckets of gradients; recorded for API
+    parity."""
+
+    def _apply_single_impl(self, main_program, startup_program, context):
+        context.attrs["fuse_all_reduce"] = True
+
+
+@register_pass("fused_attention")
+class FusedAttentionPass(PassBase):
+    """ref: fused_attention_pass — the flash attention kernels (K1)
+    implement it; recorded for API parity."""
+
+    def _apply_single_impl(self, main_program, startup_program, context):
+        context.attrs["fused_attention"] = True
+
+
+@register_pass("fused_feedforward")
+class FusedFeedForwardPass(FusedAttentionPass):
+    def _apply_single_impl(self, main_program, startup_program, context):
+        context.attrs["fused_feedforward"] = True

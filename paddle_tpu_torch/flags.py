@@ -110,6 +110,16 @@ define_flag("serving_fused_steps", 1,
             "finishes, the window's remaining iterations do nothing.  1 "
             "(the default) keeps one read per step; prefill and "
             "eviction-pressured steps always run the single-step path")
+# read on every collective entry by distributed.communication.sanitizer
+# (no on_change hook: toggling it mid-run takes effect at the next call)
+define_flag("collective_sanitizer", False,
+            "cross-check order/shape/dtype/reduce-op fingerprints of "
+            "every collective across the group's ranks (through the "
+            "process group's store) before launching it; on mismatch "
+            "raise CollectiveMismatchError with both ranks' fingerprint "
+            "streams (instead of the hang) and emit a "
+            "collective_mismatch event.  See paddle_tpu_torch."
+            "distributed.communication.sanitizer")
 # read lazily by observability.lockwatch.make_lock/make_rlock/
 # make_condition at construction time: set it BEFORE building the
 # engine or the server; already-constructed objects keep their stdlib

@@ -34,10 +34,28 @@ from ...static.capture import recorded
 __all__ = ["fused_rms_norm", "fused_rotary_position_embedding"]
 
 
+# Paddle's further ``fused_rms_norm`` parameters and their defaults: the
+# reference takes them through ``**kw`` and ignores them; the port raises
+# when one asks for what it would mean (a residual add, a bias before the
+# norm, int8 output)
+_RMS_NORM_KW = {"bias": None, "residual": None, "quant_scale": -1,
+                "quant_round_type": 0, "quant_max_bound": 0,
+                "quant_min_bound": 0}
+
+
 def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon: float = 1e-6,
-                   begin_norm_axis: int = -1):
+                   begin_norm_axis: int = -1, **kw):
     """``x * rsqrt(mean(x², -1) + eps) * w (+ bias)``; returns ``(out,
-    None)`` as Paddle does.  Only the last axis is normalised."""
+    None)`` as Paddle does.  Only the last axis is normalised.  Keywords
+    are taken as the reference takes them; one of Paddle's (``bias``,
+    ``residual``, the ``quant_*`` four) at other than its default raises
+    ``NotImplementedError``."""
+    asked = sorted(k for k, v in kw.items()
+                   if k in _RMS_NORM_KW and v != _RMS_NORM_KW[k])
+    if asked:
+        raise NotImplementedError(f"fused_rms_norm {asked}: a residual add, "
+                                  "a pre-norm bias and quantised output "
+                                  "wait for a later slice")
     if begin_norm_axis % x.dim() != x.dim() - 1:
         raise NotImplementedError(f"begin_norm_axis={begin_norm_axis}: "
                                   "only the last axis is normalised")

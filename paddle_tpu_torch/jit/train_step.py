@@ -9,6 +9,16 @@ into one XLA program; here each op launches on its own, the hand-written
 kernels included).  CUDA graphs over the step are later work.  Nothing in
 the step reads a device value back to the host, so the caller decides
 when to synchronise (``float(loss)`` does).
+
+With a ``mesh`` (``distributed.build_mesh``, or fleet's) the step takes
+the **global** batch, as the JAX package's GSPMD step does: each rank
+keeps its rows along the mesh's data axes (``dp`` and ``sharding``, or
+the axes ``batch_spec[0]`` names), gradients are averaged over those
+ranks (by the model's DataParallel or group-sharded reducer, or by a
+DataParallel the step builds over the data group for a bare model), and
+the returned loss is the global mean: the average of the ranks' losses
+over equal shards.  Without a mesh each rank's batch is its own (the
+upstream ``DataParallel`` idiom).
 """
 from __future__ import annotations
 
@@ -17,11 +27,78 @@ import torch
 
 __all__ = ["TrainStep", "train_step"]
 
+# axes whose degree above 1 waits for a later distributed slice
+_LATER_AXES = ("pp", "sep", "cp", "ep", "mp")
+
+
+class _DataShard:
+    """This rank's rows of the global batch along the mesh's data axes,
+    and the group that averages over them."""
+
+    def __init__(self, mesh, batch_spec, model):
+        shape = mesh.shape
+        later = {a: d for a, d in shape.items() if a in _LATER_AXES and d > 1}
+        if later:
+            raise NotImplementedError(f"mesh axes {later} wait for a later "
+                                      "distributed slice (model, pipeline "
+                                      "and sequence parallel)")
+        if batch_spec is not None:
+            spec = list(batch_spec)
+            if any(s is not None for s in spec[1:]):
+                raise NotImplementedError(
+                    f"batch_spec {batch_spec}: only the batch dimension is "
+                    "sharded (sequence sharding waits for slice (c))")
+            lead = spec[0] if spec else None
+            axes = () if lead is None else tuple(
+                lead if isinstance(lead, (tuple, list)) else (lead,))
+        else:
+            axes = tuple(a for a in ("dp", "sharding") if shape.get(a, 1) > 1)
+        self.n = int(np.prod([shape[a] for a in axes])) if axes else 1
+        self.group, self.index, self._dp = None, 0, None
+        if self.n > 1:
+            from ..distributed.parallel import DataParallel, reducer_of
+            self.group = mesh.group(axes)
+            self.index = self.group.rank
+            p0 = next((p for p in model.parameters() if p.requires_grad),
+                      None)
+            red = reducer_of(p0) if p0 is not None else None
+            if red is None:
+                self._dp = DataParallel(model, group=self.group)
+            elif red.group.ranks != self.group.ranks:
+                raise ValueError(f"the model's reducer averages over ranks "
+                                 f"{red.group.ranks}, the mesh's data axes "
+                                 f"are {self.group.ranks}")
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        if self.n == 1 or x.dim() == 0:
+            return x
+        b = x.shape[0]
+        if b % self.n:
+            raise ValueError(f"global batch {b} does not split over "
+                             f"{self.n} data ranks")
+        k = b // self.n
+        return x[self.index * k:(self.index + 1) * k]
+
+    def prepare(self) -> None:
+        if self._dp is not None:
+            self._dp._reducer.sync_layout()
+
+    def mean(self, loss: torch.Tensor) -> torch.Tensor:
+        """The ranks' losses averaged in fp32, in the loss's dtype."""
+        if self.n == 1:
+            return loss
+        from ..distributed.communication import ReduceOp, all_reduce
+        total = loss.float()
+        all_reduce(total, op=ReduceOp.AVG, group=self.group)
+        return total.to(loss.dtype)
+
 
 class TrainStep:
     """The reference's parameters in its order.  ``mesh`` and
-    ``batch_spec`` (an SPMD mesh and its batch sharding) wait for the
-    distributed slice and raise ``NotImplementedError`` when given;
+    ``batch_spec`` shard the global batch over the data axes (module
+    docstring); ``batch_spec`` is read only with a mesh, as in the
+    reference, and may shard dimension 0 only.  A mesh axis other than
+    ``dp``/``sharding`` of degree above 1 raises ``NotImplementedError``.
     ``donate`` changes nothing here (the eager step updates the
     parameters in place either way)."""
 
@@ -30,11 +107,10 @@ class TrainStep:
                  donate: bool = True):
         if scaler is not None:
             raise NotImplementedError("GradScaler waits for a later slice")
-        if mesh is not None or batch_spec is not None:
-            raise NotImplementedError("a mesh and batch_spec wait for the "
-                                      "distributed slice")
         if loss_fn is None and step_fn is None:
             raise ValueError("give loss_fn or step_fn")
+        self._data = _DataShard(mesh, batch_spec, model) \
+            if mesh is not None else None
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -49,6 +125,9 @@ class TrainStep:
 
     def __call__(self, *batch):
         batch = [self._to_device(b) for b in batch]
+        if self._data is not None:
+            batch = [self._data.rows(b) for b in batch]
+            self._data.prepare()
         if self.step_fn is not None:
             loss = self.step_fn(self.model, *batch)
         else:
@@ -57,7 +136,8 @@ class TrainStep:
             loss.backward()
             self.optimizer.step()
             self.optimizer.clear_grad()
-        return loss.detach()
+        loss = loss.detach()
+        return self._data.mean(loss) if self._data is not None else loss
 
 
 def train_step(model, loss_fn=None, optimizer=None, scaler=None,

@@ -75,8 +75,9 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
 
 
 @recorded("linear")
-def linear(x, weight, bias=None):
-    """``x @ weight + bias`` with the Paddle ``[in, out]`` weight."""
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight + bias`` with the Paddle ``[in, out]`` weight;
+    ``name`` is a label, ignored as in the reference."""
     x, weight, bias = amp.cast("linear", x, weight, bias)
     y = torch.matmul(x, weight)
     return y + bias if bias is not None else y
@@ -108,13 +109,13 @@ def embedding(x, weight, padding_idx=None, sparse: bool = False, name=None):
 
 
 @recorded("gelu")
-def gelu(x, approximate: bool = False):
+def gelu(x, approximate: bool = False, name=None):
     (x,) = amp.cast("gelu", x)
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
 @recorded("silu")
-def silu(x):
+def silu(x, name=None):
     """``x * sigmoid(x)``; not black-listed, so under O2 it runs in the
     low dtype, as the JAX ``F.silu`` does."""
     (x,) = amp.cast("silu", x)
@@ -195,13 +196,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     kt = k.transpose(1, 2).reshape(b * hkv, sk, d)
     vt = v.transpose(1, 2).reshape(b * hkv, sk, d)
     out = flash_attention_bhsd(qt, kt, vt, 1.0 / math.sqrt(d), is_causal,
-                               sk - sq if is_causal else 0, hq // hkv)
+                               q_offset=sk - sq if is_causal else 0,
+                               n_rep=hq // hkv)
     return out.reshape(b, hq, sq, d).transpose(1, 2)
 
 
 @recorded("layer_norm")
 def layer_norm(x, normalized_shape, weight=None, bias=None,
-               epsilon: float = 1e-5):
+               epsilon: float = 1e-5, name=None):
     """LayerNorm over the trailing ``normalized_shape`` axes (black-listed
     under amp: low-precision inputs go up to fp32 and the output stays
     fp32).  A last-axis norm with weight and bias takes K2."""

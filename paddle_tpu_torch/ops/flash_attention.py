@@ -198,12 +198,29 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+# the reference's Pallas block sizes (``paddle_tpu/ops/flash_attention.py``)
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
+
+
 def flash_attention_bhsd(q, k, v, scale: float, causal: bool,
+                         block_q: int = DEFAULT_BLOCK_Q,
+                         block_k: int = DEFAULT_BLOCK_K,
+                         interpret: bool = False,
                          q_offset: int = 0, n_rep: int = 1):
     """Attention over ``[B*H, S, D]`` (contract in the module docstring).
     CPU tensors take the plain version; CUDA tensors launch the kernels
     on the current stream, or raise.  ``causal`` with ``q_offset < 0``
-    raises on both (module docstring)."""
+    raises on both (module docstring).  ``block_q``, ``block_k`` and
+    ``interpret`` sit where the reference has them: ``interpret`` changes
+    nothing (the plain version is the CPU route), and block sizes other
+    than the reference's defaults raise ``NotImplementedError`` (the
+    kernels pick their own tiles)."""
+    if (block_q, block_k) != (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K):
+        raise NotImplementedError(
+            f"block sizes ({block_q}, {block_k}): the CUDA kernels tile "
+            f"by themselves; pass the defaults ({DEFAULT_BLOCK_Q}, "
+            f"{DEFAULT_BLOCK_K})")
     _check_offset(causal, q_offset)
     if q.device.type == "cpu":
         return reference_attention_bhsd(q, k, v, scale, causal, q_offset,

@@ -7,14 +7,15 @@ script fires the same faults at the same occurrence counts, every time.
 
 Named fault points (zero-cost when no schedule is installed).  The
 schedule grammar keeps all of the reference's points, so one schedule
-string parses alike in both packages; the port plants one of them:
+string parses alike in both packages; the port plants two of them:
 
 ================ ======================================================
 ``serving_step`` top of each serving-engine dispatch (single step AND
                  fused window — ``serving.engine``), before any launch
 ``step``         end of a training step (not planted in the port)
 ``ckpt_write``   checkpoint write (not planted in the port)
-``collective``   collective entry (not planted in the port)
+``collective``   entry of every ``distributed`` collective (host side,
+                 before the sanitizer and the launch)
 ``compile``      a compile-cache miss (not planted in the port)
 ================ ======================================================
 

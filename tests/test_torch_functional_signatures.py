@@ -25,6 +25,10 @@ REFERENCE = {
     "scaled_dot_product_attention": jF.scaled_dot_product_attention,
     "softmax": jF.softmax,
     "relu": jF.relu,
+    "linear": jF.linear,
+    "gelu": jF.gelu,
+    "silu": jF.silu,
+    "layer_norm": jF.layer_norm,
 }
 
 
@@ -87,3 +91,15 @@ def test_softmax_matches_reference():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
     assert tF.softmax(torch.tensor(x), dtype="float64").dtype \
         == torch.float64
+
+
+@pytest.mark.parametrize("name", ["linear", "gelu", "silu", "layer_norm"])
+def test_trailing_name_is_taken_and_ignored(name):
+    """``name`` is a label: the result equals the call without it."""
+    rs = np.random.RandomState(0)
+    x = torch.tensor(rs.randn(3, 4).astype(np.float32))
+    w = torch.tensor(rs.randn(4, 5).astype(np.float32))
+    args = {"linear": (x, w, None), "gelu": (x, False), "silu": (x,),
+            "layer_norm": (x, 4, None, None, 1e-5)}[name]
+    fn = getattr(tF, name)
+    assert torch.equal(fn(*args, name="op"), fn(*args))

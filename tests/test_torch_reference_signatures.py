@@ -51,8 +51,35 @@ from paddle_tpu_torch.serving.fleet import replica as treplica
 from paddle_tpu_torch.serving.fleet import router as trouter
 from paddle_tpu_torch.tuning import cache as tcache
 
-# the modules (each package's ``jit`` exports the function of that name)
+import paddle_tpu.distributed as jdist
+from paddle_tpu.distributed import sharding as jsharding
+from paddle_tpu.distributed.communication import store as jstore
+from paddle_tpu.distributed.fleet.meta_optimizers.dygraph_optimizer import (
+    hybrid_parallel_optimizer as jhpo)
+from paddle_tpu.distributed.fleet.utils import hybrid_parallel_util as jhpu
+from paddle_tpu.distributed.launch import launch as jlaunch
+from paddle_tpu.distributed.passes import gradient_merge as jgm
+from paddle_tpu.incubate.nn import functional as jinc
+from paddle_tpu.ops import flash_attention as jfa
+
+import paddle_tpu_torch.distributed as tdist
+from paddle_tpu_torch.distributed import sharding as tsharding
+from paddle_tpu_torch.distributed.communication import store as tstore
+from paddle_tpu_torch.distributed.fleet.meta_optimizers.dygraph_optimizer import (
+    hybrid_parallel_optimizer as thpo)
+from paddle_tpu_torch.distributed.fleet.utils import hybrid_parallel_util as thpu
+from paddle_tpu_torch.distributed.launch import launch as tlaunch
+from paddle_tpu_torch.distributed.mesh import build_mesh as tbuild_mesh
+from paddle_tpu_torch.distributed.passes import gradient_merge as tgm
+from paddle_tpu_torch.incubate.nn import functional as tinc
+from paddle_tpu_torch.ops import flash_attention as tfa
+
+# the modules (each package's ``jit`` exports the function of that name,
+# each ``fleet`` package the singleton named as its module)
 jtrain = importlib.import_module("paddle_tpu.jit.train_step")
+jfleet_mod = importlib.import_module("paddle_tpu.distributed.fleet.fleet")
+tfleet_mod = importlib.import_module(
+    "paddle_tpu_torch.distributed.fleet.fleet")
 jdriver = importlib.import_module("paddle_tpu.resilience.driver")
 ttrain = importlib.import_module("paddle_tpu_torch.jit.train_step")
 
@@ -108,6 +135,52 @@ PAIRS = {
     "TuningCache.__init__": (jcache.TuningCache.__init__,
                              tcache.TuningCache.__init__),
     "TuningCache.prune": (jcache.TuningCache.prune, tcache.TuningCache.prune),
+    "flash_attention_bhsd": (jfa.flash_attention_bhsd,
+                             tfa.flash_attention_bhsd),
+    "fused_rms_norm": (jinc.fused_rms_norm, tinc.fused_rms_norm),
+    "init_parallel_env": (jdist.init_parallel_env, tdist.init_parallel_env),
+    "DataParallel.__init__": (jdist.DataParallel.__init__,
+                              tdist.DataParallel.__init__),
+    "spawn": (jdist.spawn, tdist.spawn),
+    "get_rank": (jdist.get_rank, tdist.get_rank),
+    "get_world_size": (jdist.get_world_size, tdist.get_world_size),
+    "new_group": (jdist.new_group, tdist.new_group),
+    "TCPStore.__init__": (jstore.TCPStore.__init__, tstore.TCPStore.__init__),
+    "TCPStore.get": (jstore.TCPStore.get, tstore.TCPStore.get),
+    "TCPStore.set": (jstore.TCPStore.set, tstore.TCPStore.set),
+    "TCPStore.add": (jstore.TCPStore.add, tstore.TCPStore.add),
+    "TCPStore.wait": (jstore.TCPStore.wait, tstore.TCPStore.wait),
+    "TCPStore.delete_key": (jstore.TCPStore.delete_key,
+                            tstore.TCPStore.delete_key),
+    "P2POp.__init__": (jdist.P2POp.__init__, tdist.P2POp.__init__),
+    **{op: (getattr(jdist, op), getattr(tdist, op)) for op in (
+        "all_reduce", "reduce", "all_gather", "gather", "all_gather_object",
+        "broadcast", "broadcast_object_list", "scatter",
+        "scatter_object_list", "reduce_scatter", "alltoall",
+        "alltoall_single", "send", "recv", "isend", "irecv",
+        "batch_isend_irecv", "barrier", "wait")},
+    "fleet.init": (jfleet_mod.Fleet.init, tfleet_mod.Fleet.init),
+    "fleet.distributed_model": (jfleet_mod.Fleet.distributed_model,
+                                tfleet_mod.Fleet.distributed_model),
+    "fleet.distributed_optimizer": (jfleet_mod.Fleet.distributed_optimizer,
+                                    tfleet_mod.Fleet.distributed_optimizer),
+    "HybridParallelOptimizer.__init__": (
+        jhpo.HybridParallelOptimizer.__init__,
+        thpo.HybridParallelOptimizer.__init__),
+    "DygraphShardingOptimizer.__init__": (
+        jhpo.DygraphShardingOptimizer.__init__,
+        thpo.DygraphShardingOptimizer.__init__),
+    "fused_allreduce_gradients": (jhpu.fused_allreduce_gradients,
+                                  thpu.fused_allreduce_gradients),
+    "broadcast_dp_parameters": (jhpu.broadcast_dp_parameters,
+                                thpu.broadcast_dp_parameters),
+    "group_sharded_parallel": (jsharding.group_sharded_parallel,
+                               tsharding.group_sharded_parallel),
+    "save_group_sharded_model": (jsharding.save_group_sharded_model,
+                                 tsharding.save_group_sharded_model),
+    "GradientMergeOptimizer.__init__": (jgm.GradientMergeOptimizer.__init__,
+                                        tgm.GradientMergeOptimizer.__init__),
+    "launch": (jlaunch, tlaunch),
 }
 EXTRA = {"generator", "device"}
 
@@ -159,10 +232,26 @@ UNSUPPORTED = {
         parameters=_param(), use_multi_tensor=True),
     "adamw lazy_mode": lambda: optimizer.AdamW(parameters=_param(),
                                                lazy_mode=True),
+    # a mesh's model-parallel axis and a batch_spec sharding a dimension
+    # other than the batch wait for a later distributed slice
     "train_step mesh": lambda: ttrain.train_step(
-        torch.nn.Linear(2, 2), lambda y: y.sum(), mesh=object()),
+        torch.nn.Linear(2, 2), lambda y: y.sum(),
+        mesh=tbuild_mesh({"dp": 1, "mp": 2}, devices=[0, 1])),
     "TrainStep batch_spec": lambda: ttrain.TrainStep(
-        torch.nn.Linear(2, 2), lambda y: y.sum(), batch_spec=[None]),
+        torch.nn.Linear(2, 2), lambda y: y.sum(),
+        mesh=tbuild_mesh({"dp": 1}, devices=[0]), batch_spec=[None, "dp"]),
+    "flash_attention_bhsd block sizes": lambda: tfa.flash_attention_bhsd(
+        *[torch.zeros(1, 4, 8)] * 3, 1.0, True, 64, 64),
+    "fused_rms_norm residual": lambda: tinc.fused_rms_norm(
+        torch.ones(2, 4), torch.ones(4), residual=torch.ones(2, 4)),
+    "group_sharded_parallel p_g_os": lambda:
+        tsharding.group_sharded_parallel(None, None, "p_g_os"),
+    "launch elastic_timeout": lambda: tlaunch(
+        "script.py", elastic_timeout=30.0, device="cpu"),
+    "launch nnodes": lambda: tlaunch("script.py", nnodes=2, device="cpu"),
+    "broadcast_mp_parameters": lambda: thpu.broadcast_mp_parameters(None),
+    "broadcast_sep_parameters": lambda: thpu.broadcast_sep_parameters(None),
+    "scatter without tensor_list": lambda: tdist.scatter(torch.zeros(2)),
     "generate unknown keyword": lambda: tgen.generate(
         _tiny_gpt(), np.zeros((1, 4), np.int64), max_new_tokens=1,
         attention_mask=None),
@@ -352,3 +441,31 @@ def test_generate_takes_generator_by_keyword_only():
         tgen.generate(m, ids, 2, None, "greedy_search", 1.0, 0, 1.0, None,
                       1, 1.0, None, True, False, None,
                       torch.Generator())
+
+
+def test_flash_attention_takes_the_reference_positionals():
+    """A reference-order call binds the block sizes and ``interpret``
+    where the reference has them: seven positionals (the default blocks)
+    and ten (blocks, ``interpret``, ``q_offset``, ``n_rep``) equal the
+    keyword calls."""
+    rs = np.random.RandomState(3)
+    q = torch.tensor(rs.randn(4, 6, 8).astype(np.float32))
+    k = torch.tensor(rs.randn(2, 9, 8).astype(np.float32))
+    v = torch.tensor(rs.randn(2, 9, 8).astype(np.float32))
+    f = tfa.flash_attention_bhsd
+    assert torch.equal(f(q, k[:1].repeat(4, 1, 1), v[:1].repeat(4, 1, 1),
+                         0.3, True, 128, 128),
+                       f(q, k[:1].repeat(4, 1, 1), v[:1].repeat(4, 1, 1),
+                         0.3, True))
+    assert torch.equal(f(q, k, v, 0.3, True, 128, 128, True, 3, 2),
+                       f(q, k, v, 0.3, True, q_offset=3, n_rep=2))
+
+
+def test_fused_rms_norm_takes_keywords_as_the_reference():
+    """Keywords the reference ignores are taken; Paddle's own at their
+    defaults change nothing."""
+    x, w = torch.randn(2, 4), torch.rand(4)
+    want = tinc.fused_rms_norm(x, w)[0]
+    got = tinc.fused_rms_norm(x, w, residual=None, quant_scale=-1,
+                              unknown_key=1)[0]
+    assert torch.equal(got, want)

@@ -101,7 +101,8 @@ def _jax_flash(arrs, kw, dtype):
 def _port_flash(arrs, kw, dtype):
     q, k, v = (_t(a, dtype, grad=True) for a in arrs[:3])
     out = tfa.flash_attention_bhsd(q, k, v, kw["scale"], kw["causal"],
-                                   kw["q_offset"], kw["n_rep"])
+                                   q_offset=kw["q_offset"],
+                                   n_rep=kw["n_rep"])
     grads = torch.autograd.grad(out, (q, k, v), _t(arrs[3], dtype))
     return (out,) + grads
 
@@ -416,7 +417,8 @@ def test_flash_attention_rejects_rows_that_see_no_key(entry):
     q = torch.randn(2, 8, 16)
     k = torch.randn(2, 4, 16)
     calls = {
-        "bhsd": lambda c, o: tfa.flash_attention_bhsd(q, k, k, 0.25, c, o),
+        "bhsd": lambda c, o: tfa.flash_attention_bhsd(q, k, k, 0.25, c,
+                                                      q_offset=o),
         "fwd": lambda c, o: tfa.flash_attention_fwd(q, k, k, 0.25, c, o),
         "bwd": lambda c, o: tfa.flash_attention_bwd(q, k, k, q, q[..., 0],
                                                     q, 0.25, c, o),
