@@ -8,7 +8,8 @@ Run from the root of a checkout, on a machine with one CUDA card::
 (``python3 chip_smoke.py --ab fa_a.cu fa_b.cu ...`` instead times copies
 of a kernel source against each other: ``compare_variants``;
 ``--fleet`` runs phase 4h alone: ``fleet_alone``; ``--distributed``
-runs phase 17 alone: ``distributed_alone``, on every visible card.)
+runs phases 17 and 18 alone: ``distributed_alone``, on every visible
+card.)
 
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
@@ -237,21 +238,36 @@ loudly with a non-zero exit:
    host from the seed; rank 0's oracle (the global batch of 4 x 2048 a
    rank as that many accumulated micro-batches on one card, then one
    AdamW step; at one rank phase 6's ``train_step`` itself) and one
-   card's plain step time; GPT-3 1.3B O2 under ``DataParallel`` and under
-   ``group_sharded_parallel(level="os_g")`` (ZeRO stage 2), 3 steps held
-   against the oracle (at one rank bit-equal in losses, parameters, fp32
-   masters and, for DataParallel, the first gradients; else losses
-   0.0625, gradients 2e-2 relative norm, values 3 x 2.1 lr) and stage 2
-   against DataParallel the same way, every rank's parameters
-   bit-identical after each step, then 5 more steps (the last 4 timed);
-   per step
-   exactly phase 6's launches of K1a-c and K2a/b, and of K3 292
-   (DataParallel) or one per bucket shard (stage 2); step ms, tokens/s,
+   card's plain step time; GPT-3 1.3B O2 under ``DataParallel``, under
+   ``group_sharded_parallel(level="os_g")`` (ZeRO stage 2) and under
+   ``level="p_g_os"`` (stage 3: the tied head on the root segment), 3
+   steps held against the oracle (at one rank bit-equal in losses,
+   parameters, fp32 masters and, for DataParallel and stage 3, the first
+   gradients; else losses 0.0625, gradients 2e-2 relative norm, values 3
+   x 2.1 lr) and stages 2 and 3 against DataParallel the same way, every
+   rank's parameters bit-identical after each step, then 5 more steps
+   (the last 4 timed); per step exactly phase 6's launches of K1a-c and
+   K2a/b, and of K3 292 (DataParallel) or one per bucket shard (stage 2)
+   or segment flat shard (stage 3), and stage 3's gathers and
+   reduce-scatters exactly; step ms, tokens/s,
    scaling against one card, the bucket collectives of one step timed
    alone and the peak memory of each mode; with two or more ranks the
    sanitizer's raise under ``collective@2=truncate``; then a SIGKILLed
    rank: the launcher restarts the group and exits 0, or exits non-zero
-   with no restart left, each within ``DIST_KILL_S``.
+   with no restart left, each within ``DIST_KILL_S``;
+18. LLaMA-2 7B O2 under ZeRO stage 3 with recompute, in the same ranks
+   after phase 17 (``zero3_rank``): ``use_recompute=True``,
+   ``group_sharded_parallel(level="p_g_os")``, AdamW(1e-4, wd 0.01),
+   batch 2 x 4096 a rank.  At one card, phase 8's 8 layers (32 need
+   107.8 GB of state): the plain ``train_step``, recompute alone and
+   stage 3 + recompute, both bit-equal to the plain step in losses,
+   first gradients, parameters and fp32 masters, with exact launches a
+   step (recompute adds a layer's K1a, two K4a and two K5; K3 once a
+   segment flat's shard) and exact gathers and reduce-scatters.  On
+   several cards: stage 3 + recompute at depth 2 against rank 0's
+   one-card oracle (phase 17's bounds), then at all 32 layers against
+   ``os_g`` + recompute (losses 0.0625, values 3 x 2.1 lr); step ms,
+   tokens/s, MFU, the collectives alone and peak memory a rank.
 
 Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
@@ -295,6 +311,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.analysis.pass_check import CARD_TOL
+from paddle_tpu_torch.distributed.parallel import (all_gather_single,
+                                                  reduce_scatter_single)
 from paddle_tpu_torch.flags import set_flags
 from paddle_tpu_torch.inference.serving import (InferenceServer,
                                                 generate_http)
@@ -2839,15 +2857,20 @@ LLAMA_PRESET, LLAMA_LAYERS = "llama2-7b", 8
 LLAMA_BATCH, LLAMA_SEQ = 2, 4096
 
 
-def llama_per_step(layers):
+def llama_per_step(layers, recompute=False, adamw=None):
     """Exact launches per step: RMSNorm twice per layer and the final
     norm (forward and dx each); rope on q and k per layer, forward and
     backward; one flash fwd/dq/dkv per layer; AdamW per parameter (9 per
-    layer + embedding, head and final norm)."""
-    return {"flash_fwd": layers, "flash_bwd_dq": layers,
+    layer + embedding, head and final norm), or ``adamw`` (one a bucket
+    or segment flat shard under ZeRO).  ``recompute`` runs each layer's
+    forward again in the backward: one more K1a, two more K4a and two
+    more K5 a layer."""
+    f = 2 if recompute else 1
+    return {"flash_fwd": f * layers, "flash_bwd_dq": layers,
             "flash_bwd_dkv": layers, "ln_fwd": 0, "ln_bwd_dx": 0,
-            "adamw": 9 * layers + 3, "rms_fwd": 2 * layers + 1,
-            "rms_bwd_dx": 2 * layers + 1, "rope": 4 * layers, "rpa": 0,
+            "adamw": 9 * layers + 3 if adamw is None else adamw,
+            "rms_fwd": 2 * f * layers + 1, "rms_bwd_dx": 2 * layers + 1,
+            "rope": (2 * f + 2) * layers, "rpa": 0,
             "rope_qkv": 0, "attend_cache_append": 0, "norm_mlp": 0,
             "paged_attention": 0, "ce_fwd": 0, "ce_bwd": 0,
             "norm_matmul": 0}
@@ -5198,7 +5221,7 @@ def k6a_marks() -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 17: data-parallel training on NCCL (DataParallel, ZeRO stage 2)
+# phase 17: data-parallel training on NCCL (DataParallel, ZeRO 2 and 3)
 # ---------------------------------------------------------------------------
 
 DIST_STEPS = 3                   # steps held against the oracle
@@ -5310,34 +5333,92 @@ def host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
-def dist_values(model, opt, sharded):
-    """Every parameter's fp32 value on the host: its master where it has
-    one (under ZeRO gathered from the shards one bucket at a time, a
-    collective call), else the parameter."""
+def stage3_of(model):
+    """The model's stage-3 reducer, or None."""
+    red = getattr(model, "_reducer", None)
+    return red if red is not None and red.mode == "stage3" else None
+
+
+def dist_values(model, opt, sharded, rank=0):
+    """Every parameter's fp32 value on the host, on rank 0 (None on the
+    others): its master where it has one (under ZeRO gathered from the
+    shards one bucket or segment flat at a time, a collective call),
+    else the parameter (under stage 3 gathered too)."""
     inner = getattr(model, "_layers", model)
     if not sharded:
+        if rank != 0:
+            return None
         return {n: host(opt.state[p].get("master", p).float())
                 for n, p in inner.named_parameters()}
+    stage3 = stage3_of(model) is not None
     vals = {}
     for k, b in enumerate(opt._reducer.buckets):
         master = opt._state.get(k, {}).get("master")
-        full = opt._gather(master, b.numel) if master is not None else None
-        for p, off in zip(b.params, b.offsets):
-            src = p if full is None else full[off:off + p.numel()]
-            vals[id(p)] = host(src.float().reshape(p.shape))
+        if master is not None:
+            full = opt._gather(master, b.numel)
+        elif stage3:
+            full = opt._gather(b.param_shard, b.numel)
+        else:
+            full = None
+        shapes = b.shapes if stage3 else [p.shape for p in b.params]
+        if rank == 0:
+            for p, off, shape in zip(b.params, b.offsets, shapes):
+                src = p if full is None else full[off:off + shape.numel()]
+                vals[id(p)] = host(src.float().reshape(shape))
         del full
+    if rank != 0:
+        return None
     return {n: vals[id(p)] for n, p in inner.named_parameters()}
 
 
-def dist_oracle(cfg, batch, world, dev):
-    """Rank 0's oracle: the same global batch on one card, ``world``
-    micro-batches accumulated per step (each loss over ``world``), then
-    one plain AdamW step; at one rank it is phase 6's ``train_step``
-    itself.  Returns the losses, the first step's gradients and the
-    values after ``DIST_STEPS`` steps on the host, and one card's plain
+def dist_params(model, rank=0):
+    """Every parameter (its own dtype) on the host, on rank 0; under stage
+    3 each segment is gathered and freed in turn (a collective call)."""
+    inner = getattr(model, "_layers", model)
+    red = stage3_of(model)
+    if red is None:
+        return {n: host(p) for n, p in inner.named_parameters()} \
+            if rank == 0 else None
+    vals = {}
+    for seg in red.segments:
+        red.gather(seg)
+        if rank == 0:
+            vals.update((id(p), host(p)) for f in seg.flats
+                        for p in f.params)
+        red.free(seg)
+    return {n: vals[id(p)] for n, p in inner.named_parameters()} \
+        if rank == 0 else None
+
+
+def dist_grads(model, opt, rank=0):
+    """The averaged gradients after a backward, on rank 0: each
+    parameter's ``grad`` (DataParallel, one card), or under stage 3 each
+    flat's ``shard_grad`` gathered (a collective call)."""
+    inner = getattr(model, "_layers", model)
+    red = stage3_of(model)
+    if red is None:
+        return {n: host(p.grad) for n, p in inner.named_parameters()} \
+            if rank == 0 else None
+    vals = {}
+    for b in red.buckets:
+        full = opt._gather(b.shard_grad, b.numel)
+        if rank == 0:
+            for p, off, shape in zip(b.params, b.offsets, b.shapes):
+                vals[id(p)] = host(full[off:off + shape.numel()]
+                                   .reshape(shape))
+        del full
+    return {n: vals[id(p)] for n, p in inner.named_parameters()} \
+        if rank == 0 else None
+
+
+def dist_oracle(model, opt, step, shards, timed=True):
+    """Rank 0's oracle on one card: the global batch, ``len(shards)``
+    micro-batches accumulated per step (each loss over their count), then
+    one plain AdamW step; at one shard the ``train_step`` itself.
+    Returns the losses, the first step's gradients and the values after
+    ``DIST_STEPS`` steps on the host, and (``timed``) one card's plain
     step ms at one shard (timed after)."""
-    _, model, opt, step = build_trainer(N_LAYERS, seed=0)
-    shards = [dist_shard(batch, j, dev) for j in range(world)]
+    world = len(shards)
     grads, losses = {}, []
     for s in range(DIST_STEPS):
         if world == 1:
@@ -5362,14 +5443,16 @@ def dist_oracle(cfg, batch, world, dev):
     grads = {n: host(g) for n, g in grads.items()}
     values = dist_values(model, opt, False)
     params = {n: host(p) for n, p in model.named_parameters()}
-    step_s = []
-    for i in range(sum(DIST_TIMED.values())):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(*shards[0])
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    one_card_ms = 1e3 * float(np.mean(step_s[DIST_TIMED["warmup"]:]))
+    one_card_ms = None
+    if timed:
+        step_s = []
+        for i in range(sum(DIST_TIMED.values())):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*shards[0])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        one_card_ms = 1e3 * float(np.mean(step_s[DIST_TIMED["warmup"]:]))
     del model, opt, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -5378,27 +5461,55 @@ def dist_oracle(cfg, batch, world, dev):
 
 
 def dist_identical(dist, reducer):
-    """True when every rank's parameters equal rank 0's bit for bit."""
+    """True when every rank's parameters equal rank 0's bit for bit
+    (under stage 3: the gathered flats)."""
     same = True
+    stage3 = reducer.mode == "stage3"
     for b in reducer.buckets:
-        ref = b.param_buf.clone()
+        if stage3:
+            full = torch.empty(b.numel, dtype=b.dtype, device=b.device)
+            all_gather_single(full, b.param_shard,
+                              group=reducer.group.process_group)
+        else:
+            full = b.param_buf
+        ref = full.clone()
         dist.broadcast(ref, src=0)
-        same = same and bool(torch.equal(ref, b.param_buf))
-    flag = torch.tensor([1 if same else 0], device=b.param_buf.device)
+        same = same and bool(torch.equal(ref, full))
+        del full, ref
+    flag = torch.tensor([1 if same else 0], device=b.device)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN)
     return bool(flag.item())
 
 
+def stage3_collectives(reducer):
+    """A stage-3 step's all-gathers and reduce-scatters: the root's flats
+    gathered once, each layer's twice (forward and backward; recompute's
+    second forward finds the layer gathered), every flat reduce-scattered
+    once."""
+    layer = sum(len(s.flats) for s in reducer.segments
+                if s.module is not None)
+    return (len(reducer.buckets) - layer + 2 * layer, len(reducer.buckets))
+
+
 def dist_comm_ms(dist, reducer, mode):
-    """One step's bucket collectives timed alone (CUDA events): the
-    all-reduce of every bucket, or stage 2's reduce-scatter and
-    all-gather."""
-    from paddle_tpu_torch.distributed.parallel import (all_gather_single,
-                                                      reduce_scatter_single)
+    """One step's collectives timed alone (CUDA events): the all-reduce of
+    every bucket, stage 2's reduce-scatter and all-gather, or stage 3's
+    gathers of each segment flat (the root once, a layer twice) and its
+    reduce-scatter."""
     pg = reducer.group.process_group
     tdist = torch.distributed
 
     def run():
+        if mode == "p_g_os":
+            for seg in reducer.segments:
+                for f in seg.flats:
+                    full = torch.empty(f.numel, dtype=f.dtype,
+                                       device=f.device)
+                    for _ in range(1 if seg.module is None else 2):
+                        all_gather_single(full, f.param_shard, group=pg)
+                    reduce_scatter_single(f.shard_grad, full,
+                                          op=tdist.ReduceOp.AVG, group=pg)
+            return
         for b in reducer.buckets:
             if mode == "dp":
                 tdist.all_reduce(b.grad_buf, op=tdist.ReduceOp.AVG, group=pg)
@@ -5412,49 +5523,73 @@ def dist_comm_ms(dist, reducer, mode):
     return time_ms(run, 3)
 
 
-def dist_run(mode, dist, cfg, batch, rank, world, dev):
-    """GPT-3 1.3B O2 on every rank: ``DIST_STEPS`` steps held against the
-    oracle (the first one written out to read the averaged gradients
-    before the optimizer step), then ``DIST_TIMED`` more, timed; the
-    launches per step exact on every rank and the parameters bit-identical
-    across ranks after each held step."""
-    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+def dist_settle(dist):
+    """Free what an earlier run left on the card (its cycles, the
+    allocator's cached blocks), every rank together, so a run's memory
+    readings start from nothing."""
     gc.collect()
     torch.cuda.synchronize()
+    dist.barrier()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    # what is still allocated before the run (tensors of the run before
-    # that NCCL's work list has not let go of yet), read beside the peak
-    base = torch.cuda.memory_allocated()
+
+
+def build_gpt_o2(cfg):
     model = GPTForPretraining(cfg, seed=0)
     opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
                           weight_decay=0.01, multi_precision=True)
-    model, opt = amp.decorate(models=model, optimizers=opt, level="O2",
-                              dtype="bfloat16")
-    if mode == "dp":
+    return amp.decorate(models=model, optimizers=opt, level="O2",
+                        dtype="bfloat16")
+
+
+def gpt_per_step(mode, reducer):
+    """Phase 6's launches a step; K3 once a parameter, once a bucket
+    shard under ZeRO 2, once a segment flat's shard under ZeRO 3."""
+    return dict(PER_STEP, adamw=(PER_STEP["adamw"] if mode == "dp"
+                                 else len(reducer.buckets)))
+
+
+def dist_run(mode, dist, build, local, per_step, rank, world, dev,
+             grads=False, timed=True, keep_params=True, wrap=None):
+    """``build()``'s O2 model and optimizer on every rank under ``mode``
+    (``"plain"``: unwrapped, ``"dp"``: DataParallel, ``"os_g"`` /
+    ``"p_g_os"``: ZeRO stage 2 / 3): ``DIST_STEPS`` steps held (the
+    first one written out with ``grads``, to read the averaged gradients
+    before the optimizer step), then (``timed``) ``DIST_TIMED`` more,
+    timed; the launches a step (``per_step(mode, reducer)``) and under
+    stage 3 the collectives a step exact on every rank, and the
+    parameters bit-identical across ranks after each held step.
+    ``wrap(model, opt)``, when given, wraps in ``mode``'s place."""
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    dist_settle(dist)
+    torch.cuda.reset_peak_memory_stats()
+    # what is still allocated before the run, read beside the peak
+    base = torch.cuda.memory_allocated()
+    model, opt = build()
+    if wrap is not None:
+        model, opt = wrap(model, opt)
+    elif mode == "dp":
         model = dist.DataParallel(model)
-    else:
-        model, opt, _ = group_sharded_parallel(model, opt, level="os_g")
-    reducer = model._reducer
+    elif mode != "plain":
+        model, opt, _ = group_sharded_parallel(model, opt, level=mode)
+    reducer = getattr(model, "_reducer", None)
     step = train_step(model, None, opt, step_fn=o2_step_fn)
-    local = dist_shard(batch, rank, dev)
-    # phase 6's launches a step on every rank; K3 once a parameter under
-    # DataParallel, once a bucket shard under ZeRO stage 2
-    per_step = dict(PER_STEP, adamw=(PER_STEP["adamw"] if mode == "dp"
-                                     else len(reducer.buckets)))
-    out = dict(buckets=len(reducer.buckets), losses=[], step_s=[])
+    want = per_step(mode, reducer)
+    coll = stage3_collectives(reducer) if mode == "p_g_os" else None
+    out = dict(buckets=len(reducer.buckets) if reducer else 0, losses=[],
+               step_s=[], collectives=coll)
     reset_counts()                   # count the main path's launches only
-    n_total = DIST_STEPS + sum(DIST_TIMED.values())
+    n_total = DIST_STEPS + (sum(DIST_TIMED.values()) if timed else 0)
     for s in range(n_total):
         before = counts()
+        c0 = (reducer.gathers, reducer.reduce_scatters) if coll else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if s == 0 and mode == "dp":
+        if s == 0 and grads:
             loss = o2_step_fn(model, *local)
             loss.backward()
+            g = dist_grads(model, opt, rank)
             if rank == 0:
-                out["grads"] = {n: host(p.grad) for n, p in
-                                model._layers.named_parameters()}
+                out["grads"] = g
             opt.step()
             opt.clear_grad()
             loss = loss.detach()
@@ -5463,26 +5598,33 @@ def dist_run(mode, dist, cfg, batch, rank, world, dev):
         torch.cuda.synchronize()
         out["step_s"].append(time.perf_counter() - t0)
         after = counts()
-        moved = {k: after[k] - before[k] for k in per_step}
-        if moved != per_step:
-            fail(f"rank {rank} {mode} step {s}: launches {moved} != "
-                 f"{per_step}")
+        moved = {k: after[k] - before[k] for k in want}
+        if moved != want:
+            fail(f"rank {rank} {mode} step {s}: launches {moved} != {want}")
+        if coll:
+            got = (reducer.gathers - c0[0], reducer.reduce_scatters - c0[1])
+            if got != coll:
+                fail(f"rank {rank} {mode} step {s}: gathers and "
+                     f"reduce-scatters {got} != {coll}")
         loss = loss.float()          # the global mean, in fp32
         dist.all_reduce(loss, op=dist.ReduceOp.AVG)
         out["losses"].append(float(loss))
-        if s < DIST_STEPS and not dist_identical(dist, reducer):
+        if s < DIST_STEPS and reducer is not None and \
+                not dist_identical(dist, reducer):
             fail(f"{mode} step {s}: the ranks' parameters differ")
         if s == DIST_STEPS - 1:
             # the training steps' peak, before the host copies (the
             # sharded masters' gathers free buffers NCCL has used, which
             # stay allocated until their stream events are processed)
             peak = torch.cuda.max_memory_allocated()
-            if rank == 0 or mode != "dp":
-                values = dist_values(model, opt, mode != "dp")
+            values = dist_values(model, opt, mode in ("os_g", "p_g_os"),
+                                 rank)
+            params = dist_params(model, rank) if keep_params else None
             if rank == 0:
                 out["values"] = values
-                out["params"] = {n: host(p) for n, p in
-                                 model._layers.named_parameters()}
+                if keep_params:
+                    out["params"] = params
+            del values, params
             torch.cuda.empty_cache()     # processes those events
             torch.cuda.reset_peak_memory_stats()
     out["launches"] = counts()
@@ -5490,22 +5632,26 @@ def dist_run(mode, dist, cfg, batch, rank, world, dev):
                         base], device=dev)
     dist.all_reduce(mem, op=dist.ReduceOp.MAX)
     out["peak_bytes"], out["base_bytes"] = (int(v) for v in mem.tolist())
-    out["comm_ms"] = dist_comm_ms(dist, reducer, mode)
-    timed = out["step_s"][DIST_STEPS + DIST_TIMED["warmup"]:]
-    out["step_ms"] = 1e3 * float(np.mean(timed))
-    out["tokens_s"] = world * TRAIN_BATCH * TRAIN_SEQ / float(np.mean(timed))
+    out["comm_ms"] = dist_comm_ms(dist, reducer, mode) if reducer else None
+    if timed:
+        t = out["step_s"][DIST_STEPS + DIST_TIMED["warmup"]:]
+        out["step_ms"] = 1e3 * float(np.mean(t))
+        out["tokens_s"] = world * local[0].numel() / float(np.mean(t))
     del model, opt, step, reducer
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def dist_compare(tag, got, want, exact):
+def dist_compare(tag, got, want, exact, median_tol=DIST_PARAM_MEDIAN,
+                 check=True):
     """``got``'s losses and values against ``want``'s: bit-equal when
     ``exact``, else within phase 6b/8b's tolerances (losses 0.0625; each
     value after DIST_STEPS steps within DIST_PARAM_MAX, each tensor's
-    median within DIST_PARAM_MEDIAN); the first step's gradients by
-    relative norm (GRAD_REL_TOL) where both sides have them."""
+    median within ``median_tol``); the first step's gradients by
+    relative norm (GRAD_REL_TOL) where both sides have them.  Without
+    ``check`` the distances are only measured (a control)."""
+    real_fail = fail if check else (lambda msg: None)
     lg, lw = got["losses"][:DIST_STEPS], want["losses"][:DIST_STEPS]
     say(f"distributed: {tag}: losses {lg} against {lw}")
     if exact:
@@ -5521,7 +5667,7 @@ def dist_compare(tag, got, want, exact):
         return dict(bit_equal=what)
     worst = max(abs(a - b) for a, b in zip(lg, lw))
     if not worst <= XCHECK_LOSS_TOL:
-        fail(f"{tag}: losses differ by {worst}")
+        real_fail(f"{tag}: losses differ by {worst}")
     res = dict(loss_diff=worst)
     if "grads" in got and "grads" in want:
         rels = {n: ((got["grads"][n].float() - w.float()).norm()
@@ -5534,17 +5680,24 @@ def dist_compare(tag, got, want, exact):
             f"{float(np.median(list(rels.values()))):.3e} "
             f"(tol {GRAD_REL_TOL})")
         if not rels[n] <= GRAD_REL_TOL:
-            fail(f"{tag}: gradient of {n}: relative error {rels[n]:.3e}")
-    mx = med = 0.0
-    for n, w in want["values"].items():
-        d = (got["values"][n] - w).abs()
-        mx, med = max(mx, d.max().item()), max(med, d.median().item())
+            real_fail(f"{tag}: gradient of {n}: relative error {rels[n]:.3e}")
+    maxes, medians = {}, {}
+    for n, w in want["values"].items():      # on the card: 27 GB at 32 layers
+        d = (got["values"][n].cuda() - w.cuda()).abs()
+        maxes[n], medians[n] = d.max().item(), d.median().item()
+        del d
+    mx, med = max(maxes.values()), max(medians.values())
     res.update(value_max=mx, value_median=med)
+    by_med = sorted(medians, key=medians.get, reverse=True)
+    over = sum(v > median_tol for v in medians.values())
     say(f"distributed: {tag}: values after {DIST_STEPS} steps: worst max "
-        f"diff {mx:.3e} (tol {DIST_PARAM_MAX:.2e}), worst median {med:.3e} "
-        f"(tol {DIST_PARAM_MEDIAN:.1e})")
-    if not (mx <= DIST_PARAM_MAX and med <= DIST_PARAM_MEDIAN):
-        fail(f"{tag}: values differ")
+        f"diff {mx:.3e} ({max(maxes, key=maxes.get)}; tol "
+        f"{DIST_PARAM_MAX:.2e}), worst median {med:.3e} (tol "
+        f"{median_tol:.3e}; {over} of {len(medians)} tensors over "
+        f"it; the largest: "
+        + ", ".join(f"{n} {medians[n]:.3e}" for n in by_med[:4]) + ")")
+    if not (mx <= DIST_PARAM_MAX and med <= median_tol):
+        real_fail(f"{tag}: values differ")
     return res
 
 
@@ -5579,11 +5732,191 @@ def dist_sanitizer(dist, world, dev):
     return f"raised at call #1 (rank 0 vs rank {world - 1}) in {secs:.3f} s"
 
 
+# ---------------------------------------------------------------------------
+# phase 18: LLaMA-2 7B O2 under ZeRO stage 3 with recompute
+# ---------------------------------------------------------------------------
+
+ZERO3_DEPTH = 2                  # the four-card check against the oracle
+ZERO3_CONTROL_MB = 1024          # above any segment flat (root: 0.52 GB)
+# stage 3's median distance from stage 2 at 32 layers may exceed the
+# layout control's (two stage-2 layouts, same call) by this factor: on
+# four H100s three layouts' pairwise medians spread by 1.1 %
+ZERO3_FLOOR_MARGIN = 1.1
+
+
+def zero3_layers(world) -> int:
+    """Phase 8's 8 layers on one card (the O2 state of 32 is 107.8 GB),
+    all 32 across several."""
+    return LLAMA_LAYERS if world == 1 else \
+        llama_config(LLAMA_PRESET).num_layers
+
+
+def zero3_global_batch(world):
+    """``world`` shards of phase 8's 2 x 4096 (at one rank phase 8's batch
+    itself), on the host."""
+    rs = np.random.RandomState(0)
+    n = world * LLAMA_BATCH
+    vocab = llama_config(LLAMA_PRESET).vocab_size
+    return (torch.from_numpy(rs.randint(0, vocab, (n, LLAMA_SEQ))),
+            torch.from_numpy(rs.randint(0, vocab, (n, LLAMA_SEQ))))
+
+
+def zero3_shard(batch, rank, dev):
+    return tuple(t[rank * LLAMA_BATCH:(rank + 1) * LLAMA_BATCH].to(dev)
+                 for t in batch)
+
+
+def zero3_trainer(layers, recompute):
+    """Phase 8's O2 trainer at ``layers`` (AdamW 1e-4, wd 0.01, fp32
+    masters), ``use_recompute`` as asked."""
+    def build():
+        cfg = llama_config(LLAMA_PRESET, num_layers=layers,
+                           use_recompute=recompute)
+        model = LlamaForCausalLM(cfg, seed=0)
+        opt = optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters(),
+                              weight_decay=0.01, multi_precision=True)
+        return amp.decorate(models=model, optimizers=opt, level="O2",
+                            dtype="bfloat16")
+    return build
+
+
+def zero3_per_step(layers, recompute):
+    return lambda mode, reducer: llama_per_step(
+        layers, recompute,
+        None if mode in ("plain", "dp") else len(reducer.buckets))
+
+
+def zero3_summary(run, layers, world):
+    """A run's numbers without its tensors, with MFU (6 N tokens a step
+    a card over 989 TFLOP/s; recompute's second forward not counted)."""
+    out = {k: v for k, v in run.items()
+           if k not in ("values", "params", "grads")}
+    n = llama_param_count(llama_config(LLAMA_PRESET, num_layers=layers))
+    out["n_params"], out["layers"] = n, layers
+    if "step_ms" in run:
+        per_card = run["tokens_s"] / world
+        out["tokens_s_card"] = per_card
+        out["mfu"] = 6 * n * per_card / PEAK_BF16
+    return out
+
+
+def zero3_rank(dist, rank, world, dev):
+    """Phase 18 on this rank.  One card: the plain O2 ``train_step``,
+    recompute alone and ``p_g_os`` + recompute at phase 8's depth, both
+    held bit-equal to the plain step.  Several: ``p_g_os`` + recompute at
+    depth 2 against rank 0's one-card oracle (the global batch as
+    accumulated micro-batches), then at all 32 layers against ``os_g`` +
+    recompute.  Returns rank 0's comparisons and every run's numbers."""
+    res = {}
+    batch = zero3_global_batch(world)
+    local = zero3_shard(batch, rank, dev)
+    if world == 1:
+        layers = zero3_layers(world)
+        plain = dist_run("plain", dist, zero3_trainer(layers, False), local,
+                         zero3_per_step(layers, False), rank, world, dev,
+                         grads=True, timed=False)
+        rc = dist_run("plain", dist, zero3_trainer(layers, True), local,
+                      zero3_per_step(layers, True), rank, world, dev,
+                      grads=True, timed=False)
+        res["recompute_vs_plain"] = dist_compare(
+            "phase 18: recompute vs the plain step", rc, plain, exact=True)
+        res["plain"] = zero3_summary(plain, layers, world)
+        res["recompute"] = zero3_summary(rc, layers, world)
+        del rc
+        z3 = dist_run("p_g_os", dist, zero3_trainer(layers, True), local,
+                      zero3_per_step(layers, True), rank, world, dev,
+                      grads=True)
+        res["p_g_os_vs_plain"] = dist_compare(
+            "phase 18: p_g_os + recompute vs the plain step", z3, plain,
+            exact=True)
+        res["p_g_os"] = zero3_summary(z3, layers, world)
+        return res
+    oracle = None
+    if rank == 0:
+        model, opt = zero3_trainer(ZERO3_DEPTH, False)()
+        step = train_step(model, None, opt, step_fn=o2_step_fn)
+        oracle = dist_oracle(model, opt, step,
+                             [zero3_shard(batch, j, dev)
+                              for j in range(world)], timed=False)
+        del model, opt, step
+    dist.barrier()
+    z3d = dist_run("p_g_os", dist, zero3_trainer(ZERO3_DEPTH, True), local,
+                   zero3_per_step(ZERO3_DEPTH, True), rank, world, dev,
+                   grads=True, timed=False)
+    if rank == 0:
+        res["depth2_vs_oracle"] = dist_compare(
+            f"phase 18: p_g_os + recompute at depth {ZERO3_DEPTH} vs the "
+            "oracle", z3d, oracle, exact=False)
+        res["oracle_losses"] = oracle["losses"]
+    res["depth2"] = zero3_summary(z3d, ZERO3_DEPTH, world)
+    del oracle, z3d
+    layers = zero3_layers(world)
+    runs = {}
+    for mode in ("os_g", "p_g_os"):
+        runs[mode] = dist_run(mode, dist, zero3_trainer(layers, True), local,
+                              zero3_per_step(layers, True), rank, world,
+                              dev, keep_params=False)
+        res[mode] = zero3_summary(runs[mode], layers, world)
+    # the layout control: stage 2 again, its buckets cut as stage 3's
+    # flats are (one a segment and dtype), so its gradients' reduce-
+    # scatters have stage 3's message sizes, not os_g's 25 MB
+    runs["os_g_seg"] = dist_run("os_g", dist, zero3_trainer(layers, True),
+                                local, zero3_per_step(layers, True), rank,
+                                world, dev, timed=False, keep_params=False,
+                                wrap=functools.partial(stage2_by_segment,
+                                                       dist))
+    if rank == 0:
+        for key in ("os_g", "p_g_os"):
+            say(zero3_line(key, res[key], world))
+    dist.barrier()
+    if rank == 0:
+        # the values' noise floor between two correct stage-2 layouts:
+        # the fixed batch is memorised (the losses fall ~10x a step), so
+        # the last step's gradients sit near their bf16 rounding, which
+        # the reduce-scatters' sizes and element order change (on four
+        # H100s 3.897e-6 at the median between these two, above
+        # DIST_PARAM_MEDIAN); stage 3 is held to that floor
+        res["os_g_seg_vs_os_g"] = control = dist_compare(
+            f"phase 18: os_g over stage 3's segment flats vs os_g at "
+            f"{layers} layers (the layout control, measured)",
+            runs["os_g_seg"], runs["os_g"], exact=False, check=False)
+        res["p_g_os_vs_os_g_seg"] = dist_compare(
+            f"phase 18: p_g_os vs os_g over stage 3's segment flats at "
+            f"{layers} layers (measured)", runs["p_g_os"], runs["os_g_seg"],
+            exact=False, check=False)
+        res["p_g_os_vs_os_g"] = dist_compare(
+            f"phase 18: p_g_os vs os_g at {layers} layers, recompute",
+            runs["p_g_os"], runs["os_g"], exact=False,
+            median_tol=max(DIST_PARAM_MEDIAN,
+                           ZERO3_FLOOR_MARGIN * control["value_median"]))
+    return res
+
+
+def stage2_by_segment(dist, model, opt):
+    """ZeRO stage 2 as ``GroupShardedStage2`` builds it, but with a bucket
+    for each stage-3 segment and dtype (a layer of the ``ModuleList``, or
+    the root), however large (the group-sharded API keeps DataParallel's
+    25 MB buckets)."""
+    from paddle_tpu_torch.distributed.fleet import DygraphShardingOptimizer
+    segment = {}
+    for m in model.modules():
+        if isinstance(m, torch.nn.ModuleList):
+            for i, layer in enumerate(m):
+                segment.update((id(p), i) for p in layer.parameters())
+    model = dist.DataParallel(model, comm_buffer_size=ZERO3_CONTROL_MB,
+                              last_comm_buffer_size=ZERO3_CONTROL_MB)
+    model._reducer.split_by(lambda p: segment.get(id(p), -1))
+    model._reducer.set_mode("reduce_scatter")
+    return model, DygraphShardingOptimizer.over(opt, model._group)
+
+
 def distributed_rank(out_dir: str) -> int:
-    """One rank of phase 17 (``--distributed-rank DIR``, started by the
-    port's launcher): the collectives, the oracle (rank 0), DataParallel
-    and ZeRO stage 2 on GPT-3 1.3B, the sanitizer; rank 0 holds the
-    comparisons; each rank writes ``DIR/rank<r>.json``."""
+    """One rank of phases 17 and 18 (``--distributed-rank DIR``, started
+    by the port's launcher): the collectives, the oracle (rank 0),
+    DataParallel and ZeRO stages 2 and 3 on GPT-3 1.3B, the sanitizer,
+    then phase 18 (``zero3_rank``); rank 0 holds the comparisons; each
+    rank writes ``DIR/rank<r>.json``."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed.env import runtime
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5598,24 +5931,39 @@ def distributed_rank(out_dir: str) -> int:
                      max_position_embeddings=TRAIN_SEQ,
                      hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
     batch = dist_global_batch(cfg, world)
-    oracle = dist_oracle(cfg, batch, world, dev) if rank == 0 else None
-    dist.barrier()
-    dp = dist_run("dp", dist, cfg, batch, rank, world, dev)
-    osg = dist_run("os_g", dist, cfg, batch, rank, world, dev)
+    oracle = None
     if rank == 0:
+        _, model, opt, step = build_trainer(N_LAYERS, seed=0)
+        oracle = dist_oracle(model, opt, step,
+                             [dist_shard(batch, j, dev)
+                              for j in range(world)])
+        del model, opt, step
+    dist.barrier()
+    local = dist_shard(batch, rank, dev)
+    runs = {}
+    for mode in ("dp", "os_g", "p_g_os"):
+        runs[mode] = dist_run(mode, dist, lambda: build_gpt_o2(cfg), local,
+                              gpt_per_step, rank, world, dev,
+                              grads=mode in ("dp", "p_g_os"))
+    if rank == 0:
+        dp = runs["dp"]
         res["dp_vs_oracle"] = dist_compare("DataParallel vs the oracle", dp,
                                            oracle, exact=world == 1)
-        res["os_g_vs_dp"] = dist_compare("os_g vs DataParallel", osg, dp,
-                                         exact=world == 1)
-        if world == 1:
-            dist_compare("os_g vs the oracle", osg, oracle, exact=True)
+        for mode in ("os_g", "p_g_os"):
+            res[f"{mode}_vs_dp"] = dist_compare(
+                f"{mode} vs DataParallel", runs[mode], dp, exact=world == 1)
+            if world == 1:
+                dist_compare(f"{mode} vs the oracle", runs[mode], oracle,
+                             exact=True)
         res["one_card_ms"] = oracle["one_card_ms"]
         res["oracle_losses"] = oracle["losses"]
-    for key, run in (("dp", dp), ("os_g", osg)):
+    for key, run in runs.items():
         res[key] = {k: v for k, v in run.items()
                     if k not in ("values", "params", "grads")}
+    del runs, oracle
     dist.barrier()                   # rank 0's comparisons ran on the host
     res["sanitizer"] = dist_sanitizer(dist, world, dev)
+    res["zero3"] = zero3_rank(dist, rank, world, dev)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -5700,9 +6048,9 @@ def dist_kill_checks(world, root):
 
 
 def distributed_main_path():
-    """Phase 17: the ranks through the port's launcher at the visible
-    card count (NCCL), then the SIGKILL checks; prints the numbers and
-    returns rank 0's results."""
+    """Phases 17 and 18: the ranks through the port's launcher at the
+    visible card count (NCCL), then the SIGKILL checks; prints the
+    numbers and returns rank 0's results."""
     world = torch.cuda.device_count()
     for args in (["--query-gpu=index,name,power.limit",
                   "--format=csv,noheader"], ["topo", "-m"],
@@ -5720,18 +6068,18 @@ def distributed_main_path():
                              ["--distributed-rank", str(root / "run")], 0,
                              DIST_LAUNCH_S)
     if proc.returncode != 0:
-        fail(f"phase 17: the launcher exited {proc.returncode}\n"
+        fail(f"phases 17-18: the launcher exited {proc.returncode}\n"
              f"{proc.stderr[-3000:]}{dist_logs(root / 'logs')}")
     ranks = [json.loads((root / "run" / f"rank{r}.json").read_text())
              for r in range(world)]
     r0 = ranks[0]
     say(f"distributed: {world} rank(s), {r0['backend']}, {r0['device']}; "
-        f"phase 17's ranks ran {secs:.3f} s")
+        f"phases 17-18's ranks ran {secs:.3f} s")
     worst = {k: max(r["collective_errs"][k] for r in ranks)
              for k in r0["collective_errs"]}
     say(f"distributed: collectives' worst error over the ranks: "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
-    for mode in ("dp", "os_g"):
+    for mode in ("dp", "os_g", "p_g_os"):
         m = r0[mode]
         per_card = m["tokens_s"] / world
         say(f"distributed: {mode}: {m['buckets']} buckets; step ms "
@@ -5747,17 +6095,60 @@ def distributed_main_path():
             f"({m['base_bytes'] / 2**30:.2f} GiB) allocated before the "
             "run")
         say(f"distributed: {mode}: launches over "
-            f"{len(m['step_s'])} steps {m['launches']}")
+            f"{len(m['step_s'])} steps {m['launches']}"
+            + (f"; gathers and reduce-scatters a step {m['collectives']}"
+               if m["collectives"] else ""))
     say(f"distributed: rank 0's comparisons: DataParallel vs the oracle "
         f"{r0['dp_vs_oracle']}; os_g vs DataParallel {r0['os_g_vs_dp']}; "
-        f"the oracle's losses {r0['oracle_losses']}")
+        f"p_g_os vs DataParallel {r0['p_g_os_vs_dp']}; the oracle's losses "
+        f"{r0['oracle_losses']}")
     say(f"distributed: sanitizer: {r0['sanitizer']}")
+    zero3_report(r0["zero3"], world)
     r0["kill"] = dist_kill_checks(world, root)
     return r0
 
 
+def zero3_line(key, m, world):
+    """One phase-18 run's numbers (``zero3_summary``) on a line, and its
+    launches on the next."""
+    line = (f"zero3: {key} at {m['layers']} layers ({m['n_params']} "
+            f"parameters): {m['buckets']} buckets/flats; step ms "
+            f"{[round(1e3 * t, 2) for t in m['step_s']]}")
+    if "step_ms" in m:
+        line += (f"; timed mean {m['step_ms']:.2f} ms = "
+                 f"{m['tokens_s']:.1f} tokens/s over {world} card(s), "
+                 f"{m['tokens_s_card']:.1f} a card, MFU "
+                 f"{100 * m['mfu']:.2f} % (6 N tokens a card / 989 "
+                 "TFLOP/s; recompute's second forward not counted)")
+    if m.get("comm_ms") is not None:
+        line += f"; the step's collectives alone {m['comm_ms']:.3f} ms"
+    line += (f"; peak memory {m['peak_bytes']} bytes "
+             f"({m['peak_bytes'] / 2**30:.2f} GiB, the largest rank's), "
+             f"{m['base_bytes']} bytes ({m['base_bytes'] / 2**30:.2f} "
+             "GiB) allocated before the run")
+    return line + (f"\nzero3: {key}: launches over {len(m['step_s'])} "
+                   f"steps {m['launches']}") + (
+        f"; gathers and reduce-scatters a step {m['collectives']}"
+        if m["collectives"] else "")
+
+
+def zero3_report(z, world):
+    """Phase 18's numbers, from rank 0's results."""
+    runs = ("plain", "recompute", "p_g_os") if world == 1 else \
+        ("depth2", "os_g", "p_g_os")
+    for key in runs:
+        say(zero3_line(key, z[key], world))
+    for key in ("recompute_vs_plain", "p_g_os_vs_plain", "depth2_vs_oracle",
+                "os_g_seg_vs_os_g", "p_g_os_vs_os_g_seg", "p_g_os_vs_os_g"):
+        if key in z:
+            say(f"zero3: {key}: {z[key]}")
+    if "oracle_losses" in z:
+        say(f"zero3: the depth-{ZERO3_DEPTH} oracle's losses "
+            f"{z['oracle_losses']}")
+
+
 def distributed_alone() -> int:
-    """``--distributed``: phase 17 alone, after the build."""
+    """``--distributed``: phases 17 and 18 alone, after the build."""
     say(f"build: {_build.build_all():.3f} s")
     distributed_main_path()
     say(json.dumps({"ok": True, "device": {
@@ -5872,13 +6263,21 @@ def main() -> int:
     # path's launches with the numbers of its own shape's case
     world = dist17["world"]
     dist_shape = f" on each of {world} rank(s)"
+    zero3 = dist17["zero3"]["p_g_os"]    # phase 18's stage-3 run
+    zero3_shape = (f", phase 18 at {zero3['layers']} layers under ZeRO 3 "
+                   f"+ recompute{dist_shape}")
     k1_paths = (("gpt_train", "main", train, k1_shape),
                 ("llama_train", "llama", llama,
                  "[64, 4096, 128] bf16 causal (batch 2 x 32 heads)"),
                 ("gpt_dist_dp", "main", dist17["dp"]["launches"],
                  k1_shape + dist_shape),
                 ("gpt_dist_os_g", "main", dist17["os_g"]["launches"],
-                 k1_shape + dist_shape))
+                 k1_shape + dist_shape),
+                ("gpt_dist_p_g_os", "main", dist17["p_g_os"]["launches"],
+                 k1_shape + dist_shape),
+                ("llama_zero3", "llama", zero3["launches"],
+                 "[64, 4096, 128] bf16 causal (batch 2 x 32 heads; K1a "
+                 "twice a layer under recompute)" + zero3_shape))
     for name, key, replaces, err in (
             ("flash_attention_fwd", "fwd", ":113", "o"),
             ("flash_attention_bwd_dq", "dq", ":269", "dq"),
@@ -5916,6 +6315,8 @@ def main() -> int:
                 ("gpt_dist_dp", k2, dist17["dp"]["launches"],
                  k2_shape + dist_shape),
                 ("gpt_dist_os_g", k2, dist17["os_g"]["launches"],
+                 k2_shape + dist_shape),
+                ("gpt_dist_p_g_os", k2, dist17["p_g_os"]["launches"],
                  k2_shape + dist_shape))
     for name, key, replaces, count in (
             ("layer_norm_fwd", "fwd", ":58", "ln_fwd"),
@@ -5947,7 +6348,15 @@ def main() -> int:
             ("gpt_dist_os_g", k3, dist17["os_g"]["launches"]["adamw"],
              f"one bucket's 1/{world} shard a launch ({dist17['os_g']['buckets']}"
              " buckets of <= 25 MB, flat bf16 grad on an fp32 master); "
-             "the numbers are the [2048, 8192] case's")):
+             "the numbers are the [2048, 8192] case's"),
+            ("gpt_dist_p_g_os", k3, dist17["p_g_os"]["launches"]["adamw"],
+             f"one segment flat's 1/{world} shard a launch "
+             f"({dist17['p_g_os']['buckets']} flats: a bf16 and an fp32 one "
+             "a segment); the numbers are the [2048, 8192] case's"),
+            ("llama_zero3", k3, zero3["launches"]["adamw"],
+             f"one segment flat's 1/{world} shard a launch "
+             f"({zero3['buckets']} flats){zero3_shape}; the numbers are "
+             "the [2048, 8192] case's")):
         by_path[path] = dict(
             launches=launched, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
@@ -5957,25 +6366,37 @@ def main() -> int:
         replaces="paddle_tpu/ops/pallas/fused_adamw.py:55",
         **by_path["gpt_train"], by_path=by_path))
     k4_shape = "[8192, 4096] fp32 (batch 2 x seq 4096 tokens, H 4096)"
+    # K4 and K5 run on the LLaMA training paths (phases 8 and 18): the
+    # entry's numbers are phase 8's, by_path holds each path's launches
     for name, key, replaces, count in (
             ("rms_norm_fwd", "fwd", ":57", "rms_fwd"),
             ("rms_norm_bwd_dx", "dx", ":76", "rms_bwd_dx")):
-        kernels.append(dict(
-            name=name, source="paddle_tpu_torch/ops/csrc/rms_norm.cu",
-            replaces="paddle_tpu/ops/pallas/rms_norm.py" + replaces,
-            launches=llama[count],
+        by_path = {path: dict(
+            launches=launched[count],
             max_abs_err=k4["max_abs_err"]["y" if key == "fwd" else "dx"],
             ms=k4[key + "_ms"], plain_ms=k4["plain_" + key + "_ms"],
             bound_ms=k4[key + "_bound"][0], bound_by=k4[key + "_bound"][1],
-            library_ms=k4["library_" + key + "_ms"], shape=k4_shape))
+            library_ms=k4["library_" + key + "_ms"], shape=shape)
+            for path, launched, shape in (
+                ("llama_train", llama, k4_shape),
+                ("llama_zero3", zero3["launches"], k4_shape + zero3_shape))}
+        kernels.append(dict(
+            name=name, source="paddle_tpu_torch/ops/csrc/rms_norm.cu",
+            replaces="paddle_tpu/ops/pallas/rms_norm.py" + replaces,
+            **by_path["llama_train"], by_path=by_path))
+    k5_shape = "[2, 4096, 32, 128] bf16 q/k, [4096, 128] bf16 tables, " \
+        "interleaved"
+    by_path = {path: dict(
+        launches=launched["rope"], max_abs_err=k5["max_abs_err"]["y"],
+        ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound"][0],
+        bound_by=k5["bound"][1], library_ms=k5["library_ms"], shape=shape)
+        for path, launched, shape in (
+            ("llama_train", llama, k5_shape),
+            ("llama_zero3", zero3["launches"], k5_shape + zero3_shape))}
     kernels.append(dict(
         name="rope", source="paddle_tpu_torch/ops/csrc/rope.cu",
         replaces="paddle_tpu/ops/pallas/rope.py:57",
-        launches=llama["rope"], max_abs_err=k5["max_abs_err"]["y"],
-        ms=k5["ms"], plain_ms=k5["plain_ms"], bound_ms=k5["bound"][0],
-        bound_by=k5["bound"][1], library_ms=k5["library_ms"],
-        shape="[2, 4096, 32, 128] bf16 q/k, [4096, 128] bf16 tables, "
-              "interleaved"))
+        **by_path["llama_train"], by_path=by_path))
     # K6a/b/c run on the decode paths, each at its own shape: the entry's
     # numbers are the llama2-7b path's (phase 10, the main path of this
     # slice), by_path holds each path's launches with its own case's

@@ -95,6 +95,22 @@ def auto_cast(enable: bool = True, custom_white_list=None,
         _state.enabled, _state.dtype = prev
 
 
+def _current():
+    """The amp state in force now (``fleet.recompute`` replays it)."""
+    return (_state.enabled, _state.dtype)
+
+
+@contextlib.contextmanager
+def _restored(saved):
+    """Run the block under the amp state ``_current`` returned."""
+    prev = (_state.enabled, _state.dtype)
+    _state.enabled, _state.dtype = saved
+    try:
+        yield
+    finally:
+        _state.enabled, _state.dtype = prev
+
+
 def cast(op_name: str, *tensors):
     """The O2 rule for one op's inputs: under :func:`auto_cast`, an op on
     ``BLACK_LIST`` casts fp16/bf16 inputs to fp32 and any other op casts

@@ -1,9 +1,10 @@
 """``paddle.distributed.fleet`` of the port (ref:
 ``python/paddle/distributed/fleet/``): the strategy, the role maker, the
 topology, ``fleet.init`` with ``distributed_model`` /
-``distributed_optimizer``, the hybrid and sharding optimizers and the
-gradient-sync utilities.  Model, pipeline and sequence parallel, MoE and
-recompute wait for later slices."""
+``distributed_optimizer``, the hybrid and sharding optimizers, the
+gradient-sync utilities and activation recompute (``recompute``,
+``recompute_sequential``, ``recompute_hybrid``).  Model, pipeline and
+sequence parallel and MoE wait for later slices."""
 from .base.distributed_strategy import DistributedStrategy
 from .base.role_maker import PaddleCloudRoleMaker, UserDefinedRoleMaker, Role
 from .base.topology import (CommunicateTopology, HybridCommunicateGroup,
@@ -12,6 +13,7 @@ from .fleet import Fleet, fleet
 from . import meta_parallel
 from .meta_optimizers.dygraph_optimizer import (HybridParallelOptimizer,
                                                 DygraphShardingOptimizer)
+from .recompute import recompute, recompute_sequential, recompute_hybrid
 from . import utils
 
 # module-level singleton API (ref: fleet/__init__.py binds Fleet methods)

@@ -19,6 +19,12 @@ DataParallel reducer (``parallel._Reducer``):
 * an all-gather over the group then refreshes every rank's parameters,
   which are views of the bucket.
 
+Under ZeRO stage 3 (``GroupShardedStage3``: the reducer's ``mode`` is
+``"stage3"``) the "buckets" are the segment flats of
+``parallel._ShardedReducer``: K3 updates each flat's shard (its
+``param_shard`` and the averaged ``shard_grad``) and nothing is gathered
+after the step; the next forward gathers the segments it runs.
+
 Weight decay must be uniform within a bucket: the buckets are split by
 each parameter's decay (``apply_decay_param_fun``) when the optimizer is
 built.  ``lr_ratio`` raises ``NotImplementedError``.
@@ -98,9 +104,10 @@ class DygraphShardingOptimizer:
             if b.numel % self._nranks:
                 raise ValueError(f"a bucket of {b.numel} elements does not "
                                  f"split over {self._nranks} ranks")
-        if reducer.mode == "reduce_scatter" and \
+        if reducer.mode in ("reduce_scatter", "stage3") and \
                 reducer.group.ranks != group.ranks:
-            raise ValueError("stage 2 shards over the reducer's own group")
+            raise ValueError("stages 2 and 3 shard over the reducer's own "
+                             "group")
         # bucket index -> {"m", "v", "pows", "master"} of this rank's shard
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
 
@@ -108,35 +115,48 @@ class DygraphShardingOptimizer:
         n = b.numel // self._nranks
         return self._rank * n, (self._rank + 1) * n
 
-    def _new_state(self, b, lo, hi) -> Dict[str, torch.Tensor]:
+    def _param_shard(self, b) -> torch.Tensor:
+        """This rank's shard of bucket (or stage-3 flat) ``b``'s values."""
+        if self._reducer.mode == "stage3":
+            return b.param_shard
+        lo, hi = self._shard(b)
+        return b.param_buf[lo:hi]
+
+    def _new_state(self, b) -> Dict[str, torch.Tensor]:
         dev = b.device
-        st = {"m": torch.zeros(hi - lo, dtype=torch.float32, device=dev),
+        n = b.numel // self._nranks
+        st = {"m": torch.zeros(n, dtype=torch.float32, device=dev),
               "pows": torch.ones(2, dtype=torch.float32, device=dev)}
         st["v"] = torch.zeros_like(st["m"])
         if self._inner_opt._use_master(b.params[0]):
-            st["master"] = b.param_buf[lo:hi].float()
+            st["master"] = self._param_shard(b).float()
+        if self._reducer.mode == "stage3":
+            self._reducer.frozen = True      # the layout is fixed now
         return st
 
     @torch.no_grad()
     def step(self):
         opt = self._inner_opt
         pg = self._group.process_group
+        stage3 = self._reducer.mode == "stage3"
         works = []
         for k, b in enumerate(self._reducer.buckets):
-            if all(p.grad is None for p in b.params):
+            ready = b.has_grad if stage3 else \
+                any(p.grad is not None for p in b.params)
+            if not ready:
                 continue
-            lo, hi = self._shard(b)
             st = self._state.get(k)
             if st is None:
-                st = self._state[k] = self._new_state(b, lo, hi)
+                st = self._state[k] = self._new_state(b)
             betas = opt._betas.get(b.device)
             if betas is None:
                 betas = torch.tensor([opt._beta1, opt._beta2],
                                      dtype=torch.float32, device=b.device)
                 opt._betas[b.device] = betas
             st["pows"].mul_(betas)
-            p_shard = b.param_buf[lo:hi]
-            g_shard = b.shard_grad if self._reducer.mode == "reduce_scatter" \
+            p_shard = self._param_shard(b)
+            lo, hi = self._shard(b)
+            g_shard = b.shard_grad if self._reducer.mode != "all_reduce" \
                 else b.grad_buf[lo:hi]
             master = st.get("master")
             fused_adamw_update_(
@@ -144,14 +164,20 @@ class DygraphShardingOptimizer:
                 st["m"], st["v"], opt._lr_on(b.device), st["pows"][0:1],
                 st["pows"][1:2], opt._beta1, opt._beta2, opt._epsilon,
                 b.key[2], p_low=p_shard if master is not None else None)
+            if stage3:
+                continue             # the next forward gathers
             _collective_entry("all_gather", self._group, tensor=p_shard)
             works.append(all_gather_single(b.param_buf, p_shard, group=pg,
                                            async_op=True))
         for w in works:
             w.wait()
+        if stage3:
+            self._reducer.release()
 
     def clear_grad(self, set_to_zero: bool = True):
         self._inner_opt.clear_grad(set_to_zero=set_to_zero)
+        if self._reducer.mode == "stage3":
+            self._reducer.clear()
 
     clear_gradients = clear_grad
 
@@ -176,8 +202,10 @@ class DygraphShardingOptimizer:
             full = {name: self._gather(st[key], b.numel)
                     for name, key in (("moment1", "m"), ("moment2", "v"),
                                       ("master", "master")) if key in st}
-            for p, off in zip(b.params, b.offsets):
-                entry = {name: t[off:off + p.numel()].view(p.shape).clone()
+            shapes = b.shapes if self._reducer.mode == "stage3" else \
+                [p.shape for p in b.params]     # stage 3: empty params
+            for p, off, shape in zip(b.params, b.offsets, shapes):
+                entry = {name: t[off:off + shape.numel()].view(shape).clone()
                          for name, t in full.items()}
                 entry["beta_pows"] = st["pows"].clone()
                 state[index[id(p)]] = entry
@@ -198,7 +226,7 @@ class DygraphShardingOptimizer:
             if all(e is None for _, _, e in entries):
                 continue
             lo, hi = self._shard(b)
-            st = self._new_state(b, lo, hi)
+            st = self._new_state(b)
             for name, key in (("moment1", "m"), ("moment2", "v"),
                               ("master", "master")):
                 if key not in st:
@@ -207,7 +235,8 @@ class DygraphShardingOptimizer:
                                    device=b.device)
                 for p, off, e in entries:
                     if e is not None:
-                        full[off:off + p.numel()] = e[name].reshape(-1)
+                        full[off:off + e[name].numel()] = \
+                            e[name].reshape(-1)
                 st[key] = full[lo:hi].clone()
             pows = next(e["beta_pows"] for _, _, e in entries
                         if e is not None)

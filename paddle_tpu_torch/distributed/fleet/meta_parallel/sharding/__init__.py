@@ -1,2 +1,2 @@
-from .group_sharded import (GroupShardedStage2, group_sharded_parallel,
-                            save_group_sharded_model)
+from .group_sharded import (GroupShardedStage2, GroupShardedStage3,
+                            group_sharded_parallel, save_group_sharded_model)

@@ -1,24 +1,30 @@
-"""ZeRO group sharding, stages 1 and 2; counterpart of
+"""ZeRO group sharding, stages 1 to 3; counterpart of
 ``paddle_tpu/distributed/fleet/meta_parallel/sharding/group_sharded.py``.
 
 The JAX package records the stage and lets GSPMD lay the state out.
-Here the stages run on the DataParallel reducer's flat buckets (see
-``parallel.py``) and ``DygraphShardingOptimizer``:
+Here the stages run on the port's own reducers (``parallel.py``) and
+``DygraphShardingOptimizer``:
 
 * ``"os"`` (stage 1): the model is wrapped in ``DataParallel``, each
   bucket is all-reduced (averaged) and each rank updates its shard of the
   optimizer state;
 * ``"os_g"`` (stage 2): :class:`GroupShardedStage2` reduce-scatters each
   bucket instead, so each rank receives only its shard of the averaged
-  gradient.
+  gradient;
+* ``"p_g_os"`` (stage 3): :class:`GroupShardedStage3` shards the
+  parameters too (``parallel._ShardedReducer``): between steps each rank
+  holds its shard of every segment's flat (a layer of the model's
+  ``ModuleList``, or the root: embeddings, final norm, head), the
+  forward and the backward gather a segment while it runs, and its
+  gradients are reduce-scattered once they are complete.
 
-In both, each rank holds the fp32 master, ``moment1`` and ``moment2`` of
-its shard only, K3 updates each shard (one launch per bucket), and an
-all-gather refreshes the bf16 parameters, which are views of the
-buckets: every rank's model holds full parameters after each step, so
-``state_dict`` on the wrapper returns full values, as the reference's
-does.  ``"p_g_os"`` (stage 3, parameters sharded between steps) waits
-for the next distributed slice and raises ``NotImplementedError``.
+In stages 1 and 2 each rank holds the fp32 master, ``moment1`` and
+``moment2`` of its shard only, K3 updates each shard (one launch per
+bucket), and an all-gather refreshes the bf16 parameters, which are views
+of the buckets: every rank's model holds full parameters after each step,
+so ``state_dict`` on the wrapper returns full values, as the reference's
+does.  In stage 3, K3 updates each segment flat's shard and nothing is
+gathered after the step: the next forward gathers.
 """
 from __future__ import annotations
 
@@ -28,13 +34,13 @@ import torch
 
 from ....communication.collective_ops import broadcast
 from ....communication.group import _resolve_group
-from ....parallel import DataParallel
+from ....parallel import DataParallel, _ShardedReducer
 from ...base.topology import get_hybrid_communicate_group
 from ...meta_optimizers.dygraph_optimizer.hybrid_parallel_optimizer import (
     DygraphShardingOptimizer)
 
-__all__ = ["GroupShardedStage2", "group_sharded_parallel",
-           "save_group_sharded_model"]
+__all__ = ["GroupShardedStage2", "GroupShardedStage3",
+           "group_sharded_parallel", "save_group_sharded_model"]
 
 
 def _sharding_group(group):
@@ -80,6 +86,109 @@ class GroupShardedStage2(DataParallel):
         return super().forward(*inputs, **kwargs)
 
 
+class GroupShardedStage3(torch.nn.Module):
+    """ref: ``sharding/group_sharded_stage3.py``: the model with its
+    parameters, gradients and optimizer state sharded over ``group``
+    (default: fleet's sharding group, else every rank), gathered by
+    segment while they run (``parallel._ShardedReducer``).
+
+    **What a parameter holds.**  Between steps every trainable parameter
+    of the model is an empty tensor of its dtype and device (shape
+    ``[0]``); this rank's values live in the reducer's flat shards.  A
+    segment's parameters hold their full values (views of a gathered
+    flat) only while it runs in the forward or the backward.  So read
+    the weights through :meth:`state_dict` or :meth:`get_all_parameters`
+    (both collective: every rank calls them), not ``parameters()``.
+
+    ``pertrain_sync_models`` broadcasts the group's first rank's weights
+    when the wrapper is built; ``sync_buffers`` broadcasts the buffers
+    before each forward.  ``optimizer`` is accepted and read by nothing
+    (build the sharded optimizer after wrapping, as
+    ``group_sharded_parallel`` does).  ``offload``, ``sync_comm``,
+    ``dp_group``, ``exclude_layer``, a ``segment_size`` other than the
+    default and a ``device`` other than the card or the CPU raise
+    ``NotImplementedError``; the reference's default ``device`` names
+    its own card, the port's the CUDA card."""
+
+    def __init__(self, layer, optimizer=None, group=None,
+                 sync_buffers: bool = False, device: str = "gpu",
+                 segment_size: int = 2 ** 20,
+                 pertrain_sync_models: bool = True, offload: bool = False,
+                 sync_comm: bool = False, dp_group=None,
+                 exclude_layer=None):
+        super().__init__()
+        for what, given in (("offload", offload), ("sync_comm", sync_comm),
+                            ("dp_group", dp_group is not None),
+                            ("exclude_layer", exclude_layer is not None),
+                            ("segment_size", segment_size != 2 ** 20),
+                            ("device", device not in ("gpu", "cpu"))):
+            if given:
+                raise NotImplementedError(f"GroupShardedStage3 {what}")
+        self._layers = layer
+        self._group = _sharding_group(group)
+        self._sync_buffers = sync_buffers
+        self._reducer = _ShardedReducer(layer, self._group,
+                                        sync=pertrain_sync_models)
+        if pertrain_sync_models:
+            for b in layer.buffers():
+                broadcast(b, src=self._group.ranks[0], group=self._group)
+
+    def forward(self, *inputs, **kwargs):
+        if self._sync_buffers:
+            for b in self._layers.buffers():
+                broadcast(b, src=self._group.ranks[0], group=self._group)
+        red = self._reducer
+        red.sync_layout()
+        red.begin_forward()
+        out = self._layers(*inputs, **kwargs)
+        red.end_forward(out)
+        return out
+
+    def get_all_parameters(self, convert2cpu: bool = False):
+        """Every parameter of the model with its full value, on every rank
+        (a collective call).  The parameters stay full until the next
+        forward or optimizer step; with ``convert2cpu`` the call returns
+        host copies instead and the parameters are freed again."""
+        red = self._reducer
+        red.gather_all()
+        if not convert2cpu:
+            return list(self._layers.parameters())
+        out = [p.detach().cpu() for p in self._layers.parameters()]
+        red.release()
+        return out
+
+    def state_dict(self, *args, **kwargs):
+        """The full weights on every rank (a collective call): each
+        segment is gathered, copied and freed."""
+        red = self._reducer
+        red.gather_all()
+        try:
+            return {k: v.detach().clone() if isinstance(v, torch.Tensor)
+                    else v for k, v in
+                    self._layers.state_dict(*args, **kwargs).items()}
+        finally:
+            red.release()
+
+    def set_state_dict(self, state_dict, *args, **kwargs):
+        """Load full weights (a collective call): each rank keeps its
+        shards."""
+        red = self._reducer
+        red.gather_all()
+        try:
+            out = self._layers.load_state_dict(state_dict, *args, **kwargs)
+            for f in red.buckets:
+                f.param_shard.copy_(f.full[f.lo:f.hi])
+        finally:
+            red.release()
+        return out
+
+    def __getattr__(self, name):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            return getattr(self._modules["_layers"], name)
+
+
 def group_sharded_parallel(model, optimizer, level: str, scaler=None,
                            group=None, offload: bool = False,
                            sync_buffers: bool = False,
@@ -87,18 +196,15 @@ def group_sharded_parallel(model, optimizer, level: str, scaler=None,
                            sync_comm: bool = False, dp_group=None,
                            exclude_layer=None):
     """ref: ``distributed/sharding/group_sharded.py``
-    group_sharded_parallel.  ``level``: ``"os"`` (stage 1) or ``"os_g"``
-    (stage 2); returns ``(model, optimizer, scaler)`` with the model
-    wrapped and the optimizer sharded over ``group`` (default: fleet's
-    sharding group, else every rank).  ``"p_g_os"``, ``scaler``,
-    ``offload``, ``sync_comm``, ``dp_group``, ``exclude_layer`` and
-    non-default buffer or segment sizes raise ``NotImplementedError``."""
+    group_sharded_parallel.  ``level``: ``"os"`` (stage 1), ``"os_g"``
+    (stage 2) or ``"p_g_os"`` (stage 3); returns ``(model, optimizer,
+    scaler)`` with the model wrapped and the optimizer sharded over
+    ``group`` (default: fleet's sharding group, else every rank).
+    ``scaler``, ``offload``, ``sync_comm``, ``dp_group``,
+    ``exclude_layer`` and non-default buffer or segment sizes raise
+    ``NotImplementedError``."""
     if level not in ("os", "os_g", "p_g_os"):
         raise ValueError("level must be one of 'os', 'os_g', 'p_g_os'")
-    if level == "p_g_os":
-        raise NotImplementedError("stage 3 ('p_g_os', parameters sharded "
-                                  "between steps) waits for the next "
-                                  "distributed slice")
     for what, given in (("scaler", scaler is not None), ("offload", offload),
                         ("sync_comm", sync_comm),
                         ("dp_group", dp_group is not None),
@@ -110,8 +216,11 @@ def group_sharded_parallel(model, optimizer, level: str, scaler=None,
     group = _sharding_group(group)
     if level == "os":
         model = DataParallel(model, group=group)
-    else:
+    elif level == "os_g":
         model = GroupShardedStage2(model, optimizer, group=group,
+                                   sync_buffers=sync_buffers)
+    else:
+        model = GroupShardedStage3(model, optimizer, group=group,
                                    sync_buffers=sync_buffers)
     return model, DygraphShardingOptimizer.over(optimizer, group), scaler
 
@@ -120,13 +229,14 @@ def save_group_sharded_model(model, output, optimizer=None):
     """ref: ``save_group_sharded_model``: the wrapped model's full
     weights (``model.pdmodel``) and the optimizer's gathered state
     (``model.pdopt``) under ``output``, written by the group's first
-    rank.  Every rank makes the call (gathering the state is
-    collective)."""
+    rank.  Every rank makes the call (gathering the weights under stage
+    3 and the optimizer's state is collective)."""
+    model_state = model.state_dict()
     opt_state = optimizer.state_dict() if optimizer is not None else None
     g = getattr(model, "_group", None)
     if g is not None and g.rank != 0:
         return
     os.makedirs(output, exist_ok=True)
-    torch.save(model.state_dict(), os.path.join(output, "model.pdmodel"))
+    torch.save(model_state, os.path.join(output, "model.pdmodel"))
     if opt_state is not None:
         torch.save(opt_state, os.path.join(output, "model.pdopt"))

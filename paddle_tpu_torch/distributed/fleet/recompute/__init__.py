@@ -1,0 +1,5 @@
+"""Activation recompute (``fleet.recompute``); counterpart of
+``paddle_tpu/distributed/fleet/recompute/``."""
+from .recompute import recompute, recompute_hybrid, recompute_sequential
+
+__all__ = ["recompute", "recompute_sequential", "recompute_hybrid"]

@@ -35,6 +35,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
+import weakref
 from typing import Dict, List, Optional
 
 import torch
@@ -118,10 +119,37 @@ reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
 
+def _weak_hook(method):
+    """A tensor hook that calls ``method`` through a weak reference.  A
+    tensor keeps its hooks on its C++ side, where the garbage collector
+    cannot see the cycle parameter -> hook -> reducer -> parameter, so a
+    strong reference would keep a deleted model's reducer and buffers
+    alive."""
+    ref = weakref.WeakMethod(method)
+
+    def hook(*args):
+        m = ref()
+        return None if m is None else m(*args)
+    return hook
+
+
 def reducer_of(p) -> Optional["_Reducer"]:
     """The reducer whose buckets hold parameter ``p`` (the sharded
     optimizers find their parameters' buckets this way)."""
     return getattr(p, "_dist_reducer", None)
+
+
+def _slots(params, nranks: int):
+    """Each parameter's offset in a flat buffer of their dtype, every slot
+    starting on a ``_ALIGN_BYTES`` boundary, and the buffer's length
+    padded to a multiple of ``nranks`` aligned units."""
+    align = max(_ALIGN_BYTES // params[0].element_size(), 1)
+    offsets, o = [], 0
+    for p in params:
+        offsets.append(o)
+        o += -(-p.numel() // align) * align
+    unit = align * nranks
+    return offsets, -(-o // unit) * unit
 
 
 class _Bucket:
@@ -133,13 +161,7 @@ class _Bucket:
         self.key = key
         p0 = params[0]
         self.dtype, self.device = p0.dtype, p0.device
-        align = max(_ALIGN_BYTES // p0.element_size(), 1)
-        self.offsets, o = [], 0
-        for p in params:
-            self.offsets.append(o)
-            o += -(-p.numel() // align) * align
-        unit = align * nranks
-        self.numel = -(-o // unit) * unit
+        self.offsets, self.numel = _slots(params, nranks)
         self.param_buf = torch.zeros(self.numel, dtype=self.dtype,
                                      device=self.device)
         self.grad_buf = torch.zeros_like(self.param_buf)
@@ -192,8 +214,9 @@ class _Reducer:
         self._armed = False
         self._next = 0
         self._build()
-        self._hooks = [p.register_post_accumulate_grad_hook(self._on_grad)
-                       for p in self.params]
+        self._hooks = [
+            p.register_post_accumulate_grad_hook(_weak_hook(self._on_grad))
+            for p in self.params]
         for p in self.params:
             p._dist_reducer = self
 
@@ -316,6 +339,353 @@ class _Reducer:
             if b.work is not None:
                 b.work.wait()
                 b.work = None
+
+
+# ---------------------------------------------------------------------------
+# ZeRO stage 3: parameters sharded between steps, gathered by segment
+# ---------------------------------------------------------------------------
+
+class _ShardFlat:
+    """The parameters of one key (dtype, device, weight decay) of a
+    stage-3 segment, in ``_Bucket``'s aligned slots.  Between steps this
+    rank holds elements ``[lo, hi)`` of the flat: ``param_shard`` (the
+    values) and, after a backward, ``shard_grad`` (the averaged
+    gradient).  While the segment is gathered the flat exists in full
+    (``full``) and its parameters view it."""
+
+    def __init__(self, params, values, nranks: int, rank: int, key):
+        self.params, self.key = params, key
+        self.dtype, self.device = values[0].dtype, values[0].device
+        self.shapes = [v.shape for v in values]
+        self.offsets, self.numel = _slots(values, nranks)
+        n = self.numel // nranks
+        self.lo, self.hi = rank * n, (rank + 1) * n
+        self.full = torch.zeros(self.numel, dtype=self.dtype,
+                                device=self.device)
+        for v, off in zip(values, self.offsets):
+            self.full[off:off + v.numel()].copy_(v.reshape(-1))
+        self.param_shard: Optional[torch.Tensor] = None
+        self.shard_grad: Optional[torch.Tensor] = None
+        self.has_grad = False
+        self.empty = torch.empty(0, dtype=self.dtype, device=self.device)
+        self.work = self.grad_full = self.grad_add = None
+
+    def view(self, full: torch.Tensor) -> None:
+        for p, off, shape in zip(self.params, self.offsets, self.shapes):
+            p.data = full[off:off + shape.numel()].view(shape)
+        self.full = full
+
+    def release(self) -> None:
+        for p in self.params:
+            p.data = self.empty
+        self.full = None
+
+
+class _Segment:
+    """One unit of the forward (a layer of a ``ModuleList``, or the root:
+    every parameter outside the layers) and its flats."""
+
+    def __init__(self, name: str, module, flats: List[_ShardFlat]):
+        self.name, self.module, self.flats = name, module, flats
+        self.gathered = False
+        self.pending: set = set()
+
+
+def _tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    if isinstance(out, dict):
+        return [t for o in out.values() for t in _tensors(o)]
+    return []
+
+
+class _ShardedReducer:
+    """ZeRO stage 3 over ``group`` (``GroupShardedStage3``).  The model's
+    trainable parameters are laid out by **segment**: each element of an
+    ``nn.ModuleList`` (a decoder layer or block) is one, and every
+    parameter outside them, or shared by two of them, belongs to the
+    root segment (embeddings, final norm, head; a head tied to the
+    embedding is then one parameter of one segment).  Each segment holds
+    one flat per key (dtype, device, decay) in aligned slots, and this
+    rank keeps only its ``1/n`` shard of each flat between steps; every
+    parameter is then an empty tensor of its dtype.
+
+    * Forward: the root is gathered (all-gather) when the wrapper's
+      forward starts; a layer is gathered by a forward pre-hook and freed
+      by a forward hook, which also hooks the layer's outputs.
+    * Backward: the first gradient reaching a layer's outputs gathers it
+      again; a recomputation inside the backward (``fleet.recompute``)
+      finds it gathered and keeps it.  Once every parameter of a segment
+      has its gradient (``register_post_accumulate_grad_hook``; a tied
+      parameter's fires after both uses), the segment's gradients are
+      copied into a full flat and reduce-scattered (averaged) into this
+      rank's ``shard_grad``, asynchronously, in a fixed order (layers
+      last to first, then the root; a segment ready early waits for its
+      turn), and the gradients and parameters are freed; the previous
+      segment's reduce-scatter is waited on first, so at most one is in
+      flight.  The end of the backward (an engine callback) reduce-
+      scatters segments with unused parameters (their gradients zero)
+      and waits.  A second backward before ``clear`` adds its gradient
+      to the first.
+
+    ``gathers`` and ``reduce_scatters`` count the collectives (one a
+    flat)."""
+
+    mode = "stage3"
+
+    def __init__(self, model: torch.nn.Module, group, sync: bool):
+        self.params, seen = [], set()
+        for p in model.parameters():
+            if p.requires_grad and id(p) not in seen:
+                seen.add(id(p))
+                self.params.append(p)
+        for p in self.params:
+            if reducer_of(p) is not None:
+                raise ValueError("a parameter is already in a DataParallel "
+                                 "or group-sharded wrapper")
+        self.group = group
+        self.nranks, self.rank = group.nranks, group.rank
+        self._key_fn = None
+        self.frozen = False          # the sharded optimizer holds state
+        self.gathers = self.reduce_scatters = 0
+        self._armed = False
+        self._next = 0
+        self._inflight: List[_Segment] = []
+        self._units = self._find_units(model)
+        self._build({id(p): p.detach() for p in self.params}, sync)
+        for name, m, _ in self._units:
+            if m is not None:
+                m.register_forward_pre_hook(
+                    lambda mod, args, name=name: self._pre_forward(name))
+                m.register_forward_hook(
+                    lambda mod, args, out, name=name:
+                    self._post_forward(name, out))
+        self._hooks = [
+            p.register_post_accumulate_grad_hook(_weak_hook(self._on_grad))
+            for p in self.params]
+        for p in self.params:
+            p._dist_reducer = self
+
+    # -- layout ----------------------------------------------------------
+    def _find_units(self, model):
+        """``(name, module, params)`` of the root (module None) and of
+        every element of the outermost ``ModuleList``s."""
+        layers = []
+        for name, m in model.named_modules():
+            if isinstance(m, torch.nn.ModuleList) and not any(
+                    name.startswith(u + ".") for u, _ in layers):
+                layers += [(f"{name}.{i}", c) for i, c in enumerate(m)]
+        trainable = {id(p) for p in self.params}
+        owners: Dict[int, List[int]] = {}
+        for k, (_, m) in enumerate(layers):
+            for p in m.parameters():
+                if id(p) in trainable:
+                    owners.setdefault(id(p), []).append(k)
+        units = [("root", None, [p for p in self.params
+                                 if len(owners.get(id(p), ())) != 1])]
+        units += [(name, m, [p for p in m.parameters()
+                             if owners.get(id(p)) == [k]])
+                  for k, (name, m) in enumerate(layers)]
+        return [u for u in units if u[2]]
+
+    def _build(self, values: Dict[int, torch.Tensor], sync: bool) -> None:
+        from .communication.collective_ops import broadcast
+        self.segments, self.buckets = [], []
+        self._seg_of, self._by_name = {}, {}
+        for name, m, params in self._units:
+            keyed: Dict[tuple, list] = {}
+            for p in params:
+                v = values[id(p)]
+                key = (v.dtype, v.device,
+                       self._key_fn(p) if self._key_fn else None)
+                keyed.setdefault(key, []).append(p)
+            flats = []
+            for key, ps in keyed.items():
+                f = _ShardFlat(ps, [values[id(p)] for p in ps], self.nranks,
+                               self.rank, key)
+                if sync:
+                    broadcast(f.full, src=self.group.ranks[0],
+                              group=self.group)
+                f.param_shard = f.full[f.lo:f.hi].clone()
+                f.release()
+                flats.append(f)
+            seg = _Segment(name, m, flats)
+            self.segments.append(seg)
+            self._by_name[name] = seg
+            self.buckets += flats
+            for p in params:
+                self._seg_of[id(p)] = seg
+        # reduce-scatter order: the layers last to first, then the root
+        self._order = [s for s in reversed(self.segments)
+                       if s.module is not None] + \
+            [s for s in self.segments if s.module is None]
+
+    def _values(self) -> Dict[int, torch.Tensor]:
+        """Every parameter's full value (a collective call), cast to the
+        dtype the parameter has now."""
+        want = {id(p): p.dtype for p in self.params}
+        out = {}
+        for seg in self.segments:
+            self.gather(seg)
+            for p in (p for f in seg.flats for p in f.params):
+                out[id(p)] = p.detach().to(want[id(p)], copy=True)
+            self.free(seg)
+        return out
+
+    def _relayout(self) -> None:
+        if self.frozen:
+            raise RuntimeError("the stage-3 layout changed (a parameter's "
+                               "dtype or decay) after the sharded "
+                               "optimizer's first step")
+        self._build(self._values(), sync=False)
+
+    def split_by(self, key_fn) -> None:
+        """Make every flat hold one value of ``key_fn(param)`` (the
+        sharded optimizer's decay groups) as ``flat.key[2]``."""
+        self._key_fn = key_fn
+        keys = [{key_fn(p) for p in f.params} for f in self.buckets]
+        if any(len(k) > 1 for k in keys):
+            self._relayout()
+            return
+        for f, (k,) in zip(self.buckets, keys):
+            f.key = f.key[:2] + (k,)
+
+    def sync_layout(self) -> None:
+        """Rebuild the flats if a parameter's dtype changed
+        (``amp.decorate`` after wrapping casts the empty parameter; the
+        shard is cast with it)."""
+        if any(p.dtype != f.dtype for f in self.buckets for p in f.params):
+            self._relayout()
+
+    # -- gather / free ---------------------------------------------------
+    def gather(self, seg: _Segment) -> None:
+        if seg.gathered:
+            return
+        from .communication.collective_ops import _collective_entry
+        pg = self.group.process_group
+        for f in seg.flats:
+            full = torch.empty(f.numel, dtype=f.dtype, device=f.device)
+            _collective_entry("all_gather", self.group, tensor=f.param_shard)
+            all_gather_single(full, f.param_shard, group=pg)
+            self.gathers += 1
+            f.view(full)
+        seg.gathered = True
+
+    @staticmethod
+    def free(seg: _Segment) -> None:
+        for f in seg.flats:
+            f.release()
+        seg.gathered = False
+
+    def gather_all(self) -> None:
+        for seg in self.segments:
+            self.gather(seg)
+
+    def release(self) -> None:
+        """Free every gathered segment (the parameters back to empty)."""
+        for seg in self.segments:
+            if seg.gathered:
+                self.free(seg)
+
+    def begin_forward(self) -> None:
+        root = self._by_name.get("root")
+        if root is not None:
+            self.gather(root)
+
+    def end_forward(self, out) -> None:
+        """The root stays gathered for the backward when one can follow
+        (freed by its reduce-scatter), else it is freed now."""
+        root = self._by_name.get("root")
+        if root is not None and not (torch.is_grad_enabled() and any(
+                t.requires_grad for t in _tensors(out))):
+            self.free(root)
+
+    def _pre_forward(self, name: str) -> None:
+        self.gather(self._by_name[name])
+
+    def _post_forward(self, name: str, out) -> None:
+        if torch._C._current_graph_task_id() != -1:
+            return                    # a recomputation inside the backward
+        seg = self._by_name[name]
+        if torch.is_grad_enabled():
+            for t in _tensors(out):
+                if t.requires_grad:
+                    t.register_hook(lambda g, name=name: self.gather(
+                        self._by_name[name]))
+        self.free(seg)
+
+    # -- backward --------------------------------------------------------
+    def _on_grad(self, p) -> None:
+        if not self._armed:
+            self._armed = True
+            self._next = 0
+            for seg in self.segments:
+                seg.pending = {id(q) for f in seg.flats for q in f.params}
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self._finalize)
+        seg = self._seg_of[id(p)]
+        seg.pending.discard(id(p))
+        if not seg.pending:
+            self._launch_ready()
+
+    def _launch_ready(self) -> None:
+        while self._next < len(self._order) and \
+                not self._order[self._next].pending:
+            self._reduce_scatter(self._order[self._next])
+            self._next += 1
+
+    def _reduce_scatter(self, seg: _Segment) -> None:
+        from .communication.collective_ops import _collective_entry
+        self._retire()
+        pg = self.group.process_group
+        for f in seg.flats:
+            g = torch.zeros(f.numel, dtype=f.dtype, device=f.device)
+            for p, off in zip(f.params, f.offsets):
+                if p.grad is not None:
+                    g[off:off + p.grad.numel()].copy_(p.grad.reshape(-1))
+                p.grad = None
+            n = f.hi - f.lo
+            if f.shard_grad is None:
+                f.shard_grad = torch.empty(n, dtype=f.dtype, device=f.device)
+            f.grad_add = torch.empty_like(f.shard_grad) if f.has_grad \
+                else None
+            _collective_entry("reduce_scatter", self.group, tensor=g,
+                              reduce_op=ReduceOp.AVG)
+            f.work = reduce_scatter_single(
+                f.grad_add if f.grad_add is not None else f.shard_grad, g,
+                op=dist.ReduceOp.AVG, group=pg, async_op=True)
+            f.grad_full = g
+            self.reduce_scatters += 1
+        seg.pending = set()
+        self.free(seg)
+        self._inflight.append(seg)
+
+    def _retire(self) -> None:
+        """Wait on the reduce-scatters in flight and drop their full
+        gradients (on the card the compute stream waits on NCCL's)."""
+        for seg in self._inflight:
+            for f in seg.flats:
+                f.work.wait()
+                if f.grad_add is not None:
+                    f.shard_grad.add_(f.grad_add)
+                f.has_grad = True
+                f.work = f.grad_full = f.grad_add = None
+        self._inflight = []
+
+    def _finalize(self) -> None:
+        self._armed = False
+        for seg in self._order[self._next:]:
+            seg.pending = set()       # unused in this backward: zeros
+        self._launch_ready()
+        self._retire()
+        self.release()
+
+    def clear(self) -> None:
+        """Drop the averaged gradients (the optimizer's ``clear_grad``)."""
+        for f in self.buckets:
+            f.has_grad = False
 
 
 class DataParallel(torch.nn.Module):

@@ -15,13 +15,14 @@ CUDA) and LayerNorm through ``nn.functional.layer_norm`` (K2), as the
 JAX model's ``F.scaled_dot_product_attention`` and ``nn.LayerNorm`` do;
 every op reads the amp state.  ``model.loss_fn`` is the pretraining
 criterion.  ``use_recompute`` recomputes each block in the backward
-(``torch.utils.checkpoint``).  With a KV cache (``past``, ``use_cache``)
-the positions start at the cache's length and K1 aligns the causal mask
-bottom-right; ``last_logits_only`` runs the head on the last position
-only.  With one ``PagedLayerView`` per layer (eager paged ``generate``)
-the positions start at the rows' common length and attention appends to
-the page pools and runs ``ops.paged_attention`` (K9's counterpart on
-CUDA).  The paged serving step
+(``fleet.recompute``, replaying the dropout bits).  With a KV cache
+(``past``, ``use_cache``) the positions start at the cache's length and
+K1 aligns the causal mask bottom-right; ``last_logits_only`` runs the
+head on the last position only.  With one ``PagedLayerView`` per layer
+(eager paged ``generate``) the positions start at the rows' common
+length and attention appends to the page pools and runs
+``ops.paged_attention`` (K9's counterpart on CUDA).  The paged serving
+step
 (:meth:`GPTForPretraining.build_ragged_decode_step`) and the compiled
 decode loop's step (:meth:`GPTForPretraining.build_decode_step`, on the
 fused decode kernels K6a/K6b/K6c) keep the ``fused_decode`` LayerNorm
@@ -36,10 +37,10 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from .. import amp
 from ..device import default_device, generator
+from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..ops import fused_decode as _fd
 from ..ops.paged_attention import PagedLayerView
@@ -282,7 +283,7 @@ class GPTModel(nn.Module):
             return (h, new_pasts) if use_cache else h
         for block in self.layers:
             if self.use_recompute and self.training:
-                x = _recompute(block, x, self.gen)
+                x = recompute(block, x, generator=self.gen)
             else:
                 x = block(x)
         return self.final_ln(x)
@@ -307,28 +308,6 @@ def _check_dense_past(past, n_layers: int) -> None:
     if len(past) != n_layers:
         raise ValueError(f"past has {len(past)} layers, the model "
                          f"{n_layers}")
-
-
-def _recompute(block, x, gen):
-    """``fleet.recompute`` of one block: its activations are dropped and
-    recomputed in the backward.  The recomputation replays the dropout
-    bits of the forward: it runs from the generator state the forward
-    started from, then hands the generator back where it was."""
-    state = gen.get_state()
-    first = [True]
-
-    def run(inp):
-        if first[0]:
-            first[0] = False
-            return block(inp)
-        now = gen.get_state()
-        gen.set_state(state)
-        try:
-            return block(inp)
-        finally:
-            gen.set_state(now)
-
-    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 class GPTForPretraining(nn.Module):

@@ -12,7 +12,7 @@ causal attention with un-broadcast GQA kv heads through
 ``nn.functional.scaled_dot_product_attention`` (K1), and the SwiGLU MLP
 (``silu``, or ``gelu_tanh`` for Gemma-style configs).  Every op reads the
 amp state.  ``use_recompute`` recomputes each decoder layer in the
-backward with the GPT model's helper.  With a KV cache (``past``,
+backward (``fleet.recompute``).  With a KV cache (``past``,
 ``use_cache``) the rope tables are sliced at the cache's length and K1
 aligns the causal mask bottom-right; ``last_logits_only`` runs the head
 on the last position only.  :meth:`LlamaForCausalLM.build_decode_step`
@@ -41,13 +41,14 @@ import torch
 from torch import nn
 
 from ..device import default_device, generator
+from ..distributed.fleet.recompute import recompute
 from ..incubate.nn.functional import (fused_rms_norm,
                                       fused_rotary_position_embedding)
 from ..nn import functional as F
 from ..ops import fused_decode as _fd
 from ..ops.paged_attention import PagedLayerView
 from .gpt import (Embedding, GPTPretrainingCriterion, Linear,
-                  _check_dense_past, _check_kv_pair, _recompute)
+                  _check_dense_past, _check_kv_pair)
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "llama_config", "LlamaModel",
            "LlamaForCausalLM", "LlamaPretrainingCriterion"]
@@ -287,7 +288,7 @@ class LlamaModel(nn.Module):
             return (h, new_pasts) if use_cache else h
         for layer in self.layers:
             if c.use_recompute and self.training:
-                x = _recompute(layer, x, self.gen)
+                x = recompute(layer, x, generator=self.gen)
             else:
                 x = layer(x)
         return self.norm(x)

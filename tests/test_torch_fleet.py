@@ -55,6 +55,7 @@ from paddle_tpu.inference import serving as jax_http
 from paddle_tpu.models.gpt import GPTForPretraining as JaxGPT
 from paddle_tpu.models.gpt import gpt_config as jax_gpt_config
 from paddle_tpu.observability import events as jax_events
+from paddle_tpu.observability import metrics as jax_metrics
 from paddle_tpu.observability import tracing as jax_tracing
 from paddle_tpu.resilience.driver import restart_backoff as jax_backoff
 from paddle_tpu.serving import ServingEngine as JaxEngine
@@ -67,6 +68,7 @@ from paddle_tpu_torch.flags import set_flags
 from paddle_tpu_torch.inference import serving as http
 from paddle_tpu_torch.models import GPTForPretraining, gpt_config
 from paddle_tpu_torch.observability import events
+from paddle_tpu_torch.observability import metrics
 from paddle_tpu_torch.observability import tracing
 from paddle_tpu_torch.resilience.driver import restart_backoff
 from paddle_tpu_torch.serving import fleet
@@ -84,6 +86,7 @@ PKG = {
         Router=jax_fleet.FleetRouter, Supervisor=jax_fleet.ReplicaSupervisor,
         Handle=jax_replica.ReplicaHandle, http=jax_http,
         events=jax_events, tracing=jax_tracing, set_flags=jax_set_flags,
+        metrics=jax_metrics,
         Model=jax_learned.LearnedPerfModel, Head=jax_learned._Head,
         merge_models=jax_fleet.merge_models,
         merge_heads=jax_fleet.perf_merge.merge_heads,
@@ -92,6 +95,7 @@ PKG = {
         Router=fleet.FleetRouter, Supervisor=fleet.ReplicaSupervisor,
         Handle=replica.ReplicaHandle, http=http,
         events=events, tracing=tracing, set_flags=set_flags,
+        metrics=metrics,
         Model=learned.LearnedPerfModel, Head=learned._Head,
         merge_models=fleet.merge_models,
         merge_heads=fleet.perf_merge.merge_heads,
@@ -472,6 +476,10 @@ def _place_sequence(pkg, obs_dir):
     """Affinity, then ties broken round-robin, then the owner made
     queue-deep (affinity still wins), then an unaffine prompt goes to the
     shallow queue."""
+    # the registry is process-global: samples of earlier tests (another
+    # router, a supervisor's restarts) are left out of the comparison
+    seen = set(pkg.metrics.default_registry().prometheus_text()
+               .splitlines())
     stubs = [_StubReplica().start(), _StubReplica().start()]
     router = _mk_router(pkg, stubs).start()
     shared = list(range(32))                 # two full pages of 16
@@ -492,10 +500,12 @@ def _place_sequence(pkg, obs_dir):
             out["placed"].append(_placed(stubs, before))
         text = urllib.request.urlopen(router.url + "/metrics",
                                       timeout=WAIT_S).read().decode()
-        # the router's own families, and the replicas' relabelled
+        # the router's own families whose samples this scenario made or
+        # moved, and the replicas' relabelled
         out["metrics"] = sorted({line.split("{")[0].split(" ")[0]
                                  for line in text.splitlines()
-                                 if line.startswith("paddle_fleet_")})
+                                 if line.startswith("paddle_fleet_")
+                                 and line not in seen})
         out["relabelled"] = 'paddle_serving_engine_queue_depth{engine=' \
             '"s",replica="1"}' in text
         out["stats"] = _stats(router)

@@ -63,6 +63,7 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.serving.fleet.__main__\n"
             "import paddle_tpu_torch.distributed.fleet\n"
             "import paddle_tpu_torch.distributed.sharding\n"
+            "import paddle_tpu_torch.distributed.fleet.recompute\n"
             "import paddle_tpu_torch.distributed.launch.main\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'paddle_tpu'))\n"

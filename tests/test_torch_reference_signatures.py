@@ -58,6 +58,8 @@ from paddle_tpu.distributed.fleet.meta_optimizers.dygraph_optimizer import (
     hybrid_parallel_optimizer as jhpo)
 from paddle_tpu.distributed.fleet.utils import hybrid_parallel_util as jhpu
 from paddle_tpu.distributed.launch import launch as jlaunch
+from paddle_tpu.distributed.fleet.meta_parallel.sharding import (
+    group_sharded as jgs)
 from paddle_tpu.distributed.passes import gradient_merge as jgm
 from paddle_tpu.incubate.nn import functional as jinc
 from paddle_tpu.ops import flash_attention as jfa
@@ -70,6 +72,8 @@ from paddle_tpu_torch.distributed.fleet.meta_optimizers.dygraph_optimizer import
 from paddle_tpu_torch.distributed.fleet.utils import hybrid_parallel_util as thpu
 from paddle_tpu_torch.distributed.launch import launch as tlaunch
 from paddle_tpu_torch.distributed.mesh import build_mesh as tbuild_mesh
+from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
+    group_sharded as tgs)
 from paddle_tpu_torch.distributed.passes import gradient_merge as tgm
 from paddle_tpu_torch.incubate.nn import functional as tinc
 from paddle_tpu_torch.ops import flash_attention as tfa
@@ -78,6 +82,11 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 # each ``fleet`` package the singleton named as its module)
 jtrain = importlib.import_module("paddle_tpu.jit.train_step")
 jfleet_mod = importlib.import_module("paddle_tpu.distributed.fleet.fleet")
+# each package's ``fleet.recompute`` names the function, not its module
+jrc = importlib.import_module(
+    "paddle_tpu.distributed.fleet.recompute.recompute")
+trc = importlib.import_module(
+    "paddle_tpu_torch.distributed.fleet.recompute.recompute")
 tfleet_mod = importlib.import_module(
     "paddle_tpu_torch.distributed.fleet.fleet")
 jdriver = importlib.import_module("paddle_tpu.resilience.driver")
@@ -180,6 +189,10 @@ PAIRS = {
                                  tsharding.save_group_sharded_model),
     "GradientMergeOptimizer.__init__": (jgm.GradientMergeOptimizer.__init__,
                                         tgm.GradientMergeOptimizer.__init__),
+    "recompute": (jrc.recompute, trc.recompute),
+    "recompute_sequential": (jrc.recompute_sequential,
+                             trc.recompute_sequential),
+    "recompute_hybrid": (jrc.recompute_hybrid, trc.recompute_hybrid),
     "launch": (jlaunch, tlaunch),
 }
 EXTRA = {"generator", "device"}
@@ -197,6 +210,19 @@ def test_signature_matches_reference(name):
     assert all(kind is inspect.Parameter.KEYWORD_ONLY and pname in EXTRA
                for pname, kind, _ in extra), extra
     assert [p for p in _params(port) if p not in extra] == _params(ref)
+
+
+def test_group_sharded_stage3_signature_matches_reference():
+    """``GroupShardedStage3.__init__`` takes the reference's parameters in
+    its order, with its defaults but ``device``'s: the reference's
+    ``"tpu"`` names its own card, the port's ``"gpu"`` the CUDA card
+    (upstream Paddle's default)."""
+    ref = _params(jgs.GroupShardedStage3.__init__)
+    port = _params(tgs.GroupShardedStage3.__init__)
+    assert [(n, k) for n, k, _ in port] == [(n, k) for n, k, _ in ref]
+    assert [d for n, _, d in port if n != "device"] == \
+        [d for n, _, d in ref if n != "device"]
+    assert dict((n, d) for n, _, d in port)["device"] == "gpu"
 
 
 # ---------------------------------------------------------------------------
@@ -244,8 +270,17 @@ UNSUPPORTED = {
         *[torch.zeros(1, 4, 8)] * 3, 1.0, True, 64, 64),
     "fused_rms_norm residual": lambda: tinc.fused_rms_norm(
         torch.ones(2, 4), torch.ones(4), residual=torch.ones(2, 4)),
-    "group_sharded_parallel p_g_os": lambda:
-        tsharding.group_sharded_parallel(None, None, "p_g_os"),
+    # stage 3 runs; the reference's options it does not have still raise
+    "group_sharded_parallel p_g_os offload": lambda:
+        tsharding.group_sharded_parallel(None, None, "p_g_os", offload=True),
+    "group_sharded_parallel p_g_os sync_comm": lambda:
+        tsharding.group_sharded_parallel(None, None, "p_g_os",
+                                         sync_comm=True),
+    "group_sharded_parallel p_g_os exclude_layer": lambda:
+        tsharding.group_sharded_parallel(None, None, "p_g_os",
+                                         exclude_layer=["Linear"]),
+    "GroupShardedStage3 segment_size": lambda: tsharding.GroupShardedStage3(
+        None, segment_size=2 ** 10),
     "launch elastic_timeout": lambda: tlaunch(
         "script.py", elastic_timeout=30.0, device="cpu"),
     "launch nnodes": lambda: tlaunch("script.py", nnodes=2, device="cpu"),

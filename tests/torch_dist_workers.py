@@ -6,9 +6,10 @@ each rank runs every check of its mode and writes what it computed to
 ``OUT/rank<r>.npz`` (arrays) and ``OUT/rank<r>.json`` (the rest); the
 test process holds them against the JAX package.
 
-Usage: ``python tests/torch_dist_workers.py MODE OUT [WEIGHTS.npz]``,
-MODE ``collectives``, ``train`` or ``spawn`` (two gloo ranks through
-``distributed.spawn``, not the launcher).  :func:`launch` and
+Usage: ``python tests/torch_dist_workers.py MODE OUT [WEIGHTS.npz ...]``,
+MODE ``collectives``, ``train``, ``stage3`` (ZeRO stage 3: the tiny GPT
+and the tiny LLaMA, ``GPT.npz LLAMA.npz``) or ``spawn`` (two gloo ranks
+through ``distributed.spawn``, not the launcher).  :func:`launch` and
 :func:`wait_ranks` start a group from a test and collect its results.
 """
 import json
@@ -264,12 +265,12 @@ def run_collectives(out, r):
     return arrays, info
 
 
-def _tiny(weights):
+def _tiny(weights, use_recompute=False):
     from paddle_tpu_torch.models import (GPTForPretraining, gpt_config,
                                          load_paddle_tpu_state)
     model = GPTForPretraining(gpt_config(
-        "tiny", hidden_dropout_prob=0.0, attention_dropout_prob=0.0),
-        device="cpu")
+        "tiny", hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+        use_recompute=use_recompute), device="cpu")
     load_paddle_tpu_state(model, weights)
     return model
 
@@ -408,6 +409,123 @@ def run_train(out, r, weights):
     return arrays, info
 
 
+def _tiny_llama(weights, use_recompute):
+    from paddle_tpu_torch.models import (LlamaForCausalLM, llama_config,
+                                         load_paddle_tpu_state)
+    model = LlamaForCausalLM(llama_config("tiny", use_recompute=use_recompute),
+                             device="cpu")
+    load_paddle_tpu_state(model, weights)
+    return model
+
+
+def stage3_batch(vocab):
+    """``tests/test_fleet_engine.py``'s stage-3 batch at ``vocab``."""
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, vocab, (GLOBAL_BATCH, SEQ)).astype(np.int64)
+    labels = rs.randint(0, vocab, (GLOBAL_BATCH, SEQ)).astype(np.int64)
+    return ids, labels
+
+
+# stage-3 runs: (model, use_recompute, batch): "rows" is each rank's own
+# rows, "mesh" the global batch through TrainStep(mesh=dp 2 x sharding 2)
+STAGE3_RUNS = {"gpt": ("gpt", False, "rows"),
+               "gpt_rc": ("gpt", True, "mesh"),
+               "llama_rc": ("llama", True, "mesh")}
+
+
+def run_stage3(out, r, gpt_weights, llama_weights):
+    """ZeRO stage 3 (``group_sharded_parallel(level="p_g_os")``) over the
+    4 ranks: each run's global-mean losses, its full weights after
+    ``STEPS`` steps (``state_dict``), the elements each rank holds
+    between steps, the collectives per step, and a
+    ``save_group_sharded_model`` round trip."""
+    from paddle_tpu_torch.distributed.sharding import (
+        group_sharded_parallel, save_group_sharded_model)
+    from paddle_tpu_torch.jit import train_step
+    arrays, info = {}, {}
+    mesh = dist.build_mesh({"dp": 2, "sharding": 2})
+    for tag, (kind, rc, feed) in STAGE3_RUNS.items():
+        if kind == "gpt":
+            bare = _tiny(gpt_weights, use_recompute=rc)
+        else:
+            bare = _tiny_llama(llama_weights, rc)
+        numel = sum(p.numel() for p in bare.parameters())
+        model, sopt, _ = group_sharded_parallel(bare, _adamw(bare), "p_g_os")
+        red = model._reducer
+        ids, labels = stage3_batch(bare.config.vocab_size)
+        if feed == "mesh":
+            step = train_step(model, None, sopt, mesh=mesh, step_fn=_step_fn)
+            batch = (ids, labels)
+        else:
+            step = train_step(model, None, sopt, step_fn=_step_fn)
+            k = GLOBAL_BATCH // N_RANKS
+            batch = (ids[r * k:(r + 1) * k], labels[r * k:(r + 1) * k])
+        losses, moved = [], []
+        for _ in range(STEPS):
+            before = (red.gathers, red.reduce_scatters)
+            loss = step(*batch)
+            if feed == "rows":
+                loss = loss.clone()
+                dist.all_reduce(loss, op=dist.ReduceOp.AVG)
+            losses.append(float(loss))
+            moved.append([red.gathers - before[0],
+                          red.reduce_scatters - before[1]])
+        info[tag] = losses
+        layer_flats = sum(len(sg.flats) for sg in red.segments
+                          if sg.module is not None)
+        info[f"{tag}_layout"] = dict(
+            moved=moved, segments=[sg.name for sg in red.segments],
+            flats=len(red.buckets), layer_flats=layer_flats,
+            param_elems=numel, n_params=len(list(bare.parameters())),
+            flat_elems=sum(f.numel for f in red.buckets),
+            shard_elems=sum(f.param_shard.numel() for f in red.buckets),
+            grad_elems=sum(f.shard_grad.numel() for f in red.buckets),
+            moment_elems=sum(s["m"].numel() for s in sopt._state.values()),
+            held=sum(p.numel() for p in model.parameters()),
+            tied=bare.config.tie_word_embeddings)
+        sd = model.state_dict()
+        full = model.get_all_parameters()
+        info[f"{tag}_get_all_equal"] = all(
+            torch.equal(p, sd[n]) for (n, _), p in
+            zip(bare.named_parameters(), full))
+        model._reducer.release()
+        for n, v in sd.items():
+            arrays[f"{tag}/{n}"] = v.numpy()
+        # the sharded optimizer's gathered moments
+        osd = sopt.state_dict()["state"]
+        for i, (n, _) in enumerate(bare.named_parameters()):
+            arrays[f"{tag}_moment1/{n}"] = osd[i]["moment1"].numpy()
+            info.setdefault(f"{tag}_moment_shapes_ok", True)
+            info[f"{tag}_moment_shapes_ok"] &= \
+                list(osd[i]["moment1"].shape) == list(sd[n].shape)
+        if tag == "gpt":
+            # save, then load into a fresh stage-3 model on every rank
+            save = os.path.join(out, "saved")
+            save_group_sharded_model(model, save, sopt)
+            dist.barrier()
+            saved = torch.load(os.path.join(save, "model.pdmodel"))
+            fresh_bare = _tiny(gpt_weights)
+            fresh, fresh_opt, _ = group_sharded_parallel(
+                fresh_bare, _adamw(fresh_bare), "p_g_os")
+            fresh.set_state_dict(saved)
+            again = fresh.state_dict()
+            info["save_roundtrip"] = sorted(saved) == sorted(sd) and all(
+                torch.equal(saved[n], sd[n]) and torch.equal(again[n], sd[n])
+                for n in sd)
+            info["saved_opt"] = os.path.exists(
+                os.path.join(save, "model.pdopt"))
+            # the gathered optimizer state loads into the fresh model's
+            # sharded optimizer: each rank keeps its shards
+            full_osd = sopt.state_dict()
+            fresh_opt.set_state_dict(full_osd)
+            again_osd = fresh_opt.state_dict()["state"]
+            info["opt_reload_err"] = max(
+                float((again_osd[i][k] - e[k]).abs().max())
+                for i, e in full_osd["state"].items()
+                for k in ("moment1", "moment2", "beta_pows"))
+    return arrays, info
+
+
 def _spawn_rank(out):
     dist.init_parallel_env(device="cpu")
     r = dist.get_rank()
@@ -439,6 +557,9 @@ def main():
     r = dist.get_rank()
     if mode == "collectives":
         arrays, info = run_collectives(out, r)
+    elif mode == "stage3":
+        arrays, info = run_stage3(out, r, dict(np.load(sys.argv[3])),
+                                  dict(np.load(sys.argv[4])))
     else:
         weights = dict(np.load(sys.argv[3]))
         arrays, info = run_train(out, r, weights)
