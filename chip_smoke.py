@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with one CUDA card::
 (``python3 chip_smoke.py --ab fa_a.cu fa_b.cu ...`` instead times copies
 of a kernel source against each other: ``compare_variants``;
 ``--fleet`` runs phase 4h alone: ``fleet_alone``; ``--distributed``
-runs phases 17 and 18 alone: ``distributed_alone``, on every visible
-card.)
+runs phases 17-20 alone: ``distributed_alone``, on every visible card;
+``--tensor-parallel`` phases 19 and 20 alone, ``--sequence-parallel``
+phase 20 alone.)
 
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
@@ -267,7 +268,46 @@ loudly with a non-zero exit:
    several cards: stage 3 + recompute at depth 2 against rank 0's
    one-card oracle (phase 17's bounds), then at all 32 layers against
    ``os_g`` + recompute (losses 0.0625, values 3 x 2.1 lr); step ms,
-   tokens/s, MFU, the collectives alone and peak memory a rank.
+   tokens/s, MFU, the collectives alone and peak memory a rank;
+19. tensor parallel, in the same ranks after phase 18 (``tp_rank``):
+   ``fleet.init`` at each layout, the model built split (the mp layers;
+   GPT's packed qkv by heads), ``fleet.distributed_model``
+   (``TensorParallel``), ``fleet.distributed_optimizer`` and
+   ``train_step(mesh=...)`` on the global batch.  At one card
+   (``tp_world_of_one``): LLaMA-2 7B O2 at depth 2 with
+   ``sequence_parallel=True`` through ``TensorParallel`` in a world of
+   one, bit-equal to the plain step (losses, first gradients,
+   parameters, fp32 masters) with its launches.  On four cards: GPT-3
+   1.3B O2 at depth 2 (batch 4 x 2048 shared by the ranks) under mp 4,
+   mp 4 + SP and dp 2 x mp 2, and LLaMA-2 7B O2 at depth 2 (2 x 4096)
+   under mp 4 + SP, each held to rank 0's one-card oracle with phase
+   17's bounds (first gradients and values gathered from the shards);
+   then LLaMA-2 7B at all 32 layers under mp 4 + SP against mp 4 without
+   SP on every rank's shards (losses 0.0625, values 3 x 2.1 lr); every
+   rank's launches exact a step (as one card's, over the rank's heads
+   and rows; K3 once a parameter of the rank); step ms, tokens/s, MFU,
+   peak memory a rank and one step's mp collectives timed alone;
+20. sequence sharding.  At one card (``check_ring_schedule``, before
+   phase 17): the factored ring runs cp 4's four ranks in turn on one
+   causal sequence at llama2-7b's attention shape ([64, 4096, 128]
+   bf16), against K1 over the whole sequence (KTOL) with exactly 10
+   launches of each K1 kernel (rank r: r + 1), its relative distance
+   from K1's fp32 kernels on the same inputs within 1.1x K1's own
+   (``RING_WITNESS_MARGIN``), the schedule's and each rank's forward
+   times beside K1's.  On four cards (``seq_rank``): LLaMA-2 7B O2 at
+   phase 8's 8 layers, batch 2 x 4096, under cp 4 (the ring) and sep 4
+   (Ulysses).  Rank 0 builds three one-card references
+   (``seq_oracles``): the plain step, the step with fp32 attention (the
+   witness) and the step with its attention through the factored ring of
+   4 chunks (``one_card_ring``), whose first gradients must be within
+   1.1x the plain step's distance from the witness.  sep 4 is held to the
+   plain step with phase 17's bounds; cp 4 to the one-card ring with
+   phase 17's bounds and to the plain step in losses and values (its
+   first gradients measured: two sound bf16 attention layouts sit ~2.5e-2
+   apart at 8 layers; two layout controls measured, two accumulated
+   micro-batches and the one-card ring); cp rank r launches r + 1 of each
+   K1 kernel a layer, sep one;
+   every attention takes its route, none falls back.
 
 Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
@@ -1994,6 +2034,11 @@ K1_CASES = {
     "q1-bf16": (64, 1, 2048, 1, True, torch.bfloat16, 128),
     "main": (64, 2048, 2048, 1, True, torch.bfloat16, 128),
     "llama": (64, 4096, 4096, 1, True, torch.bfloat16, 128),
+    # the ring's chunk calls at llama2-7b's attention shape under cp 4
+    # (phase 20): a rank's own chunk (causal, q_offset 0) and an earlier
+    # one (every key visible)
+    "ring-diag": (64, 1024, 1024, 1, True, torch.bfloat16, 128),
+    "ring-full": (64, 1024, 1024, 1, False, torch.bfloat16, 128),
 }
 # the bf16 kernels, which must hold tensor-core instructions (and the
 # CUDA-core `_fp32` kernels none)
@@ -2056,10 +2101,14 @@ def check_k1():
         v = rand((bh // n_rep, sk, d), dtype, g).requires_grad_()
         do = rand((bh, sq, d), dtype, g)
         off = sk - sq if causal else 0
+        # the ring's chunk calls take their gradients in fp32
+        g32 = case.startswith("ring")
         before = dict(fa.launches)
-        out, lse = fa.flash_attention_fwd(q, k, v, scale, causal, off, n_rep)
+        out, lse = fa.flash_attention_fwd(q, k, v, scale, causal, off, n_rep,
+                                          out_fp32=g32)
         dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, scale,
-                                            causal, off, n_rep)
+                                            causal, off, n_rep,
+                                            grads_fp32=g32)
         torch.cuda.synchronize()
         if any(fa.launches[n] != before[n] + 1 for n in before):
             fail(f"K1 {case}: launch counters did not move: {fa.launches}")
@@ -2070,7 +2119,8 @@ def check_k1():
                                             retain_graph=True)
         for name, a, b in (("O", out, ref), ("dq", dq, rdq), ("dk", dk, rdk),
                            ("dv", dv, rdv)):
-            if a.dtype != dtype or a.shape != b.shape:
+            want_dt = torch.float32 if g32 else dtype
+            if a.dtype != want_dt or a.shape != b.shape:
                 fail(f"K1 {case} {name}: {a.dtype} {tuple(a.shape)}")
             check_close(f"K1 {case} {name}", a, b, dtype)
         check_close(f"K1 {case} LSE", lse, ref_lse, torch.float32)
@@ -2079,13 +2129,14 @@ def check_k1():
                                                  max_err(dv, rdv)))
         qd, kd, vd = q.detach(), k.detach(), v.detach()
         fwd = lambda: fa.flash_attention_fwd(qd, kd, vd, scale, causal, off,
-                                             n_rep)
+                                             n_rep, out_fp32=g32)
         o2, lse2 = fwd()
         delta = (o2.float() * do.float()).sum(-1)
         lib = _build.library("flash_attention")
         args = (sq, sk, d, n_rep, int(causal), off, scale,
-                fa._DTYPE_CODE[dtype])
-        dq2, dk2, dv2 = (torch.empty_like(t) for t in (qd, kd, vd))
+                2 if g32 else fa._DTYPE_CODE[dtype])
+        dq2, dk2, dv2 = (torch.empty(t.shape, dtype=dq.dtype,
+                                     device=t.device) for t in (qd, kd, vd))
         stream = torch.cuda.current_stream().cuda_stream
 
         def dq_kernel():
@@ -2146,12 +2197,14 @@ def check_k1():
         item = q.element_size()
         pairs = bh * visible_pairs(sq, sk, causal, off)
         io_q, io_kv = bh * sq * d * item, (bh // n_rep) * sk * d * item
-        row["fwd_bound"] = bound_ms(2 * io_q + 2 * io_kv + bh * sq * 4,
+        gw = 4 // item if g32 else 1     # fp32 outputs: twice the bytes
+        row["fwd_bound"] = bound_ms((1 + gw) * io_q + 2 * io_kv + bh * sq * 4,
                                     4 * pairs * d, peak)
-        row["dq_bound"] = bound_ms(3 * io_q + 2 * io_kv + 2 * bh * sq * 4,
-                                   6 * pairs * d, peak)
-        row["dkv_bound"] = bound_ms(2 * io_q + 4 * io_kv + 2 * bh * sq * 4,
-                                    8 * pairs * d, peak)
+        row["dq_bound"] = bound_ms(
+            (2 + gw) * io_q + 2 * io_kv + 2 * bh * sq * 4, 6 * pairs * d, peak)
+        row["dkv_bound"] = bound_ms(
+            2 * io_q + (2 + 2 * gw) * io_kv + 2 * bh * sq * 4, 8 * pairs * d,
+            peak)
         say("K1 " + json.dumps(row))
         rows[case] = row
         del q, k, v, do, out, lse, dq, dk, dv, ref, ref_lse, rdq, rdk, rdv
@@ -5644,13 +5697,14 @@ def dist_run(mode, dist, build, local, per_step, rank, world, dev,
 
 
 def dist_compare(tag, got, want, exact, median_tol=DIST_PARAM_MEDIAN,
-                 check=True):
+                 check=True, grad_tol=GRAD_REL_TOL):
     """``got``'s losses and values against ``want``'s: bit-equal when
     ``exact``, else within phase 6b/8b's tolerances (losses 0.0625; each
     value after DIST_STEPS steps within DIST_PARAM_MAX, each tensor's
     median within ``median_tol``); the first step's gradients by
-    relative norm (GRAD_REL_TOL) where both sides have them.  Without
-    ``check`` the distances are only measured (a control)."""
+    relative norm (``grad_tol``; None: measured) where both sides have
+    them.  Without ``check`` the distances are only measured (a
+    control)."""
     real_fail = fail if check else (lambda msg: None)
     lg, lw = got["losses"][:DIST_STEPS], want["losses"][:DIST_STEPS]
     say(f"distributed: {tag}: losses {lg} against {lw}")
@@ -5678,8 +5732,9 @@ def dist_compare(tag, got, want, exact, median_tol=DIST_PARAM_MEDIAN,
         say(f"distributed: {tag}: first gradients' relative error worst "
             f"{rels[n]:.3e} ({n}), median "
             f"{float(np.median(list(rels.values()))):.3e} "
-            f"(tol {GRAD_REL_TOL})")
-        if not rels[n] <= GRAD_REL_TOL:
+            + (f"(tol {grad_tol:.3e})" if grad_tol is not None
+               else "(measured)"))
+        if grad_tol is not None and not rels[n] <= grad_tol:
             real_fail(f"{tag}: gradient of {n}: relative error {rels[n]:.3e}")
     maxes, medians = {}, {}
     for n, w in want["values"].items():      # on the card: 27 GB at 32 layers
@@ -5911,11 +5966,680 @@ def stage2_by_segment(dist, model, opt):
     return model, DygraphShardingOptimizer.over(opt, model._group)
 
 
-def distributed_rank(out_dir: str) -> int:
-    """One rank of phases 17 and 18 (``--distributed-rank DIR``, started
-    by the port's launcher): the collectives, the oracle (rank 0),
-    DataParallel and ZeRO stages 2 and 3 on GPT-3 1.3B, the sanitizer,
-    then phase 18 (``zero3_rank``); rank 0 holds the comparisons; each
+
+# ---------------------------------------------------------------------------
+# phases 19 and 20: tensor, sequence and context parallelism
+# ---------------------------------------------------------------------------
+
+TP_DEPTH = 2                     # the runs held against one card's oracle
+# phase 19's GPT-3 1.3B layouts: (hybrid degrees, sequence_parallel)
+TP_GPT_RUNS = {"mp4": (dict(mp_degree=4), False),
+               "mp4_sp": (dict(mp_degree=4), True),
+               "dp2_mp2": (dict(dp_degree=2, mp_degree=2), False)}
+# phase 20's sequence sharding of LLaMA-2 7B at phase 8's depth
+SEQ_RUNS = {"cp4": dict(cp_degree=4), "sep4": dict(sep_degree=4)}
+SEQ_RUNS_RING = 4                # cp 4's chunks, for the one-card control
+# The ring's chunked bf16 attention against K1's fp32 kernels must be as
+# near as one K1 call over the whole sequence is, within this factor: at
+# the attention (check_ring_schedule: both read 2.427e-3 for dq, the
+# same to 4 digits, on the H100) and in phase 20's one-card step at 8
+# layers, whose first gradients sit 4.59e-2 (plain) and 4.56e-2 (ring)
+# from the same step with fp32 attention, and 2.47e-2 from each other:
+# two sound bf16 attention layouts, each about as far from the fp32
+# witness, whose rounding the depth amplifies (PERF.md, phase 20)
+RING_WITNESS_MARGIN = 1.1
+# the one-card ring schedule: cp 4's ranks in turn at llama2-7b's
+# attention shape (batch 2 x 32 heads, seq 4096, head_dim 128, bf16)
+RING = dict(batch=2, heads=32, seq=4096, head_dim=128, ranks=4)
+
+
+def fleet_init(degrees):
+    """``fleet.init`` at ``degrees`` (the others 1) in the running group:
+    the topology every model built next is split by."""
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(degrees)
+    fleet.init(is_collective=True, strategy=s)
+    return fleet.get_hybrid_communicate_group()
+
+
+def fleet_reset():
+    from paddle_tpu_torch.distributed.fleet.base.topology import _clear_hcg
+    _clear_hcg()
+
+
+def tp_gpt_trainer(layers, sp):
+    """Phase 17's GPT-3 1.3B O2 trainer at ``layers``, SP as asked; built
+    under the live topology."""
+    def build():
+        cfg = gpt_config("gpt3-1.3B", num_layers=layers,
+                         max_position_embeddings=TRAIN_SEQ,
+                         hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+                         sequence_parallel=sp)
+        return build_gpt_o2(cfg)
+    return build
+
+
+def tp_llama_trainer(layers, sp):
+    """Phase 8's LLaMA-2 7B O2 trainer at ``layers``, SP as asked."""
+    def build():
+        cfg = llama_config(LLAMA_PRESET, num_layers=layers,
+                           sequence_parallel=sp)
+        model = LlamaForCausalLM(cfg, seed=0)
+        opt = optimizer.AdamW(learning_rate=1e-4,
+                              parameters=model.parameters(),
+                              weight_decay=0.01, multi_precision=True)
+        return amp.decorate(models=model, optimizers=opt, level="O2",
+                            dtype="bfloat16")
+    return build
+
+
+def gpt_tp_per_step(layers):
+    """GPT's launches a step at ``layers``, the same on every mp rank:
+    K1 once a layer, K2 twice a layer and the final norm, K3 once a
+    parameter (12 a layer, both embeddings, the final norm)."""
+    return dict(PER_STEP, flash_fwd=layers, flash_bwd_dq=layers,
+                flash_bwd_dkv=layers, ln_fwd=2 * layers + 1,
+                ln_bwd_dx=2 * layers + 1, adamw=12 * layers + 4)
+
+
+def cp_per_step(layers, cp_rank):
+    """LLaMA's launches a step on cp rank ``r``: the causal ring runs
+    ``r + 1`` of each K1 kernel a layer (its own chunk and the earlier
+    ones; the later ones are masked and launch nothing)."""
+    n = (cp_rank + 1) * layers
+    return dict(llama_per_step(layers), flash_fwd=n, flash_bwd_dq=n,
+                flash_bwd_dkv=n)
+
+
+def tp_full(inner, value, rank):
+    """Every parameter's full tensor (``value(p)``: the parameter, its fp32
+    master or its gradient) on rank 0's host, split ones gathered over the
+    mp group (a collective call)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_layers
+    vals = {}
+    for n, p in inner.named_parameters():
+        full = mp_layers.gather_parameter(value(p), p)
+        if rank == 0:
+            vals[n] = host(full)
+        del full
+    return vals if rank == 0 else None
+
+
+def tp_comm_ms(hcg, sp, layers, tokens, hidden):
+    """One step's mp collectives timed alone (CUDA events) on
+    ``tokens x hidden`` activations, each at the dtype the path moves
+    (``mp_layers``): the sums in fp32 (a row-parallel output, a
+    column-parallel input gradient), the gathers in bf16.  A layer's four
+    bf16 all-gathers and four fp32 reduce-scatters under SP (forward and
+    backward), else its four fp32 all-reduces; the embedding's bf16
+    all-reduce; the head's bf16 gather and fp32 reduce-scatter (SP) or
+    fp32 all-reduce.  The cross entropy's per-token sums are left out."""
+    g = hcg.get_model_parallel_group()
+    pg, n = g.process_group, g.nranks
+    tdist = torch.distributed
+    dev = torch.cuda.current_device()
+    full16 = torch.zeros(tokens * hidden, dtype=torch.bfloat16, device=dev)
+    chunk16 = torch.zeros(full16.numel() // n, dtype=full16.dtype,
+                          device=dev)
+    full32 = torch.zeros(full16.numel(), dtype=torch.float32, device=dev)
+    chunk32 = torch.zeros(chunk16.numel(), dtype=full32.dtype, device=dev)
+
+    def sums():
+        if sp:
+            all_gather_single(full16, chunk16, group=pg)
+            reduce_scatter_single(chunk32, full32, group=pg)
+        else:
+            tdist.all_reduce(full32, group=pg)
+
+    def run():
+        for _ in range(layers):
+            for _ in range(4):
+                sums()
+        tdist.all_reduce(full16, group=pg)
+        sums()
+    return time_ms(run, 3)
+
+
+def tp_run(tag, dist, degrees, build, batch, per_step, rank, world, dev,
+           grads=False, timed=True, values="full", wrap=None, comm=None):
+    """``build()``'s O2 model and optimizer under ``fleet.init(degrees)``,
+    wrapped by ``fleet.distributed_model`` (``TensorParallel``; ``wrap``
+    in its place when given) and ``fleet.distributed_optimizer``, trained
+    through ``TrainStep(mesh=...)`` on the global ``batch`` (host
+    tensors): ``DIST_STEPS`` held steps (the first written out with
+    ``grads``, to read the reduced gradients before the update), then
+    (``timed``) ``DIST_TIMED`` more.  Every step's launches equal
+    ``per_step(hcg)`` on every rank.  ``values="full"``: rank 0 keeps
+    every parameter's fp32 value and the parameters, gathered over mp;
+    ``"shard"``: every rank keeps its own shards' fp32 values.  ``comm``
+    ``(sp, layers, tokens, hidden)`` times the mp collectives alone."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        segment_parallel as seg)
+    dist_settle(dist)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    hcg = fleet_init(degrees)
+    model, opt = build()
+    model = wrap(model, hcg) if wrap is not None \
+        else fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    inner = getattr(model, "_layers", model)
+    step = train_step(model, None, opt, mesh=hcg.mesh, step_fn=o2_step_fn)
+    want = per_step(hcg)
+    out = dict(tag=tag, degrees=degrees, losses=[], step_s=[])
+    local = [step._data.rows(t.to(dev)) for t in batch]
+    reset_counts()                   # count the main path's launches only
+    routes = dict(seg.launches)
+    n_total = DIST_STEPS + (sum(DIST_TIMED.values()) if timed else 0)
+    peak = 0
+    for s in range(n_total):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if s == 0 and grads:
+            loss = o2_step_fn(model, *local)
+            loss.backward()
+            opt._reduce_gradients()
+            g = tp_full(inner, lambda p: p.grad, rank)
+            if rank == 0:
+                out["grads"] = g
+            del g
+            opt._stepper().step()
+            opt.clear_grad()
+            loss = step._data.mean(loss.detach())
+        else:
+            loss = step(*batch)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        after = counts()
+        moved = {k: after[k] - before[k] for k in want}
+        if moved != want:
+            fail(f"rank {rank} {tag} step {s}: launches {moved} != {want}")
+        out["losses"].append(float(loss.float()))
+        if s == DIST_STEPS - 1:
+            peak = torch.cuda.max_memory_allocated()
+            def master(p):
+                return opt.state[p].get("master", p).float()
+            if values == "full":
+                v = tp_full(inner, master, rank)
+                prm = tp_full(inner, lambda p: p.detach(), rank)
+                if rank == 0:
+                    out["values"], out["params"] = v, prm
+                del v, prm
+            elif values == "shard":
+                out["shards"] = {n: host(master(p))
+                                 for n, p in inner.named_parameters()}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    out["launches"] = counts()
+    out["routes"] = {k: seg.launches[k] - routes[k] for k in routes}
+    mem = torch.tensor([max(peak, torch.cuda.max_memory_allocated()), base],
+                       device=dev)
+    dist.all_reduce(mem, op=dist.ReduceOp.MAX)
+    out["peak_bytes"], out["base_bytes"] = (int(v) for v in mem.tolist())
+    out["held_elems"] = sum(p.numel() for p in inner.parameters())
+    if comm is not None:
+        out["comm_ms"] = tp_comm_ms(hcg, *comm)
+    if timed:
+        t = out["step_s"][DIST_STEPS + DIST_TIMED["warmup"]:]
+        out["step_ms"] = 1e3 * float(np.mean(t))
+        out["tokens_s"] = batch[0].numel() / float(np.mean(t))
+    del model, opt, step, inner, local
+    fleet_reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_summary(run, n_params, world):
+    """A run's numbers without its tensors; MFU is 6 N tokens a step over
+    the cards' 989 TFLOP/s each."""
+    out = {k: v for k, v in run.items()
+           if k not in ("values", "params", "grads", "shards")}
+    out["n_params"] = n_params
+    if "step_ms" in run:
+        out["tokens_s_card"] = run["tokens_s"] / world
+        out["mfu"] = 6 * n_params * out["tokens_s_card"] / PEAK_BF16
+    return out
+
+
+def shard_compare(dist, tag, got, want):
+    """Two runs of one split layout, each rank's fp32 shards after
+    ``DIST_STEPS`` steps: the worst element over every rank within
+    ``DIST_PARAM_MAX`` and the losses within ``XCHECK_LOSS_TOL`` (phase
+    18's bounds); each shard's median distance is measured (phase 18
+    found three correct reduction layouts ~3.9e-6 apart there)."""
+    lg, lw = got["losses"][:DIST_STEPS], want["losses"][:DIST_STEPS]
+    mx, med, worst_n = 0.0, 0.0, ""
+    for n, w in want["shards"].items():
+        d = (got["shards"][n].cuda() - w.cuda()).abs()
+        if d.max().item() > mx:
+            mx, worst_n = d.max().item(), n
+        med = max(med, d.median().item())
+        del d
+    t = torch.tensor([mx, med], device=torch.cuda.current_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    mx, med = t.tolist()
+    loss_diff = max(abs(a - b) for a, b in zip(lg, lw))
+    say(f"tensor parallel: {tag}: losses {lg} against {lw}; values after "
+        f"{DIST_STEPS} steps, every rank's shards: worst max diff "
+        f"{mx:.3e} (rank 0's worst: {worst_n}; tol {DIST_PARAM_MAX:.2e}), "
+        f"worst median {med:.3e} (measured)")
+    if not loss_diff <= XCHECK_LOSS_TOL:
+        fail(f"{tag}: losses differ by {loss_diff}")
+    if not mx <= DIST_PARAM_MAX:
+        fail(f"{tag}: values differ")
+    return dict(loss_diff=loss_diff, value_max=mx, value_median=med)
+
+
+def tp_world_of_one(dist, rank, world, dev):
+    """Phase 19 at one card: LLaMA-2 7B O2 at depth 2 with
+    ``sequence_parallel=True`` through ``TensorParallel`` and the hybrid
+    optimizer in a world of one (mp 1: SP stays off), bit-equal to the
+    plain step in losses, first gradients, parameters and fp32 masters,
+    with the plain step's launches."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        TensorParallel)
+    batch = zero3_global_batch(world)
+    local = zero3_shard(batch, rank, dev)
+    per_step = zero3_per_step(TP_DEPTH, False)
+    plain = dist_run("plain", dist, tp_llama_trainer(TP_DEPTH, True), local,
+                     per_step, rank, world, dev, grads=True, timed=False)
+    tp = tp_run("tp_world_of_one", dist, {}, tp_llama_trainer(TP_DEPTH, True),
+                batch, lambda hcg: per_step("plain", None), rank, world, dev,
+                grads=True, wrap=lambda m, hcg: TensorParallel(m, hcg))
+    res = dict(vs_plain=dist_compare(
+        "phase 19: TensorParallel at a world of one vs the plain step", tp,
+        plain, exact=True))
+    res["run"] = tp_summary(tp, llama_param_count(
+        llama_config(LLAMA_PRESET, num_layers=TP_DEPTH)), world)
+    return res
+
+
+def tp_rank(dist, rank, world, dev):
+    """Phase 19 on four ranks: GPT-3 1.3B O2 at depth 2 under mp 4, mp 4
+    + SP and dp 2 x mp 2, then LLaMA-2 7B O2 at depth 2 under mp 4 + SP,
+    each held against rank 0's one-card oracle; then LLaMA-2 7B at all 32
+    layers under mp 4 + SP against mp 4 without SP (every rank's shards).
+    Returns rank 0's comparisons and every run's numbers."""
+    res = {}
+    cfg = gpt_config("gpt3-1.3B", num_layers=TP_DEPTH,
+                     max_position_embeddings=TRAIN_SEQ)
+    batch = dist_global_batch(cfg, 1)             # 4 x 2048, all ranks
+    oracle = None
+    if rank == 0:
+        _, model, opt, step = build_trainer(TP_DEPTH, seed=0)
+        oracle = dist_oracle(model, opt, step, [dist_shard(batch, 0, dev)],
+                             timed=False)
+        del model, opt, step
+    dist.barrier()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for tag, (degrees, sp) in TP_GPT_RUNS.items():
+        run = tp_run(f"gpt_{tag}", dist, degrees, tp_gpt_trainer(TP_DEPTH, sp),
+                     batch, lambda hcg: gpt_tp_per_step(TP_DEPTH), rank,
+                     world, dev, grads=True,
+                     comm=(sp, TP_DEPTH, tokens // degrees.get("dp_degree", 1),
+                           cfg.hidden_size))
+        if rank == 0:
+            res[f"gpt_{tag}_vs_oracle"] = dist_compare(
+                f"phase 19: GPT-3 1.3B {tag} at depth {TP_DEPTH} vs the "
+                "oracle", run, oracle, exact=False)
+        res[f"gpt_{tag}"] = tp_summary(run, param_count(cfg), world)
+        del run
+    if rank == 0:
+        res["gpt_oracle_losses"] = oracle["losses"]
+    del oracle
+    lcfg = llama_config(LLAMA_PRESET, num_layers=TP_DEPTH)
+    lbatch = zero3_global_batch(1)                # 2 x 4096, all ranks
+    ltokens = LLAMA_BATCH * LLAMA_SEQ
+    oracle = None
+    if rank == 0:
+        model, opt = zero3_trainer(TP_DEPTH, False)()
+        step = train_step(model, None, opt, step_fn=o2_step_fn)
+        oracle = dist_oracle(model, opt, step, [zero3_shard(lbatch, 0, dev)],
+                             timed=False)
+        del model, opt, step
+    dist.barrier()
+    run = tp_run("llama_mp4_sp", dist, dict(mp_degree=4),
+                 tp_llama_trainer(TP_DEPTH, True), lbatch,
+                 lambda hcg: llama_per_step(TP_DEPTH), rank, world, dev,
+                 grads=True, comm=(True, TP_DEPTH, ltokens,
+                                   lcfg.hidden_size))
+    if rank == 0:
+        res["llama_mp4_sp_vs_oracle"] = dist_compare(
+            f"phase 19: LLaMA-2 7B mp4 + SP at depth {TP_DEPTH} vs the "
+            "oracle", run, oracle, exact=False)
+        res["llama_oracle_losses"] = oracle["losses"]
+    res["llama_mp4_sp"] = tp_summary(run, llama_param_count(lcfg), world)
+    del run, oracle
+    layers = llama_config(LLAMA_PRESET).num_layers
+    full = llama_config(LLAMA_PRESET)
+    runs = {}
+    for tag, sp in (("mp4", False), ("mp4_sp", True)):
+        runs[tag] = tp_run(f"llama32_{tag}", dist, dict(mp_degree=4),
+                           tp_llama_trainer(layers, sp), lbatch,
+                           lambda hcg: llama_per_step(layers), rank, world,
+                           dev, values="shard",
+                           comm=(sp, layers, ltokens, full.hidden_size))
+        res[f"llama32_{tag}"] = tp_summary(runs[tag],
+                                           llama_param_count(full), world)
+        say_rank0(rank, tp_line(f"llama32_{tag}", res[f"llama32_{tag}"],
+                                world))
+    res["llama32_sp_vs_no_sp"] = shard_compare(
+        dist, f"phase 19: LLaMA-2 7B mp4 + SP vs mp4 at {layers} layers",
+        runs["mp4_sp"], runs["mp4"])
+    del runs
+    return res
+
+
+class _OneCardRing(torch.autograd.Function):
+    """Causal attention of ``[BH, S, D]`` through the factored ring
+    schedule of ``n`` chunks on one card (``ops.ring_attention``): cp n's
+    attention numerics, everything else one card's."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, n):
+        from paddle_tpu_torch.ops import ring_attention as ring
+        chunks = [[c.contiguous() for c in t.chunk(n, dim=1)]
+                  for t in (q, k, v)]
+        res = ring.ring_schedule_fwd(*chunks, scale, True)
+        ctx.chunks, ctx.scale = chunks, scale
+        ctx.outs, ctx.lses = [o for o, _ in res], [m for _, m in res]
+        return torch.cat(ctx.outs, dim=1)
+
+    @staticmethod
+    def backward(ctx, do):
+        from paddle_tpu_torch.ops import ring_attention as ring
+        dos = [c.contiguous() for c in do.chunk(len(ctx.outs), dim=1)]
+        grads = ring.ring_schedule_bwd(*ctx.chunks, ctx.outs, ctx.lses, dos,
+                                       ctx.scale, True)
+        return (*(torch.cat([g[i] for g in grads], dim=1)
+                  for i in range(3)), None, None)
+
+
+@contextlib.contextmanager
+def one_card_ring(n):
+    """The models' causal self-attention (``nn.functional``'s flash call)
+    through :class:`_OneCardRing` of ``n`` chunks while inside."""
+    from paddle_tpu_torch.nn import functional as nnf
+    plain = nnf.flash_attention_bhsd
+
+    def attend(q, k, v, scale, causal, *args, q_offset=0, n_rep=1, **kw):
+        if not (causal and q_offset == 0 and n_rep == 1
+                and q.shape[1] == k.shape[1] and q.shape[1] % n == 0):
+            fail("one_card_ring: not a causal self-attention of n chunks")
+        return _OneCardRing.apply(q, k, v, scale, n)
+    nnf.flash_attention_bhsd = attend
+    try:
+        yield
+    finally:
+        nnf.flash_attention_bhsd = plain
+
+
+@contextlib.contextmanager
+def fp32_attention():
+    """The models' flash call on fp32 copies of q, k and v while inside
+    (K1's fp32 kernels: P and dS never rounded to bf16), the output cast
+    back to q's dtype: a one-card step whose attention is near exact,
+    independent of the ring's code, against which a bf16 attention layout
+    is held."""
+    from paddle_tpu_torch.nn import functional as nnf
+    plain = nnf.flash_attention_bhsd
+
+    def attend(q, k, v, scale, causal, *args, **kw):
+        return plain(q.float(), k.float(), v.float(), scale, causal, *args,
+                     **kw).to(q.dtype)
+    nnf.flash_attention_bhsd = attend
+    try:
+        yield
+    finally:
+        nnf.flash_attention_bhsd = plain
+
+
+def seq_oracles(layers, batch, dev):
+    """Rank 0's one-card references for phase 20, each a ``dist_oracle``
+    of phase 8's LLaMA-2 7B O2 step at ``layers`` on the global ``batch``:
+    the plain step, the same step with its attention through K1's fp32
+    kernels (``fp32_attention``: the witness), and with its attention
+    through the factored ring of ``SEQ_RUNS_RING`` chunks
+    (``one_card_ring``: cp's attention numerics on one card); and two
+    measured controls against the plain step: the batch as accumulated
+    micro-batches (what a reduction layout alone moves) and the ring.
+    The plain step and the ring, each against the witness, say which of
+    the two bf16 attention layouts is nearer the truth: the ring's must be
+    within ``RING_WITNESS_MARGIN`` of the plain step's (a fault in the
+    ring's steps moves only the ring's; the witness runs none of its
+    code).  Returns the comparisons and the three references."""
+    res = {}
+    shards = [zero3_shard(batch, 0, dev)]
+
+    def oracle_of(parts, ctx):
+        with ctx:
+            model, opt = zero3_trainer(layers, False)()
+            step = train_step(model, None, opt, step_fn=o2_step_fn)
+            out = dist_oracle(model, opt, step, parts, timed=False)
+            del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    oracle = oracle_of(shards, contextlib.nullcontext())
+    halves = [tuple(t[i:i + 1] for t in shards[0])
+              for i in range(LLAMA_BATCH)]
+    control = oracle_of(halves, contextlib.nullcontext())
+    res["control_vs_oracle"] = dist_compare(
+        f"phase 20: the one-card step as {LLAMA_BATCH} micro-batches vs "
+        "the one-card step (a layout control, measured)", control, oracle,
+        exact=False, check=False)
+    del control
+    exact = oracle_of(shards, fp32_attention())
+    ring = oracle_of(shards, one_card_ring(SEQ_RUNS_RING))
+    for key, got, want, what in (
+            ("ring_control_vs_oracle", ring, oracle,
+             f"the one-card step with its attention through the ring of "
+             f"{SEQ_RUNS_RING} chunks vs the one-card step"),
+            ("oracle_vs_fp32", oracle, exact,
+             "the one-card step vs the one-card step with fp32 attention"),
+            ("ring_control_vs_fp32", ring, exact,
+             f"the one-card step with its attention through the ring of "
+             f"{SEQ_RUNS_RING} chunks vs the one-card step with fp32 "
+             "attention")):
+        res[key] = dist_compare(f"phase 20: {what} (measured)", got, want,
+                                exact=False, check=False)
+    lim = RING_WITNESS_MARGIN * res["oracle_vs_fp32"]["grad_rel"]
+    got = res["ring_control_vs_fp32"]["grad_rel"]
+    say(f"distributed: phase 20: the ring's first gradients {got:.3e} from "
+        f"the fp32-attention step, the plain step's "
+        f"{res['oracle_vs_fp32']['grad_rel']:.3e} (limit {lim:.3e})")
+    if not got <= lim:
+        fail(f"phase 20: the one-card ring's first gradients are {got:.3e} "
+             f"from the fp32-attention step, over {lim:.3e}")
+    return res, oracle, ring, exact
+
+
+def seq_rank(dist, rank, world, dev):
+    """Phase 20 on four ranks: LLaMA-2 7B O2 at phase 8's 8 layers, batch
+    2 x 4096 shared by every rank, under cp 4 (ring) and sep 4 (Ulysses);
+    every rank's K1 launches exact (cp rank r: r + 1 of each a layer),
+    every attention on its route.  Rank 0 holds sep 4 against its
+    one-card plain step with phase 17's bounds, and cp 4 with phase 17's
+    bounds against the one-card step with the same attention numerics,
+    its attention through the factored ring (``one_card_ring``), which
+    ``seq_oracles`` holds to the plain step's accuracy against an
+    fp32-attention witness.  cp 4 against the plain step: losses and
+    values with phase 17's bounds, the first gradients measured (two
+    sound bf16 attention layouts sit ~2.5e-2 apart at 8 layers, each
+    ~4.6e-2 from the witness: ``RING_WITNESS_MARGIN``); against the
+    witness: measured."""
+    res = {}
+    layers = LLAMA_LAYERS
+    cfg = llama_config(LLAMA_PRESET, num_layers=layers)
+    batch = zero3_global_batch(1)
+    oracle = ring_oracle = exact = None
+    if rank == 0:
+        res, oracle, ring_oracle, exact = seq_oracles(layers, batch, dev)
+    dist.barrier()
+    for tag, degrees in SEQ_RUNS.items():
+        per_step = (lambda hcg: cp_per_step(
+            layers, hcg.get_context_parallel_rank())) if "cp" in tag else \
+            (lambda hcg: llama_per_step(layers))
+        run = tp_run(f"llama_{tag}", dist, degrees,
+                     tp_llama_trainer(layers, False), batch, per_step, rank,
+                     world, dev, grads=True)
+        route = "cp" if "cp" in tag else "sep"
+        want = {"sep": 0, "cp": 0, "fallback": 0,
+                route: layers * len(run["step_s"])}
+        if run["routes"] != want:
+            fail(f"rank {rank} {tag}: routes {run['routes']} != {want}")
+        what = f"phase 20: LLaMA-2 7B {tag} at {layers} layers vs the " \
+            "one-card step"
+        if rank == 0 and route == "cp":
+            res[f"{tag}_vs_one_card_ring"] = dist_compare(
+                f"{what} through the ring", run, ring_oracle, exact=False)
+            res[f"{tag}_vs_fp32"] = dist_compare(
+                f"{what} with fp32 attention (measured)", run, exact,
+                exact=False, check=False)
+            res[f"{tag}_vs_oracle"] = dist_compare(
+                f"{what} (first gradients measured)", run, oracle,
+                exact=False, grad_tol=None)
+        elif rank == 0:
+            res[f"{tag}_vs_oracle"] = dist_compare(what, run, oracle,
+                                                   exact=False)
+        res[tag] = tp_summary(run, llama_param_count(cfg), world)
+        del run
+    if rank == 0:
+        res["oracle_losses"] = oracle["losses"]
+    del oracle, ring_oracle, exact
+    return res
+
+
+def check_ring_schedule():
+    """The factored ring (``ops.ring_attention``) on one card: cp 4's
+    four virtual ranks run their schedules in turn on the chunks of one
+    causal sequence at llama2-7b's attention shape; the outputs, lse and
+    gradients against K1 over the whole sequence (KTOL), the launches
+    exact (rank r: r + 1 of each K1 kernel; 10 of each), the whole
+    schedule's and each rank's forward times beside K1's; the ring's
+    relative distance from K1's fp32 kernels on the same inputs within
+    ``RING_WITNESS_MARGIN`` of K1's own."""
+    from paddle_tpu_torch.ops import ring_attention as ring
+    n, b, h = RING["ranks"], RING["batch"], RING["heads"]
+    sq, d = RING["seq"], RING["head_dim"]
+    dtype = torch.bfloat16
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    q, k, v, do = (rand((b * h, sq, d), dtype, g) for _ in range(4))
+    scale = 1.0 / d ** 0.5
+    qc, kc, vc, dc = ([c.contiguous() for c in t.chunk(n, dim=1)]
+                      for t in (q, k, v, do))
+    reset_counts()
+    fwd = ring.ring_schedule_fwd(qc, kc, vc, scale, True)
+    outs, lses = [o for o, _ in fwd], [lse for _, lse in fwd]
+    grads = ring.ring_schedule_bwd(qc, kc, vc, outs, lses, dc, scale, True)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = n * (n + 1) // 2
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[key] != want:
+            fail(f"ring schedule: {key} launched {launches[key]} != {want}")
+    out, lse = fa.flash_attention_fwd(q, k, v, scale, True, 0)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, scale, True,
+                                        0)
+    errs = {}
+    for name, got, ref, dt in (
+            ("out", torch.cat(outs, 1), out, dtype),
+            ("lse", torch.cat(lses, 1), lse, torch.float32),
+            ("dq", torch.cat([x[0] for x in grads], 1), dq, dtype),
+            ("dk", torch.cat([x[1] for x in grads], 1), dk, dtype),
+            ("dv", torch.cat([x[2] for x in grads], 1), dv, dtype)):
+        check_close(f"ring schedule {name} vs K1", got, ref, dt)
+        errs[name] = max_err(got, ref)
+    # both bf16 layouts against K1's fp32 kernels on fp32 copies (P and dS
+    # never rounded): relative norms, measured
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    out32, lse32 = fa.flash_attention_fwd(qf, kf, vf, scale, True, 0)
+    exact = (out32, *fa.flash_attention_bwd(qf, kf, vf, out32, lse32, dof,
+                                            scale, True, 0))
+    del qf, kf, vf, dof, lse32
+    ring_all = (torch.cat(outs, 1),
+                *(torch.cat([x[i] for x in grads], 1) for i in range(3)))
+    vs_fp32 = {}
+    for who, res in (("k1", (out, dq, dk, dv)), ("ring", ring_all)):
+        vs_fp32[who] = {
+            name: ((a.float() - e).norm() / e.norm()).item()
+            for name, a, e in zip(("out", "dq", "dk", "dv"), res, exact)}
+    del exact, ring_all
+    for name, k1_rel in vs_fp32["k1"].items():
+        if not vs_fp32["ring"][name] <= RING_WITNESS_MARGIN * k1_rel:
+            fail(f"ring schedule {name}: {vs_fp32['ring'][name]:.3e} from "
+                 f"K1's fp32 kernels, over {RING_WITNESS_MARGIN} x K1's "
+                 f"{k1_rel:.3e}")
+
+    def one_rank(r):
+        o, m = ring._start(qc[r])
+        for i in range(n):
+            j = (r - i) % n
+            o, m = ring.ring_fwd_step(qc[r], kc[j], vc[j], o, m, scale,
+                                      r * (sq // n), j * (sq // n), True)
+        return o
+    row = dict(shape=f"[{b * h}, {sq}, {d}] bf16 causal in {n} chunks",
+               launches={k: launches[k] for k in ("flash_fwd",
+                                                  "flash_bwd_dq",
+                                                  "flash_bwd_dkv")},
+               max_abs_err=errs, rel_vs_fp32=vs_fp32,
+               ring_fwd_ms=time_ms(lambda: ring.ring_schedule_fwd(
+                   qc, kc, vc, scale, True), 3),
+               ring_bwd_ms=time_ms(lambda: ring.ring_schedule_bwd(
+                   qc, kc, vc, outs, lses, dc, scale, True), 3),
+               k1_fwd_ms=time_ms(lambda: fa.flash_attention_fwd(
+                   q, k, v, scale, True, 0), 3),
+               k1_bwd_ms=time_ms(lambda: fa.flash_attention_bwd(
+                   q, k, v, out, lse, do, scale, True, 0), 3),
+               rank_fwd_ms=[time_ms(functools.partial(one_rank, r), 3)
+                            for r in range(n)])
+    say("ring schedule: " + json.dumps(row))
+    del q, k, v, do, qc, kc, vc, dc, fwd, outs, lses, grads, out, lse
+    torch.cuda.empty_cache()
+    return row
+
+
+def say_rank0(rank, msg):
+    if rank == 0:
+        say(msg)
+
+
+def tp_line(key, m, world):
+    """One phase 19 / 20 run's numbers on a line."""
+    line = (f"tensor parallel: {key} {m['degrees']}: "
+            f"{m['n_params']} parameters, {m['held_elems']} held a rank; "
+            f"step ms {[round(1e3 * t, 2) for t in m['step_s']]}")
+    if "step_ms" in m:
+        line += (f"; timed mean {m['step_ms']:.2f} ms = "
+                 f"{m['tokens_s']:.1f} tokens/s over {world} card(s), "
+                 f"{m['tokens_s_card']:.1f} a card, MFU "
+                 f"{100 * m['mfu']:.2f} % (6 N tokens a card / 989 TFLOP/s)")
+    if m.get("comm_ms") is not None:
+        line += f"; the step's mp collectives alone {m['comm_ms']:.3f} ms"
+    line += (f"; peak memory {m['peak_bytes']} bytes "
+             f"({m['peak_bytes'] / 2**30:.2f} GiB, the largest rank's), "
+             f"{m['base_bytes']} bytes allocated before the run")
+    return line + (f"\ntensor parallel: {key}: launches over "
+                   f"{len(m['step_s'])} steps {m['launches']}; routes "
+                   f"{m['routes']}")
+
+
+PHASES = (17, 18, 19, 20)
+
+
+def distributed_rank(out_dir: str, phases=PHASES) -> int:
+    """One rank of phases 17-20 (``--distributed-rank DIR [--phases
+    17,18,19,20]``, started by the port's launcher): the collectives, the
+    oracle (rank 0), DataParallel and ZeRO stages 2 and 3 on GPT-3 1.3B,
+    the sanitizer, then phase 18 (``zero3_rank``), phase 19
+    (``tp_rank``; at one card ``tp_world_of_one``) and phase 20
+    (``seq_rank``, on several cards); rank 0 holds the comparisons; each
     rank writes ``DIR/rank<r>.json``."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed.env import runtime
@@ -5925,7 +6649,27 @@ def distributed_rank(out_dir: str) -> int:
     rank, world = dist.get_rank(), dist.get_world_size()
     dev = runtime().device
     res = dict(rank=rank, world=world, backend=dist.get_backend(),
-               device=torch.cuda.get_device_name(dev))
+               device=torch.cuda.get_device_name(dev), phases=list(phases))
+    if 17 in phases:
+        res.update(data_parallel_rank(dist, rank, world, dev))
+    if 18 in phases:
+        res["zero3"] = zero3_rank(dist, rank, world, dev)
+    if 19 in phases:
+        res["tp"] = tp_world_of_one(dist, rank, world, dev) if world == 1 \
+            else tp_rank(dist, rank, world, dev)
+    if 20 in phases and world > 1:
+        res["seq"] = seq_rank(dist, rank, world, dev)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def data_parallel_rank(dist, rank, world, dev):
+    """Phase 17 on this rank: the collectives, rank 0's oracle,
+    DataParallel and ZeRO stages 2 and 3 on GPT-3 1.3B, the sanitizer."""
+    res = {}
     res["collective_errs"] = dist_collectives(dist, rank, world, dev)
     cfg = gpt_config("gpt3-1.3B", num_layers=N_LAYERS,
                      max_position_embeddings=TRAIN_SEQ,
@@ -5963,12 +6707,7 @@ def distributed_rank(out_dir: str) -> int:
     del runs, oracle
     dist.barrier()                   # rank 0's comparisons ran on the host
     res["sanitizer"] = dist_sanitizer(dist, world, dev)
-    res["zero3"] = zero3_rank(dist, rank, world, dev)
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-        json.dump(res, f)
-    dist.barrier()
-    dist.destroy_process_group()
-    return 0
+    return res
 
 
 # one rank of the SIGKILL checks, written next to their logs and started by
@@ -6047,10 +6786,10 @@ def dist_kill_checks(world, root):
     return res
 
 
-def distributed_main_path():
-    """Phases 17 and 18: the ranks through the port's launcher at the
-    visible card count (NCCL), then the SIGKILL checks; prints the
-    numbers and returns rank 0's results."""
+def distributed_main_path(phases=PHASES):
+    """Phases 17-20 (or those of ``phases``): the ranks through the port's
+    launcher at the visible card count (NCCL), then (phase 17) the
+    SIGKILL checks; prints the numbers and returns rank 0's results."""
     world = torch.cuda.device_count()
     for args in (["--query-gpu=index,name,power.limit",
                   "--format=csv,noheader"], ["topo", "-m"],
@@ -6064,17 +6803,34 @@ def distributed_main_path():
     (root / "run").mkdir(parents=True)
     gc.collect()
     torch.cuda.empty_cache()
+    names = ",".join(map(str, phases))
     proc, secs = dist_launch(world, root / "logs", Path(__file__).resolve(),
-                             ["--distributed-rank", str(root / "run")], 0,
-                             DIST_LAUNCH_S)
+                             ["--distributed-rank", str(root / "run"),
+                              "--phases", names], 0, DIST_LAUNCH_S)
     if proc.returncode != 0:
-        fail(f"phases 17-18: the launcher exited {proc.returncode}\n"
+        fail(f"phases {names}: the launcher exited {proc.returncode}\n"
              f"{proc.stderr[-3000:]}{dist_logs(root / 'logs')}")
     ranks = [json.loads((root / "run" / f"rank{r}.json").read_text())
              for r in range(world)]
     r0 = ranks[0]
     say(f"distributed: {world} rank(s), {r0['backend']}, {r0['device']}; "
-        f"phases 17-18's ranks ran {secs:.3f} s")
+        f"phases {names}'s ranks ran {secs:.3f} s")
+    if 17 in phases:
+        data_parallel_report(ranks, world)
+    if 18 in phases:
+        zero3_report(r0["zero3"], world)
+    if 19 in phases:
+        tp_report(r0["tp"], world)
+    if 20 in phases and "seq" in r0:
+        seq_report(r0["seq"], world)
+    if 17 in phases:
+        r0["kill"] = dist_kill_checks(world, root)
+    return r0
+
+
+def data_parallel_report(ranks, world):
+    """Phase 17's numbers, from every rank's results."""
+    r0 = ranks[0]
     worst = {k: max(r["collective_errs"][k] for r in ranks)
              for k in r0["collective_errs"]}
     say(f"distributed: collectives' worst error over the ranks: "
@@ -6103,9 +6859,28 @@ def distributed_main_path():
         f"p_g_os vs DataParallel {r0['p_g_os_vs_dp']}; the oracle's losses "
         f"{r0['oracle_losses']}")
     say(f"distributed: sanitizer: {r0['sanitizer']}")
-    zero3_report(r0["zero3"], world)
-    r0["kill"] = dist_kill_checks(world, root)
-    return r0
+
+
+def tp_report(t, world):
+    """Phase 19's numbers, from rank 0's results."""
+    for key, m in t.items():
+        if key == "run":
+            continue
+        if isinstance(m, dict) and "step_s" in m:
+            say(tp_line(key, m, world))
+        else:
+            say(f"tensor parallel: {key}: {m}")
+    if "run" in t:
+        say(tp_line("tp_world_of_one", t["run"], world))
+
+
+def seq_report(t, world):
+    """Phase 20's numbers, from rank 0's results."""
+    for key, m in t.items():
+        if isinstance(m, dict) and "step_s" in m:
+            say(tp_line(key, m, world))
+        else:
+            say(f"sequence parallel: {key}: {m}")
 
 
 def zero3_line(key, m, world):
@@ -6147,10 +6922,15 @@ def zero3_report(z, world):
             f"{z['oracle_losses']}")
 
 
-def distributed_alone() -> int:
-    """``--distributed``: phases 17 and 18 alone, after the build."""
+def distributed_alone(phases=PHASES) -> int:
+    """``--distributed``: phases 17-20 alone, after the build
+    (``--tensor-parallel``: phases 19 and 20, and the one-card ring
+    schedule; ``--sequence-parallel``: phase 20 and the ring
+    schedule)."""
     say(f"build: {_build.build_all():.3f} s")
-    distributed_main_path()
+    if 20 in phases:
+        check_ring_schedule()
+    distributed_main_path(phases)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -6161,8 +6941,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this needs a CUDA card")
     if "--distributed-rank" in sys.argv:
+        phases = PHASES
+        if "--phases" in sys.argv:
+            phases = tuple(int(p) for p in sys.argv[
+                sys.argv.index("--phases") + 1].split(","))
         return distributed_rank(sys.argv[sys.argv.index("--distributed-rank")
-                                         + 1])
+                                         + 1], phases)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -6189,6 +6973,10 @@ def main() -> int:
         return fleet_alone()
     if "--distributed" in sys.argv:
         return distributed_alone()
+    if "--tensor-parallel" in sys.argv:
+        return distributed_alone((19, 20))
+    if "--sequence-parallel" in sys.argv:
+        return distributed_alone((20,))
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")
@@ -6224,6 +7012,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k8 = check_k8()
     bart = bart_main_paths()
+    ring = check_ring_schedule()             # phase 20 at one card
     dist17 = distributed_main_path()
 
     # each kernel's line: the main path's shape.  K7 runs on the serving
@@ -6266,6 +7055,9 @@ def main() -> int:
     zero3 = dist17["zero3"]["p_g_os"]    # phase 18's stage-3 run
     zero3_shape = (f", phase 18 at {zero3['layers']} layers under ZeRO 3 "
                    f"+ recompute{dist_shape}")
+    tp1 = dist17["tp"]["run"]            # phase 19 at one card
+    tp1_shape = (f", phase 19 at depth {TP_DEPTH} through TensorParallel "
+                 "in a world of one")
     k1_paths = (("gpt_train", "main", train, k1_shape),
                 ("llama_train", "llama", llama,
                  "[64, 4096, 128] bf16 causal (batch 2 x 32 heads)"),
@@ -6277,7 +7069,15 @@ def main() -> int:
                  k1_shape + dist_shape),
                 ("llama_zero3", "llama", zero3["launches"],
                  "[64, 4096, 128] bf16 causal (batch 2 x 32 heads; K1a "
-                 "twice a layer under recompute)" + zero3_shape))
+                 "twice a layer under recompute)" + zero3_shape),
+                ("llama_tp_world_of_one", "llama", tp1["launches"],
+                 "[64, 4096, 128] bf16 causal (batch 2 x 32 heads)"
+                 + tp1_shape),
+                ("llama_ring_schedule", "ring-full", ring["launches"],
+                 "[64, 1024, 128] bf16 chunks of llama2-7b's attention "
+                 "(phase 20 at one card: cp 4's ranks in turn; 6 of the "
+                 "10 launches of each kernel see every key, the numbers "
+                 "are theirs, ring-diag's the other 4)"))
     for name, key, replaces, err in (
             ("flash_attention_fwd", "fwd", ":113", "o"),
             ("flash_attention_bwd_dq", "dq", ":269", "dq"),
@@ -6356,7 +7156,10 @@ def main() -> int:
             ("llama_zero3", k3, zero3["launches"]["adamw"],
              f"one segment flat's 1/{world} shard a launch "
              f"({zero3['buckets']} flats){zero3_shape}; the numbers are "
-             "the [2048, 8192] case's")):
+             "the [2048, 8192] case's"),
+            ("llama_tp_world_of_one", k3, tp1["launches"]["adamw"],
+             "[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"
+             + tp1_shape)):
         by_path[path] = dict(
             launches=launched, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
@@ -6379,7 +7182,9 @@ def main() -> int:
             library_ms=k4["library_" + key + "_ms"], shape=shape)
             for path, launched, shape in (
                 ("llama_train", llama, k4_shape),
-                ("llama_zero3", zero3["launches"], k4_shape + zero3_shape))}
+                ("llama_zero3", zero3["launches"], k4_shape + zero3_shape),
+                ("llama_tp_world_of_one", tp1["launches"],
+                 k4_shape + tp1_shape))}
         kernels.append(dict(
             name=name, source="paddle_tpu_torch/ops/csrc/rms_norm.cu",
             replaces="paddle_tpu/ops/pallas/rms_norm.py" + replaces,
@@ -6392,7 +7197,9 @@ def main() -> int:
         bound_by=k5["bound"][1], library_ms=k5["library_ms"], shape=shape)
         for path, launched, shape in (
             ("llama_train", llama, k5_shape),
-            ("llama_zero3", zero3["launches"], k5_shape + zero3_shape))}
+            ("llama_zero3", zero3["launches"], k5_shape + zero3_shape),
+            ("llama_tp_world_of_one", tp1["launches"],
+             k5_shape + tp1_shape))}
     kernels.append(dict(
         name="rope", source="paddle_tpu_torch/ops/csrc/rope.cu",
         replaces="paddle_tpu/ops/pallas/rope.py:57",

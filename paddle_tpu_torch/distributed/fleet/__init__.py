@@ -2,9 +2,10 @@
 ``python/paddle/distributed/fleet/``): the strategy, the role maker, the
 topology, ``fleet.init`` with ``distributed_model`` /
 ``distributed_optimizer``, the hybrid and sharding optimizers, the
-gradient-sync utilities and activation recompute (``recompute``,
-``recompute_sequential``, ``recompute_hybrid``).  Model, pipeline and
-sequence parallel and MoE wait for later slices."""
+gradient-sync utilities, tensor and sequence parallelism (the mp
+layers, ``TensorParallel``, sep / cp attention) and activation recompute
+(``recompute``, ``recompute_sequential``, ``recompute_hybrid``).
+Pipelines and MoE wait for later slices."""
 from .base.distributed_strategy import DistributedStrategy
 from .base.role_maker import PaddleCloudRoleMaker, UserDefinedRoleMaker, Role
 from .base.topology import (CommunicateTopology, HybridCommunicateGroup,

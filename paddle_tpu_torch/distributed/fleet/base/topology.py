@@ -8,8 +8,9 @@ world's ranks on a :class:`~..mesh.Mesh` with the axes ``dp, pp,
 sharding, sep, cp, ep, mp`` (innermost last) and builds a real
 communicator per axis and for the fused ``check`` (dp, pp, sharding) and
 ``dp_sharding`` groups, every rank making every call in the same order.
-This slice runs data parallel and sharding: a model, pipeline, sequence,
-context or expert degree above 1 raises ``NotImplementedError``.
+Data parallel, sharding, model (tensor) parallel, sep (Ulysses) and
+context (ring attention) run; a pipeline or expert degree above 1 raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -94,9 +95,7 @@ class CommunicateTopology:
 _AXIS_OF = {"data": "dp", "pipe": "pp", "sharding": "sharding",
             "sep": "sep", "context": "cp", "expert": "ep", "model": "mp"}
 # the degrees later slices bring (ROADMAP Queue 1 item 1)
-_LATER = {"pipe": "(d) pipelines", "sep": "(c) sequence parallel",
-          "context": "(c) ring attention", "expert": "(d) MoE",
-          "model": "(c) model parallel"}
+_LATER = {"pipe": "(d) pipelines", "expert": "(d) MoE"}
 
 
 class HybridCommunicateGroup:
@@ -116,8 +115,7 @@ class HybridCommunicateGroup:
             if dim(n) > 1:
                 raise NotImplementedError(
                     f"{n} degree {dim(n)} waits for the distributed slice "
-                    f"{slice_}; this slice runs data parallel and "
-                    "sharding")
+                    f"{slice_}")
         world = get_world_size()
         if self.nranks != world:
             raise ValueError(f"the topology has {self.nranks} ranks, the "

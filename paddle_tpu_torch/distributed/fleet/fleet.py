@@ -5,10 +5,11 @@
 ``fleet.init`` joins the process group (``init_parallel_env``) and
 builds the hybrid topology's rank grid and groups;
 ``distributed_model`` / ``distributed_optimizer`` wrap per enabled axis,
-as the reference chooses: ``DataParallel`` over the dp x sharding group
-and ``HybridParallelOptimizer`` (ZeRO stage 1 when the sharding degree
-is above 1), under ``GradientMergeOptimizer`` when the strategy merges
-gradients.
+as the reference chooses: ``TensorParallel`` when a model, sep or
+context degree is above 1, else ``DataParallel`` over the dp x sharding
+group, and ``HybridParallelOptimizer`` (ZeRO stage 1 when the sharding
+degree is above 1), under ``GradientMergeOptimizer`` when the strategy
+merges gradients.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from .base.topology import (CommunicateTopology, HybridCommunicateGroup,
                             _set_hcg)
 from .meta_optimizers.dygraph_optimizer.hybrid_parallel_optimizer import (
     HybridParallelOptimizer)
+from .meta_parallel.tensor_parallel import TensorParallel
 
 __all__ = ["Fleet", "fleet"]
 
@@ -40,9 +42,9 @@ class Fleet:
         """ref: ``fleet.init``: join the group (``init_parallel_env``;
         ``device="cpu"`` runs it on gloo) and build the topology from
         ``strategy.hybrid_configs`` (a ``dp_degree`` of -1 absorbs the
-        ranks left).  A model, pipeline, sequence, context or expert
-        degree above 1 raises ``NotImplementedError``;
-        ``is_collective=False`` (parameter servers) too."""
+        ranks left).  A pipeline or expert degree above 1 raises
+        ``NotImplementedError``; ``is_collective=False`` (parameter
+        servers) too."""
         if not is_collective:
             raise NotImplementedError("parameter-server mode "
                                       "(is_collective=False)")
@@ -105,10 +107,15 @@ class Fleet:
 
     # ------------------------------------------------------------------
     def distributed_model(self, model):
-        """ref: ``fleet.py`` distributed_model: ``DataParallel`` over the
-        dp x sharding group when either degree is above 1, else the model
-        itself."""
+        """ref: ``fleet.py`` distributed_model: ``TensorParallel`` when
+        the model, sep or context degree is above 1, else
+        ``DataParallel`` over the dp x sharding group when either degree
+        is above 1, else the model itself."""
         hcg = self._hcg
+        if hcg.get_model_parallel_world_size() > 1 or \
+                hcg.get_sep_parallel_world_size() > 1 or \
+                hcg.get_context_parallel_world_size() > 1:
+            return TensorParallel(model, hcg, self._strategy)
         if hcg.get_data_parallel_world_size() > 1 or \
                 hcg.get_sharding_parallel_world_size() > 1:
             return DataParallel(model,

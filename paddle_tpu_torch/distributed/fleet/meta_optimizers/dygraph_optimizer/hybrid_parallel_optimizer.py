@@ -28,6 +28,14 @@ after the step; the next forward gathers the segments it runs.
 Weight decay must be uniform within a bucket: the buckets are split by
 each parameter's decay (``apply_decay_param_fun``) when the optimizer is
 built.  ``lr_ratio`` raises ``NotImplementedError``.
+
+A tensor-parallel model (mp, sep or cp above 1: ``TensorParallel``) is
+not in a ``DataParallel`` unless the sharding degree is above 1, so
+:meth:`HybridParallelOptimizer.step` first reduces its gradients, as
+Paddle's does with ``fused_allreduce_gradients``: averaged over dp and
+summed over sep / cp (whose ranks hold replicated parameters and see
+different tokens of the same rows); under a sharding reducer, which
+averages over dp x sharding, only the sep / cp sum is left.
 """
 from __future__ import annotations
 
@@ -270,7 +278,36 @@ class HybridParallelOptimizer:
         return self._sharding if self._sharding is not None \
             else self._inner_opt
 
+    def _tensor_parallel(self) -> bool:
+        h = self._hcg
+        return h is not None and max(
+            h.get_model_parallel_world_size(),
+            h.get_sep_parallel_world_size(),
+            h.get_context_parallel_world_size()) > 1
+
+    def _reduce_gradients(self):
+        """A tensor-parallel model's gradient reduction (module
+        docstring); nothing otherwise."""
+        if not self._tensor_parallel():
+            return
+        from ...utils.hybrid_parallel_util import (
+            fused_allreduce_gradients, _sequence_allreduce_gradients)
+        h = self._hcg
+        params = [p for g in self._inner_opt.param_groups
+                  for p in g["params"] if p.grad is not None]
+        if not params:
+            return
+        seq = h.get_sep_parallel_world_size() * \
+            h.get_context_parallel_world_size()
+        if reducer_of(params[0]) is None:
+            if h.get_data_parallel_world_size() * seq > 1:
+                fused_allreduce_gradients(params, h)
+        elif seq > 1:
+            _sequence_allreduce_gradients(
+                params, h.mesh.group(("sep", "cp"), name="sep_cp"), scale=1.0)
+
     def step(self):
+        self._reduce_gradients()
         self._stepper().step()
 
     def clear_grad(self, set_to_zero: bool = True):

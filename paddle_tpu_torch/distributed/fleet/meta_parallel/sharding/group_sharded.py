@@ -108,7 +108,9 @@ class GroupShardedStage3(torch.nn.Module):
     ``dp_group``, ``exclude_layer``, a ``segment_size`` other than the
     default and a ``device`` other than the card or the CPU raise
     ``NotImplementedError``; the reference's default ``device`` names
-    its own card, the port's the CUDA card."""
+    its own card, the port's the CUDA card.  A model split by model
+    parallelism (mp above 1) raises ``NotImplementedError`` too: its
+    segment flats would mix shards and replicated parameters."""
 
     def __init__(self, layer, optimizer=None, group=None,
                  sync_buffers: bool = False, device: str = "gpu",
@@ -124,6 +126,14 @@ class GroupShardedStage3(torch.nn.Module):
                             ("device", device not in ("gpu", "cpu"))):
             if given:
                 raise NotImplementedError(f"GroupShardedStage3 {what}")
+        from ..parallel_layers.mp_layers import is_split
+        from ..parallel_layers.mp_ops import mp_group
+        mp = mp_group(None)
+        if mp is not None and mp.nranks > 1 and any(
+                is_split(p) for p in layer.parameters()):
+            raise NotImplementedError("GroupShardedStage3 of a model split "
+                                      "by model parallelism waits for a "
+                                      "later slice")
         self._layers = layer
         self._group = _sharding_group(group)
         self._sync_buffers = sync_buffers

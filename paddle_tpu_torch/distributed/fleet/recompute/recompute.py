@@ -37,28 +37,30 @@ def recompute(function, *args, generator=None, **kwargs):
     """ref: ``fleet.recompute(function, *args, preserve_rng_state=True,
     use_reentrant=True, **kwargs)``: ``function(*args, **kwargs)`` with
     its activations recomputed in the backward (module docstring).
-    ``generator`` names the ``torch.Generator`` whose state the
-    recomputation replays."""
+    ``generator`` names the ``torch.Generator`` (or a tuple of them)
+    whose state the recomputation replays."""
     preserve = kwargs.pop("preserve_rng_state", True)
     kwargs.pop("use_reentrant", True)
     amp_state = amp._current()
-    replay = generator if preserve else None
-    start = replay.get_state() if replay is not None else None
+    replays = () if generator is None or not preserve else (
+        tuple(generator) if isinstance(generator, (tuple, list))
+        else (generator,))
+    start = [g.get_state() for g in replays]
     first = [True]
 
     def run(*a, **kw):
         if first[0]:
             first[0] = False
             return function(*a, **kw)
-        now = replay.get_state() if replay is not None else None
-        if replay is not None:
-            replay.set_state(start)
+        now = [g.get_state() for g in replays]
+        for g, st in zip(replays, start):
+            g.set_state(st)
         try:
             with amp._restored(amp_state):
                 return function(*a, **kw)
         finally:
-            if replay is not None:
-                replay.set_state(now)
+            for g, st in zip(replays, now):
+                g.set_state(st)
 
     return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=preserve and generator is None,

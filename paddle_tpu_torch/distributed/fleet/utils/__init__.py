@@ -1,5 +1,5 @@
-"""Fleet utilities: the manual gradient sync, the parameter broadcasts
-and the ``recompute`` re-export."""
-from . import hybrid_parallel_util
+"""Fleet utilities: the manual gradient sync, the parameter broadcasts,
+sequence parallelism and the ``recompute`` re-export."""
+from . import hybrid_parallel_util, sequence_parallel_utils
 from .hybrid_parallel_util import fused_allreduce_gradients
 from ..recompute import recompute

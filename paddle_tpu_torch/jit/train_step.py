@@ -19,6 +19,14 @@ DataParallel the step builds over the data group for a bare model), and
 the returned loss is the global mean: the average of the ranks' losses
 over equal shards.  Without a mesh each rank's batch is its own (the
 upstream ``DataParallel`` idiom).
+
+Under model, sep or cp parallelism (a mesh axis ``mp``, ``sep`` or
+``cp`` above 1: a tensor-parallel model) the ranks of those axes take
+the same rows; under ``sep`` or ``cp`` each keeps its contiguous chunk
+of the sequence (dimension 1 of every batch tensor) as well.  Such a
+model's gradients are reduced by ``HybridParallelOptimizer``
+(``fleet.distributed_optimizer``), not by a DataParallel the step
+builds, and its criterion sums over the sequence's chunks itself.
 """
 from __future__ import annotations
 
@@ -28,20 +36,42 @@ import torch
 __all__ = ["TrainStep", "train_step"]
 
 # axes whose degree above 1 waits for a later distributed slice
-_LATER_AXES = ("pp", "sep", "cp", "ep", "mp")
+_LATER_AXES = ("pp", "ep")
+# the tensor-parallel axes: same rows; sep / cp also split the sequence
+_TP_AXES = ("mp", "sep", "cp")
+
+
+def _hybrid(optimizer) -> bool:
+    """Whether ``optimizer`` (or what a gradient-merge window holds) is
+    ``HybridParallelOptimizer``, which reduces a tensor-parallel model's
+    gradients."""
+    from ..distributed.fleet.meta_optimizers.dygraph_optimizer import (
+        HybridParallelOptimizer)
+    inner = getattr(optimizer, "_inner", optimizer)
+    return isinstance(inner, HybridParallelOptimizer)
 
 
 class _DataShard:
-    """This rank's rows of the global batch along the mesh's data axes,
-    and the group that averages over them."""
+    """This rank's rows of the global batch along the mesh's data axes
+    (and its sequence chunk along ``sep`` / ``cp``), and the group that
+    averages over them."""
 
-    def __init__(self, mesh, batch_spec, model):
+    def __init__(self, mesh, batch_spec, model, optimizer=None):
         shape = mesh.shape
         later = {a: d for a, d in shape.items() if a in _LATER_AXES and d > 1}
         if later:
             raise NotImplementedError(f"mesh axes {later} wait for a later "
-                                      "distributed slice (model, pipeline "
-                                      "and sequence parallel)")
+                                      "distributed slice (pipelines and "
+                                      "MoE)")
+        seq = {a: d for a, d in shape.items() if a in ("sep", "cp") and d > 1}
+        if len(seq) > 1:
+            raise NotImplementedError("sep and cp together: one sequence "
+                                      "axis at a time")
+        self.seq_n, self.seq_index = 1, 0
+        if seq:
+            (axis, self.seq_n), = seq.items()
+            self.seq_index = mesh.group(axis).rank
+        tp = any(shape.get(a, 1) > 1 for a in _TP_AXES)
         if batch_spec is not None:
             spec = list(batch_spec)
             if any(s is not None for s in spec[1:]):
@@ -62,7 +92,13 @@ class _DataShard:
             p0 = next((p for p in model.parameters() if p.requires_grad),
                       None)
             red = reducer_of(p0) if p0 is not None else None
-            if red is None:
+            if red is None and tp:
+                if optimizer is not None and not _hybrid(optimizer):
+                    raise ValueError(
+                        "a tensor-parallel model's gradients are reduced by "
+                        "HybridParallelOptimizer: build the optimizer with "
+                        "fleet.distributed_optimizer")
+            elif red is None:
                 self._dp = DataParallel(model, group=self.group)
             elif red.group.ranks != self.group.ranks:
                 raise ValueError(f"the model's reducer averages over ranks "
@@ -70,14 +106,23 @@ class _DataShard:
                                  f"are {self.group.ranks}")
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
-        if self.n == 1 or x.dim() == 0:
+        if x.dim() == 0:
             return x
-        b = x.shape[0]
-        if b % self.n:
-            raise ValueError(f"global batch {b} does not split over "
-                             f"{self.n} data ranks")
-        k = b // self.n
-        return x[self.index * k:(self.index + 1) * k]
+        if self.n > 1:
+            b = x.shape[0]
+            if b % self.n:
+                raise ValueError(f"global batch {b} does not split over "
+                                 f"{self.n} data ranks")
+            k = b // self.n
+            x = x[self.index * k:(self.index + 1) * k]
+        if self.seq_n > 1 and x.dim() >= 2:
+            s = x.shape[1]
+            if s % self.seq_n:
+                raise ValueError(f"sequence {s} does not split over "
+                                 f"{self.seq_n} sep / cp ranks")
+            k = s // self.seq_n
+            x = x[:, self.seq_index * k:(self.seq_index + 1) * k]
+        return x
 
     def prepare(self) -> None:
         if self._dp is not None:
@@ -97,8 +142,8 @@ class TrainStep:
     """The reference's parameters in its order.  ``mesh`` and
     ``batch_spec`` shard the global batch over the data axes (module
     docstring); ``batch_spec`` is read only with a mesh, as in the
-    reference, and may shard dimension 0 only.  A mesh axis other than
-    ``dp``/``sharding`` of degree above 1 raises ``NotImplementedError``.
+    reference, and may shard dimension 0 only.  A ``pp`` or ``ep`` mesh
+    axis of degree above 1 raises ``NotImplementedError``.
     ``donate`` changes nothing here (the eager step updates the
     parameters in place either way)."""
 
@@ -109,7 +154,7 @@ class TrainStep:
             raise NotImplementedError("GradScaler waits for a later slice")
         if loss_fn is None and step_fn is None:
             raise ValueError("give loss_fn or step_fn")
-        self._data = _DataShard(mesh, batch_spec, model) \
+        self._data = _DataShard(mesh, batch_spec, model, optimizer) \
             if mesh is not None else None
         self.model = model
         self.loss_fn = loss_fn

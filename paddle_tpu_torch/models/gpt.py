@@ -28,6 +28,28 @@ decode loop's step (:meth:`GPTForPretraining.build_decode_step`, on the
 fused decode kernels K6a/K6b/K6c) keep the ``fused_decode`` LayerNorm
 numerics, as the JAX steps do; ``generate`` is
 ``models.generation.generate``.
+
+Under the fleet topology's model parallel degree ``mp`` the layers are
+the tensor-parallel ones (``fleet.meta_parallel.parallel_layers``), as
+in the JAX package: the packed qkv and ``fc1`` column-parallel (the qkv
+split by heads within each of its q, k, v thirds), ``out_proj`` and
+``fc2`` row-parallel, the word embedding vocab-parallel, and the tied
+head computing vocab-split logits ``[B, S, V/mp]`` for
+``ParallelCrossEntropy``.  Every rank draws the one-rank model's weights
+in its order and keeps its shards.  ``sequence_parallel=True`` is
+Megatron SP: between blocks the activations are split along the sequence
+over mp, gathered before qkv and fc1, reduce-scattered after out_proj
+and fc2; the LayerNorm parameters are marked sequence parallel and their
+gradients summed over mp by the hooks the model registers.  Under a sep
+or cp axis each rank holds its sequence chunk (``jit.train_step`` slices
+it), the positions are the chunk's global ones, attention takes the
+Ulysses or ring route, and the criterion sums the loss and the token
+count over that group before dividing (SP then stays off, as in the JAX
+package).  Dropout on what every mp rank holds draws from the model's
+generator (the same bits on every mp rank); dropout on a rank's own
+heads or sequence chunk from a second generator seeded ``seed + 1024 +``
+the rank's index (the reference's ``local_seed`` rule).  The KV-cache
+and decode paths run at one rank only.
 """
 from __future__ import annotations
 
@@ -40,8 +62,19 @@ from torch import nn
 
 from .. import amp
 from ..device import default_device, generator
+from ..distributed.communication.collective_ops import all_reduce
+from ..distributed.fleet.base.topology import get_hybrid_communicate_group
+from ..distributed.fleet.meta_parallel import segment_parallel
+from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    VocabParallelEmbedding, column_linear)
 from ..distributed.fleet.recompute import recompute
+from ..distributed.fleet.utils.sequence_parallel_utils import (
+    ColumnSequenceParallelLinear, RowSequenceParallelLinear,
+    ScatterOp, mark_as_sequence_parallel_parameter,
+    register_sequence_parallel_allreduce_hooks)
 from ..nn import functional as F
+from ..nn.initializer import Normal, ParamAttr
 from ..ops import fused_decode as _fd
 from ..ops.paged_attention import PagedLayerView
 
@@ -136,21 +169,115 @@ class Embedding(nn.Module):
         return F.embedding(ids, self.weight)
 
 
+class ParallelContext:
+    """The fleet topology's view of one model, read when it is built:
+    the mp degree and rank, whether Megatron SP runs (asked, mp above 1
+    and no sep / cp axis), the live sep / cp group, and the generators
+    of the module docstring (``gen`` for what every mp rank holds,
+    ``local_gen`` for a rank's own heads or sequence chunk)."""
+
+    def __init__(self, sequence_parallel: bool, seed: int, dev, gen):
+        hcg = get_hybrid_communicate_group()
+        self.mp = hcg.get_model_parallel_world_size() if hcg else 1
+        self.mp_rank = hcg.get_model_parallel_rank() if hcg else 0
+        self.seq_group = segment_parallel.seq_parallel_group()
+        self.sp = bool(sequence_parallel) and self.mp > 1 and \
+            self.seq_group is None
+        self.gen = gen
+        split = self.mp > 1 or self.seq_group is not None
+        if split:
+            index = self.mp_rank + self.mp * (
+                self.seq_group.rank if self.seq_group is not None else 0)
+            self.local_gen = generator(seed + 1024 + index, dev)
+        else:
+            self.local_gen = gen
+        self.seq_split = self.sp or self.seq_group is not None
+
+    @property
+    def hidden_gen(self):
+        """Dropout on the blocks' activations: split along the sequence
+        under SP or sep / cp."""
+        return self.local_gen if self.seq_split else self.gen
+
+    @property
+    def generators(self):
+        return (self.gen,) if self.local_gen is self.gen \
+            else (self.gen, self.local_gen)
+
+    def seq_offset(self, s: int) -> int:
+        """The global position of this rank's first row under sep / cp."""
+        return self.seq_group.rank * s if self.seq_group is not None else 0
+
+    def column(self, x, layers):
+        """The column-parallel products of one input, one a layer
+        (``mp_layers.column_linear``: the input gathered along the
+        sequence under SP, its gradient summed in fp32)."""
+        return column_linear(x, [(m.weight, m.bias) for m in layers],
+                             sp=self.sp)
+
+    def head(self, h, weight, last_only: bool = False):
+        """Logits of the ``[V, H]`` head: under mp this rank's vocabulary
+        columns (``weight`` is its rows)."""
+        if self.mp == 1:
+            if last_only:
+                h = h[:, -1:]
+            return F.matmul(h, weight, transpose_y=True)
+        (logits,) = column_linear(h, [(weight.t(), None)], sp=self.sp)
+        return logits[:, -1:] if last_only else logits
+
+    def check_single(self, what: str) -> None:
+        if self.mp > 1 or self.seq_group is not None:
+            raise NotImplementedError(
+                f"{what} under model or sequence parallelism waits for a "
+                "later slice")
+
+
+def _attr(std: float) -> ParamAttr:
+    return ParamAttr(initializer=Normal(std=std))
+
+
+class _QKVColumn(ColumnParallelLinear):
+    """The packed ``[H, 3H]`` qkv: each of the q, k, v thirds split by
+    heads over the ranks."""
+    split_groups = 3
+
+
+class _QKVColumnSP(ColumnSequenceParallelLinear):
+    split_groups = 3
+
+
+def _column(pc: ParallelContext):
+    return ColumnSequenceParallelLinear if pc.sp else ColumnParallelLinear
+
+
+def _row(pc: ParallelContext):
+    return RowSequenceParallelLinear if pc.sp else RowParallelLinear
+
+
 class MultiHeadAttention(nn.Module):
     """Causal self-attention with the packed ``[H, 3H]`` qkv projection
-    (columns: contiguous q, k, v thirds)."""
+    (columns: contiguous q, k, v thirds; under mp each rank's columns are
+    its heads of each third)."""
 
-    def __init__(self, c: GPTConfig, *, gen, device):
+    def __init__(self, c: GPTConfig, *, gen, device, pc=None):
         super().__init__()
-        self.num_heads = c.num_heads
+        pc = pc or ParallelContext(False, 0, device, gen)
+        if c.num_heads % pc.mp:
+            raise ValueError(f"num_heads ({c.num_heads}) must be divisible "
+                             f"by mp degree ({pc.mp})")
+        self.num_heads = c.num_heads // pc.mp
         self.head_dim = c.hidden_size // c.num_heads
         self.attn_drop = c.attention_dropout_prob
-        self.gen = gen
-        std = c.initializer_range
-        self.qkv_proj = Linear(c.hidden_size, 3 * c.hidden_size, std=std,
-                               gen=gen, device=device)
-        self.out_proj = Linear(c.hidden_size, c.hidden_size, std=std,
-                               gen=gen, device=device)
+        self.gen = pc.local_gen if pc.mp > 1 else gen
+        self._pc = pc
+        attr = _attr(c.initializer_range)
+        kw = dict(generator=gen, device=device)
+        self.qkv_proj = (_QKVColumnSP if pc.sp else _QKVColumn)(
+            c.hidden_size, 3 * c.hidden_size, weight_attr=attr,
+            has_bias=True, gather_output=False, **kw)
+        self.out_proj = _row(pc)(c.hidden_size, c.hidden_size,
+                                 weight_attr=attr, has_bias=True,
+                                 input_is_parallel=True, **kw)
 
     def forward(self, x, training: bool = True, past=None,
                 use_cache: bool = False):
@@ -163,9 +290,13 @@ class MultiHeadAttention(nn.Module):
         new_past)``."""
         if past is not None:
             _check_kv_pair(past)
-        b, s, hidden = x.shape
-        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
-                                       self.head_dim)
+        if past is not None or use_cache:
+            self._pc.check_single("a KV cache")
+        b = x.shape[0]
+        hidden = self.num_heads * self.head_dim     # this rank's heads
+        qkv = self.qkv_proj(x)
+        s = qkv.shape[1]                # the whole sequence under SP
+        qkv = qkv.reshape(b, s, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if isinstance(past, PagedLayerView):
             # decode against the page pools (no rope in GPT: positions
@@ -187,26 +318,37 @@ class MultiHeadAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, c: GPTConfig, **kw):
+    def __init__(self, c: GPTConfig, *, gen, device, pc=None):
         super().__init__()
+        pc = pc or ParallelContext(False, 0, device, gen)
         std = c.initializer_range
-        self.fc1 = Linear(c.hidden_size, c.intermediate_size, std=std, **kw)
-        self.fc2 = Linear(c.intermediate_size, c.hidden_size,
-                          std=std / math.sqrt(2.0 * c.num_layers), **kw)
+        kw = dict(generator=gen, device=device)
+        self.fc1 = _column(pc)(c.hidden_size, c.intermediate_size,
+                               weight_attr=_attr(std), has_bias=True,
+                               gather_output=False, **kw)
+        self.fc2 = _row(pc)(c.intermediate_size, c.hidden_size,
+                            weight_attr=_attr(
+                                std / math.sqrt(2.0 * c.num_layers)),
+                            has_bias=True, input_is_parallel=True, **kw)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate=True))
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, c: GPTConfig, *, device, gen):
+    def __init__(self, c: GPTConfig, *, device, gen, pc=None):
         super().__init__()
+        pc = pc or ParallelContext(False, 0, device, gen)
         self.ln1 = LayerNorm(c.hidden_size, device=device)
-        self.attn = MultiHeadAttention(c, gen=gen, device=device)
+        self.attn = MultiHeadAttention(c, gen=gen, device=device, pc=pc)
         self.ln2 = LayerNorm(c.hidden_size, device=device)
-        self.mlp = GPTMLP(c, gen=gen, device=device)
+        self.mlp = GPTMLP(c, gen=gen, device=device, pc=pc)
         self.drop_p = c.hidden_dropout_prob
-        self.gen = gen
+        self.gen = pc.hidden_gen
+        if pc.sp:
+            for ln in (self.ln1, self.ln2):
+                mark_as_sequence_parallel_parameter(ln.weight)
+                mark_as_sequence_parallel_parameter(ln.bias)
 
     def forward(self, x, past=None, use_cache: bool = False):
         h = self.attn(self.ln1(x), training=self.training, past=past,
@@ -221,14 +363,19 @@ class GPTBlock(nn.Module):
 
 
 class GPTEmbeddings(nn.Module):
-    def __init__(self, c: GPTConfig, *, device, gen):
+    def __init__(self, c: GPTConfig, *, device, gen, pc=None):
         super().__init__()
-        kw = dict(std=c.initializer_range, gen=gen, device=device)
-        self.word_embeddings = Embedding(c.vocab_size, c.hidden_size, **kw)
-        self.position_embeddings = Embedding(c.max_position_embeddings,
-                                             c.hidden_size, **kw)
+        pc = pc or ParallelContext(False, 0, device, gen)
+        self.word_embeddings = VocabParallelEmbedding(
+            c.vocab_size, c.hidden_size,
+            weight_attr=_attr(c.initializer_range), generator=gen,
+            device=device)
+        self.position_embeddings = Embedding(
+            c.max_position_embeddings, c.hidden_size,
+            std=c.initializer_range, gen=gen, device=device)
         self.drop_p = c.hidden_dropout_prob
-        self.gen = gen
+        # SP splits after this dropout; sep / cp rows are already a chunk
+        self.gen = pc.local_gen if pc.seq_group is not None else gen
 
     def forward(self, input_ids, pos_offset: int = 0):
         s = input_ids.shape[-1]
@@ -246,14 +393,20 @@ class GPTEmbeddings(nn.Module):
 class GPTModel(nn.Module):
     """Transformer decoder stack."""
 
-    def __init__(self, c: GPTConfig, *, device, gen):
+    def __init__(self, c: GPTConfig, *, device, gen, pc=None):
         super().__init__()
-        self.embeddings = GPTEmbeddings(c, device=device, gen=gen)
-        self.layers = nn.ModuleList([GPTBlock(c, device=device, gen=gen)
-                                     for _ in range(c.num_layers)])
+        pc = pc or ParallelContext(False, 0, device, gen)
+        self.embeddings = GPTEmbeddings(c, device=device, gen=gen, pc=pc)
+        self.layers = nn.ModuleList([
+            GPTBlock(c, device=device, gen=gen, pc=pc)
+            for _ in range(c.num_layers)])
         self.final_ln = LayerNorm(c.hidden_size, device=device)
+        if pc.sp:
+            mark_as_sequence_parallel_parameter(self.final_ln.weight)
+            mark_as_sequence_parallel_parameter(self.final_ln.bias)
         self.use_recompute = c.use_recompute
         self.gen = gen
+        self._pc = pc
 
     def forward(self, input_ids, past=None, use_cache: bool = False):
         """With ``past`` (one ``(k, v)`` per layer) positions start at
@@ -270,7 +423,11 @@ class GPTModel(nn.Module):
             pos0 = int(lens[0])
         else:
             pos0 = past[0][0].shape[1] if past is not None else 0
+        pc = self._pc
+        pos0 += pc.seq_offset(input_ids.shape[-1])
         x = self.embeddings(input_ids, pos_offset=pos0)
+        if pc.sp:
+            x = ScatterOp.apply(x)
         if use_cache or past is not None:
             new_pasts = []
             for i, block in enumerate(self.layers):
@@ -283,7 +440,7 @@ class GPTModel(nn.Module):
             return (h, new_pasts) if use_cache else h
         for block in self.layers:
             if self.use_recompute and self.training:
-                x = recompute(block, x, generator=self.gen)
+                x = recompute(block, x, generator=pc.generators)
             else:
                 x = block(x)
         return self.final_ln(x)
@@ -321,20 +478,21 @@ class GPTForPretraining(nn.Module):
     zero biases, unit LayerNorm scales — the JAX package's initializers
     (its random bits differ; carry weights over with
     ``models.carry.load_paddle_tpu_state`` to compare).  The same
-    generator, past the initializers, draws the dropout bits.
-    ``sequence_parallel=True`` raises until the distributed slice."""
+    generator, past the initializers, draws the dropout bits.  Under the
+    fleet topology's mp / sep / cp degrees the model is built split
+    (module docstring); ``sequence_parallel=True`` is Megatron SP there
+    and changes nothing at one rank."""
 
     supports_paged_cache = True   # attention dispatches on PagedLayerView
 
     def __init__(self, config: GPTConfig, *, device=None, seed: int = 0):
         super().__init__()
-        if config.sequence_parallel:
-            raise NotImplementedError("sequence_parallel waits for the "
-                                      "distributed slice")
         dev = default_device(device)
         gen = generator(seed, dev)
         self.config = config
-        self.gpt = GPTModel(config, device=dev, gen=gen)
+        self._pc = pc = ParallelContext(config.sequence_parallel, seed, dev,
+                                        gen)
+        self.gpt = GPTModel(config, device=dev, gen=gen, pc=pc)
         if not config.tie_word_embeddings:
             self.lm_head_weight = nn.Parameter(torch.empty(
                 config.vocab_size, config.hidden_size, device=dev,
@@ -343,6 +501,8 @@ class GPTForPretraining(nn.Module):
                 self.lm_head_weight.normal_(0.0, config.initializer_range,
                                             generator=gen)
         self.loss_fn = GPTPretrainingCriterion()
+        if pc.sp:
+            register_sequence_parallel_allreduce_hooks(self)
         self.eval()
 
     @property
@@ -371,9 +531,8 @@ class GPTForPretraining(nn.Module):
             h = self.gpt(input_ids, past=past, use_cache=use_cache)
             if use_cache:
                 h, new_past = h
-            if last_logits_only:
-                h = h[:, -1:]
-            logits = F.matmul(h, self.lm_weight(), transpose_y=True)
+            # under mp: this rank's vocabulary columns of the logits
+            logits = self._pc.head(h, self.lm_weight(), last_logits_only)
             return (logits, new_past) if use_cache else logits
 
     def generate(self, input_ids, **kwargs):
@@ -384,11 +543,13 @@ class GPTForPretraining(nn.Module):
     def build_decode_step(self):
         """The compiled decode loop's per-token body over fixed-shape
         caches; see :func:`_build_gpt_decode_step`."""
+        self._pc.check_single("the compiled decode step")
         return _build_gpt_decode_step(self)
 
     def build_ragged_decode_step(self):
         """Batched serving-engine step over paged KV pools; see
         ``models.generation.build_ragged_decode_step``."""
+        self._pc.check_single("the ragged decode step")
         from .generation import build_ragged_decode_step
         return build_ragged_decode_step(self)
 
@@ -396,6 +557,7 @@ class GPTForPretraining(nn.Module):
         """The serving window: up to ``max_window`` ragged decode
         iterations with one host read; see
         ``models.generation.build_fused_window_step``."""
+        self._pc.check_single("the fused serving window")
         from .generation import build_fused_window_step
         return build_fused_window_step(self, max_window)
 
@@ -458,21 +620,35 @@ class GPTPretrainingCriterion(nn.Module):
     count.  Each op casts its inputs by the amp rule, as the JAX ops do
     under O2 (the product and the clip run in the low dtype, the sums in
     fp32, so the O2 loss comes out in the low dtype).  The per-token
-    loss is ``ParallelCrossEntropy``'s: ``_vocab_sharded`` keeps it off
-    the softmax-CE kernel K8, as in the JAX package."""
+    loss is ``ParallelCrossEntropy``'s: over vocab-split logits under
+    mp; at one rank ``_vocab_sharded`` keeps it off the softmax-CE
+    kernel K8, as in the JAX package.  Under a sep / cp axis (read when
+    the criterion is built) the masked sum and the count are summed over
+    that group before the division (backward: each rank's own tokens)."""
 
     ignore_index = -100
+
+    def __init__(self):
+        super().__init__()
+        self.ce = ParallelCrossEntropy(ignore_index=self.ignore_index)
+        self._seq_group = segment_parallel.seq_parallel_group()
+
+    def _seq_sum(self, t):
+        if self._seq_group is None:
+            return t
+        t = t.clone()
+        all_reduce(t, group=self._seq_group)
+        return t
 
     def forward(self, logits, labels):
         b, s, v = logits.shape
         flat = labels.reshape(b * s)
-        loss = F.cross_entropy(logits.reshape(b * s, v), flat,
-                               ignore_index=self.ignore_index,
-                               reduction="none", _vocab_sharded=True)
+        loss = self.ce(logits.reshape(b * s, v), flat)
         mask = (flat != self.ignore_index).to(loss.dtype)
         loss, mask = amp.cast("multiply", loss, mask)
         (num,) = amp.cast("sum", loss * mask)
         (den,) = amp.cast("sum", mask)
-        (den,) = amp.cast("clip", den.sum())
-        num, den = amp.cast("divide", num.sum(), den.clamp(min=1.0))
+        num, den = self._seq_sum(num.sum()), self._seq_sum(den.sum())
+        (den,) = amp.cast("clip", den)
+        num, den = amp.cast("divide", num, den.clamp(min=1.0))
         return num / den

@@ -28,8 +28,21 @@ counterpart on CUDA).  :meth:`LlamaForCausalLM.build_ragged_decode_step`
 and :meth:`~LlamaForCausalLM.build_fused_window_step` are the serving
 engine's step and window (``models.generation``).
 
-Not ported yet, and raising ``NotImplementedError``: ``sequence_parallel``
-(the distributed slice).
+Under the fleet topology's mp degree the layers are tensor-parallel, as
+in the JAX package: q / k / v / gate / up column-parallel (q / k / v,
+and gate / up, one input's products in one function,
+``mp_layers.column_linear``), o / down row-parallel, ``embed_tokens``
+vocab-parallel and ``lm_head_weight [V, H]`` split by vocabulary rows
+into ``ParallelCrossEntropy``.  Every rank draws the one-rank model's
+weights in its order and keeps its shards.  ``sequence_parallel=True``
+is Megatron SP (K4a/K4b and the residual adds run on the rank's
+sequence chunk; the RMSNorm weights are marked and their gradients
+summed over mp by hooks); under a sep / cp axis each rank holds its
+chunk and the rope tables are sliced at its global positions (see
+``models.gpt`` for both).  GQA with ``num_key_value_heads`` not
+divisible by mp would split a kv head over ranks: it raises
+``NotImplementedError``.  The KV-cache and decode paths run at one rank
+only.
 """
 from __future__ import annotations
 
@@ -47,8 +60,13 @@ from ..incubate.nn.functional import (fused_rms_norm,
 from ..nn import functional as F
 from ..ops import fused_decode as _fd
 from ..ops.paged_attention import PagedLayerView
-from .gpt import (Embedding, GPTPretrainingCriterion, Linear,
-                  _check_dense_past, _check_kv_pair)
+from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+    VocabParallelEmbedding, shard_of)
+from ..distributed.fleet.utils.sequence_parallel_utils import (
+    ScatterOp, mark_as_sequence_parallel_parameter,
+    register_sequence_parallel_allreduce_hooks)
+from .gpt import (GPTPretrainingCriterion, ParallelContext, _attr, _column,
+                  _row, _check_dense_past, _check_kv_pair)
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "llama_config", "LlamaModel",
            "LlamaForCausalLM", "LlamaPretrainingCriterion"]
@@ -132,23 +150,38 @@ class LlamaRMSNorm(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """Rotary GQA attention (training forward, no KV cache)."""
+    """Rotary GQA attention (training forward, no KV cache); under mp
+    this rank's q heads and kv heads."""
 
-    def __init__(self, c: LlamaConfig, *, gen, device):
+    def __init__(self, c: LlamaConfig, *, gen, device, pc=None):
         super().__init__()
-        self.num_heads = c.num_heads
-        self.num_kv = c.num_kv_heads
+        pc = pc or ParallelContext(False, 0, device, gen)
+        if c.num_heads % pc.mp:
+            raise ValueError(f"num_heads ({c.num_heads}) must be divisible "
+                             f"by mp degree ({pc.mp})")
+        if c.num_kv_heads % pc.mp:
+            raise NotImplementedError(
+                f"num_key_value_heads ({c.num_kv_heads}) not divisible by "
+                f"mp degree ({pc.mp}) would split a kv head over ranks")
+        self.num_heads = c.num_heads // pc.mp
+        self.num_kv = c.num_kv_heads // pc.mp
         self.head_dim = c.hidden_size // c.num_heads
-        kw = dict(std=c.initializer_range, gen=gen, device=device)
+        self._pc = pc
+        attr = _attr(c.initializer_range)
+        kw = dict(generator=gen, device=device)
         qkv_bias = bool(c.attention_bias)
-        self.q_proj = Linear(c.hidden_size, c.num_heads * self.head_dim,
-                             bias=qkv_bias, **kw)
-        self.k_proj = Linear(c.hidden_size, self.num_kv * self.head_dim,
-                             bias=qkv_bias, **kw)
-        self.v_proj = Linear(c.hidden_size, self.num_kv * self.head_dim,
-                             bias=qkv_bias, **kw)
-        self.o_proj = Linear(c.num_heads * self.head_dim, c.hidden_size,
-                             bias=False, **kw)
+        col, row = _column(pc), _row(pc)
+        hd = self.head_dim
+        self.q_proj = col(c.hidden_size, c.num_heads * hd, weight_attr=attr,
+                          has_bias=qkv_bias, gather_output=False, **kw)
+        self.k_proj = col(c.hidden_size, c.num_kv_heads * hd,
+                          weight_attr=attr, has_bias=qkv_bias,
+                          gather_output=False, **kw)
+        self.v_proj = col(c.hidden_size, c.num_kv_heads * hd,
+                          weight_attr=attr, has_bias=qkv_bias,
+                          gather_output=False, **kw)
+        self.o_proj = row(c.num_heads * hd, c.hidden_size, weight_attr=attr,
+                          has_bias=False, input_is_parallel=True, **kw)
         cos, sin = _rope_cache(self.head_dim, c.max_position_embeddings,
                                c.rope_theta)
         # position constants: not parameters, not in the state_dict
@@ -165,18 +198,23 @@ class LlamaAttention(nn.Module):
         ``(out, new_past)``."""
         if past is not None:
             _check_kv_pair(past)
-        b, s, _ = x.shape
+        pc = self._pc
+        if past is not None or use_cache:
+            pc.check_single("a KV cache")
         if isinstance(past, PagedLayerView):
             return self._paged(x, past, use_cache)
-        pos0 = past[0].shape[1] if past is not None else 0
+        # one input for q / k / v (the whole sequence under SP)
+        q, k, v = pc.column(x, (self.q_proj, self.k_proj, self.v_proj))
+        b, s = q.shape[:2]
+        pos0 = past[0].shape[1] if past is not None else pc.seq_offset(s)
         if pos0 + s > self._cos.shape[0]:
             raise ValueError(
                 f"sequence position {pos0 + s} exceeds "
                 f"max_position_embeddings {self._cos.shape[0]}: the rope "
                 "table has no entries past that point")
-        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(b, s, self.num_kv, self.head_dim)
-        v = self.v_proj(x).reshape(b, s, self.num_kv, self.head_dim)
+        q = q.reshape(b, s, self.num_heads, self.head_dim)
+        k = k.reshape(b, s, self.num_kv, self.head_dim)
+        v = v.reshape(b, s, self.num_kv, self.head_dim)
         q, k, _ = fused_rotary_position_embedding(
             q, k, sin=self._sin[pos0:pos0 + s], cos=self._cos[pos0:pos0 + s],
             use_neox_rotary_style=False)
@@ -219,31 +257,41 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     """SwiGLU: ``down(act(gate(x)) * up(x))``."""
 
-    def __init__(self, c: LlamaConfig, *, gen, device):
+    def __init__(self, c: LlamaConfig, *, gen, device, pc=None):
         super().__init__()
-        kw = dict(std=c.initializer_range, gen=gen, device=device,
-                  bias=False)
-        self.gate_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
-        self.up_proj = Linear(c.hidden_size, c.intermediate_size, **kw)
-        self.down_proj = Linear(c.intermediate_size, c.hidden_size, **kw)
+        pc = pc or ParallelContext(False, 0, device, gen)
+        kw = dict(weight_attr=_attr(c.initializer_range), has_bias=False,
+                  generator=gen, device=device)
+        self.gate_proj = _column(pc)(c.hidden_size, c.intermediate_size,
+                                     gather_output=False, **kw)
+        self.up_proj = _column(pc)(c.hidden_size, c.intermediate_size,
+                                   gather_output=False, **kw)
+        self.down_proj = _row(pc)(c.intermediate_size, c.hidden_size,
+                                  input_is_parallel=True, **kw)
         self.act = c.hidden_act
+        self._pc = pc
 
     def forward(self, x):
-        g = self.gate_proj(x)
+        g, u = self._pc.column(x, (self.gate_proj, self.up_proj))
         a = F.gelu(g, approximate=True) if self.act == "gelu_tanh" \
             else F.silu(g)
-        return self.down_proj(a * self.up_proj(x))
+        return self.down_proj(a * u)
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, c: LlamaConfig, *, gen, device):
+    def __init__(self, c: LlamaConfig, *, gen, device, pc=None):
         super().__init__()
+        pc = pc or ParallelContext(False, 0, device, gen)
         self.input_layernorm = LlamaRMSNorm(c.hidden_size, c.rms_eps,
                                             device=device)
-        self.self_attn = LlamaAttention(c, gen=gen, device=device)
+        self.self_attn = LlamaAttention(c, gen=gen, device=device, pc=pc)
         self.post_attention_layernorm = LlamaRMSNorm(
             c.hidden_size, c.rms_eps, device=device)
-        self.mlp = LlamaMLP(c, gen=gen, device=device)
+        self.mlp = LlamaMLP(c, gen=gen, device=device, pc=pc)
+        if pc.sp:
+            mark_as_sequence_parallel_parameter(self.input_layernorm.weight)
+            mark_as_sequence_parallel_parameter(
+                self.post_attention_layernorm.weight)
 
     def forward(self, x, past=None, use_cache: bool = False):
         h = self.self_attn(self.input_layernorm(x), past=past,
@@ -256,17 +304,22 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, c: LlamaConfig, *, gen, device):
+    def __init__(self, c: LlamaConfig, *, gen, device, pc=None):
         super().__init__()
+        pc = pc or ParallelContext(False, 0, device, gen)
         self.config = c
-        self.embed_tokens = Embedding(c.vocab_size, c.hidden_size,
-                                      std=c.initializer_range, gen=gen,
-                                      device=device)
+        self.embed_tokens = VocabParallelEmbedding(
+            c.vocab_size, c.hidden_size,
+            weight_attr=_attr(c.initializer_range), generator=gen,
+            device=device)
         self.layers = nn.ModuleList([
-            LlamaDecoderLayer(c, gen=gen, device=device)
+            LlamaDecoderLayer(c, gen=gen, device=device, pc=pc)
             for _ in range(c.num_layers)])
         self.norm = LlamaRMSNorm(c.hidden_size, c.rms_eps, device=device)
+        if pc.sp:
+            mark_as_sequence_parallel_parameter(self.norm.weight)
         self.gen = gen
+        self._pc = pc
 
     def forward(self, input_ids, past=None, use_cache: bool = False):
         c = self.config
@@ -274,6 +327,8 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids)
         if c.embed_scale != 1.0:
             x = x * c.embed_scale
+        if self._pc.sp:
+            x = ScatterOp.apply(x)
         if use_cache or past is not None:
             # a given cache is consumed even without use_cache: dropping
             # it would score the tokens with no history
@@ -288,7 +343,7 @@ class LlamaModel(nn.Module):
             return (h, new_pasts) if use_cache else h
         for layer in self.layers:
             if c.use_recompute and self.training:
-                x = recompute(layer, x, generator=self.gen)
+                x = recompute(layer, x, generator=self._pc.generators)
             else:
                 x = layer(x)
         return self.norm(x)
@@ -305,27 +360,35 @@ class LlamaForCausalLM(nn.Module):
     weights — the JAX package's initializers (its random bits differ;
     carry weights over with ``models.carry.load_paddle_tpu_state`` to
     compare).  A new model is in eval mode; ``jit.train_step`` sets
-    training mode."""
+    training mode.  Under the fleet topology's mp / sep / cp degrees the
+    model is built split (module docstring)."""
 
     supports_paged_cache = True   # attention dispatches on PagedLayerView
 
     def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0):
         super().__init__()
-        if config.sequence_parallel:
-            raise NotImplementedError("sequence_parallel waits for the "
-                                      "distributed slice")
         dev = default_device(device)
         gen = generator(seed, dev)
         self.config = config
-        self.llama = LlamaModel(config, gen=gen, device=dev)
+        self._pc = pc = ParallelContext(config.sequence_parallel, seed, dev,
+                                        gen)
+        self.llama = LlamaModel(config, gen=gen, device=dev, pc=pc)
         if not config.tie_word_embeddings:
-            self.lm_head_weight = nn.Parameter(torch.empty(
-                config.vocab_size, config.hidden_size, device=dev,
-                dtype=torch.float32))
+            full = torch.empty(config.vocab_size, config.hidden_size,
+                               device=dev, dtype=torch.float32)
             with torch.no_grad():
-                self.lm_head_weight.normal_(0.0, config.initializer_range,
-                                            generator=gen)
+                full.normal_(0.0, config.initializer_range, generator=gen)
+            if pc.mp > 1:
+                if config.vocab_size % pc.mp:
+                    raise ValueError(f"vocab_size ({config.vocab_size}) must "
+                                     f"be divisible by mp degree ({pc.mp})")
+                full = shard_of(full, 0, 1, pc.mp_rank, pc.mp).contiguous()
+            self.lm_head_weight = nn.Parameter(full)
+            self.lm_head_weight.split_axis = 0
+            self.lm_head_weight.split_groups = 1
         self.loss_fn = LlamaPretrainingCriterion()
+        if pc.sp:
+            register_sequence_parallel_allreduce_hooks(self)
         self.eval()
 
     @property
@@ -355,11 +418,10 @@ class LlamaForCausalLM(nn.Module):
             h = self.llama(input_ids, past=past, use_cache=use_cache)
             if use_cache:
                 h, new_past = h
-            if last_logits_only:
-                # decode samples only the last position: skip the [S, V]
-                # head for the rest of the prompt
-                h = h[:, -1:]
-            logits = F.matmul(h, self.lm_weight(), transpose_y=True)
+            # under mp: this rank's vocabulary columns of the logits;
+            # decode samples only the last position (one rank: the [S, V]
+            # head skipped for the rest of the prompt)
+            logits = self._pc.head(h, self.lm_weight(), last_logits_only)
             return (logits, new_past) if use_cache else logits
 
     def generate(self, input_ids, **kwargs):
@@ -370,11 +432,13 @@ class LlamaForCausalLM(nn.Module):
     def build_decode_step(self):
         """The compiled decode loop's per-token body over fixed-shape
         caches; see :func:`_build_llama_decode_step`."""
+        self._pc.check_single("the compiled decode step")
         return _build_llama_decode_step(self)
 
     def build_ragged_decode_step(self):
         """Batched serving-engine step over paged KV pools; see
         ``models.generation.build_ragged_decode_step``."""
+        self._pc.check_single("the ragged decode step")
         from .generation import build_ragged_decode_step
         return build_ragged_decode_step(self)
 
@@ -382,6 +446,7 @@ class LlamaForCausalLM(nn.Module):
         """The serving window: up to ``max_window`` ragged decode
         iterations with one host read; see
         ``models.generation.build_fused_window_step``."""
+        self._pc.check_single("the fused serving window")
         from .generation import build_fused_window_step
         return build_fused_window_step(self, max_window)
 

@@ -1,4 +1,5 @@
-"""Neural-network functional ops of the port (``nn.functional``)."""
-from . import functional
+"""Neural-network functional ops and initializers of the port
+(``nn.functional``, ``nn.initializer``)."""
+from . import functional, initializer
 
-__all__ = ["functional"]
+__all__ = ["functional", "initializer"]

@@ -5,10 +5,13 @@ and ``paddle_tpu/tensor/math.py``.
 Each op first applies the amp O2 rule to its inputs (``amp.cast`` with
 the op's Paddle name), then takes the route the JAX package takes:
 
-* :func:`scaled_dot_product_attention` (``[B, S, H, D]``): with no live
-  dropout, the flash kernels K1 (``ops.flash_attention``); otherwise the
-  plain composition of ``attention.py`` (fp32 logits and softmax,
-  probabilities cast to q's dtype, dropout on them);
+* :func:`scaled_dot_product_attention` (``[B, S, H, D]``): under a live
+  sep or cp axis of the fleet topology, the sequence-parallel route
+  (``fleet.meta_parallel.segment_parallel``: Ulysses or the ring, GQA kv
+  heads expanded first); with no live dropout, the flash kernels K1
+  (``ops.flash_attention``); otherwise the plain composition of
+  ``attention.py`` (fp32 logits and softmax, probabilities cast to q's
+  dtype, dropout on them);
 * :func:`layer_norm`: K2 (``ops.layer_norm``) for a last-axis norm with
   weight and bias, else the plain composition of ``norm.py``;
 * :func:`cross_entropy`: K8 (``ops.softmax_ce``) for hard labels on the
@@ -174,20 +177,41 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training: bool = True, name=None, *,
                                  generator=None):
     """Attention on ``[batch, seq, heads, head_dim]`` (GQA when key has
-    fewer heads).  No live dropout: the flash kernels (K1) with
-    bottom-right causal alignment; otherwise the plain composition.
-    Causal with more queries than keys has no alignment and takes the
-    composition too, as in the JAX package.  ``attn_mask`` raises until
-    a slice needs it."""
+    fewer heads).  Under a live sep / cp axis the sequence-parallel route
+    first (on this rank's chunk; the reference's unsupported cases
+    gather the sequence and warn once).  No live dropout: the flash
+    kernels (K1) with bottom-right causal alignment; otherwise the plain
+    composition.  Causal with more queries than keys has no alignment and
+    takes the composition too, as in the JAX package.  ``attn_mask``
+    raises until a slice needs it."""
     if attn_mask is not None:
         raise NotImplementedError("scaled_dot_product_attention with "
                                   "attn_mask waits for a later slice")
     q, k, v = amp.cast("scaled_dot_product_attention", query, key, value)
-    b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+    hq, hkv = q.shape[2], k.shape[2]
     if hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads "
                          f"{hkv}")
+    from ..distributed.fleet.meta_parallel import segment_parallel as sp
+    if sp.active_seq_parallel_axis() is not None:
+        if hkv != hq:
+            k = k.repeat_interleave(hq // hkv, dim=2)
+            v = v.repeat_interleave(hq // hkv, dim=2)
+        out = sp.segment_parallel_attention(q, k, v, attn_mask, dropout_p,
+                                            is_causal, training)
+        if out is not None:
+            return out
+        return sp.gathered_attention(
+            q, k, v, lambda q, k, v: _local_attention(
+                q, k, v, dropout_p, is_causal, training, generator))
+    return _local_attention(q, k, v, dropout_p, is_causal, training,
+                            generator)
+
+
+def _local_attention(q, k, v, dropout_p, is_causal, training, generator):
+    """The flash kernels or the composition, on this rank's tensors."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     live_dropout = dropout_p > 0.0 and training
     if live_dropout or (is_causal and sq > sk):
         return _attention_composition(q, k, v, dropout_p, is_causal,

@@ -15,7 +15,13 @@
 // query i unless q_offset + i >= j (bottom-right alignment with q_offset
 // = Sk - Sq); ragged tails (S not a multiple of the tile) are masked, not
 // padded.  Every sum is fp32; q, k, v, O and the gradients share one
-// dtype (fp32 or bf16).
+// dtype (fp32 or bf16), except that the bf16 kernels can write fp32
+// outputs (dtype code 2: O, or the gradients): a ring's chunk calls merge
+// their O and sum their dq / dk / dv over chunks, and a chunk's bf16
+// rounding before that (O then feeds delta = rowsum(O dO), whose
+// difference dP - delta cancels; a chunk's share of dq or dk is larger
+// than the sum it cancels into) set a ring's gradients apart from one
+// call over the whole sequence.
 //
 // What bounds it: operations.  At the training shape ([64, 2048, 128]
 // bf16, causal) the forward does 4 * BH * S^2 * D / 2 = 69 GFLOP, dq
@@ -643,6 +649,18 @@ __device__ __forceinline__ void store_pair(bf16* __restrict__ row, int c,
   }
 }
 
+// the same pair kept in fp32 (gradients of dtype code 2)
+__device__ __forceinline__ void store_pair(float* __restrict__ row, int c,
+                                           float x0, float x1, int d,
+                                           int vec) {
+  if (vec) {
+    if (c < d) *reinterpret_cast<float2*>(row + c) = make_float2(x0, x1);
+  } else {
+    if (c < d) row[c] = x0;
+    if (c + 1 < d) row[c + 1] = x1;
+  }
+}
+
 // every (query, key) pair of the 64 x 64 tile at (q0, k0) is visible
 __device__ __forceinline__ bool tile_full(const Shape& s, int q0, int k0) {
   return q0 + kTile <= s.sq && k0 + kTile <= s.sk &&
@@ -774,10 +792,10 @@ __device__ __forceinline__ float quad_sum(float v) {
 // K1a: forward, bf16 (tensor cores)
 // ---------------------------------------------------------------------------
 
-template <int kD>
+template <int kD, typename G = bf16>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 const bf16* __restrict__ v, G* __restrict__ o,
                  float* __restrict__ lse, Shape s) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
   constexpr int kT = tc_tile<kD>();
@@ -896,7 +914,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = warp * 16 + lane / 4 + 8 * h;
     if (r >= rows) continue;
     const float lc = fmaxf(lr, 1e-30f);
-    bf16* orow = o + (row_base + r) * s.d;
+    G* orow = o + (row_base + r) * s.d;
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n) {
       const float x0 = lr > 0.f ? acc[n][2 * h] / lc : 0.f;
@@ -908,12 +926,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int kD>
+template <int kD, typename G = bf16>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
+                    const float* __restrict__ delta, G* __restrict__ dq,
                     Shape s) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
   constexpr int kT = tc_tile<kD>();
@@ -992,7 +1010,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int r = warp * 16 + lane / 4 + 8 * h;
     if (r >= rows) continue;
-    bf16* drow = dq + (row_base + r) * s.d;
+    G* drow = dq + (row_base + r) * s.d;
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n)
       store_pair(drow, 8 * n + 2 * (lane % 4), acc[n][2 * h] * s.scale,
@@ -1000,13 +1018,13 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int kD>
+template <int kD, typename G = bf16>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, Shape s) {
+                     const float* __restrict__ delta, G* __restrict__ dk,
+                     G* __restrict__ dv, Shape s) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
   constexpr int kT = tc_tile<kD>();
   bf16* sk_ = reinterpret_cast<bf16*>(tc_smem);   // K, resident
@@ -1096,8 +1114,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int r = warp * 16 + lane / 4 + 8 * h;
     if (r >= krows) continue;
-    bf16* krow = dk + (kv_base + r) * s.d;
-    bf16* vrow = dv + (kv_base + r) * s.d;
+    G* krow = dk + (kv_base + r) * s.d;
+    G* vrow = dv + (kv_base + r) * s.d;
 #pragma unroll
     for (int n = 0; n < kD / 8; ++n) {
       const int c = 8 * n + 2 * (lane % 4);
@@ -1130,6 +1148,9 @@ constexpr size_t tc_smem_bytes(int tiles, int row_words) {
   return tiles * tc_tile<kD>() * sizeof(bf16) + row_words * sizeof(float);
 }
 
+// the dtype tag of bf16 inputs with fp32 outputs (dtype code 2)
+struct Bf16Out32 {};
+
 // fp32: the CUDA-core kernel; bf16: the tensor-core kernel.  The shared
 // memory attribute is set once per instantiation.
 template <typename T, int kD>
@@ -1143,6 +1164,14 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
     flash_fwd_fp32_kernel<kD><<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<T*>(o), static_cast<float*>(lse), s);
+  } else if constexpr (std::is_same<T, Bf16Out32>::value) {
+    const size_t smem = tc_smem_bytes<kD>(5, 0);
+    static const int attr = set_smem(flash_fwd_kernel<kD, float>, smem);
+    if (attr) return attr;
+    flash_fwd_kernel<kD, float><<<grid, kTcThreads, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<float*>(o),
+        static_cast<float*>(lse), s);
   } else {
     const size_t smem = tc_smem_bytes<kD>(5, 0);
     static const int attr = set_smem(flash_fwd_kernel<kD>, smem);
@@ -1154,6 +1183,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
 
 template <typename T, int kD>
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -1168,6 +1198,15 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dq), s);
+  } else if constexpr (std::is_same<T, Bf16Out32>::value) {
+    const size_t smem = tc_smem_bytes<kD>(6, 0);
+    static const int attr = set_smem(flash_bwd_dq_kernel<kD, float>, smem);
+    if (attr) return attr;
+    flash_bwd_dq_kernel<kD, float><<<grid, kTcThreads, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dq), s);
   } else {
     const size_t smem = tc_smem_bytes<kD>(6, 0);
     static const int attr = set_smem(flash_bwd_dq_kernel<kD>, smem);
@@ -1194,6 +1233,15 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s);
+  } else if constexpr (std::is_same<T, Bf16Out32>::value) {
+    const size_t smem = tc_smem_bytes<kD>(6, 4 * kTile);
+    static const int attr = set_smem(flash_bwd_dkv_kernel<kD, float>, smem);
+    if (attr) return attr;
+    flash_bwd_dkv_kernel<kD, float><<<grid, kTcThreads, smem, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<float*>(dk), static_cast<float*>(dv), s);
   } else {
     const size_t smem = tc_smem_bytes<kD>(6, 4 * kTile);
     static const int attr = set_smem(flash_bwd_dkv_kernel<kD>, smem);
@@ -1222,7 +1270,8 @@ bool vec_ok(int d, std::initializer_list<const void*> ptrs) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, shared by q, k, v, O, dO and the
-// gradients; lse and delta are fp32 [BHq, Sq].  `bh` counts query rows
+// gradients; 2 = bfloat16 inputs with float32 outputs (O, or the
+// gradients); lse and delta are fp32 [BHq, Sq].  `bh` counts query rows
 // (BHq) for the forward and dq, kv rows (BHkv) for dk/dv.  The backward
 // sends float32 to the CUDA-core kernels and bfloat16 to the tensor-core
 // kernels.  Each returns cudaGetLastError() after its launch (0 on
@@ -1236,6 +1285,13 @@ bool vec_ok(int d, std::initializer_list<const void*> ptrs) {
     return static_cast<int>(cudaErrorInvalidValue);                          \
   } while (0)
 
+#define FA_DISPATCH2(CALL)                                                   \
+  do {                                                                       \
+    if (dtype == 2 && d <= 64) return CALL(Bf16Out32, 64);                   \
+    if (dtype == 2) return CALL(Bf16Out32, 128);                             \
+    FA_DISPATCH(CALL);                                                       \
+  } while (0)
+
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          void* lse, int bh, int sq, int sk, int d, int n_rep,
                          int causal, int q_offset, float scale, int dtype,
@@ -1245,7 +1301,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   const Shape s{sq, sk, d, n_rep, causal, q_offset, scale, vec_ok(d, {q, k, v, o})};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(T, D) fwd<T, D>(q, k, v, o, lse, bh, s, st)
-  FA_DISPATCH(CALL);
+  FA_DISPATCH2(CALL);
 #undef CALL
 }
 
@@ -1260,7 +1316,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                 vec_ok(d, {q, k, v, dout, dq})};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(T, D) bwd_dq<T, D>(q, k, v, dout, lse, delta, dq, bh, s, st)
-  FA_DISPATCH(CALL);
+  FA_DISPATCH2(CALL);
 #undef CALL
 }
 
@@ -1277,6 +1333,6 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                 vec_ok(d, {q, k, v, dout, dk, dv})};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(T, D) bwd_dkv<T, D>(q, k, v, dout, lse, delta, dk, dv, bhkv, s, st)
-  FA_DISPATCH(CALL);
+  FA_DISPATCH2(CALL);
 #undef CALL
 }

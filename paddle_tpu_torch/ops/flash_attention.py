@@ -120,9 +120,12 @@ def _stream():
 
 
 def flash_attention_fwd(q, k, v, scale: float, causal: bool,
-                        q_offset: int = 0, n_rep: int = 1):
-    """K1a on CUDA tensors: ``(out, lse)`` with out in q's dtype and fp32
-    ``lse [B*Hq, Sq]``."""
+                        q_offset: int = 0, n_rep: int = 1, *,
+                        out_fp32: bool = False):
+    """K1a on CUDA tensors: ``(out, lse)`` with out in q's dtype (in fp32,
+    unrounded, with ``out_fp32``: bf16 inputs take the kernel's dtype code
+    2; a ring merges the outputs of its chunks) and fp32 ``lse [B*Hq,
+    Sq]``."""
     _check_offset(causal, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -130,24 +133,31 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool,
     _check(q, k, v, n_rep)
     bh, sq, d = q.shape
     sk = k.shape[1]
-    out = torch.empty_like(q)
+    code = _DTYPE_CODE[q.dtype]
+    if out_fp32 and q.dtype == torch.bfloat16:
+        code = 2
+    out = torch.empty(q.shape, dtype=torch.float32 if out_fp32 else q.dtype,
+                      device=q.device)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), lse.data_ptr(), bh, sq, sk, d,
                            int(n_rep), int(bool(causal)), int(q_offset),
-                           float(scale), _DTYPE_CODE[q.dtype], _stream())
+                           float(scale), code, _stream())
     _rc(rc, "flash attention forward")
     launches["flash_fwd"] += 1
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, scale: float,
-                        causal: bool, q_offset: int = 0, n_rep: int = 1):
+                        causal: bool, q_offset: int = 0, n_rep: int = 1, *,
+                        grads_fp32: bool = False):
     """K1b then K1c on CUDA tensors: ``(dq, dk, dv)`` from the forward's
     ``out`` and ``lse`` and the output gradient ``dout``.  bf16 runs the
-    tensor-core kernels, float32 the CUDA-core ones."""
+    tensor-core kernels, float32 the CUDA-core ones.  ``grads_fp32``:
+    the gradients in fp32, unrounded (bf16 inputs: the kernels' dtype
+    code 2; a ring sums them over chunks)."""
     _check_offset(causal, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -160,12 +170,17 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float,
     bhkv, sk, _ = k.shape
     delta = (out.float() * dout.float()).sum(-1)            # [BHq, Sq]
     lse = lse.contiguous()
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    code = _DTYPE_CODE[q.dtype]
+    gdt = q.dtype
+    if grads_fp32:
+        gdt = torch.float32
+        code = 2 if q.dtype == torch.bfloat16 else code
+    dq = torch.empty(q.shape, dtype=gdt, device=q.device)
+    dk = torch.empty(k.shape, dtype=gdt, device=k.device)
+    dv = torch.empty(v.shape, dtype=gdt, device=v.device)
     lib = _build.library("flash_attention")
     args = (sq, sk, d, int(n_rep), int(bool(causal)), int(q_offset),
-            float(scale), _DTYPE_CODE[q.dtype])
+            float(scale), code)
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                               dout.data_ptr(), lse.data_ptr(),

@@ -229,9 +229,12 @@ def test_carry_fills_a_decorated_model():
 
 
 def test_unported_options_raise():
-    cfg = gpt_config("tiny", sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        GPTForPretraining(cfg, device="cpu")
+    # sequence_parallel is ported (tests/test_torch_tensor_parallel.py runs
+    # it under mp): at one rank it builds the plain model, bit for bit
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 512, (2, 16)))
+    logits = [GPTForPretraining(gpt_config("tiny", sequence_parallel=sp),
+                                device="cpu")(ids) for sp in (True, False)]
+    assert torch.equal(*logits)
     m = GPTForPretraining(gpt_config("tiny"), device="cpu")
     with pytest.raises(NotImplementedError, match="O1"):
         with amp.auto_cast(enable=True):

@@ -65,6 +65,18 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.distributed.sharding\n"
             "import paddle_tpu_torch.distributed.fleet.recompute\n"
             "import paddle_tpu_torch.distributed.launch.main\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+            ".parallel_layers\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+            ".segment_parallel\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+            ".tensor_parallel\n"
+            "import paddle_tpu_torch.distributed.fleet.utils"
+            ".sequence_parallel_utils\n"
+            "import paddle_tpu_torch.ops.ring_attention\n"
+            "import paddle_tpu_torch.ops.ulysses\n"
+            "import paddle_tpu_torch.nn.initializer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(','.join(bad))\n")

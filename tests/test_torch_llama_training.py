@@ -195,9 +195,12 @@ def test_recompute_gives_the_same_gradients():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        LlamaForCausalLM(llama_config("tiny", sequence_parallel=True),
-                         device="cpu")
+    # sequence_parallel is ported (tests/test_torch_tensor_parallel.py runs
+    # it under mp): at one rank it builds the plain model, bit for bit
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 256, (2, 16)))
+    logits = [LlamaForCausalLM(llama_config("tiny", sequence_parallel=sp),
+                               device="cpu")(tokens) for sp in (True, False)]
+    assert torch.equal(*logits)
     m = LlamaForCausalLM(llama_config("tiny"), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.long)
     # the dense and the paged KV cache and beam search are ported

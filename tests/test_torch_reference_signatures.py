@@ -63,6 +63,14 @@ from paddle_tpu.distributed.fleet.meta_parallel.sharding import (
 from paddle_tpu.distributed.passes import gradient_merge as jgm
 from paddle_tpu.incubate.nn import functional as jinc
 from paddle_tpu.ops import flash_attention as jfa
+from paddle_tpu.distributed.fleet.meta_parallel import (
+    segment_parallel as jseg, tensor_parallel as jtp)
+from paddle_tpu.distributed.fleet.meta_parallel.parallel_layers import (
+    mp_layers as jmp, random as jrandom)
+from paddle_tpu.distributed.fleet.utils import (
+    sequence_parallel_utils as jspu)
+from paddle_tpu.ops import ring_attention as jring, ulysses as julysses
+from paddle_tpu import random_state as jrandom_state
 
 import paddle_tpu_torch.distributed as tdist
 from paddle_tpu_torch.distributed import sharding as tsharding
@@ -77,6 +85,13 @@ from paddle_tpu_torch.distributed.fleet.meta_parallel.sharding import (
 from paddle_tpu_torch.distributed.passes import gradient_merge as tgm
 from paddle_tpu_torch.incubate.nn import functional as tinc
 from paddle_tpu_torch.ops import flash_attention as tfa
+from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+    segment_parallel as tseg, tensor_parallel as ttp)
+from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers import (
+    mp_layers as tmp, random as trandom)
+from paddle_tpu_torch.distributed.fleet.utils import (
+    sequence_parallel_utils as tspu)
+from paddle_tpu_torch.ops import ring_attention as tring, ulysses as tulysses
 
 # the modules (each package's ``jit`` exports the function of that name,
 # each ``fleet`` package the singleton named as its module)
@@ -194,6 +209,38 @@ PAIRS = {
                              trc.recompute_sequential),
     "recompute_hybrid": (jrc.recompute_hybrid, trc.recompute_hybrid),
     "launch": (jlaunch, tlaunch),
+    **{f"{cls}.__init__": (getattr(jmp, cls).__init__,
+                           getattr(tmp, cls).__init__)
+       for cls in ("VocabParallelEmbedding", "ColumnParallelLinear",
+                   "RowParallelLinear", "ParallelCrossEntropy")},
+    **{f"{cls}.__init__": (getattr(jspu, cls).__init__,
+                           getattr(tspu, cls).__init__)
+       for cls in ("ColumnSequenceParallelLinear",
+                   "RowSequenceParallelLinear")},
+    **{fn: (getattr(jspu, fn), getattr(tspu, fn))
+       for fn in ("mark_as_sequence_parallel_parameter",
+                  "is_sequence_parallel_parameter",
+                  "register_sequence_parallel_allreduce_hooks")},
+    "TensorParallel.__init__": (jtp.TensorParallel.__init__,
+                                ttp.TensorParallel.__init__),
+    "model_parallel_random_seed": (jrandom.model_parallel_random_seed,
+                                   trandom.model_parallel_random_seed),
+    "determinate_seed": (jrandom.determinate_seed, trandom.determinate_seed),
+    "RNGStatesTracker.add": (jrandom_state.RNGStatesTracker.add,
+                             trandom.RNGStatesTracker.add),
+    "RNGStatesTracker.rng_state": (jrandom_state.RNGStatesTracker.rng_state,
+                                   trandom.RNGStatesTracker.rng_state),
+    "broadcast_mp_parameters": (jhpu.broadcast_mp_parameters,
+                                thpu.broadcast_mp_parameters),
+    "broadcast_sep_parameters": (jhpu.broadcast_sep_parameters,
+                                 thpu.broadcast_sep_parameters),
+    "ring_attention_bhsd": (jring.ring_attention_bhsd,
+                            tring.ring_attention_bhsd),
+    "ulysses_attention": (julysses.ulysses_attention,
+                          tulysses.ulysses_attention),
+    **{fn: (getattr(jseg, fn), getattr(tseg, fn))
+       for fn in ("active_seq_parallel_axis", "sep_attention",
+                  "cp_ring_attention", "segment_parallel_attention")},
 }
 EXTRA = {"generator", "device"}
 
@@ -258,11 +305,12 @@ UNSUPPORTED = {
         parameters=_param(), use_multi_tensor=True),
     "adamw lazy_mode": lambda: optimizer.AdamW(parameters=_param(),
                                                lazy_mode=True),
-    # a mesh's model-parallel axis and a batch_spec sharding a dimension
-    # other than the batch wait for a later distributed slice
+    # a mesh's pipeline axis and a batch_spec sharding a dimension other
+    # than the batch wait for a later distributed slice (model, sep and
+    # cp axes run: tests/test_torch_tensor_parallel.py)
     "train_step mesh": lambda: ttrain.train_step(
         torch.nn.Linear(2, 2), lambda y: y.sum(),
-        mesh=tbuild_mesh({"dp": 1, "mp": 2}, devices=[0, 1])),
+        mesh=tbuild_mesh({"dp": 1, "pp": 2}, devices=[0, 1])),
     "TrainStep batch_spec": lambda: ttrain.TrainStep(
         torch.nn.Linear(2, 2), lambda y: y.sum(),
         mesh=tbuild_mesh({"dp": 1}, devices=[0]), batch_spec=[None, "dp"]),
@@ -284,8 +332,6 @@ UNSUPPORTED = {
     "launch elastic_timeout": lambda: tlaunch(
         "script.py", elastic_timeout=30.0, device="cpu"),
     "launch nnodes": lambda: tlaunch("script.py", nnodes=2, device="cpu"),
-    "broadcast_mp_parameters": lambda: thpu.broadcast_mp_parameters(None),
-    "broadcast_sep_parameters": lambda: thpu.broadcast_sep_parameters(None),
     "scatter without tensor_list": lambda: tdist.scatter(torch.zeros(2)),
     "generate unknown keyword": lambda: tgen.generate(
         _tiny_gpt(), np.zeros((1, 4), np.int64), max_new_tokens=1,
@@ -342,7 +388,25 @@ HONOURED = {
     "scheduler max_step_cost_s": lambda: all(
         _scheduler(m, max_step_cost_s=0.5).max_step_cost_s == 0.5
         for m in (jsched, tsched)),
+    # the broadcasts run (tests/test_torch_tensor_parallel.py holds them
+    # on 4 ranks); in a world of one they leave the weights as they are
+    "broadcast_mp_parameters": lambda: _broadcast_keeps_one_rank(
+        thpu.broadcast_mp_parameters),
+    "broadcast_sep_parameters": lambda: _broadcast_keeps_one_rank(
+        thpu.broadcast_sep_parameters),
 }
+
+
+def _broadcast_keeps_one_rank(fn) -> bool:
+    tdist.init_parallel_env(device="cpu")
+    try:
+        model = _tiny_gpt()
+        before = [p.detach().clone() for p in model.parameters()]
+        fn(model, None)
+        return all(torch.equal(a, p) for a, p in zip(before,
+                                                     model.parameters()))
+    finally:
+        tdist.destroy_process_group()
 
 
 @pytest.mark.parametrize("case", list(HONOURED))

@@ -8,8 +8,12 @@ test process holds them against the JAX package.
 
 Usage: ``python tests/torch_dist_workers.py MODE OUT [WEIGHTS.npz ...]``,
 MODE ``collectives``, ``train``, ``stage3`` (ZeRO stage 3: the tiny GPT
-and the tiny LLaMA, ``GPT.npz LLAMA.npz``) or ``spawn`` (two gloo ranks
-through ``distributed.spawn``, not the launcher).  :func:`launch` and
+and the tiny LLaMA, ``GPT.npz LLAMA.npz``), ``tensor_parallel`` (mp, SP
+and dp x sharding x mp runs, the mp layers, the SP hooks and the RNG
+streams: ``GPT.npz LLAMA.npz LAYERS.npz``), ``segment_parallel`` (ring
+and Ulysses attention, sep / cp runs and the fallback: ``DIR`` holding
+their inputs) or ``spawn`` (two gloo ranks through
+``distributed.spawn``, not the launcher).  :func:`launch` and
 :func:`wait_ranks` start a group from a test and collect its results.
 """
 import json
@@ -35,11 +39,15 @@ LAUNCH_TIMEOUT_S = 240
 JOIN_TIMEOUT_S = 120
 
 
-def launch(mode, out, log_dir, *args, max_restart=0, script=None):
+def launch(mode, out, log_dir, *args, max_restart=0, script=None,
+           threads=None):
     """This script's ranks (or ``script``'s) under the port's launcher
-    (``--device cpu``, no restart backoff), as a subprocess."""
+    (``--device cpu``, no restart backoff), as a subprocess; ``threads``
+    caps each rank's CPU threads (``OMP_NUM_THREADS``)."""
     env = dict(os.environ, PYTHONPATH=REPO,
                PADDLE_ELASTIC_RESTART_BACKOFF="0")
+    if threads is not None:
+        env["OMP_NUM_THREADS"] = str(threads)
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", str(N_RANKS), "--device", "cpu",
            "--log_dir", str(log_dir), "--max_restart", str(max_restart),
@@ -526,6 +534,364 @@ def run_stage3(out, r, gpt_weights, llama_weights):
     return arrays, info
 
 
+# ---------------------------------------------------------------------------
+# tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+
+# the tiny GQA LLaMA of the tensor-parallel runs: 8 heads over 4 kv heads,
+# so mp 4 splits neither
+TP_LLAMA = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=8,
+                num_kv_heads=4, intermediate_size=128,
+                max_position_embeddings=64)
+# tests/test_segment_parallel.py's LLaMA (GQA 4 / 2)
+SEG_LLAMA = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+                 num_kv_heads=2, intermediate_size=128,
+                 max_position_embeddings=64)
+# run: (model, degrees, sequence_parallel)
+TP_RUNS = {
+    "gpt_mp4": ("gpt", dict(mp_degree=4), False),
+    "gpt_dp2_mp2": ("gpt", dict(dp_degree=2, mp_degree=2), False),
+    "gpt_mp4_sp": ("gpt", dict(mp_degree=4), True),
+    "gpt_sh2_mp2": ("gpt", dict(dp_degree=1, sharding_degree=2,
+                                     mp_degree=2), False),
+    "llama_mp4": ("llama", dict(mp_degree=4), False),
+    "llama_dp2_mp2": ("llama", dict(dp_degree=2, mp_degree=2), False),
+    "llama_mp4_sp": ("llama", dict(mp_degree=4), True),
+    "llama_sh2_mp2": ("llama", dict(dp_degree=1, sharding_degree=2,
+                                         mp_degree=2), False),
+}
+# run: (model, degrees, heads): tests/test_segment_parallel.py's settings
+SEG_RUNS = {
+    "gpt_sep4": ("gpt", dict(sep_degree=4), 4),
+    "gpt_cp4": ("gpt", dict(cp_degree=4), 4),
+    "gpt_sep2_mp2": ("gpt", dict(sep_degree=2, mp_degree=2), 8),
+    "gpt_cp2_mp2": ("gpt", dict(cp_degree=2, mp_degree=2), 8),
+    "llama_sep2_mp2": ("llama", dict(sep_degree=2, mp_degree=2), None),
+    "llama_cp2_mp2": ("llama", dict(cp_degree=2, mp_degree=2), None),
+}
+
+
+def _fleet_init(**degrees):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(degrees)
+    fleet.init(is_collective=True, strategy=s, device="cpu")
+    return fleet.get_hybrid_communicate_group()
+
+
+def _fleet_clear():
+    from paddle_tpu_torch.distributed.fleet.base.topology import _clear_hcg
+    _clear_hcg()
+
+
+def tp_model(kind, weights, sp=False, heads=None, llama=None, **kw):
+    """The tiny GPT or LLaMA built under the live topology, carried from
+    the JAX weights (each rank its shards)."""
+    from paddle_tpu_torch.models import (GPTForPretraining, LlamaConfig,
+                                         LlamaForCausalLM, gpt_config,
+                                         load_paddle_tpu_state)
+    if kind == "gpt":
+        extra = {} if heads is None else dict(num_heads=heads)
+        extra.update(kw)
+        model = GPTForPretraining(gpt_config(
+            "tiny", hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+            sequence_parallel=sp, **extra), device="cpu")
+    else:
+        model = LlamaForCausalLM(LlamaConfig(**(llama or TP_LLAMA),
+                                             sequence_parallel=sp),
+                                 device="cpu")
+    load_paddle_tpu_state(model, weights)
+    return model
+
+
+def full_params(model):
+    """Every parameter's full value (split ones gathered over mp), fp32
+    numpy; a collective call."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_layers
+    while hasattr(model, "_layers"):
+        model = model._layers
+    return {n: mp_layers.gather_parameter(p.detach(), p).float().numpy()
+            for n, p in model.named_parameters()}
+
+
+def _train_fleet(kind, weights, batch, sp=False, heads=None, llama=None,
+                 **kw):
+    """3 steps of ``kind`` under the live topology through fleet's
+    wrappers and ``TrainStep(mesh=...)`` on the global batch."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.jit import train_step
+    hcg = fleet.get_hybrid_communicate_group()
+    model = fleet.distributed_model(tp_model(kind, weights, sp, heads,
+                                             llama, **kw))
+    opt = fleet.distributed_optimizer(_adamw(model))
+    step = train_step(model, None, opt, mesh=hcg.mesh, step_fn=_step_fn)
+    losses = [float(step(*batch)) for _ in range(STEPS)]
+    return model, losses
+
+
+def tp_batch(vocab):
+    """``tests/test_fleet_engine.py``'s ``_run_losses`` batch at
+    ``vocab``."""
+    rs = np.random.RandomState(0)
+    return (rs.randint(0, vocab, (GLOBAL_BATCH, SEQ)).astype(np.int64),
+            rs.randint(0, vocab, (GLOBAL_BATCH, SEQ)).astype(np.int64))
+
+
+def seg_batch(vocab, seed):
+    """``tests/test_segment_parallel.py``'s batch (GPT: seed 0, LLaMA:
+    seed 1)."""
+    rs = np.random.RandomState(seed)
+    return (rs.randint(0, vocab, (GLOBAL_BATCH, SEQ)).astype(np.int64),
+            rs.randint(0, vocab, (GLOBAL_BATCH, SEQ)).astype(np.int64))
+
+
+def _stage3_of(model):
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    return group_sharded_parallel(model, _adamw(model), "p_g_os")
+
+
+def run_tensor_parallel(out, r, gpt_weights, llama_weights, layers):
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        TensorParallel)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_layers, random as mp_random
+    from paddle_tpu_torch.distributed.fleet.utils import (
+        sequence_parallel_utils as spu)
+    arrays, info = {}, {}
+    for tag, (kind, degrees, sp) in TP_RUNS.items():
+        hcg = _fleet_init(**degrees)
+        weights = gpt_weights if kind == "gpt" else llama_weights
+        vocab = 512 if kind == "gpt" else TP_LLAMA["vocab_size"]
+        model, losses = _train_fleet(kind, weights, tp_batch(vocab), sp)
+        info[tag] = losses
+        info[f"{tag}_wrapped"] = type(model).__name__
+        info[f"{tag}_groups"] = dict(
+            mp=hcg.get_model_parallel_group().ranks,
+            dp=hcg.get_data_parallel_group().ranks,
+            sharding=hcg.get_sharding_parallel_group().ranks)
+        full = full_params(model)
+        if r == 0:
+            for n, a in full.items():
+                arrays[f"{tag}/{n}"] = a
+        info[f"{tag}_held"] = sum(p.numel() for p in model.parameters())
+        _fleet_clear()
+
+    # the mp layers at mp 4 on the test's inputs and weights
+    hcg = _fleet_init(mp_degree=4)
+    refused = {}
+    for case, build in (
+            ("gqa_kv_heads", lambda: tp_model(
+                "llama", llama_weights,
+                llama=dict(TP_LLAMA, num_kv_heads=2))),
+            ("stage3", lambda: _stage3_of(tp_model("gpt", gpt_weights)))):
+        try:
+            build()
+            refused[case] = None
+        except NotImplementedError as e:
+            refused[case] = str(e)
+    info["refused"] = refused
+    # what the carry gave this rank
+    for kind, weights in (("gpt", gpt_weights), ("llama", llama_weights)):
+        model = tp_model(kind, weights)
+        for n, p in model.named_parameters():
+            if n in ("gpt.layers.0.attn.qkv_proj.weight",
+                     "gpt.layers.0.attn.qkv_proj.bias",
+                     "gpt.embeddings.word_embeddings.weight",
+                     "gpt.layers.1.mlp.fc1.weight",
+                     "gpt.layers.1.mlp.fc2.weight", "lm_head_weight"):
+                arrays[f"carry/{n}"] = p.detach().numpy()
+    g = hcg.get_model_parallel_group()
+    x = torch.tensor(layers["x"], requires_grad=True)
+    ids = torch.tensor(layers["ids"])
+    emb = mp_layers.VocabParallelEmbedding(*layers["emb_w"].shape,
+                                           device="cpu")
+    col = mp_layers.ColumnParallelLinear(*layers["col_w"].shape,
+                                         gather_output=True, device="cpu")
+    col_split = mp_layers.ColumnParallelLinear(
+        *layers["col_w"].shape, gather_output=False, device="cpu")
+    row = mp_layers.RowParallelLinear(*layers["row_w"].shape,
+                                      input_is_parallel=False, device="cpu")
+    ce = mp_layers.ParallelCrossEntropy()
+    with torch.no_grad():
+        for m, w in ((emb, "emb_w"), (col, "col_w"), (col_split, "col_w"),
+                     (row, "row_w")):
+            m.weight.copy_(mp_layers.shard_of(torch.tensor(layers[w]),
+                                              m.weight.split_axis, 1,
+                                              g.rank, 4))
+        for m in (col, col_split):
+            m.bias.copy_(torch.tensor(layers["col_b"]).chunk(4)[g.rank])
+        row.bias.copy_(torch.tensor(layers["row_b"]))
+    e = emb(ids)
+    y = col(x)
+    ys = col_split(x)
+    z = row(y)
+    logits = torch.tensor(layers["logits"]).chunk(4, dim=-1)[g.rank] \
+        .clone().requires_grad_(True)
+    loss_rows = ce(logits, torch.tensor(layers["labels"]))
+    total = (e * torch.tensor(layers["ge"])).sum() + \
+        (z * torch.tensor(layers["gz"])).sum() + \
+        (loss_rows * torch.tensor(layers["gl"])).sum()
+    total.backward()
+    vals = dict(emb=e, col=y, row=z, ce=loss_rows,
+                col_split=mp_layers.gather_parameter(
+                    ys.detach(), col_split.weight),
+                dx=x.grad, dlogits=mp_layers.gather_parameter(
+                    logits.grad, col_split.weight),
+                demb=mp_layers.gather_parameter(emb.weight.grad, emb.weight),
+                dcol=mp_layers.gather_parameter(col.weight.grad, col.weight),
+                drow=mp_layers.gather_parameter(row.weight.grad, row.weight),
+                drow_b=row.bias.grad)
+    if r == 0:
+        for k, v in vals.items():
+            arrays[f"layers/{k}"] = v.detach().numpy()
+    info["layers_split_shapes"] = dict(
+        emb=list(emb.weight.shape), col=list(col.weight.shape),
+        row=list(row.weight.shape))
+
+    # the SP hooks: one backward of the SP model with and without them,
+    # the LayerNorm / RMSNorm gradients against the model without SP
+    for kind, weights in (("gpt", gpt_weights), ("llama", llama_weights)):
+        vocab = 512 if kind == "gpt" else TP_LLAMA["vocab_size"]
+        ids_np, labels_np = tp_batch(vocab)
+        batch = (torch.tensor(ids_np), torch.tensor(labels_np))
+        grads = {}
+        for case in ("no_sp", "sp", "sp_unhooked"):
+            if case == "sp_unhooked":
+                saved = spu.register_sequence_parallel_allreduce_hooks
+                import paddle_tpu_torch.models.gpt as tgpt
+                import paddle_tpu_torch.models.llama as tllama
+                tgpt.register_sequence_parallel_allreduce_hooks = \
+                    tllama.register_sequence_parallel_allreduce_hooks = \
+                    lambda *a, **k: None
+            try:
+                model = tp_model(kind, weights, sp=case != "no_sp")
+            finally:
+                if case == "sp_unhooked":
+                    tgpt.register_sequence_parallel_allreduce_hooks = \
+                        tllama.register_sequence_parallel_allreduce_hooks = \
+                        saved
+            model.train()
+            _step_fn(model, *batch).backward()
+            grads[case] = {n: p.grad.clone() for n, p in
+                           model.named_parameters()
+                           if spu.is_sequence_parallel_parameter(p)}
+            if case == "no_sp":
+                plain = {n: p.grad.clone()
+                         for n, p in model.named_parameters()}
+        marked = sorted(grads["sp"])
+        info[f"sp_hooks_{kind}_marked"] = marked
+        for case in ("sp", "sp_unhooked"):
+            info[f"sp_hooks_{kind}_{case}_err"] = max(
+                float((grads[case][n] - plain[n]).abs().max())
+                for n in marked)
+        info[f"sp_hooks_{kind}_scale"] = max(
+            float(plain[n].abs().max()) for n in marked)
+
+    # the RNG streams
+    gseed, lseed = mp_random.model_parallel_random_seed(1234)
+    tracker = mp_random.get_rng_state_tracker()
+    draws = {}
+    for name in ("global_seed", "local_seed"):
+        with tracker.rng_state(name) as gen:
+            draws[name] = torch.rand(8, generator=gen)
+    gathered = {k: mp_layers._gather(v[None], 0, g).numpy().tolist()
+                for k, v in draws.items()}
+    info["rng"] = dict(seeds=[gseed, lseed], draws=gathered,
+                       mp_rank=hcg.get_model_parallel_rank())
+
+    # TensorParallel's broadcasts: replicated parameters from the mp
+    # group's first rank, each rank's shards kept
+    model = tp_model("gpt", gpt_weights)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(float(r))
+    TensorParallel(model, hcg)
+    qkv = torch.tensor(gpt_weights["gpt.layers.0.attn.qkv_proj.weight"])
+    info["broadcast"] = dict(
+        final_ln=float(model.gpt.final_ln.weight[0]),
+        qkv_shift=float(model.gpt.layers[0].attn.qkv_proj.weight[0, 0])
+        - float(mp_layers.shard_of(qkv, 1, 3, g.rank, 4)[0, 0]))
+    _fleet_clear()
+    return arrays, info
+
+
+def run_segment_parallel(out, r, src):
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        segment_parallel)
+    from paddle_tpu_torch.ops.ring_attention import ring_attention_bhsd
+    from paddle_tpu_torch.ops.ulysses import ulysses_attention
+    arrays, info = {}, {}
+    attn = dict(np.load(os.path.join(src, "attn.npz")))
+    world = dist.new_group(list(range(N_RANKS)))
+    n = N_RANKS
+    # the ring over [BH, S/n, D] chunks, causal and not, with gradients
+    for causal in (False, True):
+        q, k, v = (torch.tensor(attn[t]).chunk(n, dim=1)[r].clone()
+                   .requires_grad_(True) for t in ("q", "k", "v"))
+        o = ring_attention_bhsd(q, k, v, world, 0.125, causal)
+        w = torch.tensor(attn["w"])
+        (o * w).sum().backward()
+        tag = f"ring_{'causal' if causal else 'full'}"
+        for name, t in (("out", o), ("dq", q.grad), ("dk", k.grad),
+                        ("dv", v.grad)):
+            arrays[f"{tag}/{name}"] = t.detach().numpy()
+    # Ulysses over [B, S/n, H, D]
+    for causal in (False, True):
+        q, k, v = (torch.tensor(attn[f"u{t}"]).chunk(n, dim=1)[r].clone()
+                   .requires_grad_(True) for t in ("q", "k", "v"))
+        o = ulysses_attention(q, k, v, world, 0.125, causal)
+        (o * torch.tensor(attn["w"])).sum().backward()
+        tag = f"ulysses_{'causal' if causal else 'full'}"
+        for name, t in (("out", o), ("dq", q.grad), ("dk", k.grad),
+                        ("dv", v.grad)):
+            arrays[f"{tag}/{name}"] = t.detach().numpy()
+
+    # sep / cp runs of tests/test_segment_parallel.py
+    for tag, (kind, degrees, heads) in SEG_RUNS.items():
+        _fleet_init(**degrees)
+        if kind == "gpt":
+            weights = dict(np.load(os.path.join(src, f"gpt{heads}.npz")))
+            batch = seg_batch(512, 0)
+        else:
+            weights = dict(np.load(os.path.join(src, "llama.npz")))
+            batch = seg_batch(SEG_LLAMA["vocab_size"], 1)
+        before = dict(segment_parallel.launches)
+        model, losses = _train_fleet(kind, weights, batch, heads=heads,
+                                     llama=SEG_LLAMA)
+        info[tag] = losses
+        info[f"{tag}_routes"] = {k: segment_parallel.launches[k] - before[k]
+                                 for k in before}
+        full = full_params(model)
+        if r == 0:
+            for nme, a in full.items():
+                arrays[f"{tag}/{nme}"] = a
+        _fleet_clear()
+
+    # the fallback: sep 4 over 6 heads (Ulysses needs heads % sep == 0)
+    hcg = _fleet_init(sep_degree=4)
+    import warnings
+    weights = dict(np.load(os.path.join(src, "fallback.npz")))
+    model = tp_model("gpt", weights, heads=6, hidden_size=48)
+    ids = torch.zeros(GLOBAL_BATCH, SEQ, dtype=torch.long)
+    s = SEQ // n
+    before = dict(segment_parallel.launches)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        logits = model(ids[:, r * s:(r + 1) * s])
+    info["fallback_warnings"] = [str(w.message) for w in rec]
+    info["fallback_routes"] = {k: segment_parallel.launches[k] - before[k]
+                               for k in before}
+    g = hcg.get_sep_parallel_group()
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_ops
+    full = mp_ops._gather(logits.contiguous(), 1, g)
+    if r == 0:
+        arrays["fallback/logits"] = full.numpy()
+    _fleet_clear()
+    return arrays, info
+
+
 def _spawn_rank(out):
     dist.init_parallel_env(device="cpu")
     r = dist.get_rank()
@@ -560,6 +926,12 @@ def main():
     elif mode == "stage3":
         arrays, info = run_stage3(out, r, dict(np.load(sys.argv[3])),
                                   dict(np.load(sys.argv[4])))
+    elif mode == "tensor_parallel":
+        arrays, info = run_tensor_parallel(
+            out, r, dict(np.load(sys.argv[3])), dict(np.load(sys.argv[4])),
+            dict(np.load(sys.argv[5])))
+    elif mode == "segment_parallel":
+        arrays, info = run_segment_parallel(out, r, sys.argv[3])
     else:
         weights = dict(np.load(sys.argv[3]))
         arrays, info = run_train(out, r, weights)
