@@ -8,9 +8,9 @@ Run from the root of a checkout, on a machine with one CUDA card::
 (``python3 chip_smoke.py --ab fa_a.cu fa_b.cu ...`` instead times copies
 of a kernel source against each other: ``compare_variants``;
 ``--fleet`` runs phase 4h alone: ``fleet_alone``; ``--distributed``
-runs phases 17-20 alone: ``distributed_alone``, on every visible card;
+runs phases 17-21 alone: ``distributed_alone``, on every visible card;
 ``--tensor-parallel`` phases 19 and 20 alone, ``--sequence-parallel``
-phase 20 alone.)
+phase 20 alone, ``--pipeline`` phase 21 alone.)
 
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
@@ -307,7 +307,32 @@ loudly with a non-zero exit:
    apart at 8 layers; two layout controls measured, two accumulated
    micro-batches and the one-card ring); cp rank r launches r + 1 of each
    K1 kernel a layer, sep one;
-   every attention takes its route, none falls back.
+   every attention takes its route, none falls back;
+21. pipeline parallel.  At one card (``pipeline_one_card``, before phase
+   17): LLaMA-2 7B O2 at phase 8's 8 layers as a ``PipelineLayer`` (the
+   embedding, the decoder layers, the norm and head, each piece under
+   the O2 auto_cast and drawn from its own seed) of 4 stages on cuda:0
+   behind ``PipelineParallel`` (``HostPipelineSchedule``), 8
+   micro-batches of 1 x 4096 a step, every piece recomputed (FThenB
+   would hold ~56 GB of residuals), under 1F1B, FThenB and ZBH1: each
+   bit-equal to the plain step that accumulates the same micro-batches
+   (loss / 8 each) in losses, first gradients, parameters and fp32
+   masters, with exact launches a step (K1a, K4a, K5 again in each
+   backward pass's recomputation; ZBH1's Bd and Bw each a pass).  On
+   four cards (``pipeline_rank``): through ``fleet.init`` /
+   ``distributed_model`` / ``PipelineParallel.train_batch``, pp 4 at
+   depth 8 against rank 0's one-card oracle (phase 17's bounds; bit-
+   equality reported), then all 32 layers under 1F1B, FThenB, ZBH1 and
+   VPP (2 chunks), every layer recomputed, and 1F1B without, each
+   bit-equal to 1F1B on every rank's values; LLaMA-2 7B at 32 layers
+   under mp 2 x pp 2 through ``llama_pipeline_step`` (blocks
+   recomputed) against pp 4 (phase 19's bounds); GPT-3 1.3B at 24
+   layers under dp 2 x pp 2 through ``gpt_pipeline_step`` (the tied
+   embedding summed over its two stages) against rank 0's one-card
+   oracle (phase 17's bounds).  Every rank's launches exact a step; step
+   ms, tokens/s, MFU, every rank's idle share (CUDA events around its
+   compute), peak live residuals and peak memory, and one step's p2p
+   traffic timed alone.
 
 Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
@@ -5279,8 +5304,9 @@ def k6a_marks() -> int:
 
 DIST_STEPS = 3                   # steps held against the oracle
 DIST_TIMED = dict(warmup=1, timed=4)   # then these, timed
-DIST_LAUNCH_S = 900              # the launcher's limit (the ranks' builds
-#                                  are cache hits: it builds first)
+DIST_LAUNCH_S = 2400             # the launcher's limit (phases 17-21 on
+#                                  four cards; the ranks' builds are cache
+#                                  hits: it builds first)
 DIST_KILL_S = 300                # each SIGKILL run's limit
 DIST_COLL_N = 1 << 20            # elements per rank in the collective checks
 DIST_SEED = 17
@@ -6630,17 +6656,915 @@ def tp_line(key, m, world):
                    f"{m['routes']}")
 
 
-PHASES = (17, 18, 19, 20)
+# ---------------------------------------------------------------------------
+# phase 21: pipeline parallel
+# ---------------------------------------------------------------------------
+
+PP_MICRO = 8                     # micro-batches a step (accumulate_steps)
+PP_ONE_CARD = ("1F1B", "FThenB", "ZBH1")
+# the four-card LLaMA-2 7B runs at 32 layers: (tag, schedule,
+# recompute_interval).  FThenB and ZBH1 keep 8 micro-batches' graphs a
+# rank (~50 GB of residuals at 8 layers of 1 x 4096): every layer is
+# recomputed in all four schedules, then 1F1B once without
+PP_RUNS = (("1F1B", "1F1B", 1), ("FThenB", "FThenB", 1),
+           ("ZBH1", "ZBH1", 1), ("VPP", "VPP", 1), ("1F1B_norc", "1F1B", 0))
+PP_GPT_ROWS = 2                  # GPT rows a micro-batch (1 a dp rank)
+PP_STAGES = 4                    # the one-card run's stages on cuda:0
+
+
+def card() -> torch.device:
+    """This process's CUDA card."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def o2_cast():
+    return amp.auto_cast(enable=True, level="O2", dtype="bfloat16")
+
+
+def pp_generator(piece: int, dev):
+    """The generator of one piece of the LLaMA pipeline (0: the
+    embedding, i + 1: decoder layer i, -1: the head), each seeded alone,
+    so a stage draws its own pieces without the others'."""
+    from paddle_tpu_torch.device import generator
+    return generator(1000 + piece if piece >= 0 else 999, dev)
+
+
+def pp_head_weight(cfg, dev, pc=None):
+    """The head ``[V, H]`` (under mp: this rank's vocabulary rows)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        .mp_layers import shard_of
+    full = torch.empty(cfg.vocab_size, cfg.hidden_size, device=dev)
+    with torch.no_grad():
+        full.normal_(0.0, cfg.initializer_range,
+                     generator=pp_generator(-1, dev))
+    if pc is not None and pc.mp > 1:
+        full = shard_of(full, 0, 1, pc.mp_rank, pc.mp).contiguous()
+    return full
+
+
+def pp_embedding(cfg, dev):
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import VocabParallelEmbedding
+    from paddle_tpu_torch.nn.initializer import Normal, ParamAttr
+    return VocabParallelEmbedding(
+        cfg.vocab_size, cfg.hidden_size,
+        weight_attr=ParamAttr(initializer=Normal(std=cfg.initializer_range)),
+        generator=pp_generator(0, dev), device=dev)
+
+
+class LlamaEmbedPipe(torch.nn.Module):
+    """The LLaMA pipeline's first piece: the token embedding, under O2."""
+
+    def __init__(self, cfg, dev):
+        super().__init__()
+        self.embed_tokens = pp_embedding(cfg, dev)
+
+    def forward(self, ids):
+        with o2_cast():
+            return self.embed_tokens(ids)
+
+
+def _llama_layer_class():
+    from paddle_tpu_torch.models.llama import LlamaDecoderLayer
+
+    class LlamaLayerPipe(LlamaDecoderLayer):
+        """Decoder layer ``i`` of the LLaMA pipeline, under O2."""
+
+        def __init__(self, cfg, i, dev):
+            super().__init__(cfg, gen=pp_generator(i + 1, dev), device=dev)
+
+        def forward(self, x):
+            with o2_cast():
+                return super().forward(x)
+    return LlamaLayerPipe
+
+
+LlamaLayerPipe = _llama_layer_class()
+
+
+class LlamaHeadPipe(torch.nn.Module):
+    """The LLaMA pipeline's last piece: the final RMSNorm (K4a) and the
+    head, under O2."""
+
+    def __init__(self, cfg, dev):
+        super().__init__()
+        from paddle_tpu_torch.models.llama import LlamaRMSNorm
+        self.norm = LlamaRMSNorm(cfg.hidden_size, cfg.rms_eps, device=dev)
+        self.lm_head_weight = torch.nn.Parameter(pp_head_weight(cfg, dev))
+
+    def forward(self, h):
+        from paddle_tpu_torch.nn import functional as PF
+        with o2_cast():
+            return PF.matmul(self.norm(h), self.lm_head_weight,
+                             transpose_y=True)
+
+
+class PPLoss:
+    """LLaMA's criterion under O2 (the pipeline's ``loss_fn``)."""
+
+    def __init__(self):
+        from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+        self.crit = LlamaPretrainingCriterion()
+
+    def __call__(self, logits, labels):
+        with o2_cast():
+            return self.crit(logits, labels)
+
+
+def llama_pipe(layers, dev, num_stages=None, vpp=None, recompute=1):
+    """LLaMA-2 7B at ``layers`` as a ``PipelineLayer`` (the embedding,
+    the decoder layers, the norm and head; each stage starts at a decoder
+    layer, ``seg_method="layer:LlamaLayerPipe"``), O2: its AdamW(1e-4, wd
+    0.01) with fp32 masters, the pieces decorated.  Under a pipeline
+    degree above 1 the rank builds its own stage only."""
+    from paddle_tpu_torch.distributed.fleet import LayerDesc, PipelineLayer
+    cfg = llama_config(LLAMA_PRESET, num_layers=layers)
+    descs = ([LayerDesc(LlamaEmbedPipe, cfg, dev)]
+             + [LayerDesc(LlamaLayerPipe, cfg, i, dev) for i in range(layers)]
+             + [LayerDesc(LlamaHeadPipe, cfg, dev)])
+    pl = PipelineLayer(descs, num_stages=num_stages, loss_fn=PPLoss(),
+                       seg_method="layer:LlamaLayerPipe",
+                       recompute_interval=recompute,
+                       num_virtual_pipeline_stages=vpp)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=pl.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    return amp.decorate(models=pl, optimizers=opt, level="O2",
+                        dtype="bfloat16")
+
+
+def pp_model_name(name: str, layers: int) -> str:
+    """A LLaMA pipeline piece's parameter name as ``LlamaForCausalLM``
+    names it."""
+    head, rest = name.split(".", 1)
+    i = int(head)
+    if i == 0:
+        return "llama." + rest
+    if i == layers + 1:
+        return rest if rest == "lm_head_weight" else "llama." + rest
+    return f"llama.layers.{i - 1}.{rest}"
+
+
+def pp_llama_batch():
+    """``PP_MICRO`` micro-batches of 1 x 4096 tokens (the global batch,
+    on the host)."""
+    rs = np.random.RandomState(0)
+    vocab = llama_config(LLAMA_PRESET).vocab_size
+    return (torch.from_numpy(rs.randint(0, vocab, (PP_MICRO, LLAMA_SEQ))),
+            torch.from_numpy(rs.randint(0, vocab, (PP_MICRO, LLAMA_SEQ))))
+
+
+def pp_gpt_batch():
+    rs = np.random.RandomState(0)
+    vocab = gpt_config("gpt3-1.3B").vocab_size
+    n = PP_MICRO * PP_GPT_ROWS
+    return (torch.from_numpy(rs.randint(0, vocab, (n, TRAIN_SEQ))),
+            torch.from_numpy(rs.randint(0, vocab, (n, TRAIN_SEQ))))
+
+
+# launches of one piece's forward and backward (phase 8's per-layer counts)
+PP_PIECE = {"LlamaLayerPipe": (dict(flash_fwd=1, rms_fwd=2, rope=2),
+                               dict(flash_bwd_dq=1, flash_bwd_dkv=1,
+                                    rms_bwd_dx=2, rope=2)),
+            "LlamaDecoderLayer": (dict(flash_fwd=1, rms_fwd=2, rope=2),
+                                  dict(flash_bwd_dq=1, flash_bwd_dkv=1,
+                                       rms_bwd_dx=2, rope=2)),
+            "GPTBlock": (dict(flash_fwd=1, ln_fwd=2),
+                         dict(flash_bwd_dq=1, flash_bwd_dkv=1, ln_bwd_dx=2)),
+            "LlamaHeadPipe": (dict(rms_fwd=1), dict(rms_bwd_dx=1))}
+
+
+def pp_piece_kind(layer) -> str:
+    inner = getattr(layer, "block", None)      # a pipeline step's block
+    return type(inner if inner is not None else layer).__name__
+
+
+def pp_expected(events, runners, recompute, adamw_n):
+    """The launches of one step's ``events`` (``(virtual stage, kind,
+    micro)``): a forward runs each piece's forward launches; a backward
+    pass its backward launches, and its forward again under recompute.
+    B is one pass, Bd one (the first stage's: none) and Bw one;
+    ``adamw_n`` K3 launches."""
+    out = {k: 0 for k in PER_STEP}
+    for k, kind, _ in events:
+        fwd, bwd = {}, {}
+        for layer in runners[k].layers:
+            f, b = PP_PIECE.get(pp_piece_kind(layer), ({}, {}))
+            for key, v in f.items():
+                fwd[key] = fwd.get(key, 0) + v
+            for key, v in b.items():
+                bwd[key] = bwd.get(key, 0) + v
+        passes = []
+        if kind == "F":
+            passes = [fwd]
+        elif kind == "Bd" and k == 0:
+            passes = []
+        else:
+            passes = [bwd, fwd] if recompute else [bwd]
+        for d in passes:
+            for key, v in d.items():
+                out[key] += v
+    out["adamw"] = adamw_n
+    return out
+
+
+def pp_values(params):
+    """``{name: fp32 value on the host}`` (the master where there is one)
+    of ``params`` (``(name, parameter, optimizer)``)."""
+    out = {}
+    for n, p, opt in params:
+        inner = getattr(opt, "_inner_opt", opt)
+        out[n] = host(inner.state[p].get("master", p).float())
+    return out
+
+
+def pp_grads(params):
+    return {n: host(p.grad) for n, p, _ in params}
+
+
+def pp_gather0(dist, rank, world, vals, senders=None):
+    """Rank 0 gets every other rank's ``{name: host tensor}`` (the
+    ``senders`` only), merged with its own; None on the others."""
+    metas = []
+    dist.all_gather_object(metas, [(n, tuple(t.shape), str(t.dtype))
+                                   for n, t in vals.items()])
+    senders = senders if senders is not None else range(world)
+    merged = dict(vals) if rank == 0 else None
+    for r in senders:
+        if r == 0:
+            continue
+        for n, shape, dt in metas[r]:
+            if rank == r:
+                dist.send(vals[n].to(card()), 0)
+            elif rank == 0:
+                buf = torch.empty(shape, dtype=getattr(torch,
+                                                       dt.split(".")[1]),
+                                  device=card())
+                dist.recv(buf, r)
+                merged[n] = host(buf)
+                del buf
+    return merged
+
+
+def pp_cross_compare(dist, rank, tag, base, got, split=None, exact=False,
+                     median_tol=DIST_PARAM_MEDIAN):
+    """Values of two layouts of one model, each rank holding some of them:
+    ``base`` and ``got`` map this rank's names (``base``'s naming) to host
+    tensors; ``split(name)`` gives a ``got`` tensor's mp shard as
+    ``(axis, groups, rank, degree)``.  The holder of each ``base`` tensor
+    sends it to every rank that holds it in ``got`` (a collective walk in
+    one order); returns the worst element over every rank and the worst
+    tensor median; ``exact`` requires them all 0, else the worst element
+    is held to ``DIST_PARAM_MAX`` and the median to ``median_tol`` (None:
+    measured, as phase 19 measures it across layouts)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        .mp_layers import shard_of
+    owners, holders = [], []
+    dist.all_gather_object(owners, [(n, tuple(t.shape), str(t.dtype))
+                                    for n, t in base.items()])
+    dist.all_gather_object(holders, sorted(got))
+    where = {n: (r, shape, dt) for r, items in enumerate(owners)
+             for n, shape, dt in items}
+    mx = med = 0.0
+    worst = ""
+    for n in sorted(where):
+        src, shape, dt = where[n]
+        for dst, names in enumerate(holders):
+            if n not in names:
+                continue
+            if rank == src and dst != src:
+                dist.send(base[n].to(card()), dst)
+            if rank != dst:
+                continue
+            if src == dst:
+                full = base[n].to(card())
+            else:
+                full = torch.empty(shape, dtype=getattr(
+                    torch, dt.split(".")[1]), device=card())
+                dist.recv(full, src)
+            s = split(n) if split is not None else None
+            want = shard_of(full, *s) if s is not None else full
+            d = (got[n].to(card()) - want).abs()
+            if d.max().item() > mx:
+                mx, worst = d.max().item(), n
+            med = max(med, d.float().median().item())
+            del d, full, want
+    t = torch.tensor([mx, med], device=card())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    mx, med = t.tolist()
+    say_rank0(rank, f"pipeline: {tag}: values after {DIST_STEPS} steps, every "
+              f"rank's: worst max diff {mx:.3e} (rank {rank}'s worst: "
+              f"{worst or 'none'}; tol {0.0 if exact else DIST_PARAM_MAX:.2e}"
+              f"), worst median {med:.3e} ("
+              + ("measured" if median_tol is None and not exact else
+                 f"tol {0.0 if exact else median_tol:.2e}") + ")")
+    if exact and mx != 0.0:
+        fail(f"{tag}: values not bit-equal (worst {mx:.3e})")
+    if not exact and not (mx <= DIST_PARAM_MAX and (
+            median_tol is None or med <= median_tol)):
+        fail(f"{tag}: values differ")
+    return dict(value_max=mx, value_median=med, bit_equal=mx == 0.0)
+
+
+def pp_step_loop(tag, step_fn, sched_of, expected, n_total, rank, grads_of,
+                 values_of, timing=True, params_of=None):
+    """``n_total`` steps of ``step_fn(s)`` (returns the loss; at ``s == 0``
+    it may keep the reduced gradients through ``grads_of``): each step's
+    launches equal ``expected(events)`` of its schedule; the fp32 values
+    after ``DIST_STEPS`` steps; each timed step's host ms and, from the
+    schedule's CUDA events, its busy and step ms (the idle share);
+    ``params_of`` the parameters after the held steps too."""
+    out = dict(tag=tag, losses=[], step_s=[], busy_ms=[], sched_ms=[])
+    reset_counts()                   # count the main path's launches only
+    peak = 0
+    for s in range(n_total):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step_fn(s)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        sched = sched_of()
+        sched.timing = timing
+        after = counts()
+        want = expected(sched.event_log)
+        moved = {k: after[k] - before[k] for k in want}
+        if moved != want:
+            fail(f"rank {rank} {tag} step {s}: launches {moved} != {want}")
+        out["losses"].append(float(loss.float()))
+        if s > 0 and timing:
+            out["busy_ms"].append(sched.busy_ms)
+            out["sched_ms"].append(sched.step_ms)
+        if s == DIST_STEPS - 1:
+            peak = torch.cuda.max_memory_allocated()
+            out["values"] = values_of()
+            if params_of is not None:
+                out["params"] = params_of()
+            torch.cuda.empty_cache()
+    out["launches"] = counts()
+    out["peak_live_residuals"] = sched.peak_live_residuals
+    out["peak_retained_graphs"] = sched.peak_retained_graphs
+    out["events"] = [list(e) for e in sched.event_log]
+    out["peak_bytes"] = max(peak, torch.cuda.max_memory_allocated())
+    g = grads_of()
+    if g is not None:
+        out["grads"] = g
+    return out
+
+
+def pp_timing(out, world, tokens, n_params):
+    """Step ms, tokens/s, MFU and the idle share of a run's timed steps."""
+    t = out["step_s"][DIST_STEPS + DIST_TIMED["warmup"]:]
+    if not t:
+        return out
+    out["step_ms"] = 1e3 * float(np.mean(t))
+    out["tokens_s"] = tokens / float(np.mean(t))
+    out["tokens_s_card"] = out["tokens_s"] / world
+    out["mfu"] = 6 * n_params * out["tokens_s_card"] / PEAK_BF16
+    k = DIST_STEPS + DIST_TIMED["warmup"] - 1
+    busy, sched = out["busy_ms"][k:], out["sched_ms"][k:]
+    if busy and float(np.sum(sched)) > 0:
+        out["idle"] = 1.0 - float(np.sum(busy)) / float(np.sum(sched))
+    return out
+
+
+def pipeline_one_card():
+    """Phase 21 at one card: LLaMA-2 7B O2 at phase 8's 8 layers as a
+    ``PipelineLayer`` of 4 stages on cuda:0 (``HostPipelineSchedule``
+    behind ``PipelineParallel``), 8 micro-batches of 1 x 4096 a step,
+    every layer recomputed (FThenB would hold ~56 GB of residuals), under
+    1F1B, FThenB and ZBH1, each bit-equal to the plain step that
+    accumulates the same micro-batches (loss / 8 each) through the same
+    layers: losses, first gradients, parameters and fp32 masters; exact
+    launches a step.  Returns the runs' numbers."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import PipelineParallel
+    dev = card()
+    x, y = pp_llama_batch()
+    micro = list(zip(x.to(dev).split(1), y.to(dev).split(1)))
+    layers = LLAMA_LAYERS
+    res = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the plain step: each micro-batch through every piece, loss / 8
+    pl, opt = llama_pipe(layers, dev, num_stages=PP_STAGES)
+    named = [(n, p, opt) for n, p in pl.named_parameters()]
+    grads = {}
+
+    def plain(s):
+        total = None
+        for xi, yi in micro:
+            loss = pl._loss_fn(pl(xi), yi)
+            (loss / PP_MICRO).backward()
+            total = loss.detach().float() if total is None \
+                else total + loss.detach().float()
+        if s == 0:
+            grads.update(pp_grads(named))
+        opt.step()
+        opt.clear_grad()
+        return total / PP_MICRO
+
+    class _Plain:                       # the launches of a whole step
+        event_log = [(k, e, 0) for k in range(PP_STAGES) for e in ("F", "B")]
+        peak_live_residuals = peak_retained_graphs = 0
+        timing = False
+    runners = {k: types_ns(layers=pl.stage_layers(k))
+               for k in range(PP_STAGES)}
+
+    def expected_plain(events, n=len(named)):
+        e = pp_expected(events, runners, True, n)
+        return {k: v * (PP_MICRO if k != "adamw" else 1)
+                for k, v in e.items()}
+    run = pp_step_loop("plain", plain, lambda: _Plain, expected_plain,
+                       DIST_STEPS, 0, lambda: dict(grads),
+                       lambda: pp_values(named), timing=False,
+                       params_of=lambda: {n: host(p) for n, p in
+                                          pl.named_parameters()})
+    base = dict(losses=run["losses"], values=run.pop("values"),
+                grads=run.pop("grads"), params=run.pop("params"))
+    res["plain"] = {k: v for k, v in run.items() if k != "events"}
+    del pl, opt, named, grads, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mode in PP_ONE_CARD:
+        torch.cuda.reset_peak_memory_stats()
+        pl, opt = llama_pipe(layers, dev, num_stages=PP_STAGES)
+        s = fleet.DistributedStrategy()
+        s.pipeline_configs = {"micro_batch_size": 1,
+                              "accumulate_steps": PP_MICRO,
+                              "schedule_mode": mode}
+        model = PipelineParallel(pl, strategy=s)
+        named = [(n, p, opt) for n, p in pl.named_parameters()]
+        grads = {}
+
+        def step_fn(i):
+            if i == 0:
+                loss = model.forward_backward_pipeline((x, y))
+                grads.update(pp_grads(named))
+                opt.step()
+                opt.clear_grad()
+                return loss
+            return model.train_batch((x, y), opt)
+        n_total = DIST_STEPS + (sum(DIST_TIMED.values())
+                                if mode == "1F1B" else 0)
+        run = pp_step_loop(
+            mode, step_fn, lambda: model._host_sched,
+            lambda ev: pp_expected(ev, model._host_sched.runners, True,
+                                   len(named)),
+            n_total, 0, lambda: dict(grads), lambda: pp_values(named),
+            timing=False,
+            params_of=lambda: {n: host(p) for n, p in pl.named_parameters()})
+        if mode == "1F1B":
+            pp_timing(run, 1, PP_MICRO * LLAMA_SEQ, llama_param_count(
+                llama_config(LLAMA_PRESET, num_layers=layers)))
+        bit = all(torch.equal(run[key][n], base[key][n])
+                  for key in ("values", "params", "grads")
+                  for n in base[key]) and \
+            run["losses"][:DIST_STEPS] == base["losses"]
+        if bit:
+            cmp = dist_compare(f"phase 21: {mode} on one card vs the plain "
+                               "accumulated step", run, base, exact=True)
+        else:
+            cmp = dist_compare(f"phase 21: {mode} on one card vs the plain "
+                               "accumulated step (not bit-equal: measured, "
+                               "held to phase 17's bounds)", run, base,
+                               exact=False)
+        cmp["bit_equal"] = bit
+        res[mode] = dict({k: v for k, v in run.items()
+                          if k not in ("values", "params", "grads")},
+                         vs_plain=cmp)
+        say(f"pipeline: one card {mode}: step ms "
+            f"{[round(1e3 * t, 2) for t in run['step_s']]}, peak live "
+            f"residuals {run['peak_live_residuals']} (retained graphs "
+            f"{run['peak_retained_graphs']}), peak memory "
+            f"{run['peak_bytes'] / 2**30:.2f} GiB; launches {run['launches']}")
+        del pl, opt, model, named, grads, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+class types_ns:
+    """A plain attribute holder."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+
+def release_groups(dist):
+    """Free the communicators of every group but the world's, each rank
+    at the same point: a topology's groups (its axes, fused axes and
+    pipeline channels) keep their NCCL buffers after ``fleet_reset``, ~25
+    GB a rank by the end of phases 17-21, which the 32-layer pipelines'
+    ~55 GB do not leave room for.  Phase 21 builds a new topology for
+    every run and uses no earlier group."""
+    from paddle_tpu_torch.distributed.communication import group as grp
+    from paddle_tpu_torch.distributed.mesh import reset_mesh
+    torch.cuda.synchronize()
+    dist.barrier()
+    for gid, g in sorted(grp._groups.items()):
+        if gid == 0:
+            continue
+        if g.process_group is not None:
+            torch.distributed.destroy_process_group(g.process_group)
+        del grp._groups[gid]
+    reset_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pp_fleet_reset(dist):
+    fleet_reset()
+    release_groups(dist)
+
+
+def pp_fleet_init(degrees, mode="1F1B"):
+    """``fleet.init`` at ``degrees`` with phase 21's pipeline configs."""
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(degrees)
+    s.pipeline_configs = {"micro_batch_size": 1,
+                          "accumulate_steps": PP_MICRO,
+                          "schedule_mode": mode}
+    fleet.init(is_collective=True, strategy=s)
+    return fleet.get_hybrid_communicate_group()
+
+
+def pp_exchange_ms(dist, sched, like):
+    """One step's p2p traffic of every rank timed alone (host clock around
+    synchronised exchanges after a barrier, the mean of 3; the slowest
+    rank's)."""
+    sched.exchange_only(PP_MICRO, like)          # warm
+    ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        sched.exchange_only(PP_MICRO, like)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    t = torch.tensor([1e3 * float(np.mean(ts))], device=card())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return t.item()
+
+
+def pp_layer_run(tag, dist, degrees, mode, layers, recompute, batch, rank,
+                 world, timed=True, grads=False):
+    """LLaMA-2 7B O2 at ``layers`` as a ``PipelineLayer`` under
+    ``fleet.init(degrees)`` (each rank its stage), through
+    ``fleet.distributed_model`` (``PipelineParallel``),
+    ``fleet.distributed_optimizer`` and ``train_batch`` on the global
+    batch: ``DIST_STEPS`` held steps (the first with the gradients kept
+    when ``grads``), then (``timed``) ``DIST_TIMED`` more; exact launches
+    a step; the rank's fp32 values (named as ``LlamaForCausalLM`` names
+    them) after the held steps."""
+    from paddle_tpu_torch.distributed import fleet
+    dist_settle(dist)
+    torch.cuda.reset_peak_memory_stats()
+    hcg = pp_fleet_init(degrees, mode)
+    dev = card()
+    pl, opt = llama_pipe(layers, dev, vpp=2 if mode == "VPP" else None,
+                         recompute=recompute)
+    model = fleet.distributed_model(pl)
+    opt = fleet.distributed_optimizer(opt)
+    named = [(pp_model_name(n, layers), p, opt)
+             for n, p in pl.named_parameters()]
+    kept = {}
+
+    def step_fn(s):
+        if s == 0 and grads:
+            loss = model.forward_backward_pipeline(batch)
+            opt._reduce_gradients()
+            kept.update(pp_grads(named))
+            opt._stepper().step()
+            opt.clear_grad()
+            return loss
+        return model.train_batch(batch, opt)
+    n_total = DIST_STEPS + (sum(DIST_TIMED.values()) if timed else 0)
+    run = pp_step_loop(
+        tag, step_fn, lambda: model._host_sched,
+        lambda ev: pp_expected(ev, model._host_sched.runners, recompute,
+                               len(named)),
+        n_total, rank, lambda: dict(kept) if grads else None,
+        lambda: pp_values(named))
+    run.update(mode=mode, recompute=recompute, degrees=degrees,
+               held=len(named))
+    if timed:
+        like = torch.zeros(1, LLAMA_SEQ, llama_config(LLAMA_PRESET)
+                           .hidden_size, dtype=torch.bfloat16, device=dev)
+        run["p2p_ms"] = pp_exchange_ms(dist, model._host_sched, like)
+    del model, opt, pl, named
+    pp_fleet_reset(dist)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def pp_llama_step_run(tag, dist, layers, batch, rank, world):
+    """LLaMA-2 7B O2 at ``layers`` under mp 2 x pp 2 through
+    ``llama_pipeline_step(model, opt, hcg.mesh, n_micro=8)`` (its
+    defaults: each block recomputed), the model built with the pipeline's
+    per-piece weights (the embedding, this stage's decoder layers, the
+    head; the others' places empty until the step fills them)."""
+    from paddle_tpu_torch.models.llama import (LlamaDecoderLayer,
+                                               llama_pipeline_step)
+    dist_settle(dist)
+    torch.cuda.reset_peak_memory_stats()
+    hcg = pp_fleet_init(dict(mp_degree=2, pp_degree=2))
+    dev = card()
+    cfg = llama_config(LLAMA_PRESET, num_layers=layers)
+    model = LlamaForCausalLM(llama_config(LLAMA_PRESET, num_layers=0),
+                             seed=0)
+    pc = model._pc
+    per = layers // 2
+    own = range(hcg.get_stage_id() * per, (hcg.get_stage_id() + 1) * per)
+    model.llama.embed_tokens = pp_embedding(cfg, dev)
+    model.llama.layers = torch.nn.ModuleList([
+        LlamaDecoderLayer(cfg, gen=pp_generator(i + 1, dev), device=dev,
+                          pc=pc) if i in own else torch.nn.Identity()
+        for i in range(layers)])
+    model.lm_head_weight = torch.nn.Parameter(pp_head_weight(cfg, dev, pc))
+    model.lm_head_weight.split_axis = 0
+    model.lm_head_weight.split_groups = 1
+    model.config = model.llama.config = cfg
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True)
+    model, opt = amp.decorate(models=model, optimizers=opt, level="O2",
+                              dtype="bfloat16")
+    step = llama_pipeline_step(model, opt, hcg.mesh, n_micro=PP_MICRO,
+                               autocast=o2_cast)
+    named = lambda: [(n, p, opt) for n, p in model.named_parameters()
+                     if p in opt.state]
+    n_total = DIST_STEPS + sum(DIST_TIMED.values())
+    run = pp_step_loop(
+        tag, lambda s: step(*batch), lambda: step.sched,
+        lambda ev: pp_expected(ev, step.sched.runners, True,
+                               sum(1 for q in step.params()
+                                   if q.grad is not None or q in opt.state)),
+        n_total, rank, lambda: None, lambda: pp_values(named()))
+    run["shards"] = {n: (p.split_axis, p.split_groups,
+                         hcg.get_model_parallel_rank(), 2)
+                     for n, p, _ in named()
+                     if getattr(p, "split_axis", None) is not None}
+    run.update(degrees=dict(mp_degree=2, pp_degree=2), mode="1F1B",
+               recompute=1, held=len(named()))
+    like = torch.zeros(1, LLAMA_SEQ, cfg.hidden_size, dtype=torch.bfloat16,
+                       device=dev)
+    run["p2p_ms"] = pp_exchange_ms(dist, step.sched, like)
+    del model, opt, step
+    pp_fleet_reset(dist)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def pp_gpt_run(dist, rank, world):
+    """GPT-3 1.3B O2 at all 24 layers under dp 2 x pp 2 through
+    ``gpt_pipeline_step`` (the head tied to the word embedding across the
+    first and last stage), 8 micro-batches of 2 x 2048 a step (one row a
+    dp rank)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        gpt_pipeline_step)
+    from paddle_tpu_torch.distributed import fleet
+    dist_settle(dist)
+    torch.cuda.reset_peak_memory_stats()
+    hcg = pp_fleet_init(dict(dp_degree=2, pp_degree=2))
+    cfg = gpt_config("gpt3-1.3B", num_layers=N_LAYERS,
+                     max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    model, opt = build_gpt_o2(cfg)
+    opt = fleet.distributed_optimizer(opt)
+    inner = opt._inner_opt
+    step = gpt_pipeline_step(model, opt, hcg.mesh, n_micro=PP_MICRO,
+                             dp_axes=("dp",), autocast=o2_cast)
+    named = lambda: [(n, p, inner) for n, p in model.named_parameters()
+                     if p in inner.state]
+    kept = {}
+    orig = inner.step
+
+    def step_keeping(s):
+        if s == 0:
+            def snap():
+                kept.update({n: host(p.grad) for n, p in
+                             model.named_parameters() if p.grad is not None})
+                orig()
+            inner.step = snap
+        try:
+            return step(*pp_gpt_batch())
+        finally:
+            inner.step = orig
+    n_total = DIST_STEPS + sum(DIST_TIMED.values())
+    run = pp_step_loop(
+        "gpt_dp2_pp2", step_keeping, lambda: step.sched,
+        lambda ev: pp_expected(ev, step.sched.runners, True,
+                               sum(1 for q in step.params()
+                                   if q in inner.state
+                                   or q.grad is not None)),
+        n_total, rank, lambda: dict(kept), lambda: pp_values(named()))
+    run.update(degrees=dict(dp_degree=2, pp_degree=2), mode="1F1B",
+               recompute=1, held=len(named()),
+               tied=list(model.gpt.embeddings.word_embeddings.weight
+                         .pp_shared_group.ranks))
+    like = torch.zeros(1, TRAIN_SEQ, cfg.hidden_size, dtype=torch.bfloat16,
+                       device=card())
+    run["p2p_ms"] = pp_exchange_ms(dist, step.sched, like)
+    del model, opt, step, inner
+    pp_fleet_reset(dist)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+def pp_summary(run, world, tokens, n_params):
+    """A run's numbers without its tensors."""
+    pp_timing(run, world, tokens, n_params)
+    mem = run.get("peak_bytes", 0)
+    return {k: v for k, v in run.items()
+            if k not in ("values", "grads", "params", "shards", "events")} \
+        | dict(n_params=n_params, peak_gib=mem / 2**30)
+
+
+def pp_rank_numbers(dist, run, world):
+    """Every rank's idle share, peak live residuals and peak memory (the
+    run's numbers on rank 0)."""
+    per = []
+    dist.all_gather_object(per, dict(
+        idle=run.get("idle"), peak_live_residuals=run["peak_live_residuals"],
+        peak_retained_graphs=run["peak_retained_graphs"],
+        peak_bytes=run["peak_bytes"], launches=run["launches"],
+        held=run.get("held")))
+    return per
+
+
+def pipeline_rank(dist, rank, world, dev):
+    """Phase 21 on several ranks (module docstring).  Returns rank 0's
+    comparisons and every run's numbers."""
+    res = {}
+    release_groups(dist)             # phases 17-20's topologies
+    x, y = pp_llama_batch()
+    full = llama_config(LLAMA_PRESET)
+    n32 = llama_param_count(full)
+    n8 = llama_param_count(llama_config(LLAMA_PRESET,
+                                        num_layers=LLAMA_LAYERS))
+    tokens = PP_MICRO * LLAMA_SEQ
+    # depth 8 against rank 0's one-card oracle: the plain accumulated step
+    oracle = None
+    if rank == 0:
+        pl, opt = llama_pipe(LLAMA_LAYERS, dev)
+        named = [(pp_model_name(n, LLAMA_LAYERS), p, opt)
+                 for n, p in pl.named_parameters()]
+        micro = list(zip(x.to(dev).split(1), y.to(dev).split(1)))
+        losses, grads = [], {}
+        for s in range(DIST_STEPS):
+            total = None
+            for xi, yi in micro:
+                loss = pl._loss_fn(pl(xi), yi)
+                (loss / PP_MICRO).backward()
+                total = loss.detach().float() if total is None \
+                    else total + loss.detach().float()
+            if s == 0:
+                grads = pp_grads(named)
+            opt.step()
+            opt.clear_grad()
+            losses.append(float((total / PP_MICRO).float()))
+        oracle = dict(losses=losses, grads=grads, values=pp_values(named))
+        del pl, opt, named
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    run = pp_layer_run("pp4_depth8", dist, dict(pp_degree=4), "1F1B",
+                       LLAMA_LAYERS, 1, (x, y), rank, world, timed=False,
+                       grads=True)
+    vals = pp_gather0(dist, rank, world, run.pop("values"))
+    grads = pp_gather0(dist, rank, world, run.pop("grads"))
+    if rank == 0:
+        got = dict(losses=run["losses"], values=vals, grads=grads)
+        bit = got["losses"] == oracle["losses"] and all(
+            torch.equal(got[k][n], oracle[k][n]) for k in ("values", "grads")
+            for n in oracle[k])
+        res["depth8_vs_oracle"] = dist_compare(
+            f"phase 21: LLaMA-2 7B pp 4 at depth {LLAMA_LAYERS} vs the "
+            "one-card oracle", got, oracle, exact=False)
+        res["depth8_vs_oracle"]["bit_equal"] = bit
+        say(f"pipeline: depth {LLAMA_LAYERS} pp 4 bit-equal to the oracle: "
+            f"{bit}")
+    res["depth8"] = pp_summary(run, world, tokens, n8)
+    del vals, grads, oracle, run
+    # all 32 layers at pp 4 under each schedule; 1F1B's values the base
+    base, base_losses = None, None
+    for tag, mode, rc in PP_RUNS:
+        run = pp_layer_run(f"pp4_{tag}", dist, dict(pp_degree=4), mode,
+                           full.num_layers, rc, (x, y), rank, world)
+        vals = run.pop("values")
+        if base is None:
+            base, base_losses = vals, run["losses"][:DIST_STEPS]
+        else:
+            if run["losses"][:DIST_STEPS] != base_losses:
+                fail(f"pp4 {tag}: losses {run['losses'][:DIST_STEPS]} != "
+                     f"1F1B's {base_losses}")
+            run["vs_1f1b"] = pp_cross_compare(
+                dist, rank, f"phase 21: pp 4 {tag} vs 1F1B at "
+                f"{full.num_layers} layers", base, vals, exact=True)
+        del vals
+        res[f"pp4_{tag}"] = pp_summary(run, world, tokens, n32)
+        res[f"pp4_{tag}"]["ranks"] = pp_rank_numbers(dist, run, world)
+        say_rank0(rank, pp_line(f"pp4_{tag}", res[f"pp4_{tag}"], world))
+        del run
+    # mp 2 x pp 2 through llama_pipeline_step, against pp 4's 1F1B
+    run = pp_llama_step_run("mp2_pp2", dist, full.num_layers, (x, y), rank,
+                            world)
+    vals, shards = run.pop("values"), run.pop("shards")
+    lg, lw = run["losses"][:DIST_STEPS], base_losses
+    worst = max(abs(a - b) for a, b in zip(lg, lw))
+    say_rank0(rank, f"pipeline: mp2_pp2 vs pp 4 1F1B: losses {lg} against "
+              f"{lw}")
+    if not worst <= XCHECK_LOSS_TOL:
+        fail(f"mp2_pp2: losses differ by {worst} from pp 4's")
+    cmp = pp_cross_compare(dist, rank, "phase 21: mp 2 x pp 2 vs pp 4 at "
+                           f"{full.num_layers} layers", base, vals,
+                           split=shards.get, median_tol=None)
+    cmp["loss_diff"] = worst
+    res["mp2_pp2"] = pp_summary(run, world, tokens, n32)
+    res["mp2_pp2"]["vs_pp4"] = cmp
+    res["mp2_pp2"]["ranks"] = pp_rank_numbers(dist, run, world)
+    say_rank0(rank, pp_line("mp2_pp2", res["mp2_pp2"], world))
+    del base, vals, run
+    # GPT-3 1.3B dp 2 x pp 2 against rank 0's one-card oracle
+    gx, gy = pp_gpt_batch()
+    oracle = None
+    if rank == 0:
+        _, model, opt, step = build_trainer(N_LAYERS, seed=0)
+        shards = [(gx[j * PP_GPT_ROWS:(j + 1) * PP_GPT_ROWS].to(dev),
+                   gy[j * PP_GPT_ROWS:(j + 1) * PP_GPT_ROWS].to(dev))
+                  for j in range(PP_MICRO)]
+        oracle = dist_oracle(model, opt, step, shards, timed=False)
+        del model, opt, step, shards
+    dist.barrier()
+    run = pp_gpt_run(dist, rank, world)
+    hcg_dp0 = [0, 1]                 # the dp rank 0 stages (ranks 0, 1)
+    vals = pp_gather0(dist, rank, world, run.pop("values"), hcg_dp0)
+    grads = pp_gather0(dist, rank, world, run.pop("grads"), hcg_dp0)
+    gcfg = gpt_config("gpt3-1.3B", num_layers=N_LAYERS,
+                      max_position_embeddings=TRAIN_SEQ)
+    if rank == 0:
+        got = dict(losses=run["losses"], values=vals, grads=grads)
+        res["gpt_vs_oracle"] = dist_compare(
+            "phase 21: GPT-3 1.3B dp 2 x pp 2 vs the one-card oracle", got,
+            oracle, exact=False)
+        res["gpt_oracle_losses"] = oracle["losses"]
+    res["gpt_dp2_pp2"] = pp_summary(run, world,
+                                    PP_MICRO * PP_GPT_ROWS * TRAIN_SEQ,
+                                    param_count(gcfg))
+    res["gpt_dp2_pp2"]["ranks"] = pp_rank_numbers(dist, run, world)
+    say_rank0(rank, pp_line("gpt_dp2_pp2", res["gpt_dp2_pp2"], world))
+    del vals, grads, oracle, run
+    return res
+
+
+def pp_line(key, m, world):
+    """One phase 21 run's numbers on a line."""
+    p, micro = m["degrees"]["pp_degree"], PP_MICRO
+    line = (f"pipeline: {key} {m['degrees']} {m['mode']} (recompute "
+            f"{m['recompute']}): {m['n_params']} parameters, {m['held']} "
+            f"held tensors on rank 0; step ms "
+            f"{[round(1e3 * t, 2) for t in m['step_s']]}")
+    if "step_ms" in m:
+        line += (f"; timed mean {m['step_ms']:.2f} ms = "
+                 f"{m['tokens_s']:.1f} tokens/s over {world} cards, "
+                 f"{m['tokens_s_card']:.1f} a card, MFU "
+                 f"{100 * m['mfu']:.2f} % (6 N tokens a card / 989 TFLOP/s)")
+    ranks = m.get("ranks", [])
+    if ranks:
+        idle = [r["idle"] for r in ranks]
+        line += (f"; idle share a rank {[round(100 * i, 2) if i is not None else None for i in idle]} % "
+                 f"(the bubble (P-1)/(M+P-1) = "
+                 f"{100 * (p - 1) / (micro + p - 1):.1f} %), peak live "
+                 f"residuals a rank {[r['peak_live_residuals'] for r in ranks]}"
+                 f", retained graphs "
+                 f"{[r['peak_retained_graphs'] for r in ranks]}, peak memory "
+                 f"a rank {[round(r['peak_bytes'] / 2**30, 2) for r in ranks]}"
+                 " GiB")
+    if m.get("p2p_ms") is not None:
+        line += f"; one step's p2p alone {m['p2p_ms']:.3f} ms"
+    if ranks:
+        line += (f"\npipeline: {key}: launches a rank over "
+                 f"{len(m['step_s'])} steps "
+                 f"{[r['launches'] for r in ranks]}")
+    return line
+
+
+PHASES = (17, 18, 19, 20, 21)
 
 
 def distributed_rank(out_dir: str, phases=PHASES) -> int:
-    """One rank of phases 17-20 (``--distributed-rank DIR [--phases
-    17,18,19,20]``, started by the port's launcher): the collectives, the
-    oracle (rank 0), DataParallel and ZeRO stages 2 and 3 on GPT-3 1.3B,
-    the sanitizer, then phase 18 (``zero3_rank``), phase 19
-    (``tp_rank``; at one card ``tp_world_of_one``) and phase 20
-    (``seq_rank``, on several cards); rank 0 holds the comparisons; each
-    rank writes ``DIR/rank<r>.json``."""
+    """One rank of phases 17-21 (``--distributed-rank DIR [--phases
+    17,18,19,20,21]``, started by the port's launcher): the collectives,
+    the oracle (rank 0), DataParallel and ZeRO stages 2 and 3 on GPT-3
+    1.3B, the sanitizer, then phase 18 (``zero3_rank``), phase 19
+    (``tp_rank``; at one card ``tp_world_of_one``), phase 20
+    (``seq_rank``, on several cards) and phase 21 (``pipeline_rank``, on
+    several cards); rank 0 holds the comparisons; each rank writes
+    ``DIR/rank<r>.json``."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed.env import runtime
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6659,6 +7583,8 @@ def distributed_rank(out_dir: str, phases=PHASES) -> int:
             else tp_rank(dist, rank, world, dev)
     if 20 in phases and world > 1:
         res["seq"] = seq_rank(dist, rank, world, dev)
+    if 21 in phases and world > 1:
+        res["pp"] = pipeline_rank(dist, rank, world, dev)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -6787,7 +7713,7 @@ def dist_kill_checks(world, root):
 
 
 def distributed_main_path(phases=PHASES):
-    """Phases 17-20 (or those of ``phases``): the ranks through the port's
+    """Phases 17-21 (or those of ``phases``): the ranks through the port's
     launcher at the visible card count (NCCL), then (phase 17) the
     SIGKILL checks; prints the numbers and returns rank 0's results."""
     world = torch.cuda.device_count()
@@ -6823,6 +7749,8 @@ def distributed_main_path(phases=PHASES):
         tp_report(r0["tp"], world)
     if 20 in phases and "seq" in r0:
         seq_report(r0["seq"], world)
+    if 21 in phases and "pp" in r0:
+        pipeline_report(r0["pp"], world)
     if 17 in phases:
         r0["kill"] = dist_kill_checks(world, root)
     return r0
@@ -6883,6 +7811,19 @@ def seq_report(t, world):
             say(f"sequence parallel: {key}: {m}")
 
 
+def pipeline_report(pp, world):
+    """Phase 21's comparisons and numbers (rank 0's), one line each."""
+    for key in ("depth8_vs_oracle", "gpt_vs_oracle"):
+        if key in pp:
+            say(f"pipeline: {key}: {json.dumps(pp[key])}")
+    for key in ("depth8", *(f"pp4_{t}" for t, _, _ in PP_RUNS), "mp2_pp2",
+                "gpt_dp2_pp2"):
+        if key in pp:
+            m = pp[key]
+            extra = {k: m[k] for k in ("vs_1f1b", "vs_pp4") if k in m}
+            say(f"pipeline: {key}: comparisons {json.dumps(extra)}")
+
+
 def zero3_line(key, m, world):
     """One phase-18 run's numbers (``zero3_summary``) on a line, and its
     launches on the next."""
@@ -6923,13 +7864,15 @@ def zero3_report(z, world):
 
 
 def distributed_alone(phases=PHASES) -> int:
-    """``--distributed``: phases 17-20 alone, after the build
+    """``--distributed``: phases 17-21 alone, after the build
     (``--tensor-parallel``: phases 19 and 20, and the one-card ring
-    schedule; ``--sequence-parallel``: phase 20 and the ring
-    schedule)."""
+    schedule; ``--sequence-parallel``: phase 20 and the ring schedule;
+    ``--pipeline``: phase 21, and at one card its one-card part)."""
     say(f"build: {_build.build_all():.3f} s")
     if 20 in phases:
         check_ring_schedule()
+    if 21 in phases and torch.cuda.device_count() == 1:
+        pipeline_one_card()
     distributed_main_path(phases)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6977,6 +7920,8 @@ def main() -> int:
         return distributed_alone((19, 20))
     if "--sequence-parallel" in sys.argv:
         return distributed_alone((20,))
+    if "--pipeline" in sys.argv:
+        return distributed_alone((21,))
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")
@@ -7013,6 +7958,7 @@ def main() -> int:
     k8 = check_k8()
     bart = bart_main_paths()
     ring = check_ring_schedule()             # phase 20 at one card
+    pipe1 = pipeline_one_card()              # phase 21 at one card
     dist17 = distributed_main_path()
 
     # each kernel's line: the main path's shape.  K7 runs on the serving
@@ -7058,6 +8004,12 @@ def main() -> int:
     tp1 = dist17["tp"]["run"]            # phase 19 at one card
     tp1_shape = (f", phase 19 at depth {TP_DEPTH} through TensorParallel "
                  "in a world of one")
+    # phase 21 at one card: each schedule's run (3 steps; 1F1B 8), every
+    # layer recomputed, 8 micro-batches of 1 x 4096 a step
+    pp1 = [(f"llama_pp1_{m}", pipe1[m]["launches"],
+            f", phase 21: {PP_STAGES} stages on one card under {m}, "
+            f"{PP_MICRO} micro-batches of 1 x {LLAMA_SEQ}, recompute; the "
+            "numbers are the batch-2 case's") for m in PP_ONE_CARD]
     k1_paths = (("gpt_train", "main", train, k1_shape),
                 ("llama_train", "llama", llama,
                  "[64, 4096, 128] bf16 causal (batch 2 x 32 heads)"),
@@ -7073,6 +8025,9 @@ def main() -> int:
                 ("llama_tp_world_of_one", "llama", tp1["launches"],
                  "[64, 4096, 128] bf16 causal (batch 2 x 32 heads)"
                  + tp1_shape),
+                *((path, "llama", launched,
+                   "[32, 4096, 128] bf16 causal (batch 1 x 32 heads)" + sh)
+                  for path, launched, sh in pp1),
                 ("llama_ring_schedule", "ring-full", ring["launches"],
                  "[64, 1024, 128] bf16 chunks of llama2-7b's attention "
                  "(phase 20 at one card: cp 4's ranks in turn; 6 of the "
@@ -7159,7 +8114,10 @@ def main() -> int:
              "the [2048, 8192] case's"),
             ("llama_tp_world_of_one", k3, tp1["launches"]["adamw"],
              "[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"
-             + tp1_shape)):
+             + tp1_shape),
+            *((path, k3, launched["adamw"],
+               "[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"
+               + sh) for path, launched, sh in pp1)):
         by_path[path] = dict(
             launches=launched, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
@@ -7184,7 +8142,9 @@ def main() -> int:
                 ("llama_train", llama, k4_shape),
                 ("llama_zero3", zero3["launches"], k4_shape + zero3_shape),
                 ("llama_tp_world_of_one", tp1["launches"],
-                 k4_shape + tp1_shape))}
+                 k4_shape + tp1_shape),
+                *((path, launched, "[4096, 4096] fp32 (1 x 4096 tokens)"
+                   + sh) for path, launched, sh in pp1))}
         kernels.append(dict(
             name=name, source="paddle_tpu_torch/ops/csrc/rms_norm.cu",
             replaces="paddle_tpu/ops/pallas/rms_norm.py" + replaces,
@@ -7199,7 +8159,9 @@ def main() -> int:
             ("llama_train", llama, k5_shape),
             ("llama_zero3", zero3["launches"], k5_shape + zero3_shape),
             ("llama_tp_world_of_one", tp1["launches"],
-             k5_shape + tp1_shape))}
+             k5_shape + tp1_shape),
+            *((path, launched, k5_shape + sh)
+              for path, launched, sh in pp1))}
     kernels.append(dict(
         name="rope", source="paddle_tpu_torch/ops/csrc/rope.cu",
         replaces="paddle_tpu/ops/pallas/rope.py:57",

@@ -3,15 +3,19 @@
 topology, ``fleet.init`` with ``distributed_model`` /
 ``distributed_optimizer``, the hybrid and sharding optimizers, the
 gradient-sync utilities, tensor and sequence parallelism (the mp
-layers, ``TensorParallel``, sep / cp attention) and activation recompute
-(``recompute``, ``recompute_sequential``, ``recompute_hybrid``).
-Pipelines and MoE wait for later slices."""
+layers, ``TensorParallel``, sep / cp attention), pipeline parallelism
+(``LayerDesc``, ``SharedLayerDesc``, ``PipelineLayer``,
+``PipelineParallel`` and the pipeline steps) and activation recompute
+(``recompute``, ``recompute_sequential``, ``recompute_hybrid``).  MoE
+waits for a later slice."""
 from .base.distributed_strategy import DistributedStrategy
 from .base.role_maker import PaddleCloudRoleMaker, UserDefinedRoleMaker, Role
 from .base.topology import (CommunicateTopology, HybridCommunicateGroup,
                             get_hybrid_communicate_group)
 from .fleet import Fleet, fleet
 from . import meta_parallel
+from .meta_parallel import (LayerDesc, PipelineLayer, PipelineParallel,
+                            SharedLayerDesc)
 from .meta_optimizers.dygraph_optimizer import (HybridParallelOptimizer,
                                                 DygraphShardingOptimizer)
 from .recompute import recompute, recompute_sequential, recompute_hybrid

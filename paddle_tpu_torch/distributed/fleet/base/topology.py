@@ -8,13 +8,23 @@ world's ranks on a :class:`~..mesh.Mesh` with the axes ``dp, pp,
 sharding, sep, cp, ep, mp`` (innermost last) and builds a real
 communicator per axis and for the fused ``check`` (dp, pp, sharding) and
 ``dp_sharding`` groups, every rank making every call in the same order.
-Data parallel, sharding, model (tensor) parallel, sep (Ulysses) and
-context (ring attention) run; a pipeline or expert degree above 1 raises
-``NotImplementedError``.
+Data parallel, sharding, model (tensor) parallel, sep (Ulysses), context
+(ring attention) and pipeline parallel run; an expert degree above 1
+raises ``NotImplementedError``, and so does a pipeline degree above 1
+with a sharding, sep or cp degree above 1.
+
+Under a pipeline degree above 1 the pipeline's point-to-point channels
+are built with the groups (:meth:`HybridCommunicateGroup.get_p2p_groups`):
+one two-rank group per direction and kind along every pipeline line, as
+the reference's four-direction p2p groups are, so that activations
+(towards the next stage) and gradients (towards the previous one) each
+travel a communicator of their own, in order.  The line is a ring: the
+last stage's next stage is the first (interleaved schedules hand from
+the last rank back to the first).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -22,7 +32,7 @@ from ...communication.group import Group
 from ...env import get_rank, get_world_size
 from ...mesh import build_mesh, set_mesh
 
-__all__ = ["CommunicateTopology", "HybridCommunicateGroup",
+__all__ = ["CommunicateTopology", "HybridCommunicateGroup", "P2PGroups",
            "get_hybrid_communicate_group"]
 
 
@@ -95,7 +105,22 @@ class CommunicateTopology:
 _AXIS_OF = {"data": "dp", "pipe": "pp", "sharding": "sharding",
             "sep": "sep", "context": "cp", "expert": "ep", "model": "mp"}
 # the degrees later slices bring (ROADMAP Queue 1 item 1)
-_LATER = {"pipe": "(d) pipelines", "expert": "(d) MoE"}
+_LATER = {"expert": "(d) MoE"}
+# what a pipeline degree above 1 does not compose with yet
+_NOT_WITH_PIPE = {"sharding": "ZeRO stages 1-3", "sep": "sep (Ulysses)",
+                  "context": "cp (ring attention)"}
+
+
+class P2PGroups(NamedTuple):
+    """One rank's pipeline channels (ref: ``get_p2p_groups``): the global
+    ranks of the previous and next stage on its line (a ring), and the
+    two-rank group of each direction and kind."""
+    prev_rank: int
+    next_rank: int
+    send_next_group: Group      # activations to the next stage
+    send_prev_group: Group      # gradients to the previous stage
+    recv_next_group: Group      # gradients from the next stage
+    recv_prev_group: Group      # activations from the previous stage
 
 
 class HybridCommunicateGroup:
@@ -116,6 +141,12 @@ class HybridCommunicateGroup:
                 raise NotImplementedError(
                     f"{n} degree {dim(n)} waits for the distributed slice "
                     f"{slice_}")
+        if dim("pipe") > 1:
+            for n, what in _NOT_WITH_PIPE.items():
+                if dim(n) > 1:
+                    raise NotImplementedError(
+                        f"{what} together with a pipeline degree above 1 "
+                        "waits for a later slice")
         world = get_world_size()
         if self.nranks != world:
             raise ValueError(f"the topology has {self.nranks} ranks, the "
@@ -155,6 +186,38 @@ class HybridCommunicateGroup:
         self._check_group = m.group(("dp", "pp", "sharding"), name="check")
         self._dp_sharding_group = m.group(("dp", "sharding"),
                                           name="dp_sharding")
+        self._p2p: Optional[P2PGroups] = None
+        self._p2p_channels: List[Tuple[str, int, int, Group]] = []
+        if self._pp_degree > 1:
+            self._build_p2p_groups()
+
+    def _build_p2p_groups(self) -> None:
+        """Every pipeline line's channels, in one order on every rank (a
+        collective call): for each line and stage s, the activation group
+        s -> s + 1 and the gradient group s + 1 -> s (indices mod the
+        degree)."""
+        from ...communication.group import _make_group
+        n = self._pp_degree
+        mine: Dict[Tuple[str, int, int], Group] = {}
+        for line in self._mesh.comm_lists("pp"):
+            # comm_lists sorts each line; the pp coordinate orders it too
+            line = sorted(line, key=lambda r: self._topo.get_coord(r).pipe)
+            for s in range(n):
+                a, b = line[s], line[(s + 1) % n]
+                for kind, src, dst in (("act", a, b), ("grad", b, a)):
+                    g = _make_group([src, dst], name=f"pp_{kind}")
+                    self._p2p_channels.append((kind, src, dst, g))
+                    if self.global_rank in (src, dst):
+                        mine[(kind, src, dst)] = g
+        me = self.global_rank
+        prev = self.get_rank_from_stage((self._pp_rank - 1) % n)
+        nxt = self.get_rank_from_stage((self._pp_rank + 1) % n)
+        self._p2p = P2PGroups(
+            prev_rank=prev, next_rank=nxt,
+            send_next_group=mine[("act", me, nxt)],
+            send_prev_group=mine[("grad", me, prev)],
+            recv_next_group=mine[("grad", nxt, me)],
+            recv_prev_group=mine[("act", prev, me)])
 
     @property
     def topology(self) -> CommunicateTopology:
@@ -220,8 +283,15 @@ class HybridCommunicateGroup:
     def is_last_stage(self) -> bool:
         return self._pp_rank == self._pp_degree - 1
 
-    def get_p2p_groups(self):
-        return None  # pipelines wait for a later slice
+    def get_p2p_groups(self) -> Optional[P2PGroups]:
+        """This rank's pipeline channels (:class:`P2PGroups`); ``None``
+        at a pipeline degree of 1."""
+        return self._p2p
+
+    def p2p_channels(self) -> List[Tuple[str, int, int, Group]]:
+        """Every line's channels ``(kind, src, dst, group)`` in the order
+        they were built (the same on every rank)."""
+        return list(self._p2p_channels)
 
     # --- sharding parallel ---------------------------------------------
     def get_sharding_parallel_rank(self) -> int:

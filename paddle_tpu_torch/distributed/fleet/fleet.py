@@ -5,11 +5,12 @@
 ``fleet.init`` joins the process group (``init_parallel_env``) and
 builds the hybrid topology's rank grid and groups;
 ``distributed_model`` / ``distributed_optimizer`` wrap per enabled axis,
-as the reference chooses: ``TensorParallel`` when a model, sep or
-context degree is above 1, else ``DataParallel`` over the dp x sharding
-group, and ``HybridParallelOptimizer`` (ZeRO stage 1 when the sharding
-degree is above 1), under ``GradientMergeOptimizer`` when the strategy
-merges gradients.
+as the reference chooses: ``PipelineParallel`` for a ``PipelineLayer``
+when the pipeline degree is above 1, else ``TensorParallel`` when a
+model, sep or context degree is above 1, else ``DataParallel`` over the
+dp x sharding group, and ``HybridParallelOptimizer`` (ZeRO stage 1 when
+the sharding degree is above 1; a pipeline stage's gradient sync), under
+``GradientMergeOptimizer`` when the strategy merges gradients.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ from .base.topology import (CommunicateTopology, HybridCommunicateGroup,
                             _set_hcg)
 from .meta_optimizers.dygraph_optimizer.hybrid_parallel_optimizer import (
     HybridParallelOptimizer)
+from .meta_parallel.parallel_layers.pp_layers import PipelineLayer
+from .meta_parallel.pipeline_parallel import PipelineParallel
 from .meta_parallel.tensor_parallel import TensorParallel
 
 __all__ = ["Fleet", "fleet"]
@@ -42,9 +45,10 @@ class Fleet:
         """ref: ``fleet.init``: join the group (``init_parallel_env``;
         ``device="cpu"`` runs it on gloo) and build the topology from
         ``strategy.hybrid_configs`` (a ``dp_degree`` of -1 absorbs the
-        ranks left).  A pipeline or expert degree above 1 raises
-        ``NotImplementedError``; ``is_collective=False`` (parameter
-        servers) too."""
+        ranks left).  An expert degree above 1 raises
+        ``NotImplementedError``, as does a pipeline degree above 1 with a
+        sharding, sep or cp degree above 1; ``is_collective=False``
+        (parameter servers) too."""
         if not is_collective:
             raise NotImplementedError("parameter-server mode "
                                       "(is_collective=False)")
@@ -107,11 +111,17 @@ class Fleet:
 
     # ------------------------------------------------------------------
     def distributed_model(self, model):
-        """ref: ``fleet.py`` distributed_model: ``TensorParallel`` when
-        the model, sep or context degree is above 1, else
-        ``DataParallel`` over the dp x sharding group when either degree
-        is above 1, else the model itself."""
+        """ref: ``fleet.py`` distributed_model: ``PipelineParallel`` for
+        a ``PipelineLayer`` when the pipeline degree is above 1, else
+        ``TensorParallel`` when the model, sep or context degree is above
+        1, else ``DataParallel`` over the dp x sharding group when either
+        degree is above 1, else the model itself.  A model that is not a
+        ``PipelineLayer`` trains under pipelines through
+        ``gpt_pipeline_step`` / ``llama_pipeline_step``."""
         hcg = self._hcg
+        if hcg.get_pipe_parallel_world_size() > 1 and \
+                isinstance(model, PipelineLayer):
+            return PipelineParallel(model, hcg, self._strategy)
         if hcg.get_model_parallel_world_size() > 1 or \
                 hcg.get_sep_parallel_world_size() > 1 or \
                 hcg.get_context_parallel_world_size() > 1:

@@ -36,6 +36,13 @@ Paddle's does with ``fused_allreduce_gradients``: averaged over dp and
 summed over sep / cp (whose ranks hold replicated parameters and see
 different tokens of the same rows); under a sharding reducer, which
 averages over dp x sharding, only the sep / cp sum is left.
+
+Under a pipeline degree above 1 the optimizer holds the rank's own
+stage's parameters (``PipelineLayer`` builds no other; the pipeline
+steps hand it the rank's blocks and tails), and :meth:`step` first sums
+each shared weight's gradient over the stages that hold it and averages
+every gradient over the stage's dp group, once, after the last
+micro-batch's backward (``pipeline_allreduce_gradients``).
 """
 from __future__ import annotations
 
@@ -285,9 +292,20 @@ class HybridParallelOptimizer:
             h.get_sep_parallel_world_size(),
             h.get_context_parallel_world_size()) > 1
 
+    def _pipeline(self) -> bool:
+        h = self._hcg
+        return h is not None and h.get_pipe_parallel_world_size() > 1
+
     def _reduce_gradients(self):
-        """A tensor-parallel model's gradient reduction (module
-        docstring); nothing otherwise."""
+        """A pipeline stage's or a tensor-parallel model's gradient
+        reduction (module docstring); nothing otherwise."""
+        if self._pipeline():
+            from ...utils.hybrid_parallel_util import (
+                pipeline_allreduce_gradients)
+            pipeline_allreduce_gradients(
+                [p for g in self._inner_opt.param_groups
+                 for p in g["params"]], self._hcg)
+            return
         if not self._tensor_parallel():
             return
         from ...utils.hybrid_parallel_util import (

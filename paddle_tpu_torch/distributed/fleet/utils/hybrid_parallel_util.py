@@ -12,7 +12,10 @@ Under sep (Ulysses) or cp (ring attention) each rank of that group sees
 its own tokens of the same rows with replicated parameters, so
 :func:`fused_allreduce_gradients` sums the gradients over it as well
 (averaging over dp only), bf16 ones in fp32; over dp alone gradients are
-summed in their own dtype.  The model-parallel broadcast sends what the
+summed in their own dtype.  A pipeline stage's gradients
+(:func:`pipeline_allreduce_gradients`) are averaged over dp and, for a
+weight several stages share, summed over those stages.  The
+model-parallel broadcast sends what the
 group's first rank holds of the parameters replicated across the group:
 a tensor-parallel shard (``split_axis``) differs by rank and is left
 alone.  A sep or cp group's ranks share their mp coordinate, so they
@@ -30,7 +33,7 @@ from ...communication.group import ReduceOp, _resolve_group
 __all__ = ["fused_allreduce_gradients", "fused_allreduce_gradients_with_group",
            "broadcast_dp_parameters", "broadcast_sharding_parameters",
            "broadcast_mp_parameters", "broadcast_sep_parameters",
-           "broadcast_cp_parameters",
+           "broadcast_cp_parameters", "pipeline_allreduce_gradients",
            "sharding_reduce_gradients"]
 
 
@@ -120,6 +123,22 @@ def fused_allreduce_gradients(parameter_list, hcg=None):
     group = hcg.mesh.group(("dp", "sep", "cp"), name="dp_sep_cp")
     _sequence_allreduce_gradients(
         parameter_list, group, scale=1.0 / hcg.get_data_parallel_world_size())
+
+
+def pipeline_allreduce_gradients(parameter_list, hcg) -> None:
+    """A pipeline stage's gradient sync before its optimizer step: each
+    shared weight (``pp_shared_group``: a tied layer held by several
+    stages) summed over its stages, then every gradient averaged over the
+    data-parallel group, each in its own dtype (once a step: after the
+    last micro-batch's backward)."""
+    params = [p for p in parameter_list if p.grad is not None]
+    for p in params:
+        g = getattr(p, "pp_shared_group", None)
+        if g is not None:
+            all_reduce(p.grad, group=g)
+    if hcg is not None and hcg.get_data_parallel_world_size() > 1:
+        fused_allreduce_gradients_with_group(params,
+                                             hcg.get_data_parallel_group())
 
 
 def sharding_reduce_gradients(parameter_list, hcg=None):

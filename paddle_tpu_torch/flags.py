@@ -120,6 +120,13 @@ define_flag("collective_sanitizer", False,
             "streams (instead of the hang) and emit a "
             "collective_mismatch event.  See paddle_tpu_torch."
             "distributed.communication.sanitizer")
+# read by fleet.meta_parallel.pipeline_parallel when a schedule is chosen
+define_flag("pp_allow_axis_fallback", False,
+            "allow an EXPLICIT pipeline schedule_mode to run with a live "
+            "mp axis that the PipelineLayer's stages do not split (each "
+            "mp rank then runs the whole stage; default: raise — use "
+            "llama_pipeline_step / gpt_pipeline_step, whose stages run "
+            "the mp layers)")
 # read lazily by observability.lockwatch.make_lock/make_rlock/
 # make_condition at construction time: set it BEFORE building the
 # engine or the server; already-constructed objects keep their stdlib

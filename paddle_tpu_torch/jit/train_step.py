@@ -35,7 +35,8 @@ import torch
 
 __all__ = ["TrainStep", "train_step"]
 
-# axes whose degree above 1 waits for a later distributed slice
+# axes whose degree above 1 this step does not run: pipelines have their
+# own schedules (fleet.meta_parallel), MoE waits for a later slice
 _LATER_AXES = ("pp", "ep")
 # the tensor-parallel axes: same rows; sep / cp also split the sequence
 _TP_AXES = ("mp", "sep", "cp")
@@ -60,9 +61,11 @@ class _DataShard:
         shape = mesh.shape
         later = {a: d for a, d in shape.items() if a in _LATER_AXES and d > 1}
         if later:
-            raise NotImplementedError(f"mesh axes {later} wait for a later "
-                                      "distributed slice (pipelines and "
-                                      "MoE)")
+            raise NotImplementedError(
+                f"mesh axes {later}: a pipeline trains through "
+                "PipelineParallel.train_batch or gpt_pipeline_step / "
+                "llama_pipeline_step, not this step; MoE waits for a later "
+                "distributed slice")
         seq = {a: d for a, d in shape.items() if a in ("sep", "cp") and d > 1}
         if len(seq) > 1:
             raise NotImplementedError("sep and cp together: one sequence "

@@ -12,6 +12,13 @@ groups, each split over the mp ranks; GPT's packed qkv keeps its heads of
 each of q, k and v), as it would have drawn them.  The JAX package
 carries weights before ``amp.decorate`` casts them; a model already
 decorated takes them too, each value rounded to its parameter's dtype.
+
+One pipeline stage (:func:`load_stage_state`) takes the arrays of the
+parameters it holds and leaves the others, which are other stages': a
+``PipelineLayer`` registers its layers under their global index, as the
+JAX package's does, and a model trained by a pipeline step holds its own
+blocks (the others are placeholders without parameters), so the names
+are the JAX model's and the segmentation is the same on both sides.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
     is_split, shard_of)
 
-__all__ = ["load_paddle_tpu_state"]
+__all__ = ["load_paddle_tpu_state", "load_stage_state"]
 
 
 def load_paddle_tpu_state(model: torch.nn.Module,
@@ -33,11 +40,6 @@ def load_paddle_tpu_state(model: torch.nn.Module,
     the fleet topology's mp coordinates (one rank without a topology).
     Raises unless the names match both ways and every shard's shape is
     equal."""
-    from ..distributed.fleet.base.topology import (
-        get_hybrid_communicate_group)
-    hcg = get_hybrid_communicate_group()
-    mp_rank = hcg.get_model_parallel_rank() if hcg else 0
-    mp_degree = hcg.get_model_parallel_world_size() if hcg else 1
     while hasattr(model, "_layers"):
         model = model._layers
     params = dict(model.named_parameters())
@@ -46,6 +48,30 @@ def load_paddle_tpu_state(model: torch.nn.Module,
     if missing or extra:
         raise KeyError(f"state mismatch: missing {missing}, "
                        f"unexpected {extra}")
+    _fill(params, arrays)
+
+
+def load_stage_state(model: torch.nn.Module,
+                     arrays: Mapping[str, np.ndarray]) -> None:
+    """Fill the parameters this pipeline stage holds from the global
+    ``arrays`` (split ones as :func:`load_paddle_tpu_state` does); the
+    arrays of parameters it does not hold are other stages' and stay
+    unread.  Raises unless every held parameter has its array."""
+    while hasattr(model, "_layers"):
+        model = model._layers
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(arrays))
+    if missing:
+        raise KeyError(f"state mismatch: missing {missing}")
+    _fill(params, arrays)
+
+
+def _fill(params, arrays) -> None:
+    from ..distributed.fleet.base.topology import (
+        get_hybrid_communicate_group)
+    hcg = get_hybrid_communicate_group()
+    mp_rank = hcg.get_model_parallel_rank() if hcg else 0
+    mp_degree = hcg.get_model_parallel_world_size() if hcg else 1
     for name, p in params.items():
         a = torch.tensor(np.asarray(arrays[name]))
         if is_split(p):

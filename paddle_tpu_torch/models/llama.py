@@ -69,7 +69,8 @@ from .gpt import (GPTPretrainingCriterion, ParallelContext, _attr, _column,
                   _row, _check_dense_past, _check_kv_pair)
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "llama_config", "LlamaModel",
-           "LlamaForCausalLM", "LlamaPretrainingCriterion"]
+           "LlamaForCausalLM", "LlamaPretrainingCriterion",
+           "llama_pipeline_step"]
 
 @dataclass
 class LlamaConfig:
@@ -505,6 +506,53 @@ def _build_llama_decode_step(model: LlamaForCausalLM):
         return torch.matmul(h, p["lm_w"].transpose(0, 1)), caches
 
     return params, step
+
+
+def llama_pipeline_step(model: LlamaForCausalLM, optimizer, mesh,
+                        n_micro: int, axis_name: str = "pp",
+                        dp_axes=("dp", "sharding"),
+                        remat_blocks: bool = True, n_chunks: int = 1,
+                        scaler=None, autocast=None):
+    """The pipeline step of a LLaMA built under the fleet topology
+    (``pp_spmd.make_transformer_pipeline_step``): pre = the token
+    embedding (times ``embed_scale``), blocks = the decoder layers, post
+    = a plain RMSNorm in fp32 (not K4a: the JAX package's ``post_fn``
+    computes it with jnp), the head (vocab-split under mp) and fp32 cross
+    entropy; a tied head shares the embedding across the first and last
+    stage."""
+    from ..distributed.fleet.meta_parallel.pp_spmd import (
+        _tie_across_stages, fp32_cross_entropy,
+        make_transformer_pipeline_step)
+    llama = model.llama
+    cfg = model.config
+    emb_w = llama.embed_tokens.weight
+    norm_w = llama.norm.weight
+    rep_tensors = [emb_w, norm_w] + (
+        [] if cfg.tie_word_embeddings else [model.lm_head_weight])
+    pc = model._pc
+
+    def pre_fn(rep_v, ids):
+        h = llama.embed_tokens(ids)
+        if cfg.embed_scale != 1.0:      # Gemma's sqrt(hidden) scaling
+            h = h * cfg.embed_scale
+        return h
+
+    def post_fn(rep_v, h, labels):
+        nw = rep_v[1]
+        hw = rep_v[0] if cfg.tie_word_embeddings else rep_v[2]
+        hf = h.float()
+        var = (hf * hf).mean(-1, keepdim=True)
+        hn = hf * torch.rsqrt(var + cfg.rms_eps) * nw
+        return fp32_cross_entropy(pc.head(hn, hw), labels)
+
+    step = make_transformer_pipeline_step(
+        llama.layers, rep_tensors, pre_fn, post_fn, optimizer, mesh,
+        n_micro, axis_name=axis_name, dp_axes=dp_axes,
+        remat_blocks=remat_blocks, n_chunks=n_chunks,
+        stack_prefix="llama_pp_stack", scaler=scaler, autocast=autocast)
+    if cfg.tie_word_embeddings:
+        _tie_across_stages([emb_w], step.hcg)
+    return step
 
 
 class LlamaPretrainingCriterion(GPTPretrainingCriterion):

@@ -1,5 +1,5 @@
 """Optimizers of the port (``paddle.optimizer`` counterparts)."""
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import SGD, Adam, AdamW
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]

@@ -1,4 +1,8 @@
-"""Adam and AdamW; counterpart of ``paddle_tpu/optimizer/optimizers.py``.
+"""SGD, Adam and AdamW; counterpart of
+``paddle_tpu/optimizer/optimizers.py``.
+
+SGD is ``p - lr * g`` in torch (no kernel: the JAX package's is a plain
+update too), on the fp32 master under ``multi_precision``.
 
 Each step launches the fused AdamW kernel (K3, ``ops.fused_adamw``) once
 per parameter with a gradient.  The bias-correction powers are fp32
@@ -15,7 +19,33 @@ import torch
 from ..ops.fused_adamw import fused_adamw_update_
 from .optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["SGD", "Adam", "AdamW"]
+
+
+class SGD(Optimizer):
+    """``p - lr * g`` (ref: ``python/paddle/optimizer/sgd.py``);
+    ``weight_decay`` waits for a later slice and raises
+    ``NotImplementedError`` when set."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        if weight_decay:
+            raise NotImplementedError("L2 regularization in SGD waits for "
+                                      "a later slice")
+        super().__init__(learning_rate, parameters, weight_decay,
+                         grad_clip, multi_precision, name)
+
+    def _update_param(self, p, g):
+        lr = self._lr_on(p.device)
+        if self._use_master(p):
+            st = self.state[p]
+            if not st:
+                st["master"] = p.detach().float().clone()
+            st["master"].sub_(lr * g.float())
+            p.copy_(st["master"])
+        else:
+            p.sub_((lr * g).to(p.dtype))
 
 
 class Adam(Optimizer):

@@ -182,13 +182,14 @@ def test_communicate_topology_matches_jax():
 @pytest.mark.parametrize("degree", ["mp_degree", "pp_degree", "sep_degree",
                                     "cp_degree", "ep_degree"])
 def test_fleet_degrees_of_later_slices_raise(degree):
-    """Pipelines and MoE wait for a later slice.  Model, sep and cp
-    parallelism run (tests/test_torch_tensor_parallel.py and
-    tests/test_torch_segment_parallel.py build their groups on 4 ranks):
+    """MoE waits for a later slice.  Model, sep, cp and pipeline
+    parallelism run (tests/test_torch_tensor_parallel.py,
+    tests/test_torch_segment_parallel.py and
+    tests/test_torch_pipeline_parallel.py build their groups on 4 ranks):
     in a world of one, a degree of 2 is refused only for its rank count."""
     s = fleet.DistributedStrategy()
     s.hybrid_configs = {"dp_degree": 1, degree: 2}
-    later = degree in ("pp_degree", "ep_degree")
+    later = degree == "ep_degree"
     try:
         with pytest.raises(NotImplementedError if later else ValueError,
                            match="slice" if later else

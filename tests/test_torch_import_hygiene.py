@@ -74,6 +74,15 @@ def test_importing_the_port_loads_no_jax():
             ".tensor_parallel\n"
             "import paddle_tpu_torch.distributed.fleet.utils"
             ".sequence_parallel_utils\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+            ".parallel_layers.pp_layers\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+            ".pp_schedules\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+            ".pipeline_parallel\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel"
+            ".pp_spmd\n"
+            "import paddle_tpu_torch.models.carry\n"
             "import paddle_tpu_torch.ops.ring_attention\n"
             "import paddle_tpu_torch.ops.ulysses\n"
             "import paddle_tpu_torch.nn.initializer\n"

@@ -71,6 +71,11 @@ from paddle_tpu.distributed.fleet.utils import (
     sequence_parallel_utils as jspu)
 from paddle_tpu.ops import ring_attention as jring, ulysses as julysses
 from paddle_tpu import random_state as jrandom_state
+from paddle_tpu.distributed.fleet.meta_parallel import (
+    pipeline_parallel as jpp, pp_schedules as jpps, pp_spmd as jppspmd)
+from paddle_tpu.distributed.fleet.meta_parallel.parallel_layers import (
+    pp_layers as jppl)
+from paddle_tpu.models import llama as jllama
 
 import paddle_tpu_torch.distributed as tdist
 from paddle_tpu_torch.distributed import sharding as tsharding
@@ -92,6 +97,11 @@ from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers import (
 from paddle_tpu_torch.distributed.fleet.utils import (
     sequence_parallel_utils as tspu)
 from paddle_tpu_torch.ops import ring_attention as tring, ulysses as tulysses
+from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+    pipeline_parallel as tpp, pp_schedules as tpps, pp_spmd as tppspmd)
+from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers import (
+    pp_layers as tppl)
+from paddle_tpu_torch.models import llama as tllama
 
 # the modules (each package's ``jit`` exports the function of that name,
 # each ``fleet`` package the singleton named as its module)
@@ -136,6 +146,7 @@ PAIRS = {
                            topt_base.Optimizer.__init__),
     "Optimizer.clear_grad": (jopt_base.Optimizer.clear_grad,
                              topt_base.Optimizer.clear_grad),
+    "SGD.__init__": (jopt.SGD.__init__, topt.SGD.__init__),
     "Adam.__init__": (jopt.Adam.__init__, topt.Adam.__init__),
     "AdamW.__init__": (jopt.AdamW.__init__, topt.AdamW.__init__),
     "TrainStep.__init__": (jtrain.TrainStep.__init__,
@@ -241,6 +252,26 @@ PAIRS = {
     **{fn: (getattr(jseg, fn), getattr(tseg, fn))
        for fn in ("active_seq_parallel_axis", "sep_attention",
                   "cp_ring_attention", "segment_parallel_attention")},
+    **{f"{cls}.__init__": (getattr(jppl, cls).__init__,
+                           getattr(tppl, cls).__init__)
+       for cls in ("LayerDesc", "SharedLayerDesc", "SegmentLayers",
+                   "PipelineLayer")},
+    **{f"PipelineParallel.{m}": (getattr(jpp.PipelineParallel, m),
+                                 getattr(tpp.PipelineParallel, m))
+       for m in ("__init__", "train_batch", "eval_batch",
+                 "forward_backward_pipeline")},
+    **{f"HostPipelineSchedule.{m}": (getattr(jpps.HostPipelineSchedule, m),
+                                     getattr(tpps.HostPipelineSchedule, m))
+       for m in ("__init__", "forward_backward")},
+    "PipelineSpmdStep.__init__": (jppspmd.PipelineSpmdStep.__init__,
+                                  tppspmd.PipelineSpmdStep.__init__),
+    "make_transformer_pipeline_step": (
+        jppspmd.make_transformer_pipeline_step,
+        tppspmd.make_transformer_pipeline_step),
+    "gpt_pipeline_step": (jppspmd.gpt_pipeline_step,
+                          tppspmd.gpt_pipeline_step),
+    "llama_pipeline_step": (jllama.llama_pipeline_step,
+                            tllama.llama_pipeline_step),
 }
 EXTRA = {"generator", "device"}
 
@@ -305,9 +336,10 @@ UNSUPPORTED = {
         parameters=_param(), use_multi_tensor=True),
     "adamw lazy_mode": lambda: optimizer.AdamW(parameters=_param(),
                                                lazy_mode=True),
-    # a mesh's pipeline axis and a batch_spec sharding a dimension other
-    # than the batch wait for a later distributed slice (model, sep and
-    # cp axes run: tests/test_torch_tensor_parallel.py)
+    # a mesh's pipeline axis (pipelines train through PipelineParallel
+    # and the pipeline steps: tests/test_torch_pipeline_parallel.py) and a
+    # batch_spec sharding a dimension other than the batch (model, sep
+    # and cp axes run: tests/test_torch_tensor_parallel.py)
     "train_step mesh": lambda: ttrain.train_step(
         torch.nn.Linear(2, 2), lambda y: y.sum(),
         mesh=tbuild_mesh({"dp": 1, "pp": 2}, devices=[0, 1])),
@@ -333,6 +365,12 @@ UNSUPPORTED = {
         "script.py", elastic_timeout=30.0, device="cpu"),
     "launch nnodes": lambda: tlaunch("script.py", nnodes=2, device="cpu"),
     "scatter without tensor_list": lambda: tdist.scatter(torch.zeros(2)),
+    "sgd weight_decay": lambda: optimizer.SGD(parameters=_param(),
+                                              weight_decay=0.01),
+    "PipelineSpmdStep scaler": lambda: tppspmd.PipelineSpmdStep(
+        None, None, None, [], [], None, None, 1, scaler=object()),
+    "HostPipelineSchedule dp_degree": lambda: tpps.HostPipelineSchedule(
+        None, dp_degree=2),
     "generate unknown keyword": lambda: tgen.generate(
         _tiny_gpt(), np.zeros((1, 4), np.int64), max_new_tokens=1,
         attention_mask=None),

@@ -45,6 +45,8 @@ import paddle_tpu.optimizer as jopt
 from paddle_tpu.distributed import fleet as jfleet
 from paddle_tpu.distributed.communication.group import _reset_groups
 from paddle_tpu.distributed.fleet.base.topology import _clear_hcg
+from paddle_tpu.distributed.fleet.meta_parallel import (
+    segment_parallel as jseg)
 from paddle_tpu.distributed.mesh import reset_mesh
 from paddle_tpu.jit import train_step as jax_train_step
 from paddle_tpu.models import GPTForPretraining as JaxGPT
@@ -175,15 +177,23 @@ def _jax_run(kind, degrees, heads):
 
 def _jax_fallback():
     """``test_unsupported_shape_warns_and_falls_back``'s model and input
-    (sep 4 over 6 heads): its logits."""
-    _jax_fleet(dict(dp_degree=2, sep_degree=4))
-    model = _jax_model("gpt", 6, 48)
-    weights = _weights(model)
-    with warnings.catch_warnings(record=True):
-        warnings.simplefilter("always")
-        logits = model(paddle.to_tensor(np.zeros((8, 32), dtype=np.int64)))
-    logits = np.asarray(logits._data)
-    _fresh()
+    (sep 4 over 6 heads): its logits.  The JAX package warns once a
+    process (``segment_parallel._warned``): the set is restored after the
+    run, so that test still sees its warning on this worker."""
+    saved = set(jseg._warned)
+    try:
+        _jax_fleet(dict(dp_degree=2, sep_degree=4))
+        model = _jax_model("gpt", 6, 48)
+        weights = _weights(model)
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            logits = model(paddle.to_tensor(np.zeros((8, 32),
+                                                     dtype=np.int64)))
+        logits = np.asarray(logits._data)
+    finally:
+        jseg._warned.clear()
+        jseg._warned.update(saved)
+        _fresh()
     return weights, logits
 
 
@@ -295,6 +305,25 @@ def test_unsupported_shape_warns_and_falls_back(runs):
         assert info[r]["fallback_routes"] == dict(sep=0, cp=0, fallback=2)
     np.testing.assert_allclose(arrays[0]["fallback/logits"],
                                want["fallback"], rtol=0, atol=FALLBACK_ATOL)
+
+
+def test_jax_fallback_leaves_the_warning_for_later_tests(runs):
+    """After ``_jax_fallback`` ran in this process (the module fixture),
+    ``test_segment_parallel.py``'s fallback run still warns: the JAX
+    package's once-a-process set is as it was before."""
+    import test_segment_parallel as jtest
+    saved = set(jseg._warned)
+    jseg._warned.discard("sep-heads")    # as a fresh worker holds it
+    before = set(jseg._warned)
+    try:
+        _jax_fallback()
+        assert jseg._warned == before
+        _fresh()
+        jtest.test_unsupported_shape_warns_and_falls_back()
+    finally:
+        jseg._warned.clear()
+        jseg._warned.update(saved)
+        _fresh()
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -12,7 +12,9 @@ and the tiny LLaMA, ``GPT.npz LLAMA.npz``), ``tensor_parallel`` (mp, SP
 and dp x sharding x mp runs, the mp layers, the SP hooks and the RNG
 streams: ``GPT.npz LLAMA.npz LAYERS.npz``), ``segment_parallel`` (ring
 and Ulysses attention, sep / cp runs and the fallback: ``DIR`` holding
-their inputs) or ``spawn`` (two gloo ranks through
+their inputs), ``pipeline`` (``PipelineLayer`` under each schedule at
+pp 4, the refusals, the GPT and LLaMA pipeline steps: ``DIR``) or
+``spawn`` (two gloo ranks through
 ``distributed.spawn``, not the launcher).  :func:`launch` and
 :func:`wait_ranks` start a group from a test and collect its results.
 """
@@ -892,6 +894,210 @@ def run_segment_parallel(out, r, src):
     return arrays, info
 
 
+# the pipeline runs: tests/test_pp_schedules.py's PipelineLayer (8 x
+# Linear(8, 8), SGD lr 0.05, batches of 8 in 4 micro-batches) under each
+# schedule at pp 4; the tiny GPT (4 layers) at dp 2 x pp 2 and the tiny GQA
+# LLaMA (4 layers) at mp 2 x pp 2 through their pipeline steps
+PP_MODES = ("FThenB", "1F1B", "ZBH1", "VPP")
+PP_LLAMA = dict(vocab_size=256, hidden_size=64, num_layers=4, num_heads=4,
+                num_kv_heads=2, max_position_embeddings=128)
+
+
+class PPLinear(torch.nn.Module):
+    """``x @ weight + bias`` with Paddle's ``[in, out]`` weight."""
+
+    def __init__(self, n_in, n_out):
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.zeros(n_in, n_out))
+        self.bias = torch.nn.Parameter(torch.zeros(n_out))
+
+    def forward(self, x):
+        return x @ self.weight + self.bias
+
+
+class PPTied(torch.nn.Module):
+    """``x @ weight``: a layer two stages share (``SharedLayerDesc``)."""
+
+    def __init__(self, n_in, n_out):
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.zeros(n_in, n_out))
+
+    def forward(self, x):
+        return x @ self.weight
+
+
+def pp_loss(o, y):
+    return (o - y).square().mean()
+
+
+def pp_data(seed):
+    """``tests/test_pp_schedules.py``'s ``_data(seed)``."""
+    rs = np.random.RandomState(seed)
+    return (rs.randn(8, 8).astype(np.float32),
+            rs.randn(8, 8).astype(np.float32))
+
+
+def pp_batch(vocab, seq):
+    """``tests/test_pipeline_spmd.py``'s / ``test_llama.py``'s batch."""
+    rs = np.random.RandomState(0)
+    return (rs.randint(0, vocab, (GLOBAL_BATCH, seq)).astype(np.int64),
+            rs.randint(0, vocab, (GLOBAL_BATCH, seq)).astype(np.int64))
+
+
+def pp_shared_descs(fleet):
+    """Layer 0 and layer 7 one ``PPTied`` (8 positions)."""
+    tied = fleet.SharedLayerDesc("tied", PPTied, None, "weight", 8, 8)
+    return [tied] + [fleet.LayerDesc(PPLinear, 8, 8) for _ in range(6)] + \
+        [tied]
+
+
+def _pp_layer_fleet(mode, degrees, weights, n_layers=8, shared=False):
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import load_stage_state
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(degrees)
+    s.pipeline_configs = {"micro_batch_size": 2, "accumulate_steps": 4,
+                          "schedule_mode": mode}
+    fleet.init(is_collective=True, strategy=s, device="cpu")
+    pl = fleet.PipelineLayer(
+        layers=pp_shared_descs(fleet) if shared else
+        [fleet.LayerDesc(PPLinear, 8, 8) for _ in range(n_layers)],
+        loss_fn=pp_loss, num_virtual_pipeline_stages=2 if mode == "VPP"
+        else None)
+    load_stage_state(pl, weights)
+    return pl, fleet.distributed_model(pl)
+
+
+def _used(opt, model):
+    """The parameters this rank's optimizer stepped, by name, fp32 numpy
+    (split ones gathered over mp: a collective call)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_layers
+    inner = getattr(opt, "_inner_opt", opt)
+    return {n: mp_layers.gather_parameter(p.detach(), p).float().numpy()
+            for n, p in model.named_parameters() if p in inner.state}
+
+
+def run_pipeline(out, r, src):
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        gpt_pipeline_step)
+    from paddle_tpu_torch.models import (GPTForPretraining, LlamaConfig,
+                                         LlamaForCausalLM, gpt_config,
+                                         llama_pipeline_step,
+                                         load_paddle_tpu_state)
+    arrays, info = {}, {}
+    weights = dict(np.load(os.path.join(src, "pp.npz")))
+
+    # PipelineLayer at pp 4 under each schedule
+    for mode in PP_MODES:
+        pl, model = _pp_layer_fleet(mode, dict(pp_degree=4), weights)
+        g = fleet.get_hybrid_communicate_group().get_p2p_groups()
+        info["p2p_groups"] = [g.prev_rank, g.next_rank] + [
+            grp.ranks for grp in (g.send_next_group, g.send_prev_group,
+                                  g.recv_next_group, g.recv_prev_group)]
+        opt = optimizer.SGD(learning_rate=0.05, parameters=pl.parameters())
+        info[f"pp4_{mode}"] = [float(model.train_batch(pp_data(i), opt))
+                               for i in range(STEPS)]
+        sched = model._host_sched
+        info[f"pp4_{mode}_log"] = [list(e) for e in sched.event_log]
+        info[f"pp4_{mode}_peak"] = sched.peak_live_residuals
+        info[f"pp4_{mode}_retained"] = sched.peak_retained_graphs
+        for n, p in pl.named_parameters():
+            arrays[f"pp4_{mode}/{n}"] = p.detach().numpy().copy()
+        _fleet_clear()
+
+    # a layer shared by stages 0 and 3 (SharedLayerDesc): the first
+    # step's summed gradient, then 3 steps through the hybrid optimizer
+    shared = dict(np.load(os.path.join(src, "shared.npz")))
+    shared["7._shared.weight"] = shared["0._shared.weight"]
+    pl, model = _pp_layer_fleet("1F1B", dict(pp_degree=4), shared,
+                                shared=True)
+    opt = fleet.distributed_optimizer(
+        optimizer.SGD(learning_rate=0.05, parameters=pl.parameters()))
+    x, y = pp_data(0)
+    model.forward_backward_pipeline((torch.tensor(x), torch.tensor(y)))
+    pl.allreduce_shared_weight_gradients()
+    for n, p in pl.named_parameters():
+        if "_shared" in n:
+            arrays[f"shared_grad/{n}"] = p.grad.numpy().copy()
+    opt.clear_grad()
+    info["pp4_shared"] = [float(model.train_batch(pp_data(i), opt))
+                          for i in range(STEPS)]
+    for n, p in pl.named_parameters():
+        arrays[f"pp4_shared/{n}"] = p.detach().numpy().copy()
+    _fleet_clear()
+
+    # an explicit schedule with a live mp axis: refused, then (flag) run
+    import warnings
+    pl, model = _pp_layer_fleet("ZBH1", dict(pp_degree=2, mp_degree=2),
+                                weights, n_layers=4)
+    opt = optimizer.SGD(learning_rate=0.05, parameters=pl.parameters())
+    try:
+        model.train_batch(pp_data(0), opt)
+        info["mp_refused"] = ""
+    except RuntimeError as e:
+        info["mp_refused"] = str(e)
+    set_flags({"pp_allow_axis_fallback": True})
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            info["mp_fallback_loss"] = float(model.train_batch(pp_data(0),
+                                                               opt))
+        info["mp_fallback_warnings"] = [str(w.message) for w in rec]
+    finally:
+        set_flags({"pp_allow_axis_fallback": False})
+    _fleet_clear()
+    # what still waits: pp with sharding, sep or cp
+    refused = {}
+    for axis in ("sharding_degree", "sep_degree", "cp_degree"):
+        try:
+            _fleet_init(pp_degree=2, **{axis: 2})
+            refused[axis] = ""
+        except NotImplementedError as e:
+            refused[axis] = str(e)
+        _fleet_clear()
+    info["pp_refused"] = refused
+
+    # the tiny GPT at dp 2 x pp 2 (its head tied to the word embedding)
+    hcg = _fleet_init(dp_degree=2, pp_degree=2)
+    model = GPTForPretraining(gpt_config(
+        "tiny", hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+        num_layers=4), device="cpu")
+    load_paddle_tpu_state(model, dict(np.load(os.path.join(src,
+                                                           "gpt.npz"))))
+    opt = fleet.distributed_optimizer(_adamw(model))
+    step = gpt_pipeline_step(model, opt, hcg.mesh, n_micro=4,
+                             dp_axes=("dp",))
+    batch = pp_batch(512, SEQ)
+    info["gpt_dp2_pp2"] = [float(step(*batch)) for _ in range(STEPS)]
+    for n, a in _used(opt, model).items():
+        arrays[f"gpt_dp2_pp2/{n}"] = a
+    info["gpt_tied_group"] = list(
+        model.gpt.embeddings.word_embeddings.weight.pp_shared_group.ranks)
+    _fleet_clear()
+
+    # the tiny GQA LLaMA at mp 2 x pp 2, its stages on the mp layers
+    hcg = _fleet_init(mp_degree=2, pp_degree=2)
+    model = LlamaForCausalLM(LlamaConfig(**PP_LLAMA), device="cpu")
+    load_paddle_tpu_state(model, dict(np.load(os.path.join(src,
+                                                           "llama.npz"))))
+    opt = _adamw(model)
+    step = llama_pipeline_step(model, opt, hcg.mesh, n_micro=4,
+                               dp_axes=("dp",))
+    batch = pp_batch(PP_LLAMA["vocab_size"], 16)
+    info["llama_mp2_pp2"] = [float(step(*batch)) for _ in range(STEPS)]
+    used = _used(opt, model)
+    if hcg.get_model_parallel_rank() == 0:
+        for n, a in used.items():
+            arrays[f"llama_mp2_pp2/{n}"] = a
+    info["llama_blocks"] = [i for i, b in enumerate(model.llama.layers)
+                            if any(True for _ in b.parameters())]
+    _fleet_clear()
+    return arrays, info
+
+
 def _spawn_rank(out):
     dist.init_parallel_env(device="cpu")
     r = dist.get_rank()
@@ -932,6 +1138,8 @@ def main():
             dict(np.load(sys.argv[5])))
     elif mode == "segment_parallel":
         arrays, info = run_segment_parallel(out, r, sys.argv[3])
+    elif mode == "pipeline":
+        arrays, info = run_pipeline(out, r, sys.argv[3])
     else:
         weights = dict(np.load(sys.argv[3]))
         arrays, info = run_train(out, r, weights)
