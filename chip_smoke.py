@@ -8,9 +8,10 @@ Run from the root of a checkout, on a machine with one CUDA card::
 (``python3 chip_smoke.py --ab fa_a.cu fa_b.cu ...`` instead times copies
 of a kernel source against each other: ``compare_variants``;
 ``--fleet`` runs phase 4h alone: ``fleet_alone``; ``--distributed``
-runs phases 17-21 alone: ``distributed_alone``, on every visible card;
+runs phases 17-22 alone: ``distributed_alone``, on every visible card;
 ``--tensor-parallel`` phases 19 and 20 alone, ``--sequence-parallel``
-phase 20 alone, ``--pipeline`` phase 21 alone.)
+phase 20 alone, ``--pipeline`` phase 21 alone, ``--moe`` phase 22
+alone: ``moe_alone``.)
 
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
@@ -334,6 +335,38 @@ loudly with a non-zero exit:
    compute), peak live residuals and peak memory, and one step's p2p
    traffic timed alone.
 
+22. ERNIE-MoE pretraining.  At one card (``ernie_moe_main_path``, after
+   phase 21's one-card part): ``MoELayer``'s index form against its
+   one-hot einsum form on the card (fp32, tokens dropped; a fault
+   control, the queue places shifted, must fail), then ``ernie-moe-base``
+   at full width and depth (12 layers, hidden 768, 64 experts in every
+   2nd block, GShard top-2, capacity factor 1.25, vocab 40000; dropout
+   0, random weights from seed 0, each expert from a generator of its
+   own), amp O2 bf16, AdamW(1e-4, wd 0.01) with
+   ``ClipGradForMOEByGlobalNorm(1.0)``, batch 8 x 512 with MLM labels
+   (~30 % kept), 1 cold, 2 warm-up and 5 timed steps through
+   ``train_step``; every loss finite and the last below the first, per
+   step exactly 12 launches of each K1 kernel (non-causal, head_dim 64),
+   25 of each K2 kernel and 1672 of K3 (one a parameter tensor); step ms,
+   tokens/s, MFU of the capacity slots computed, peak memory and the
+   (token, choice) pairs each MoE block drops.  On four cards
+   (``moe_rank``): rank 0's one-card oracle on cuda:0 (3 plain steps of
+   the same model on the global batch), then ep 4 (16 experts a rank,
+   dp 1) and dp 2 x ep 2 (32 a rank) through ``fleet.init`` and
+   ``train_step(mesh=...)`` on the same global batch: losses within
+   0.0625 of the oracle's and equal on every rank, every rank's fp32
+   values (sent to rank 0) within phase 17's bounds, dense values
+   bit-identical within each ep group, each rank holding exactly its
+   ``E / ep`` experts, launches exact (K3 once a tensor of the rank);
+   step ms, tokens/s, MFU, peak memory a rank and one step's ep
+   collectives timed alone; each topology's groups freed before the
+   next.  The value medians are held at ep 4 and measured at dp 2 x
+   ep 2, and two witnesses at dp 2 x ep 2 say why: a control with
+   capacity and queue places per dp rank (the upstream GPU form, a
+   different result) must fail the first gradients' bound, and the same
+   layout in fp32 must hold every bound, the medians too, against an
+   fp32 oracle.
+
 Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
 them in the JAX package).  Phase 4d's GPT-3 1.3B run follows phase 4 on
@@ -388,6 +421,10 @@ from paddle_tpu_torch.models.bart import (BartConfig,
 from paddle_tpu_torch.models.gpt import GPTForPretraining, gpt_config
 from paddle_tpu_torch.models.gpt import LayerNorm as GPTLayerNorm
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_config
+from paddle_tpu_torch.models.ernie_moe import (ErnieMoEForPretraining,
+                                               ernie_moe_config)
+from paddle_tpu_torch.incubate.distributed.models.moe import (
+    ClipGradForMOEByGlobalNorm, MoELayer, moe_layer)
 from paddle_tpu_torch.observability.events import read_events
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
@@ -2064,6 +2101,8 @@ K1_CASES = {
     # one (every key visible)
     "ring-diag": (64, 1024, 1024, 1, True, torch.bfloat16, 128),
     "ring-full": (64, 1024, 1024, 1, False, torch.bfloat16, 128),
+    # ERNIE-MoE's attention (phase 22): batch 8 x 12 heads, non-causal
+    "ernie": (96, 512, 512, 1, False, torch.bfloat16, 64),
 }
 # the bf16 kernels, which must hold tensor-core instructions (and the
 # CUDA-core `_fp32` kernels none)
@@ -2262,6 +2301,9 @@ K2_CASES = {
     "wide-fp32": (512, 12288, torch.float32, torch.float32, "randn"),
     "wide-bf16": (512, 12288, torch.bfloat16, torch.float32, "randn"),
     "wide-odd": (512, 10007, torch.float32, torch.float32, "randn"),
+    # ERNIE-MoE's LayerNorms (phase 22): 8 x 512 tokens, width 768, fp32
+    # under O2 (black-listed)
+    "ernie": (4096, 768, torch.float32, torch.float32, "randn"),
 }
 K2_OFFSET = 100.0
 
@@ -2401,10 +2443,12 @@ def check_k2():
 
 def check_k3():
     """A bf16 [2048, 8192] parameter on an fp32 master, an fp32 [2048]
-    parameter and an fp32 [50265, 768] parameter (BART's shared
-    embedding, its largest tensor; no master), 3 steps with weight decay,
-    kernel vs the plain sequence on identical copies.  Returns the timed
-    rows: "main" (the bf16 one, GPT's and LLaMA's O2 case) and "bart"."""
+    parameter, an fp32 [50265, 768] parameter (BART's shared embedding,
+    its largest tensor; no master) and a bf16 [768, 3072] one on an fp32
+    master (an ERNIE-MoE expert's weight, the shape of 768 of phase 22's
+    1672 tensors), 3 steps with weight decay, kernel vs the plain
+    sequence on identical copies.  Returns the timed rows: "main" (the
+    [2048, 8192] one, GPT's and LLaMA's O2 case), "bart" and "ernie"."""
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
     b1, b2, eps, wd = 0.9, 0.999, 1e-8, 0.01
@@ -2413,7 +2457,8 @@ def check_k3():
     rows = {}
     for shape, low, key in (((2048, 8192), True, "main"),
                             ((2048,), False, None),
-                            ((50265, 768), False, "bart")):
+                            ((50265, 768), False, "bart"),
+                            ((768, 3072), True, "ernie")):
         err = 0.0
         master = rand(shape, torch.float32, g, 0.02)
         states = []
@@ -7553,17 +7598,758 @@ def pp_line(key, m, world):
     return line
 
 
-PHASES = (17, 18, 19, 20, 21)
+# ---------------------------------------------------------------------------
+# phase 22: ERNIE-MoE pretraining, at one card and under ep
+# ---------------------------------------------------------------------------
+
+MOE_BATCH, MOE_SEQ = 8, 512
+MOE_STEPS = dict(cold=1, warmup=2, timed=5)
+MOE_CLIP = 1.0
+# the four-card runs: (tag, hybrid degrees); the same global batch
+MOE_RUNS = (("ep4", dict(ep_degree=4)),
+            ("dp2_ep2", dict(dp_degree=2, ep_degree=2)))
+
+
+def moe_config():
+    """``ernie-moe-base`` at full width and depth: 12 layers, hidden 768,
+    12 heads, 64 experts in every 2nd block, GShard top-2, capacity
+    factor 1.25, vocab 40000, 512 positions; dropout 0."""
+    return ernie_moe_config("ernie-moe-base", hidden_dropout_prob=0.0,
+                            attention_dropout_prob=0.0)
+
+
+def moe_blocks(cfg) -> int:
+    return sum((i + 1) % cfg.moe_every == 0 for i in range(cfg.num_layers))
+
+
+def moe_param_count(cfg) -> int:
+    """Every parameter of ``ErnieMoEForPretraining`` at ``cfg``."""
+    h, i, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    n_moe = moe_blocks(cfg)
+    ffn = 2 * h * i + i + h
+    return ((cfg.vocab_size + cfg.max_position_embeddings) * h + 2 * h
+            + cfg.num_layers * (4 * h * h + 4 * h + 4 * h)
+            + (cfg.num_layers - n_moe) * ffn
+            + n_moe * (h * e + e + e * ffn))
+
+
+def moe_tensor_count(cfg, experts_held) -> int:
+    """The parameter tensors of a rank holding ``experts_held`` experts a
+    MoE block: K3 launches once for each."""
+    n_moe = moe_blocks(cfg)
+    return (4 + cfg.num_layers * 8 + (cfg.num_layers - n_moe) * 4
+            + n_moe * (2 + 4 * experts_held))
+
+
+def moe_per_step(n_tensors):
+    """One O2 step's launches: K1a-c once a layer (non-causal, d 64), K2a/b
+    for the embedding's and each block's two LayerNorms, K3 once a
+    parameter tensor of the rank; nothing else."""
+    per = {k: 0 for k in PER_STEP}
+    per.update(flash_fwd=12, flash_bwd_dq=12, flash_bwd_dkv=12, ln_fwd=25,
+               ln_bwd_dx=25, adamw=n_tensors)
+    return per
+
+
+def moe_capacity(cfg, tokens) -> int:
+    return max(int(math.ceil(cfg.top_k * tokens / cfg.num_experts
+                             * cfg.capacity_factor)), 1)
+
+
+def moe_step_flops(cfg, tokens, experts_held) -> int:
+    """A rank's FLOPs a step (3 x forward): per token the qkv and output
+    projections, the non-causal attention, the dense FFNs, the gates and
+    the tied head; per MoE block the experts' capacity slots this rank
+    computes, every one of them (``experts_held x cap`` rows, empty slots
+    included)."""
+    h, i, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    n_moe = moe_blocks(cfg)
+    cap = moe_capacity(cfg, MOE_BATCH * MOE_SEQ)
+    per_token = (cfg.num_layers * (8 * h * h + 4 * MOE_SEQ * h)
+                 + (cfg.num_layers - n_moe) * 4 * h * i + n_moe * 2 * h * e
+                 + 2 * h * cfg.vocab_size)
+    return 3 * (tokens * per_token + n_moe * experts_held * cap * 4 * h * i)
+
+
+def moe_global_batch(cfg, dev):
+    """The global batch: 8 x 512 ids, MLM labels ~30 % kept as
+    ``tests/test_ernie_moe.py`` draws them."""
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ)).astype(
+        np.int64)
+    labels = ids.copy()
+    labels[rs.rand(MOE_BATCH, MOE_SEQ) > 0.3] = -100
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev))
+
+
+def moe_trainer(cfg):
+    """The O2 model (seed 0: each expert from its own generator, so the
+    same at any ep) and AdamW(1e-4, wd 0.01) with the MoE clip, built
+    under the live topology."""
+    model = ErnieMoEForPretraining(cfg, seed=0)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True,
+                          grad_clip=ClipGradForMOEByGlobalNorm(MOE_CLIP))
+    return amp.decorate(models=model, optimizers=opt, level="O2",
+                        dtype="bfloat16")
+
+
+def moe_dropped(model, group=None):
+    """Each MoE block's (token, choice) pairs over capacity in the last
+    forward, summed over the data ``group``'s ranks (the global batch)."""
+    t = torch.stack([blk.ffn.dropped for blk in model.ernie.blocks
+                     if blk.use_moe])
+    if group is not None:
+        torch.distributed.all_reduce(t, group=group.process_group)
+    return [int(v) for v in t.tolist()]
+
+
+def moe_steps(tag, step, batch, per_step, n):
+    """``n`` steps, each one's launches held to ``per_step``; the losses,
+    each step's seconds."""
+    losses, step_s = [], []
+    for i in range(n):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(*batch)))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        moved = {k: counts()[k] - before[k] for k in per_step}
+        if moved != per_step:
+            fail(f"{tag} step {i}: launches {moved} != {per_step}")
+    return losses, step_s
+
+
+def check_moe_forms():
+    """``MoELayer``'s index form against its one-hot einsum form on the
+    card (8 experts of 64 -> 256 -> 64, GShard top-2, capacity factor
+    0.75 so tokens drop, 512 tokens, fp32): outputs and every gradient
+    within the card's fp32 tolerance (``KTOL``: the same products summed
+    in another order); and with the even queue places moved one slot (a
+    fault) the outputs must leave it."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    from paddle_tpu_torch.nn import GELU, Linear
+    dev = card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    experts = [torch.nn.Sequential(Linear(64, 256, generator=g, device=dev),
+                                   GELU(),
+                                   Linear(256, 64, generator=g, device=dev))
+               for _ in range(8)]
+    moe = MoELayer(64, experts, gate={"type": "gshard", "top_k": 2},
+                   capacity_factor=0.75, generator=g, device=dev)
+    x = torch.randn(8, 64, 64, device=dev, generator=g, requires_grad=True)
+    gy = torch.randn(8, 64, 64, device=dev, generator=g)
+    params = [x] + list(moe.parameters())
+    y = moe(x)
+    y2 = moe.forward_einsum(x)
+    g1 = torch.autograd.grad(y, params, gy)
+    g2 = torch.autograd.grad(y2, params, gy)
+    pairs = [(y, y2)] + list(zip(g1, g2))
+    err = max(max_err(a, b) for a, b in pairs)
+    excess = max(close_excess(a, b, torch.float32) for a, b in pairs)
+    real = moe_layer.route
+
+    def shifted(*a, **kw):
+        w, e, places, keep = real(*a, **kw)
+        return w, e, torch.where(places % 2 == 0, places + 1, places), keep
+    moe_layer.route = shifted
+    try:
+        shifted_y = moe(x)
+    finally:
+        moe_layer.route = real
+    atol, rtol = KTOL[torch.float32]
+    say(f"moe: index form vs einsum form on the card (fp32, {int(moe.dropped)}"
+        f" of 1024 choices dropped): outputs and gradients max abs err "
+        f"{err:.3e} (tol {atol} + {rtol} |x|); with the places shifted (a "
+        f"fault) {max_err(shifted_y, y2):.3e}")
+    if not excess <= 0:
+        fail(f"moe: the index form is {err:.3e} from the einsum form")
+    if not close_excess(shifted_y, y2, torch.float32) > 0:
+        fail("moe: the forms' check missed shifted places")
+    return err
+
+
+def moe_summary(cfg, model, losses, step_s, warm, tokens, experts_held,
+                group=None):
+    """A run's numbers: step ms (the steps after ``warm``), global tokens
+    per second, MFU of the rank's computed FLOPs (``moe_step_flops``)
+    over 989 TFLOP/s, peak memory, dropped pairs a MoE block over the
+    global batch (``group``: the data group)."""
+    timed = step_s[warm:]
+    mean_s = sum(timed) / len(timed)
+    flops = moe_step_flops(cfg, tokens, experts_held)
+    return dict(losses=losses, step_s=step_s, step_ms=1e3 * mean_s,
+                tokens_s=MOE_BATCH * MOE_SEQ / mean_s,
+                mfu=flops / mean_s / PEAK_BF16, step_flops=flops,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                dropped=moe_dropped(model, group),
+                experts_held=experts_held,
+                tokens_rank=tokens,
+                cap=moe_capacity(cfg, MOE_BATCH * MOE_SEQ))
+
+
+def moe_line(key, m, world):
+    choices = MOE_BATCH * MOE_SEQ * 2
+    return (f"moe: {key}: step ms {[round(1e3 * t, 2) for t in m['step_s']]};"
+            f" timed mean {m['step_ms']:.2f} ms = {m['tokens_s']:.1f} tokens/s"
+            f" over {world} card(s), MFU {100 * m['mfu']:.2f} % a card "
+            f"({m['step_flops'] / 1e12:.3f} TFLOP a step a card: the "
+            f"capacity slots computed, {m['experts_held']} experts x cap "
+            f"{m['cap']} a MoE block, empty slots included; 989 TFLOP/s); "
+            f"peak memory {m['peak_bytes']} bytes "
+            f"({m['peak_bytes'] / 2**30:.2f} GiB a rank); dropped (token, "
+            f"choice) pairs a MoE block {m['dropped']} of {choices} (the global "
+            "batch's)"
+            + (f"; the step's ep collectives alone {m['comm_ms']:.3f} ms"
+               if m.get("comm_ms") is not None else "")
+            + f"\nmoe: {key}: losses {m['losses']}; launches over "
+            f"{len(m['step_s'])} steps {m['launches']}")
+
+
+def moe_time_split(model, opt, batch):
+    """Where a one-card step goes: one step written out with host clocks
+    around its synchronised forward (with the loss), backward and
+    optimizer step (the MoE clip's scale and AdamW), the clip's scale
+    alone, then one step traced with ``torch.profiler``: its wall, the
+    device's busy time and share, and the five ops with the most device
+    time (self)."""
+    model.train()
+
+    def fwd():
+        with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+            return model.loss_fn(model(batch[0]), batch[1])
+    out = {}
+    for _ in range(2):                   # the second one is read
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fwd()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pg = [(p, p.grad) for p in model.parameters()]
+        opt._grad_clip.scale(pg)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del pg
+        opt.step()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        opt.clear_grad()
+        out = dict(forward_ms=1e3 * (t1 - t0), backward_ms=1e3 * (t2 - t1),
+                   clip_scale_ms=1e3 * (t3 - t2),
+                   optimizer_ms=1e3 * (t4 - t3))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd().backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    by_name = {}
+    for ev in prof.events():
+        # the device's kernels and copies; a user annotation (such as the
+        # optimizer's step range) spans them on the device's timeline
+        if ev.device_type == DeviceType.CUDA and \
+                not getattr(ev, "is_user_annotation", False):
+            t, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (t + ev.time_range.elapsed_us(), n + 1)
+    busy = sum(t for t, _ in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:5]
+    out.update(traced_wall_ms=1e3 * wall, device_busy_ms=1e3 * busy,
+               busy_share=busy / wall,
+               top_device_ops=[(name[:60], round(t / 1e3, 3), n)
+                               for name, (t, n) in top])
+    say("moe: one card: a step's split (host clocks, synchronised): "
+        + json.dumps(out))
+    return out
+
+
+def ernie_moe_main_path():
+    """Phase 22 at one card: the forms' check, then ``ernie-moe-base`` O2
+    through ``train_step`` for 1 cold, 2 warm-up and 5 timed steps with
+    exact launches."""
+    forms_err = check_moe_forms()
+    cfg = moe_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt = moe_trainer(cfg)
+    step = train_step(model, None, opt, step_fn=o2_step_fn)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_tensors = len(list(model.parameters()))
+    if n_params != moe_param_count(cfg) or \
+            n_tensors != moe_tensor_count(cfg, cfg.num_experts):
+        fail(f"ernie-moe-base has {n_params} parameters in {n_tensors} "
+             "tensors")
+    say(f"moe: ernie-moe-base, {n_params} parameters in {n_tensors} tensors,"
+        f" O2 bf16 + fp32 masters, batch {MOE_BATCH} x {MOE_SEQ}, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+    batch = moe_global_batch(cfg, card())
+    reset_counts()                   # count the main path's launches only
+    n = sum(MOE_STEPS.values())
+    losses, step_s = moe_steps("moe", step, batch, moe_per_step(n_tensors),
+                               n)
+    launches = counts()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"moe: losses not finite and falling: {losses}")
+    m = moe_summary(cfg, model, losses, step_s, MOE_STEPS["cold"]
+                    + MOE_STEPS["warmup"], MOE_BATCH * MOE_SEQ,
+                    cfg.num_experts)
+    m.update(launches=launches, forms_err=forms_err, n_params=n_params)
+    say(moe_line("one card", m, 1))
+    m["split"] = moe_time_split(model, opt, batch)
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return m
+
+
+def moe_comm_ms(hcg, cfg, tokens):
+    """One step's ep collectives timed alone (CUDA events), at the dtypes
+    the MoE layers move: a MoE block's combined output summed in fp32
+    ``[tokens, H]``, its input's gradient in bf16 ``[tokens, H]`` and its
+    combine weights' gradient in fp32 ``[tokens, k]`` (each an all-reduce
+    over the ep group), and the MoE clip's sum of the experts' squares."""
+    pg = hcg.get_expert_parallel_group().process_group
+    dev = torch.cuda.current_device()
+    y = torch.zeros(tokens * cfg.hidden_size, device=dev)
+    dx = torch.zeros(y.numel(), dtype=torch.bfloat16, device=dev)
+    dw = torch.zeros(tokens * cfg.top_k, device=dev)
+    sq = torch.zeros(1, device=dev)
+
+    def run():
+        for _ in range(moe_blocks(cfg)):
+            for t in (y, dx, dw):
+                torch.distributed.all_reduce(t, group=pg)
+        torch.distributed.all_reduce(sq, group=pg)
+    return time_ms(run, 3)
+
+
+def moe_masters(model, opt):
+    """This rank's fp32 values on the card: each parameter's master, or
+    the parameter (the LayerNorms, fp32)."""
+    return {n: opt.state[p].get("master", p).detach().float()
+            for n, p in model.named_parameters()}
+
+
+def moe_first_step(step, model, opt, batch, step_fn=o2_step_fn):
+    """``step``'s first call written out, to read this rank's averaged
+    gradients before the optimizer step: the loss (averaged over the
+    data ranks, as ``train_step`` returns it) and the gradients."""
+    data = step._data
+    if data is not None:
+        batch = [data.rows(b) for b in batch]
+        data.prepare()
+    loss = step_fn(model, *batch)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    opt.step()
+    opt.clear_grad()
+    loss = loss.detach()
+    return (data.mean(loss) if data is not None else loss), grads
+
+
+def moe_steps_held(tag, step, model, opt, batch, per_step,
+                   step_fn=o2_step_fn):
+    """``DIST_STEPS`` steps, the first written out (``moe_first_step``),
+    each one's launches held to ``per_step`` (None: not held); the losses
+    (the global mean), each step's seconds, the first gradients."""
+    losses, step_s = [], []
+    for i in range(DIST_STEPS):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            loss, grads = moe_first_step(step, model, opt, batch, step_fn)
+        else:
+            loss = step(*batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if per_step is None:
+            continue
+        moved = {k: counts()[k] - before[k] for k in per_step}
+        if moved != per_step:
+            fail(f"{tag} step {i}: launches {moved} != {per_step}")
+    return losses, step_s, grads
+
+
+def fp32_step_fn(m, ids, labels):
+    return m.loss_fn(m(ids), labels)
+
+
+def moe_fp32_trainer(cfg):
+    """``moe_trainer``'s model and optimizer in fp32: no amp, no
+    masters."""
+    model = ErnieMoEForPretraining(cfg, seed=0)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01,
+                          grad_clip=ClipGradForMOEByGlobalNorm(MOE_CLIP))
+    return model, opt
+
+
+def moe_oracle(cfg, batch, fp32=False):
+    """Rank 0's one-card oracle on cuda:0: the plain O2 ``train_step`` on
+    the global batch (``fp32``: the fp32 model's, launches not held),
+    ``DIST_STEPS`` steps (the first written out); the losses, the first
+    gradients and the fp32 values on the host, and one card's step ms (3
+    more steps)."""
+    model, opt = moe_fp32_trainer(cfg) if fp32 else moe_trainer(cfg)
+    step_fn = fp32_step_fn if fp32 else o2_step_fn
+    step = train_step(model, None, opt, step_fn=step_fn)
+    losses, _, grads = moe_steps_held(
+        "moe oracle", step, model, opt, batch,
+        None if fp32 else moe_per_step(len(list(model.parameters()))),
+        step_fn)
+    grads = {n: host(g) for n, g in grads.items()}
+    values = {n: host(v) for n, v in moe_masters(model, opt).items()}
+    ts = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*batch)
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, values=values, grads=grads,
+                one_card_ms=1e3 * float(np.mean(ts[1:])))
+
+
+def moe_to_rank0(dist, rank, world, tensors):
+    """Every rank's ``tensors`` (name -> tensor on the card) on rank 0's
+    host, sent over NCCL one rank at a time, tensor by tensor (a
+    collective call); None on the other ranks."""
+    names = [None] * world
+    dist.all_gather_object(names, [(n, tuple(t.shape), str(t.dtype))
+                                   for n, t in sorted(tensors.items())])
+    got = {0: {n: host(t) for n, t in tensors.items()}} if rank == 0 \
+        else None
+    for q in range(1, world):
+        dist.barrier()
+        if rank == q:
+            for n, _, _ in names[q]:
+                torch.distributed.send(tensors[n].contiguous(), 0)
+            torch.cuda.synchronize()
+        elif rank == 0:
+            got[q] = {}
+            for n, shape, dtype in names[q]:
+                v = torch.empty(shape, dtype=getattr(torch, dtype[6:]),
+                                device=card())
+                torch.distributed.recv(v, q)
+                got[q][n] = host(v)
+                del v
+    dist.barrier()
+    return got
+
+
+def grad_rel(got, want) -> float:
+    """``|got - want| / |want|`` (2-norms, fp32 on the card)."""
+    w = want.cuda().float()
+    return ((got.cuda().float() - w).norm()
+            / w.norm().clamp(min=1e-30)).item()
+
+
+def moe_compare(tag, vals, grads, oracle, ep_groups, median_gate):
+    """Rank 0: every rank's fp32 values after ``DIST_STEPS`` steps against
+    the oracle's (each within ``DIST_PARAM_MAX``; each tensor's median
+    within ``DIST_PARAM_MEDIAN`` when ``median_gate``, else measured),
+    its first gradients by relative norm (``GRAD_REL_TOL``), the dense
+    values and gradients bit-identical within each ep group, and each
+    rank holding exactly its ``E / ep`` experts."""
+    e = moe_config().num_experts
+    maxes, medians, rels = {}, {}, {}
+    for q, mine in vals.items():
+        grp = next(g for g in ep_groups if q in g)
+        per = e // len(grp)
+        j = grp.index(q)
+        held = {int(n.split(".ffn.experts.")[1].split(".")[0])
+                for n in mine if ".ffn.experts." in n}
+        if held != set(range(j * per, (j + 1) * per)):
+            fail(f"moe {tag}: rank {q} holds experts {sorted(held)}")
+        for n, v in mine.items():
+            d = (v.cuda() - oracle["values"][n].cuda()).abs()
+            maxes[f"{q}:{n}"] = d.max().item()
+            medians[f"{q}:{n}"] = d.median().item()
+            rels[f"{q}:{n}"] = grad_rel(grads[q][n], oracle["grads"][n])
+            del d
+    for what, by_rank in (("values", vals), ("first gradients", grads)):
+        for grp in ep_groups:
+            for n, a in by_rank[grp[0]].items():
+                if ".ffn.experts." in n:
+                    continue
+                for q in grp[1:]:
+                    if not torch.equal(by_rank[q][n], a):
+                        fail(f"moe {tag}: {what} of {n} differ between "
+                             f"ranks {grp[0]} and {q} of one ep group")
+    everywhere = all(torch.equal(vals[q][n], vals[0][n]) for q in vals
+                     for n in vals[0] if ".ffn.experts." not in n)
+    mx, med, rel = (max(d.values()) for d in (maxes, medians, rels))
+    over = sorted((k for k, v in medians.items() if v > DIST_PARAM_MEDIAN),
+                  key=medians.get, reverse=True)
+    exact = all(torch.equal(v, oracle["values"][n]) for mine in vals.values()
+                for n, v in mine.items())
+    res = dict(value_max=mx, value_median=med, over_median=len(over),
+               tensors=len(medians), grad_rel=rel,
+               dense_equal_everywhere=everywhere, bit_equal=exact)
+    say(f"moe: {tag}: against the oracle after {DIST_STEPS} steps: values "
+        f"bit-equal {exact}; worst max diff {mx:.3e} "
+        f"({max(maxes, key=maxes.get)}; tol {DIST_PARAM_MAX:.2e}); worst "
+        f"median {med:.3e} ({DIST_PARAM_MEDIAN:.3e} "
+        + ("held" if median_gate else "measured") + f"; {len(over)} of "
+        f"{len(medians)} tensors over it: "
+        + ", ".join(f"{k} {medians[k]:.3e}" for k in over[:3])
+        + f"); first gradients' relative error worst {rel:.3e} "
+        f"({max(rels, key=rels.get)}; tol {GRAD_REL_TOL}); dense values "
+        f"and gradients bit-identical within each ep group, values across "
+        f"every rank: {everywhere}")
+    if not (mx <= DIST_PARAM_MAX and rel <= GRAD_REL_TOL):
+        fail(f"moe {tag}: values or first gradients differ from the oracle")
+    if median_gate and not med <= DIST_PARAM_MEDIAN:
+        fail(f"moe {tag}: value medians differ from the oracle")
+    return res
+
+
+def moe_dist_run(tag, dist, hcg, cfg, batch, rank, world, oracle):
+    """One topology's run: ``train_step(mesh=...)`` on the global batch,
+    ``DIST_STEPS`` steps held against the oracle (losses 0.0625 and equal
+    on every rank; values and first gradients by ``moe_compare``; the
+    value medians held at ep 4, whose gradients sum nothing over dp, and
+    measured at dp 2 x ep 2, whose witnesses ``moe_witnesses`` runs),
+    then ``DIST_TIMED`` more, the last timed."""
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = moe_trainer(cfg)
+    step = train_step(model, None, opt, mesh=hcg.mesh, step_fn=o2_step_fn)
+    ep = hcg.get_expert_parallel_world_size()
+    dp = hcg.get_data_parallel_world_size()
+    held = cfg.num_experts // ep
+    n_tensors = len(list(model.parameters()))
+    if n_tensors != moe_tensor_count(cfg, held):
+        fail(f"moe {tag}: rank {rank} holds {n_tensors} tensors")
+    per_step = moe_per_step(n_tensors)
+    reset_counts()
+    losses, step_s, grads = moe_steps_held(f"moe {tag}", step, model, opt,
+                                           batch, per_step)
+    every = [None] * world
+    dist.all_gather_object(every, losses)
+    if any(l != losses for l in every):
+        fail(f"moe {tag}: the ranks' losses differ: {every}")
+    ep_groups = [None] * world
+    dist.all_gather_object(ep_groups, hcg.get_expert_parallel_group().ranks)
+    vals = moe_to_rank0(dist, rank, world, moe_masters(model, opt))
+    grads = moe_to_rank0(dist, rank, world, grads)
+    res = {}
+    if rank == 0:
+        worst = max(abs(a - b) for a, b in zip(losses, oracle["losses"]))
+        say(f"moe: {tag}: losses {losses} against the oracle's "
+            f"{oracle['losses']} (worst {worst:.3e}, tol "
+            f"{XCHECK_LOSS_TOL})")
+        if not worst <= XCHECK_LOSS_TOL:
+            fail(f"moe {tag}: losses differ by {worst}")
+        res = moe_compare(tag, vals, grads, oracle,
+                          sorted(set(map(tuple, ep_groups))),
+                          median_gate=dp == 1)
+        res["loss_diff"] = worst
+    del vals, grads
+    dist.barrier()
+    more, more_s = moe_steps(f"moe {tag}", step, batch, per_step,
+                             sum(DIST_TIMED.values()))
+    losses, step_s = losses + more, step_s + more_s
+    launches = counts()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"moe {tag}: losses not finite and falling: {losses}")
+    m = moe_summary(cfg, model, losses, step_s,
+                    DIST_STEPS + DIST_TIMED["warmup"],
+                    MOE_BATCH * MOE_SEQ // dp, held,
+                    hcg.get_data_parallel_group() if dp > 1 else None)
+    m.update(res, launches=launches, degrees=dict(ep=ep, dp=dp),
+             comm_ms=moe_comm_ms(hcg, cfg, MOE_BATCH * MOE_SEQ // dp))
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return m
+
+
+def moe_per_rank_plan(self, xf):
+    """The control's ``MoELayer._plan``: capacity and queue places from
+    this rank's tokens alone, as the upstream GPU MoE computes them (a
+    different result from the global batch's)."""
+    cap = self._capacity(xf.shape[0], None)
+    logits, _ = self.gate(xf)
+    return moe_layer.route(logits, self.top_k, cap, None) + (cap,)
+
+
+def moe_control(dist, hcg, cfg, batch, rank, world, oracle):
+    """The per-rank-capacity control at dp 2 x ep 2: one O2 step's
+    averaged gradients with ``moe_per_rank_plan``; rank 0: their worst
+    relative error against the oracle's first gradients, which must
+    leave ``GRAD_REL_TOL`` (else that bound does not see this fault)."""
+    real = MoELayer._plan
+    MoELayer._plan = moe_per_rank_plan
+    try:
+        model, opt = moe_trainer(cfg)
+        step = train_step(model, None, opt, mesh=hcg.mesh,
+                          step_fn=o2_step_fn)
+        loss, grads = moe_first_step(step, model, opt, batch)
+    finally:
+        MoELayer._plan = real
+    loss = float(loss)
+    del model, opt, step
+    grads = moe_to_rank0(dist, rank, world, grads)
+    res = {}
+    if rank == 0:
+        rels = {f"{q}:{n}": grad_rel(g, oracle["grads"][n])
+                for q, mine in grads.items() for n, g in mine.items()}
+        worst = max(rels, key=rels.get)
+        res = dict(grad_rel=rels[worst], worst=worst,
+                   over=sum(v > GRAD_REL_TOL for v in rels.values()),
+                   tensors=len(rels), loss=loss,
+                   loss_diff=abs(loss - oracle["losses"][0]))
+        say(f"moe: dp2_ep2 per-rank-capacity control: first loss {loss} "
+            f"(oracle {oracle['losses'][0]}); first gradients' relative "
+            f"error worst {rels[worst]:.3e} ({worst}), {res['over']} of "
+            f"{len(rels)} tensors over {GRAD_REL_TOL}")
+        if not rels[worst] > GRAD_REL_TOL:
+            fail("moe: the first gradients' bound does not see capacity "
+                 "per dp rank")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def moe_fp32_run(dist, hcg, cfg, batch, rank, world, oracle):
+    """The fp32 witness: dp 2 x ep 2 in fp32, ``DIST_STEPS`` steps held
+    against the fp32 oracle (losses 0.0625, ``moe_compare`` with the
+    value medians held)."""
+    model, opt = moe_fp32_trainer(cfg)
+    step = train_step(model, None, opt, mesh=hcg.mesh, step_fn=fp32_step_fn)
+    losses, step_s, grads = moe_steps_held("moe dp2_ep2 fp32", step, model,
+                                           opt, batch, None, fp32_step_fn)
+    ep_groups = [None] * world
+    dist.all_gather_object(ep_groups, hcg.get_expert_parallel_group().ranks)
+    vals = moe_to_rank0(dist, rank, world, moe_masters(model, opt))
+    grads = moe_to_rank0(dist, rank, world, grads)
+    res = {}
+    if rank == 0:
+        worst = max(abs(a - b) for a, b in zip(losses, oracle["losses"]))
+        say(f"moe: dp2_ep2 fp32: losses {losses} against the fp32 "
+            f"oracle's {oracle['losses']} (worst {worst:.3e}, tol "
+            f"{XCHECK_LOSS_TOL}); step ms "
+            f"{[round(1e3 * t, 2) for t in step_s]}")
+        if not worst <= XCHECK_LOSS_TOL:
+            fail(f"moe dp2_ep2 fp32: losses differ by {worst}")
+        res = moe_compare("dp2_ep2 fp32", vals, grads, oracle,
+                          sorted(set(map(tuple, ep_groups))),
+                          median_gate=True)
+        res["loss_diff"] = worst
+    del model, opt, step, vals, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def moe_witnesses(dist, rank, world, cfg, batch, oracle):
+    """Why dp 2 x ep 2's value medians are measured, not held: the
+    per-rank-capacity control against the O2 oracle (``moe_control``),
+    then the same layout in fp32 against an fp32 oracle built on rank 0
+    (``moe_fp32_run``); each topology's groups freed after it."""
+    degrees = dict(MOE_RUNS)["dp2_ep2"]
+    hcg = fleet_init(degrees)
+    res = {"control": moe_control(dist, hcg, cfg, batch, rank, world,
+                                  oracle)}
+    fleet_reset()
+    release_groups(dist)
+    oracle32 = moe_oracle(cfg, batch, fp32=True) if rank == 0 else None
+    dist.barrier()
+    hcg = fleet_init(degrees)
+    res["fp32"] = moe_fp32_run(dist, hcg, cfg, batch, rank, world, oracle32)
+    fleet_reset()
+    release_groups(dist)
+    if oracle32 is not None:
+        res["fp32"]["oracle_losses"] = oracle32["losses"]
+    return res
+
+
+def moe_rank(dist, rank, world, dev):
+    """Phase 22 on several cards: rank 0's one-card oracle, then ep 4 and
+    dp 2 x ep 2, then dp 2 x ep 2's witnesses, each topology's groups
+    freed before the next."""
+    cfg = moe_config()
+    batch = moe_global_batch(cfg, dev)
+    oracle = moe_oracle(cfg, batch) if rank == 0 else None
+    dist.barrier()
+    res = {}
+    if oracle is not None:
+        res["oracle_losses"] = oracle["losses"]
+        res["one_card_ms"] = oracle["one_card_ms"]
+    for tag, degrees in MOE_RUNS:
+        hcg = fleet_init(degrees)
+        res[tag] = moe_dist_run(tag, dist, hcg, cfg, batch, rank, world,
+                                oracle)
+        fleet_reset()
+        release_groups(dist)
+        if rank == 0:
+            say(moe_line(tag, res[tag], world))
+    if oracle is not None:
+        del oracle["values"]
+    res["witness"] = moe_witnesses(dist, rank, world, cfg, batch, oracle)
+    return res
+
+
+def moe_report(m, world):
+    """Phase 22's numbers on several cards, from rank 0's results."""
+    say(f"moe: one card's plain step in this call {m['one_card_ms']:.2f} ms;"
+        f" the oracle's losses {m['oracle_losses']}")
+    keys = ("loss_diff", "bit_equal", "value_max", "value_median",
+            "over_median", "tensors", "grad_rel", "dense_equal_everywhere")
+    for tag, _ in MOE_RUNS:
+        say(moe_line(tag, m[tag], world))
+        say(f"moe: {tag}: against the oracle: " + json.dumps(
+            {k: m[tag][k] for k in keys}))
+    w = m["witness"]
+    say("moe: dp2_ep2 per-rank-capacity control against the oracle: "
+        + json.dumps(w["control"]))
+    say("moe: dp2_ep2 fp32 against the fp32 oracle: " + json.dumps(
+        {k: w["fp32"][k] for k in keys + ("oracle_losses",)}))
+
+
+def moe_alone() -> int:
+    """``--moe``: phase 22 alone after the build: at one card its
+    one-card part, on several cards the ranks (ep 4, dp 2 x ep 2)."""
+    say(f"build: {_build.build_all():.3f} s")
+    if torch.cuda.device_count() == 1:
+        ernie_moe_main_path()
+    else:
+        distributed_main_path((22,))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+PHASES = (17, 18, 19, 20, 21, 22)
 
 
 def distributed_rank(out_dir: str, phases=PHASES) -> int:
-    """One rank of phases 17-21 (``--distributed-rank DIR [--phases
-    17,18,19,20,21]``, started by the port's launcher): the collectives,
+    """One rank of phases 17-22 (``--distributed-rank DIR [--phases
+    17,18,19,20,21,22]``, started by the port's launcher): the collectives,
     the oracle (rank 0), DataParallel and ZeRO stages 2 and 3 on GPT-3
     1.3B, the sanitizer, then phase 18 (``zero3_rank``), phase 19
     (``tp_rank``; at one card ``tp_world_of_one``), phase 20
-    (``seq_rank``, on several cards) and phase 21 (``pipeline_rank``, on
-    several cards); rank 0 holds the comparisons; each rank writes
+    (``seq_rank``, on several cards), phase 21 (``pipeline_rank``, on
+    several cards) and phase 22 (``moe_rank``, on several cards); rank 0
+    holds the comparisons; each rank writes
     ``DIR/rank<r>.json``."""
     from paddle_tpu_torch import distributed as dist
     from paddle_tpu_torch.distributed.env import runtime
@@ -7585,6 +8371,8 @@ def distributed_rank(out_dir: str, phases=PHASES) -> int:
         res["seq"] = seq_rank(dist, rank, world, dev)
     if 21 in phases and world > 1:
         res["pp"] = pipeline_rank(dist, rank, world, dev)
+    if 22 in phases and world > 1:
+        res["moe"] = moe_rank(dist, rank, world, dev)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -7713,7 +8501,7 @@ def dist_kill_checks(world, root):
 
 
 def distributed_main_path(phases=PHASES):
-    """Phases 17-21 (or those of ``phases``): the ranks through the port's
+    """Phases 17-22 (or those of ``phases``): the ranks through the port's
     launcher at the visible card count (NCCL), then (phase 17) the
     SIGKILL checks; prints the numbers and returns rank 0's results."""
     world = torch.cuda.device_count()
@@ -7751,6 +8539,8 @@ def distributed_main_path(phases=PHASES):
         seq_report(r0["seq"], world)
     if 21 in phases and "pp" in r0:
         pipeline_report(r0["pp"], world)
+    if 22 in phases and "moe" in r0:
+        moe_report(r0["moe"], world)
     if 17 in phases:
         r0["kill"] = dist_kill_checks(world, root)
     return r0
@@ -7864,15 +8654,18 @@ def zero3_report(z, world):
 
 
 def distributed_alone(phases=PHASES) -> int:
-    """``--distributed``: phases 17-21 alone, after the build
+    """``--distributed``: phases 17-22 alone, after the build
     (``--tensor-parallel``: phases 19 and 20, and the one-card ring
     schedule; ``--sequence-parallel``: phase 20 and the ring schedule;
-    ``--pipeline``: phase 21, and at one card its one-card part)."""
+    ``--pipeline``: phase 21, and at one card its one-card part; at one
+    card phase 22's one-card part too)."""
     say(f"build: {_build.build_all():.3f} s")
     if 20 in phases:
         check_ring_schedule()
     if 21 in phases and torch.cuda.device_count() == 1:
         pipeline_one_card()
+    if 22 in phases and torch.cuda.device_count() == 1:
+        ernie_moe_main_path()
     distributed_main_path(phases)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7922,6 +8715,8 @@ def main() -> int:
         return distributed_alone((20,))
     if "--pipeline" in sys.argv:
         return distributed_alone((21,))
+    if "--moe" in sys.argv:
+        return moe_alone()
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")
@@ -7959,6 +8754,7 @@ def main() -> int:
     bart = bart_main_paths()
     ring = check_ring_schedule()             # phase 20 at one card
     pipe1 = pipeline_one_card()              # phase 21 at one card
+    moe1 = ernie_moe_main_path()             # phase 22 at one card
     dist17 = distributed_main_path()
 
     # each kernel's line: the main path's shape.  K7 runs on the serving
@@ -8028,6 +8824,9 @@ def main() -> int:
                 *((path, "llama", launched,
                    "[32, 4096, 128] bf16 causal (batch 1 x 32 heads)" + sh)
                   for path, launched, sh in pp1),
+                ("ernie_moe_train", "ernie", moe1["launches"],
+                 "[96, 512, 64] bf16 non-causal (ernie-moe-base, batch 8 x "
+                 "12 heads; phase 22)"),
                 ("llama_ring_schedule", "ring-full", ring["launches"],
                  "[64, 1024, 128] bf16 chunks of llama2-7b's attention "
                  "(phase 20 at one card: cp 4's ranks in turn; 6 of the "
@@ -8072,7 +8871,10 @@ def main() -> int:
                 ("gpt_dist_os_g", k2, dist17["os_g"]["launches"],
                  k2_shape + dist_shape),
                 ("gpt_dist_p_g_os", k2, dist17["p_g_os"]["launches"],
-                 k2_shape + dist_shape))
+                 k2_shape + dist_shape),
+                ("ernie_moe_train", k2_rows["ernie"], moe1["launches"],
+                 "[4096, 768] fp32 (ernie-moe-base, batch 8 x 512 tokens; "
+                 "phase 22)"))
     for name, key, replaces, count in (
             ("layer_norm_fwd", "fwd", ":58", "ln_fwd"),
             ("layer_norm_bwd_dx", "dx", ":80", "ln_bwd_dx")):
@@ -8117,7 +8919,11 @@ def main() -> int:
              + tp1_shape),
             *((path, k3, launched["adamw"],
                "[2048, 8192] bf16 parameter on an fp32 master, bf16 grad"
-               + sh) for path, launched, sh in pp1)):
+               + sh) for path, launched, sh in pp1),
+            ("ernie_moe_train", k3_rows["ernie"], moe1["launches"]["adamw"],
+             "[768, 3072] bf16 expert weight on an fp32 master, bf16 grad; "
+             "one launch a parameter tensor of ernie-moe-base (1672: 1536 "
+             "expert weights and biases; phase 22)")):
         by_path[path] = dict(
             launches=launched, max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound"][0],

@@ -9,9 +9,16 @@ sharding, sep, cp, ep, mp`` (innermost last) and builds a real
 communicator per axis and for the fused ``check`` (dp, pp, sharding) and
 ``dp_sharding`` groups, every rank making every call in the same order.
 Data parallel, sharding, model (tensor) parallel, sep (Ulysses), context
-(ring attention) and pipeline parallel run; an expert degree above 1
-raises ``NotImplementedError``, and so does a pipeline degree above 1
-with a sharding, sep or cp degree above 1.
+(ring attention), pipeline and expert parallel run.  A pipeline degree
+above 1 with a sharding, sep or cp degree above 1 raises
+``NotImplementedError``, and so does an expert degree above 1 with a
+pipeline, sharding, model, sep or cp degree above 1.
+
+The expert axis ``ep`` is an axis of its own, as on the JAX mesh: the
+batch is split over ``dp`` (and ``sharding``) only, so the ranks of one
+ep group see the same tokens, repeat the dense compute and each hold
+``E / ep`` of every MoE layer's experts
+(``incubate.distributed.models.moe``).
 
 Under a pipeline degree above 1 the pipeline's point-to-point channels
 are built with the groups (:meth:`HybridCommunicateGroup.get_p2p_groups`):
@@ -104,8 +111,10 @@ class CommunicateTopology:
 # mesh axis name per reference parallel name
 _AXIS_OF = {"data": "dp", "pipe": "pp", "sharding": "sharding",
             "sep": "sep", "context": "cp", "expert": "ep", "model": "mp"}
-# the degrees later slices bring (ROADMAP Queue 1 item 1)
-_LATER = {"expert": "(d) MoE"}
+# what an expert degree above 1 does not compose with yet
+_NOT_WITH_EXPERT = {"pipe": "pp", "sharding": "ZeRO stages 1-3",
+                    "model": "mp (tensor parallel)",
+                    "sep": "sep (Ulysses)", "context": "cp (ring attention)"}
 # what a pipeline degree above 1 does not compose with yet
 _NOT_WITH_PIPE = {"sharding": "ZeRO stages 1-3", "sep": "sep (Ulysses)",
                   "context": "cp (ring attention)"}
@@ -136,11 +145,12 @@ class HybridCommunicateGroup:
         def dim(n):
             return topology.get_dim(n) if n in names else 1
 
-        for n, slice_ in _LATER.items():
-            if dim(n) > 1:
-                raise NotImplementedError(
-                    f"{n} degree {dim(n)} waits for the distributed slice "
-                    f"{slice_}")
+        if dim("expert") > 1:
+            for n, what in _NOT_WITH_EXPERT.items():
+                if dim(n) > 1:
+                    raise NotImplementedError(
+                        f"{what} together with an expert degree above 1 "
+                        "waits for a later slice of MoE")
         if dim("pipe") > 1:
             for n, what in _NOT_WITH_PIPE.items():
                 if dim(n) > 1:

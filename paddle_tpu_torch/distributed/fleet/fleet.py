@@ -8,7 +8,9 @@ builds the hybrid topology's rank grid and groups;
 as the reference chooses: ``PipelineParallel`` for a ``PipelineLayer``
 when the pipeline degree is above 1, else ``TensorParallel`` when a
 model, sep or context degree is above 1, else ``DataParallel`` over the
-dp x sharding group, and ``HybridParallelOptimizer`` (ZeRO stage 1 when
+dp x sharding group (under an expert degree the ranks of one ep group
+hold different experts, so every reduction and broadcast stays inside
+the dp group), and ``HybridParallelOptimizer`` (ZeRO stage 1 when
 the sharding degree is above 1; a pipeline stage's gradient sync), under
 ``GradientMergeOptimizer`` when the strategy merges gradients.
 """
@@ -45,10 +47,10 @@ class Fleet:
         """ref: ``fleet.init``: join the group (``init_parallel_env``;
         ``device="cpu"`` runs it on gloo) and build the topology from
         ``strategy.hybrid_configs`` (a ``dp_degree`` of -1 absorbs the
-        ranks left).  An expert degree above 1 raises
-        ``NotImplementedError``, as does a pipeline degree above 1 with a
-        sharding, sep or cp degree above 1; ``is_collective=False``
-        (parameter servers) too."""
+        ranks left).  A pipeline degree above 1 with a sharding, sep or cp
+        degree above 1 raises ``NotImplementedError``, as does an expert
+        degree above 1 with a pipeline, sharding, model, sep or cp degree
+        above 1; ``is_collective=False`` (parameter servers) too."""
         if not is_collective:
             raise NotImplementedError("parameter-server mode "
                                       "(is_collective=False)")

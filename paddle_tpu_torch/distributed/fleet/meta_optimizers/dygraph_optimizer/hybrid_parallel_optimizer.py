@@ -25,6 +25,13 @@ Under ZeRO stage 3 (``GroupShardedStage3``: the reducer's ``mode`` is
 ``param_shard`` and the averaged ``shard_grad``) and nothing is gathered
 after the step; the next forward gathers the segments it runs.
 
+A ``grad_clip`` on the inner optimizer runs under dp and ep (the
+gradients are already averaged over dp; the MoE clip sums the experts'
+squares over ep); under mp, pp, sharding, sep or cp the clip raises
+``NotImplementedError`` when it computes the norm, and
+:class:`DygraphShardingOptimizer`, whose update runs on the shards,
+refuses an optimizer that has one.
+
 Weight decay must be uniform within a bucket: the buckets are split by
 each parameter's decay (``apply_decay_param_fun``) when the optimizer is
 built.  ``lr_ratio`` raises ``NotImplementedError``.
@@ -91,6 +98,10 @@ class DygraphShardingOptimizer:
         return self
 
     def _setup(self, optimizer, group) -> None:
+        if getattr(optimizer, "_grad_clip", None) is not None:
+            raise NotImplementedError(
+                "grad_clip under sharding waits for a later slice (the "
+                "sharded update reads no clip)")
         if not isinstance(optimizer, Adam):
             raise NotImplementedError(
                 f"sharding {type(optimizer).__name__}: the sharded update "

@@ -8,6 +8,12 @@ gradients' average over the data-parallel group, and one rank's
 parameters on every rank.  Tensors are coalesced per dtype into one flat
 buffer per call.
 
+Under an expert degree (ep) the data-parallel group leaves the ep axis
+out, so dense and expert gradients are averaged over dp only, and the
+dp broadcast sends within it: the ranks of an ep group hold their own
+experts, and their dense gradients are equal already (the MoE layer's
+collectives sum every partial over ep inside the backward).
+
 Under sep (Ulysses) or cp (ring attention) each rank of that group sees
 its own tokens of the same rows with replicated parameters, so
 :func:`fused_allreduce_gradients` sums the gradients over it as well

@@ -692,8 +692,11 @@ class DataParallel(torch.nn.Module):
     """ref: ``python/paddle/distributed/parallel.py`` DataParallel: the
     reference's parameters in its order.  ``comm_buffer_size`` and
     ``last_comm_buffer_size`` are bucket sizes in MB (module
-    docstring); ``group`` defaults to every rank; ``strategy`` is
-    accepted and read by nothing, as in the reference.  Gradients of
+    docstring); ``group`` defaults to every rank (under a fleet topology
+    with an expert degree above 1, to its dp x sharding group: the ranks
+    of an ep group hold different experts, which a broadcast over the
+    world would overwrite); ``strategy`` is accepted and read by
+    nothing, as in the reference.  Gradients of
     parameters unused in a backward are averaged as zeros whatever
     ``find_unused_parameters`` says (every rank then steps the same
     parameters).  Requires ``init_parallel_env`` first."""
@@ -703,6 +706,11 @@ class DataParallel(torch.nn.Module):
                  find_unused_parameters: bool = False, group=None):
         super().__init__()
         self._layers = layers
+        if group is None:
+            from .fleet.base.topology import get_hybrid_communicate_group
+            hcg = get_hybrid_communicate_group()
+            if hcg is not None and hcg.get_expert_parallel_world_size() > 1:
+                group = hcg.get_dp_sharding_parallel_group()
         self._group = _resolve_group(group)
         self.find_unused_parameters = find_unused_parameters
         self.comm_buffer_size = comm_buffer_size

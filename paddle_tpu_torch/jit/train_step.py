@@ -20,6 +20,11 @@ the returned loss is the global mean: the average of the ranks' losses
 over equal shards.  Without a mesh each rank's batch is its own (the
 upstream ``DataParallel`` idiom).
 
+Under an expert axis ``ep`` the ranks of an ep group take the same rows
+(the data axes are ``dp`` and ``sharding`` only, as on the JAX mesh)
+and hold different experts; the MoE layers place their own collectives
+(``incubate.distributed.models.moe``).
+
 Under model, sep or cp parallelism (a mesh axis ``mp``, ``sep`` or
 ``cp`` above 1: a tensor-parallel model) the ranks of those axes take
 the same rows; under ``sep`` or ``cp`` each keeps its contiguous chunk
@@ -36,8 +41,8 @@ import torch
 __all__ = ["TrainStep", "train_step"]
 
 # axes whose degree above 1 this step does not run: pipelines have their
-# own schedules (fleet.meta_parallel), MoE waits for a later slice
-_LATER_AXES = ("pp", "ep")
+# own schedules (fleet.meta_parallel)
+_LATER_AXES = ("pp",)
 # the tensor-parallel axes: same rows; sep / cp also split the sequence
 _TP_AXES = ("mp", "sep", "cp")
 
@@ -64,8 +69,7 @@ class _DataShard:
             raise NotImplementedError(
                 f"mesh axes {later}: a pipeline trains through "
                 "PipelineParallel.train_batch or gpt_pipeline_step / "
-                "llama_pipeline_step, not this step; MoE waits for a later "
-                "distributed slice")
+                "llama_pipeline_step, not this step")
         seq = {a: d for a, d in shape.items() if a in ("sep", "cp") and d > 1}
         if len(seq) > 1:
             raise NotImplementedError("sep and cp together: one sequence "
@@ -145,8 +149,8 @@ class TrainStep:
     """The reference's parameters in its order.  ``mesh`` and
     ``batch_spec`` shard the global batch over the data axes (module
     docstring); ``batch_spec`` is read only with a mesh, as in the
-    reference, and may shard dimension 0 only.  A ``pp`` or ``ep`` mesh
-    axis of degree above 1 raises ``NotImplementedError``.
+    reference, and may shard dimension 0 only.  A ``pp`` mesh axis of
+    degree above 1 raises ``NotImplementedError``.
     ``donate`` changes nothing here (the eager step updates the
     parameters in place either way)."""
 

@@ -28,12 +28,22 @@ from torch import nn
 
 from ..device import default_device, generator
 from ..nn import functional as F
-from .gpt import Embedding, LayerNorm, Linear
+from ..nn.initializer import Normal, ParamAttr
+from ..nn.layers import Linear
+from .gpt import Embedding, LayerNorm
 
 __all__ = ["BartConfig", "BartForConditionalGeneration"]
 
 _POS_OFFSET = 2        # HF BartLearnedPositionalEmbedding offset
 _INIT_STD = 0.02       # HF BartConfig.init_std
+
+
+def _linear(n_in: int, n_out: int, *, gen, device) -> Linear:
+    """A Paddle ``[in, out]`` ``Linear`` drawn Normal(0, init_std) from
+    ``gen``, its bias zeros."""
+    return Linear(n_in, n_out,
+                  weight_attr=ParamAttr(initializer=Normal(0.0, _INIT_STD)),
+                  generator=gen, device=device)
 
 
 @dataclass
@@ -59,11 +69,11 @@ class _BartAttention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, causal: bool, *, gen,
                  device):
         super().__init__()
-        kw = dict(std=_INIT_STD, gen=gen, device=device)
-        self.q_proj = Linear(d_model, d_model, **kw)
-        self.k_proj = Linear(d_model, d_model, **kw)
-        self.v_proj = Linear(d_model, d_model, **kw)
-        self.out_proj = Linear(d_model, d_model, **kw)
+        kw = dict(gen=gen, device=device)
+        self.q_proj = _linear(d_model, d_model, **kw)
+        self.k_proj = _linear(d_model, d_model, **kw)
+        self.v_proj = _linear(d_model, d_model, **kw)
+        self.out_proj = _linear(d_model, d_model, **kw)
         self.h = n_heads
         self.dk = d_model // n_heads
         self.causal = causal
@@ -105,8 +115,8 @@ class _BartLayer(nn.Module):
         if is_decoder:
             self.encoder_attn = _BartAttention(d, heads, causal=False, **kw)
             self.encoder_attn_layer_norm = LayerNorm(d, device=device)
-        self.fc1 = Linear(d, ffn, std=_INIT_STD, **kw)
-        self.fc2 = Linear(ffn, d, std=_INIT_STD, **kw)
+        self.fc1 = _linear(d, ffn, **kw)
+        self.fc2 = _linear(ffn, d, **kw)
         self.final_layer_norm = LayerNorm(d, device=device)
         acts = {"gelu": F.gelu, "relu": F.relu, "silu": F.silu,
                 "gelu_new": lambda x: F.gelu(x, approximate=True),

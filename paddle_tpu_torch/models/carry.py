@@ -13,6 +13,11 @@ each of q, k and v), as it would have drawn them.  The JAX package
 carries weights before ``amp.decorate`` casts them; a model already
 decorated takes them too, each value rounded to its parameter's dtype.
 
+Under an expert degree each rank's MoE layers hold experts ``ep_rank *
+E / ep`` to ``(ep_rank + 1) * E / ep - 1`` under their global indices
+(``...ffn.experts.{e}...``): a rank takes those and leaves the other
+experts' arrays, and any other mismatch raises.
+
 One pipeline stage (:func:`load_stage_state`) takes the arrays of the
 parameters it holds and leaves the others, which are other stages': a
 ``PipelineLayer`` registers its layers under their global index, as the
@@ -44,11 +49,29 @@ def load_paddle_tpu_state(model: torch.nn.Module,
         model = model._layers
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(arrays))
-    extra = sorted(set(arrays) - set(params))
+    extra = sorted(set(arrays) - set(params) - _other_experts(model, arrays))
     if missing or extra:
         raise KeyError(f"state mismatch: missing {missing}, "
                        f"unexpected {extra}")
     _fill(params, arrays)
+
+
+def _other_experts(model, arrays) -> set:
+    """The names in ``arrays`` of experts another ep rank holds."""
+    from ..incubate.distributed.models.moe import MoELayer
+    out = set()
+    for prefix, m in model.named_modules():
+        if not isinstance(m, MoELayer):
+            continue
+        held = set(m.experts.indices())
+        head = f"{prefix}.experts." if prefix else "experts."
+        for name in arrays:
+            if name.startswith(head):
+                e = name[len(head):].split(".", 1)[0]
+                if e.isdigit() and int(e) not in held \
+                        and int(e) < m.num_expert:
+                    out.add(name)
+    return out
 
 
 def load_stage_state(model: torch.nn.Module,

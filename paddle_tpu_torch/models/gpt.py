@@ -122,24 +122,6 @@ def gpt_config(name: str, **overrides) -> GPTConfig:
     return GPTConfig(**cfg)
 
 
-class Linear(nn.Module):
-    """``y = x @ weight + bias`` with the Paddle ``[in, out]`` weight
-    (``bias=False``: no bias parameter)."""
-
-    def __init__(self, n_in: int, n_out: int, *, std: float, gen, device,
-                 bias: bool = True):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(n_in, n_out, device=device,
-                                               dtype=torch.float32))
-        self.bias = nn.Parameter(torch.zeros(
-            n_out, device=device, dtype=torch.float32)) if bias else None
-        with torch.no_grad():
-            self.weight.normal_(0.0, std, generator=gen)
-
-    def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
-
-
 class LayerNorm(nn.Module):
     """``nn.LayerNorm`` of the JAX package: fp32 statistics and affine
     (K2 on CUDA), black-listed under amp (kept fp32 by ``decorate``)."""

@@ -11,8 +11,12 @@ from the JAX base:
 * the learning rate as a device scalar, so a step reads nothing back to
   the host.
 
-Gradient clipping, L1/L2 regularizers, LR schedulers and parameter
-groups wait for a later slice and raise ``NotImplementedError``.
+``grad_clip`` takes ``nn.clip.ClipGradByGlobalNorm`` and its MoE form
+(``ClipGradForMOEByGlobalNorm``): each step computes the scale once over
+every gradient and multiplies each gradient by it, in the gradient's
+dtype, just before its update.  Other clip classes, L1/L2
+regularizers, LR schedulers and parameter groups wait for a later slice
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -36,8 +40,13 @@ class Optimizer(torch.optim.Optimizer):
         if parameters is None:
             raise ValueError("parameters must be given (the port trains "
                              "eagerly, as Paddle's dygraph mode does)")
-        if grad_clip is not None:
-            raise NotImplementedError("grad_clip waits for a later slice")
+        from ..nn.clip import ClipGradByGlobalNorm
+        if grad_clip is not None and \
+                not isinstance(grad_clip, ClipGradByGlobalNorm):
+            raise NotImplementedError(
+                f"grad_clip {type(grad_clip).__name__} waits for a later "
+                "slice (ClipGradByGlobalNorm and ClipGradForMOEByGlobalNorm "
+                "run)")
         if not isinstance(learning_rate, (int, float)):
             raise NotImplementedError("LR schedulers wait for a later "
                                       "slice; pass a float learning_rate")
@@ -47,6 +56,7 @@ class Optimizer(torch.optim.Optimizer):
                                       "slice; pass a list of parameters")
         super().__init__(params, {})
         self._weight_decay = weight_decay
+        self._grad_clip = grad_clip
         self._name = name
         self._learning_rate = float(learning_rate)
         self._multi_precision = bool(multi_precision)
@@ -78,11 +88,16 @@ class Optimizer(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                self._update_param(p, p.grad)
+        params = [p for group in self.param_groups for p in group["params"]
+                  if p.grad is not None]
+        scale = None
+        if self._grad_clip is not None:
+            scale = self._grad_clip.scale([(p, p.grad) for p in params])
+        for p in params:
+            g = p.grad
+            if scale is not None:
+                g = g * scale.to(g.dtype)
+            self._update_param(p, g)
         return loss
 
     def _update_param(self, p, g):

@@ -767,3 +767,95 @@ def test_llama_relaunch_phase_holds_on_the_cpu(faulting, capsys):
     # the stalled step launched nothing and the re-prefill took its place
     assert got["k7"] == got["clean_k7"] > 0
     assert got["relaunch"]["pool_bytes"] > 0
+
+
+def test_k1_k2_cases_hold_ernie_moe_shapes():
+    """Phase 5's "ernie" cases are phase 22's attention (batch x heads,
+    seq, head_dim 64, bf16, non-causal) and LayerNorm rows (batch x seq,
+    width 768, fp32 under O2)."""
+    cfg = cs.moe_config()
+    d = cfg.hidden_size // cfg.num_heads
+    assert cs.K1_CASES["ernie"] == (cs.MOE_BATCH * cfg.num_heads,
+                                    cs.MOE_SEQ, cs.MOE_SEQ, 1, False,
+                                    torch.bfloat16, d) == \
+        (96, 512, 512, 1, False, torch.bfloat16, 64)
+    assert cs.K2_CASES["ernie"] == (cs.MOE_BATCH * cs.MOE_SEQ,
+                                    cfg.hidden_size, torch.float32,
+                                    torch.float32, "randn")
+
+
+def test_moe_counts_match_the_model():
+    """``moe_param_count`` / ``moe_tensor_count`` against a model built
+    on the CPU (64 experts cut to 4 layers and a small vocabulary), and
+    the base model's 1672 tensors (1536 expert weights and biases)."""
+    from paddle_tpu_torch.models import ErnieMoEForPretraining
+    cfg = cs.moe_config()
+    assert cs.moe_tensor_count(cfg, cfg.num_experts) == 1672
+    small = cs.ernie_moe_config("ernie-moe-base", num_layers=4,
+                                vocab_size=1000, hidden_size=64,
+                                num_heads=4)
+    m = ErnieMoEForPretraining(small, device="cpu")
+    assert sum(p.numel() for p in m.parameters()) == \
+        cs.moe_param_count(small)
+    assert len(list(m.parameters())) == \
+        cs.moe_tensor_count(small, small.num_experts)
+
+
+@pytest.fixture
+def tiny_moe(monkeypatch):
+    """Phase 22 on the CPU: the tiny preset at 4 layers (MoE every 2nd
+    block), batch 4 x 32, the card's memory and clocks stubbed."""
+    from functools import partial
+    from paddle_tpu_torch.models import ernie_moe as tem
+    monkeypatch.setattr(cs, "card", lambda: torch.device("cpu"))
+    monkeypatch.setattr(cs, "moe_config", lambda: tem.ernie_moe_config(
+        "tiny", hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+        num_layers=4, moe_every=2))
+    monkeypatch.setattr(cs, "MOE_BATCH", 4)
+    monkeypatch.setattr(cs, "MOE_SEQ", 32)
+    monkeypatch.setattr(cs, "ErnieMoEForPretraining",
+                        partial(tem.ErnieMoEForPretraining, device="cpu"))
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+
+
+def test_moe_phase_holds_on_the_cpu(tiny_moe, failures, capsys):
+    """Phase 22 at one card, on the CPU: the forms' check holds and sees
+    its fault; finite, falling losses; only the launch counts fail, which
+    no plain version moves."""
+    m = cs.ernie_moe_main_path()
+    out = capsys.readouterr().out
+    print(out)
+    assert failures and all("launches" in f for f in failures), failures
+    assert "index form vs einsum form" in out
+    assert m["forms_err"] <= 1e-5
+    assert len(m["dropped"]) == 2 and m["losses"][-1] < m["losses"][0]
+
+
+def test_moe_forms_check_sees_a_wrong_combine(failures, monkeypatch,
+                                              capsys):
+    """A combine that drops its second choice fails the forms' check."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    monkeypatch.setattr(cs, "card", lambda: torch.device("cpu"))
+    real = moe_layer.route
+
+    def first_only(*a, **kw):
+        w, e, places, keep = real(*a, **kw)
+        keep = keep.clone()
+        keep[:, 1:] = False
+        return w, e, places, keep
+    cs.check_moe_forms()
+    assert failures == []
+    orig_forward = moe_layer.MoELayer.forward
+
+    def forward(self, x):
+        moe_layer.route = first_only
+        try:
+            return orig_forward(self, x)
+        finally:
+            moe_layer.route = real
+    monkeypatch.setattr(moe_layer.MoELayer, "forward", forward)
+    cs.check_moe_forms()
+    print(capsys.readouterr().out)
+    assert any("from the einsum form" in f for f in failures), failures

@@ -182,18 +182,16 @@ def test_communicate_topology_matches_jax():
 @pytest.mark.parametrize("degree", ["mp_degree", "pp_degree", "sep_degree",
                                     "cp_degree", "ep_degree"])
 def test_fleet_degrees_of_later_slices_raise(degree):
-    """MoE waits for a later slice.  Model, sep, cp and pipeline
-    parallelism run (tests/test_torch_tensor_parallel.py,
-    tests/test_torch_segment_parallel.py and
-    tests/test_torch_pipeline_parallel.py build their groups on 4 ranks):
-    in a world of one, a degree of 2 is refused only for its rank count."""
+    """Model, sep, cp, pipeline and expert parallelism run
+    (tests/test_torch_tensor_parallel.py, test_torch_segment_parallel.py,
+    test_torch_pipeline_parallel.py and test_torch_expert_parallel.py
+    build their groups on 4 ranks): in a world of one, a degree of 2 is
+    refused only for its rank count."""
     s = fleet.DistributedStrategy()
     s.hybrid_configs = {"dp_degree": 1, degree: 2}
-    later = degree == "ep_degree"
     try:
-        with pytest.raises(NotImplementedError if later else ValueError,
-                           match="slice" if later else
-                           "the topology has 2 ranks, the world 1"):
+        with pytest.raises(ValueError,
+                           match="the topology has 2 ranks, the world 1"):
             fleet.init(is_collective=True, strategy=s, device="cpu")
     finally:
         tdist.destroy_process_group()
@@ -335,6 +333,25 @@ def test_world_of_one_is_bit_equal_to_the_plain_step(mode):
     assert losses == want_losses
     for n, p in want.items():
         assert torch.equal(got[n], p), n
+
+
+@pytest.mark.parametrize("level", ["os", "os_g", "p_g_os"])
+def test_sharding_refuses_a_grad_clip(level):
+    """The sharded update runs K3 on the shards and reads no clip, so
+    ``group_sharded_parallel`` refuses an optimizer that has one."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.models import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    model = GPTForPretraining(gpt_config("tiny"), device="cpu", seed=3)
+    opt = optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                          grad_clip=ClipGradByGlobalNorm(1.0))
+    try:
+        tdist.init_parallel_env(device="cpu")
+        with pytest.raises(NotImplementedError, match="grad_clip"):
+            group_sharded_parallel(model, opt, level)
+    finally:
+        tdist.destroy_process_group()
 
 
 def test_gradient_merge_steps_on_the_window_mean():

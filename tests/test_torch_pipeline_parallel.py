@@ -19,7 +19,7 @@ the port's launcher with ``--device cpu``):
   ``fleet.distributed_optimizer``, against the JAX run (one object);
 * an explicit schedule with a live mp axis (pp 2 x mp 2) refused, then
   run under ``FLAGS_pp_allow_axis_fallback``; pp with sharding, sep or
-  cp refused;
+  cp refused; a ``ClipGradByGlobalNorm`` at pp 4 refused at the step;
 * the tiny GPT (4 layers, head tied to the word embedding) at dp 2 x pp 2
   through ``gpt_pipeline_step`` against the JAX package's at dp 2 x pp 4
   (``test_pipeline_spmd.py``'s run: AdamW 1e-3, 4 micro-batches of the
@@ -315,6 +315,17 @@ def test_p2p_groups_are_the_ring_neighbours(runs):
         assert info[r]["p2p_groups"] == [
             prev, nxt, sorted([r, nxt]), sorted([r, prev]),
             sorted([r, nxt]), sorted([r, prev])]
+
+
+def test_pipeline_refuses_a_global_norm_clip(runs):
+    """At pp 4 a stage's own gradients give no global norm: the clip
+    raises at the step, with a bare optimizer and the hybrid one."""
+    _, _, _, info = runs
+    for r in range(N):
+        got = info[r]["pp_clip_refused"]
+        assert set(got) == {"bare", "hybrid"}
+        for wrap, msg in got.items():
+            assert "grad_clip" in msg and "later slice" in msg, (wrap, msg)
 
 
 def test_pipeline_with_sharding_sep_or_cp_raises(runs):

@@ -76,6 +76,10 @@ from paddle_tpu.distributed.fleet.meta_parallel import (
 from paddle_tpu.distributed.fleet.meta_parallel.parallel_layers import (
     pp_layers as jppl)
 from paddle_tpu.models import llama as jllama
+from paddle_tpu.incubate.distributed.models.moe import moe_layer as jmoe
+from paddle_tpu.models import ernie_moe as jernie
+from paddle_tpu.nn import clip as jclip
+from paddle_tpu.distributed import utils as jdutils
 
 import paddle_tpu_torch.distributed as tdist
 from paddle_tpu_torch.distributed import sharding as tsharding
@@ -102,6 +106,11 @@ from paddle_tpu_torch.distributed.fleet.meta_parallel import (
 from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers import (
     pp_layers as tppl)
 from paddle_tpu_torch.models import llama as tllama
+from paddle_tpu_torch.incubate.distributed.models.moe import (
+    moe_layer as tmoe)
+from paddle_tpu_torch.models import ernie_moe as ternie
+from paddle_tpu_torch.nn import clip as tclip
+from paddle_tpu_torch.distributed import utils as tdutils
 
 # the modules (each package's ``jit`` exports the function of that name,
 # each ``fleet`` package the singleton named as its module)
@@ -272,6 +281,16 @@ PAIRS = {
                           tppspmd.gpt_pipeline_step),
     "llama_pipeline_step": (jllama.llama_pipeline_step,
                             tllama.llama_pipeline_step),
+    **{f"{cls}.__init__": (getattr(jmoe, cls).__init__,
+                           getattr(tmoe, cls).__init__)
+       for cls in ("MoELayer", "NaiveGate", "GShardGate", "SwitchGate",
+                   "ClipGradForMOEByGlobalNorm")},
+    "ClipGradByGlobalNorm.__init__": (jclip.ClipGradByGlobalNorm.__init__,
+                                      tclip.ClipGradByGlobalNorm.__init__),
+    "ErnieMoEConfig.__init__": (jernie.ErnieMoEConfig.__init__,
+                                ternie.ErnieMoEConfig.__init__),
+    **{fn: (getattr(jdutils, fn), getattr(tdutils, fn))
+       for fn in ("global_scatter", "global_gather", "expert_count")},
 }
 EXTRA = {"generator", "device"}
 
@@ -288,6 +307,19 @@ def test_signature_matches_reference(name):
     assert all(kind is inspect.Parameter.KEYWORD_ONLY and pname in EXTRA
                for pname, kind, _ in extra), extra
     assert [p for p in _params(port) if p not in extra] == _params(ref)
+
+
+def test_ernie_moe_config_fields_match_reference():
+    """``ErnieMoEConfig``'s fields, their order and defaults, and what
+    ``__post_init__`` fills in; the presets the same."""
+    import dataclasses
+    assert [(f.name, f.default) for f in
+            dataclasses.fields(ternie.ErnieMoEConfig)] == \
+        [(f.name, f.default) for f in
+         dataclasses.fields(jernie.ErnieMoEConfig)]
+    assert dataclasses.asdict(ternie.ErnieMoEConfig()) == \
+        dataclasses.asdict(jernie.ErnieMoEConfig())
+    assert ternie.ERNIE_MOE_PRESETS == jernie.ERNIE_MOE_PRESETS
 
 
 def test_group_sharded_stage3_signature_matches_reference():

@@ -13,7 +13,9 @@ and dp x sharding x mp runs, the mp layers, the SP hooks and the RNG
 streams: ``GPT.npz LLAMA.npz LAYERS.npz``), ``segment_parallel`` (ring
 and Ulysses attention, sep / cp runs and the fallback: ``DIR`` holding
 their inputs), ``pipeline`` (``PipelineLayer`` under each schedule at
-pp 4, the refusals, the GPT and LLaMA pipeline steps: ``DIR``) or
+pp 4, the refusals, the GPT and LLaMA pipeline steps: ``DIR``), ``moe``
+(the tiny ERNIE-MoE at ep 4 and dp 2 x ep 2, two per-rank controls and
+the ragged ``global_scatter`` / ``global_gather``: ``DIR``) or
 ``spawn`` (two gloo ranks through
 ``distributed.spawn``, not the launcher).  :func:`launch` and
 :func:`wait_ranks` start a group from a test and collect its results.
@@ -1049,6 +1051,22 @@ def run_pipeline(out, r, src):
     finally:
         set_flags({"pp_allow_axis_fallback": False})
     _fleet_clear()
+    # a global-norm clip at pp 4: each stage holds its own gradients
+    # only, so the clip refuses, with a bare optimizer and the hybrid one
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    info["pp_clip_refused"] = {}
+    for wrap in ("bare", "hybrid"):
+        pl, model = _pp_layer_fleet("1F1B", dict(pp_degree=4), weights)
+        opt = optimizer.SGD(learning_rate=0.05, parameters=pl.parameters(),
+                            grad_clip=ClipGradByGlobalNorm(1.0))
+        if wrap == "hybrid":
+            opt = fleet.distributed_optimizer(opt)
+        try:
+            model.train_batch(pp_data(0), opt)
+            info["pp_clip_refused"][wrap] = ""
+        except NotImplementedError as e:
+            info["pp_clip_refused"][wrap] = str(e)
+        _fleet_clear()
     # what still waits: pp with sharding, sep or cp
     refused = {}
     for axis in ("sharding_degree", "sep_degree", "cp_degree"):
@@ -1098,6 +1116,177 @@ def run_pipeline(out, r, src):
     return arrays, info
 
 
+# the tiny ERNIE-MoE of tests/test_torch_expert_parallel.py: a capacity
+# factor that drops tokens, the MoE clip below every step's norm
+MOE_CFG = dict(hidden_dropout_prob=0.0, attention_dropout_prob=0.0,
+               capacity_factor=0.5)
+MOE_CLIP = 0.05
+MOE_RUNS = {"ep4": dict(ep_degree=4),
+            "dp2_ep2": dict(dp_degree=2, ep_degree=2)}
+MOE_CONTROLS = ("per_rank_capacity", "per_rank_aux")
+# global_scatter / global_gather: rows rank s sends to expert e of rank d
+MOE_A2A_EXPERTS = 2
+
+
+def moe_batch(vocab):
+    """The global batch (8 x 16); MLM labels kept at ~25 % in the first
+    half of the rows and ~60 % in the second, so the two dp ranks of dp 2
+    count unequally."""
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, vocab, (GLOBAL_BATCH, 16)).astype(np.int64)
+    labels = ids.copy()
+    keep = np.concatenate([np.full(GLOBAL_BATCH // 2, 0.25),
+                           np.full(GLOBAL_BATCH // 2, 0.6)])[:, None]
+    labels[rs.rand(GLOBAL_BATCH, 16) > keep] = -100
+    return ids, labels
+
+
+def moe_a2a_counts():
+    """``C[s, d, e]``: the rows rank s sends to expert e of rank d."""
+    return np.random.RandomState(3).randint(
+        0, 4, (N_RANKS, N_RANKS, MOE_A2A_EXPERTS))
+
+
+def moe_a2a_rows(s, counts):
+    """Rank s's rows, ordered by destination rank then expert: each row
+    ``[s, d, e, i]``."""
+    rows = [[s, d, e, i] for d in range(N_RANKS)
+            for e in range(MOE_A2A_EXPERTS) for i in range(counts[s, d, e])]
+    return np.array(rows, np.float32).reshape(-1, 4)
+
+
+def _moe_model(weights):
+    from paddle_tpu_torch.models import (ErnieMoEForPretraining,
+                                         ernie_moe_config,
+                                         load_paddle_tpu_state)
+    model = ErnieMoEForPretraining(ernie_moe_config("tiny", **MOE_CFG),
+                                   device="cpu")
+    load_paddle_tpu_state(model, weights)
+    return model
+
+
+def _moe_train(tag, hcg, weights, batch):
+    """3 AdamW steps (the MoE clip) through ``train_step(mesh=...)``."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        ClipGradForMOEByGlobalNorm)
+    from paddle_tpu_torch.jit import train_step
+    model = _moe_model(weights)
+    opt = optimizer.AdamW(learning_rate=LR, parameters=model.parameters(),
+                          weight_decay=0.01,
+                          grad_clip=ClipGradForMOEByGlobalNorm(MOE_CLIP))
+    step = train_step(model, model.loss_fn, opt, mesh=hcg.mesh)
+    return model, [float(step(*batch)) for _ in range(STEPS)]
+
+
+def _dp_mean(loss, hcg):
+    """A rank's loss share averaged over the dp group, as ``train_step``
+    averages the ranks' losses."""
+    from paddle_tpu_torch.distributed.communication import all_reduce
+    t = loss.detach().float().clone()
+    all_reduce(t, group=hcg.get_data_parallel_group())
+    return t / hcg.get_data_parallel_world_size()
+
+
+def run_moe(out, r, src):
+    from paddle_tpu_torch.distributed.utils import (global_gather,
+                                                    global_scatter)
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        ClipGradForMOEByGlobalNorm, MoELayer, moe_layer)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    arrays, info = {}, {}
+    weights = dict(np.load(os.path.join(src, "ernie.npz")))
+    batch = moe_batch(256)
+    for tag, degrees in MOE_RUNS.items():
+        hcg = _fleet_init(**degrees)
+        info[f"{tag}_groups"] = dict(
+            ep=hcg.get_expert_parallel_group().ranks,
+            dp=hcg.get_data_parallel_group().ranks,
+            ep_rank=hcg.get_expert_parallel_rank())
+        model = _moe_model(weights)
+        info[f"{tag}_experts"] = [blk.ffn.experts.indices()
+                                  for blk in model.ernie.blocks]
+        # the eval loss and the gate losses on this rank's rows
+        dp, k = hcg.get_data_parallel_world_size(), \
+            hcg.get_data_parallel_rank()
+        rows = slice(k * GLOBAL_BATCH // dp, (k + 1) * GLOBAL_BATCH // dp)
+        ids, labels = (torch.tensor(a[rows]) for a in batch)
+        loss = _dp_mean(model.loss_fn(model(ids), labels), hcg)
+        info[f"{tag}_eval"] = [float(loss)] + [
+            float(g) for g in model.ernie.gate_losses()]
+        if tag == "ep4":
+            # the MoE clip's global norm after one backward; the plain
+            # clip refuses expert parameters here
+            model.train()
+            model.loss_fn(model(ids), labels).backward()
+            pg = [(p, p.grad) for p in model.parameters()]
+            info["moe_norm"] = float(ClipGradForMOEByGlobalNorm(
+                MOE_CLIP)._squared_norm(pg).sqrt())
+            try:
+                ClipGradByGlobalNorm(MOE_CLIP).scale(pg)
+                info["plain_clip"] = None
+            except NotImplementedError as e:
+                info["plain_clip"] = str(e)
+        model, info[tag] = _moe_train(tag, hcg, weights, batch)
+        for n, p in model.named_parameters():
+            arrays[f"{tag}/{n}"] = p.detach().numpy()
+        if tag == "ep4":
+            # the port's own init: each expert from its own generator
+            from paddle_tpu_torch.models import (ErnieMoEForPretraining,
+                                                 ernie_moe_config)
+            own = ErnieMoEForPretraining(ernie_moe_config("tiny"),
+                                         device="cpu")
+            for n, p in own.named_parameters():
+                arrays[f"own/{n}"] = p.detach().numpy()
+        _fleet_clear()
+
+    # the controls: capacity, or the aux loss, per dp rank
+    hcg = _fleet_init(**MOE_RUNS["dp2_ep2"])
+    real_group, real_plan = moe_layer.token_group, MoELayer._plan
+
+    def local_plan(self, xf):
+        cap = self._capacity(xf.shape[0], None)
+        logits, _ = self.gate(xf)
+        return moe_layer.route(logits, self.top_k, cap, None) + (cap,)
+
+    def global_plan(self, xf):
+        group = real_group()
+        cap = self._capacity(xf.shape[0], group)
+        logits, _ = self.gate(xf)            # the aux loss per rank
+        return moe_layer.route(logits, self.top_k, cap, group) + (cap,)
+    for ctl in MOE_CONTROLS:
+        if ctl == "per_rank_capacity":
+            MoELayer._plan = local_plan
+        else:
+            moe_layer.token_group = lambda: None
+            MoELayer._plan = global_plan
+        try:
+            rows = slice(hcg.get_data_parallel_rank() * GLOBAL_BATCH // 2,
+                         (hcg.get_data_parallel_rank() + 1) *
+                         GLOBAL_BATCH // 2)
+            model = _moe_model(weights)
+            ids, labels = (torch.tensor(a[rows]) for a in batch)
+            loss = _dp_mean(model.loss_fn(model(ids), labels), hcg)
+            info[f"{ctl}_eval"] = [float(loss)] + [
+                float(g) for g in model.ernie.gate_losses()]
+            _, info[ctl] = _moe_train(ctl, hcg, weights, batch)
+        finally:
+            moe_layer.token_group, MoELayer._plan = real_group, real_plan
+    _fleet_clear()
+
+    # the ragged exchange against the numpy model, and its gradient
+    counts = moe_a2a_counts()
+    x = torch.tensor(moe_a2a_rows(r, counts), requires_grad=True)
+    local = torch.tensor(counts[r].reshape(-1))
+    glob = torch.tensor(counts[:, r, :].reshape(-1))
+    y = global_scatter(x, local, glob)
+    (y * (y.detach() * 2 + 1)).sum().backward()
+    arrays["a2a/scatter"] = y.detach().numpy()
+    arrays["a2a/gather"] = global_gather(y.detach(), local, glob).numpy()
+    arrays["a2a/grad"] = x.grad.numpy()
+    return arrays, info
+
+
 def _spawn_rank(out):
     dist.init_parallel_env(device="cpu")
     r = dist.get_rank()
@@ -1140,6 +1329,8 @@ def main():
         arrays, info = run_segment_parallel(out, r, sys.argv[3])
     elif mode == "pipeline":
         arrays, info = run_pipeline(out, r, sys.argv[3])
+    elif mode == "moe":
+        arrays, info = run_moe(out, r, sys.argv[3])
     else:
         weights = dict(np.load(sys.argv[3]))
         arrays, info = run_train(out, r, weights)
