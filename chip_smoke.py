@@ -11,7 +11,8 @@ of a kernel source against each other: ``compare_variants``;
 runs phases 17-22 alone: ``distributed_alone``, on every visible card;
 ``--tensor-parallel`` phases 19 and 20 alone, ``--sequence-parallel``
 phase 20 alone, ``--pipeline`` phase 21 alone, ``--moe`` phase 22
-alone: ``moe_alone``.)
+alone: ``moe_alone``; ``--amp-clip`` phase 23, which the default run
+leaves out: ``amp_clip_alone``.)
 
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
@@ -366,6 +367,26 @@ loudly with a non-zero exit:
    different result) must fail the first gradients' bound, and the same
    layout in fp32 must hold every bound, the medians too, against an
    fp32 oracle.
+23. the global-norm clip and ``amp.GradScaler`` (``--amp-clip`` only).
+   At one card (``amp_clip_one_card``) on phase 6's GPT-3 1.3B O2 step
+   with ``ClipGradByGlobalNorm(1.0)`` and ``GradScaler(2**10)``; on
+   several cards (``amp_clip_rank``) legs (a) example 03 at full width,
+   GPT-3 1.3B O2 under dp 2 x sharding 2 stage 2 through
+   ``train_step(scaler=, mesh=...)`` against rank 0's one-card oracle of
+   the same stack (phase 17's bounds), (b) example 04's layers, LLaMA-2
+   7B O2 at 32 layers under mp 4 with SP and recompute, the clip on,
+   (c) LLaMA-2 7B O2 at 32 layers as phase 21's pipeline at pp 4 under
+   1F1B with the clip and the scaler.  Each leg: the clip's first norm
+   within 1e-4 of an fp64 oracle (every gradient's squares by name,
+   gathered over the ranks, replicated tensors once) and each rank's
+   own share missing it; exact launches (K3 the same with and without
+   the clip, 0 on a skipped step); the step timed with and without the
+   clip and scaler, their own times, tokens/s, MFU and peak memory a
+   rank.  In (a), (c) and at one card rank 3's gradient (one card:
+   rank 0's) is poisoned after the reductions at step 3: every rank's
+   parameters, masters and moments bit-equal after it, the scale
+   halved, only that rank's own flag raised, one host read a step, and
+   the next step repeats its loss and trains.
 
 Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
@@ -6816,12 +6837,13 @@ class PPLoss:
             return self.crit(logits, labels)
 
 
-def llama_pipe(layers, dev, num_stages=None, vpp=None, recompute=1):
+def llama_pipe(layers, dev, num_stages=None, vpp=None, recompute=1,
+               grad_clip=None):
     """LLaMA-2 7B at ``layers`` as a ``PipelineLayer`` (the embedding,
     the decoder layers, the norm and head; each stage starts at a decoder
     layer, ``seg_method="layer:LlamaLayerPipe"``), O2: its AdamW(1e-4, wd
-    0.01) with fp32 masters, the pieces decorated.  Under a pipeline
-    degree above 1 the rank builds its own stage only."""
+    0.01, ``grad_clip``) with fp32 masters, the pieces decorated.  Under a
+    pipeline degree above 1 the rank builds its own stage only."""
     from paddle_tpu_torch.distributed.fleet import LayerDesc, PipelineLayer
     cfg = llama_config(LLAMA_PRESET, num_layers=layers)
     descs = ([LayerDesc(LlamaEmbedPipe, cfg, dev)]
@@ -6832,7 +6854,8 @@ def llama_pipe(layers, dev, num_stages=None, vpp=None, recompute=1):
                        recompute_interval=recompute,
                        num_virtual_pipeline_stages=vpp)
     opt = optimizer.AdamW(learning_rate=1e-4, parameters=pl.parameters(),
-                          weight_decay=0.01, multi_precision=True)
+                          weight_decay=0.01, multi_precision=True,
+                          grad_clip=grad_clip)
     return amp.decorate(models=pl, optimizers=opt, level="O2",
                         dtype="bfloat16")
 
@@ -8338,6 +8361,672 @@ def moe_alone() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the hybrid global-norm clip and GradScaler (--amp-clip)
+# ---------------------------------------------------------------------------
+
+AC_CLIP = 1.0                    # examples 03 and 04's ClipGradByGlobalNorm
+AC_SCALE = 2.0 ** 10             # example 03's init_loss_scaling
+AC_POISON = DIST_STEPS           # the step one rank's gradient is poisoned
+AC_POISON_RANK = 3               # that rank (at one card: rank 0)
+# the clip's norm against the fp64 oracle: both square the same gradients,
+# the clip sums in fp32 (a tree a tensor, then over tensors and ranks),
+# the oracle in fp64 by name
+AC_NORM_RTOL = 1e-4
+AC_SHARE_MISS = 1e-3             # a rank's own share misses by more
+
+
+def ac_sq_sums(items):
+    """``{name: (sum of squares in fp64, summed over ranks)}`` of
+    ``items`` ``(name, tensor, summed)``, one host read."""
+    if not items:
+        return {}
+    sums = torch.stack([t.detach().double().square().sum()
+                        for _, t, _ in items]).tolist()
+    return {n: (v, summed) for (n, _, summed), v in zip(items, sums)}
+
+
+def ac_grad_parts(named, summed):
+    """This rank's parts of the squared norm from whole gradients
+    (``named``: ``(name, parameter)``; ``summed(p)``: a shard whose parts
+    add over the ranks, as an mp split)."""
+    return ac_sq_sums([(n, p.grad, summed(p)) for n, p in named
+                       if p.grad is not None])
+
+
+def ac_shard_parts(sopt, names):
+    """This rank's parts from its ZeRO gradient shards: each parameter's
+    slot of a bucket cut to the rank's shard (``names``: id -> name)."""
+    items = []
+    for _, b in sopt._ready():
+        lo, hi = sopt._shard(b)
+        g = sopt._grad_shard(b)
+        for p, off in zip(b.params, b.offsets):
+            a, e = max(off, lo), min(off + p.numel(), hi)
+            if a < e:
+                items.append((names[id(p)], g[a - lo:e - lo], True))
+    return ac_sq_sums(items)
+
+
+def ac_norm_oracle(dist, parts):
+    """The norm's oracle: every rank's parts gathered by name (``dist``
+    None: this process's alone), a summed name's parts added, any other
+    counted once; and the largest relative spread between the copies
+    of a name counted once (replicated gradients must agree)."""
+    everyone = [parts]
+    if dist is not None:
+        everyone = []
+        dist.all_gather_object(everyone, parts)
+    total, seen, spread = 0.0, {}, 0.0
+    for part in everyone:
+        for n, (v, summed) in part.items():
+            if summed or n not in seen:
+                total += v
+                seen.setdefault(n, v)
+            else:
+                spread = max(spread, abs(v - seen[n]) / max(seen[n], 1e-300))
+    return math.sqrt(total), spread
+
+
+def ac_fingerprint(tensors):
+    """Each tensor's raw bits summed as int64 and its fp64 sum of
+    magnitudes (one host read): a step that moved nothing leaves them
+    all equal, an update changes them."""
+    bits, mags = [], []
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        view = flat.view(torch.int16 if flat.element_size() == 2
+                         else torch.int32)
+        bits.append(view.to(torch.int64).sum())
+        mags.append(flat.double().abs().sum())
+    if not bits:
+        return []
+    return torch.stack(bits).tolist() + torch.stack(mags).tolist()
+
+
+def ac_poison(scaler, rank, world, armed):
+    """Make rank ``min(AC_POISON_RANK, world - 1)``'s ``scaler.unscale_``
+    set one element of its last gradient (or gradient shard) to inf while
+    ``armed[0]``, after the reductions: the other ranks' are clean.
+    Returns that rank."""
+    victim = min(AC_POISON_RANK, world - 1)
+    unscale = scaler.unscale_
+
+    def poisoned(opt):
+        if armed[0] and rank == victim:
+            with torch.no_grad():
+                opt._unscale_targets()[-1].view(-1)[0] = float("inf")
+        unscale(opt)
+    scaler.unscale_ = poisoned
+    return victim
+
+
+def ac_all(dist, flag: bool) -> bool:
+    """``flag`` on every rank (``dist`` None: this process's)."""
+    if dist is None:
+        return flag
+    t = torch.tensor([1 if flag else 0], device=card())
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())
+
+
+def ac_gather(dist, value):
+    if dist is None:
+        return [value]
+    out = []
+    dist.all_gather_object(out, value)
+    return out
+
+
+def ac_run(tag, dist, rank, world, step, first, expected, clip,
+           scaler=None, state=None, values=None):
+    """Phase 23's held steps of one leg on this rank (each ends in a
+    synchronise, its launches equal ``expected(skipped)``): ``first()``
+    writes the first step out and returns its loss and this rank's parts
+    of the squared norm (taken after the reductions and the unscale,
+    before the clip), whose oracle (``ac_norm_oracle``) the clip's norm
+    must meet within ``AC_NORM_RTOL`` while the rank's own share misses it
+    (more than one rank); ``step()`` the others, ``DIST_STEPS`` in all.
+    With a ``scaler``: the next step's gradient is poisoned on one rank,
+    and every rank must skip it (``state()``'s tensors' fingerprints
+    unchanged, the scale halved, only that rank's own flag raised), then
+    the step after trains (the same loss, the tensors moved).
+    ``values()`` after the held steps (rank 0's comparison)."""
+    out = dict(tag=tag, losses=[], step_s=[], scales=[])
+    armed = [False]
+    victim = ac_poison(scaler, rank, world, armed) if scaler else None
+    n = DIST_STEPS + (2 if scaler else 0)
+    reset_counts()                   # count the main path's launches only
+    fp0 = None
+    peak = 0
+    for s in range(n):
+        skip = scaler is not None and s == AC_POISON
+        if skip:
+            fp0 = ac_fingerprint(state())
+            armed[0] = True
+        reads = scaler.host_reads if scaler else 0
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if s == 0:
+            loss, parts = first()
+        else:
+            loss = step()
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        armed[0] = False
+        want = expected(skip)
+        after = counts()
+        moved = {k: after[k] - before[k] for k in want}
+        if moved != want:
+            fail(f"rank {rank} {tag} step {s}: launches {moved} != {want}")
+        out["losses"].append(float(loss.float()))
+        if scaler:
+            out["scales"].append(float(scaler._scale))
+            out["host_reads_a_step"] = scaler.host_reads - reads
+            if scaler.host_reads - reads != 1:
+                fail(f"{tag} step {s}: {scaler.host_reads - reads} host "
+                     "reads for the scaler's decision, not 1")
+        if s == 0:
+            norm, spread = ac_norm_oracle(dist, parts)
+            got = float(clip.last_norm)
+            shares = ac_gather(dist, float(clip.last_local_norm))
+            out.update(norm=got, oracle_norm=norm, replicated_spread=spread,
+                       shares=shares, norm_rel=abs(got - norm) / norm)
+            say_rank0(rank, f"amp_clip: {tag}: the clip's norm {got!r}, "
+                      f"the fp64 oracle's {norm!r} (relative gap "
+                      f"{out['norm_rel']:.3e}, tol {AC_NORM_RTOL:.0e}); each "
+                      f"rank's own share {shares}; replicated copies' "
+                      f"largest spread {spread:.3e}")
+            if not out["norm_rel"] <= AC_NORM_RTOL:
+                fail(f"{tag}: the clip's norm {got} misses the oracle's "
+                     f"{norm}")
+            if spread > 1e-6:
+                fail(f"{tag}: replicated gradients differ across ranks "
+                     f"({spread:.3e})")
+            if world > 1 and not all(abs(v - norm) > AC_SHARE_MISS * norm
+                                     for v in shares):
+                fail(f"{tag}: the control: a rank's own share {shares} "
+                     f"meets the global norm {norm}")
+        if skip:
+            same = ac_all(dist, ac_fingerprint(state()) == fp0)
+            flags = ac_gather(dist, float(scaler._local_found_inf))
+            out.update(skip_bit_equal=same, local_flags=flags)
+            say_rank0(rank, f"amp_clip: {tag}: step {s} poisoned on rank "
+                      f"{victim}: every rank's parameters, masters and "
+                      f"moments unchanged: {same}; scale {out['scales']}; "
+                      f"each rank's own flag before the all-reduce "
+                      f"{flags}")
+            if not same:
+                fail(f"{tag}: a rank's state moved on the skipped step")
+            if flags != [1.0 if r == victim else 0.0 for r in range(world)]:
+                fail(f"{tag}: the own flags {flags}: only rank {victim} "
+                     "should see its poison")
+            if out["scales"][-1] != out["scales"][-2] / 2:
+                fail(f"{tag}: the scale {out['scales']} was not halved")
+        if scaler and s == AC_POISON + 1:
+            trained = ac_all(dist, ac_fingerprint(state()) != fp0)
+            out["next_trains"] = trained
+            if out["losses"][-1] != out["losses"][-2] or not trained:
+                fail(f"{tag}: the step after the skip: losses "
+                     f"{out['losses']}, moved {trained}")
+        if s == DIST_STEPS - 1:
+            peak = torch.cuda.max_memory_allocated()
+            if values is not None:
+                v = values()
+                if rank == 0:
+                    out["values"] = v
+                del v
+            torch.cuda.empty_cache()
+    out["launches"] = counts()
+    out["peak_held"] = peak
+    return out
+
+
+def ac_timed(tag, step, expected, rank):
+    """``DIST_TIMED`` steps of ``step()``, each synchronised with exact
+    launches; the timed ones' mean host ms."""
+    step_s = []
+    for s in range(sum(DIST_TIMED.values())):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        want = expected(False)
+        after = counts()
+        moved = {k: after[k] - before[k] for k in want}
+        if moved != want:
+            fail(f"rank {rank} {tag} timed step {s}: launches {moved} != "
+                 f"{want}")
+    return 1e3 * float(np.mean(step_s[DIST_TIMED["warmup"]:]))
+
+
+def ac_finish(dist, out, world, tokens, n_params, base, timed_ms,
+              plain_ms, clip_ms, scaler_ms):
+    """A leg's numbers: step ms with the clip (and scaler) and without,
+    tokens/s, MFU (6 N tokens a card over 989 TFLOP/s), peak memory a rank
+    (the largest), the clip's and the scaler's own ms."""
+    mem = torch.tensor([max(out.pop("peak_held"),
+                            torch.cuda.max_memory_allocated()), base],
+                       device=card())
+    if dist is not None:
+        dist.all_reduce(mem, op=dist.ReduceOp.MAX)
+    out["peak_bytes"], out["base_bytes"] = (int(v) for v in mem.tolist())
+    out.update(step_ms=timed_ms, plain_step_ms=plain_ms, clip_ms=clip_ms,
+               scaler_ms=scaler_ms, tokens_s=tokens / (timed_ms / 1e3),
+               n_params=n_params)
+    out["tokens_s_card"] = out["tokens_s"] / world
+    out["mfu"] = 6 * n_params * out["tokens_s_card"] / PEAK_BF16
+    return out
+
+
+def ac_gpt_build(cfg):
+    """Example 03's stack on phase 17's GPT-3 1.3B: AdamW(1e-4, wd 0.01,
+    fp32 masters) with ``ClipGradByGlobalNorm(AC_CLIP)``, amp O2 bf16."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    model = GPTForPretraining(cfg, seed=0)
+    clip = ClipGradByGlobalNorm(AC_CLIP)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True,
+                          grad_clip=clip)
+    model, opt = amp.decorate(models=model, optimizers=opt, level="O2",
+                              dtype="bfloat16")
+    return model, opt, clip
+
+
+def ac_gpt_config():
+    return gpt_config("gpt3-1.3B", num_layers=N_LAYERS,
+                      max_position_embeddings=TRAIN_SEQ,
+                      hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+
+
+def ac_gpt_oracle(cfg, batch, world, dev):
+    """Rank 0's one-card oracle of leg (a): the same stack and scaler on
+    the global batch, its ``world`` shards accumulated (each scaled loss
+    over their count), ``DIST_STEPS`` steps: losses, fp32 values, the
+    first step's norm and its fp64 oracle."""
+    model, opt, clip = ac_gpt_build(cfg)
+    model.train()
+    scaler = amp.GradScaler(init_loss_scaling=AC_SCALE)
+    shards = [dist_shard(batch, j, dev) for j in range(world)]
+    named = list(model.named_parameters())
+    losses = []
+    for s in range(DIST_STEPS):
+        total = 0.0
+        for ids, labels in shards:
+            loss = o2_step_fn(model, ids, labels)
+            scaler.scale(loss / world).backward()
+            total += float(loss.detach()) / world
+        if s == 0:
+            scaler.unscale_(opt)
+            norm, _ = ac_norm_oracle(None, ac_grad_parts(named,
+                                                         lambda p: False))
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        if s == 0:
+            first = float(clip.last_norm)
+        losses.append(total)
+    values = dist_values(model, opt, False)
+    say(f"amp_clip: the one-card oracle: losses {losses}, the first "
+        f"step's norm {first!r} (fp64 oracle {norm!r})")
+    if not abs(first - norm) <= AC_NORM_RTOL * norm:
+        fail(f"the oracle's norm {first} misses its fp64 sum {norm}")
+    del model, opt, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=losses, values=values, norm=first, oracle_norm=norm)
+
+
+def ac_gpt_leg(dist, rank, world, dev, oracle):
+    """Leg (a): example 03 at full width, GPT-3 1.3B O2 under dp 2 x
+    sharding 2, stage 2 (``group_sharded_parallel("os_g")`` over the dp x
+    sharding group) with the clip and ``GradScaler(AC_SCALE)`` through
+    ``train_step(scaler=, mesh=hcg.mesh)`` on phase 17's global batch;
+    against rank 0's one-card oracle (losses and values, phase 17's
+    bounds); the poison; timed with and without the clip and scaler."""
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    dist_settle(dist)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = ac_gpt_config()
+    batch = dist_global_batch(cfg, world)
+    hcg = fleet_init(dict(dp_degree=2, sharding_degree=world // 2))
+    model, opt, clip = ac_gpt_build(cfg)
+    scaler = amp.GradScaler(init_loss_scaling=AC_SCALE)
+    model, sopt, scaler = group_sharded_parallel(
+        model, opt, "os_g", scaler=scaler,
+        group=hcg.get_dp_sharding_parallel_group())
+    step = train_step(model, None, sopt, scaler=scaler, mesh=hcg.mesh,
+                      step_fn=o2_step_fn)
+    local = [step._data.rows(t.to(dev)) for t in batch]
+    names = {id(p): n for n, p in model._layers.named_parameters()}
+    buckets = sopt._reducer.buckets
+
+    def first():
+        loss = o2_step_fn(model, *local)
+        scaler.scale(loss).backward()
+        scaler.unscale_(sopt)
+        parts = ac_shard_parts(sopt, names)
+        scaler.step(sopt)
+        scaler.update()
+        sopt.clear_grad()
+        return step._data.mean(loss.detach()), parts
+
+    def expected(skip):
+        return dict(PER_STEP, adamw=0 if skip else len(buckets))
+
+    def state():
+        return [b.param_buf for b in buckets] + [
+            v for st in sopt._state.values() for v in st.values()]
+    out = ac_run("gpt_dp2_sh2_os_g", dist, rank, world,
+                 lambda: step(*batch), first, expected, clip, scaler, state,
+                 lambda: dist_values(model, sopt, True, rank))
+    out["buckets"] = len(buckets)
+    if rank == 0:
+        out["vs_oracle"] = dist_compare(
+            "phase 23 (a): GPT-3 1.3B dp 2 x sharding 2 os_g + clip + "
+            "scaler vs the one-card oracle", out, oracle, exact=False)
+        out["oracle_norm_rel"] = abs(out["norm"] - oracle["norm"]) \
+            / oracle["norm"]
+        say(f"amp_clip: (a): the four cards' first norm {out['norm']!r} "
+            f"against the one-card oracle's {oracle['norm']!r} (relative "
+            f"{out['oracle_norm_rel']:.3e})")
+    out.pop("values", None)
+    timed_ms = ac_timed("gpt (a)", lambda: step(*batch), expected,
+                        rank)
+    loss = o2_step_fn(model, *local)       # gradients for the own times
+    scaler.scale(loss).backward()
+
+    def unscale():
+        scaler._unscaled = False
+        scaler.unscale_(sopt)
+    scaler_ms = time_ms(unscale, 3)
+    clip_ms = time_ms(lambda: sopt._clip(sopt._ready()), 3)
+    sopt.clear_grad()
+    scaler.update()
+    sopt._inner_opt._grad_clip = None       # the same step without them
+    plain = train_step(model, None, sopt, mesh=hcg.mesh, step_fn=o2_step_fn)
+    plain_ms = ac_timed("gpt (a) without", lambda: plain(*batch),
+                        expected, rank)
+    out = ac_finish(dist, out, world, batch[0].numel(),
+                    param_count(cfg), base, timed_ms, plain_ms, clip_ms,
+                    scaler_ms)
+    del model, opt, sopt, step, plain, local
+    fleet_reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ac_tp_leg(dist, rank, world, dev):
+    """Leg (b): example 04's layers at full width, LLaMA-2 7B O2 at all 32
+    layers under mp 4 with SP and recompute, the clip in the hybrid
+    optimizer, through ``train_step(mesh=hcg.mesh)`` on phase 19's batch;
+    timed with and without the clip."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        .mp_layers import is_split
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    dist_settle(dist)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = llama_config(LLAMA_PRESET)
+    hcg = fleet_init(dict(mp_degree=world))
+    cfg = llama_config(LLAMA_PRESET, sequence_parallel=True,
+                       use_recompute=True)
+    model = LlamaForCausalLM(cfg, seed=0)
+    clip = ClipGradByGlobalNorm(AC_CLIP)
+    opt = optimizer.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                          weight_decay=0.01, multi_precision=True,
+                          grad_clip=clip)
+    model, opt = amp.decorate(models=model, optimizers=opt, level="O2",
+                              dtype="bfloat16")
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(opt)
+    inner = model._layers
+    step = train_step(model, None, opt, mesh=hcg.mesh, step_fn=o2_step_fn)
+    rs = np.random.RandomState(0)
+    batch = tuple(torch.from_numpy(rs.randint(0, full.vocab_size,
+                                              (LLAMA_BATCH, LLAMA_SEQ)))
+                  for _ in range(2))
+    local = [step._data.rows(t.to(dev)) for t in batch]
+    named = list(inner.named_parameters())
+
+    def first():
+        loss = o2_step_fn(model, *local)
+        loss.backward()
+        opt._reduce_once()
+        parts = ac_grad_parts(named, is_split)
+        opt.step()
+        opt.clear_grad()
+        return step._data.mean(loss.detach()), parts
+
+    def expected(skip):
+        return llama_per_step(full.num_layers, recompute=True)
+    out = ac_run("llama_mp4_sp_rc", dist, rank, world, lambda: step(*batch),
+                 first, expected, clip)
+    timed_ms = ac_timed("llama (b)", lambda: step(*batch), expected,
+                        rank)
+    loss = o2_step_fn(model, *local)       # gradients for the clip's time
+    loss.backward()
+    opt._reduce_once()
+    pg = [(p, p.grad) for _, p in named if p.grad is not None]
+    clip_ms = time_ms(lambda: clip._clip_(pg, device=dev), 3)
+    del pg
+    opt.clear_grad()
+    opt._inner_opt._grad_clip = None
+    plain_ms = ac_timed("llama (b) without", lambda: step(*batch),
+                        expected, rank)
+    out = ac_finish(dist, out, world, batch[0].numel(),
+                    llama_param_count(full), base, timed_ms, plain_ms,
+                    clip_ms, None)
+    del model, opt, step, inner, named, local
+    fleet_reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ac_pp_leg(dist, rank, world, dev):
+    """Leg (c): LLaMA-2 7B O2 at all 32 layers as phase 21's
+    ``PipelineLayer`` at pp 4 under 1F1B (8 micro-batches of 1 x 4096,
+    each layer recomputed), the clip in its AdamW and
+    ``GradScaler(AC_SCALE)`` through ``train_batch(scaler=)``; the
+    poison; timed with and without the clip and scaler."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    dist_settle(dist)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full = llama_config(LLAMA_PRESET)
+    layers = full.num_layers
+    hcg = pp_fleet_init(dict(pp_degree=world), "1F1B")
+    clip = ClipGradByGlobalNorm(AC_CLIP)
+    pl, opt = llama_pipe(layers, dev, recompute=1, grad_clip=clip)
+    model = fleet.distributed_model(pl)
+    opt = fleet.distributed_optimizer(opt)
+    scaler = amp.GradScaler(init_loss_scaling=AC_SCALE)
+    batch = pp_llama_batch()
+    named = [(pp_model_name(n, layers), p) for n, p in pl.named_parameters()]
+
+    def first():
+        loss = model.forward_backward_pipeline(batch, scaler)
+        scaler.unscale_(opt)
+        parts = ac_grad_parts(named, lambda p: False)
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss, parts
+
+    def expected(skip):
+        sched = model._host_sched
+        return pp_expected(sched.event_log, sched.runners, 1,
+                           0 if skip else len(named))
+
+    def state():
+        return [p for _, p in named] + [
+            v for st in opt._inner_opt.state.values() for v in st.values()]
+    out = ac_run("llama_pp4_1f1b", dist, rank, world,
+                 lambda: model.train_batch(batch, opt, scaler=scaler),
+                 first, expected, clip, scaler, state)
+    timed_ms = ac_timed("llama (c)",
+                        lambda: model.train_batch(batch, opt, scaler=scaler),
+                        expected, rank)
+    model.forward_backward_pipeline(batch, scaler)   # for the own times
+
+    def unscale():
+        scaler._unscaled = False
+        scaler.unscale_(opt)
+    scaler_ms = time_ms(unscale, 3)
+    pg = [(p, p.grad) for _, p in named if p.grad is not None]
+    clip_ms = time_ms(lambda: clip._clip_(pg, device=dev), 3)
+    del pg
+    opt.clear_grad()
+    scaler.update()
+    opt._inner_opt._grad_clip = None
+    plain_ms = ac_timed("llama (c) without",
+                        lambda: model.train_batch(batch, opt), expected,
+                        rank)
+    out = ac_finish(dist, out, world, PP_MICRO * LLAMA_SEQ,
+                    llama_param_count(full), base, timed_ms, plain_ms,
+                    clip_ms, scaler_ms)
+    out["held"] = len(named)
+    del model, opt, pl, named
+    pp_fleet_reset(dist)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ac_line(key, m, world):
+    """One phase-23 leg's numbers on a line."""
+    scaler = (f", the scaler's unscale and check {m['scaler_ms']:.3f} ms"
+              if m.get("scaler_ms") is not None else "")
+    return (f"amp_clip: {key}: step ms {m['step_ms']:.2f} with the clip"
+            f"{' and the scaler' if m.get('scaler_ms') is not None else ''}"
+            f", {m['plain_step_ms']:.2f} without; {m['tokens_s']:.1f} "
+            f"tokens/s over {world} card(s) ({m['tokens_s_card']:.1f} a "
+            f"card), MFU {100 * m['mfu']:.2f} % (6 N tokens a card / 989 "
+            f"TFLOP/s, N = {m['n_params']}); the clip's own "
+            f"{m['clip_ms']:.3f} ms{scaler}; peak memory {m['peak_bytes']} "
+            f"bytes ({m['peak_bytes'] / 2**30:.2f} GiB, the largest rank's)"
+            f"; losses {m['losses']}; scales {m['scales']}; launches over "
+            f"the held steps {m['launches']}")
+
+
+def amp_clip_rank(dist, rank, world, dev):
+    """Phase 23 on several cards: rank 0's one-card oracle of leg (a),
+    then legs (a), (b) and (c), each topology's groups freed before the
+    next."""
+    res = {}
+    release_groups(dist)
+    cfg = ac_gpt_config()
+    oracle = ac_gpt_oracle(cfg, dist_global_batch(cfg, world), world,
+                           dev) if rank == 0 else None
+    dist.barrier()
+    for key, leg in (("a", lambda: ac_gpt_leg(dist, rank, world, dev,
+                                              oracle)),
+                     ("b", lambda: ac_tp_leg(dist, rank, world, dev)),
+                     ("c", lambda: ac_pp_leg(dist, rank, world, dev))):
+        res[key] = leg()
+        if key == "a":
+            oracle = None
+        release_groups(dist)
+        say_rank0(rank, ac_line(key, res[key], world))
+    return res
+
+
+def amp_clip_report(m, world):
+    """Phase 23's numbers on several cards, from rank 0's results."""
+    for key in ("a", "b", "c"):
+        say(ac_line(key, m[key], world))
+        say(f"amp_clip: {key}: " + json.dumps(
+            {k: m[key][k] for k in ("norm", "oracle_norm", "norm_rel",
+                                    "shares", "replicated_spread",
+                                    "skip_bit_equal", "local_flags",
+                                    "next_trains", "vs_oracle",
+                                    "oracle_norm_rel", "host_reads_a_step",
+                                    "buckets", "held")
+             if k in m[key]}))
+
+
+def amp_clip_one_card():
+    """Phase 23 at one card: the clip and the scaler on phase 6's GPT-3
+    1.3B O2 step (no process group): the clip's norm against its fp64
+    oracle, the poison skipped, exact launches (K3 292 a step, 0 on the
+    skip), timed with and without them."""
+    torch.cuda.reset_peak_memory_stats()
+    dev = card()
+    base = torch.cuda.memory_allocated()
+    cfg = ac_gpt_config()
+    model, opt, clip = ac_gpt_build(cfg)
+    scaler = amp.GradScaler(init_loss_scaling=AC_SCALE)
+    step = train_step(model, None, opt, scaler=scaler, step_fn=o2_step_fn)
+    ids, labels = batch(cfg)
+    named = list(model.named_parameters())
+
+    def first():
+        loss = o2_step_fn(model, ids, labels)
+        scaler.scale(loss).backward()
+        scaler.unscale_(opt)
+        parts = ac_grad_parts(named, lambda p: False)
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss.detach(), parts
+
+    def expected(skip):
+        return dict(PER_STEP, adamw=0 if skip else PER_STEP["adamw"])
+
+    def state():
+        return [p for _, p in named] + [
+            v for st in opt.state.values() for v in st.values()]
+    out = ac_run("gpt_one_card", None, 0, 1, lambda: step(ids, labels),
+                 first, expected, clip, scaler, state)
+    timed_ms = ac_timed("gpt one card", lambda: step(ids, labels),
+                        expected, 0)
+    loss = o2_step_fn(model, ids, labels)
+    scaler.scale(loss).backward()
+
+    def unscale():
+        scaler._unscaled = False
+        scaler.unscale_(opt)
+    scaler_ms = time_ms(unscale, 3)
+    pg = [(p, p.grad) for _, p in named if p.grad is not None]
+    clip_ms = time_ms(lambda: clip._clip_(pg, device=dev), 3)
+    del pg
+    opt.clear_grad()
+    scaler.update()
+    opt._grad_clip = None
+    plain = train_step(model, None, opt, step_fn=o2_step_fn)
+    plain_ms = ac_timed("gpt one card without",
+                        lambda: plain(ids, labels), expected, 0)
+    out = ac_finish(None, out, 1, ids.numel(), param_count(cfg),
+                    base, timed_ms, plain_ms, clip_ms, scaler_ms)
+    say(ac_line("gpt_one_card", out, 1))
+    del model, opt, step, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def amp_clip_alone() -> int:
+    """``--amp-clip``: phase 23 alone after the build: at one card its
+    one-card part, on several cards the ranks (legs (a)-(c))."""
+    say(f"build: {_build.build_all():.3f} s")
+    if torch.cuda.device_count() == 1:
+        amp_clip_one_card()
+    else:
+        distributed_main_path((23,))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 PHASES = (17, 18, 19, 20, 21, 22)
 
 
@@ -8373,6 +9062,8 @@ def distributed_rank(out_dir: str, phases=PHASES) -> int:
         res["pp"] = pipeline_rank(dist, rank, world, dev)
     if 22 in phases and world > 1:
         res["moe"] = moe_rank(dist, rank, world, dev)
+    if 23 in phases and world > 1:
+        res["amp_clip"] = amp_clip_rank(dist, rank, world, dev)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -8541,6 +9232,8 @@ def distributed_main_path(phases=PHASES):
         pipeline_report(r0["pp"], world)
     if 22 in phases and "moe" in r0:
         moe_report(r0["moe"], world)
+    if 23 in phases and "amp_clip" in r0:
+        amp_clip_report(r0["amp_clip"], world)
     if 17 in phases:
         r0["kill"] = dist_kill_checks(world, root)
     return r0
@@ -8717,6 +9410,8 @@ def main() -> int:
         return distributed_alone((21,))
     if "--moe" in sys.argv:
         return moe_alone()
+    if "--amp-clip" in sys.argv:
+        return amp_clip_alone()
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")

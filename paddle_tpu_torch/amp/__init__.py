@@ -11,18 +11,37 @@
   op on ``BLACK_LIST`` casts low-precision inputs up to fp32, every other
   op casts fp32 inputs down to the low dtype.
 
+* :class:`GradScaler` is dynamic loss scaling with the JAX package's
+  rules: the loss times the scale; the gradients unscaled in fp32 and
+  cast back to their dtype; a step with a non-finite gradient skipped
+  (nothing of the optimizer moves) and the scale cut; the scale grown
+  after ``incr_every_n_steps`` clean steps.
+
 The casts are explicit, not ``torch.autocast``: its op lists differ from
-Paddle's and would break parity with the JAX package.  O1 and
-``GradScaler`` wait for a later slice and raise ``NotImplementedError``;
-the kernels take fp32 and bf16, so ``float16`` raises too.  The
-defaults are Paddle's (``auto_cast``: O1, float16; ``decorate``: O2,
-float16), so a caller names ``level="O2", dtype="bfloat16"``.
+Paddle's and would break parity with the JAX package.  O1 waits for a
+later slice and raises ``NotImplementedError``; the kernels take fp32
+and bf16, so ``float16`` raises too.  The defaults are Paddle's
+(``auto_cast``: O1, float16; ``decorate``: O2, float16), so a caller
+names ``level="O2", dtype="bfloat16"``.
+
+**One skip decision on every rank.**  Each rank checks the gradients it
+steps (whole gradients, or under ZeRO its gradient shards: the
+optimizer's ``_unscale_targets``), after the hybrid optimizer's
+reductions; under mp, pp, sharding and ep the ranks hold different
+values, so the flag is MAX-all-reduced over the whole world (one
+collective a step; without a fleet topology, over the group of the
+optimizer's DataParallel reducer or sharding group, and over none for a
+model of one process).  The skip itself costs **one host read a step**:
+the reduced flag is read back (``GradScaler.host_reads`` counts them) and
+a skipped step launches nothing of the optimizer (no K3, no beta-power
+advance, no master or moment write), so no state is created on it.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
 
 __all__ = ["BLACK_LIST", "auto_cast", "cast", "decorate", "GradScaler"]
@@ -166,10 +185,168 @@ def decorate(models, optimizers=None, level: str = "O2",
             opt_list[0] if single_opt else opt_list)
 
 
-class GradScaler:
-    """Dynamic loss scaling waits for a later slice (bf16 O2 trains
-    without it)."""
+def _flag_group(optimizer):
+    """The ranks whose skip decisions must agree: every rank under a fleet
+    topology (the hybrid world), else the group of the optimizer's
+    distributed wrapper (its DataParallel reducer or its sharding group),
+    else none (a model of this process alone)."""
+    from ..distributed.fleet.base.topology import (
+        get_hybrid_communicate_group)
+    hcg = get_hybrid_communicate_group()
+    if hcg is not None and hcg.nranks > 1:
+        from ..distributed.communication.group import _resolve_group
+        return _resolve_group(None)
+    return optimizer._flag_group()
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("GradScaler waits for a later slice; "
-                                  "bf16 O2 training needs no loss scaling")
+
+class GradScaler:
+    """ref: ``python/paddle/amp/grad_scaler.py`` (module docstring).  The
+    reference's parameters in its order.  The scale is decided on the
+    host in fp32 arithmetic, as the JAX package computes it, and kept
+    there and as ``_scale``, a 0-d fp32 tensor on the loss's device (moved
+    at the first :meth:`scale`); the counters are host integers."""
+
+    def __init__(self, enable: bool = True,
+                 init_loss_scaling: float = 65536.0,
+                 incr_ratio: float = 2.0, decr_ratio: float = 0.5,
+                 incr_every_n_steps: int = 2000,
+                 decr_every_n_nan_or_inf: int = 1,
+                 use_dynamic_loss_scaling: bool = True):
+        self._enable = enable
+        self._scale = torch.tensor(0.0)
+        self._set(init_loss_scaling)
+        self._incr_ratio = float(incr_ratio)
+        self._decr_ratio = float(decr_ratio)
+        self._incr_every_n_steps = int(incr_every_n_steps)
+        self._decr_every_n_nan_or_inf = int(decr_every_n_nan_or_inf)
+        self._use_dynamic = use_dynamic_loss_scaling
+        self._incr_count = 0
+        self._decr_count = 0
+        self._found_inf: Optional[bool] = None
+        self._local_found_inf: Optional[torch.Tensor] = None
+        self._unscaled = False
+        self.host_reads = 0
+
+    def _set(self, value) -> None:
+        """The scale on the host (fp32) and as ``_scale`` on its device."""
+        self._value = np.float32(value)
+        self._scale = torch.full((), float(self._value), dtype=torch.float32,
+                                 device=self._scale.device)
+
+    def is_enable(self) -> bool:
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self) -> bool:
+        return self._use_dynamic
+
+    def _on(self, device) -> torch.Tensor:
+        if self._scale.device != torch.device(device):
+            self._scale = self._scale.to(device)
+        return self._scale
+
+    def scale(self, var: torch.Tensor) -> torch.Tensor:
+        """``var`` times the scale cast to ``var``'s dtype (a float16 loss
+        in fp32, as the JAX package promotes it)."""
+        if not self._enable:
+            return var
+        if var.dtype == torch.float16:
+            var = var.float()
+        return var * self._on(var.device).to(var.dtype)
+
+    @torch.no_grad()
+    def unscale_(self, optimizer) -> None:
+        """Every gradient ``optimizer`` steps times ``1 / scale``, the
+        product in fp32 rounded to the gradient's dtype once (as the JAX
+        package casts it back); sets the step's ``found_inf`` from the
+        unscaled values (one MAX all-reduce, one host read)."""
+        if not self._enable or self._unscaled:
+            return
+        grads = optimizer._unscale_targets()
+        dev = grads[0].device if grads else self._scale.device
+        inv = float(np.float32(1.0) / self._value)
+        local = torch.zeros((), dtype=torch.float32, device=dev)
+        by_dtype = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for gs in by_dtype.values():
+            # a host scalar multiplies in fp32 (opmath) and rounds once
+            torch._foreach_mul_(gs, inv)
+            # the largest magnitude: non-finite iff some element is
+            peak = torch.stack(torch._foreach_norm(gs, float("inf")))
+            local = torch.maximum(local, (~torch.isfinite(peak)).any()
+                                  .to(torch.float32))
+        self._local_found_inf = local
+        found = local
+        group = _flag_group(optimizer)
+        if group is not None and group.nranks > 1:
+            from ..distributed.communication.collective_ops import (
+                all_reduce)
+            from ..distributed.communication.group import ReduceOp
+            found = local.clone()
+            all_reduce(found, op=ReduceOp.MAX, group=group)
+        self.host_reads += 1
+        self._found_inf = bool(found.item())
+        self._unscaled = True
+
+    def step(self, optimizer) -> None:
+        """Unscale, then ``optimizer.step()`` unless a gradient is
+        non-finite on some rank (then nothing of the optimizer moves)."""
+        if not self._enable:
+            optimizer.step()
+            return
+        self.unscale_(optimizer)
+        if self._found_inf:
+            skip = getattr(optimizer, "_skip_step", None)
+            if skip is not None:
+                skip()
+            return
+        optimizer.step()
+
+    def update(self) -> None:
+        """The JAX package's growth and decrease counters, its scale in
+        fp32."""
+        found = bool(self._found_inf)
+        if self._enable and self._use_dynamic:
+            decr = self._decr_count + 1 if found else 0
+            incr = 0 if found else self._incr_count + 1
+            do_decr = decr >= self._decr_every_n_nan_or_inf
+            do_incr = incr >= self._incr_every_n_steps
+            value = self._value
+            if do_decr:
+                value = max(value * np.float32(self._decr_ratio),
+                            np.float32(1.0))
+            if not found and do_incr:
+                value = value * np.float32(self._incr_ratio)
+            if value != self._value:
+                self._set(value)
+            self._decr_count = 0 if do_decr else decr
+            self._incr_count = 0 if do_incr else incr
+        self._found_inf = None
+        self._unscaled = False
+
+    def minimize(self, optimizer, scaled_loss) -> None:
+        """The reference's contract: the caller has run
+        ``scaled_loss.backward()``; this unscales, steps and updates."""
+        self.step(optimizer)
+        self.update()
+
+    def get_init_loss_scaling(self) -> float:
+        return float(self._value)
+
+    def set_init_loss_scaling(self, v) -> None:
+        self._set(v)
+
+    def state_dict(self):
+        return {"scale": float(self._value),
+                "incr_count": int(self._incr_count),
+                "decr_count": int(self._decr_count),
+                "incr_ratio": self._incr_ratio,
+                "decr_ratio": self._decr_ratio,
+                "incr_every_n_steps": self._incr_every_n_steps,
+                "decr_every_n_nan_or_inf": self._decr_every_n_nan_or_inf,
+                "use_dynamic_loss_scaling": self._use_dynamic}
+
+    def set_state_dict(self, state) -> None:
+        self._set(state.get("scale", self._value))
+        self._incr_count = int(state.get("incr_count", 0))
+        self._decr_count = int(state.get("decr_count", 0))

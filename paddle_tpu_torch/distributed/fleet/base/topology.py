@@ -196,6 +196,10 @@ class HybridCommunicateGroup:
         self._check_group = m.group(("dp", "pp", "sharding"), name="check")
         self._dp_sharding_group = m.group(("dp", "sharding"),
                                           name="dp_sharding")
+        # the global-norm clip's sum: the axes whose ranks hold different
+        # parts of the parameters or of their gradients
+        self._norm_group = m.group(("mp", "pp", "sharding"),
+                                   name="global_norm")
         self._p2p: Optional[P2PGroups] = None
         self._p2p_channels: List[Tuple[str, int, int, Group]] = []
         if self._pp_degree > 1:
@@ -352,6 +356,12 @@ class HybridCommunicateGroup:
 
     def get_dp_sharding_parallel_group(self) -> Group:
         return self._dp_sharding_group
+
+    def _global_norm_group(self) -> Group:
+        """The group over which ``nn.ClipGradByGlobalNorm`` sums the
+        ranks' shares of the squared norm: the mp, pp and sharding axes
+        together."""
+        return self._norm_group
 
     def get_rank_from_stage(self, stage_id: int, **kwargs) -> int:
         return self._topo.get_rank_from_stage(self.global_rank,

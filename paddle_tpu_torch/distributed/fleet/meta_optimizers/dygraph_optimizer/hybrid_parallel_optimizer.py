@@ -25,16 +25,28 @@ Under ZeRO stage 3 (``GroupShardedStage3``: the reducer's ``mode`` is
 ``param_shard`` and the averaged ``shard_grad``) and nothing is gathered
 after the step; the next forward gathers the segments it runs.
 
-A ``grad_clip`` on the inner optimizer runs under dp and ep (the
-gradients are already averaged over dp; the MoE clip sums the experts'
-squares over ep); under mp, pp, sharding, sep or cp the clip raises
-``NotImplementedError`` when it computes the norm, and
-:class:`DygraphShardingOptimizer`, whose update runs on the shards,
-refuses an optimizer that has one.
+A ``grad_clip`` on the inner optimizer runs after the gradient
+reductions below.  The global-norm clip sums each rank's share of the
+squared norm over the mp, pp and sharding groups (``nn.clip``); under
+:class:`DygraphShardingOptimizer` the share is the rank's gradient
+shards (stage 1: its slice of the all-reduced bucket; stages 2 and 3:
+the reduce-scattered ``shard_grad``), summed over the sharding group,
+and the clip's scale is multiplied into each bucket's shard before K3
+(one multiply a bucket).  ``ClipGradByValue`` clamps the shards;
+``ClipGradByNorm``, a per-tensor norm, runs on the whole gradients under
+stage 1 and raises ``NotImplementedError`` under stages 2 and 3, whose
+ranks hold no whole gradient.
 
-Weight decay must be uniform within a bucket: the buckets are split by
-each parameter's decay (``apply_decay_param_fun``) when the optimizer is
-built.  ``lr_ratio`` raises ``NotImplementedError``.
+``amp.GradScaler`` unscales what a rank steps (``_unscale_targets``: the
+gradients, or the sharded optimizer's shards, after the reductions,
+which then do not run again at the step) and, on a step it skips, calls
+``_skip_step``: no K3, no beta-power advance, and under stage 3 the
+shards stay as they were.
+
+Weight decay, the clip class (split over mp, whole, or not clipped)
+must be uniform within a bucket: the buckets are split by each
+parameter's decay (``apply_decay_param_fun``) and clip class when the
+optimizer is built.  ``lr_ratio`` raises ``NotImplementedError``.
 
 A tensor-parallel model (mp, sep or cp above 1: ``TensorParallel``) is
 not in a ``DataParallel`` unless the sharding degree is above 1, so
@@ -57,6 +69,8 @@ from typing import Dict, Optional
 
 import torch
 
+from .....nn.clip import (ClipGradByGlobalNorm, ClipGradByValue, _sq_sum,
+                          need_clip)
 from .....ops.fused_adamw import fused_adamw_update_
 from .....optimizer.optimizers import Adam, AdamW
 from ....communication.collective_ops import _collective_entry
@@ -65,6 +79,19 @@ from ....parallel import all_gather_single, reducer_of
 from ...base.topology import get_hybrid_communicate_group
 
 __all__ = ["HybridParallelOptimizer", "DygraphShardingOptimizer"]
+
+
+def _clip_class(p) -> str:
+    """How the global-norm clip counts ``p`` (a bucket holds one class):
+    ``"split"`` over mp, ``"whole"``, or ``"none"`` (not clipped)."""
+    from ...meta_parallel.parallel_layers.mp_layers import is_split
+    if not need_clip(p):
+        return "none"
+    h = get_hybrid_communicate_group()
+    if h is not None and h.get_model_parallel_world_size() > 1 \
+            and is_split(p):
+        return "split"
+    return "whole"
 
 
 def _decay_of(opt, p) -> float:
@@ -98,10 +125,6 @@ class DygraphShardingOptimizer:
         return self
 
     def _setup(self, optimizer, group) -> None:
-        if getattr(optimizer, "_grad_clip", None) is not None:
-            raise NotImplementedError(
-                "grad_clip under sharding waits for a later slice (the "
-                "sharded update reads no clip)")
         if not isinstance(optimizer, Adam):
             raise NotImplementedError(
                 f"sharding {type(optimizer).__name__}: the sharded update "
@@ -122,8 +145,16 @@ class DygraphShardingOptimizer:
         if len(params) != len(reducer.params):
             raise ValueError("the optimizer must hold every trainable "
                              "parameter of the wrapped model")
+        clip = getattr(optimizer, "_grad_clip", None)
+        if clip is not None and reducer.mode != "all_reduce" and \
+                not isinstance(clip, (ClipGradByGlobalNorm,
+                                      ClipGradByValue)):
+            raise NotImplementedError(
+                f"grad_clip {type(clip).__name__} under sharding stage 2 or "
+                "3: a per-tensor norm needs whole gradients, and a rank "
+                "holds its shard")
         self._reducer = reducer
-        reducer.split_by(lambda p: _decay_of(optimizer, p))
+        reducer.split_by(lambda p: (_decay_of(optimizer, p), _clip_class(p)))
         self._nranks = group.nranks
         self._rank = group.rank
         for b in reducer.buckets:
@@ -160,17 +191,84 @@ class DygraphShardingOptimizer:
             self._reducer.frozen = True      # the layout is fixed now
         return st
 
+    def _ready(self):
+        """The buckets (index, bucket) that hold gradients this step."""
+        stage3 = self._reducer.mode == "stage3"
+        return [(k, b) for k, b in enumerate(self._reducer.buckets)
+                if (b.has_grad if stage3 else
+                    any(p.grad is not None for p in b.params))]
+
+    def _grad_shard(self, b) -> torch.Tensor:
+        """This rank's shard of bucket ``b``'s averaged gradient."""
+        if self._reducer.mode == "all_reduce":
+            lo, hi = self._shard(b)
+            return b.grad_buf[lo:hi]
+        return b.shard_grad
+
+    def _unscale_targets(self):
+        """The gradient shards this rank steps (``amp.GradScaler``)."""
+        return [self._grad_shard(b) for _, b in self._ready()]
+
+    def _flag_group(self):
+        """The sharding group: its ranks hold different shards."""
+        return self._group
+
+    def _skip_step(self) -> None:
+        """A step ``amp.GradScaler`` skips: nothing moves."""
+        if self._reducer.mode == "stage3":
+            self._reducer.release()
+
+    def _norm_group(self):
+        """The group the global norm's shard sums are summed over: the
+        sharding group, with the mp and pp ranks when they split the
+        model."""
+        h = get_hybrid_communicate_group()
+        if h is not None and max(h.get_model_parallel_world_size(),
+                                 h.get_pipe_parallel_world_size()) > 1:
+            if self._group.ranks != h.get_sharding_parallel_group().ranks:
+                raise NotImplementedError(
+                    "a global-norm clip over a sharding group other than "
+                    "the topology's under mp or pp")
+            return h._global_norm_group()
+        return self._group
+
+    def _clip(self, ready):
+        """Apply the inner optimizer's clip to the shards of ``ready``;
+        returns the global norm's scale (None for other clips)."""
+        clip = self._inner_opt._grad_clip
+        if clip is None:
+            return None
+        if isinstance(clip, ClipGradByGlobalNorm):
+            h = get_hybrid_communicate_group()
+            mp_rank = h.get_model_parallel_rank() if h is not None else 0
+            local = _sq_sum([self._grad_shard(b) for _, b in ready
+                             if b.key[2][1] == "split"
+                             or (b.key[2][1] == "whole" and mp_rank == 0)])
+            dev = ready[0][1].device if ready else \
+                self._reducer.buckets[0].device
+            sq = clip._reduced_sq(local, self._norm_group(), dev)
+            return None if sq is None else clip._scale_of(sq)
+        if isinstance(clip, ClipGradByValue):
+            for _, b in ready:
+                if b.key[2][1] != "none":
+                    self._grad_shard(b).clamp_(clip.min, clip.max)
+            return None
+        # stage 1: the whole averaged gradients, which the buckets view
+        params = [p for _, b in ready for p in b.params
+                  if p.grad is not None]
+        for p, g in zip(params, clip([(p, p.grad) for p in params])):
+            p.grad.copy_(g[1])
+        return None
+
     @torch.no_grad()
     def step(self):
         opt = self._inner_opt
         pg = self._group.process_group
         stage3 = self._reducer.mode == "stage3"
+        ready = self._ready()
+        scale = self._clip(ready)
         works = []
-        for k, b in enumerate(self._reducer.buckets):
-            ready = b.has_grad if stage3 else \
-                any(p.grad is not None for p in b.params)
-            if not ready:
-                continue
+        for k, b in ready:
             st = self._state.get(k)
             if st is None:
                 st = self._state[k] = self._new_state(b)
@@ -181,15 +279,15 @@ class DygraphShardingOptimizer:
                 opt._betas[b.device] = betas
             st["pows"].mul_(betas)
             p_shard = self._param_shard(b)
-            lo, hi = self._shard(b)
-            g_shard = b.shard_grad if self._reducer.mode != "all_reduce" \
-                else b.grad_buf[lo:hi]
+            g_shard = self._grad_shard(b)
+            if scale is not None and b.key[2][1] != "none":
+                g_shard.mul_(scale.to(g_shard.dtype))
             master = st.get("master")
             fused_adamw_update_(
                 master if master is not None else p_shard, g_shard,
                 st["m"], st["v"], opt._lr_on(b.device), st["pows"][0:1],
                 st["pows"][1:2], opt._beta1, opt._beta2, opt._epsilon,
-                b.key[2], p_low=p_shard if master is not None else None)
+                b.key[2][0], p_low=p_shard if master is not None else None)
             if stage3:
                 continue             # the next forward gathers
             _collective_entry("all_gather", self._group, tensor=p_shard)
@@ -284,6 +382,7 @@ class HybridParallelOptimizer:
         self._hcg = hcg or get_hybrid_communicate_group()
         self._strategy = strategy
         self._sharding: Optional[DygraphShardingOptimizer] = None
+        self._grads_reduced = False
         if self._hcg is not None and \
                 self._hcg.get_sharding_parallel_world_size() > 1:
             self._sharding = DygraphShardingOptimizer(optimizer, self._hcg)
@@ -335,11 +434,32 @@ class HybridParallelOptimizer:
             _sequence_allreduce_gradients(
                 params, h.mesh.group(("sep", "cp"), name="sep_cp"), scale=1.0)
 
+    def _reduce_once(self) -> None:
+        """The step's gradient reduction, once (``amp.GradScaler``
+        unscales after it, then steps)."""
+        if not self._grads_reduced:
+            self._reduce_gradients()
+            self._grads_reduced = True
+
+    def _unscale_targets(self):
+        self._reduce_once()
+        return self._stepper()._unscale_targets()
+
+    def _flag_group(self):
+        return self._stepper()._flag_group()
+
+    def _skip_step(self) -> None:
+        self._grads_reduced = False
+        if self._sharding is not None:
+            self._sharding._skip_step()
+
     def step(self):
-        self._reduce_gradients()
+        self._reduce_once()
         self._stepper().step()
+        self._grads_reduced = False
 
     def clear_grad(self, set_to_zero: bool = True):
+        self._grads_reduced = False
         self._inner_opt.clear_grad(set_to_zero=set_to_zero)
 
     clear_gradients = clear_grad

@@ -24,11 +24,14 @@ explicitly chosen schedule raises ``RuntimeError`` unless the flag is
 set (then it warns, and each mp rank runs the whole stage: a
 ``PipelineLayer``'s layers are not split by mp; ``llama_pipeline_step``
 / ``gpt_pipeline_step`` run the mp layers); a micro-batch whose rows do
-not split over dp warns and runs on every dp rank whole.  A
-``GradScaler`` raises ``NotImplementedError`` (Queue 1 item 3); a
-multi-input model runs its schedule (the first stage takes the tuple),
-so nothing is bypassed.  Sharding, sep and cp with pp raise at
-``fleet.init``.
+not split over dp warns and runs on every dp rank whole.  With a
+``GradScaler`` the schedule still runs (the JAX package falls back to a
+grad-accumulation loop): each micro-batch's loss is scaled on the last
+stage, and ``scaler.step`` and ``update`` run once, after the last
+backward and the gradient reductions (the scaler's flag is reduced over
+every rank, pp included); a multi-input model runs its schedule (the
+first stage takes the tuple), so nothing is bypassed.  Sharding, sep
+and cp with pp raise at ``fleet.init``.
 """
 from __future__ import annotations
 
@@ -151,10 +154,6 @@ class PipelineParallel(MetaParallelBase):
     def forward_backward_pipeline(self, data, scaler=None):
         """The micro-batch loop under the schedule (module docstring);
         returns the mean loss (on every rank under a topology)."""
-        if scaler is not None:
-            raise NotImplementedError("GradScaler under pipelines waits for "
-                                      "a later slice (bf16 O2 trains "
-                                      "without it)")
         inputs, labels = data
         n = self.accumulate_steps
         micro_inputs = self._split_micro(inputs, n)
@@ -169,6 +168,8 @@ class PipelineParallel(MetaParallelBase):
                 if isinstance(x, tuple) else self._rows(x, dp)
         xs = [rows(x) for x in micro_inputs]
         ys = [rows(y) for y in micro_labels]
+        sched.loss_scale = scaler._on(self._device()) \
+            if scaler is not None and scaler.is_enable() else None
         loss = sched.forward_backward(xs, ys)
         if self._distributed():
             loss = self._broadcast_loss(loss)
@@ -210,7 +211,11 @@ class PipelineParallel(MetaParallelBase):
         self._layers.train()
         loss = self.forward_backward_pipeline(data, scaler)
         self._check_optimizer(optimizer)
-        optimizer.step()
+        if scaler is not None:
+            scaler.step(optimizer)
+            scaler.update()
+        else:
+            optimizer.step()
         optimizer.clear_grad()
         if lr_scheduler is not None:
             lr_scheduler.step()

@@ -35,7 +35,8 @@ An event's residuals are its stage's autograd graph.  ``F`` runs the
 stage's layers on a detached copy of its input that requires a gradient;
 ``B`` runs ``torch.autograd.backward`` from its output (the last stage:
 from ``loss / M``, as a step that accumulates ``loss / M`` a micro-batch
-does), which accumulates the parameters' gradients and the input's;
+does; times the loss scale when ``amp.GradScaler`` scales it), which
+accumulates the parameters' gradients and the input's;
 ``Bd`` is ``torch.autograd.grad`` on the input, keeping the graph, and
 ``Bw`` the same on the parameters, added to their gradients (the first
 stage's ``Bd`` has no input gradient to take; its ``Bw`` is the whole
@@ -219,10 +220,11 @@ class _Step:
     the last stage's losses."""
 
     def __init__(self, runners: Dict[int, _StageRunner], n_virtual: int,
-                 m: int):
+                 m: int, loss_scale: Optional[torch.Tensor] = None):
         self.runners = runners
         self.last = n_virtual - 1
         self.m = m
+        self.loss_scale = loss_scale
         self.saved: Dict[Tuple[int, int], tuple] = {}
         self.retained: Dict[Tuple[int, int], tuple] = {}
         self.losses: Dict[int, torch.Tensor] = {}
@@ -239,6 +241,8 @@ class _Step:
             if k == self.last:
                 self.losses[i] = out.detach()
                 out = out / self.m
+                if self.loss_scale is not None:
+                    out = out * self.loss_scale.to(out.device, out.dtype)
         self.saved[(k, i)] = (h_in, out)
         self.peak_live = max(self.peak_live, len(self.saved))
         return None if k == self.last else out.detach()
@@ -354,15 +358,18 @@ class HostPipelineSchedule:
         self.event_log: List[Tuple[int, str, int]] = []
         self.peak_live_residuals = 0
         self.peak_retained_graphs = 0
+        # amp.GradScaler's scale for the step (PipelineParallel sets it)
+        self.loss_scale: Optional[torch.Tensor] = None
 
     def forward_backward(self, micro_inputs, micro_labels):
         """Run every micro-batch through the schedule, accumulating the
-        stages' gradients into their parameters' ``.grad``; returns the
-        mean loss."""
+        stages' gradients into their parameters' ``.grad`` (each
+        micro-batch's ``loss / M`` times ``self.loss_scale`` when set);
+        returns the mean loss."""
         m = len(micro_inputs)
         s_n = self.n_virtual
         order = global_order(self.mode, s_n, m)
-        step = _Step(self.runners, s_n, m)
+        step = _Step(self.runners, s_n, m, self.loss_scale)
         acts: Dict[Tuple[int, int], torch.Tensor] = {}
         gin: Dict[Tuple[int, int], torch.Tensor] = {}
         self.event_log = []
@@ -509,6 +516,8 @@ class P2PPipelineSchedule:
         self.timing = False
         self.busy_ms = 0.0
         self.step_ms = 0.0
+        # amp.GradScaler's scale for the step (the callers set it)
+        self.loss_scale: Optional[torch.Tensor] = None
 
     def _warm(self, h) -> None:
         """Open every channel of the world in one order (each rank its
@@ -593,13 +602,14 @@ class P2PPipelineSchedule:
         """This rank's events of one step over its micro-batches
         (``micro_inputs`` are read on the first stage, ``micro_labels`` on
         the last; the others may be ``None``); gradients accumulate into
-        the rank's parameters.  Returns the mean loss on the last stage,
-        else ``None``."""
+        the rank's parameters (the last stage's losses times
+        ``self.loss_scale`` when set).  Returns the mean loss on the last
+        stage, else ``None``."""
         m = len(micro_inputs) if micro_inputs is not None \
             else len(micro_labels)
         s_n = self.n_virtual
         mine, index = self._plan(m)
-        step = _Step(self.runners, s_n, m)
+        step = _Step(self.runners, s_n, m, self.loss_scale)
         local: Dict[Tuple[str, int, int], torch.Tensor] = {}
         timing = self.timing and self.device.type == "cuda"
         spans = []

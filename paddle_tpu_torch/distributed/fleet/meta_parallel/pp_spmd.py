@@ -22,8 +22,10 @@ embedding) is summed over the first and last stage before the step
 (``pp_shared_group``).  Gradients are averaged over the ``dp_axes``
 ranks, whose rows of each micro-batch are theirs, once a step; mp layers
 inside a stage split as they do without pipelines.  ``sync_fn`` has
-nothing to write back: the blocks are the model's own.  ``scaler``
-raises ``NotImplementedError`` (Queue 1 item 3); ``autocast`` (a
+nothing to write back: the blocks are the model's own.  A ``scaler``
+(``amp.GradScaler``) scales each micro-batch's loss on the last stage;
+its ``step`` and ``update`` run once, after the gradient reductions, its
+flag reduced over every rank; ``autocast`` (a
 zero-argument context-manager factory, e.g. ``functools.partial(
 amp.auto_cast, level="O2", dtype="bfloat16")``) is entered around every
 forward.
@@ -103,10 +105,8 @@ class PipelineSpmdStep:
                  n_micro: int, axis_name: str = "pp", dp_axes=("dp",),
                  remat_blocks: bool = True, sync_fn: Optional[Callable] = None,
                  n_chunks: int = 1, scaler=None, autocast=None):
-        if scaler is not None:
-            raise NotImplementedError("GradScaler under pipelines waits for "
-                                      "a later slice (bf16 O2 trains "
-                                      "without it)")
+        self.scaler = scaler if (scaler is not None
+                                 and scaler.is_enable()) else None
         if axis_name != "pp":
             raise ValueError(f"axis_name {axis_name!r}: the fleet mesh's "
                              "pipeline axis is 'pp'")
@@ -186,6 +186,9 @@ class PipelineSpmdStep:
         from ..utils.hybrid_parallel_util import (
             fused_allreduce_gradients_with_group, pipeline_allreduce_gradients)
         xs, ys = self._rows(inputs), self._rows(labels)
+        scaler = self.scaler
+        self.sched.loss_scale = None if scaler is None \
+            else scaler._on(self.device)
         loss = self.sched.forward_backward(xs, ys)
         params = self.params()
         pipeline_allreduce_gradients(params, None)     # the tied weights
@@ -193,7 +196,11 @@ class PipelineSpmdStep:
             fused_allreduce_gradients_with_group(
                 [q for q in params if q.grad is not None],
                 self.mesh.group(self.dp_axes))
-        self.optimizer.step()
+        if scaler is not None:
+            scaler.step(self.optimizer)
+            scaler.update()
+        else:
+            self.optimizer.step()
         self.optimizer.clear_grad()
         if self.sync_fn is not None:
             self.sync_fn()

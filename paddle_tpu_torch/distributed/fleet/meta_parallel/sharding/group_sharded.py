@@ -210,12 +210,13 @@ def group_sharded_parallel(model, optimizer, level: str, scaler=None,
     (stage 2) or ``"p_g_os"`` (stage 3); returns ``(model, optimizer,
     scaler)`` with the model wrapped and the optimizer sharded over
     ``group`` (default: fleet's sharding group, else every rank).
-    ``scaler``, ``offload``, ``sync_comm``, ``dp_group``,
-    ``exclude_layer`` and non-default buffer or segment sizes raise
-    ``NotImplementedError``."""
+    ``scaler`` (``amp.GradScaler``) is returned as given: it unscales
+    and checks the sharded optimizer's gradient shards.  ``offload``,
+    ``sync_comm``, ``dp_group``, ``exclude_layer`` and non-default
+    buffer or segment sizes raise ``NotImplementedError``."""
     if level not in ("os", "os_g", "p_g_os"):
         raise ValueError("level must be one of 'os', 'os_g', 'p_g_os'")
-    for what, given in (("scaler", scaler is not None), ("offload", offload),
+    for what, given in (("offload", offload),
                         ("sync_comm", sync_comm),
                         ("dp_group", dp_group is not None),
                         ("exclude_layer", exclude_layer is not None),

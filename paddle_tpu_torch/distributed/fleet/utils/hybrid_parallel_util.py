@@ -147,6 +147,19 @@ def pipeline_allreduce_gradients(parameter_list, hcg) -> None:
                                              hcg.get_data_parallel_group())
 
 
+def counts_shared_weight(p, hcg) -> bool:
+    """Whether this rank counts ``p`` in a global-norm clip's sum: a
+    weight several stages share (``pp_shared_group``, its gradient summed
+    over them) counts on its first stage only; any other parameter
+    counts."""
+    g = getattr(p, "pp_shared_group", None)
+    if g is None or hcg is None:
+        return True
+    topo = hcg.topology
+    first = min(g.ranks, key=lambda r: topo.get_coord(r).pipe)
+    return hcg.get_global_rank() == first
+
+
 def sharding_reduce_gradients(parameter_list, hcg=None):
     """The gradients averaged over the sharding group."""
     group = hcg.get_sharding_parallel_group() if hcg is not None else None

@@ -66,7 +66,7 @@ from .....distributed.fleet.base.topology import (
 from .....distributed.fleet.meta_parallel.parallel_layers.mp_ops import (
     _c_identity, _gather, _mp_allreduce)
 from .....nn import functional as F
-from .....nn.clip import ClipGradByGlobalNorm, _sq_sum
+from .....nn.clip import ClipGradByGlobalNorm, _sq_sum, need_clip
 from .....nn.layers import Linear
 
 __all__ = ["BaseGate", "NaiveGate", "GShardGate", "SwitchGate", "GATES",
@@ -491,20 +491,28 @@ class ClipGradForMOEByGlobalNorm(ClipGradByGlobalNorm):
         self.is_expert_param_func = is_expert_param_func
         self.moe_group = moe_group
 
-    def _squared_norm(self, params_grads) -> Optional[torch.Tensor]:
+    def _squared_norm(self, params_grads, device=None
+                      ) -> Optional[torch.Tensor]:
         is_expert = self.is_expert_param_func or is_expert_param
-        pg = [(p, g) for p, g in params_grads if g is not None]
+        pg = [(p, g) for p, g in params_grads
+              if g is not None and need_clip(p)]
         dense = _sq_sum([g for p, g in pg if not is_expert(p)])
         moe = _sq_sum([g for p, g in pg if is_expert(p)])
         group = self.moe_group
         if group is None:
             hcg = get_hybrid_communicate_group()
             group = hcg.get_expert_parallel_group() if hcg else None
+        local = moe if dense is None else (
+            dense if moe is None else dense + moe)
         if group is not None and group.nranks > 1:
             if moe is None:
-                dev = pg[0][1].device if pg else default_device(None)
+                dev = pg[0][1].device if pg else default_device(device)
                 moe = torch.zeros((), dtype=torch.float32, device=dev)
             moe = group_sum(moe, group)
-        if dense is None:
-            return moe
-        return dense if moe is None else dense + moe
+        total = moe if dense is None else (
+            dense if moe is None else dense + moe)
+        if total is not None:
+            self.last_local_norm = (torch.zeros_like(total) if local is None
+                                    else local).sqrt()
+            self.last_norm = total.sqrt()
+        return total

@@ -3,6 +3,10 @@
 :func:`train_step` returns a callable ``step(*batch) -> loss`` that runs
 the forward and the loss, ``backward``, ``optimizer.step()`` and
 ``optimizer.clear_grad()``, and returns the loss as a device tensor.
+With a ``scaler`` (``amp.GradScaler``) the order is the JAX package's:
+``scaler.scale(loss).backward()``, ``scaler.step(optimizer)``,
+``scaler.update()``; the scaler's skip decision is its one host read a
+step.
 
 It is eager: no ``torch.compile`` (the JAX package jits the whole step
 into one XLA program; here each op launches on its own, the hand-written
@@ -157,8 +161,6 @@ class TrainStep:
     def __init__(self, model, loss_fn=None, optimizer=None, scaler=None,
                  mesh=None, batch_spec=None, step_fn=None,
                  donate: bool = True):
-        if scaler is not None:
-            raise NotImplementedError("GradScaler waits for a later slice")
         if loss_fn is None and step_fn is None:
             raise ValueError("give loss_fn or step_fn")
         self._data = _DataShard(mesh, batch_spec, model, optimizer) \
@@ -166,6 +168,7 @@ class TrainStep:
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        self.scaler = scaler
         self.step_fn = step_fn
         model.train()
 
@@ -185,8 +188,13 @@ class TrainStep:
         else:
             loss = self.loss_fn(self.model(batch[0]), *batch[1:])
         if self.optimizer is not None:
-            loss.backward()
-            self.optimizer.step()
+            if self.scaler is not None:
+                self.scaler.scale(loss).backward()
+                self.scaler.step(self.optimizer)
+                self.scaler.update()
+            else:
+                loss.backward()
+                self.optimizer.step()
             self.optimizer.clear_grad()
         loss = loss.detach()
         return self._data.mean(loss) if self._data is not None else loss
@@ -196,6 +204,7 @@ def train_step(model, loss_fn=None, optimizer=None, scaler=None,
                mesh=None, **kwargs) -> TrainStep:
     """Build the training step of ``model``: ``step_fn(model, *batch)``
     returns the loss (or ``loss_fn(model(batch[0]), *batch[1:])`` does);
-    the model is put in training mode.  ``kwargs`` are
+    the model is put in training mode; ``scaler`` scales the loss and
+    steps the optimizer (module docstring).  ``kwargs`` are
     :class:`TrainStep`'s (``batch_spec``, ``step_fn``, ``donate``)."""
     return TrainStep(model, loss_fn, optimizer, scaler, mesh=mesh, **kwargs)

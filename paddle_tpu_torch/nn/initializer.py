@@ -76,18 +76,20 @@ class XavierNormal(Initializer):
 
 
 class ParamAttr:
-    """ref: ``framework/param_attr.py``.  The port reads ``initializer``;
-    other values than the defaults raise ``NotImplementedError``."""
+    """ref: ``framework/param_attr.py``.  The port reads ``initializer``
+    and ``need_clip`` (``nn.Linear`` marks its parameters with it; the
+    clips skip a parameter whose ``need_clip`` is False); other values
+    than the defaults raise ``NotImplementedError``."""
 
     def __init__(self, name: Optional[str] = None, initializer=None,
                  learning_rate: float = 1.0, regularizer=None,
                  trainable: bool = True, do_model_average: bool = True,
                  need_clip: bool = True):
         if learning_rate != 1.0 or regularizer is not None or \
-                not trainable or not need_clip:
+                not trainable:
             raise NotImplementedError(
-                "ParamAttr learning_rate, regularizer, trainable and "
-                "need_clip wait for a later slice")
+                "ParamAttr learning_rate, regularizer and trainable wait "
+                "for a later slice")
         self.name = name
         self.initializer = initializer
         self.learning_rate = learning_rate

@@ -23,8 +23,8 @@ __all__ = ["Linear", "GELU"]
 
 class Linear(nn.Module):
     """The reference's parameters in its order; ``weight_attr`` /
-    ``bias_attr`` read their ``initializer`` (``bias_attr=False``: no
-    bias); ``name`` is a label."""
+    ``bias_attr`` read their ``initializer`` and ``need_clip``
+    (``bias_attr=False``: no bias); ``name`` is a label."""
 
     def __init__(self, in_features: int, out_features: int,
                  weight_attr=None, bias_attr=None, name=None, *,
@@ -42,6 +42,9 @@ class Linear(nn.Module):
             b_init = getattr(bias_attr, "initializer", None) or Constant(0.0)
             self.bias = nn.Parameter(b_init([out_features], generator=gen,
                                             device=dev))
+        for p, attr in ((self.weight, weight_attr), (self.bias, bias_attr)):
+            if p is not None and getattr(attr, "need_clip", True) is False:
+                p.need_clip = False
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)

@@ -11,18 +11,26 @@ from the JAX base:
 * the learning rate as a device scalar, so a step reads nothing back to
   the host.
 
-``grad_clip`` takes ``nn.clip.ClipGradByGlobalNorm`` and its MoE form
-(``ClipGradForMOEByGlobalNorm``): each step computes the scale once over
-every gradient and multiplies each gradient by it, in the gradient's
-dtype, just before its update.  Other clip classes, L1/L2
-regularizers, LR schedulers and parameter groups wait for a later slice
-and raise ``NotImplementedError``.
+``grad_clip`` takes any clip of ``nn.clip`` (``ClipGradByValue``,
+``ClipGradByNorm``, ``ClipGradByGlobalNorm`` and its MoE form
+``ClipGradForMOEByGlobalNorm``): each step clips every gradient once,
+just before the updates (a global norm's scale multiplied into the
+gradients in place, one multi-tensor launch a dtype).  L1/L2 regularizers, LR schedulers and
+parameter groups wait for a later slice and raise
+``NotImplementedError``.
+
+``amp.GradScaler`` steps an optimizer through :meth:`_unscale_targets`
+(the gradients it unscales and checks) and skips a step with a
+non-finite gradient by not calling :meth:`step` at all, so nothing of
+the optimizer moves and no state is created on that step.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+
+from ..nn.clip import ClipGradBase, ClipGradByGlobalNorm
 
 __all__ = ["Optimizer"]
 
@@ -40,13 +48,11 @@ class Optimizer(torch.optim.Optimizer):
         if parameters is None:
             raise ValueError("parameters must be given (the port trains "
                              "eagerly, as Paddle's dygraph mode does)")
-        from ..nn.clip import ClipGradByGlobalNorm
-        if grad_clip is not None and \
-                not isinstance(grad_clip, ClipGradByGlobalNorm):
+        if grad_clip is not None and not isinstance(grad_clip, ClipGradBase):
             raise NotImplementedError(
-                f"grad_clip {type(grad_clip).__name__} waits for a later "
-                "slice (ClipGradByGlobalNorm and ClipGradForMOEByGlobalNorm "
-                "run)")
+                f"grad_clip {type(grad_clip).__name__}: the port takes the "
+                "clips of nn.clip (ClipGradByValue, ClipGradByNorm, "
+                "ClipGradByGlobalNorm, ClipGradForMOEByGlobalNorm)")
         if not isinstance(learning_rate, (int, float)):
             raise NotImplementedError("LR schedulers wait for a later "
                                       "slice; pass a float learning_rate")
@@ -88,17 +94,31 @@ class Optimizer(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        params = [p for group in self.param_groups for p in group["params"]
-                  if p.grad is not None]
-        scale = None
-        if self._grad_clip is not None:
-            scale = self._grad_clip.scale([(p, p.grad) for p in params])
-        for p in params:
-            g = p.grad
-            if scale is not None:
-                g = g * scale.to(g.dtype)
+        params = [p for group in self.param_groups for p in group["params"]]
+        pg = [(p, p.grad) for p in params if p.grad is not None]
+        clip = self._grad_clip
+        if isinstance(clip, ClipGradByGlobalNorm):
+            clip._clip_(pg, device=params[0].device if params else None)
+        elif clip is not None:
+            pg = clip(pg)
+        for p, g in pg:
             self._update_param(p, g)
         return loss
+
+    def _unscale_targets(self):
+        """The gradients ``amp.GradScaler`` unscales and checks."""
+        return [p.grad for group in self.param_groups
+                for p in group["params"] if p.grad is not None]
+
+    def _flag_group(self):
+        """The group of the DataParallel reducer that holds the
+        parameters, whose ranks must agree on a skip (None: none)."""
+        from ..distributed.parallel import reducer_of
+        for group in self.param_groups:
+            for p in group["params"]:
+                red = reducer_of(p)
+                return red.group if red is not None else None
+        return None
 
     def _update_param(self, p, g):
         raise NotImplementedError

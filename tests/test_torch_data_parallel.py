@@ -336,19 +336,70 @@ def test_world_of_one_is_bit_equal_to_the_plain_step(mode):
 
 
 @pytest.mark.parametrize("level", ["os", "os_g", "p_g_os"])
-def test_sharding_refuses_a_grad_clip(level):
-    """The sharded update runs K3 on the shards and reads no clip, so
-    ``group_sharded_parallel`` refuses an optimizer that has one."""
+def test_sharding_clips_by_the_global_norm(level):
+    """In a world of one each stage's sharded update clips by the norm
+    of its gradient shards, scaled into each bucket before K3, under a
+    ``GradScaler``: 3 fp32 steps of the unsharded optimizer with the
+    same clip (an active one, 0.5) give the same losses and norms within
+    rtol 1e-6 (the same squares summed by bucket, not by tensor) and
+    parameters within 1e-5 (Adam's normalised update turns a last-bit
+    gradient difference into ~1e-6 of a weight per step)."""
+    import torch
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.models import GPTForPretraining, gpt_config
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    def run(wrap):
+        model = GPTForPretraining(gpt_config(
+            "tiny", hidden_dropout_prob=0.0, attention_dropout_prob=0.0),
+            device="cpu", seed=3)
+        clip = ClipGradByGlobalNorm(0.5)
+        opt = optimizer.AdamW(learning_rate=1e-3,
+                              parameters=model.parameters(), grad_clip=clip)
+        model, opt = wrap(model, opt)
+        scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+        step = train_step(model, None, opt, scaler=scaler,
+                          step_fn=workers._step_fn)
+        ids, labels = workers.global_batch()
+        losses, norms = [], []
+        for _ in range(3):
+            losses.append(float(step(ids[:2], labels[:2])))
+            norms.append(float(clip.last_norm))
+        return losses, norms, {n: v.detach().clone()
+                               for n, v in model.state_dict().items()}
+
+    want_losses, want_norms, want = run(lambda m, o: (m, o))
+    assert min(want_norms) > 0.5                   # the clip is active
+    try:
+        tdist.init_parallel_env(device="cpu")
+        losses, norms, got = run(
+            lambda m, o: group_sharded_parallel(m, o, level)[:2])
+    finally:
+        tdist.destroy_process_group()
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-6)
+    np.testing.assert_allclose(norms, want_norms, rtol=1e-6)
+    for n, p in want.items():
+        key = n if n in got else f"_layers.{n}"
+        np.testing.assert_allclose(got[key].numpy(), p.numpy(), rtol=0,
+                                   atol=1e-5, err_msg=n)
+
+
+@pytest.mark.parametrize("level", ["os_g", "p_g_os"])
+def test_sharding_refuses_a_per_tensor_norm_clip(level):
+    """``ClipGradByNorm`` is a norm a tensor: under stages 2 and 3 a rank
+    holds its gradient shard, not a whole gradient, so it raises."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
     from paddle_tpu_torch.models import GPTForPretraining, gpt_config
-    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn import ClipGradByNorm
     model = GPTForPretraining(gpt_config("tiny"), device="cpu", seed=3)
     opt = optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters(),
-                          grad_clip=ClipGradByGlobalNorm(1.0))
+                          grad_clip=ClipGradByNorm(1.0))
     try:
         tdist.init_parallel_env(device="cpu")
-        with pytest.raises(NotImplementedError, match="grad_clip"):
+        with pytest.raises(NotImplementedError, match="ClipGradByNorm"):
             group_sharded_parallel(model, opt, level)
     finally:
         tdist.destroy_process_group()

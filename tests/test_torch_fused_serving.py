@@ -197,15 +197,18 @@ def _eos_prompt(pm, rs, n, new):
 
 def _serve(pm, prompts, fused_steps, **kw):
     """Serve ``prompts`` concurrently at ``FLAGS_serving_fused_steps``;
-    returns (tokens per request, engine stats)."""
+    returns (tokens per request, engine stats).  Every request is queued
+    before the loop starts, so the first step admits them all whatever
+    the load on the host (the sampled draws follow the batches)."""
     keep = get_flags(["FLAGS_serving_fused_steps"])
     set_flags({"FLAGS_serving_fused_steps": fused_steps})
     try:
         engine = ServingEngine(pm, max_batch=4, page_size=8,
                                prefix_caching=False, seed=42, device="cpu")
+        engine._accepting = True      # queue first, as the fault tests do
+        reqs = [engine.submit(p, **(dict(kw, **extra)))
+                for p, extra in prompts]
         with engine:
-            reqs = [engine.submit(p, **(dict(kw, **extra)))
-                    for p, extra in prompts]
             got = [r.wait(timeout=120) for r in reqs]
         return got, engine.stats()
     finally:

@@ -239,8 +239,6 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="O1"):
         with amp.auto_cast(enable=True):
             pass
-    with pytest.raises(NotImplementedError, match="GradScaler"):
-        amp.GradScaler()
     with pytest.raises(NotImplementedError, match="grad_clip"):
         optimizer.AdamW(parameters=m.parameters(), grad_clip=object())
     with pytest.raises(NotImplementedError, match="amsgrad"):

@@ -19,7 +19,14 @@ the port's launcher with ``--device cpu``):
   ``fleet.distributed_optimizer``, against the JAX run (one object);
 * an explicit schedule with a live mp axis (pp 2 x mp 2) refused, then
   run under ``FLAGS_pp_allow_axis_fallback``; pp with sharding, sep or
-  cp refused; a ``ClipGradByGlobalNorm`` at pp 4 refused at the step;
+  cp refused;
+* the ``Linear`` stack at pp 4 under 1F1B with ``ClipGradByGlobalNorm(
+  0.5)`` in its SGD (bare, and through ``fleet.distributed_optimizer``):
+  losses and parameters against the JAX stack with the same clip on one
+  device (its clip sums arrays on one device: at pp 4 over four it
+  raises), each step's global norm (the stages' shares summed over pp)
+  against the JAX gradients' norm within ``rtol = 1e-5``, a stage's own
+  share missing it;
 * the tiny GPT (4 layers, head tied to the word embedding) at dp 2 x pp 2
   through ``gpt_pipeline_step`` against the JAX package's at dp 2 x pp 4
   (``test_pipeline_spmd.py``'s run: AdamW 1e-3, 4 micro-batches of the
@@ -114,6 +121,36 @@ def _jax_layer_run(mode):
     return out
 
 
+def _jax_clip_run(weights):
+    """The ``Linear`` stack (``weights``) under 1F1B with SGD and
+    ``ClipGradByGlobalNorm(PP_CLIP)``, every stage on one device: the JAX
+    clip sums its arrays on one device, so its run at pp 4 over four
+    devices raises and this is its global-norm oracle.  Losses, each
+    step's global norm (of the gradients the step clips), parameters."""
+    _fresh()
+    pl = JaxPipelineLayer(
+        layers=[JaxLayerDesc(jnn.Linear, 8, 8) for _ in range(8)],
+        num_stages=4, loss_fn=workers.pp_loss)
+    pl.set_state_dict({k: paddle.to_tensor(v) for k, v in weights.items()})
+    sched = JaxHostPipelineSchedule(pl, "1F1B",
+                                    devices=[jax.devices()[0]] * 4)
+    o = jopt.SGD(learning_rate=0.05, parameters=pl.parameters(),
+                 grad_clip=jnn.ClipGradByGlobalNorm(workers.PP_CLIP))
+    losses, norms = [], []
+    for i in range(workers.STEPS):
+        x, y = workers.pp_data(i)
+        losses.append(float(sched.forward_backward(np.split(x, 4),
+                                                   np.split(y, 4))))
+        norms.append(float(np.sqrt(sum(
+            np.sum(np.asarray(p._grad._data, np.float64) ** 2)
+            for p in pl.parameters()))))
+        o.step()
+        o.clear_grad()
+    params = {n: np.asarray(p._data) for n, p in pl.named_parameters()}
+    _fresh()
+    return dict(losses=losses, norms=norms, params=params)
+
+
 def _jax_shared_run():
     """The ``SharedLayerDesc`` stack (layers 0 and 7 one bias-free
     ``Linear``) at pp 4 under 1F1B: weights, the first step's gradient of
@@ -191,6 +228,7 @@ def _peak(events):
 def runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("pipeline")
     jax = {mode: _jax_layer_run(mode) for mode in MODES}
+    jax["clip"] = _jax_clip_run(jax["1F1B"]["weights"])
     np.savez(out / "pp.npz", **jax["1F1B"]["weights"])
     want = {}
     weights, grad, losses, params = _jax_shared_run()
@@ -317,15 +355,28 @@ def test_p2p_groups_are_the_ring_neighbours(runs):
             sorted([r, nxt]), sorted([r, prev])]
 
 
-def test_pipeline_refuses_a_global_norm_clip(runs):
-    """At pp 4 a stage's own gradients give no global norm: the clip
-    raises at the step, with a bare optimizer and the hybrid one."""
-    _, _, _, info = runs
+@pytest.mark.parametrize("wrap", ["bare", "hybrid"])
+def test_pipeline_clips_by_the_global_norm(runs, wrap):
+    """At pp 4 each stage holds its own gradients: the clip sums the
+    stages' shares, so the losses, the parameters and every step's norm
+    are the JAX run's (one object holds every stage's gradients there),
+    and a stage's own share misses the norm."""
+    jax, _, arrays, info = runs
+    want = jax["clip"]
+    assert min(want["norms"]) > workers.PP_CLIP      # the clip is active
+    tag = f"pp4_clip_{wrap}"
     for r in range(N):
-        got = info[r]["pp_clip_refused"]
-        assert set(got) == {"bare", "hybrid"}
-        for wrap, msg in got.items():
-            assert "grad_clip" in msg and "later slice" in msg, (wrap, msg)
+        np.testing.assert_allclose(info[r][tag], want["losses"],
+                                   rtol=LIN_LOSS_RTOL)
+        norms = np.array(info[r][f"{tag}_norms"])
+        np.testing.assert_allclose(norms[:, 0], want["norms"], rtol=1e-5)
+        assert np.all(np.abs(norms[:, 1] - norms[:, 0]) > 1e-3 * norms[:, 0])
+        for k, a in arrays[r].items():
+            if k.startswith(f"{tag}/"):
+                n = k.split("/", 1)[1]
+                np.testing.assert_allclose(a, want["params"][n], rtol=0,
+                                           atol=LIN_PARAM_ATOL,
+                                           err_msg=f"rank {r} {n}")
 
 
 def test_pipeline_with_sharding_sep_or_cp_raises(runs):

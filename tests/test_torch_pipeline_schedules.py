@@ -11,10 +11,12 @@ stages): the losses and parameters after 3 steps, the event log (every
 ``(stage, kind, micro)`` in the order run, hence each stage's order)
 and ``peak_live_residuals``.  Then what only the port has: the schedules'
 parameters bit-equal to one another (the same gradients added in the
-same order); ZBH1's retained graphs; ``recompute_interval``; and the
-raise rules (an unknown mode, VPP without chunks, ``dp_degree``,
-``GradScaler``).  The explicit schedule with a live mp axis needs ranks:
-``tests/test_torch_pipeline_parallel.py``.
+same order); ZBH1's retained graphs; ``recompute_interval``; the raise
+rules (an unknown mode, VPP without chunks, ``dp_degree``); and each
+schedule under an ``amp.GradScaler`` (a power-of-two scale in fp32:
+parameters bit-equal to the unscaled run; a step with an ``inf`` loss
+skipped, nothing moved, the scale halved).  The explicit schedule with
+a live mp axis needs ranks: ``tests/test_torch_pipeline_parallel.py``.
 
 Tolerances: losses ``rtol = 1e-5`` (``test_pp_schedules.py``'s against
 its oracle) and parameters ``atol = 1e-6``: fp32, the same products
@@ -248,10 +250,34 @@ def test_in_process_dp_and_scaler_raise(runs):
     pl = _port_layer(jax["1F1B"]["weights"])
     with pytest.raises(NotImplementedError, match="process"):
         HostPipelineSchedule(pl, dp_degree=2)
-    model = PipelineParallel(pl, strategy=_strategy("1F1B"))
-    with pytest.raises(NotImplementedError, match="GradScaler"):
-        model.train_batch(_data(), optimizer.SGD(
-            learning_rate=0.1, parameters=pl.parameters()), scaler=object())
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_scaler_runs_the_schedule(runs, mode):
+    """A ``GradScaler`` of 2 ** 10 scales each micro-batch's loss on the
+    last stage: in fp32 the unscaled gradients are the plain run's bit
+    for bit, so the parameters are too; a step whose loss is ``inf``
+    moves nothing and halves the scale."""
+    from paddle_tpu_torch import amp
+    jax, port = runs
+    pl = _port_layer(jax[mode]["weights"], 2 if mode == "VPP" else 1)
+    model = PipelineParallel(pl, strategy=_strategy(mode))
+    o = optimizer.SGD(learning_rate=0.05, parameters=pl.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+    losses = [float(model.train_batch(_data(i), o, scaler=scaler))
+              for i in range(3)]
+    assert losses == port[mode]["losses"]
+    for n, p in pl.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(),
+                                      port[mode]["params"][n], err_msg=n)
+    before = {n: p.detach().clone() for n, p in pl.named_parameters()}
+    x, y = _data(3)
+    x[0, 0] = np.inf
+    assert not np.isfinite(float(model.train_batch((x, y), o,
+                                                   scaler=scaler)))
+    assert float(scaler._scale) == 2.0 ** 9
+    for n, p in pl.named_parameters():
+        assert torch.equal(p, before[n]), n
 
 
 def test_a_stage_runs_its_own_layers_only(runs):

@@ -109,7 +109,9 @@ from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.incubate.distributed.models.moe import (
     moe_layer as tmoe)
 from paddle_tpu_torch.models import ernie_moe as ternie
+from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.nn import clip as tclip
+from paddle_tpu_torch.nn import initializer as tinit
 from paddle_tpu_torch.distributed import utils as tdutils
 
 # the modules (each package's ``jit`` exports the function of that name,
@@ -158,6 +160,14 @@ PAIRS = {
     "SGD.__init__": (jopt.SGD.__init__, topt.SGD.__init__),
     "Adam.__init__": (jopt.Adam.__init__, topt.Adam.__init__),
     "AdamW.__init__": (jopt.AdamW.__init__, topt.AdamW.__init__),
+    "GradScaler.__init__": (jamp.GradScaler.__init__,
+                            amp.GradScaler.__init__),
+    **{f"GradScaler.{m}": (getattr(jamp.GradScaler, m),
+                           getattr(amp.GradScaler, m))
+       for m in ("scale", "unscale_", "step", "update", "minimize",
+                 "is_enable", "is_use_dynamic_loss_scaling",
+                 "get_init_loss_scaling", "set_init_loss_scaling",
+                 "state_dict", "set_state_dict")},
     "TrainStep.__init__": (jtrain.TrainStep.__init__,
                            ttrain.TrainStep.__init__),
     "train_step": (jtrain.train_step, ttrain.train_step),
@@ -287,6 +297,12 @@ PAIRS = {
                    "ClipGradForMOEByGlobalNorm")},
     "ClipGradByGlobalNorm.__init__": (jclip.ClipGradByGlobalNorm.__init__,
                                       tclip.ClipGradByGlobalNorm.__init__),
+    "ClipGradByValue.__init__": (jclip.ClipGradByValue.__init__,
+                                 tclip.ClipGradByValue.__init__),
+    "ClipGradByNorm.__init__": (jclip.ClipGradByNorm.__init__,
+                                tclip.ClipGradByNorm.__init__),
+    "clip_grad_norm_": (jclip.clip_grad_norm_, tclip.clip_grad_norm_),
+    "clip_grad_value_": (jclip.clip_grad_value_, tclip.clip_grad_value_),
     "ErnieMoEConfig.__init__": (jernie.ErnieMoEConfig.__init__,
                                 ternie.ErnieMoEConfig.__init__),
     **{fn: (getattr(jdutils, fn), getattr(tdutils, fn))
@@ -399,8 +415,6 @@ UNSUPPORTED = {
     "scatter without tensor_list": lambda: tdist.scatter(torch.zeros(2)),
     "sgd weight_decay": lambda: optimizer.SGD(parameters=_param(),
                                               weight_decay=0.01),
-    "PipelineSpmdStep scaler": lambda: tppspmd.PipelineSpmdStep(
-        None, None, None, [], [], None, None, 1, scaler=object()),
     "HostPipelineSchedule dp_degree": lambda: tpps.HostPipelineSchedule(
         None, dp_degree=2),
     "generate unknown keyword": lambda: tgen.generate(
@@ -464,7 +478,32 @@ HONOURED = {
         thpu.broadcast_mp_parameters),
     "broadcast_sep_parameters": lambda: _broadcast_keeps_one_rank(
         thpu.broadcast_sep_parameters),
+    # amp.GradScaler runs (tests/test_torch_grad_scaler.py holds it against
+    # the JAX scaler, tests/test_torch_hybrid_clip.py the pipeline steps'
+    # use of it on 4 ranks); the pipeline step keeps an enabled one
+    "PipelineSpmdStep scaler": lambda: _spmd_scaler_kept(),
+    "ParamAttr need_clip": lambda: getattr(tnn.Linear(
+        2, 2, weight_attr=tinit.ParamAttr(need_clip=False),
+        device="cpu").weight, "need_clip", True) is False,
 }
+
+
+def _spmd_scaler_kept() -> bool:
+    """``PipelineSpmdStep`` stores an enabled scaler (and drops a
+    disabled one, as the JAX step does) before it reads the topology."""
+    kept = {}
+
+    class Probe(tppspmd.PipelineSpmdStep):
+        def __init__(self, scaler):
+            try:
+                super().__init__(None, None, None, [], [], None, None, 1,
+                                 scaler=scaler)
+            except ValueError:          # no fleet topology here
+                kept[scaler.is_enable()] = getattr(self, "scaler", "unset")
+    on, off = amp.GradScaler(), amp.GradScaler(enable=False)
+    Probe(on)
+    Probe(off)
+    return kept == {True: on, False: None}
 
 
 def _broadcast_keeps_one_rank(fn) -> bool:

@@ -15,7 +15,10 @@ and Ulysses attention, sep / cp runs and the fallback: ``DIR`` holding
 their inputs), ``pipeline`` (``PipelineLayer`` under each schedule at
 pp 4, the refusals, the GPT and LLaMA pipeline steps: ``DIR``), ``moe``
 (the tiny ERNIE-MoE at ep 4 and dp 2 x ep 2, two per-rank controls and
-the ragged ``global_scatter`` / ``global_gather``: ``DIR``) or
+the ragged ``global_scatter`` / ``global_gather``: ``DIR``),
+``hybrid_clip`` (the global-norm clip and ``GradScaler`` under sharding
+stages 1-3, mp with SP, mp x dp and the LLaMA pipeline steps, a
+gradient poisoned on one rank: ``DIR``) or
 ``spawn`` (two gloo ranks through
 ``distributed.spawn``, not the launcher).  :func:`launch` and
 :func:`wait_ranks` start a group from a test and collect its results.
@@ -901,6 +904,7 @@ def run_segment_parallel(out, r, src):
 # schedule at pp 4; the tiny GPT (4 layers) at dp 2 x pp 2 and the tiny GQA
 # LLaMA (4 layers) at mp 2 x pp 2 through their pipeline steps
 PP_MODES = ("FThenB", "1F1B", "ZBH1", "VPP")
+PP_CLIP = 0.5                    # the pp 4 clip run's: below each norm
 PP_LLAMA = dict(vocab_size=256, hidden_size=64, num_layers=4, num_heads=4,
                 num_kv_heads=2, max_position_embeddings=128)
 
@@ -1051,21 +1055,24 @@ def run_pipeline(out, r, src):
     finally:
         set_flags({"pp_allow_axis_fallback": False})
     _fleet_clear()
-    # a global-norm clip at pp 4: each stage holds its own gradients
-    # only, so the clip refuses, with a bare optimizer and the hybrid one
+    # a global-norm clip at pp 4: each stage's share of the squared norm
+    # summed over the pipeline, with a bare optimizer and the hybrid one
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    info["pp_clip_refused"] = {}
     for wrap in ("bare", "hybrid"):
         pl, model = _pp_layer_fleet("1F1B", dict(pp_degree=4), weights)
+        clip = ClipGradByGlobalNorm(PP_CLIP)
         opt = optimizer.SGD(learning_rate=0.05, parameters=pl.parameters(),
-                            grad_clip=ClipGradByGlobalNorm(1.0))
+                            grad_clip=clip)
         if wrap == "hybrid":
             opt = fleet.distributed_optimizer(opt)
-        try:
-            model.train_batch(pp_data(0), opt)
-            info["pp_clip_refused"][wrap] = ""
-        except NotImplementedError as e:
-            info["pp_clip_refused"][wrap] = str(e)
+        tag = f"pp4_clip_{wrap}"
+        info[tag], info[f"{tag}_norms"] = [], []
+        for i in range(STEPS):
+            info[tag].append(float(model.train_batch(pp_data(i), opt)))
+            info[f"{tag}_norms"].append((float(clip.last_norm),
+                                         float(clip.last_local_norm)))
+        for n, p in pl.named_parameters():
+            arrays[f"{tag}/{n}"] = p.detach().numpy()
         _fleet_clear()
     # what still waits: pp with sharding, sep or cp
     refused = {}
@@ -1287,6 +1294,195 @@ def run_moe(out, r, src):
     return arrays, info
 
 
+# ---------------------------------------------------------------------------
+# the hybrid global-norm clip and GradScaler (tests/test_torch_hybrid_clip.py)
+# ---------------------------------------------------------------------------
+
+# the tiny GQA LLaMA of every hybrid-clip run: 4 layers (pp 4), 8 heads
+# over 4 (mp 4 splits neither)
+HC_LLAMA = dict(TP_LLAMA, num_layers=4)
+HC_CLIP = 0.5                    # below every step's global norm
+HC_SCALE = 2.0 ** 10
+HC_STEPS = 4
+HC_POISON_STEP = 2               # rank HC_POISON_RANK's gradient is inf
+HC_POISON_RANK = 3
+# run: (model, degrees, how it is wrapped)
+HC_RUNS = {
+    "gpt_os": ("gpt", dict(dp_degree=2, sharding_degree=2), "fleet"),
+    "gpt_os_g": ("gpt", dict(dp_degree=2, sharding_degree=2), "os_g"),
+    "gpt_p_g_os": ("gpt", dict(dp_degree=2, sharding_degree=2), "p_g_os"),
+    "llama_mp4_sp": ("llama", dict(mp_degree=4), "fleet"),
+    "llama_mp2_dp2_sp": ("llama", dict(dp_degree=2, mp_degree=2), "fleet"),
+    "llama_pp4": ("llama", dict(pp_degree=4), "pipeline"),
+    "llama_mp2_pp2": ("llama", dict(mp_degree=2, pp_degree=2), "pipeline"),
+}
+
+
+def _state_tensors(model, opt):
+    """Every tensor a step may move on this rank: its parameters (under
+    stage 3 its flat shards) and its optimizer state (under sharding its
+    shards' masters, moments and beta powers)."""
+    red = getattr(model, "_reducer", None)
+    if red is not None and red.mode == "stage3":
+        ts = [f.param_shard for f in red.buckets]
+    else:
+        ts = [p.detach() for p in model.parameters()]
+    sharded = getattr(opt, "_sharding", None) or (
+        opt if hasattr(opt, "_reducer") else None)
+    inner = getattr(opt, "_inner_opt", opt)
+    states = sharded._state.values() if sharded is not None \
+        else inner.state.values()
+    return [t.clone() for t in ts] + [v.clone() for st in states
+                                       for v in st.values()]
+
+
+def _poison_rank(scaler, r, step_of):
+    """Make this rank's ``scaler.unscale_`` set one element of its last
+    gradient (or gradient shard) to inf at ``HC_POISON_STEP``, after the
+    reductions: rank ``HC_POISON_RANK`` alone sees it."""
+    unscale = scaler.unscale_
+
+    def poisoned(opt):
+        if step_of() == HC_POISON_STEP and r == HC_POISON_RANK:
+            with torch.no_grad():
+                opt._unscale_targets()[-1].view(-1)[0] = float("inf")
+        unscale(opt)
+    scaler.unscale_ = poisoned
+
+
+def _hc_build(tag, gpt_w, llama_w):
+    """One run's model, optimizer, step and clip under the live topology
+    (``HC_RUNS``)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         llama_pipeline_step,
+                                         load_paddle_tpu_state)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    kind, degrees, wrap = HC_RUNS[tag]
+    hcg = _fleet_init(**degrees)
+    clip = ClipGradByGlobalNorm(HC_CLIP)
+    scaler = amp.GradScaler(init_loss_scaling=HC_SCALE)
+    if kind == "gpt":
+        bare = tp_model("gpt", gpt_w)
+        batch = global_batch()
+    elif wrap == "pipeline":
+        bare = LlamaForCausalLM(LlamaConfig(**HC_LLAMA), device="cpu")
+        load_paddle_tpu_state(bare, llama_w)
+        batch = tp_batch(HC_LLAMA["vocab_size"])
+    else:
+        bare = LlamaForCausalLM(LlamaConfig(
+            **HC_LLAMA, sequence_parallel=True, use_recompute=True),
+            device="cpu")
+        load_paddle_tpu_state(bare, llama_w)
+        batch = tp_batch(HC_LLAMA["vocab_size"])
+
+    def adamw(m):
+        return optimizer.AdamW(learning_rate=LR, parameters=m.parameters(),
+                               grad_clip=clip)
+    if wrap == "pipeline":
+        opt = adamw(bare)
+        step = llama_pipeline_step(bare, opt, hcg.mesh, n_micro=4,
+                                   dp_axes=("dp",), scaler=scaler)
+        return bare, opt, (lambda: step(*batch)), clip, scaler
+    if wrap == "fleet":
+        model = fleet.distributed_model(bare)
+        opt = fleet.distributed_optimizer(adamw(model))
+    else:
+        model, opt, scaler = group_sharded_parallel(
+            bare, adamw(bare), wrap, scaler=scaler,
+            group=hcg.get_dp_sharding_parallel_group())
+    step = train_step(model, None, opt, scaler=scaler, mesh=hcg.mesh,
+                      step_fn=_step_fn)
+    return model, opt, (lambda: step(*batch)), clip, scaler
+
+
+def run_hybrid_clip(out, r, src):
+    """Each ``HC_RUNS`` run for ``HC_STEPS`` fp32 steps under
+    ``ClipGradByGlobalNorm(HC_CLIP)`` and ``GradScaler(HC_SCALE)``, the
+    rank-``HC_POISON_RANK`` gradient poisoned at ``HC_POISON_STEP``: the
+    losses, each step's global norm and this rank's own share, the
+    scale, this rank's own non-finite flag, whether the poisoned step
+    left every tensor it may move bit-equal, and the final parameters
+    (full values on the ranks that write them)."""
+    gpt_w = dict(np.load(os.path.join(src, "gpt.npz")))
+    llama_w = dict(np.load(os.path.join(src, "llama.npz")))
+    arrays, info = {}, {}
+    for tag, (_, _, wrap) in HC_RUNS.items():
+        model, opt, step, clip, scaler = _hc_build(tag, gpt_w, llama_w)
+        at = {"i": 0}
+        _poison_rank(scaler, r, lambda: at["i"])
+        rec = dict(losses=[], norms=[], local_norms=[], scales=[],
+                   local_flags=[])
+        for i in range(HC_STEPS):
+            at["i"] = i
+            if i == HC_POISON_STEP:
+                before = _state_tensors(model, opt)
+            rec["losses"].append(float(step()))
+            if i == HC_POISON_STEP:
+                rec["skip_bit_equal"] = all(
+                    torch.equal(a, b) for a, b in
+                    zip(before, _state_tensors(model, opt)))
+            rec["norms"].append(float(clip.last_norm))
+            rec["local_norms"].append(float(clip.last_local_norm))
+            rec["scales"].append(float(scaler._scale))
+            rec["local_flags"].append(float(scaler._local_found_inf))
+        rec["host_reads"] = scaler.host_reads
+        info[tag] = rec
+        if wrap == "pipeline":
+            used = _used(opt, model)
+            if fleet_mp_rank() == 0:
+                for n, a in used.items():
+                    arrays[f"{tag}/{n}"] = a
+        else:
+            full = model.state_dict() if wrap == "p_g_os" \
+                else full_params(model)
+            if r == 0:
+                for n, a in full.items():
+                    arrays[f"{tag}/{n}"] = np.asarray(
+                        a.float().numpy() if isinstance(a, torch.Tensor)
+                        else a)
+        _fleet_clear()
+    info["clip_by_norm_mp4"] = _clip_by_norm_mp4(llama_w)
+    return arrays, info
+
+
+def _clip_by_norm_mp4(llama_w):
+    """``ClipGradByNorm(HC_CLIP)`` on the first step's reduced gradients
+    of the LLaMA at mp 4 with SP: each parameter's whole gradient norm
+    (a split one gathered over mp) before and after the clip."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_layers
+    from paddle_tpu_torch.nn import ClipGradByNorm
+    _fleet_init(mp_degree=4)
+    model = fleet.distributed_model(tp_model("llama", llama_w, sp=True,
+                                             llama=HC_LLAMA))
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=LR, parameters=model.parameters()))
+    ids, labels = tp_batch(HC_LLAMA["vocab_size"])
+    model.train()
+    _step_fn(model, torch.tensor(ids), torch.tensor(labels)).backward()
+    opt._reduce_once()
+    named = [(n, p) for n, p in model._layers.named_parameters()]
+    clipped = ClipGradByNorm(HC_CLIP)._dygraph_clip(
+        [(p, p.grad) for _, p in named])
+    out = {n: (float(mp_layers.gather_parameter(p.grad, p).norm()),
+               float(mp_layers.gather_parameter(g, p).norm()))
+           for (n, p), (_, g) in zip(named, clipped)}
+    _fleet_clear()
+    return out
+
+
+def fleet_mp_rank() -> int:
+    from paddle_tpu_torch.distributed.fleet.base.topology import (
+        get_hybrid_communicate_group)
+    return get_hybrid_communicate_group().get_model_parallel_rank()
+
+
 def _spawn_rank(out):
     dist.init_parallel_env(device="cpu")
     r = dist.get_rank()
@@ -1331,6 +1527,8 @@ def main():
         arrays, info = run_pipeline(out, r, sys.argv[3])
     elif mode == "moe":
         arrays, info = run_moe(out, r, sys.argv[3])
+    elif mode == "hybrid_clip":
+        arrays, info = run_hybrid_clip(out, r, sys.argv[3])
     else:
         weights = dict(np.load(sys.argv[3]))
         arrays, info = run_train(out, r, weights)
