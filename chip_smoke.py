@@ -12,7 +12,8 @@ runs phases 17-22 alone: ``distributed_alone``, on every visible card;
 ``--tensor-parallel`` phases 19 and 20 alone, ``--sequence-parallel``
 phase 20 alone, ``--pipeline`` phase 21 alone, ``--moe`` phase 22
 alone: ``moe_alone``; ``--amp-clip`` phase 23, which the default run
-leaves out: ``amp_clip_alone``.)
+leaves out: ``amp_clip_alone``; ``--checkpoint`` phase 24, which it
+leaves out too: ``checkpoint_alone``.)
 
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
@@ -387,6 +388,28 @@ loudly with a non-zero exit:
    parameters, masters and moments bit-equal after it, the scale
    halved, only that rank's own flag raised, one host read a step, and
    the next step repeats its loss and trains.
+24. distributed checkpointing and the resilient loop (``--checkpoint``
+   only), in a temporary directory on this host (free space checked
+   first, GPT-3 1.3B's depth cut until its versions fit, removed at the
+   end: one full version at a time, and the chaos run's).  At one card (``checkpoint_one_card``) phase 23's GPT-3 1.3B O2
+   stack trains 2 steps; a synchronous save (seconds, bytes, GB/s); a
+   freshly built model and optimizer load it through example 03's calls
+   and train step 3 bit-equal (parameters, masters, moments, powers) to
+   the uninterrupted step 3; an async save (the time to return, a step
+   during the write, the join); two controls that must fail their
+   checks (a load into a dict of copies leaves the model; a version
+   without its data file never loads); ``run_resilient`` over GPT-3
+   1.3B's width at 2 layers under ``ckpt_write@2=crash;step@3=stall:120``
+   (its workers: ``--resilient-worker DIR``), 5 steps, every loss and
+   the final state bit-equal to the uninterrupted run.  On several
+   cards (``checkpoint_rank``) example 03 at full width, dp 2 x sharding
+   2 ``os_g``, trains 2 steps and saves (each rank its pieces; bytes a
+   rank, GB/s); at the same layout step 3 bit-equal on every rank; under
+   sharding 4 ``p_g_os`` (after the copies control) step 3 within phase
+   17's bounds of rank 0's one-card oracle; after the launcher exits one
+   card loads the version bit-equal to rank 0's fingerprints, then the
+   missing-file control.  Every step's launches exact, none in a save
+   or a load; peak memory a rank during each.
 
 Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
@@ -409,6 +432,7 @@ import contextlib
 import ctypes
 import functools
 import gc
+import hashlib
 import itertools
 import json
 import math
@@ -9027,6 +9051,718 @@ def amp_clip_alone() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 24: distributed checkpointing and the resilient loop (--checkpoint)
+# ---------------------------------------------------------------------------
+
+CK_SAVE_AT = 2                   # the steps trained before the save
+CK_CHAOS_LAYERS = 2              # the chaos run: GPT-3 1.3B's width cut
+CK_CHAOS_STEPS = 5
+CK_CHAOS_SCHEDULE = "ckpt_write@2=crash;step@3=stall:120"
+# the chaos run's stall timeout: above a restore plus a step and its save
+CK_HEARTBEAT_S = 45.0
+CK_DIR_ENV = "CHIP_SMOKE_CKPT_DIR"   # the ranks' checkpoint directory
+CK_SPARE = 1.10                  # disk asked for over the bytes written
+# what a save or a load may add beyond its bound (``ck_io``): on the card
+# small tensors and the allocator's rounding; on the host Python's and
+# glibc's arenas, a thread's stack, libraries mapped on first use
+CK_CARD_SLACK = 64 << 20
+CK_HOST_SLACK = 512 << 20
+CK_SAMPLE_S = 0.002              # the host sampler's period
+
+
+def ck_gpt_config(layers):
+    return gpt_config("gpt3-1.3B", num_layers=layers,
+                      max_position_embeddings=TRAIN_SEQ,
+                      hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+
+
+def ck_version_bytes(cfg) -> int:
+    """One version of GPT-3 1.3B O2: bf16 weights, fp32 master and two
+    fp32 moments (the powers and the scaler are bytes beside them)."""
+    return 14 * param_count(cfg)
+
+
+def ck_per_step(layers, adamw_launches):
+    """Phase 6's launches a step at ``layers`` layers; K3 as given."""
+    return dict(PER_STEP, flash_fwd=layers, flash_bwd_dq=layers,
+                flash_bwd_dkv=layers, ln_fwd=2 * layers + 1,
+                ln_bwd_dx=2 * layers + 1, adamw=adamw_launches)
+
+
+def ck_tmpdir(need_fn):
+    """A temporary directory on this host (never under the checkout) and
+    GPT-3 1.3B at the largest depth whose checkpoints it holds:
+    ``need_fn(cfg)`` bytes with ``CK_SPARE``; fails with the numbers when
+    not even two layers fit (nothing is skipped)."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(d).free
+    for layers in range(N_LAYERS, 1, -1):
+        cfg = ck_gpt_config(layers)
+        need = int(CK_SPARE * need_fn(cfg))
+        if need <= free:
+            say(f"checkpoint: {d}: {free} bytes free ({free / 2**30:.1f} "
+                f"GiB), {need} ({need / 2**30:.1f} GiB) needed at "
+                f"{layers} of {N_LAYERS} layers"
+                + ("" if layers == N_LAYERS else " (depth cut to fit)"))
+            return d, cfg
+    shutil.rmtree(d, ignore_errors=True)
+    fail(f"checkpoint: {d} has {free} bytes free; even 2 layers need "
+         f"{int(CK_SPARE * need_fn(ck_gpt_config(2)))}")
+
+
+def ck_sha(t) -> str:
+    """sha256 of a tensor's dtype, shape and raw bytes."""
+    h = hashlib.sha256()
+    h.update(str(t.dtype).encode())
+    h.update(str(tuple(t.shape)).encode())
+    h.update(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+             .numpy())
+    return h.hexdigest()
+
+
+def ck_fingerprints(model, opt, sharded, rank=0):
+    """sha256 of every parameter and of its fp32 master and moments, by
+    name, on rank 0 (None elsewhere); under ZeRO the state is gathered
+    one bucket at a time (a collective call)."""
+    inner = getattr(model, "_layers", model)
+    out = {}
+    if not sharded:
+        for n, p in inner.named_parameters():
+            out[n] = ck_sha(p)
+            st = opt.state[p]
+            for k in ("master", "moment1", "moment2"):
+                if k in st:
+                    out[f"{n}/{k}"] = ck_sha(st[k])
+        return out
+    names = {id(p): n for n, p in inner.named_parameters()}
+    if rank == 0:
+        out.update({n: ck_sha(p) for n, p in inner.named_parameters()})
+    for k, b in enumerate(opt._reducer.buckets):
+        st = opt._state[k]
+        for key, acc in (("master", "master"), ("m", "moment1"),
+                         ("v", "moment2")):
+            if key not in st:
+                continue
+            full = opt._gather(st[key], b.numel)
+            if rank == 0:
+                for p, off in zip(b.params, b.offsets):
+                    out[f"{names[id(p)]}/{acc}"] = ck_sha(
+                        full[off:off + p.numel()].view(p.shape))
+            del full
+    return out if rank == 0 else None
+
+
+def ck_tensors(model, opt, sharded):
+    """Every tensor a step moves on this rank, in a fixed order: the
+    parameters (under ZeRO 2 their buckets) and the optimizer's state."""
+    if sharded:
+        return [b.param_buf for b in opt._reducer.buckets] + [
+            opt._state[k][x] for k in sorted(opt._state)
+            for x in sorted(opt._state[k])]
+    named = list(getattr(model, "_layers", model).named_parameters())
+    return [p for _, p in named] + [opt.state[p][k] for _, p in named
+                                    for k in sorted(opt.state[p])]
+
+
+def ck_state(model, opt, scaler):
+    """Example 03's checkpoint dict, with the scaler's state."""
+    inner = getattr(model, "_layers", model)
+    return {"model": inner.state_dict(), "opt": opt.state_dict(),
+            "scaler": scaler.state_dict()}
+
+
+def ck_bytes(vdir, rank=None) -> int:
+    """The data bytes of a version (of one rank's file)."""
+    return sum(os.path.getsize(os.path.join(vdir, f))
+               for f in os.listdir(vdir) if f.endswith(".distcp")
+               and (rank is None or f == f"{rank}_0.distcp"))
+
+
+def ck_share(state):
+    """This rank's own share of ``state``'s checkpoint (the bytes of the
+    pieces it holds now) and one tensor's local part (its largest piece),
+    as ``distributed.checkpoint`` lists them."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    pieces, _, _, owners, _ = dck._collect(state)
+    pieces += dck._owner_pieces(owners, dck._param_names(state), False)[0]
+    sizes = [p.data.numel() * p.data.element_size() for p in pieces]
+    return sum(sizes), max(sizes, default=0)
+
+
+def ck_rss():
+    """This process's resident bytes: all of them (``/proc/self/statm``),
+    and the anonymous and file-backed ones where ``/proc/self/status``
+    splits them (else None)."""
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    got = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, rest = line.partition(":")
+            if key in ("RssAnon", "RssFile"):
+                got[key] = int(rest.split()[0]) * 1024
+    return rss, got.get("RssAnon"), got.get("RssFile")
+
+
+def ck_host_added(fn):
+    """Run ``fn``; the most its run added to this process's resident
+    bytes, all, anonymous and file-backed (``ck_rss``; sampled every
+    ``CK_SAMPLE_S`` on a thread)."""
+    base = ck_rss()
+    peak = list(base)
+    done = threading.Event()
+
+    def take():
+        for i, v in enumerate(ck_rss()):
+            if v is not None:
+                peak[i] = max(peak[i], v)
+
+    def sample():
+        while not done.wait(CK_SAMPLE_S):
+            take()
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        fn()
+    finally:
+        done.set()
+        t.join()
+    take()
+    return [None if b is None else p - b for p, b in zip(peak, base)]
+
+
+def ck_io(tag, fn, state, rank=0, loads=False, snapshot=False):
+    """A save or a load of ``state``: its seconds and what it adds to the
+    card's and the host's memory, held against this rank's own share of
+    the checkpoint and one tensor's local part (``ck_share``).  On the
+    card the call may keep only what a load makes (a fresh optimizer's
+    own state, ``loads``) and hold one local part beside it; on the host
+    it may hold one local part, or with ``snapshot`` (an async save's
+    return) its share beside it, and a load may map its share of the
+    files besides: all resident bytes are held to that, and the
+    anonymous and file-backed ones each where the host splits them.  It
+    must launch no kernel."""
+    before = counts()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    host, anon, mapped = ck_host_added(fn)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    after = counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    if moved:
+        fail(f"rank {rank} {tag}: the kernels launched {moved}")
+    added = torch.cuda.max_memory_allocated() - base
+    kept = torch.cuda.memory_allocated() - base
+    held = added - max(kept, 0)
+    share, part = ck_share(state)
+    res = dict(s=s, card_added_bytes=added,
+               card_kept_bytes=kept, host_added_bytes=host,
+               host_anon_added_bytes=anon, host_file_added_bytes=mapped,
+               share_bytes=share, part_bytes=part, launches=0)
+    snap = share if snapshot else 0
+    over = [f"{what} {got} > {bound}" for what, got, bound in (
+        ("card kept", kept, (share if loads else 0) + CK_CARD_SLACK),
+        ("card held beside it", held, part + CK_CARD_SLACK),
+        ("host resident", host, (share if loads else snap) + part
+         + CK_HOST_SLACK),
+        ("host anonymous", anon, snap + part + CK_HOST_SLACK),
+        ("host mapped", mapped, share + part + CK_HOST_SLACK))
+        if got is not None and got > bound]
+    if over:
+        fail(f"rank {rank} {tag}: more memory than its share ({share}) and "
+             f"one local part ({part}): {'; '.join(over)}")
+    return res
+
+
+def ck_mem(io):
+    """What a save or a load added to memory, beside its bound."""
+    return (f"the card +{io['card_added_bytes']} bytes (kept "
+            f"{io['card_kept_bytes']}), the host +"
+            f"{io['host_added_bytes']} resident ("
+            f"{io['host_anon_added_bytes']} anonymous, "
+            f"{io['host_file_added_bytes']} mapped), against a share of "
+            f"{io['share_bytes']} and a local part of {io['part_bytes']}")
+
+
+def ck_steps(tag, step, n, expected, rank=0):
+    """``n`` training steps, each synchronised, its launches exactly
+    ``expected``; their losses."""
+    losses = []
+    for s in range(n):
+        before = counts()
+        loss = float(step())
+        torch.cuda.synchronize()
+        after = counts()
+        moved = {k: after[k] - before[k] for k in expected}
+        if moved != expected:
+            fail(f"rank {rank} {tag} step {s}: launches {moved} != "
+                 f"{expected}")
+        losses.append(loss)
+    return losses
+
+
+def ck_one_card_train(cfg):
+    """Phase 6's GPT-3 1.3B O2 with the clip and the scaler (phase 23's
+    stack): model, optimizer, scaler, one step, its launches."""
+    model, opt, _ = ac_gpt_build(cfg)
+    scaler = amp.GradScaler(init_loss_scaling=AC_SCALE)
+    step = train_step(model, None, opt, scaler=scaler, step_fn=o2_step_fn)
+    ids, labels = batch(cfg)
+    want = ck_per_step(cfg.num_layers, len(list(model.parameters())))
+    return model, opt, scaler, (lambda: step(ids, labels)), want
+
+
+def ck_chaos_train(cfg, out=None):
+    """The chaos run's training: GPT-3 1.3B's width at ``cfg``'s depth,
+    ``CK_CHAOS_STEPS`` steps.  With ``out`` (a supervised worker) through
+    ``ResilientTrainLoop`` (a committed version every step, the last two
+    kept; the scaler's state restored with the rest), writing its start
+    and loaded version, each step's loss and the final fingerprints under
+    ``out``.  Returns the losses by step and the fingerprints."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.resilience import ResilientTrainLoop
+    model, opt, scaler, step, want = ck_one_card_train(cfg)
+    start, loop, held = 0, None, {}
+    if out is not None:
+        def state():
+            held["sd"] = ck_state(model, opt, scaler)
+            return held["sd"]
+        loop = ResilientTrainLoop(None, state, save_every=1, keep_last_k=2,
+                                  heartbeat_interval=0.5)
+        start = loop.restore()
+        if start:
+            scaler.set_state_dict(held["sd"]["scaler"])
+        info = dck.last_load_info() if start else {}
+        with open(os.path.join(out, "runs.jsonl"), "a") as f:
+            f.write(json.dumps({"start": start,
+                                "loaded": info.get("version"),
+                                "committed": info.get("committed")}) + "\n")
+    traj = {}
+    for s in range(start, CK_CHAOS_STEPS):
+        traj[s] = ck_steps("chaos", step, 1, want)[0]
+        if loop is not None:
+            with open(os.path.join(out, "traj.txt"), "a") as f:
+                f.write(f"{s} {traj[s]!r}\n")
+            loop.end_step(s, loss=traj[s])
+    fps = ck_fingerprints(model, opt, False)
+    if loop is not None:
+        with open(os.path.join(out, "final.json"), "w") as f:
+            json.dump(fps, f)
+        loop.finish()
+    return traj, fps
+
+
+def resilient_worker(out) -> int:
+    """``--resilient-worker DIR``: one supervised run of the chaos
+    training (``run_resilient`` starts it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ck_chaos_train(ck_gpt_config(CK_CHAOS_LAYERS), out)
+    return 0
+
+
+def ck_chaos(tmp):
+    """``run_resilient`` over the chaos training under
+    ``CK_CHAOS_SCHEDULE`` (a crash between a save's data and its commit,
+    then a stalled step), against the same training run here
+    uninterrupted: every loss and the final parameters, masters and
+    moments bit-equal; each relaunch resumed from a committed version."""
+    from paddle_tpu_torch.resilience import run_resilient
+    d = os.path.join(tmp, "chaos")
+    os.makedirs(d)
+    ck = os.path.join(d, "ck")
+    t0 = time.perf_counter()
+    report = run_resilient(
+        str(Path(__file__).resolve()), ["--resilient-worker", d],
+        ckpt_dir=ck, fault_schedule=CK_CHAOS_SCHEDULE, max_restarts=3,
+        restart_backoff_s=0.5, heartbeat_timeout=CK_HEARTBEAT_S,
+        poll_interval=0.2, log_dir=os.path.join(d, "logs"),
+        env={"PYTHONPATH": ROOT})
+    total_s = time.perf_counter() - t0
+    log = Path(d, "logs", "workerlog.0").read_text(errors="replace")
+    if report.code != 0:
+        fail(f"chaos: run_resilient {report}\n{log[-4000:]}")
+    runs = [json.loads(line) for line in open(os.path.join(d, "runs.jsonl"))]
+    traj = {}
+    for line in open(os.path.join(d, "traj.txt")):
+        s, v = line.split()
+        traj.setdefault(int(s), []).append(float(v))
+    final = json.load(open(os.path.join(d, "final.json")))
+    ref_traj, ref_fps = ck_chaos_train(ck_gpt_config(CK_CHAOS_LAYERS))
+    res = dict(report=dict(code=report.code, restarts=report.restarts,
+                           crashes=report.crashes, stalls=report.stalls,
+                           events=report.events),
+               runs=runs, total_s=total_s,
+               trajectory={s: v for s, v in sorted(traj.items())},
+               uninterrupted=ref_traj)
+    say(f"checkpoint: chaos ({CK_CHAOS_SCHEDULE}, GPT-3 1.3B width at "
+        f"{CK_CHAOS_LAYERS} layers, {CK_CHAOS_STEPS} steps): {report}; "
+        f"each run's start and loaded version {runs}; {total_s:.3f} s")
+    if report.crashes < 1 or report.stalls < 1:
+        fail(f"chaos: {report.crashes} crashes, {report.stalls} stalls")
+    if runs[0]["start"] != 0 or runs[0]["loaded"] is not None or any(
+            r["loaded"] is None or not r["committed"]
+            or r["start"] != int(r["loaded"]) + 1 for r in runs[1:]):
+        fail(f"chaos: a relaunch did not resume from a committed version: "
+             f"{runs}")
+    if sorted(traj) != list(range(CK_CHAOS_STEPS)) or any(
+            v != ref_traj[s] for s, vs in traj.items() for v in vs):
+        fail(f"chaos: the losses {traj} differ from the uninterrupted "
+             f"run's {ref_traj}")
+    if final != ref_fps:
+        bad = sorted(k for k in ref_fps if final.get(k) != ref_fps[k])
+        fail(f"chaos: the final state differs from the uninterrupted "
+             f"run's in {len(bad)} tensors, e.g. {bad[:4]}")
+    say("checkpoint: chaos: the losses and the final parameters, masters "
+        "and moments bit-equal to the uninterrupted run")
+    return res
+
+
+def ck_control_copies(dck, model, path):
+    """The control: a load into a dict of copies of the model's state
+    must leave the model as it is; True when the model holds the loaded
+    values (the check the control must fail)."""
+    copies = {k: v.clone() for k, v in model.state_dict().items()}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    dck.load_state_dict({"model": copies}, path)
+    changed = sum(not torch.equal(copies[n], before[n]) for n in before)
+    holds = all(torch.equal(p, copies[n])
+                for n, p in model.named_parameters())
+    say(f"checkpoint: control (a load into a dict of copies): {changed} of "
+        f"{len(before)} copies took the saved values; the model holds them:"
+        f" {holds}")
+    if holds or not changed:
+        fail("the copies control: the model changed, or nothing loaded")
+    return dict(copies_changed=changed, model_holds_loaded=holds)
+
+
+def ck_control_missing_file(dck, state, path, vdir, rank_file):
+    """The control: with one rank's data file removed the version never
+    loads (the load raises before anything is written)."""
+    os.remove(os.path.join(vdir, rank_file))
+    try:
+        dck.load_state_dict(state, path)
+    except (OSError, ValueError) as e:
+        say(f"checkpoint: control ({rank_file} removed): the load raised "
+            f"{type(e).__name__}: {str(e)[:200]}")
+        return dict(raised=type(e).__name__)
+    fail(f"the missing-file control: a version without {rank_file} loaded")
+
+
+def checkpoint_one_card():
+    """Phase 24 at one card: phase 6's GPT-3 1.3B O2 with the clip and
+    the scaler trains ``CK_SAVE_AT`` steps; a synchronous save; a fresh
+    model and optimizer load it through example 03's calls and train
+    step 3 bit-equal to the uninterrupted step 3; an async save (the
+    time to return, a step during the write, the join); the two
+    controls; the chaos run.  Checkpoints go to a temporary directory on
+    this host, removed at the end."""
+    import warnings
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    chaos_need = 3 * ck_version_bytes(ck_gpt_config(CK_CHAOS_LAYERS))
+    tmp, cfg = ck_tmpdir(lambda c: ck_version_bytes(c) + chaos_need)
+    out = dict(layers=cfg.num_layers)
+    try:
+        model, opt, scaler, step, want = ck_one_card_train(cfg)
+        reset_counts()
+        losses = ck_steps("one card", step, CK_SAVE_AT, want)
+        path = os.path.join(tmp, "sync")
+        vdir = os.path.join(path, str(CK_SAVE_AT))
+        state = ck_state(model, opt, scaler)
+        out["save"] = ck_io("the save", lambda: dck.save_state_dict(
+            state, path, unique_id=CK_SAVE_AT,
+            metadata={"step": CK_SAVE_AT}), state)
+        del state
+        nbytes = ck_bytes(vdir)
+        out["save"].update(bytes=nbytes,
+                           gb_s=nbytes / out["save"]["s"] / 1e9)
+        losses += ck_steps("uninterrupted", step, 1, want)
+        ref = [t.detach().clone() for t in ck_tensors(model, opt, False)]
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, opt, scaler, step, want = ck_one_card_train(cfg)
+        state = ck_state(model, opt, scaler)
+        out["load"] = ck_io("the load", lambda: dck.load_state_dict(state,
+                                                                    path),
+                            state, loads=True)
+        scaler.set_state_dict(state["scaler"])
+        out["load"].update(version=dck.last_load_info()["version"],
+                           bytes=nbytes,
+                           gb_s=nbytes / out["load"]["s"] / 1e9)
+        del state
+        resumed = ck_steps("resumed", step, 1, want)
+        same = resumed == losses[CK_SAVE_AT:] and all(
+            torch.equal(a, b) for a, b in
+            zip(ref, ck_tensors(model, opt, False)))
+        out.update(losses=losses, resumed=resumed, bit_equal=same)
+        say(f"checkpoint: one card, {cfg.num_layers} layers: losses "
+            f"{losses}; the save {out['save']}; the load {out['load']}; "
+            f"step {CK_SAVE_AT + 1} after the load {resumed}, parameters, "
+            f"masters, moments and powers bit-equal to the uninterrupted "
+            f"step: {same}")
+        if not same:
+            fail("step 3 after the load is not bit-equal to the "
+                 "uninterrupted step 3")
+        del ref
+        shutil.rmtree(path)
+        # async: the snapshot's time to return, a step during the write
+        apath = os.path.join(tmp, "async")
+        avdir = os.path.join(apath, str(CK_SAVE_AT + 1))
+        state = ck_state(model, opt, scaler)
+        out["async"] = ck_io("the async save's return", lambda:
+                             dck.save_state_dict(
+                                 state, apath, unique_id=CK_SAVE_AT + 1,
+                                 async_save=True,
+                                 metadata={"step": CK_SAVE_AT + 1}),
+                             state, snapshot=True)
+        t0 = time.perf_counter()
+        ck_steps("during the write", step, 1, want)
+        out["async"]["step_during_s"] = time.perf_counter() - t0
+        out["async"]["join"] = ck_io("the join",
+                                     lambda: dck.wait_async_save(), state)
+        out["async"]["join_s"] = out["async"]["join"]["s"]
+        del state
+        out["async"]["committed"] = dck.read_commit(avdir) is not None
+        out["async"]["bytes"] = ck_bytes(avdir)
+        say(f"checkpoint: async save: returned in {out['async']['s']:.3f} s "
+            f"(the host snapshot), a training step during the write "
+            f"{out['async']['step_during_s']:.3f} s, the join "
+            f"{out['async']['join_s']:.3f} s; committed "
+            f"{out['async']['committed']}; {out['async']['bytes']} bytes; "
+            f"the return {ck_mem(out['async'])}")
+        if not out["async"]["committed"]:
+            fail("the async save did not commit at the join")
+        out["control_copies"] = ck_control_copies(dck, model, apath)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out["control_missing"] = ck_control_missing_file(
+                dck, ck_state(model, opt, scaler), apath, avdir,
+                "0_0.distcp")
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(apath)
+        out["chaos"] = ck_chaos(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def checkpoint_rank(dist, rank, world, dev):
+    """Phase 24 on several cards: rank 0's one-card oracle of three steps
+    (phase 23 (a)'s), then example 03 at full width (GPT-3 1.3B O2 with
+    the clip and the scaler, dp 2 x sharding 2 ``os_g`` over the dp x
+    sharding group) trains ``CK_SAVE_AT`` steps and saves, each rank its
+    pieces; rank 0 records the fingerprints of the gathered state; at
+    the same layout a fresh model loads and trains step 3 bit-equal on
+    every rank; under sharding 4 ``p_g_os`` one loads (after the copies
+    control) and trains step 3 within phase 17's bounds of the oracle.
+    Launches exact in every step, none in saves and loads."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    path = os.path.join(os.environ[CK_DIR_ENV], "four")
+    vdir = os.path.join(path, str(CK_SAVE_AT))
+    release_groups(dist)
+    cfg = ck_gpt_config(int(os.environ.get("CHIP_SMOKE_CKPT_LAYERS",
+                                           N_LAYERS)))
+    gb = dist_global_batch(cfg, world)
+    oracle = ac_gpt_oracle(cfg, gb, world, dev) if rank == 0 else None
+    dist.barrier()
+
+    def build(level, degrees):
+        dist_settle(dist)
+        hcg = fleet_init(degrees)
+        model, opt, _ = ac_gpt_build(cfg)
+        scaler = amp.GradScaler(init_loss_scaling=AC_SCALE)
+        model, sopt, scaler = group_sharded_parallel(
+            model, opt, level, scaler=scaler,
+            group=hcg.get_dp_sharding_parallel_group())
+        step = train_step(model, None, sopt, scaler=scaler, mesh=hcg.mesh,
+                          step_fn=o2_step_fn)
+        want = ck_per_step(cfg.num_layers, len(sopt._reducer.buckets))
+        return model, sopt, scaler, (lambda: step(*gb)), want
+
+    def drop():
+        fleet_reset()
+        release_groups(dist)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = dict(layers=cfg.num_layers)
+    model, sopt, scaler, step, want = build(
+        "os_g", dict(dp_degree=2, sharding_degree=world // 2))
+    reset_counts()
+    losses = ck_steps("os_g", step, CK_SAVE_AT, want, rank)
+    # example 03's dict: the sharded optimizer's state_dict() gathers
+    # every parameter's state onto each rank at the call
+    torch.cuda.synchronize()
+    m0, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+    state = ck_state(model, sopt, scaler)
+    torch.cuda.synchronize()
+    res["state_dict"] = dict(s=time.perf_counter() - t0,
+                             card_bytes=torch.cuda.memory_allocated() - m0)
+    res["save"] = ck_io("the save", lambda: dck.save_state_dict(
+        state, path, unique_id=CK_SAVE_AT, metadata={"step": CK_SAVE_AT}),
+        state, rank)
+    del state
+    res["save"]["bytes"] = ck_bytes(vdir, rank)
+    res["fingerprints"] = ck_fingerprints(model, sopt, True, rank)
+    losses += ck_steps("uninterrupted", step, 1, want, rank)
+    ref = [t.detach().clone() for t in ck_tensors(model, sopt, True)]
+    del model, sopt, step
+    drop()
+    model, sopt, scaler, step, want = build(
+        "os_g", dict(dp_degree=2, sharding_degree=world // 2))
+    state = ck_state(model, sopt, scaler)
+    res["load"] = ck_io("the load", lambda: dck.load_state_dict(state, path),
+                        state, rank, loads=True)
+    scaler.set_state_dict(state["scaler"])
+    del state
+    resumed = ck_steps("resumed", step, 1, want, rank)
+    same = resumed == losses[CK_SAVE_AT:] and all(
+        torch.equal(a, b) for a, b in zip(ref, ck_tensors(model, sopt, True)))
+    res["same_layout_bit_equal"] = ac_all(dist, same)
+    say_rank0(rank, f"checkpoint: {world} cards: losses {losses}; step "
+              f"{CK_SAVE_AT + 1} after the load at the same layout "
+              f"{resumed}: bit-equal on every rank "
+              f"{res['same_layout_bit_equal']}")
+    if not res["same_layout_bit_equal"]:
+        fail(f"rank {rank}: step 3 after the load is not bit-equal")
+    del ref, model, sopt, step
+    drop()
+    model, sopt, scaler, step, want = build("p_g_os",
+                                            dict(sharding_degree=world))
+    red = model._reducer
+    before = [f.param_shard.clone() for f in red.buckets]
+    copies = model.state_dict()                     # gathered copies
+    built = {k: v.clone() for k, v in copies.items()}
+    dck.load_state_dict({"model": copies}, path)
+    res["control_copies_took_values"] = ac_all(dist, any(
+        not torch.equal(built[k], v) for k, v in copies.items()))
+    res["control_copies_model_unchanged"] = ac_all(dist, all(
+        torch.equal(a, f.param_shard) for a, f in zip(before, red.buckets)))
+    del before, copies, built
+    state = ck_state(model, sopt, scaler)
+    res["load_p_g_os"] = ck_io("the p_g_os load",
+                               lambda: dck.load_state_dict(state, path),
+                               state, rank, loads=True)
+    scaler.set_state_dict(state["scaler"])
+    del state
+    res["resumed_p_g_os"] = ck_steps("p_g_os resumed", step, 1, want, rank)
+    values = dist_values(model, sopt, True, rank)
+    if rank == 0:
+        say(f"checkpoint: the copies control (a load into GroupShardedStage3"
+            f".state_dict()): the copies took the saved values "
+            f"{res['control_copies_took_values']}, the model unchanged on "
+            f"every rank {res['control_copies_model_unchanged']}")
+        res["vs_oracle"] = dist_compare(
+            "phase 24: p_g_os over 4 after loading the os_g save, step 3, vs "
+            "the one-card oracle",
+            dict(losses=losses[:CK_SAVE_AT] + res["resumed_p_g_os"],
+                 values=values), oracle, exact=False)
+    if not (res["control_copies_model_unchanged"]
+            and res["control_copies_took_values"]):
+        fail("the copies control: a load into gathered copies changed the "
+             "model, or loaded nothing")
+    del values, model, sopt, step
+    drop()
+    res["losses"] = losses
+    res["launches"] = counts()
+    return res
+
+
+def checkpoint_report(ranks, world):
+    """Phase 24's numbers on several cards, from every rank's results."""
+    r0 = ranks[0]["checkpoint"]
+    for key in ("save", "load", "load_p_g_os"):
+        each = [r["checkpoint"][key] for r in ranks]
+        secs = max(e["s"] for e in each)
+        line = (f"checkpoint: {world} cards, {r0['layers']} layers: {key}: "
+                f"{secs:.3f} s (the slowest rank), each rank's "
+                f"{[round(e['s'], 3) for e in each]} s, launches 0; rank 0 "
+                f"{ck_mem(r0[key])}; each rank's card added "
+                f"{[e['card_added_bytes'] for e in each]}, host resident "
+                f"added {[e['host_added_bytes'] for e in each]} bytes")
+        if key == "save":
+            b = [e["bytes"] for e in each]
+            line += (f"; bytes a rank {b} (total {sum(b)}), "
+                     f"{sum(b) / secs / 1e9:.3f} GB/s over the ranks, "
+                     f"{[round(x / e['s'] / 1e9, 3) for x, e in zip(b, each)]}"
+                     " GB/s a rank")
+        say(line)
+    say(f"checkpoint: {world} cards: example 03's opt.state_dict() "
+        f"(gathered at the call) {r0['state_dict']['s']:.3f} s, "
+        f"{r0['state_dict']['card_bytes']} bytes on the card a rank")
+    say(f"checkpoint: {world} cards: " + json.dumps(
+        {k: r0[k] for k in ("losses", "same_layout_bit_equal",
+                            "resumed_p_g_os", "vs_oracle",
+                            "control_copies_took_values",
+                            "control_copies_model_unchanged")
+         if k in r0}))
+
+
+def checkpoint_after_launch(r0):
+    """After the launcher exits: one card loads the four-card version
+    into phase 6's plain model and optimizer; its parameters, masters and
+    moments must be bit-equal to the fingerprints rank 0 recorded; then
+    the missing-file control."""
+    import warnings
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    path = os.path.join(os.environ[CK_DIR_ENV], "four")
+    vdir = os.path.join(path, str(CK_SAVE_AT))
+    cfg = ck_gpt_config(r0["layers"])
+    model, opt, scaler, _, _ = ck_one_card_train(cfg)
+    state = ck_state(model, opt, scaler)
+    # a fresh optimizer has no state: the load makes it, as a step would
+    io = ck_io("the one-card load of the four-card version",
+               lambda: dck.load_state_dict(state, path), state, loads=True)
+    fps = ck_fingerprints(model, opt, False)
+    want = r0["fingerprints"]
+    bad = sorted(k for k in want if fps.get(k) != want[k])
+    nbytes = ck_bytes(vdir)
+    say(f"checkpoint: one card loaded the {len(want)} tensors of the "
+        f"four-card version ({nbytes} bytes) in {io['s']:.3f} s "
+        f"({nbytes / io['s'] / 1e9:.3f} GB/s), {ck_mem(io)}: "
+        f"{len(want) - len(bad)} bit-equal to rank 0's gathered state")
+    if bad or set(fps) != set(want):
+        fail(f"the one-card load differs in {bad[:4]} (of {len(bad)})")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ctl = ck_control_missing_file(dck, state, path, vdir, "3_0.distcp")
+    del model, opt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(load=io, bytes=nbytes, control_missing=ctl)
+
+
+def checkpoint_alone() -> int:
+    """``--checkpoint``: phase 24 alone after the build: at one card
+    ``checkpoint_one_card``; on several cards the ranks
+    (``checkpoint_rank``), then one card loads their version; the
+    checkpoints in a temporary directory on this host, removed at the
+    end."""
+    say(f"build: {_build.build_all():.3f} s")
+    if torch.cuda.device_count() == 1:
+        checkpoint_one_card()
+    else:
+        tmp, cfg = ck_tmpdir(ck_version_bytes)
+        os.environ[CK_DIR_ENV] = tmp
+        os.environ["CHIP_SMOKE_CKPT_LAYERS"] = str(cfg.num_layers)
+        try:
+            r0 = distributed_main_path((24,))
+            checkpoint_after_launch(r0["checkpoint"])
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 PHASES = (17, 18, 19, 20, 21, 22)
 
 
@@ -9064,6 +9800,8 @@ def distributed_rank(out_dir: str, phases=PHASES) -> int:
         res["moe"] = moe_rank(dist, rank, world, dev)
     if 23 in phases and world > 1:
         res["amp_clip"] = amp_clip_rank(dist, rank, world, dev)
+    if 24 in phases and world > 1:
+        res["checkpoint"] = checkpoint_rank(dist, rank, world, dev)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -9234,6 +9972,8 @@ def distributed_main_path(phases=PHASES):
         moe_report(r0["moe"], world)
     if 23 in phases and "amp_clip" in r0:
         amp_clip_report(r0["amp_clip"], world)
+    if 24 in phases and "checkpoint" in r0:
+        checkpoint_report(ranks, world)
     if 17 in phases:
         r0["kill"] = dist_kill_checks(world, root)
     return r0
@@ -9376,6 +10116,9 @@ def main() -> int:
                 sys.argv.index("--phases") + 1].split(","))
         return distributed_rank(sys.argv[sys.argv.index("--distributed-rank")
                                          + 1], phases)
+    if "--resilient-worker" in sys.argv:
+        return resilient_worker(sys.argv[sys.argv.index("--resilient-worker")
+                                         + 1])
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -9412,6 +10155,8 @@ def main() -> int:
         return moe_alone()
     if "--amp-clip" in sys.argv:
         return amp_clip_alone()
+    if "--checkpoint" in sys.argv:
+        return checkpoint_alone()
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")

@@ -17,10 +17,16 @@ and the static Program capture (``static.capture_ops``) with its pass
 pipeline (``static.passes``, verified by ``analysis.pass_check``), whose
 kernel-claim pass puts a captured decode step's norm -> matmul chains on
 ``ops.fused_decode.norm_matmul``; all on the hand-written CUDA kernels
-of ``ops/csrc/``.
+of ``ops/csrc/``.  ``save`` / ``load`` (``framework.io``) read and
+write Paddle's pickle format, the JAX package's files included;
+``distributed.checkpoint`` saves and loads sharded training state and
+``resilience`` keeps a training run going through crashes, stalls and
+preemption.
 """
 from .device import default_device, generator, seed
+from .framework.io import load, save
 
 __version__ = "0.1.0"
 
-__all__ = ["default_device", "generator", "seed", "__version__"]
+__all__ = ["default_device", "generator", "seed", "save", "load",
+           "__version__"]

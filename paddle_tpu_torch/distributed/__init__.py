@@ -5,8 +5,10 @@ the process group the launcher's environment describes (NCCL on the
 card, gloo with ``device="cpu"``); ``communication`` holds the groups,
 the store, the collectives and their sanitizer; ``DataParallel`` averages
 gradients with a bucketed reducer; ``fleet`` and ``sharding`` add the
-hybrid topology and ZeRO stages 1-2; ``launch`` starts and supervises
-the ranks; ``passes`` holds the pass-management API.
+hybrid topology and ZeRO stages 1-3; ``launch`` starts and supervises
+the ranks (``fleet.elastic`` watches their heartbeats); ``checkpoint``
+saves and loads each rank's pieces of the training state, resharding on
+load; ``passes`` holds the pass-management API.
 """
 from .env import ParallelEnv, get_rank, get_world_size, is_initialized
 from .mesh import (HYBRID_AXES, build_mesh, ensure_mesh, get_mesh,
@@ -37,7 +39,7 @@ def get_backend() -> str:
 
 def __getattr__(name):
     import importlib
-    if name in ("fleet", "launch", "sharding"):
+    if name in ("fleet", "launch", "sharding", "checkpoint"):
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
         return mod

@@ -6,8 +6,9 @@ gradient-sync utilities, tensor and sequence parallelism (the mp
 layers, ``TensorParallel``, sep / cp attention), pipeline parallelism
 (``LayerDesc``, ``SharedLayerDesc``, ``PipelineLayer``,
 ``PipelineParallel`` and the pipeline steps) and activation recompute
-(``recompute``, ``recompute_sequential``, ``recompute_hybrid``).  MoE
-waits for a later slice."""
+(``recompute``, ``recompute_sequential``, ``recompute_hybrid``), and
+``elastic`` (the heartbeat registry and liveness manager the launcher
+and ``resilience.run_resilient`` supervise with)."""
 from .base.distributed_strategy import DistributedStrategy
 from .base.role_maker import PaddleCloudRoleMaker, UserDefinedRoleMaker, Role
 from .base.topology import (CommunicateTopology, HybridCommunicateGroup,
@@ -19,7 +20,7 @@ from .meta_parallel import (LayerDesc, PipelineLayer, PipelineParallel,
 from .meta_optimizers.dygraph_optimizer import (HybridParallelOptimizer,
                                                 DygraphShardingOptimizer)
 from .recompute import recompute, recompute_sequential, recompute_hybrid
-from . import utils
+from . import elastic, utils
 
 # module-level singleton API (ref: fleet/__init__.py binds Fleet methods)
 init = fleet.init

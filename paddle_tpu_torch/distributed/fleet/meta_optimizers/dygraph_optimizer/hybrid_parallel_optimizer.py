@@ -65,6 +65,7 @@ micro-batch's backward (``pipeline_allreduce_gradients``).
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import torch
@@ -75,7 +76,8 @@ from .....ops.fused_adamw import fused_adamw_update_
 from .....optimizer.optimizers import Adam, AdamW
 from ....communication.collective_ops import _collective_entry
 from ....communication.group import _resolve_group
-from ....parallel import all_gather_single, reducer_of
+from ....parallel import (_remember_checkpoint_owner, all_gather_single,
+                          reducer_of)
 from ...base.topology import get_hybrid_communicate_group
 
 __all__ = ["HybridParallelOptimizer", "DygraphShardingOptimizer"]
@@ -297,6 +299,7 @@ class DygraphShardingOptimizer:
             w.wait()
         if stage3:
             self._reducer.release()
+        opt._global_step += 1
 
     def clear_grad(self, set_to_zero: bool = True):
         self._inner_opt.clear_grad(set_to_zero=set_to_zero)
@@ -313,8 +316,12 @@ class DygraphShardingOptimizer:
         return full
 
     def state_dict(self):
-        """The inner optimizer's ``state_dict`` with every parameter's
-        full state, gathered from the shards (a collective call)."""
+        """The inner optimizer's ``state_dict`` format with every
+        parameter's full state, gathered from the shards now (a
+        collective call: every rank of the sharding group makes it).
+        The dict is remembered as this optimizer's, so
+        ``distributed.checkpoint`` saves and loads the live shards, not
+        these copies (``Optimizer.state_dict``)."""
         opt = self._inner_opt
         params = [p for g in opt.param_groups for p in g["params"]]
         index = {id(p): i for i, p in enumerate(params)}
@@ -333,8 +340,10 @@ class DygraphShardingOptimizer:
                          for name, t in full.items()}
                 entry["beta_pows"] = st["pows"].clone()
                 state[index[id(p)]] = entry
-        return {"state": state,
-                "param_groups": opt.state_dict()["param_groups"]}
+        sd = OrderedDict(state=state,
+                         param_groups=opt.state_dict()["param_groups"])
+        _remember_checkpoint_owner(sd, "", self)
+        return sd
 
     def set_state_dict(self, state_dict):
         """Load an unsharded ``state_dict`` (this optimizer's or the inner
@@ -366,6 +375,46 @@ class DygraphShardingOptimizer:
                         if e is not None)
             st["pows"] = pows.to(device=b.device, dtype=torch.float32).clone()
             self._state[k] = st
+
+    def _checkpoint_pieces(self, prefix: str, names, create: bool = False):
+        """``(pieces, values)`` for ``distributed.checkpoint``: the
+        inner optimizer's keys (``Optimizer._checkpoint_pieces``), each
+        parameter's accumulators cut to the part of its slot inside this
+        rank's shard of its bucket (a flat range of the parameter), its
+        bucket's powers whole.  ``create`` makes every bucket's state
+        first (a load into a fresh optimizer)."""
+        from .....optimizer.optimizer import _name_of, _pow_pieces
+        from ....checkpoint.pieces import piece
+        from ...meta_parallel.parallel_layers.mp_layers import (
+            _checkpoint_layout)
+        stage3 = self._reducer.mode == "stage3"
+        buckets = self._reducer.buckets
+        if create:
+            for k, b in enumerate(buckets):
+                if k not in self._state:
+                    self._state[k] = self._new_state(b)
+        pieces = []
+        for k, b in enumerate(buckets):
+            st = self._state.get(k)
+            if st is None:
+                continue
+            lo, hi = self._shard(b)
+            shapes = b.shapes if stage3 else [p.shape for p in b.params]
+            for p, off, shape in zip(b.params, b.offsets, shapes):
+                name = _name_of(names, p)
+                gshape, axis, boxes = _checkpoint_layout(p, shape)
+                a, e = max(off, lo), min(off + shape.numel(), hi)
+                if a < e:
+                    for skey, ckey in (("m", f"{name}_moment1"),
+                                       ("v", f"{name}_moment2"),
+                                       ("master", f"master_weights.{name}")):
+                        if skey in st:
+                            pieces.append(piece(
+                                prefix + ckey, st[skey][a - lo:e - lo],
+                                shape, gshape, axis, boxes, a - off, e - off))
+                pieces += _pow_pieces(prefix, name, st["pows"], piece)
+        return pieces, {prefix + "global_step":
+                        self._inner_opt._global_step}
 
     def __getattr__(self, item):
         return getattr(self.__dict__["_inner_opt"], item)

@@ -117,6 +117,35 @@ def gather_parameter(value: torch.Tensor, param, group=None) -> torch.Tensor:
     return merge_shards(list(parts), axis, param.split_groups)
 
 
+def _checkpoint_layout(param, shape):
+    """``(global shape, axis, boxes)`` of this rank's part of ``param``
+    (local shape ``shape``; ``distributed.checkpoint``'s pieces): one box
+    unless ``param`` is split over the mp group, then one box of the
+    global tensor for each of its ``split_groups`` (:func:`shard_of`;
+    three for a packed ``[q | k | v]``), concatenated along the axis."""
+    shape = tuple(int(s) for s in shape)
+    whole = (shape, 0, [((0,) * len(shape), shape)])
+    if not is_split(param) or not shape:
+        return whole
+    _, n, rank = _coords(None)
+    if n == 1:
+        return whole
+    axis = param.split_axis % len(shape)
+    groups = int(param.split_groups)
+    gshape = list(shape)
+    gshape[axis] = shape[axis] * n
+    g = gshape[axis] // groups
+    w = g // n
+    boxes = []
+    for j in range(groups):
+        off = [0] * len(shape)
+        off[axis] = j * g + rank * w
+        ln = list(shape)
+        ln[axis] = w
+        boxes.append((tuple(off), tuple(ln)))
+    return tuple(gshape), axis, boxes
+
+
 def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (2-D) in fp32: bf16 / fp16 CUDA inputs through cuBLAS's
     fp32 output, the rest in fp32."""

@@ -34,7 +34,9 @@ import torch
 
 from ....communication.collective_ops import broadcast
 from ....communication.group import _resolve_group
-from ....parallel import DataParallel, _ShardedReducer
+from .....framework.io import save
+from ....parallel import (DataParallel, _ShardedReducer,
+                          _mark_checkpoint_owner)
 from ...base.topology import get_hybrid_communicate_group
 from ...meta_optimizers.dygraph_optimizer.hybrid_parallel_optimizer import (
     DygraphShardingOptimizer)
@@ -139,6 +141,7 @@ class GroupShardedStage3(torch.nn.Module):
         self._sync_buffers = sync_buffers
         self._reducer = _ShardedReducer(layer, self._group,
                                         sync=pertrain_sync_models)
+        _mark_checkpoint_owner(layer)
         if pertrain_sync_models:
             for b in layer.buffers():
                 broadcast(b, src=self._group.ranks[0], group=self._group)
@@ -239,15 +242,17 @@ def group_sharded_parallel(model, optimizer, level: str, scaler=None,
 def save_group_sharded_model(model, output, optimizer=None):
     """ref: ``save_group_sharded_model``: the wrapped model's full
     weights (``model.pdmodel``) and the optimizer's gathered state
-    (``model.pdopt``) under ``output``, written by the group's first
-    rank.  Every rank makes the call (gathering the weights under stage
-    3 and the optimizer's state is collective)."""
+    (``model.pdopt``) under ``output`` through ``paddle.save``
+    (``framework.io.save``; read them back with ``paddle_tpu_torch.
+    load``), written by the group's first rank.  Every rank makes the
+    call (gathering the weights under stage 3 and the optimizer's state
+    is collective)."""
     model_state = model.state_dict()
     opt_state = optimizer.state_dict() if optimizer is not None else None
     g = getattr(model, "_group", None)
     if g is not None and g.rank != 0:
         return
     os.makedirs(output, exist_ok=True)
-    torch.save(model_state, os.path.join(output, "model.pdmodel"))
+    save(model_state, os.path.join(output, "model.pdmodel"))
     if opt_state is not None:
-        torch.save(opt_state, os.path.join(output, "model.pdopt"))
+        save(opt_state, os.path.join(output, "model.pdopt"))

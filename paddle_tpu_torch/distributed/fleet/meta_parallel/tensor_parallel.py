@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from ...parallel import DataParallel
+from ...parallel import DataParallel, _mark_checkpoint_owner
 from ..base.topology import get_hybrid_communicate_group
 from ..utils.hybrid_parallel_util import (broadcast_cp_parameters,
                                           broadcast_dp_parameters,
@@ -36,6 +36,7 @@ class MetaParallelBase(torch.nn.Module):
         self._layers = layers
         self._hcg = hcg or get_hybrid_communicate_group()
         self._strategy = strategy
+        _mark_checkpoint_owner(layers)
         self._prepare_for_model()
 
     def _prepare_for_model(self):

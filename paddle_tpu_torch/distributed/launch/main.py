@@ -10,13 +10,21 @@ endpoints) and each rank's output in ``log_dir/workerlog.<rank>``.  The
 launcher serves each group's rendezvous store itself, on a port the
 kernel picks, and the ranks connect to it.  When any rank exits non-zero, it kills
 the others and restarts the group, up to ``max_restart`` times, then
-gives up with the failing rank's exit code.  ``device="cpu"`` starts
+gives up with the failing rank's exit code.  With ``elastic_timeout``
+it also watches the ranks' progress heartbeats (``fleet.elastic``:
+``worker_heartbeat(mode="progress")``, which ``resilience.
+ResilientTrainLoop`` pings each step): a rank whose heartbeat stays
+stale for ``elastic_timeout`` seconds (two polls running) stops and
+restarts the whole group the same way, and the script resumes from its
+newest committed checkpoint.  A ``FLAGS_fault_schedule`` in the
+environment gets a job-scoped fired-state file, so each scheduled fault
+fires once per job, not once per restart.  ``device="cpu"`` starts
 ranks for ``init_parallel_env(device="cpu")`` (gloo) without building
 kernels; without it, a machine with no card raises.
 
 Usage: ``python -m paddle_tpu_torch.distributed.launch [--nproc_per_node
-N] [--devices 0,1,2,3] [--log_dir DIR] [--max_restart K] [--device cpu]
-script.py args...``.
+N] [--devices 0,1,2,3] [--log_dir DIR] [--max_restart K]
+[--elastic_timeout S] [--device cpu] script.py args...``.
 """
 from __future__ import annotations
 
@@ -77,11 +85,17 @@ def _tail(path: str, lines: int = 20) -> str:
         return ""
 
 
-def _run_group(cmd, devices, log_dir, attempt, fault_state) -> int:
+def _run_group(cmd, devices, log_dir, attempt, fault_state,
+               manager=None) -> int:
     """Start one process per device; return 0 when every rank exits 0,
-    else the first failing rank's exit code (the others killed)."""
+    else the first failing rank's exit code (the others killed), or 1
+    when ``manager`` (an ``ElasticManager`` over every rank) sees a
+    stale heartbeat."""
+    from ..fleet.elastic import ElasticStatus
     from ..parallel import STORE_SERVED_ENV, serve_store
     n = len(devices)
+    if manager is not None:
+        manager.reset()
     store = serve_store(n)           # this group's rendezvous, served here
     master = f"127.0.0.1:{store.port}"
     procs, logs = [], []
@@ -91,6 +105,8 @@ def _run_group(cmd, devices, log_dir, attempt, fault_state) -> int:
             env[STORE_SERVED_ENV] = "1"
             if fault_state is not None:
                 env.setdefault("PADDLE_FAULT_STATE_FILE", fault_state)
+            if manager is not None:
+                env["PADDLE_ELASTIC_REGISTRY"] = manager.registry
             path = os.path.join(log_dir, f"workerlog.{r}")
             log = open(path, "a")
             logs.append(log)
@@ -112,6 +128,12 @@ def _run_group(cmd, devices, log_dir, attempt, fault_state) -> int:
                 return code if code > 0 else 128 - code
             if all(c == 0 for c in codes):
                 return 0
+            if manager is not None and manager.enabled() and \
+                    manager.watch() == ElasticStatus.RESTART:
+                print(f"launch: a rank's progress heartbeat is older than "
+                      f"{manager.heartbeat_timeout} s (attempt {attempt}); "
+                      "stopping the group", file=sys.stderr, flush=True)
+                return 1
             time.sleep(_POLL_S)
     finally:
         _stop(procs)
@@ -130,10 +152,11 @@ def launch(script: str, script_args: Optional[List[str]] = None,
     separated card ids; default every visible card), restarting the group
     up to ``max_restart`` times; returns 0 or the failing exit code.
     ``PADDLE_ELASTIC_RESTART_BACKOFF`` (seconds, default 10) times the
-    restart count is the pause before a restart, at most 60 s.  More than
-    one node, a ``master`` of another host, ``run_mode`` other than
-    ``"collective"`` and ``elastic_timeout`` (the heartbeat supervisor of
-    ``fleet/elastic``) raise ``NotImplementedError``."""
+    restart count is the pause before a restart, at most 60 s.
+    ``elastic_timeout`` (seconds) turns on the heartbeat supervisor of
+    ``fleet.elastic`` over every rank (module docstring).  More than one
+    node, a ``master`` of another host and ``run_mode`` other than
+    ``"collective"`` raise ``NotImplementedError``."""
     if int(nnodes) != 1 or rank not in (None, 0):
         raise NotImplementedError("more than one node waits for a later "
                                   "slice")
@@ -142,10 +165,6 @@ def launch(script: str, script_args: Optional[List[str]] = None,
                                   "this host")
     if run_mode != "collective":
         raise NotImplementedError(f"run_mode {run_mode!r}")
-    if elastic_timeout is not None:
-        raise NotImplementedError("elastic_timeout (fleet/elastic's "
-                                  "heartbeat supervisor) waits for the "
-                                  "distributed slice (e)")
     if device not in (None, "gpu", "cpu"):
         raise ValueError(f"device {device!r}: 'gpu' or 'cpu'")
     if device == "cpu":
@@ -165,9 +184,18 @@ def launch(script: str, script_args: Optional[List[str]] = None,
     fault_state = os.path.join(os.path.abspath(log_dir), "fault_state.txt") \
         if os.environ.get("FLAGS_fault_schedule") else None
     backoff = float(os.environ.get("PADDLE_ELASTIC_RESTART_BACKOFF", 10))
+    manager = None
+    if elastic_timeout is not None:
+        from ..fleet.elastic import ElasticManager
+        # a registry of this job's own unless the caller names one
+        job_id = None if os.environ.get("PADDLE_ELASTIC_REGISTRY") else \
+            f"launch_{os.getpid()}_{time.monotonic_ns()}"
+        manager = ElasticManager(ranks=range(len(devs)), job_id=job_id)
+        manager.heartbeat_timeout = float(elastic_timeout)   # over the env
     restarts = 0
     while True:
-        code = _run_group(cmd, devs, log_dir, restarts, fault_state)
+        code = _run_group(cmd, devs, log_dir, restarts, fault_state,
+                          manager)
         if code == 0:
             return 0
         restarts += 1
@@ -191,6 +219,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--log_dir", default="log")
     p.add_argument("--max_restart", type=int, default=3)
     p.add_argument("--run_mode", default="collective")
+    p.add_argument("--elastic_timeout", type=float, default=None,
+                   help="seconds a rank's progress heartbeat may go "
+                        "stale before the group restarts")
     p.add_argument("--device", choices=("gpu", "cpu"), default=None,
                    help="cpu: gloo ranks on the CPU, no kernel build")
     p.add_argument("script")
@@ -208,7 +239,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                   rank=None if args.rank is None else int(args.rank),
                   master=args.master, devices=devices,
                   log_dir=args.log_dir, max_restart=args.max_restart,
-                  run_mode=args.run_mode, device=args.device)
+                  run_mode=args.run_mode,
+                  elastic_timeout=args.elastic_timeout, device=args.device)
 
 
 if __name__ == "__main__":

@@ -133,6 +133,44 @@ def _weak_hook(method):
     return hook
 
 
+# id(state dict) -> (weak reference to it, [(prefix, owner)]): the
+# modules and optimizers whose ``state_dict()`` made a dict
+_SD_OWNERS: Dict[int, tuple] = {}
+
+
+def _remember_checkpoint_owner(sd, prefix: str, owner) -> None:
+    """Record, outside the dict (which pickles as before), that
+    ``owner`` (a module, or an optimizer) made ``sd`` under ``prefix``,
+    so ``distributed.checkpoint`` finds the live state behind each
+    entry: a split parameter's boxes, a ZeRO shard.  ``sd`` must take a
+    weak reference (an ``OrderedDict`` does)."""
+    entry = _SD_OWNERS.get(id(sd))
+    if entry is None or entry[0]() is not sd:
+        key = id(sd)
+        ref = weakref.ref(sd, lambda _r, key=key: _SD_OWNERS.pop(key, None))
+        entry = _SD_OWNERS[key] = (ref, [])
+    entry[1].append((prefix, owner))
+
+
+def _mark_checkpoint_owner(module: torch.nn.Module) -> None:
+    """Make every ``module.state_dict()`` remember ``module``
+    (``_remember_checkpoint_owner``).  The wrappers call it on the model
+    they wrap."""
+    if getattr(module, "_ckpt_owner_marked", False):
+        return
+    module._ckpt_owner_marked = True
+    module.register_state_dict_post_hook(
+        lambda mod, sd, prefix, local_metadata:
+        _remember_checkpoint_owner(sd, prefix, mod))
+
+
+def _checkpoint_owners(sd) -> list:
+    """``[(prefix, owner)]`` that made the state dict ``sd`` (empty for
+    any other dict)."""
+    entry = _SD_OWNERS.get(id(sd))
+    return list(entry[1]) if entry is not None and entry[0]() is sd else []
+
+
 def reducer_of(p) -> Optional["_Reducer"]:
     """The reducer whose buckets hold parameter ``p`` (the sharded
     optimizers find their parameters' buckets this way)."""
@@ -687,6 +725,27 @@ class _ShardedReducer:
         for f in self.buckets:
             f.has_grad = False
 
+    def _checkpoint_pieces(self, keyed) -> list:
+        """``distributed.checkpoint``'s pieces of the parameters of
+        ``keyed`` (``(key, parameter)``): each parameter's slot of its
+        flat cut to this rank's ``[lo, hi)``, a flat range of the
+        parameter, viewing ``param_shard`` (a load writes there)."""
+        from .checkpoint.pieces import piece
+        where = {}
+        for f in self.buckets:
+            for p, off, shape in zip(f.params, f.offsets, f.shapes):
+                where[id(p)] = (f, off, shape)
+        out = []
+        for key, p in keyed:
+            f, off, shape = where[id(p)]
+            a, e = max(off, f.lo), min(off + shape.numel(), f.hi)
+            if a < e:
+                out.append(piece(key, f.param_shard[a - f.lo:e - f.lo],
+                                 shape, shape, 0,
+                                 [((0,) * len(shape), tuple(shape))],
+                                 a - off, e - off))
+        return out
+
 
 class DataParallel(torch.nn.Module):
     """ref: ``python/paddle/distributed/parallel.py`` DataParallel: the
@@ -718,6 +777,7 @@ class DataParallel(torch.nn.Module):
         self._reducer = _Reducer(layers.parameters(), self._group,
                                  comm_buffer_size * _MB,
                                  last_comm_buffer_size * _MB)
+        _mark_checkpoint_owner(layers)
         self._sync_params_buffers()
 
     @torch.no_grad()

@@ -86,6 +86,9 @@ class Adam(Optimizer):
                 st["master"] = p.detach().float().clone()
         return st
 
+    def _checkpoint_state(self, p):
+        return self._state(p)
+
     def _adam_update(self, p, g, lr, wd):
         st = self._state(p)
         betas = self._betas.get(p.device)

@@ -7,13 +7,16 @@ script fires the same faults at the same occurrence counts, every time.
 
 Named fault points (zero-cost when no schedule is installed).  The
 schedule grammar keeps all of the reference's points, so one schedule
-string parses alike in both packages; the port plants two of them:
+string parses alike in both packages; the port plants four of them:
 
 ================ ======================================================
 ``serving_step`` top of each serving-engine dispatch (single step AND
                  fused window — ``serving.engine``), before any launch
-``step``         end of a training step (not planted in the port)
-``ckpt_write``   checkpoint write (not planted in the port)
+``step``         end of a training step (``resilience.driver``
+                 ``ResilientTrainLoop.end_step``)
+``ckpt_write``   inside ``distributed.checkpoint.save_state_dict`` —
+                 after this rank's data file lands, *before* the
+                 ``_COMMIT`` manifest is written (the torn window)
 ``collective``   entry of every ``distributed`` collective (host side,
                  before the sanitizer and the launch)
 ``compile``      a compile-cache miss (not planted in the port)

@@ -859,3 +859,107 @@ def test_moe_forms_check_sees_a_wrong_combine(failures, monkeypatch,
     cs.check_moe_forms()
     print(capsys.readouterr().out)
     assert any("from the einsum form" in f for f in failures), failures
+
+
+# phase 24's chaos run starts its workers as ``chip_smoke.py
+# --resilient-worker DIR``; on the CPU they are this script, which puts
+# the same stand-ins in place first
+_CK_WORKER = r"""
+import functools, os, sys
+sys.path.insert(0, {root!r})
+import torch
+for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+    setattr(torch.cuda, name, lambda *a, **k: None)
+torch.Tensor.cuda = lambda self, *a, **k: self
+import chip_smoke as cs
+from paddle_tpu_torch.models import gpt as tgpt
+cs.GPTForPretraining = lambda cfg, seed: tgpt.GPTForPretraining(
+    cfg, device="cpu", seed=seed)
+cs.gpt_config = lambda name, **kw: tgpt.gpt_config("tiny", **kw)
+cs.TRAIN_BATCH, cs.TRAIN_SEQ = 2, 32
+cs.ck_per_step = lambda layers, n: {{k: 0 for k in cs.PER_STEP}}
+sys.exit(cs.resilient_worker(sys.argv[sys.argv.index("--resilient-worker")
+                                      + 1]))
+"""
+
+
+class _Failed(Exception):
+    pass
+
+
+@pytest.fixture
+def checkpointing(monkeypatch, tmp_path):
+    """Phase 24 at one card on the CPU: the tiny GPT at 3 layers, no
+    launches to count, the chaos run's workers on the CPU and a 4 s
+    stall timeout; a failed check raises."""
+    def fail(msg):
+        raise _Failed(msg)
+    monkeypatch.setattr(cs, "fail", fail)
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
+    monkeypatch.setattr(cs, "GPTForPretraining", lambda cfg, seed:
+                        tgpt.GPTForPretraining(cfg, device="cpu",
+                                               seed=seed))
+    monkeypatch.setattr(cs, "gpt_config", lambda name, **kw:
+                        tgpt.gpt_config("tiny", **kw))
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(cs, "TRAIN_SEQ", 32)
+    monkeypatch.setattr(cs, "N_LAYERS", 3)
+    monkeypatch.setattr(cs, "CK_HEARTBEAT_S", 4.0)
+    monkeypatch.setattr(cs, "ck_per_step",
+                        lambda layers, n: {k: 0 for k in cs.PER_STEP})
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = tmp_path / "ck_worker.py"
+    worker.write_text(_CK_WORKER.format(root=root))
+    monkeypatch.setattr(cs, "__file__", str(worker))
+
+
+def test_checkpoint_phase_holds_on_the_cpu(checkpointing, capsys):
+    """Save, load into a fresh model and optimizer, step 3 bit-equal; the
+    async save; both controls failing their checks; the chaos run with a
+    crash and a stall, bit-equal to the uninterrupted run."""
+    out = cs.checkpoint_one_card()
+    print(capsys.readouterr().out)
+    assert out["bit_equal"] and out["load"]["version"] == "2"
+    assert out["save"]["bytes"] == out["load"]["bytes"] > 0
+    assert out["async"]["committed"]
+    for io in (out["save"], out["load"], out["async"]):
+        assert 0 < io["part_bytes"] < io["share_bytes"]
+    assert not out["control_copies"]["model_holds_loaded"]
+    assert out["control_copies"]["copies_changed"] > 0
+    assert out["control_missing"]["raised"] == "FileNotFoundError"
+    rep = out["chaos"]["report"]
+    assert rep["crashes"] == 1 and rep["stalls"] == 1 and rep["code"] == 0
+    assert [r["loaded"] for r in out["chaos"]["runs"]] == [None, "0", "2"]
+
+
+@pytest.mark.parametrize("split", [True, False])
+def test_checkpoint_io_holds_a_call_to_its_share(checkpointing,
+                                                 monkeypatch, split):
+    """``ck_io`` passes a call that holds nothing and fails one that holds
+    more host memory than the share and one local part, also where the
+    host gives its resident bytes without the anonymous / file split."""
+    monkeypatch.setattr(cs, "CK_HOST_SLACK", 16 << 20)
+    if not split:
+        real = cs.ck_rss
+        monkeypatch.setattr(cs, "ck_rss", lambda: (real()[0], None, None))
+    state = {"model": torch.nn.Linear(8, 8).state_dict()}
+    io = cs.ck_io("nothing", lambda: None, state)
+    assert io["share_bytes"] == 4 * (64 + 8) and io["part_bytes"] == 256
+    assert (io["host_anon_added_bytes"] is None) != split
+    held = []
+    with pytest.raises(_Failed, match="host resident"):
+        cs.ck_io("a copy", lambda: held.append(np.ones(8 << 20)), state)
+
+
+def test_checkpoint_phase_fails_when_the_load_writes_nothing(
+        checkpointing, monkeypatch):
+    """The bit-equal check sees a load that leaves the fresh model as it
+    was built."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    monkeypatch.setattr(dck, "_copy_overlaps", lambda *a, **k: None)
+    with pytest.raises(_Failed, match="not bit-equal"):
+        cs.checkpoint_one_card()

@@ -86,6 +86,12 @@ def test_importing_the_port_loads_no_jax():
             "import paddle_tpu_torch.ops.ring_attention\n"
             "import paddle_tpu_torch.ops.ulysses\n"
             "import paddle_tpu_torch.nn.initializer\n"
+            "import paddle_tpu_torch.framework, paddle_tpu_torch.framework.io\n"
+            "import paddle_tpu_torch.distributed.checkpoint\n"
+            "import paddle_tpu_torch.distributed.checkpoint.pieces\n"
+            "import paddle_tpu_torch.distributed.fleet.elastic\n"
+            "import paddle_tpu_torch.distributed.fleet.elastic.manager\n"
+            "import paddle_tpu_torch.resilience.driver\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'paddle_tpu'))\n"
             "print(','.join(bad))\n")

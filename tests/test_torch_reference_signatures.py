@@ -126,6 +126,13 @@ trc = importlib.import_module(
 tfleet_mod = importlib.import_module(
     "paddle_tpu_torch.distributed.fleet.fleet")
 jdriver = importlib.import_module("paddle_tpu.resilience.driver")
+jck = importlib.import_module("paddle_tpu.distributed.checkpoint")
+tck = importlib.import_module("paddle_tpu_torch.distributed.checkpoint")
+jio = importlib.import_module("paddle_tpu.framework.io")
+tio = importlib.import_module("paddle_tpu_torch.framework.io")
+jelastic = importlib.import_module("paddle_tpu.distributed.fleet.elastic")
+telastic = importlib.import_module(
+    "paddle_tpu_torch.distributed.fleet.elastic")
 ttrain = importlib.import_module("paddle_tpu_torch.jit.train_step")
 
 # name: (the reference, the port)
@@ -307,6 +314,31 @@ PAIRS = {
                                 ternie.ErnieMoEConfig.__init__),
     **{fn: (getattr(jdutils, fn), getattr(tdutils, fn))
        for fn in ("global_scatter", "global_gather", "expert_count")},
+    "paddle.save": (jio.save, tio.save),
+    "paddle.load": (jio.load, tio.load),
+    **{f"checkpoint.{fn}": (getattr(jck, fn), getattr(tck, fn))
+       for fn in ("save_state_dict", "load_state_dict", "wait_async_save",
+                  "read_commit", "latest_committed", "last_load_info",
+                  "gc_versions")},
+    "checkpoint.AsyncSaveError.__init__": (jck.AsyncSaveError.__init__,
+                                           tck.AsyncSaveError.__init__),
+    "elastic.worker_heartbeat": (jelastic.worker_heartbeat,
+                                 telastic.worker_heartbeat),
+    **{f"elastic.{cls}.{m}": (getattr(getattr(jelastic, cls), m),
+                              getattr(getattr(telastic, cls), m))
+       for cls, ms in (("ElasticManager",
+                        ("__init__", "enabled", "mark_completed", "reset",
+                         "worker_alive", "watch", "exit")),
+                       ("LauncherInterface",
+                        ("__init__", "launch", "stop", "watch")))
+       for m in ms},
+    **{f"ResilientTrainLoop.{m}": (getattr(jdriver.ResilientTrainLoop, m),
+                                   getattr(tdriver.ResilientTrainLoop, m))
+       for m in ("__init__", "restore", "save", "end_step", "finish",
+                 "request_preempt")},
+    "RunReport.__init__": (jdriver.RunReport.__init__,
+                           tdriver.RunReport.__init__),
+    "run_resilient": (jdriver.run_resilient, tdriver.run_resilient),
 }
 EXTRA = {"generator", "device"}
 
@@ -409,8 +441,6 @@ UNSUPPORTED = {
                                          exclude_layer=["Linear"]),
     "GroupShardedStage3 segment_size": lambda: tsharding.GroupShardedStage3(
         None, segment_size=2 ** 10),
-    "launch elastic_timeout": lambda: tlaunch(
-        "script.py", elastic_timeout=30.0, device="cpu"),
     "launch nnodes": lambda: tlaunch("script.py", nnodes=2, device="cpu"),
     "scatter without tensor_list": lambda: tdist.scatter(torch.zeros(2)),
     "sgd weight_decay": lambda: optimizer.SGD(parameters=_param(),
@@ -485,7 +515,24 @@ HONOURED = {
     "ParamAttr need_clip": lambda: getattr(tnn.Linear(
         2, 2, weight_attr=tinit.ParamAttr(need_clip=False),
         device="cpu").weight, "need_clip", True) is False,
+    # the heartbeat supervisor runs (tests/test_torch_resilience_driver.py
+    # holds a hung worker killed and restarted); its workers get the
+    # registry they heartbeat into
+    "launch elastic_timeout": lambda: _launch_with_elastic_timeout(),
 }
+
+
+def _launch_with_elastic_timeout() -> bool:
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        script = os.path.join(d, "w.py")
+        with open(script, "w") as f:
+            f.write("import os, sys\n"
+                    "sys.exit(0 if os.environ.get('PADDLE_ELASTIC_REGISTRY')"
+                    " else 3)\n")
+        return tlaunch(script, log_dir=os.path.join(d, "log"),
+                       elastic_timeout=30.0, device="cpu") == 0
 
 
 def _spmd_scaler_kept() -> bool:

@@ -518,7 +518,8 @@ def run_stage3(out, r, gpt_weights, llama_weights):
             save = os.path.join(out, "saved")
             save_group_sharded_model(model, save, sopt)
             dist.barrier()
-            saved = torch.load(os.path.join(save, "model.pdmodel"))
+            from paddle_tpu_torch import load
+            saved = load(os.path.join(save, "model.pdmodel"))
             fresh_bare = _tiny(gpt_weights)
             fresh, fresh_opt, _ = group_sharded_parallel(
                 fresh_bare, _adamw(fresh_bare), "p_g_os")
@@ -1505,6 +1506,227 @@ def run_spawn(out):
             sys.exit("spawn: the ranks did not finish")
 
 
+# ---------------------------------------------------------------------------
+# distributed checkpointing
+# ---------------------------------------------------------------------------
+
+CK_STEPS = 4                     # the uninterrupted run's
+CK_SAVE_AT = 2                   # the save after this many steps
+# the checkpoint runs: (model, degrees, how it is wrapped); the tiny GPT
+# of example 03's form (fp32 + clip + scaler) and the tiny LLaMA
+CK_RUNS = {
+    "gpt_os_g": ("gpt", dict(dp_degree=2, sharding_degree=2), "os_g"),
+    "gpt_p_g_os": ("gpt", dict(sharding_degree=4), "p_g_os"),
+    "llama_mp4": ("llama", dict(mp_degree=4), "fleet"),
+    "llama_mp2_dp2": ("llama", dict(dp_degree=2, mp_degree=2), "fleet"),
+}
+
+
+def _ck_build(tag, gpt_w, llama_w):
+    """One ``CK_RUNS`` run as example 03 writes it: the model wrapped,
+    AdamW with ``ClipGradByGlobalNorm(HC_CLIP)``, ``GradScaler(HC_SCALE)``
+    and ``train_step(scaler=, mesh=)``; returns ``(model, inner, opt,
+    scaler, step)`` (``inner``: the model under its wrappers)."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    kind, degrees, wrap = CK_RUNS[tag]
+    hcg = _fleet_init(**degrees)
+    scaler = amp.GradScaler(init_loss_scaling=HC_SCALE)
+    bare = tp_model(kind, gpt_w if kind == "gpt" else llama_w,
+                    llama=TP_LLAMA)
+    batch = global_batch() if kind == "gpt" else \
+        tp_batch(TP_LLAMA["vocab_size"])
+
+    def adamw(m):
+        return optimizer.AdamW(learning_rate=LR, parameters=m.parameters(),
+                               grad_clip=ClipGradByGlobalNorm(HC_CLIP))
+    if wrap == "fleet":
+        model = fleet.distributed_model(bare)
+        opt = fleet.distributed_optimizer(adamw(model))
+    else:
+        model, opt, scaler = group_sharded_parallel(
+            bare, adamw(bare), wrap, scaler=scaler,
+            group=hcg.get_dp_sharding_parallel_group())
+    step = train_step(model, None, opt, scaler=scaler, mesh=hcg.mesh,
+                      step_fn=_step_fn)
+    inner = getattr(model, "_layers", model)
+    return model, inner, opt, scaler, lambda: float(step(*batch))
+
+
+def _ck_state(inner, opt, scaler):
+    """Example 03's checkpoint dict (and its scaler's state)."""
+    return {"model": inner.state_dict(), "opt": opt.state_dict(),
+            "scaler": scaler.state_dict()}
+
+
+def _ck_full(model, wrap):
+    """Every parameter's full fp32 value, copied (a collective call)."""
+    if wrap == "p_g_os":
+        full = {n: v.float().numpy() for n, v in model.state_dict().items()}
+    else:
+        full = full_params(model)
+    return {n: a.copy() for n, a in full.items()}
+
+
+def _ck_moments(opt, inner):
+    """The optimizer's moments by parameter name, whole (gathered over
+    the shards and over mp; the torch format's index order is the
+    model's parameter order; a collective call)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_layers
+    st = opt.state_dict()["state"]
+    named = list(inner.named_parameters())
+    return {f"{named[i][0]}/{k}": mp_layers.gather_parameter(
+        v[k], named[i][1]).float().numpy().copy()
+        for i, v in st.items() for k in ("moment1", "moment2")}
+
+
+def _owned_bytes(r, inner, opt):
+    """The bytes of the elements rank ``r`` owns in a save of
+    ``_ck_state`` at dp 2 x sharding 2 ``os_g`` over four ranks: rank 0
+    the replicated model and every parameter's two fp32 beta powers,
+    each rank the fp32 moments of its shard of every bucket's parameter
+    slots (the padding between slots is nobody's)."""
+    n = 0
+    if r == 0:
+        n += sum(t.numel() * t.element_size()
+                 for t in inner.state_dict().values())
+        n += 2 * 4 * sum(1 for _ in inner.parameters())
+    sopt = opt
+    for b in sopt._reducer.buckets:
+        lo, hi = sopt._shard(b)
+        for p, off in zip(b.params, b.offsets):
+            n += 2 * 4 * max(0, min(off + p.numel(), hi) - max(off, lo))
+    return n
+
+
+def run_checkpoint(out, r, src):
+    """``CK_RUNS``: the tiny GPT at dp 2 x sharding 2 ``os_g`` trains
+    ``CK_SAVE_AT`` steps, saves example 03's dict (``ck/gpt/2``; its
+    data bytes and the bytes this rank owns), takes the optimizer's
+    state dict on every rank and writes it with ``paddle_tpu_torch.save``
+    on rank 0 alone (``gpt_opt.pdopt``), trains on to ``CK_STEPS``;
+    a fresh model at the same layout loads and trains the same steps
+    (bit-equal); one under sharding 4 ``p_g_os`` loads (its values
+    against the saved full state, exactly; a load into the wrapper's
+    gathered copies must leave it unchanged) and trains them; the tiny
+    LLaMA at mp 4 saves (``ck/llama/2``), and one at mp 2 x dp 2 loads
+    and trains them."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    gpt_w = dict(np.load(os.path.join(src, "gpt.npz")))
+    llama_w = dict(np.load(os.path.join(src, "llama.npz")))
+    arrays, info = {}, {}
+    for kind, saver, loaders in (("gpt", "gpt_os_g",
+                                  ("gpt_os_g", "gpt_p_g_os")),
+                                 ("llama", "llama_mp4", ("llama_mp2_dp2",))):
+        path = os.path.join(out, "ck", kind)
+        model, inner, opt, scaler, step = _ck_build(saver, gpt_w, llama_w)
+        losses = [step() for _ in range(CK_SAVE_AT)]
+        dck.save_state_dict(_ck_state(inner, opt, scaler), path,
+                            unique_id=CK_SAVE_AT,
+                            metadata={"step": CK_SAVE_AT})
+        wrap = CK_RUNS[saver][2]
+        saved = _ck_full(model, wrap)
+        moments = _ck_moments(opt, inner)
+        if wrap == "os_g":
+            # the usual pattern: every rank takes the optimizer's state
+            # dict (gathered at the call), rank 0 alone writes it
+            from paddle_tpu_torch import save as psave
+            opt_sd = opt.state_dict()
+            if r == 0:
+                psave(opt_sd, os.path.join(out, "gpt_opt.pdopt"))
+        rec = info[saver] = dict(
+            data_bytes=os.path.getsize(os.path.join(
+                path, str(CK_SAVE_AT), f"{r}_0.distcp")))
+        if wrap == "os_g":
+            rec["owned_bytes"] = _owned_bytes(r, inner, opt)
+        losses += [step() for _ in range(CK_STEPS - CK_SAVE_AT)]
+        rec["losses"] = losses
+        if wrap == "os_g":
+            # the dict is the state of the call, not of a later step
+            named = [n for n, _ in inner.named_parameters()]
+            rec["opt_state_dict_kept"] = all(
+                np.array_equal(v[k].numpy(), moments[f"{named[i]}/{k}"])
+                for i, v in opt_sd["state"].items()
+                for k in ("moment1", "moment2"))
+            del opt_sd
+        uninterrupted = _ck_full(model, wrap)
+        if r == 0:
+            for n, a in saved.items():
+                arrays[f"{kind}_saved/{n}"] = a
+            for n, a in moments.items():
+                arrays[f"{kind}_saved_moments/{n}"] = a
+        _fleet_clear()
+        for tag in loaders:
+            wrap = CK_RUNS[tag][2]
+            model, inner, opt, scaler, step = _ck_build(tag, gpt_w, llama_w)
+            rec = info[tag + "_load"] = {}
+            if wrap == "p_g_os":
+                # the control: the wrapper's state_dict is gathered
+                # copies, and a load into them leaves the model as built
+                built = _ck_full(model, wrap)
+                copies = model.state_dict()
+                dck.load_state_dict({"model": copies}, path)
+                rec["copies_took_values"] = all(
+                    np.array_equal(copies[n].numpy(), saved[n])
+                    for n in saved)
+                rec["copies_left_model"] = all(
+                    np.array_equal(_ck_full(model, wrap)[n], built[n])
+                    for n in built)
+            state = _ck_state(inner, opt, scaler)
+            dck.load_state_dict(state, path)
+            scaler.set_state_dict(state["scaler"])
+            loaded = _ck_full(model, wrap)
+            got = _ck_moments(opt, inner)
+            rec.update(
+                version=dck.last_load_info()["version"],
+                values_exact=all(np.array_equal(loaded[n], saved[n])
+                                 for n in saved),
+                values_off={n: float(np.abs(loaded[n] - saved[n]).max())
+                            for n in saved
+                            if not np.array_equal(loaded[n], saved[n])},
+                moments_exact=sorted(got) == sorted(moments) and all(
+                    np.array_equal(got[k], moments[k]) for k in moments),
+                scale=float(scaler._scale))
+            rec["losses"] = [step() for _ in range(CK_STEPS - CK_SAVE_AT)]
+            final = _ck_full(model, wrap)
+            if tag == saver:
+                rec["bit_equal"] = rec["losses"] == losses[CK_SAVE_AT:] \
+                    and all(np.array_equal(final[n], a)
+                            for n, a in uninterrupted.items())
+            if r == 0:
+                for n, a in final.items():
+                    arrays[f"{tag}_load/{n}"] = a
+            _fleet_clear()
+    return arrays, info
+
+
+def run_checkpoint_crash(out, r, src):
+    """The tiny GPT at dp 2 x sharding 2 ``os_g`` saves version 0
+    (committed) after ``CK_SAVE_AT`` steps, trains one more and saves
+    version 1 with ``ckpt_write@1=crash`` installed on rank 3 alone: rank
+    3 dies between its write and the commit (the others wait in the
+    commit's gather until the launcher stops them)."""
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.resilience.faults import install_schedule
+    gpt_w = dict(np.load(os.path.join(src, "gpt.npz")))
+    path = os.path.join(out, "ck")
+    model, inner, opt, scaler, step = _ck_build("gpt_os_g", gpt_w, None)
+    for _ in range(CK_SAVE_AT):
+        step()
+    dck.save_state_dict(_ck_state(inner, opt, scaler), path, unique_id=0,
+                        metadata={"step": CK_SAVE_AT})
+    step()
+    if r == 3:
+        install_schedule("ckpt_write@1=crash")
+    dck.save_state_dict(_ck_state(inner, opt, scaler), path, unique_id=1,
+                        metadata={"step": CK_SAVE_AT + 1})
+    return {}, {"survived": True}
+
+
 def main():
     mode, out = sys.argv[1], sys.argv[2]
     if mode == "spawn":
@@ -1529,6 +1751,10 @@ def main():
         arrays, info = run_moe(out, r, sys.argv[3])
     elif mode == "hybrid_clip":
         arrays, info = run_hybrid_clip(out, r, sys.argv[3])
+    elif mode == "checkpoint":
+        arrays, info = run_checkpoint(out, r, sys.argv[3])
+    elif mode == "checkpoint_crash":
+        arrays, info = run_checkpoint_crash(out, r, sys.argv[3])
     else:
         weights = dict(np.load(sys.argv[3]))
         arrays, info = run_train(out, r, weights)
