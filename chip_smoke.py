@@ -13,7 +13,8 @@ runs phases 17-22 alone: ``distributed_alone``, on every visible card;
 phase 20 alone, ``--pipeline`` phase 21 alone, ``--moe`` phase 22
 alone: ``moe_alone``; ``--amp-clip`` phase 23, which the default run
 leaves out: ``amp_clip_alone``; ``--checkpoint`` phase 24, which it
-leaves out too: ``checkpoint_alone``.)
+leaves out too: ``checkpoint_alone``; ``--auto-parallel`` phase 25,
+left out as well, with its own kernels line: ``auto_parallel_alone``.)
 
 It imports nothing of JAX or ``paddle_tpu``.  Phases, each failing
 loudly with a non-zero exit:
@@ -410,6 +411,33 @@ loudly with a non-zero exit:
    card loads the version bit-equal to rank 0's fingerprints, then the
    missing-file control.  Every step's launches exact, none in a save
    or a load; peak memory a rank during each.
+25. the semi-auto API and its Engine (``--auto-parallel`` only; K1 at
+   the "ernie" case, K2 at "ernie" and K3 run first, on several cards
+   also K1 "main" and K2 "float32", for its kernels line).  At one card
+   (``auto_parallel_one_card``) example 05's flow at ``ernie-moe-base``'s
+   full width and depth: phase 22's model, optimizer and MoE clip under
+   O2 through ``Engine(model, loss=model.loss_fn, optimizer=opt).fit``
+   over an ``io.Dataset`` of phase 22's global batch (``batch_size=
+   None``), 1 cold, 2 warm-up and 5 timed steps, against phase 22's
+   ``train_step`` run from the same seed: every loss, parameter and
+   master bit-equal, launches exact; step ms, tokens/s, MFU, the
+   loader's host ms a step, peak memory and ``engine.cost()`` beside
+   ``moe_step_flops``; ``evaluate`` and ``predict`` on the same batch;
+   ``save``, ``load`` into a fresh engine (a temporary directory on this
+   host, free space checked) and one more step of each, bit-equal.  On
+   several cards (``auto_parallel_rank``) the same at ``fleet.init(
+   dp_degree=2, ep_degree=2)`` (example 05's dp 2 x ep 4 cut to four
+   cards) against phase 22's ``train_step`` run rank by rank; the
+   semi-auto mp path at GPT-3 1.3B's MLP width (24 pairs of
+   Linear(2048, 8192)-GELU-Linear(8192, 2048), fp32, AdamW(1e-5), 8192
+   rows) annotated with ``shard_tensor`` on ``ProcessMesh([[0, 1], [2,
+   3]], ["dp", "mp"])`` against the same stack at dp 4 through
+   ``Engine.fit`` (losses rtol 2e-4, parameters atol 1e-4 after 3
+   steps; 3 more timed; a rank's parameter bytes); ``Engine.tune`` on
+   GPT-3 1.3B O2 at 24 layers over ``AP_TUNE`` (each candidate's
+   ``step_s`` or error; the parameters bit-equal after the trials, no
+   reducer left; 3 fit steps under the winner; launches exact, trial
+   steps included).
 
 Phases 6 and 8 also require 0 launches of K8 per step (the GPT and LLaMA
 criteria stay on the log-softmax route, as ``ParallelCrossEntropy`` keeps
@@ -454,9 +482,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from paddle_tpu_torch import amp, optimizer
 from paddle_tpu_torch.analysis.pass_check import CARD_TOL
+from paddle_tpu_torch.distributed.auto_parallel import (
+    Engine, ProcessMesh, Replicate, Shard, set_mesh, shard_optimizer,
+    shard_tensor, unshard_dtensor)
 from paddle_tpu_torch.distributed.parallel import (all_gather_single,
                                                   reduce_scatter_single)
 from paddle_tpu_torch.flags import set_flags
+from paddle_tpu_torch.io import Dataset
 from paddle_tpu_torch.inference.serving import (InferenceServer,
                                                 generate_http)
 from paddle_tpu_torch.jit import train_step
@@ -2148,6 +2180,12 @@ K1_CASES = {
     "ring-full": (64, 1024, 1024, 1, False, torch.bfloat16, 128),
     # ERNIE-MoE's attention (phase 22): batch 8 x 12 heads, non-causal
     "ernie": (96, 512, 512, 1, False, torch.bfloat16, 64),
+    # phase 25's per-rank shapes: a dp 2 rank's half of ERNIE-MoE's batch,
+    # and GPT-3 1.3B's attention on 1 or 2 rows of the batch of 4
+    # (Engine.tune's 4-way data layouts, and dp 2 x mp 2)
+    "ernie-dp2": (48, 512, 512, 1, False, torch.bfloat16, 64),
+    "gpt-1row": (16, 2048, 2048, 1, True, torch.bfloat16, 128),
+    "gpt-2rows": (32, 2048, 2048, 1, True, torch.bfloat16, 128),
 }
 # the bf16 kernels, which must hold tensor-core instructions (and the
 # CUDA-core `_fp32` kernels none)
@@ -2199,11 +2237,14 @@ def check_sass():
     return found
 
 
-def check_k1():
+def check_k1(cases=None):
+    """Phase 5's K1 cases (``cases``: those named only)."""
     rows = {}
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     for case, (bh, sq, sk, n_rep, causal, dtype, d) in K1_CASES.items():
+        if cases is not None and case not in cases:
+            continue
         scale = 1.0 / d ** 0.5
         q = rand((bh, sq, d), dtype, g).requires_grad_()
         k = rand((bh // n_rep, sk, d), dtype, g).requires_grad_()
@@ -2349,6 +2390,11 @@ K2_CASES = {
     # ERNIE-MoE's LayerNorms (phase 22): 8 x 512 tokens, width 768, fp32
     # under O2 (black-listed)
     "ernie": (4096, 768, torch.float32, torch.float32, "randn"),
+    # phase 25's per-rank rows: a dp 2 rank's half of ERNIE-MoE's tokens,
+    # 1 or 2 rows of GPT-3 1.3B's batch (Engine.tune's layouts)
+    "ernie-dp2": (2048, 768, torch.float32, torch.float32, "randn"),
+    "gpt-1row": (2048, 2048, torch.float32, torch.float32, "randn"),
+    "gpt-2rows": (4096, 2048, torch.float32, torch.float32, "randn"),
 }
 K2_OFFSET = 100.0
 
@@ -2408,16 +2454,19 @@ def k2_inputs(n, h, dtype, wdtype, kind, g):
     return (x.requires_grad_(), w.requires_grad_(), b.requires_grad_(), gy)
 
 
-def check_k2():
-    """Phase 5's K2 cases: y, dx, dw and db against the plain version, the
-    route each takes (the wrapper's `route` and the kernel's `ln_route`
-    agree), a relaunch of each kernel bitwise equal to the first, the
-    mean-offset control, and the times."""
+def check_k2(cases=None):
+    """Phase 5's K2 cases (``cases``: those named only): y, dx, dw and db
+    against the plain version, the route each takes (the wrapper's
+    `route` and the kernel's `ln_route` agree), a relaunch of each kernel
+    bitwise equal to the first, the mean-offset control, and the
+    times."""
     rows = {}
     g = torch.Generator(device="cuda")
     g.manual_seed(2)
     lib = _build.library("layer_norm")
     for key, (n, h, dtype, wdtype, kind) in K2_CASES.items():
+        if cases is not None and key not in cases:
+            continue
         x, w, b, gy = k2_inputs(n, h, dtype, wdtype, kind, g)
         want = ("vector" if h in ln.VECTOR_WIDTHS and kind != "unaligned"
                 else "wide" if h > ln.GENERIC_MAX_H else "generic")
@@ -2489,11 +2538,14 @@ def check_k2():
 def check_k3():
     """A bf16 [2048, 8192] parameter on an fp32 master, an fp32 [2048]
     parameter, an fp32 [50265, 768] parameter (BART's shared embedding,
-    its largest tensor; no master) and a bf16 [768, 3072] one on an fp32
+    its largest tensor; no master), a bf16 [768, 3072] one on an fp32
     master (an ERNIE-MoE expert's weight, the shape of 768 of phase 22's
-    1672 tensors), 3 steps with weight decay, kernel vs the plain
-    sequence on identical copies.  Returns the timed rows: "main" (the
-    [2048, 8192] one, GPT's and LLaMA's O2 case), "bart" and "ernie"."""
+    1672 tensors) and fp32 [2048, 8192] / [2048, 4096] ones with no
+    master (phase 25's mp stack: a weight at dp 4, a rank's half of one
+    at mp 2), 3 steps with weight decay, kernel vs the plain sequence on
+    identical copies.  Returns the timed rows: "main" (the [2048, 8192]
+    one, GPT's and LLaMA's O2 case), "bart", "ernie", "mp_full" and
+    "mp_shard"."""
     g = torch.Generator(device="cuda")
     g.manual_seed(3)
     b1, b2, eps, wd = 0.9, 0.999, 1e-8, 0.01
@@ -2503,7 +2555,9 @@ def check_k3():
     for shape, low, key in (((2048, 8192), True, "main"),
                             ((2048,), False, None),
                             ((50265, 768), False, "bart"),
-                            ((768, 3072), True, "ernie")):
+                            ((768, 3072), True, "ernie"),
+                            ((2048, 8192), False, "mp_full"),
+                            ((2048, 4096), False, "mp_shard")):
         err = 0.0
         master = rand(shape, torch.float32, g, 0.02)
         states = []
@@ -9763,6 +9817,597 @@ def checkpoint_alone() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the semi-auto API and its Engine (--auto-parallel)
+# ---------------------------------------------------------------------------
+
+# GPT-3 1.3B's MLP width, the semi-auto mp stack: 24 pairs of
+# Linear(2048, 8192)-GELU-Linear(8192, 2048), fp32, on batch 4 x 2048 rows
+AP_MP_PAIRS, AP_MP_WIDTH = 24, (2048, 8192)
+AP_MP_ROWS = 4 * 2048
+AP_MP_STEPS = 3                  # held against dp 4, then as many timed
+AP_MP_LR = 1e-3                  # AdamW's first step moves every parameter
+AP_MP_LOSS_RTOL = 2e-4           # by lr, 10 x the bound: a wrong gradient's
+AP_MP_PARAM_ATOL = 1e-4          # sign shows
+AP_TUNE = ((4, 1, 1), (2, 2, 1), (1, 4, 1), (2, 1, 2))
+AP_TUNE_FIT = 3                  # fit steps under the winner
+AP_COST_MEM_RTOL = 0.01          # cost()'s memory against the measured peak
+AP_SPARE = 1.10                  # disk asked for over a save's bytes
+
+
+class APBatches(Dataset):
+    """An ``io.Dataset`` of ``n`` items, each the same global batch."""
+
+    def __init__(self, batch, n):
+        self.batch, self.n = tuple(batch), n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.batch
+
+
+def ap_fit(eng, data):
+    """``Engine.fit`` under amp O2 (the block phase 22's ``o2_step_fn``
+    runs its forward in), one global batch a step; the losses."""
+    with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+        return eng.fit(data, batch_size=None)["loss"]
+
+
+def ap_values(model, opt):
+    """Device copies of every parameter and its fp32 master."""
+    out = {}
+    for n, p in model.named_parameters():
+        out[n] = p.detach().clone()
+        st = opt.state.get(p) or {}
+        if "master" in st:
+            out[n + "/master"] = st["master"].detach().clone()
+    return out
+
+
+def ap_unequal(ref, model, opt) -> list:
+    """The names whose parameter or master is not bit-equal to
+    ``ref``'s."""
+    now = ap_values(model, opt)
+    return sorted(set(ref) ^ set(now)) + [
+        k for k in ref if k in now and not torch.equal(ref[k], now[k])]
+
+
+def ap_state_unequal(a, b) -> list:
+    """The parameters of two (model, opt) pairs whose value, master or
+    moments differ."""
+    (ma, oa), (mb, ob) = a, b
+    bad = []
+    for (n, p), q in zip(ma.named_parameters(), mb.parameters()):
+        sa, sb = oa.state.get(p, {}), ob.state.get(q, {})
+        if not torch.equal(p, q) or set(sa) != set(sb) or any(
+                not torch.equal(sa[k], sb[k]) for k in sa
+                if isinstance(sa[k], torch.Tensor)):
+            bad.append(n)
+    return bad
+
+
+def ap_timing(eng, warm):
+    """Step ms and the loader's host ms over the steps after ``warm``."""
+    steps, data = eng.step_seconds[warm:], eng.data_seconds[warm:]
+    return (1e3 * sum(steps) / len(steps), 1e3 * sum(data) / len(data))
+
+
+def ap_tmpdir(need):
+    """A temporary directory on this host with ``need`` bytes (times
+    ``AP_SPARE``) free, or the run fails."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    free = shutil.disk_usage(d).free
+    if free < AP_SPARE * need:
+        shutil.rmtree(d, ignore_errors=True)
+        fail(f"auto-parallel: {d} has {free} bytes free; Engine.save needs "
+             f"{int(AP_SPARE * need)}")
+    say(f"auto-parallel: {d}: {free} bytes free ({free / 2**30:.1f} GiB), "
+        f"{need} ({need / 2**30:.1f} GiB) to write")
+    return d
+
+
+def ap_moe_run(tag, cfg, batch, mesh, experts_held, group=None):
+    """Phase 22's ``train_step`` run (the reference) then the same model,
+    optimizer and clip from the same seed through ``Engine.fit``, each
+    ``sum(MOE_STEPS)`` steps on the global batch: the losses and every
+    parameter and master bit-equal, launches exact.  Returns the numbers
+    and the Engine (with its model and optimizer)."""
+    n = sum(MOE_STEPS.values())
+    model, opt = moe_trainer(cfg)
+    step = train_step(model, None, opt, mesh=mesh, step_fn=o2_step_fn)
+    per = moe_per_step(len(list(model.parameters())))
+    ref_losses, ref_s = moe_steps(f"{tag} reference", step, batch, per, n)
+    ref = ap_values(model, opt)
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = moe_trainer(cfg)
+    eng = Engine(model, loss=model.loss_fn, optimizer=opt)
+    if eng.cost() is not None:
+        fail(f"{tag}: Engine.cost() before the first step")
+    reset_counts()
+    losses = ap_fit(eng, APBatches(batch, n))
+    peak = torch.cuda.max_memory_allocated()    # before the checks' copies
+    launches = counts()
+    want = {k: v * n for k, v in per.items()}
+    if {k: launches[k] for k in want} != want:
+        fail(f"{tag}: Engine.fit launched {launches}, want {want}")
+    if losses != ref_losses:
+        fail(f"{tag}: Engine.fit losses {losses} != train_step's "
+             f"{ref_losses}")
+    bad = ap_unequal(ref, model, opt)
+    del ref
+    if bad:
+        fail(f"{tag}: {len(bad)} tensors not bit-equal to train_step's, "
+             f"first {bad[:3]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"{tag}: losses not finite and falling: {losses}")
+    warm = MOE_STEPS["cold"] + MOE_STEPS["warmup"]
+    dp = 1 if group is None else group.nranks
+    m = moe_summary(cfg, model, losses, eng.step_seconds, warm,
+                    MOE_BATCH * MOE_SEQ // dp, experts_held, group)
+    m["peak_bytes"] = peak
+    step_ms, data_ms = ap_timing(eng, warm)
+    cost_ms, cost_bytes = eng.cost()
+    # on the card cost() reports a steady step's peak (on the CPU the
+    # state's bytes)
+    if next(model.parameters()).is_cuda and abs(
+            cost_bytes - m["peak_bytes"]) > AP_COST_MEM_RTOL * m["peak_bytes"]:
+        fail(f"{tag}: engine.cost()'s memory {cost_bytes} bytes is not "
+             f"within {AP_COST_MEM_RTOL} of the measured peak "
+             f"{m['peak_bytes']}")
+    m.update(launches=launches, ref_losses=ref_losses, bit_equal=True,
+             ref_step_ms=1e3 * sum(ref_s[warm:]) / len(ref_s[warm:]),
+             n_tensors=len(list(model.parameters())), data_ms=data_ms,
+             engine_step_ms=step_ms, cost_ms=cost_ms, cost_bytes=cost_bytes,
+             cost_flops=eng._cost[0], dp=dp)
+    return m, eng, model, opt
+
+
+def ap_line(tag, m, world):
+    return (f"auto-parallel: {tag}: Engine.fit {m['engine_step_ms']:.2f} ms "
+            f"a step (phase 22's train_step in this run "
+            f"{m['ref_step_ms']:.2f} ms; {m['tokens_s']:.1f} tokens/s over "
+            f"{world} card(s), MFU "
+            f"{100 * m['mfu']:.2f} % a card), the loader's host time "
+            f"{m['data_ms']:.4f} ms a step; peak memory {m['peak_bytes']} "
+            f"bytes a rank; losses {m['losses']} bit-equal to train_step's; "
+            f"{m['n_tensors']} tensors' values and masters bit-equal; "
+            f"engine.cost() = ({m['cost_ms']:.3f} ms, {m['cost_bytes']} "
+            f"bytes) from {m['cost_flops']} FLOPs, beside moe_step_flops "
+            f"{m['step_flops']} and the measured peak {m['peak_bytes']} "
+            f"bytes ({CARD})")
+
+
+def auto_parallel_one_card():
+    """Phase 25 at one card: example 05's flow at ``ernie-moe-base``'s full
+    width and depth under O2 (``ap_moe_run``), then ``evaluate`` and
+    ``predict`` on the same batch, ``save`` and ``load`` into a fresh
+    engine and one more step of each, bit-equal."""
+    cfg = moe_config()
+    batch = moe_global_batch(cfg, card())
+    m, eng, model, opt = ap_moe_run("one card", cfg, batch, None,
+                                    cfg.num_experts)
+    say(ap_line("one card", m, 1))
+    one = APBatches(batch, 1)
+    with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+        ev = eng.evaluate(one, batch_size=None)["eval_loss"]
+        (pred,) = eng.predict(one, batch_size=None)
+    shape = [MOE_BATCH, MOE_SEQ, cfg.vocab_size]
+    if list(pred.shape) != shape or not bool(pred.float().isfinite().all()) \
+            or not np.isfinite(ev):
+        fail(f"auto-parallel: evaluate {ev}, predict {list(pred.shape)}")
+    del pred
+    need = sum(p.numel() * p.element_size() for p in model.parameters()) + \
+        sum(v.numel() * v.element_size() for st in opt.state.values()
+            for v in st.values() if isinstance(v, torch.Tensor))
+    tmp = ap_tmpdir(need)
+    try:
+        path = os.path.join(tmp, "engine")
+        t0 = time.perf_counter()
+        eng.save(path)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(path + e) for e in (".pdparams",
+                                                         ".pdopt"))
+        model2, opt2 = moe_trainer(cfg)
+        eng2 = Engine(model2, loss=model2.loss_fn, optimizer=opt2)
+        t0 = time.perf_counter()
+        eng2.load(path)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loaded = ap_state_unequal((model, opt), (model2, opt2))
+    a = ap_fit(eng, one)
+    b = ap_fit(eng2, one)
+    after = ap_state_unequal((model, opt), (model2, opt2))
+    say(f"auto-parallel: one card: evaluate {ev} (the next step's loss "
+        f"{a[0]}), predict {shape}; save {save_s:.3f} s, {nbytes} bytes "
+        f"({nbytes / save_s / 1e9:.3f} GB/s), load {load_s:.3f} s; after "
+        f"the load {len(loaded)} tensors differ; one more step: {a} and "
+        f"{b}, {len(after)} tensors differ ({CARD})")
+    if loaded or after or a != b:
+        fail(f"auto-parallel: the loaded engine is not bit-equal: {loaded[:3]}"
+             f" {after[:3]} {a} {b}")
+    if not abs(ev - a[0]) <= XCHECK_LOSS_TOL:
+        fail(f"auto-parallel: evaluate {ev} against the next step's {a[0]}")
+    m.update(eval_loss=ev, next_loss=a[0], save_s=save_s, load_s=load_s,
+             saved_bytes=nbytes)
+    del eng, eng2, model, model2, opt, opt2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return m
+
+
+def ap_mp_stack(dev):
+    """The stack from one seed on every rank (``Linear``'s [in, out]
+    weights)."""
+    from paddle_tpu_torch.nn import GELU, Linear
+    g = torch.Generator(device=dev)
+    g.manual_seed(25)
+    h, f = AP_MP_WIDTH
+    layers = []
+    for _ in range(AP_MP_PAIRS):
+        layers += [Linear(h, f, generator=g, device=dev), GELU(),
+                   Linear(f, h, generator=g, device=dev)]
+    return torch.nn.Sequential(*layers)
+
+
+def ap_mse(out, y):
+    return ((out - y) ** 2).mean()
+
+
+def ap_mp_run(tag, dev, mesh, annotate, timed=True):
+    """The stack under ``mesh`` through ``Engine.fit``: ``AP_MP_STEPS``
+    steps held, then (``timed``) as many more; launches exact (K3 once a
+    tensor, no other kernel)."""
+    set_mesh(mesh)
+    g = torch.Generator(device=dev)
+    g.manual_seed(26)
+    x = torch.randn(AP_MP_ROWS, AP_MP_WIDTH[0], generator=g, device=dev)
+    y = torch.randn(AP_MP_ROWS, AP_MP_WIDTH[0], generator=g, device=dev)
+    model = ap_mp_stack(dev)
+    if annotate:
+        for i in range(AP_MP_PAIRS):
+            up, down = model[3 * i], model[3 * i + 2]
+            shard_tensor(up.weight, mesh, [Replicate(), Shard(1)])
+            shard_tensor(up.bias, mesh, [Replicate(), Shard(0)])
+            shard_tensor(down.weight, mesh, [Replicate(), Shard(0)])
+    opt = shard_optimizer(optimizer.AdamW(learning_rate=AP_MP_LR,
+                                          parameters=model.parameters()))
+    eng = Engine(model, loss=ap_mse, optimizer=opt)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses = eng.fit(APBatches((x, y), AP_MP_STEPS), batch_size=None)["loss"]
+    values = [unshard_dtensor(p).detach().clone()
+              for p in model.parameters()]
+    more = eng.fit(APBatches((x, y), AP_MP_STEPS),
+                   batch_size=None)["loss"] if timed else []
+    launches = counts()
+    n_tensors = len(list(model.parameters()))
+    want = {k: 0 for k in PER_STEP}
+    want["adamw"] = (2 if timed else 1) * AP_MP_STEPS * n_tensors
+    if launches != want:
+        fail(f"auto-parallel: mp stack {tag}: launches {launches} != {want}")
+    res = dict(losses=losses, more=more, launches=launches,
+               step_ms=1e3 * sum(eng.step_seconds) / len(eng.step_seconds),
+               param_bytes=sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               n_tensors=n_tensors)
+    del eng, opt, model, x, y
+    return res, values
+
+
+@contextlib.contextmanager
+def ap_dx_sum_left_out():
+    """The mp 2 check's control: the column half's backward without its
+    sum of the input's gradient over the mp ranks, so every layer before
+    the last takes a wrong gradient."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_layers
+    real = mp_layers._ColumnLinear.backward
+
+    def backward(ctx, *gs):
+        summed = mp_layers._all_reduce
+        mp_layers._all_reduce = lambda t, group: t
+        try:
+            return real(ctx, *gs)
+        finally:
+            mp_layers._all_reduce = summed
+    mp_layers._ColumnLinear.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        mp_layers._ColumnLinear.backward = staticmethod(real)
+
+
+def ap_mp_gap(a, b, got, want):
+    """The largest relative loss gap and absolute parameter gap."""
+    return (max(abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"])),
+            max(max_err(x, y) for x, y in zip(got, want)))
+
+
+def ap_mp_rank(dist, rank, world, dev):
+    """The semi-auto mp path at GPT-3 1.3B's MLP width: the stack at dp 4
+    (``ProcessMesh([0, 1, 2, 3], ["dp"])``), then annotated as
+    ``tests/test_auto_parallel.py`` does on ``ProcessMesh([[0, 1], [2,
+    3]], ["dp", "mp"])``: losses within ``rtol 2e-4`` and every global
+    parameter within ``atol 1e-4`` of dp 4's; then the control
+    (``ap_dx_sum_left_out``), which must miss them."""
+    dp4, want = ap_mp_run("dp4", dev, ProcessMesh([0, 1, 2, 3], ["dp"]),
+                          False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid = ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"])
+    mp, got = ap_mp_run("dp2_mp2", dev, grid, True)
+    rel, atol = ap_mp_gap(mp, dp4, got, want)
+    del got
+    if not (rel <= AP_MP_LOSS_RTOL and atol <= AP_MP_PARAM_ATOL):
+        fail(f"auto-parallel: mp 2 stack on rank {rank}: losses {mp['losses']}"
+             f" vs dp 4's {dp4['losses']} (rel {rel:.3e}), parameters "
+             f"{atol:.3e} apart")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with ap_dx_sum_left_out():
+        bad, got = ap_mp_run("control", dev, grid, True, timed=False)
+    c_rel, c_atol = ap_mp_gap(bad, dp4, got, want)
+    del got, want
+    if c_rel <= AP_MP_LOSS_RTOL and c_atol <= AP_MP_PARAM_ATOL:
+        fail(f"auto-parallel: mp 2 stack on rank {rank}: the control (the "
+             f"column half's dx sum left out) holds the bounds: losses "
+             f"{c_rel:.3e}, parameters {c_atol:.3e}")
+    release_groups(dist)
+    return dict(dp4=dp4, mp2=mp, loss_rel=rel, param_atol=atol,
+                control_losses=bad["losses"], control_loss_rel=c_rel,
+                control_param_atol=c_atol)
+
+
+def ap_rows(dp, sh) -> str:
+    """A rank's rows of GPT-3 1.3B's batch under (dp, sharding), named as
+    the K1 / K2 cases at that shape name them."""
+    r = TRAIN_BATCH // (dp * sh)
+    return f"{r}row" + ("s" if r > 1 else "")
+
+
+def ap_tune_rank(dist, rank, world, dev):
+    """``Engine.tune`` on GPT-3 1.3B O2 at 24 layers over ``AP_TUNE``: each
+    candidate's step seconds or error, the parameters bit-equal to their
+    values before, no reducer left, then ``AP_TUNE_FIT`` fit steps under
+    the winner; launches exact (``PER_STEP`` a step, trial steps
+    included)."""
+    from paddle_tpu_torch.distributed.parallel import reducer_of
+    cfg, model, opt, _ = build_trainer(N_LAYERS, seed=0)
+    eng = Engine(model, loss=model.loss_fn, optimizer=opt)
+    ids, labels = batch(cfg)
+    before = [p.detach().clone() for p in model.parameters()]
+    reset_counts()
+    t0 = time.perf_counter()
+    with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
+        got = eng.tune(ids, labels, candidates=list(AP_TUNE))
+    tune_s = time.perf_counter() - t0
+    report = eng.tuning_report
+    ran = sorted((e["dp"], e["sharding"], e["mp"]) for e in report
+                 if "step_s" in e)
+    if ran != sorted(AP_TUNE) or len(report) != len(AP_TUNE):
+        fail(f"auto-parallel: tune ran {ran} of {list(AP_TUNE)}: {report}")
+    unequal = sum(not torch.equal(a, p) for a, p in
+                  zip(before, model.parameters()))
+    reducers = sum(reducer_of(p) is not None for p in model.parameters())
+    del before
+    if unequal or reducers or opt.state:
+        fail(f"auto-parallel: tune left {unequal} parameters moved, "
+             f"{reducers} reducers, {len(opt.state)} optimizer states")
+    losses = ap_fit(eng, APBatches((ids, labels), AP_TUNE_FIT))
+    launches = counts()
+    # two trial steps a candidate, then the fit steps, by a rank's rows
+    by_rows = {}
+    for (dp, sh, _), n in [(c, 2) for c in AP_TUNE] + [
+            ((got["dp"], got["sharding"], got["mp"]), AP_TUNE_FIT)]:
+        r = ap_rows(dp, sh)
+        by_rows[r] = by_rows.get(r, 0) + n
+    steps = sum(by_rows.values())
+    want = {k: v * steps for k, v in PER_STEP.items()}
+    if launches != want:
+        fail(f"auto-parallel: tune + fit launched {launches}, want {want} "
+             f"({steps} steps)")
+    if not all(np.isfinite(losses)):
+        fail(f"auto-parallel: fit after tune: {losses}")
+    del eng, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_groups(dist)
+    return dict(report=report, winner=[got["dp"], got["sharding"],
+                                       got["mp"]],
+                fit_losses=losses, launches=launches, tune_s=tune_s,
+                steps=steps, steps_by_rows=by_rows)
+
+
+def auto_parallel_rank(dist, rank, world, dev):
+    """Phase 25 on several cards: ``fleet.init(dp_degree=2,
+    ep_degree=2)`` and ``Engine.fit`` against phase 22's ``train_step``
+    run, rank by rank; the semi-auto mp stack against dp 4; ``Engine.tune``
+    on GPT-3 1.3B.  Every rank's MoE numbers gathered on rank 0."""
+    cfg = moe_config()
+    gb = moe_global_batch(cfg, dev)
+    hcg = fleet_init(dict(dp_degree=2, ep_degree=2))
+    held = cfg.num_experts // hcg.get_expert_parallel_world_size()
+    m, eng, model, opt = ap_moe_run(f"dp2_ep2 rank {rank}", cfg, gb,
+                                    hcg.mesh, held,
+                                    hcg.get_data_parallel_group())
+    del eng, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    every = [None] * world
+    dist.all_gather_object(every, {k: m[k] for k in (
+        "losses", "engine_step_ms", "ref_step_ms", "data_ms", "peak_bytes",
+        "cost_ms",
+        "cost_bytes", "cost_flops", "n_tensors", "launches")})
+    fleet_reset()
+    release_groups(dist)
+    res = dict(moe=m, moe_ranks=every)
+    res["mp"] = ap_mp_rank(dist, rank, world, dev)
+    res["tune"] = ap_tune_rank(dist, rank, world, dev)
+    return res
+
+
+def auto_parallel_report(r, world):
+    """Phase 25's numbers on several cards, from rank 0's results."""
+    m = r["moe"]
+    say(ap_line(f"dp2_ep2 (rank 0 of {world})", m, world))
+    for i, e in enumerate(r["moe_ranks"]):
+        say(f"auto-parallel: dp2_ep2 rank {i}: " + json.dumps(e)
+            + f" ({CARD})")
+    mp = r["mp"]
+    for key in ("dp4", "mp2"):
+        e = mp[key]
+        say(f"auto-parallel: mp stack {key}: losses {e['losses']} then "
+            f"{e['more']}; {e['step_ms']:.2f} ms a step (Engine.fit, "
+            f"{AP_MP_ROWS} rows); {e['param_bytes']} bytes of parameters a "
+            f"rank; peak memory {e['peak_bytes']} bytes; launches "
+            f"{e['launches']['adamw']} K3 ({CARD})")
+    say(f"auto-parallel: mp stack: mp 2's losses within {mp['loss_rel']:.3e}"
+        f" (rtol {AP_MP_LOSS_RTOL}) and parameters within "
+        f"{mp['param_atol']:.3e} (atol {AP_MP_PARAM_ATOL}) of dp 4's; "
+        f"the control (the column half's dx sum left out) losses "
+        f"{mp['control_losses']}, {mp['control_loss_rel']:.3e} and "
+        f"{mp['control_param_atol']:.3e} from dp 4's, outside ({CARD})")
+    t = r["tune"]
+    for e in t["report"]:
+        say("auto-parallel: tune " + json.dumps(e) + f" ({CARD})")
+    say(f"auto-parallel: tune: winner (dp, sharding, mp) {t['winner']} in "
+        f"{t['tune_s']:.3f} s; parameters bit-equal after the trials, no "
+        f"reducer left; {AP_TUNE_FIT} fit steps {t['fit_losses']}; "
+        f"launches over {t['steps']} steps {t['launches']} (steps by a "
+        f"rank's rows {t['steps_by_rows']}) ({CARD})")
+
+
+def auto_parallel_kernels(k1, k2, k3, paths):
+    """The kernels line of phase 25: K1a-c, K2a/b and K3, each path's
+    launches with the numbers of its shape's case."""
+    kernels = []
+    for name, key, replaces, err in (
+            ("flash_attention_fwd", "fwd", ":113", "o"),
+            ("flash_attention_bwd_dq", "dq", ":269", "dq"),
+            ("flash_attention_bwd_dkv", "dkv", ":297", "dkv")):
+        count = "flash_" + ("fwd" if key == "fwd" else "bwd_" + key)
+        phase = "fwd" if key == "fwd" else "bwd"
+        by_path = {}
+        for path, (launched, c1, _, _, shape) in paths.items():
+            if c1 is None:
+                continue
+            r = k1[c1]
+            by_path[path] = dict(
+                launches=launched[count], max_abs_err=r["max_abs_err"][err],
+                ms=r[key + "_ms"], plain_ms=r[f"plain_{phase}_ms"],
+                bound_ms=r[key + "_bound"][0], bound_by=r[key + "_bound"][1],
+                library_ms=r[f"library_{phase}_ms"], shape=shape["k1"])
+        kernels.append(dict(
+            name=name, source="paddle_tpu_torch/ops/csrc/flash_attention.cu",
+            replaces="paddle_tpu/ops/flash_attention.py" + replaces,
+            **next(iter(by_path.values())), by_path=by_path))
+    for name, key, replaces, count in (
+            ("layer_norm_fwd", "fwd", ":58", "ln_fwd"),
+            ("layer_norm_bwd_dx", "dx", ":80", "ln_bwd_dx")):
+        by_path = {}
+        for path, (launched, _, c2, _, shape) in paths.items():
+            if c2 is None:
+                continue
+            r = k2[c2]
+            by_path[path] = dict(
+                launches=launched[count],
+                max_abs_err=r["max_abs_err"]["y" if key == "fwd" else "dx"],
+                ms=r[key + "_ms"], plain_ms=r["plain_" + key + "_ms"],
+                bound_ms=r[key + "_bound"][0], bound_by=r[key + "_bound"][1],
+                library_ms=r["library_" + key + "_ms"], shape=shape["k2"])
+        kernels.append(dict(
+            name=name, source="paddle_tpu_torch/ops/csrc/layer_norm.cu",
+            replaces="paddle_tpu/ops/pallas/layer_norm.py" + replaces,
+            **next(iter(by_path.values())), by_path=by_path))
+    by_path = {}
+    for path, (launched, _, _, c3, shape) in paths.items():
+        r = k3[c3]
+        by_path[path] = dict(
+            launches=launched["adamw"], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+            bound_by=r["bound"][1], library_ms=r["library_ms"],
+            shape=shape["k3"])
+    kernels.append(dict(
+        name="fused_adamw", source="paddle_tpu_torch/ops/csrc/fused_adamw.cu",
+        replaces="paddle_tpu/ops/pallas/fused_adamw.py:55",
+        **next(iter(by_path.values())), by_path=by_path))
+    for k in kernels:
+        k["route"] = "cuda"
+    return kernels
+
+
+def auto_parallel_alone() -> int:
+    """``--auto-parallel``: phase 25 after the build and K1 / K2 / K3 at
+    its paths' shapes: at one card ``auto_parallel_one_card``, on several
+    cards the ranks (``auto_parallel_rank``); then its kernels line."""
+    say(f"build: {_build.build_all():.3f} s")
+    four = torch.cuda.device_count() > 1
+    tune_rows = sorted({ap_rows(dp, sh) for dp, sh, _ in AP_TUNE})
+    each = ["ernie-dp2"] + [f"gpt-{r}" for r in tune_rows] if four \
+        else ["ernie"]
+    k1, k2, k3 = check_k1(each), check_k2(each), check_k3()
+
+    def shapes(k1, k2, k3, where):
+        return {k: v + where for k, v in (("k1", k1), ("k2", k2),
+                                          ("k3", k3))}
+    expert = ("[768, 3072] bf16 expert weight on an fp32 master, bf16 grad; "
+              "one launch a parameter tensor of the rank")
+    if not four:
+        m = auto_parallel_one_card()
+        paths = {"ernie_moe_engine": (
+            m["launches"], "ernie", "ernie", "ernie",
+            shapes("[96, 512, 64] bf16 non-causal (ernie-moe-base, batch 8 "
+                   "x 12 heads)", "[4096, 768] fp32 (batch 8 x 512 tokens)",
+                   expert, " (phase 25, Engine.fit)"))}
+    else:
+        world = torch.cuda.device_count()
+        r = distributed_main_path((25,))["auto_parallel"]
+        auto_parallel_report(r, world)
+        mp_k3 = ("fp32 {} weights and their biases, no master; one launch "
+                 "a parameter tensor of the rank")
+        paths = {
+            "ernie_moe_engine_dp2_ep2": (
+                r["moe"]["launches"], "ernie-dp2", "ernie-dp2", "ernie",
+                shapes("[48, 512, 64] bf16 non-causal (a dp rank's 4 x 12 "
+                       "heads)", "[2048, 768] fp32 (a dp rank's 4 x 512 "
+                       "tokens)", expert,
+                       " (phase 25, Engine.fit at dp 2 x ep 2, rank 0)")),
+            "mp_stack_dp4": (r["mp"]["dp4"]["launches"], None, None,
+                             "mp_full", shapes(
+                                 "", "", mp_k3.format(
+                                     "[2048, 8192] / [8192, 2048]"),
+                                 " (phase 25's stack at dp 4, rank 0)")),
+            "mp_stack": (r["mp"]["mp2"]["launches"], None, None, "mp_shard",
+                         shapes("", "", mp_k3.format(
+                             "[2048, 4096] / [4096, 2048] (a rank's half)"),
+                             " (phase 25's mp 2 stack, rank 0)"))}
+        # Engine.tune's launches, the total held exact, split by a rank's
+        # rows at PER_STEP a step
+        for rows, steps in sorted(r["tune"]["steps_by_rows"].items()):
+            n = int(rows.split("row")[0])
+            paths["gpt_tune_" + rows] = (
+                {k: v * steps for k, v in PER_STEP.items()}, "gpt-" + rows,
+                "gpt-" + rows, "main", shapes(
+                    f"[{16 * n}, 2048, 128] bf16 causal",
+                    f"[{2048 * n}, 2048] fp32",
+                    "[2048, 8192] bf16 parameter on an fp32 master, bf16 "
+                    "grad", f" (GPT-3 1.3B O2 at 24 layers on {n} of the "
+                    f"batch's 4 rows a rank: {steps} of Engine.tune's trial "
+                    f"and fit steps, rank 0)"))
+    say(json.dumps({"kernels": auto_parallel_kernels(k1, k2, k3, paths)}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 PHASES = (17, 18, 19, 20, 21, 22)
 
 
@@ -9802,6 +10447,8 @@ def distributed_rank(out_dir: str, phases=PHASES) -> int:
         res["amp_clip"] = amp_clip_rank(dist, rank, world, dev)
     if 24 in phases and world > 1:
         res["checkpoint"] = checkpoint_rank(dist, rank, world, dev)
+    if 25 in phases and world > 1:
+        res["auto_parallel"] = auto_parallel_rank(dist, rank, world, dev)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.barrier()
@@ -10157,6 +10804,8 @@ def main() -> int:
         return amp_clip_alone()
     if "--checkpoint" in sys.argv:
         return checkpoint_alone()
+    if "--auto-parallel" in sys.argv:
+        return auto_parallel_alone()
 
     build_s = _build.build_all()
     say(f"build: {build_s:.3f} s ({' '.join(_build.NVCC_FLAGS)})")

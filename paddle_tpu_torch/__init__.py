@@ -21,7 +21,8 @@ of ``ops/csrc/``.  ``save`` / ``load`` (``framework.io``) read and
 write Paddle's pickle format, the JAX package's files included;
 ``distributed.checkpoint`` saves and loads sharded training state and
 ``resilience`` keeps a training run going through crashes, stalls and
-preemption.
+preemption; ``distributed.auto_parallel`` holds the semi-auto API and
+its ``Engine``, which reads batches through ``io.DataLoader``.
 """
 from .device import default_device, generator, seed
 from .framework.io import load, save

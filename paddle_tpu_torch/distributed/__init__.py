@@ -8,7 +8,9 @@ gradients with a bucketed reducer; ``fleet`` and ``sharding`` add the
 hybrid topology and ZeRO stages 1-3; ``launch`` starts and supervises
 the ranks (``fleet.elastic`` watches their heartbeats); ``checkpoint``
 saves and loads each rank's pieces of the training state, resharding on
-load; ``passes`` holds the pass-management API.
+load; ``passes`` holds the pass-management API; ``auto_parallel`` the
+semi-auto API (``ProcessMesh``, ``shard_tensor``, ``reshard``,
+``to_static``, ``Engine``, ...), whose names this package re-exports.
 """
 from .env import ParallelEnv, get_rank, get_world_size, is_initialized
 from .mesh import (HYBRID_AXES, build_mesh, ensure_mesh, get_mesh,
@@ -37,10 +39,21 @@ def get_backend() -> str:
     return rt.backend
 
 
+# the semi-auto API's names, re-exported from auto_parallel
+_SEMI_AUTO = ("shard_tensor", "shard_layer", "shard_optimizer", "reshard",
+              "ProcessMesh", "Shard", "Replicate", "Partial",
+              "dtensor_from_fn", "shard_dataloader", "to_static",
+              "Strategy", "DistAttr", "unshard_dtensor", "DistModel")
+
+
 def __getattr__(name):
     import importlib
-    if name in ("fleet", "launch", "sharding", "checkpoint"):
+    if name in ("fleet", "launch", "sharding", "checkpoint",
+                "auto_parallel"):
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
         return mod
+    if name in _SEMI_AUTO:
+        from . import auto_parallel
+        return getattr(auto_parallel, name)
     raise AttributeError(f"module '{__name__}' has no attribute '{name}'")

@@ -30,7 +30,10 @@ def _names(axis_name) -> Tuple[str, ...]:
 
 class Mesh:
     """Global ranks laid out on named axes (``grid[i, j, ...]`` is the
-    rank at those coordinates)."""
+    rank at those coordinates).  ``process_mesh`` is the semi-auto
+    ``ProcessMesh`` this grid was made for, if any."""
+
+    process_mesh = None
 
     def __init__(self, grid, axis_names: Sequence[str]):
         self._grid = np.asarray(grid, dtype=np.int64)

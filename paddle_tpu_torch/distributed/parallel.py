@@ -316,6 +316,21 @@ class _Reducer:
         if not all(b.aliased() for b in self.buckets):
             self._build()
 
+    def detach(self) -> None:
+        """Take the reducer off its parameters: their gradient hooks go,
+        each parameter (and gradient) gets storage of its own again, and
+        another wrapper may take them (``Engine.tune``'s trials)."""
+        for h in self._hooks:
+            h.remove()
+        self._hooks = []
+        with torch.no_grad():
+            for p in self.params:
+                p.data = p.data.clone()
+                if p.grad is not None:
+                    p.grad = p.grad.clone()
+                del p._dist_reducer
+        self.buckets, self._slot = [], {}
+
     # -- backward --------------------------------------------------------
     def _on_grad(self, p) -> None:
         if not self.sync_enabled:

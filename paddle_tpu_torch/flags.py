@@ -167,6 +167,14 @@ define_flag("tuning_cache_dir", "",
             "port compiles no XLA programs, so no compilation cache "
             "lives under it")
 
+define_flag("learned_perf_model", True,
+            "consult the learned performance model (perf_model.json "
+            "under FLAGS_tuning_cache_dir; `python -m paddle_tpu_torch."
+            "tuning fit --from-events`) for Engine.tune's plans: its "
+            "plan head picks the winner with zero trial steps on a cold "
+            "plan cache.  False forces measurement; no model file, or "
+            "one without a plan head, measures either way")
+
 
 def _apply_fault_schedule(text: str):
     """Deterministic chaos layer (paddle_tpu_torch.resilience.faults):

@@ -30,12 +30,18 @@ and hold different experts; the MoE layers place their own collectives
 (``incubate.distributed.models.moe``).
 
 Under model, sep or cp parallelism (a mesh axis ``mp``, ``sep`` or
-``cp`` above 1: a tensor-parallel model) the ranks of those axes take
-the same rows; under ``sep`` or ``cp`` each keeps its contiguous chunk
-of the sequence (dimension 1 of every batch tensor) as well.  Such a
-model's gradients are reduced by ``HybridParallelOptimizer``
-(``fleet.distributed_optimizer``), not by a DataParallel the step
-builds, and its criterion sums over the sequence's chunks itself.
+``cp`` above 1) the ranks of those axes take the same rows; under
+``sep`` or ``cp`` each keeps its contiguous chunk of the sequence
+(dimension 1 of every batch tensor) as well.  A tensor-parallel model
+(mp layers built split over ranks, or a sep / cp axis) has its gradients
+reduced by ``HybridParallelOptimizer`` (``fleet.distributed_optimizer``),
+not by a DataParallel the step builds, and its criterion sums over the
+sequence's chunks itself.  Any other model under an ``mp`` axis (plain
+layers, or the semi-auto placements of ``auto_parallel``, whose
+``Linear`` layers split and sum by themselves) gets the DataParallel
+over the data axes: the mp ranks of a data row take the same rows.
+A model with placed parameters is checked against the semi-auto rule
+table first (``auto_parallel.api.check_placements``).
 """
 from __future__ import annotations
 
@@ -47,8 +53,6 @@ __all__ = ["TrainStep", "train_step"]
 # axes whose degree above 1 this step does not run: pipelines have their
 # own schedules (fleet.meta_parallel)
 _LATER_AXES = ("pp",)
-# the tensor-parallel axes: same rows; sep / cp also split the sequence
-_TP_AXES = ("mp", "sep", "cp")
 
 
 def _hybrid(optimizer) -> bool:
@@ -59,6 +63,16 @@ def _hybrid(optimizer) -> bool:
         HybridParallelOptimizer)
     inner = getattr(optimizer, "_inner", optimizer)
     return isinstance(inner, HybridParallelOptimizer)
+
+
+def _split_over_mp(model) -> bool:
+    """Whether ``model`` holds mp layers built split over more than one
+    rank (a tensor-parallel model)."""
+    from ..distributed.fleet.meta_parallel.parallel_layers import mp_layers
+    kinds = (mp_layers.VocabParallelEmbedding,
+             mp_layers.ColumnParallelLinear, mp_layers.RowParallelLinear)
+    return any(isinstance(m, kinds) and m.world_size > 1
+               for m in model.modules())
 
 
 class _DataShard:
@@ -82,7 +96,11 @@ class _DataShard:
         if seq:
             (axis, self.seq_n), = seq.items()
             self.seq_index = mesh.group(axis).rank
-        tp = any(shape.get(a, 1) > 1 for a in _TP_AXES)
+        # mp layers built split, or a sequence axis: the hybrid optimizer
+        # reduces; a plain or semi-auto model takes DataParallel
+        tp = bool(seq) or (shape.get("mp", 1) > 1 and (
+            (optimizer is not None and _hybrid(optimizer))
+            or _split_over_mp(model)))
         if batch_spec is not None:
             spec = list(batch_spec)
             if any(s is not None for s in spec[1:]):
@@ -139,6 +157,13 @@ class _DataShard:
         if self._dp is not None:
             self._dp._reducer.sync_layout()
 
+    def release(self) -> None:
+        """Take the DataParallel this shard built off the model (its
+        gradient hooks and bucket views)."""
+        if self._dp is not None:
+            self._dp._reducer.detach()
+            self._dp = None
+
     def mean(self, loss: torch.Tensor) -> torch.Tensor:
         """The ranks' losses averaged in fp32, in the loss's dtype."""
         if self.n == 1:
@@ -163,6 +188,10 @@ class TrainStep:
                  donate: bool = True):
         if loss_fn is None and step_fn is None:
             raise ValueError("give loss_fn or step_fn")
+        if any(getattr(p, "_dist_attr", None) is not None
+               for p in model.parameters()):
+            from ..distributed.auto_parallel.api import check_placements
+            check_placements(model)
         self._data = _DataShard(mesh, batch_spec, model, optimizer) \
             if mesh is not None else None
         self.model = model
@@ -198,6 +227,13 @@ class TrainStep:
             self.optimizer.clear_grad()
         loss = loss.detach()
         return self._data.mean(loss) if self._data is not None else loss
+
+    def release(self) -> None:
+        """Take what the step attached to the model off it (the
+        DataParallel it built over the data axes), so that another step
+        may lay the model out anew."""
+        if self._data is not None:
+            self._data.release()
 
 
 def train_step(model, loss_fn=None, optimizer=None, scaler=None,

@@ -47,6 +47,10 @@ class Linear(nn.Module):
                 p.need_clip = False
 
     def forward(self, x):
+        if getattr(self.weight, "_dist_attr", None) is not None or \
+                getattr(self.bias, "_dist_attr", None) is not None:
+            from ..distributed.auto_parallel.api import placed_linear
+            return placed_linear(self, x)
         return F.linear(x, self.weight, self.bias)
 
 

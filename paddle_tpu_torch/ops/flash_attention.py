@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, flops
 
 __all__ = ["flash_attention_bhsd", "reference_attention_bhsd",
            "flash_attention_fwd", "flash_attention_bwd", "launches"]
@@ -147,6 +147,9 @@ def flash_attention_fwd(q, k, v, scale: float, causal: bool,
                            float(scale), code, _stream())
     _rc(rc, "flash attention forward")
     launches["flash_fwd"] += 1
+    if flops.active():
+        flops.add(4 * bh * d * flops.attention_pairs(sq, sk, causal,
+                                                     q_offset))
     return out, lse
 
 
@@ -194,6 +197,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, scale: float,
                                dv.data_ptr(), bhkv, *args, _stream())
         _rc(rc, "flash attention dk/dv")
         launches["flash_bwd_dkv"] += 1
+    if flops.active():
+        flops.add((6 + 8) * bh * d * flops.attention_pairs(sq, sk, causal,
+                                                           q_offset))
     return dq, dk, dv
 
 

@@ -11,8 +11,11 @@ heads' analytic-prior features equal the reference's on the same
 inputs.  They describe no property of the H100: the port's serving path
 reads only the ``batch_step`` head, whose features are the event log's
 batch composition and whose targets are the port's own measured step
-times.  The ``CostModel`` ranking object, ``features_from_jaxpr`` and
-the sanity gate are not ported.
+times.  ``Engine.tune`` orders its (dp, sharding, mp) candidates with
+``rank_plans`` (``CostModel.rank_plans``: ``_plan_cost``, for ordering
+only, measurement decides) and stores ``plan_layout`` in its plan cache
+entries.  ``CostModel``'s flash-block ranking and fit,
+``features_from_jaxpr`` and the sanity gate are not ported.
 
 Stdlib-only.
 """
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 MXU_TILE = 128          # the reference's matrix-unit tile
 
@@ -137,6 +140,49 @@ def _plan_cost(candidate: Sequence[int], batch_tokens: int,
     if mp > 1:
         t += 2.0 * (mp - 1) / mp * (4.0 * batch_tokens / n) * 8
     return t
+
+
+def plan_layout(dp: int, sharding: int, mp: int) -> dict:
+    """The layout table of a tuned plan, the JAX package's: the mesh's
+    axis sizes and the spec each parameter / activation role gets, as
+    axis-name lists (None: replicated on that dim)."""
+    return {
+        "mesh_axes": {"dp": dp, "sharding": sharding, "mp": mp},
+        "specs": {
+            "batch": ["dp", None],
+            "embeddings": [["sharding", "mp"], None],
+            "qkv_projection": ["sharding", "mp"],
+            "attn_output": ["mp", "sharding"],
+            "ffn_up": ["sharding", "mp"],
+            "ffn_down": ["mp", "sharding"],
+            "activations": ["dp", None, "mp"],
+        },
+    }
+
+
+class CostModel:
+    """The analytic plan scorer (the JAX package's ``CostModel``, its
+    plan half)."""
+
+    def __init__(self, coeffs: Optional[Coefficients] = None):
+        self.coeffs = coeffs or Coefficients()
+
+    def plan_cost(self, candidate: Sequence[int], batch_tokens: int,
+                  param_bytes: int) -> float:
+        return _plan_cost(candidate, batch_tokens, param_bytes, self.coeffs)
+
+    def rank_plans(self, candidates: Iterable[Sequence[int]],
+                   batch_tokens: int, param_bytes: int) -> List:
+        """Candidates cheapest first; stable on ties."""
+        return sorted(candidates, key=lambda c: self.plan_cost(
+            c, batch_tokens, param_bytes))
+
+
+_DEFAULT = CostModel()
+
+
+def rank_plans(candidates, batch_tokens, param_bytes):
+    return _DEFAULT.rank_plans(candidates, batch_tokens, param_bytes)
 
 
 # primitive name → op class; anything unlisted is "elementwise"

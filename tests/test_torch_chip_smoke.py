@@ -963,3 +963,189 @@ def test_checkpoint_phase_fails_when_the_load_writes_nothing(
     monkeypatch.setattr(dck, "_copy_overlaps", lambda *a, **k: None)
     with pytest.raises(_Failed, match="not bit-equal"):
         cs.checkpoint_one_card()
+
+
+@pytest.fixture
+def engine_phase(tiny_moe, failures, monkeypatch):
+    """Phase 25 at one card on the CPU: phase 22's tiny stand-ins, K3
+    counted where the optimizers call it (the other kernels' plain
+    versions count nothing, so their launches are held at 0)."""
+    from paddle_tpu_torch.optimizer import optimizers as opts
+    real = opts.fused_adamw_update_
+
+    def counted(*a, **k):
+        cs.adamw.launches += 1
+        return real(*a, **k)
+    monkeypatch.setattr(opts, "fused_adamw_update_", counted)
+
+    def per_step(n_tensors):
+        per = {k: 0 for k in cs.PER_STEP}
+        per["adamw"] = n_tensors
+        return per
+    monkeypatch.setattr(cs, "moe_per_step", per_step)
+    monkeypatch.setattr(cs, "CARD", "cpu")
+    return failures
+
+
+def test_auto_parallel_phase_holds_on_the_cpu(engine_phase, capsys):
+    """Phase 25 at one card: Engine.fit bit-equal to phase 22's
+    train_step (losses, parameters, masters), launches exact, cost()
+    counted, evaluate / predict, and a save loaded into a fresh engine
+    that steps bit-equal."""
+    m = cs.auto_parallel_one_card()
+    out = capsys.readouterr().out
+    print(out)
+    assert engine_phase == []
+    assert m["bit_equal"] and m["losses"] == m["ref_losses"]
+    assert m["launches"]["adamw"] == 8 * m["n_tensors"]
+    assert m["cost_flops"] == m["step_flops"] and m["cost_ms"] > 0
+    assert m["eval_loss"] == m["next_loss"] and m["saved_bytes"] > 0
+    assert "bit-equal to train_step's" in out and "0 tensors differ" in out
+
+
+def test_auto_parallel_phase_sees_an_engine_that_adds_math(engine_phase,
+                                                           monkeypatch):
+    """An Engine that adds a term to the loss (an L2 penalty of 1e-2)
+    fails the bit-equal checks."""
+    real = cs.Engine._step_fn
+
+    def step_fn(self):
+        fn = real(self)
+        return lambda model, *b: fn(model, *b) + 1e-2 * sum(
+            p.float().square().sum() for p in model.parameters())
+    monkeypatch.setattr(cs.Engine, "_step_fn", step_fn)
+    cs.auto_parallel_one_card()
+    assert any("losses" in f for f in engine_phase), engine_phase
+    assert any("not bit-equal to train_step's" in f for f in engine_phase)
+
+
+def test_auto_parallel_kernels_line_has_every_key():
+    """Phase 25's kernels line: K1a-c, K2a/b and K3, each entry and each
+    path with the contract's keys, the launches its path's."""
+    def k1(case):
+        return dict(max_abs_err=dict(o=1e-3, dq=2e-3, dkv=3e-3),
+                    library_max_abs_err={}, fwd_ms=0.05, dq_ms=0.06,
+                    dkv_ms=0.07, plain_fwd_ms=0.4, plain_bwd_ms=0.7,
+                    library_fwd_ms=0.02, library_bwd_ms=0.07,
+                    fwd_bound=(0.01, "bytes"), dq_bound=(0.01, "operations"),
+                    dkv_bound=(0.01, "operations"))
+
+    def k2(case):
+        return dict(max_abs_err=dict(y=1e-6, dx=2e-6), fwd_ms=0.006,
+                    dx_ms=0.009, plain_fwd_ms=0.08, plain_dx_ms=0.15,
+                    library_fwd_ms=0.013, library_dx_ms=0.012,
+                    fwd_bound=(0.007, "bytes"), dx_bound=(0.011, "bytes"))
+    k3 = {c: dict(max_abs_err=0.0, ms=0.02, plain_ms=0.18,
+                  bound=(0.02, "bytes"), library_ms=0.04)
+          for c in ("ernie", "main", "bart")}
+    launched = {k: 0 for k in cs.PER_STEP}
+    launched.update(flash_fwd=96, flash_bwd_dq=96, flash_bwd_dkv=96,
+                    ln_fwd=200, ln_bwd_dx=200, adamw=13376)
+    mp = dict(launched, flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0,
+              ln_fwd=0, ln_bwd_dx=0, adamw=576)
+    shape = dict(k1="a", k2="b", k3="c")
+    paths = {"ernie_moe_engine": (launched, "ernie", "ernie", "ernie",
+                                  shape),
+             "mp_stack": (mp, None, None, "bart", shape)}
+    kernels = cs.auto_parallel_kernels(
+        {"ernie": k1("ernie")}, {"ernie": k2("ernie")}, k3, paths)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [k["name"] for k in kernels] == [
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv", "layer_norm_fwd", "layer_norm_bwd_dx",
+        "fused_adamw"]
+    for k in kernels:
+        assert keys <= set(k) and k["route"] == "cuda"
+        assert os.path.exists(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), k["source"]))
+        for entry in k["by_path"].values():
+            assert keys - {"name", "route", "source", "replaces"} <= \
+                set(entry)
+    assert kernels[0]["launches"] == 96 and set(kernels[0]["by_path"]) == {
+        "ernie_moe_engine"}
+    assert kernels[-1]["by_path"]["mp_stack"]["launches"] == 576
+    assert [k["shape"] for k in kernels] == ["a"] * 3 + ["b"] * 2 + ["c"]
+
+
+def test_auto_parallel_cases_are_the_ranks_shapes():
+    """Phase 25's four-card paths have K1 / K2 / K3 cases at their own
+    per-rank shapes: a dp 2 rank's half of ERNIE-MoE's batch, GPT-3
+    1.3B's batch of 4 over each tuned layout's data ranks, and the mp
+    stack's weights whole (dp 4) and halved (mp 2)."""
+    cfg = cs.moe_config()
+    gpt = tgpt.gpt_config("gpt3-1.3B")
+    half = cs.MOE_BATCH // 2
+    assert cs.K1_CASES["ernie-dp2"] == (
+        half * cfg.num_heads, cs.MOE_SEQ, cs.MOE_SEQ, 1, False,
+        torch.bfloat16, cfg.hidden_size // cfg.num_heads)
+    assert cs.K2_CASES["ernie-dp2"] == (half * cs.MOE_SEQ, cfg.hidden_size,
+                                        torch.float32, torch.float32,
+                                        "randn")
+    rows = {cs.ap_rows(dp, sh) for dp, sh, _ in cs.AP_TUNE}
+    assert rows == {"1row", "2rows"}
+    for name in rows:
+        n = int(name.split("row")[0])
+        assert cs.K1_CASES["gpt-" + name] == (
+            n * gpt.num_heads, cs.TRAIN_SEQ, cs.TRAIN_SEQ, 1, True,
+            torch.bfloat16, gpt.hidden_size // gpt.num_heads)
+        assert cs.K2_CASES["gpt-" + name] == (
+            n * cs.TRAIN_SEQ, gpt.hidden_size, torch.float32, torch.float32,
+            "randn")
+    h, f = cs.AP_MP_WIDTH
+    src = open(cs.__file__).read()
+    assert f'(({h}, {f}), False, "mp_full")' in src
+    assert f'(({h}, {f // 2}), False, "mp_shard")' in src
+
+
+class _NoDist:
+    pass
+
+
+@pytest.mark.parametrize("fault", [None, "error", "skipped"])
+def test_auto_parallel_tune_check_holds_every_candidate(failures,
+                                                        monkeypatch, fault):
+    """Phase 25's tune check fails unless every candidate of ``AP_TUNE``
+    ran to a step time: a candidate that raised (its ``error``) or was
+    skipped fails it; a report where all ran passes."""
+    monkeypatch.setattr(cs, "N_LAYERS", 2)
+    monkeypatch.setattr(cs, "PER_STEP", {k: 0 for k in cs.PER_STEP})
+    monkeypatch.setattr(cs, "release_groups", lambda dist: None)
+
+    def tune(self, ids, labels, candidates=None):
+        report = [dict(dp=dp, sharding=sh, mp=mp, step_s=0.1)
+                  for dp, sh, mp in candidates]
+        if fault is not None:
+            report[-1].pop("step_s")
+            report[-1][fault] = "a candidate the port cannot lay out"
+        self.tuning_report = report
+        return dict(dp=1, sharding=1, mp=1, report=report)
+    monkeypatch.setattr(cs.Engine, "tune", tune)
+    t = cs.ap_tune_rank(_NoDist(), 0, 1, torch.device("cpu"))
+    if fault is None:
+        assert failures == [] and t["steps"] == 2 * len(cs.AP_TUNE) + \
+            cs.AP_TUNE_FIT
+    else:
+        assert len(failures) == 1 and "tune ran" in failures[0], failures
+
+
+def test_auto_parallel_control_breaks_the_column_backward(monkeypatch):
+    """The mp 2 check's control leaves out the column half's dx sum over
+    the mp ranks while it is active, and only then."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_layers
+    seen = []
+    monkeypatch.setattr(mp_layers, "_all_reduce",
+                        lambda x, group: seen.append(x) or x)
+    real = mp_layers._ColumnLinear.backward
+
+    def backward():
+        x = torch.ones(3, 4, requires_grad=True)
+        w = torch.ones(4, 2, requires_grad=True)
+        (y,) = mp_layers._ColumnLinear.apply(x, None, False, w, None)
+        y.sum().backward()
+    with cs.ap_dx_sum_left_out():
+        backward()
+    assert seen == []
+    backward()
+    assert len(seen) == 1 and mp_layers._ColumnLinear.backward is real

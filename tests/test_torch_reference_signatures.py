@@ -134,6 +134,10 @@ jelastic = importlib.import_module("paddle_tpu.distributed.fleet.elastic")
 telastic = importlib.import_module(
     "paddle_tpu_torch.distributed.fleet.elastic")
 ttrain = importlib.import_module("paddle_tpu_torch.jit.train_step")
+jdata = importlib.import_module("paddle_tpu.io")
+tdata = importlib.import_module("paddle_tpu_torch.io")
+jap = importlib.import_module("paddle_tpu.distributed.auto_parallel")
+tap = importlib.import_module("paddle_tpu_torch.distributed.auto_parallel")
 
 # name: (the reference, the port)
 PAIRS = {
@@ -339,6 +343,44 @@ PAIRS = {
     "RunReport.__init__": (jdriver.RunReport.__init__,
                            tdriver.RunReport.__init__),
     "run_resilient": (jdriver.run_resilient, tdriver.run_resilient),
+    **{f"io.{cls}.{m}": (getattr(getattr(jdata, cls), m),
+                         getattr(getattr(tdata, cls), m))
+       for cls, ms in (("DataLoader", ("__init__", "__len__", "__iter__")),
+                       ("TensorDataset", ("__init__",)),
+                       ("ComposeDataset", ("__init__",)),
+                       ("ChainDataset", ("__init__",)),
+                       ("ConcatDataset", ("__init__",)),
+                       ("Subset", ("__init__",)),
+                       ("Sampler", ("__init__",)),
+                       ("RandomSampler", ("__init__",)),
+                       ("WeightedRandomSampler", ("__init__",)),
+                       ("BatchSampler", ("__init__",)),
+                       ("DistributedBatchSampler", ("__init__",
+                                                    "set_epoch")),
+                       ("WorkerInfo", ("__init__",)))
+       for m in ms},
+    **{f"io.{fn}": (getattr(jdata, fn), getattr(tdata, fn))
+       for fn in ("random_split", "default_collate_fn", "default_convert_fn",
+                  "get_worker_info")},
+    **{f"auto_parallel.{fn}": (getattr(jap, fn), getattr(tap, fn))
+       for fn in ("shard_tensor", "dtensor_from_fn", "reshard",
+                  "unshard_dtensor", "shard_layer", "shard_optimizer",
+                  "shard_dataloader", "set_mesh", "get_mesh", "to_static")},
+    **{f"auto_parallel.{cls}.{m}": (getattr(getattr(jap, cls), m),
+                                    getattr(getattr(tap, cls), m))
+       for cls, ms in (("ProcessMesh", ("__init__", "get_dim_size",
+                                        "get_mesh_with_dim")),
+                       ("Shard", ("__init__", "is_shard", "get_dim")),
+                       ("Partial", ("__init__",)),
+                       ("DistAttr", ("__init__",)),
+                       ("DistModel", ("__init__", "train", "eval",
+                                      "__call__", "state_dict",
+                                      "dist_main_program")),
+                       ("Strategy", ("__init__",)),
+                       ("Engine", ("__init__", "prepare", "fit", "evaluate",
+                                   "predict", "save", "load", "cost",
+                                   "tune")))
+       for m in ms},
 }
 EXTRA = {"generator", "device"}
 

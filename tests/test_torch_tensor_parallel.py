@@ -421,7 +421,10 @@ def test_train_step_refuses_a_plain_optimizer_for_a_split_model():
 
         def group(self, axes):
             return types.SimpleNamespace(rank=0, ranks=[0, 2])
-    model = torch.nn.Linear(2, 2)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.parallel_layers \
+        import mp_layers
+    model = mp_layers.ColumnParallelLinear(2, 2, device="cpu")
+    model.world_size = 2          # as a layer built under mp 2 records it
     with pytest.raises(ValueError, match="HybridParallelOptimizer"):
         _DataShard(_Mesh(), None, model,
                    optimizer.AdamW(parameters=model.parameters()))

@@ -18,7 +18,10 @@ pp 4, the refusals, the GPT and LLaMA pipeline steps: ``DIR``), ``moe``
 the ragged ``global_scatter`` / ``global_gather``: ``DIR``),
 ``hybrid_clip`` (the global-norm clip and ``GradScaler`` under sharding
 stages 1-3, mp with SP, mp x dp and the LLaMA pipeline steps, a
-gradient poisoned on one rank: ``DIR``) or
+gradient poisoned on one rank: ``DIR``), ``auto_parallel`` (the
+semi-auto round trips, the Linear-GELU-Linear stack at dp 2 x mp 2 and
+dp 4, the refusals, the tiny ERNIE-MoE through ``Engine.fit`` at dp 2 x
+ep 2 and ``Engine.tune``: ``DIR``) or
 ``spawn`` (two gloo ranks through
 ``distributed.spawn``, not the launcher).  :func:`launch` and
 :func:`wait_ranks` start a group from a test and collect its results.
@@ -1727,6 +1730,272 @@ def run_checkpoint_crash(out, r, src):
     return {}, {"survived": True}
 
 
+# ---------------------------------------------------------------------------
+# the semi-auto API and Engine (tests/test_torch_auto_parallel_dist.py)
+# ---------------------------------------------------------------------------
+
+# the round trips' placements on a 2 x 2 mesh ("x", "y")
+# (kind, tensor dim) a mesh dim: S(hard), R(eplicate), P(artial)
+AP_PLACEMENTS = {
+    "s0_s1": (("S", 0), ("S", 1)), "s1_s0": (("S", 1), ("S", 0)),
+    "s0_s0": (("S", 0), ("S", 0)), "r_s1": (("R", 0), ("S", 1)),
+    "p_s0": (("P", 0), ("S", 0)), "p_p": (("P", 0), ("P", 0)),
+    "r_r": (("R", 0), ("R", 0))}
+AP_FULL = (8, 12)
+AP_STEPS = 3
+# tests/test_auto_parallel.py::test_semi_auto_training_parity's stack
+AP_MLP = (16, 64, 4)
+AP_TUNE = [(4, 1, 1), (2, 2, 1), (1, 4, 1), (2, 1, 2)]
+
+
+def ap_data():
+    """The semi-auto stack's global batch (16 rows)."""
+    rs = np.random.RandomState(0)
+    return (rs.randn(16, AP_MLP[0]).astype("float32"),
+            rs.randn(16, AP_MLP[2]).astype("float32"))
+
+
+def _ap_mse(out, y):
+    return ((out - y) ** 2).mean()
+
+
+def _ap_mlp(weights):
+    from paddle_tpu_torch.nn import GELU, Linear
+    m = torch.nn.Sequential(Linear(AP_MLP[0], AP_MLP[1], device="cpu"),
+                            GELU(), Linear(AP_MLP[1], AP_MLP[2],
+                                           device="cpu"))
+    with torch.no_grad():
+        for n, p in m.named_parameters():
+            p.copy_(torch.from_numpy(weights[n]))
+    return m
+
+
+def _ap_pl(spec):
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    return [ap.Shard(d) if k == "S" else ap.Partial() if k == "P"
+            else ap.Replicate() for k, d in spec]
+
+
+def _ap_reset():
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.distributed.mesh import reset_mesh
+    reset_mesh()
+    _fleet_clear()
+
+
+def _ap_roundtrips(r, arrays, info):
+    """shard_tensor / reshard / unshard_dtensor on a 2 x 2 mesh and
+    between it and a 1-d mesh over the same ranks; every global value
+    must come back exactly."""
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    mesh = ap.ProcessMesh([[0, 1], [2, 3]], ["x", "y"])
+    line = ap.ProcessMesh([0, 1, 2, 3], ["z"])
+    full = torch.arange(np.prod(AP_FULL), dtype=torch.float32).reshape(
+        AP_FULL) - 40.0
+    exact = True
+    for tag, spec in AP_PLACEMENTS.items():
+        pl = _ap_pl(spec)
+        t = ap.shard_tensor(full.clone(), mesh, pl)
+        arrays[f"rt/{tag}"] = t.numpy()
+        exact &= torch.equal(ap.unshard_dtensor(t), full)
+        exact &= ap.global_shape(t) == list(AP_FULL)
+        for tag2, spec2 in AP_PLACEMENTS.items():
+            r2 = ap.reshard(t, mesh, _ap_pl(spec2))
+            exact &= torch.equal(ap.unshard_dtensor(r2), full)
+            if tag == "s0_s1":
+                arrays[f"rt/{tag}->{tag2}"] = r2.numpy()
+        across = ap.reshard(t, line, [ap.Shard(0)])
+        arrays[f"rt/{tag}->line"] = across.numpy()
+        back = ap.reshard(across, mesh, pl)
+        exact &= torch.equal(back, t)
+    info["roundtrips_exact"] = bool(exact)
+    try:
+        ap.shard_tensor(torch.zeros(6, 5), mesh, [ap.Replicate(),
+                                                   ap.Shard(1)])
+        info["odd_split"] = None
+    except ValueError as e:
+        info["odd_split"] = str(e)
+
+
+def _ap_semi_auto(r, weights, arrays, info):
+    """The Linear-GELU-Linear stack: semi-auto at dp 2 x mp 2 (bias
+    Shard(0), and replicated), through train_step and through Engine.fit,
+    and the plain stack at dp 4."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.jit import train_step
+    x, y = ap_data()
+
+    def semi(bias_split):
+        _ap_reset()
+        mesh = ap.ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"])
+        ap.set_mesh(mesh)
+        m = _ap_mlp(weights)
+        ap.shard_tensor(m[0].weight, mesh, [ap.Replicate(), ap.Shard(1)])
+        if bias_split:
+            ap.shard_tensor(m[0].bias, mesh, [ap.Replicate(), ap.Shard(0)])
+        ap.shard_tensor(m[2].weight, mesh, [ap.Replicate(), ap.Shard(0)])
+        o = ap.shard_optimizer(optimizer.AdamW(
+            learning_rate=LR, parameters=m.parameters()))
+        return m, o, mesh
+    m, o, mesh = semi(True)
+    info["mp_param_numel"] = sum(p.numel() for p in m.parameters())
+    step = train_step(m, _ap_mse, o, mesh=mesh.rank_mesh)
+    info["semi"] = [float(step(x, y)) for _ in range(AP_STEPS)]
+    for n, p in m.named_parameters():
+        arrays[f"semi/{n}"] = ap.unshard_dtensor(p).detach().numpy()
+        arrays[f"semi_local/{n}"] = p.detach().numpy()
+    m, o, mesh = semi(False)
+    step = train_step(m, _ap_mse, o, mesh=mesh.rank_mesh)
+    info["semi_bias_replicated"] = [float(step(x, y))
+                                    for _ in range(AP_STEPS)]
+    m, o, mesh = semi(True)
+
+    class DS:
+        def __len__(self):
+            return AP_STEPS
+
+        def __getitem__(self, i):
+            return x, y
+    eng = ap.Engine(m, loss=_ap_mse, optimizer=o)
+    info["semi_engine"] = eng.fit(DS(), batch_size=None)["loss"]
+    info["semi_engine_eval"] = eng.evaluate(DS(), batch_size=None,
+                                            steps=1)["eval_loss"]
+    _ap_reset()
+    m = _ap_mlp(weights)
+    o = optimizer.AdamW(learning_rate=LR, parameters=m.parameters())
+    step = train_step(m, _ap_mse, o, mesh=build_mesh({"dp": N_RANKS}))
+    info["dp4"] = [float(step(x, y)) for _ in range(AP_STEPS)]
+    info["dp4_param_numel"] = sum(p.numel() for p in m.parameters())
+    for n, p in m.named_parameters():
+        arrays[f"dp4/{n}"] = p.detach().numpy()
+    _ap_reset()
+    m = _ap_mlp(weights)
+    eng = ap.Engine(m, loss=_ap_mse, optimizer=optimizer.AdamW(
+        learning_rate=LR, parameters=m.parameters()))
+    ap.set_mesh(ap.ProcessMesh([0, 1, 2, 3], ["dp"]))
+    info["dp4_engine"] = eng.fit(DS(), batch_size=None)["loss"]
+    info["dp4_engine_eval"] = eng.evaluate(DS(), batch_size=None,
+                                           steps=1)["eval_loss"]
+    out = eng.predict(DS(), batch_size=None, steps=1)[0]
+    arrays["dp4_predict"] = out.numpy()
+    arrays["dp4_forward"] = m(torch.from_numpy(x)).detach().numpy()
+
+
+def _ap_refusals(info):
+    """Placements outside the rule table raise at 4 ranks."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.jit import train_step
+    from paddle_tpu_torch.nn import Linear
+    _ap_reset()
+    got = {}
+    for tag, names, pl in (
+            ("data_dim", ["dp", "mp"], [ap.Shard(1), ap.Replicate()]),
+            ("two_dims", ["x", "mp"], [ap.Shard(0), ap.Shard(1)]),
+            ("partial", ["dp", "mp"], [ap.Replicate(), ap.Partial()])):
+        mesh = ap.ProcessMesh([[0, 1], [2, 3]], names)
+        m = torch.nn.Sequential(Linear(4, 8, device="cpu"))
+        ap.shard_tensor(m[0].weight, mesh, pl)
+        try:
+            train_step(m, _ap_mse, optimizer.SGD(
+                parameters=m.parameters()), mesh=mesh.rank_mesh)
+            got[tag] = None
+        except NotImplementedError as e:
+            got[tag] = str(e)
+    info["refusals"] = got
+
+
+def _ap_moe(weights, info):
+    """The tiny ERNIE-MoE through Engine.fit at dp 2 x ep 2, and the same
+    steps through train_step."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        ClipGradForMOEByGlobalNorm)
+    batch = moe_batch(256)
+
+    class DS:
+        def __len__(self):
+            return STEPS
+
+        def __getitem__(self, i):
+            return batch
+    _ap_reset()
+    hcg = _fleet_init(**MOE_RUNS["dp2_ep2"])
+    model = _moe_model(weights)
+    opt = optimizer.AdamW(learning_rate=LR, parameters=model.parameters(),
+                          weight_decay=0.01,
+                          grad_clip=ClipGradForMOEByGlobalNorm(MOE_CLIP))
+    eng = ap.Engine(model, loss=model.loss_fn, optimizer=opt)
+    info["moe_engine"] = eng.fit(DS(), batch_size=None)["loss"]
+    info["moe_engine_cost"] = list(eng.cost())
+    _ap_reset()
+    hcg = _fleet_init(**MOE_RUNS["dp2_ep2"])
+    _, info["moe_step"] = _moe_train("dp2_ep2", hcg, weights, batch)
+    _ap_reset()
+
+
+def _ap_tune(info, arrays):
+    """Engine.tune on 4 ranks: the card's defaults (``_card_backend``
+    patched), every trial leaving the parameters bit-equal and no
+    reducer behind, the mp candidates of a plain model running."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import auto_parallel as ap
+    from paddle_tpu_torch.distributed.auto_parallel import engine as eng_mod
+    from paddle_tpu_torch.distributed.parallel import reducer_of
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.nn import Linear
+    eng_mod._card_backend = lambda: True
+    rs = np.random.RandomState(0)
+    x = rs.randn(8, 16).astype(np.float32)
+    y = rs.randn(8, 8).astype(np.float32)
+
+    def engine():
+        _ap_reset()
+        torch.manual_seed(0)
+        m = torch.nn.Sequential(Linear(16, 32, device="cpu"),
+                                torch.nn.ReLU(), Linear(32, 8, device="cpu"))
+        o = optimizer.SGD(learning_rate=0.1, parameters=m.parameters())
+        return m, ap.Engine(m, loss=_ap_mse, optimizer=o)
+    m, eng = engine()
+    before = [p.detach().clone() for p in m.parameters()]
+    got = eng.tune(x, y, candidates=AP_TUNE)
+    info["tune_explicit"] = eng.tuning_report
+    info["tune_winner"] = [got["dp"], got["sharding"], got["mp"]]
+    info["tune_bit_equal"] = all(torch.equal(a, b) for a, b in
+                                 zip(before, m.parameters()))
+    info["tune_reducers_left"] = sum(reducer_of(p) is not None
+                                     for p in m.parameters())
+    info["tune_hooks_left"] = sum(len(getattr(p, "_post_accumulate_grad_"
+                                              "hooks", None) or {})
+                                  for p in m.parameters())
+    ds = TensorDataset([torch.from_numpy(x), torch.from_numpy(y)])
+    info["tune_fit"] = eng.fit(ds, batch_size=8)["loss"]
+    m, eng = engine()
+    eng.tune(x, y, budget_s=600.0)
+    info["tune_auto"] = eng.tuning_report
+    m, eng = engine()
+    eng.tune(x, y, candidates=AP_TUNE, profile=True, top_k=2)
+    info["tune_top_k"] = eng.tuning_report
+    m, eng = engine()
+    eng.tune(x, y, candidates=AP_TUNE, budget_s=0.0)
+    info["tune_budget"] = eng.tuning_report
+    _ap_reset()
+
+
+def run_auto_parallel(out, r, src):
+    arrays, info = {}, {}
+    _ap_roundtrips(r, arrays, info)
+    _ap_semi_auto(r, dict(np.load(os.path.join(src, "mlp.npz"))), arrays,
+                  info)
+    _ap_refusals(info)
+    _ap_moe(dict(np.load(os.path.join(src, "ernie.npz"))), info)
+    _ap_tune(info, arrays)
+    return arrays, info
+
+
 def main():
     mode, out = sys.argv[1], sys.argv[2]
     if mode == "spawn":
@@ -1755,6 +2024,8 @@ def main():
         arrays, info = run_checkpoint(out, r, sys.argv[3])
     elif mode == "checkpoint_crash":
         arrays, info = run_checkpoint_crash(out, r, sys.argv[3])
+    elif mode == "auto_parallel":
+        arrays, info = run_auto_parallel(out, r, sys.argv[3])
     else:
         weights = dict(np.load(sys.argv[3]))
         arrays, info = run_train(out, r, weights)
